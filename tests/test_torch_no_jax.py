@@ -1,0 +1,68 @@
+"""The port stands alone: importing every module of ``tpu_dist_torch`` and
+``chip_smoke`` loads neither JAX nor the JAX package, and no source file
+of the port names either in an import."""
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "tpu_dist_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PACKAGE.rglob("*.py")
+)
+
+_PROBE = """
+import importlib, json, sys
+for name in {modules!r} + ["chip_smoke"]:
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist"))))
+"""
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|tpu_dist)\b|from\s+(jax|jaxlib|tpu_dist)(\.|\s))",
+    re.MULTILINE,
+)
+
+
+def test_package_has_the_slice_modules():
+    for name in ("tpu_dist_torch.obs.counters", "tpu_dist_torch.obs.spans",
+                 "tpu_dist_torch.serve.slo", "tpu_dist_torch.serve.engine",
+                 "tpu_dist_torch.ops.flash_attention", "tpu_dist_torch.ops._build",
+                 "tpu_dist_torch.nn.attention", "tpu_dist_torch.nn.vit",
+                 "tpu_dist_torch.bridge"):
+        assert name in MODULES
+
+
+def test_importing_the_port_loads_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(modules=MODULES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_source_imports_jax_or_the_jax_package(path):
+    assert not _FORBIDDEN.findall(path.read_text())
+
+
+def test_the_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from tpu_dist.nn import vit", "import tpu_dist.obs", "    import jax"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import tpu_dist_torch", "from tpu_dist_torch.nn import vit",
+                 "# a comment on jax", "import jaxtyping"):
+        assert not _FORBIDDEN.search(line), line

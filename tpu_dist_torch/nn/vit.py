@@ -1,0 +1,159 @@
+"""Vision Transformer: the port's counterpart of ``tpu_dist/nn/vit.py``
+(``ViTDef`` on its single-device path, ``tp_block_forward`` with no
+tensor or sequence parallelism).
+
+Layout and numerics follow the JAX model exactly, so weights carried by
+:mod:`tpu_dist_torch.bridge` give the same logits:
+
+* patches are a reshape in ``(ph, pw, c)`` order plus a Linear, not a
+  Conv2d (whose kernel would need its weights permuted);
+* the qkv output is reshaped ``[b, s, heads, 3, h_dim]``;
+* LayerNorm has eps 1e-6, is computed in f32 and cast back;
+* GELU is the tanh approximation (``jax.nn.gelu``'s default);
+* biases are cast to the activation dtype;
+* tokens are mean-pooled (there is no cls token); smaller images use the
+  leading rows of the position table, more tokens than it holds is an
+  error.
+
+Input is NHWC ``[B, H, W, 3]`` float images; the output is the logits.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpu_dist_torch import resolve_device
+from tpu_dist_torch.nn import attention as attn_lib
+
+
+def _ln(mod: nn.LayerNorm, x):
+    y = F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(),
+                     mod.bias.float(), mod.eps)
+    return y.to(x.dtype)
+
+
+def _dense(mod: nn.Linear, x, bias: bool = True):
+    w = mod.weight.to(x.dtype)
+    return F.linear(x, w, mod.bias.to(x.dtype) if bias else None)
+
+
+def patchify(x, patch_size: int):
+    """[B, H, W, C] -> [B, N, patch_size**2 * C] in row-major patch order."""
+    b, h, w, c = x.shape
+    p = patch_size
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+def check_pos_capacity(n_tokens: int, pos_table, image_size: int, patch_size: int):
+    """Loud error when the input has more patch tokens than the position
+    table holds (smaller inputs use its leading rows)."""
+    if n_tokens > pos_table.shape[0]:
+        raise ValueError(
+            f"input has {n_tokens} patch tokens but the positional embedding "
+            f"holds {pos_table.shape[0]} (image_size={image_size}, "
+            f"patch_size={patch_size}); build the model with the matching "
+            f"image_size"
+        )
+
+
+class Block(nn.Module):
+    """One pre-norm transformer block (``tp_block_forward`` without TP)."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: int):
+        super().__init__()
+        self.heads = heads
+        self.ln1 = nn.LayerNorm(dim, eps=1e-6)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.ln2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp1 = nn.Linear(dim, mlp_ratio * dim)
+        self.mlp2 = nn.Linear(mlp_ratio * dim, dim)
+
+    def forward(self, t, attn_impl: str):
+        b, s, dim = t.shape
+        h_dim = dim // self.heads
+        qkv = _dense(self.qkv, _ln(self.ln1, t)).reshape(b, s, self.heads, 3, h_dim)
+        q, k, v = (qkv[:, :, :, i, :] for i in range(3))
+        o = attn_lib.attention(q, k, v, impl=attn_impl)
+        t = t + _dense(self.proj, o.reshape(b, s, dim), bias=False) + self.proj.bias.to(t.dtype)
+        y = F.gelu(_dense(self.mlp1, _ln(self.ln2, t)), approximate="tanh")
+        return t + _dense(self.mlp2, y, bias=False) + self.mlp2.bias.to(t.dtype)
+
+
+class ViT(nn.Module):
+    """The ``ViTDef`` fields as a module. Weights are drawn from
+    ``seed`` with an explicit :class:`torch.Generator`, in the JAX
+    package's distributions (normal / sqrt(fan_in) kernels, zero biases,
+    normal * 0.02 positions); a bridged state dict replaces them."""
+
+    def __init__(self, image_size: int = 224, patch_size: int = 16, dim: int = 768,
+                 depth: int = 12, heads: int = 12, mlp_ratio: int = 4,
+                 num_classes: int = 1000, pool: str = "mean", *,
+                 attn_impl: str = "xla", device="cuda", seed: int = 0):
+        super().__init__()
+        if pool != "mean":
+            raise ValueError(f"only mean pooling exists (no cls token), got {pool!r}")
+        if attn_impl not in attn_lib.IMPLS:
+            raise ValueError(f"attn_impl must be 'xla' or 'flash', got {attn_impl!r}")
+        dev = resolve_device(device)
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.dim = dim
+        self.depth = depth
+        self.heads = heads
+        self.mlp_ratio = mlp_ratio
+        self.num_classes = num_classes
+        self.pool = pool
+        self.attn_impl = attn_impl
+        self.patch = nn.Linear(patch_size * patch_size * 3, dim)
+        self.pos = nn.Parameter(torch.empty(self.n_patches, dim))
+        self.blocks = nn.ModuleList(Block(dim, heads, mlp_ratio) for _ in range(depth))
+        self.ln_f = nn.LayerNorm(dim, eps=1e-6)
+        self.head = nn.Linear(dim, num_classes)
+        self._init_weights(torch.Generator().manual_seed(seed))
+        self.to(dev)
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                fan_in = mod.weight.shape[1]
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * fan_in ** -0.5)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        self.pos.copy_(torch.randn(self.pos.shape, generator=gen) * 0.02)
+
+    def forward(self, x):
+        t = _dense(self.patch, patchify(x, self.patch_size))
+        check_pos_capacity(t.shape[1], self.pos, self.image_size, self.patch_size)
+        t = t + self.pos[: t.shape[1]].to(t.dtype)[None]
+        for blk in self.blocks:
+            t = blk(t, self.attn_impl)
+        pooled = _ln(self.ln_f, t).mean(dim=1)
+        return _dense(self.head, pooled)
+
+
+def vit_b16(num_classes: int = 1000, image_size: int = 224, **kw) -> ViT:
+    """ViT-B/16 (86,566,120 parameters at 1000 classes)."""
+    return ViT(image_size=image_size, patch_size=16, dim=768, depth=12,
+               heads=12, num_classes=num_classes, **kw)
+
+
+def vit_s16(num_classes: int = 1000, image_size: int = 224, **kw) -> ViT:
+    return ViT(image_size=image_size, patch_size=16, dim=384, depth=12,
+               heads=6, num_classes=num_classes, **kw)
+
+
+def vit_tiny(num_classes: int = 10, image_size: int = 32, **kw) -> ViT:
+    """CIFAR-sized: patch 4 over 32x32 -> 64 tokens; for tests and smokes."""
+    return ViT(image_size=image_size, patch_size=4, dim=64, depth=2,
+               heads=4, num_classes=num_classes, **kw)
