@@ -15,14 +15,34 @@ Phases; any failure exits non-zero and prints no result line:
    head dims), with the tolerance of each; CUDA-event times of the
    kernel, its plain version and one library call computing the same
    function (a yardstick the port never calls).
-3. serve: ViT-B/16 at full width, random weights from a numpy seed carried
+3. kernels at the training shapes: the flash backward's dK/dV and dQ
+   kernels against their plain versions at ViT-B/16's [BH, S, D] =
+   [768, 196, 64] (batch 64 x 12 heads) in bf16 and f32, and at edge cases
+   (causal, S = 77 with D = 32 and 128, bf16 in with f32 gradients, a
+   strided ``do``); the fused SGD over ViT-B/16's 151 leaves for 3 steps,
+   bit for bit against its plain version; times of each kernel, its plain
+   version and a library call (the backward of
+   ``F.scaled_dot_product_attention``, ``torch.optim.SGD(fused=True)``),
+   and of the forward kernel at the training shape.
+4. serve: ViT-B/16 at full width, random weights from a numpy seed carried
    in through the bridge, served by ``ServingEngine(max_batch=8)`` with
    ``attn_impl="flash"``: warmup, then 32 requests in alternating 3- and
    7-request bursts. Launch counts are set to 0 just before and read just
    after; every request must complete with finite logits, the flash kernel
    must have run 12 times per forward, and the logits must agree with the
    same engine run with ``attn_impl="xla"``.
-4. report: the card's name and power limit, one JSON line of every ported
+5. train: ViT-B/16 at full width, weights from numpy seed 0 through the
+   bridge, through ``make_train_step``. (a) f32 parity, TF32 off: batch 8,
+   3 steps of flash attention + fused SGD against plain attention + plain
+   SGD from the same weights; losses per step and the parameters after
+   step 3 must agree. (b) the ``vit_b16_imagenet_flash`` configuration
+   (bf16 compute, batch 64, SGD lr 0.1, momentum 0.9, weight decay 1e-4,
+   fused): 2 warmup steps, then 10 timed steps with the launch counts set
+   to 0 just before and read just after (12 forward, 12 dK/dV, 12 dQ and
+   1 SGD launch per step) and a finite loss every step; step time,
+   images/s, peak memory and each kernel's share of the step; then one
+   ``make_eval_step`` over the batch.
+6. report: the card's name and power limit, one JSON line of every ported
    kernel, and the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -33,6 +53,8 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -46,12 +68,16 @@ from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import counters as counters_lib
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
+from tpu_dist_torch.ops import fused_sgd as fs
 from tpu_dist_torch.serve.engine import ServingEngine
+from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit.
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 (the kernel's products)
+PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 inputs
 PEAK_BYTES_PER_S = 3.35e12   # HBM3
 
+DEVICE = "cuda"  # every tensor of the run lives on the card
 SERVE_MAX_BATCH = 8
 SERVE_REQUESTS = 32
 SERVE_SEED = 0
@@ -72,9 +98,31 @@ TOL = {
     "m": (2e-5, 1e-5),
     "l": (0.0, 2e-5),
 }
+# The backward kernels against their plain versions, same rule. f32: both
+# sum the same f32 products in another order (64-row tiles in registers vs
+# one cuBLAS product over the whole row, expf vs torch.exp), and
+# dS = P (dP - delta) subtracts two O(sqrt(D)) terms, so the gradients
+# (|g| up to ~10) agree to a few ulps of that size. bf16 out: as above,
+# two bf16 steps plus the f32 floor.
+TOL_BWD = {"f32": (1e-4, 1e-4), "bf16": (1e-4, 2 ** -6)}
 # ViT-B/16 logits, flash vs xla attention on the card: the attention
 # outputs differ by f32 rounding (~1e-6) and 12 blocks carry that on.
 LOGITS_TOL = (1e-3, 1e-3)
+
+TRAIN_BATCH = 64               # vit_b16_imagenet_flash (bench.py): global batch 64
+TRAIN_SHAPE = (TRAIN_BATCH * 12, 196, 64)  # [BH, S, D] of one training step
+TRAIN_LR = 0.1
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+PARITY_BATCH, PARITY_STEPS = 8, 3
+# f32 parity, flash + fused SGD vs xla + plain SGD from the same weights:
+# the attention and its gradients differ by f32 rounding (~1e-6 relative,
+# the kernels above), which 12 blocks and 3 steps carry into the loss at
+# ~1e-6 relative and into the updates at ~1e-5 of their size; the fused and
+# plain SGD are bit-identical. Limits: the loss to 1e-4 relative, and each
+# parameter's difference to 1e-3 of that parameter's largest update over
+# the 3 steps (plus 1e-6 for parameters that barely move).
+PARITY_LOSS_RTOL = 1e-4
+PARITY_PARAM_RTOL, PARITY_PARAM_ATOL = 1e-3, 1e-6
 
 KERNELS = {
     "flash_attention_fwd": {
@@ -82,7 +130,38 @@ KERNELS = {
         "source": "tpu_dist_torch/csrc/flash_attention_fwd.cu",
         "replaces": "tpu_dist/ops/flash_attention.py:152",
     },
+    "flash_attention_bwd_dkdv": {
+        "route": "cuda",
+        "source": "tpu_dist_torch/csrc/flash_attention_bwd_dkdv.cu",
+        "replaces": "tpu_dist/ops/flash_attention.py:350",
+    },
+    "flash_attention_bwd_dq": {
+        "route": "cuda",
+        "source": "tpu_dist_torch/csrc/flash_attention_bwd_dq.cu",
+        "replaces": "tpu_dist/ops/flash_attention.py:376",
+    },
+    "fused_sgd": {
+        "route": "cuda",
+        "source": "tpu_dist_torch/csrc/fused_sgd.cu",
+        "replaces": "tpu_dist/ops/fused_sgd.py:84",
+    },
 }
+# each kernel's launch count, on its wrapper
+WRAPPERS = {
+    "flash_attention_fwd": fa.flash_fwd,
+    "flash_attention_bwd_dkdv": fa.flash_bwd_dkdv,
+    "flash_attention_bwd_dq": fa.flash_bwd_dq,
+    "fused_sgd": fs.fused_sgd,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 class SmokeError(AssertionError):
@@ -111,14 +190,43 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(bh: int, s: int, d: int):
-    """Least time for one f32 flash forward: q, k, v read once, out, m, l
-    written once, over the HBM rate; the two products (4 * BH * S^2 * D
-    operations, non-causal) over the f32 peak."""
-    nbytes = 4 * (4 * bh * s * d + 2 * bh * s)
-    flops = 4 * bh * s * s * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+def bound(nbytes: float, flops: float, peak_flops: float):
+    """(least milliseconds, what bounds it): the larger of the bytes over
+    the HBM rate and the operations over the peak for their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _peak(dtype) -> float:
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def flash_bound(bh: int, s: int, d: int, dtype=torch.float32):
+    """One non-causal flash forward: q, k, v read once, out (in their
+    dtype), m, l (f32) written once; its two products, 4 * BH * S^2 * D
+    operations."""
+    item = torch.finfo(dtype).bits // 8
+    return bound(item * 4 * bh * s * d + 4 * 2 * bh * s, 4 * bh * s * s * d, _peak(dtype))
+
+
+def flash_bwd_bounds(bh: int, s: int, d: int, dtype):
+    """The two non-causal backward passes: each reads q, k, v, do (in their
+    dtype) and m, l, delta (f32) once; dK/dV writes two gradients and does
+    four products (8 * BH * S^2 * D operations), dQ writes one and does
+    three (6 * BH * S^2 * D)."""
+    item = torch.finfo(dtype).bits // 8
+    reads = item * 4 * bh * s * d + 4 * 3 * bh * s
+    grad = item * bh * s * d
+    return {
+        "flash_attention_bwd_dkdv": bound(reads + 2 * grad, 8 * bh * s * s * d, _peak(dtype)),
+        "flash_attention_bwd_dq": bound(reads + grad, 6 * bh * s * s * d, _peak(dtype)),
+    }
+
+
+def sgd_bound(n: int):
+    """p, g, b read once and p, b written once (20 bytes a parameter); six
+    f32 operations a parameter."""
+    return bound(20 * n, 6 * n, PEAK_F32_FLOPS)
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -132,10 +240,29 @@ def phase_build() -> None:
         results = dict(zip(names, ex.map(_build.build, names)))
     for name, (path, seconds, log) in results.items():
         print(f"[build] {name}: {seconds:.1f} s -> {path.name}")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for fn, regs, spill in _ptxas_entries(log):
+            print(f"[build]   {fn}: {regs} registers, {spill} bytes spilled")
     print(f"[build] all sources: {time.perf_counter() - t0:.1f} s wall")
+
+
+def _ptxas_entries(log: str):
+    """(kernel instance, registers, spill-store bytes) from ``-Xptxas -v``,
+    names demangled where ``c++filt`` exists."""
+    entries = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entries.append([m.group(1), None, 0])
+        elif entries and (m := re.search(r"(\d+) bytes spill stores", line)):
+            entries[-1][2] = int(m.group(1))
+        elif entries and (m := re.search(r"Used (\d+) registers", line)):
+            entries[-1][1] = int(m.group(1))
+    if entries and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(e[0] for e in entries),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, n in zip(entries, names):
+                e[0] = re.sub(r"^void |\(.*\)$", "", n.replace("(anonymous namespace)::", ""))
+    return entries
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -164,10 +291,10 @@ def phase_kernels() -> dict:
         ("ragged S=77 D=16 bf16 causal", (24, 77, 16), True, bf16, None),
         ("S=5 D=64 causal (one partial tile)", (4, 5, 64), True, f32, None),
     ]
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     main_err = None
     for name, shape, causal, dt, odt in cases:
-        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dt) for _ in range(3))
+        q, k, v = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(3))
         out, m, l = fa.flash_fwd(q, k, v, causal, odt)
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
         r_out, r_m, r_l = fa.flash_fwd_reference(q, k, v, causal, odt)
@@ -184,7 +311,7 @@ def phase_kernels() -> dict:
         if main_err is None:
             main_err = e_out
 
-    q, k, v = (torch.randn(VIT_B16_FWD_SHAPE, device="cuda", generator=gen) for _ in range(3))
+    q, k, v = (torch.randn(VIT_B16_FWD_SHAPE, device=DEVICE, generator=gen) for _ in range(3))
     q4, k4, v4 = (t.view(SERVE_MAX_BATCH, 12, s, d) for t in (q, k, v))
     kernel_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v))
     plain_ms = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v))
@@ -204,10 +331,152 @@ def phase_kernels() -> dict:
 # -- phase 3 -----------------------------------------------------------------
 
 
+def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
+    """Both backward kernels against their plain versions on one case;
+    returns {kernel: max |err|}."""
+    q, k, v, do = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(4))
+    out, m, l = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    if strided_do:  # same values, strided as autograd may hand them over
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, m, l, do, causal, grad_dtype=grad_dtype)
+    else:
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, m, l, delta, causal, grad_dtype)
+        dq = fa.flash_bwd_dq(q, k, v, do, m, l, delta, causal, grad_dtype)
+    torch.cuda.synchronize()  # a fault in a kernel surfaces here
+    do = do.contiguous()
+    r_dk, r_dv = fa.flash_bwd_dkdv_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
+    r_dq = fa.flash_bwd_dq_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
+    errs = {}
+    for kernel, pairs in (("flash_attention_bwd_dkdv", ((dk, r_dk), (dv, r_dv))),
+                          ("flash_attention_bwd_dq", ((dq, r_dq),))):
+        worst = 0.0
+        for got, ref in pairs:
+            check(got.dtype == ref.dtype and got.shape == ref.shape,
+                  f"{kernel} {name}: {got.dtype} {tuple(got.shape)} vs {ref.dtype} {tuple(ref.shape)}")
+            check(bool(torch.isfinite(got.float()).all()), f"{kernel} {name}: non-finite gradient")
+            err, ok = _err(got, ref, *TOL_BWD["bf16" if got.dtype == torch.bfloat16 else "f32"])
+            check(ok, f"{kernel} {name}: max |err| {err:.3g} outside tolerance")
+            worst = max(worst, err)
+        errs[kernel] = worst
+    print(f"[kernels] backward {name}: max|err| dK/dV {errs['flash_attention_bwd_dkdv']:.3g} "
+          f"dQ {errs['flash_attention_bwd_dq']:.3g}")
+    return errs
+
+
+def _sgd_leaves(seed: int):
+    """ViT-B/16's 151 parameter shapes as f32 tensors on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shapes = [p.shape for p in vit_b16(device="meta").parameters()]
+    return [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+
+
+def phase_kernels_train() -> dict:
+    f32, bf16 = torch.float32, torch.bfloat16
+    bh, s, d = TRAIN_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    cases = [
+        # name, (BH, S, D), causal, input dtype, grad_dtype, strided do
+        ("vit_b16 train bf16", TRAIN_SHAPE, False, bf16, None, False),
+        ("vit_b16 train f32", TRAIN_SHAPE, False, f32, None, False),
+        ("S=196 D=64 f32 causal", (96, 196, 64), True, f32, None, False),
+        ("bf16 in, f32 grads", (96, 196, 64), False, bf16, f32, False),
+        ("strided do (flash_bwd)", (96, 196, 64), False, f32, None, True),
+        ("ragged S=77 D=32", (24, 77, 32), False, f32, None, False),
+        ("ragged S=77 D=128 causal", (24, 77, 128), True, f32, None, False),
+        ("S=5 D=16 bf16 causal (one partial tile)", (4, 5, 16), True, bf16, None, False),
+    ]
+    errs = [_bwd_case(*case, gen=gen) for case in cases]
+    main_err = errs[0]  # the main path's case: training shape, bf16
+
+    # fused SGD: 3 steps over ViT-B/16's leaves, bit for bit
+    params, ref_params = _sgd_leaves(2), _sgd_leaves(2)
+    bufs = [torch.zeros_like(p) for p in params]
+    ref_bufs = [torch.zeros_like(p) for p in params]
+    n_params = sum(p.numel() for p in params)
+    check(len(params) == 151 and n_params == 86_566_120,
+          f"{len(params)} leaves, {n_params} parameters")
+    lr = torch.full((), TRAIN_LR, device=DEVICE)
+    sgd_err = 0.0
+    for i in range(3):
+        grads = _sgd_leaves(10 + i)
+        fs.fused_sgd(params, grads, bufs, lr)
+        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
+        torch.cuda.synchronize()
+        sgd_err = max(sgd_err, max(float((a - b).abs().max())
+                                   for a, b in zip(params + bufs, ref_params + ref_bufs)))
+    print(f"[kernels] fused_sgd: {len(params)} leaves, {n_params} parameters, 3 steps: "
+          f"max |kernel - plain| {sgd_err} (p and b)")
+    check(sgd_err == 0.0, f"fused_sgd differs from its plain version by {sgd_err}")
+
+    # times at the training shapes (bf16, as vit_b16_imagenet_flash runs them)
+    q, k, v, do = (torch.randn(TRAIN_SHAPE, device=DEVICE, generator=gen).to(bf16)
+                   for _ in range(4))
+    out, m, l = fa.flash_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd_args = (q, k, v, do, m, l, delta)
+    q4, k4, v4, do4 = (t.view(TRAIN_BATCH, 12, s, d) for t in (q, k, v, do))
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                      retain_graph=True), iters=20)
+    with torch.no_grad():
+        fwd = {
+            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=20),
+            "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v), iters=10),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters=20),
+        }
+    fwd_bound, fwd_by = flash_bound(bh, s, d, bf16)
+    print(f"[kernels] flash_attention_fwd at [BH, S, D] = {list(TRAIN_SHAPE)} bf16: kernel "
+          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{fwd['library_ms']:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
+    bounds = flash_bwd_bounds(bh, s, d, bf16)
+    measured = {}
+    for name, kernel, plain in (
+        ("flash_attention_bwd_dkdv", fa.flash_bwd_dkdv, fa.flash_bwd_dkdv_reference),
+        ("flash_attention_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+    ):
+        kernel_ms = cuda_ms(lambda: kernel(*bwd_args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*bwd_args), iters=10)
+        bound_ms, bound_by = bounds[name]
+        measured[name] = {"max_abs_err": main_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_bwd_ms}
+        print(f"[kernels] {name} at [BH, S, D] = {list(TRAIN_SHAPE)} bf16: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); the whole scaled_dot_product_attention backward "
+              f"{sdpa_bwd_ms:.4f} ms")
+
+    grads = _sgd_leaves(20)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in ref_params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib_opt = torch.optim.SGD(lib_params, lr=TRAIN_LR, momentum=0.9, weight_decay=1e-4,
+                              fused=True)
+    sgd_ms = cuda_ms(lambda: fs.fused_sgd(params, grads, bufs, lr), iters=20)
+    sgd_plain_ms = cuda_ms(lambda: fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr),
+                           iters=10)
+    sgd_lib_ms = cuda_ms(lib_opt.step, iters=20)
+    sgd_bound_ms, sgd_by = sgd_bound(n_params)
+    print(f"[kernels] fused_sgd over {n_params} parameters: kernel {sgd_ms:.4f} ms, plain "
+          f"{sgd_plain_ms:.4f} ms, torch.optim.SGD(fused=True).step() {sgd_lib_ms:.4f} ms, "
+          f"bound {sgd_bound_ms:.4f} ms ({sgd_by})")
+    measured["fused_sgd"] = {"max_abs_err": sgd_err, "ms": sgd_ms, "plain_ms": sgd_plain_ms,
+                             "bound_ms": sgd_bound_ms, "bound_by": sgd_by,
+                             "library_ms": sgd_lib_ms}
+    measured["flash_attention_fwd"] = {
+        "ms_train_shape": fwd["ms"], "plain_ms_train_shape": fwd["plain_ms"],
+        "library_ms_train_shape": fwd["library_ms"], "bound_ms_train_shape": fwd_bound,
+    }
+    return measured
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+
 def _serve(model, payloads):
     """Warm an engine up, then drive the bursty request stream through it.
     Returns (engine, completed requests, scalars of the measured window)."""
-    engine = ServingEngine(model, max_batch=SERVE_MAX_BATCH, device="cuda")
+    engine = ServingEngine(model, max_batch=SERVE_MAX_BATCH, device=DEVICE)
     engine.warmup(IMAGE)
     engine.record_window()  # the measured window opens after warmup
     done, submitted, burst_idx = [], 0, 0
@@ -228,7 +497,7 @@ def _forward_split(model, batch: np.ndarray) -> None:
     enqueue it (from an idle card) against the card's time between
     back-to-back forwards (CUDA events; host-bound when they are close).
     In turns, so drift on the shared host shows."""
-    x = torch.from_numpy(batch).to("cuda")
+    x = torch.from_numpy(batch).to(DEVICE)
     for impl in ("flash", "xla", "xla", "flash"):
         model.attn_impl = impl
         with torch.inference_mode():
@@ -247,7 +516,7 @@ def _forward_split(model, batch: np.ndarray) -> None:
 
 def phase_serve() -> dict:
     t0 = time.perf_counter()
-    model = vit_b16(attn_impl="flash", device="cuda")
+    model = vit_b16(attn_impl="flash", device=DEVICE)
     bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=SERVE_SEED))
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == 86_566_120, f"vit_b16 has {n_params} parameters")
@@ -258,10 +527,13 @@ def phase_serve() -> dict:
 
     # the main path: counts set to 0 just before, read just after
     counters_lib.reset()
-    fa.flash_fwd.launches = 0
+    reset_launches()
     engine, done, scalars = _serve(model, payloads)
-    launches = fa.flash_fwd.launches
+    served = read_launches()
+    launches = served["flash_attention_fwd"]
     forwards = counters_lib.get("serve.forwards")
+    check(all(n == 0 for name, n in served.items() if name != "flash_attention_fwd"),
+          f"serving launched a training kernel: {served}")
 
     check(len(done) == SERVE_REQUESTS and all(r.ok for r in done),
           f"{sum(r.ok for r in done)} of {SERVE_REQUESTS} requests completed")
@@ -304,7 +576,163 @@ def phase_serve() -> dict:
           f"(tolerance {LOGITS_TOL[0]} + {LOGITS_TOL[1]} * |xla|)")
 
     _forward_split(model, payloads[:SERVE_MAX_BATCH])
-    return {"flash_attention_fwd": launches}
+    return served
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+TRAIN_SEED = 0
+PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dkdv": 12,
+            "flash_attention_bwd_dq": 12, "fused_sgd": 1}  # ViT-B/16: 12 blocks
+
+
+def _bridged_vit_b16(attn_impl: str):
+    model = vit_b16(attn_impl=attn_impl, device=DEVICE)
+    return bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=TRAIN_SEED))
+
+
+def _train_parity() -> None:
+    """(a) f32, TF32 off: flash + fused SGD against xla + plain SGD."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[train] parity: f32, torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}; batch {PARITY_BATCH}, {PARITY_STEPS} steps, "
+          f"lr {TRAIN_LR}")
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.standard_normal(
+        (PARITY_STEPS, PARITY_BATCH) + IMAGE, dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, (PARITY_STEPS, PARITY_BATCH))).to(DEVICE)
+    runs = {}
+    for impl, fused in (("flash", True), ("xla", False)):
+        model = _bridged_vit_b16(impl)
+        init = [p.detach().clone() for p in model.parameters()]
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=fused)
+        st = state_lib.TrainState.create(model, opt)
+        train_step = step_lib.make_train_step(opt)
+        losses = []
+        for i in range(PARITY_STEPS):
+            st, metrics = train_step(st, images[i], labels[i], TRAIN_LR)
+            losses.append(metrics["loss"].item())
+        runs[impl] = (losses, init, [p.detach() for p in model.parameters()])
+    (flash_losses, init, flash_p), (xla_losses, _, xla_p) = runs["flash"], runs["xla"]
+    for i, (a, b) in enumerate(zip(flash_losses, xla_losses)):
+        check(math.isfinite(a) and abs(a - b) <= PARITY_LOSS_RTOL * abs(b),
+              f"parity step {i}: loss flash {a!r} vs xla {b!r}")
+    worst, worst_share = 0.0, 0.0
+    for p0, a, b in zip(init, flash_p, xla_p):
+        diff, moved = (a - b).abs().max().item(), (b - p0).abs().max().item()
+        check(diff <= PARITY_PARAM_RTOL * moved + PARITY_PARAM_ATOL,
+              f"parity: a parameter differs by {diff:.3g} after moving {moved:.3g}")
+        worst = max(worst, diff)
+        worst_share = max(worst_share, diff / max(moved, 1e-30))
+    print(f"[train] parity losses flash {flash_losses} vs xla {xla_losses}")
+    print(f"[train] parity after step {PARITY_STEPS}: largest parameter difference {worst:.3g}; "
+          f"largest as a share of its parameter's update {worst_share:.3g} (limit "
+          f"{PARITY_PARAM_RTOL} + {PARITY_PARAM_ATOL} absolute)")
+
+
+def _profile_steps(train_step, st, images, labels) -> None:
+    """Device time by kernel over 2 steps under torch.profiler; the device's
+    busy share of that (profiled, so slowed) window. Prints what the
+    profiler gives; a profiler without device times is reported, not
+    fatal."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                st, _ = train_step(st, images, labels, TRAIN_LR)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0)
+
+        # the kernels themselves; an operator's row repeats its kernels' time
+        events = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                        key=dev_us, reverse=True)
+        busy_us = sum(dev_us(e) for e in events)
+        if busy_us <= 0:
+            print("[train] profiler: no device time recorded")
+            return
+        print(f"[train] profiler, 2 steps: device busy {busy_us / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.3f}; idle share "
+              f"{1 - busy_us / wall_us:.3f}, under the profiler)")
+        for e in events[:12]:
+            if dev_us(e) > 0:
+                print(f"[train]   {dev_us(e) / 1e3:9.3f} ms  {dev_us(e) / busy_us:6.3f}  "
+                      f"x{e.count}  {e.key[:90]}")
+    except Exception as exc:  # noqa: BLE001 — an optional measurement
+        print(f"[train] profiler: not available ({type(exc).__name__}: {exc})")
+
+
+def _train_config(kernel_ms: dict) -> dict:
+    """(b) vit_b16_imagenet_flash: bf16 compute, batch 64, fused SGD."""
+    model = _bridged_vit_b16("flash")
+    opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+    st = state_lib.TrainState.create(model, opt)
+    train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(TRAIN_SEED)
+    images = torch.from_numpy(
+        rng.standard_normal((TRAIN_BATCH,) + IMAGE, dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH).astype(np.int32)).to(DEVICE)
+    for _ in range(TRAIN_WARMUP):
+        st, _ = train_step(st, images, labels, TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        st, metrics = train_step(st, images, labels, TRAIN_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    for name, per_step in PER_STEP.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps "
+              f"(expected {per_step} per step)")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(st.step == TRAIN_WARMUP + TRAIN_STEPS, f"state step {st.step}")
+    mean_ms = float(np.mean(step_ms))
+    print(f"[train] vit_b16_imagenet_flash: bf16 compute, batch {TRAIN_BATCH}, fused SGD, "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warmup: losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"[train] step ms (host clock, each step ended by synchronize): median "
+          f"{float(np.median(step_ms)):.3f}, mean {mean_ms:.3f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; {TRAIN_BATCH / mean_ms * 1e3:.1f} images/s; "
+          f"max_memory_allocated {peak_bytes} bytes ({peak_bytes / 2 ** 30:.2f} GiB)")
+    print(f"[train] launches in {TRAIN_STEPS} steps: {launches}")
+    print("[train] share of the mean step per kernel (launches per step x its time "
+          "alone at this shape): " + ", ".join(
+              f"{name} {PER_STEP[name] * kernel_ms[name] / mean_ms:.3f}" for name in PER_STEP))
+
+    sums = step_lib.make_eval_step(compute_dtype=torch.bfloat16)(
+        st, images, labels, torch.ones(TRAIN_BATCH, device=DEVICE))
+    sums = {k: v.item() for k, v in sums.items()}
+    check(sums["count"] == TRAIN_BATCH and math.isfinite(sums["loss"])
+          and 0 <= sums["top1"] <= sums["top5"] <= TRAIN_BATCH, f"eval sums {sums}")
+    print(f"[train] eval over the batch: loss {sums['loss'] / sums['count']:.4f}, top1 "
+          f"{sums['top1']:.0f}, top5 {sums['top5']:.0f} of {sums['count']:.0f}")
+    _profile_steps(train_step, st, images, labels)
+    return launches
+
+
+def phase_train(kernel_ms: dict) -> dict:
+    t0 = time.perf_counter()
+    _train_parity()
+    launches = _train_config(kernel_ms)
+    print(f"[train] phase: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # -- main --------------------------------------------------------------------
@@ -320,7 +748,14 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     measured = phase_kernels()
-    launches = phase_serve()
+    for name, numbers in phase_kernels_train().items():
+        measured.setdefault(name, {}).update(numbers)
+    served = phase_serve()
+    trained = phase_train({
+        "flash_attention_fwd": measured["flash_attention_fwd"]["ms_train_shape"],
+        **{name: measured[name]["ms"] for name in PER_STEP if name != "flash_attention_fwd"},
+    })
+    launches = {name: served[name] + trained[name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,5 +1,6 @@
 """The port's flash-attention forward (``tpu_dist_torch.ops.flash_attention``)
-held against the JAX package's Pallas forward, run in interpret mode.
+held against the JAX package's Pallas forward, run in interpret mode (the
+backward is in ``test_torch_flash_attention_bwd.py``).
 
 On the CPU the port's wrapper takes its plain version
 (``flash_fwd_reference``); the CUDA kernel itself is checked against the
@@ -120,13 +121,20 @@ def test_first_causal_row_sees_only_itself():
 
 
 def test_grad_requiring_tensor_raises():
+    """The kernel wrapper is not differentiable (a CUDA result would come
+    back silently detached), so with grad enabled it refuses; the
+    differentiable entry point is ``flash_attention``, and under no_grad
+    the wrapper runs."""
     q = torch.zeros(1, 8, 16, requires_grad=True)
     k = v = torch.zeros(1, 8, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         fa.flash_fwd(q, k, v)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.reshape(1, 8, 1, 16), k.reshape(1, 8, 1, 16),
-                           v.reshape(1, 8, 1, 16))
+    with torch.no_grad():
+        fa.flash_fwd(q, k, v)
+    out = fa.flash_attention(q.reshape(1, 8, 1, 16), k.reshape(1, 8, 1, 16),
+                             v.reshape(1, 8, 1, 16))
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
 
 
 @pytest.mark.parametrize("d", (8, 48, 256))

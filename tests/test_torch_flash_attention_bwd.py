@@ -1,0 +1,212 @@
+"""The port's flash-attention backward (``tpu_dist_torch.ops.flash_attention``:
+``flash_bwd``, its two kernel wrappers and the autograd function) held
+against the JAX package's Pallas backward (``_bwd_pallas``) and
+``jax.grad`` of its ``flash_attention``, run in interpret mode.
+
+On the CPU the wrappers take their plain versions (``*_reference``); the
+CUDA kernels are checked against the same plain versions on the card by
+``chip_smoke.py``. Inputs come from a numpy seed and go to both sides as
+the same arrays; ``m`` and ``l`` come from the JAX forward.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_dist.ops import flash_attention as jax_fa
+from tpu_dist_torch import bridge
+from tpu_dist_torch.nn import vit
+from tpu_dist_torch.ops import flash_attention as fa
+
+H = 3  # heads; batch 1, so BH = 3
+
+# f32: both sides accumulate the same products in f32 in another order (the
+# Pallas kernels over 128-row tiles, the plain version over whole rows with
+# one matmul each), and dS = P (dP - delta) subtracts two O(sqrt(D)) terms,
+# so the gradients (|g| up to ~4 here) agree to a few ulps of that size.
+# bf16: the same bf16 inputs, f32 arithmetic on both sides, but each rounds
+# its own f32 gradient to bf16, so the two may sit one bf16 step apart
+# (2^-8 relative; 1e-2 covers it for |g| < 4).
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-2, rtol=1e-2)}
+
+CASES = [
+    (causal, s, d, dtype)
+    for causal in (False, True)
+    for s in (64, 77)
+    for d in (16, 64)
+    for dtype in ("float32", "bfloat16")
+]
+
+
+def _ids(case):
+    causal, s, d, dtype = case
+    return f"{'causal' if causal else 'full'}-S{s}-D{d}-{dtype}"
+
+
+def _bf16_round(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(causal, s, d, dtype):
+    """[BH, S, D] q, k, v, do as f32 numpy (bf16-representable for bf16),
+    the JAX forward's (out, m, l) and the JAX Pallas backward's (dq, dk, dv),
+    one interpret-mode call each per case."""
+    rng = np.random.default_rng(2000 * s + d + int(causal))
+    q, k, v, do = (rng.standard_normal((H, s, d)).astype(np.float32) for _ in range(4))
+    if dtype == "bfloat16":
+        q, k, v, do = (_bf16_round(t) for t in (q, k, v, do))
+    jq, jk, jv, jdo = (jnp.asarray(t, dtype) for t in (q, k, v, do))
+    out, m, l = jax_fa._fwd(jq, jk, jv, causal, 128, 128, True)
+    grads = jax_fa._bwd_pallas(jq, jk, jv, out, m, l, jdo, causal, 128, 128, True)
+    f32 = lambda t: np.asarray(t, np.float32)  # noqa: E731
+    return (q, k, v, do), (f32(out), f32(m), f32(l)), tuple(f32(g) for g in grads)
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_flash_bwd_reference_matches_jax_bwd_pallas(case):
+    causal, s, d, dtype = case
+    (q, k, v, do), (out, m, l), expect = _case(*case)
+    got = fa.flash_bwd_reference(_t(q, dtype), _t(k, dtype), _t(v, dtype), _t(out, dtype),
+                                 _t(m), _t(l), _t(do, dtype), causal)
+    for name, g, e in zip(("dq", "dk", "dv"), got, expect):
+        assert g.dtype == getattr(torch, dtype) and g.shape == (H, s, d), name
+        np.testing.assert_allclose(g.float().numpy(), e, **TOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_flash_bwd_on_cpu_is_the_plain_version(causal):
+    """The dispatching wrappers run the plain parts on the CPU, launch no
+    kernel, and give what the whole plain backward gives."""
+    (q, k, v, do), (out, m, l), _ = _case(causal, 77, 16, "float32")
+    args = [_t(a) for a in (q, k, v, out, m, l, do)]
+    before = (fa.flash_bwd_dkdv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_bwd(*args, causal)
+    assert (fa.flash_bwd_dkdv.launches, fa.flash_bwd_dq.launches) == before
+    for a, b in zip(got, fa.flash_bwd_reference(*args, causal)):
+        assert torch.equal(a, b)
+
+
+def test_delta_passed_in_equals_delta_computed():
+    """The ring backward hoists delta = rowsum(do * o) out of its loop."""
+    (q, k, v, do), (out, m, l), _ = _case(True, 77, 64, "float32")
+    args = [_t(a) for a in (q, k, v, out, m, l, do)]
+    delta = (args[6] * args[3]).sum(-1)
+    for a, b in zip(fa.flash_bwd(*args, True), fa.flash_bwd(*args, True, delta=delta)):
+        assert torch.equal(a, b)
+    dk, dv = fa.flash_bwd_dkdv(*args[:3], args[6], args[4], args[5], delta, True)
+    dq = fa.flash_bwd_dq(*args[:3], args[6], args[4], args[5], delta, True)
+    for a, b in zip((dq, dk, dv), fa.flash_bwd_reference(*args, True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_grad_dtype_f32_on_bf16_input_matches_jax(causal):
+    """The ring backward's f32 partials for bf16 inputs: no bf16 rounding of
+    the gradients, so the f32 tolerance holds."""
+    (q, k, v, do), _, _ = _case(causal, 64, 16, "bfloat16")
+    jq, jk, jv, jdo = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do))
+    out, m, l = jax_fa._fwd(jq, jk, jv, causal, 128, 128, True)
+    expect = jax_fa._bwd_pallas(jq, jk, jv, out, m, l, jdo, causal, 128, 128, True,
+                                grad_dtype=jnp.float32)
+    got = fa.flash_bwd(*(_t(a, "bfloat16") for a in (q, k, v)),
+                       _t(np.asarray(out, np.float32), "bfloat16"),
+                       _t(np.asarray(m)), _t(np.asarray(l)), _t(do, "bfloat16"), causal,
+                       grad_dtype=torch.float32)
+    for g, e in zip(got, expect):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), **TOL["float32"])
+
+
+def test_strided_do_reaches_the_kernel_layout(monkeypatch):
+    """Autograd hands the backward a strided ``do`` (a permute/reshape
+    view): ``flash_bwd`` copies it to the kernels' layout before either
+    pass sees it, and the result is the contiguous one's."""
+    (q, k, v, do), (out, m, l), _ = _case(False, 64, 16, "float32")
+    args = [_t(a) for a in (q, k, v, out, m, l)]
+    strided = _t(do).transpose(1, 2).contiguous().transpose(1, 2)   # same values, strided
+    assert not strided.is_contiguous()
+    seen = []
+    for name in ("flash_bwd_dkdv_reference", "flash_bwd_dq_reference"):
+        orig = getattr(fa, name)
+
+        def spy(q3, k3, v3, do3, *rest, _orig=orig):
+            seen.append(do3.is_contiguous())
+            return _orig(q3, k3, v3, do3, *rest)
+
+        monkeypatch.setattr(fa, name, spy)
+    got = fa.flash_bwd(*args, strided)
+    assert seen == [True, True]
+    for a, b in zip(got, fa.flash_bwd(*args, _t(do))):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd_dq(*args[:3], strided, args[4], args[5], (args[3] * _t(do)).sum(-1))
+
+
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("b", (1, 2))
+def test_flash_attention_grads_match_jax_grad(causal, b):
+    """The autograd function end to end on [B, S, H, D] (b == 1 gives the
+    strided views) against ``jax.grad`` through the JAX ``custom_vjp`` with
+    the Pallas backward."""
+    rng = np.random.default_rng(10 * b + int(causal))
+    q, k, v, w = (rng.standard_normal((b, 40, 2, 16)).astype(np.float32) for _ in range(4))
+
+    def jloss(q, k, v):
+        o = jax_fa.flash_attention(q, k, v, causal=causal, interpret=True, bwd="pallas")
+        return jnp.sum(o * w)
+
+    expect = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(t) for t in (q, k, v)))
+    tq, tk, tv = (_t(t).requires_grad_() for t in (q, k, v))
+    torch.sum(fa.flash_attention(tq, tk, tv, causal=causal) * _t(w)).backward()
+    for g, e in zip((tq.grad, tk.grad, tv.grad), expect):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), **TOL["float32"])
+
+
+def test_vit_flash_differentiates_through_the_autograd_function(monkeypatch):
+    """``ViT(attn_impl="flash")`` reaches ``flash_bwd`` once per block in
+    its backward, and its gradients are those of the plain attention."""
+    calls = []
+    orig = fa.flash_bwd
+    monkeypatch.setattr(fa, "flash_bwd", lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 32, 32, 3)).astype(np.float32))
+    grads = {}
+    for impl in ("flash", "xla"):
+        model = vit.vit_tiny(attn_impl=impl, device="cpu")
+        bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=4))
+        model(x).square().sum().backward()
+        grads[impl] = [p.grad for p in model.parameters()]
+    assert len(calls) == 2  # vit_tiny has two blocks
+    for a, b in zip(grads["flash"], grads["xla"]):
+        # the same f32 function in another order: a few ulps of |g| ~ 1-100
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_bad_backward_inputs_raise():
+    q = torch.zeros(2, 8, 16)
+    st = torch.zeros(2, 8)
+    with pytest.raises(TypeError, match="do"):
+        fa.flash_bwd(q, q, q, q, st, st, q.bfloat16())
+    with pytest.raises(TypeError, match="float32 m "):
+        fa.flash_bwd(q, q, q, q, st.double(), st, q)
+    with pytest.raises(TypeError, match="delta"):
+        fa.flash_bwd(q, q, q, q, st, st, q, delta=torch.zeros(2, 9))
+    with pytest.raises(TypeError, match="grad_dtype"):
+        fa.flash_bwd(q, q, q, q, st, st, q, grad_dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, q, st, st, q)
+    with pytest.raises(ValueError, match="o has shape"):
+        fa.flash_bwd(q, q, q, torch.zeros(2, 9, 16), st, st, q)
+    meta = torch.zeros(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd(meta, meta, meta, meta, st.to("meta"), st.to("meta"), meta)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fa.flash_bwd(q.clone().requires_grad_(), q, q, q, st, st, q)

@@ -37,7 +37,9 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.serve.slo", "tpu_dist_torch.serve.engine",
                  "tpu_dist_torch.ops.flash_attention", "tpu_dist_torch.ops._build",
                  "tpu_dist_torch.nn.attention", "tpu_dist_torch.nn.vit",
-                 "tpu_dist_torch.bridge"):
+                 "tpu_dist_torch.bridge", "tpu_dist_torch.ops.fused_sgd",
+                 "tpu_dist_torch.nn.functional", "tpu_dist_torch.train.optim",
+                 "tpu_dist_torch.train.state", "tpu_dist_torch.train.step"):
         assert name in MODULES
 
 

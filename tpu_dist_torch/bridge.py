@@ -1,9 +1,11 @@
-"""Weights across the two packages: a JAX ViT parameter pytree (as numpy
-arrays, the layout ``tpu_dist.nn.vit.ViTDef.init`` makes) to the port's
-:class:`~tpu_dist_torch.nn.vit.ViT` state dict.
+"""Weights across the two packages, both ways: a JAX ViT parameter pytree
+(as numpy arrays, the layout ``tpu_dist.nn.vit.ViTDef.init`` makes) to
+and from the port's :class:`~tpu_dist_torch.nn.vit.ViT` state dict, and
+the SGD momentum pytree (which mirrors it) to and from the port's
+momentum buffers.
 
-* Dense ``{"w": [in, out], "b"}`` -> Linear ``weight [out, in]``, ``bias``;
-* LayerNorm ``{"scale", "bias"}`` -> ``weight``, ``bias``;
+* Dense ``{"w": [in, out], "b"}`` <-> Linear ``weight [out, in]``, ``bias``;
+* LayerNorm ``{"scale", "bias"}`` <-> ``weight``, ``bias``;
 * ``pos`` and ``blocks[i]`` map by name.
 
 An unknown or missing key raises. The pytree is plain nested dicts and
@@ -60,6 +62,72 @@ def vit_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
         blk = _leaves(f"blocks[{i}]", blk, tuple(_BLOCK))
         for name, kind in _BLOCK.items():
             _convert(f"blocks.{i}.{name}", kind, blk[name], out)
+    return out
+
+
+def _jax_names(depth: int):
+    names = {"pos"} | {f"{n}.{leaf}" for n in _TOP for leaf in ("weight", "bias")}
+    return names | {f"blocks.{i}.{n}.{leaf}" for i in range(depth) for n in _BLOCK
+                    for leaf in ("weight", "bias")}
+
+
+def vit_state_dict_to_jax(sd: Dict[str, np.ndarray]):
+    """``{state-dict name: array}`` -> the JAX ViT pytree of numpy arrays
+    (the inverse of :func:`vit_state_dict_from_jax`). Raises ``KeyError``
+    on an unknown or missing name."""
+    depth = 1 + max((int(n.split(".")[1]) for n in sd
+                     if n.startswith("blocks.") and n.split(".")[1].isdigit()), default=-1)
+    want = _jax_names(depth)
+    if set(sd) != want:
+        raise KeyError(
+            f"state dict names differ from a depth-{depth} ViT's: unknown "
+            f"{sorted(set(sd) - want)}, missing {sorted(want - set(sd))}"
+        )
+
+    def leaf(prefix, kind):
+        w, b = np.asarray(sd[f"{prefix}.weight"]), np.asarray(sd[f"{prefix}.bias"])
+        return {"w": w.T, "b": b} if kind is _DENSE else {"scale": w, "bias": b}
+
+    out = {name: leaf(name, kind) for name, kind in _TOP.items()}
+    out["pos"] = np.asarray(sd["pos"])
+    out["blocks"] = [{name: leaf(f"blocks.{i}.{name}", kind) for name, kind in _BLOCK.items()}
+                     for i in range(depth)]
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def vit_params_to_jax(module: torch.nn.Module):
+    """The module's weights as a JAX-layout ViT pytree of numpy f32 arrays."""
+    return vit_state_dict_to_jax({n: _numpy(t) for n, t in module.state_dict().items()})
+
+
+def sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
+    """SGD momentum buffers (one per parameter, in parameter order) as the
+    JAX momentum pytree, which mirrors the parameter pytree."""
+    names = [n for n, _ in module.named_parameters()]
+    if len(opt_state) != len(names):
+        raise KeyError(f"{len(opt_state)} momentum buffers for {len(names)} parameters")
+    return vit_state_dict_to_jax({n: _numpy(b) for n, b in zip(names, opt_state)})
+
+
+def sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
+    """A JAX SGD momentum pytree -> buffers in parameter order, on each
+    parameter's device and in its dtype. Raises on any unknown, missing or
+    misshapen entry."""
+    sd = vit_state_dict_from_jax(momentum)
+    named = dict(module.named_parameters())
+    unknown, missing = sorted(set(sd) - set(named)), sorted(set(named) - set(sd))
+    if unknown or missing:
+        raise KeyError(f"momentum mismatch: unknown {unknown}, missing {missing}")
+    out = []
+    for name, p in named.items():
+        arr = np.array(sd[name], dtype=np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(arr.shape)} vs port shape {tuple(p.shape)}")
+        out.append(torch.as_tensor(arr).to(device=p.device, dtype=p.dtype))
     return out
 
 

@@ -29,9 +29,10 @@ from tpu_dist_torch.nn import attention as attn_lib
 
 
 def _ln(mod: nn.LayerNorm, x):
-    y = F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(),
-                     mod.bias.float(), mod.eps)
-    return y.to(x.dtype)
+    # scale and bias pass through the activation dtype, as the JAX step's
+    # cast of the whole parameter tree to the compute dtype has them
+    w, b = (t.to(x.dtype).float() for t in (mod.weight, mod.bias))
+    return F.layer_norm(x.float(), mod.normalized_shape, w, b, mod.eps).to(x.dtype)
 
 
 def _dense(mod: nn.Linear, x, bias: bool = True):

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``csrc/build/lib<name>-<hash>.so`` and loaded with ``ctypes``; the hash
-covers the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built at import time: the CPU
-test suite imports every module on a machine without ``nvcc``.
+covers the source, the shared headers and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. Nothing is
+built at import time: the CPU test suite imports every module on a
+machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -49,8 +50,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to. The hash covers the source, every
+    ``csrc/*.cuh`` header (so an edited shared header rebuilds the sources
+    that may include it) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -84,3 +90,13 @@ def load(name: str) -> ctypes.CDLL:
             path, _, _ = build(name)
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def bind(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types declared (``c_void_p`` for pointers and the stream, so none is
+    cut to 32 bits) and its CUDA error code as the result."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

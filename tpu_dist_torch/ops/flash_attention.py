@@ -1,19 +1,29 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain twin.
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their plain twins.
 
-Counterpart of ``tpu_dist/ops/flash_attention.py`` (the Pallas TPU
-kernel ``_fwd_kernel`` behind ``_fwd``). :func:`flash_fwd` works on
-``[BH, S, D]`` and returns ``(out, m, l)`` with the JAX ``_fwd``'s
-meaning: ``m`` is the row max of the scaled, masked scores and ``l`` the
-row sum of ``exp(s - m)``, both f32; ``out = acc / max(l, 1e-30)`` in
-``out_dtype or q.dtype``; the scale is ``1/sqrt(D)``; the causal mask is
-``q_pos >= k_pos``.
+Counterpart of ``tpu_dist/ops/flash_attention.py``: :func:`flash_fwd`
+replaces the Pallas kernel ``_fwd_kernel`` behind ``_fwd``;
+:func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` replace ``_bwd_dkdv_kernel``
+and ``_bwd_dq_kernel`` behind ``_bwd_pallas`` (the FlashAttention-2
+backward, P and dS recomputed from the saved ``m`` and ``l``);
+:func:`flash_bwd` is ``_bwd_pallas`` and :func:`flash_attention` the
+``_flash`` ``custom_vjp``, here a :class:`torch.autograd.Function`.
 
-Dispatch is by where the tensors lie: CPU tensors go to
-:func:`flash_fwd_reference` (one softmax over the full score matrix, f32
-accumulation); CUDA tensors go to the kernel in
-``csrc/flash_attention_fwd.cu`` or the call raises. There is no fallback
-from one to the other. The backward kernels belong to the training
-slice: a tensor that requires grad is refused.
+:func:`flash_fwd` works on ``[BH, S, D]`` and returns ``(out, m, l)`` with
+the JAX ``_fwd``'s meaning: ``m`` is the row max of the scaled, masked
+scores and ``l`` the row sum of ``exp(s - m)``, both f32; ``out = acc /
+max(l, 1e-30)`` in ``out_dtype or q.dtype``; the scale is ``1/sqrt(D)``;
+the causal mask is ``q_pos >= k_pos``. :func:`flash_bwd` returns ``(dq,
+dk, dv)`` in ``grad_dtype`` or each input's dtype; ``delta =
+rowsum(do * o)`` is plain PyTorch, as the JAX package leaves it to XLA,
+and may be passed in precomputed.
+
+Dispatch is by where the tensors lie: CPU tensors go to the plain versions
+(``*_reference``: whole score matrices, f32 accumulation); CUDA tensors go
+to the kernels in ``csrc/`` or the call raises. There is no fallback from
+one to the other. The kernel wrappers are not differentiable themselves:
+with grad enabled they refuse a tensor that requires grad, and
+:func:`flash_attention` is the differentiable entry point.
 """
 
 from __future__ import annotations
@@ -30,18 +40,57 @@ NEG_INF = -1e30  # the TPU kernel's fill: keeps exp() NaN-free
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# csrc source -> (exported function, its argument types)
+_SIGNATURES = {
+    "flash_attention_fwd": ("tpu_dist_flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
+    "flash_attention_bwd_dkdv": ("tpu_dist_flash_bwd_dkdv", [_P] * 9 + [_I] * 6 + [_P]),
+    "flash_attention_bwd_dq": ("tpu_dist_flash_bwd_dq", [_P] * 8 + [_I] * 6 + [_P]),
+}
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention_fwd")
-        fn = lib.tpu_dist_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.tpu_dist_flash_fwd
+def _call(source: str, device: torch.device, *args) -> None:
+    """Launch on the current stream of ``device``; raise on a refused launch."""
+    fn = _build.bind(source, *_SIGNATURES[source])
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+
+
+def _refuse_autograd(name: str, *tensors) -> None:
+    """The kernel wrappers build no autograd graph: with grad enabled, a
+    tensor that requires grad would come back silently detached."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is not differentiable; use flash_attention (the autograd "
+            "function over the forward and backward kernels), or call it under "
+            "torch.no_grad()"
+        )
+
+
+def _placement(name: str, *tensors) -> str:
+    """'cuda' (the kernel) when every tensor lies on one CUDA device, 'cpu'
+    (the plain version) when every one lies on the CPU; raises otherwise."""
+    dev = tensors[0].device
+    if dev.type in ("cuda", "cpu") and all(t.device == dev for t in tensors):
+        return dev.type
+    raise ValueError(
+        f"{name} runs on CUDA (the kernel) or the CPU (its plain version), with "
+        f"every tensor on one device; got {[str(t.device) for t in tensors]}"
+    )
+
+
+# -- forward -------------------------------------------------------------------
+
+
+def _score_mask(s_q: int, s_k: int, causal: bool, device) -> torch.Tensor:
+    if not causal:
+        return torch.ones(s_q, s_k, dtype=torch.bool, device=device)
+    pos_q = torch.arange(s_q, device=device)[:, None]
+    pos_k = torch.arange(s_k, device=device)[None, :]
+    return pos_q >= pos_k
 
 
 def flash_fwd_reference(q3, k3, v3, causal: bool = False,
@@ -51,12 +100,7 @@ def flash_fwd_reference(q3, k3, v3, causal: bool = False,
     qf, kf, vf = (t.float() for t in (q3, k3, v3))
     scale = 1.0 / math.sqrt(q3.shape[-1])
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale        # [BH, Sq, Sk]
-    s_q, s_k = s.shape[-2], s.shape[-1]
-    mask = torch.ones(s_q, s_k, dtype=torch.bool, device=s.device)
-    if causal:
-        pos_q = torch.arange(s_q, device=s.device)[:, None]
-        pos_k = torch.arange(s_k, device=s.device)[None, :]
-        mask = pos_q >= pos_k
+    mask = _score_mask(s.shape[-2], s.shape[-1], causal, s.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
@@ -65,52 +109,26 @@ def flash_fwd_reference(q3, k3, v3, causal: bool = False,
     return out.to(out_dtype or q3.dtype), m, l
 
 
-def _check(q3, k3, v3, out_dtype) -> None:
-    if any(t.requires_grad for t in (q3, k3, v3)):
-        raise NotImplementedError(
-            "flash_fwd has no backward yet (the backward kernels come with "
-            "the training slice); call it under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
+def _check_qkv(name: str, q3, k3, v3) -> None:
     if q3.dim() != 3 or k3.shape != q3.shape or v3.shape != q3.shape:
         raise ValueError(
-            f"flash_fwd takes q, k, v of one shape [BH, S, D], got "
+            f"{name} takes q, k, v of one shape [BH, S, D], got "
             f"{tuple(q3.shape)}, {tuple(k3.shape)}, {tuple(v3.shape)}"
         )
     if q3.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim D must be one of {HEAD_DIMS}, got {q3.shape[-1]}")
     if q3.dtype not in _DTYPE_CODES or k3.dtype != q3.dtype or v3.dtype != q3.dtype:
         raise TypeError(
-            f"flash_fwd takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{name} takes float32 or bfloat16 q, k, v of one dtype, got "
             f"{q3.dtype}, {k3.dtype}, {v3.dtype}"
         )
-    if out_dtype is not None and out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if not (q3.is_contiguous() and k3.is_contiguous() and v3.is_contiguous()):
-        raise ValueError("flash_fwd takes contiguous q, k, v (the kernel's layout)")
+        raise ValueError(f"{name} takes contiguous q, k, v (the kernel's layout)")
 
 
-def _launch(q3, k3, v3, causal, out_dtype):
-    dev = q3.device
-    if k3.device != dev or v3.device != dev:
-        raise ValueError(f"q, k, v lie on {dev}, {k3.device}, {v3.device}")
-    bh, s, d = q3.shape
-    odt = out_dtype or q3.dtype
-    out = torch.empty((bh, s, d), dtype=odt, device=dev)
-    m = torch.empty((bh, s), dtype=torch.float32, device=dev)
-    l = torch.empty((bh, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    flash_fwd.launches += 1
-    return out, m, l
+def _check_dtype_override(what: str, dtype) -> None:
+    if dtype is not None and dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} must be float32 or bfloat16, got {dtype}")
 
 
 def flash_fwd(q3, k3, v3, causal: bool = False,
@@ -120,29 +138,191 @@ def flash_fwd(q3, k3, v3, causal: bool = False,
 
     CPU tensors run :func:`flash_fwd_reference`; CUDA tensors launch the
     kernel (``flash_fwd.launches`` counts those launches) or raise."""
-    _check(q3, k3, v3, out_dtype)
-    if q3.device.type == "cuda":
-        return _launch(q3, k3, v3, causal, out_dtype)
-    if q3.device.type == "cpu" and k3.device.type == "cpu" and v3.device.type == "cpu":
+    _refuse_autograd("flash_fwd", q3, k3, v3)
+    _check_qkv("flash_fwd", q3, k3, v3)
+    _check_dtype_override("out_dtype", out_dtype)
+    if _placement("flash_fwd", q3, k3, v3) == "cpu":
         return flash_fwd_reference(q3, k3, v3, causal, out_dtype)
-    raise ValueError(
-        f"flash_fwd runs on CUDA (the kernel) or the CPU (its plain "
-        f"version), got q, k, v on {q3.device}, {k3.device}, {v3.device}"
-    )
+    bh, s, d = q3.shape
+    odt = out_dtype or q3.dtype
+    out = torch.empty((bh, s, d), dtype=odt, device=q3.device)
+    m = torch.empty((bh, s), dtype=torch.float32, device=q3.device)
+    l = torch.empty((bh, s), dtype=torch.float32, device=q3.device)
+    _call("flash_attention_fwd", q3.device,
+          q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+          out.data_ptr(), m.data_ptr(), l.data_ptr(),
+          bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
+    flash_fwd.launches += 1
+    return out, m, l
 
 
 flash_fwd.launches = 0
 
 
+# -- backward ------------------------------------------------------------------
+
+
+def _delta(do3, o3) -> torch.Tensor:
+    """rowsum(do * o) in f32, [BH, S] (plain, as ``_bwd_pallas`` has it)."""
+    return (do3.float() * o3.float()).sum(dim=-1)
+
+
+def _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal):
+    """The plain ``_recompute_p_ds`` over whole rows: f32 ``(q, k, do, p, ds)``
+    with p = exp(s - m) / max(l, 1e-30) (exact zeros where masked) and
+    ds = p * (do v^T - delta) * scale."""
+    qf, kf, vf, dof = (t.float() for t in (q3, k3, v3, do3))
+    scale = 1.0 / math.sqrt(q3.shape[-1])
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale        # [BH, Sq, Sk]
+    mask = _score_mask(s.shape[-2], s.shape[-1], causal, s.device)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    p = p / torch.clamp(l, min=1e-30)[..., None]
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return qf, kf, dof, p, ds
+
+
+def flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal: bool = False,
+                             grad_dtype: Optional[torch.dtype] = None):
+    """The plain version of :func:`flash_bwd_dkdv`: dV = P^T dO, dK = dS^T Q."""
+    qf, _, dof, p, ds = _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dk.to(grad_dtype or k3.dtype), dv.to(grad_dtype or v3.dtype)
+
+
+def flash_bwd_dq_reference(q3, k3, v3, do3, m, l, delta, causal: bool = False,
+                           grad_dtype: Optional[torch.dtype] = None):
+    """The plain version of :func:`flash_bwd_dq`: dQ = dS K."""
+    _, kf, _, _, ds = _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal)
+    return torch.matmul(ds, kf).to(grad_dtype or q3.dtype)
+
+
+def flash_bwd_reference(q3, k3, v3, o3, m, l, do3, causal: bool = False, *,
+                        delta: Optional[torch.Tensor] = None,
+                        grad_dtype: Optional[torch.dtype] = None):
+    """The plain version of :func:`flash_bwd` (the ``_bwd_blocked`` math
+    over whole rows): ``(dq, dk, dv)``."""
+    if delta is None:
+        delta = _delta(do3, o3)
+    dk, dv = flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    dq = flash_bwd_dq_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    return dq, dk, dv
+
+
+def _check_bwd(name: str, q3, k3, v3, do3, m, l, delta, grad_dtype) -> None:
+    _check_qkv(name, q3, k3, v3)
+    if do3.shape != q3.shape or do3.dtype != q3.dtype:
+        raise TypeError(
+            f"{name} takes do of q's shape and dtype {tuple(q3.shape)} {q3.dtype}, "
+            f"got {tuple(do3.shape)} {do3.dtype}"
+        )
+    for what, t in (("m", m), ("l", l), ("delta", delta)):
+        if t.shape != q3.shape[:2] or t.dtype != torch.float32:
+            raise TypeError(
+                f"{name} takes float32 {what} of shape {tuple(q3.shape[:2])}, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    if not all(t.is_contiguous() for t in (do3, m, l, delta)):
+        raise ValueError(f"{name} takes contiguous do, m, l, delta (the kernel's layout)")
+    _check_dtype_override("grad_dtype", grad_dtype)
+
+
+def flash_bwd_dkdv(q3, k3, v3, do3, m, l, delta, causal: bool = False,
+                   grad_dtype: Optional[torch.dtype] = None):
+    """The dK/dV pass: ``(dk, dv)`` [BH, S, D] in ``grad_dtype`` or the
+    inputs' dtype. CPU tensors run :func:`flash_bwd_dkdv_reference`; CUDA
+    tensors launch ``csrc/flash_attention_bwd_dkdv.cu``
+    (``flash_bwd_dkdv.launches`` counts them) or raise."""
+    _refuse_autograd("flash_bwd_dkdv", q3, k3, v3, do3)
+    _check_bwd("flash_bwd_dkdv", q3, k3, v3, do3, m, l, delta, grad_dtype)
+    if _placement("flash_bwd_dkdv", q3, k3, v3, do3, m, l, delta) == "cpu":
+        return flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    odt = grad_dtype or q3.dtype
+    dk = torch.empty(q3.shape, dtype=odt, device=q3.device)
+    dv = torch.empty(q3.shape, dtype=odt, device=q3.device)
+    bh, s, d = q3.shape
+    _call("flash_attention_bwd_dkdv", q3.device,
+          q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+          m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd_dq(q3, k3, v3, do3, m, l, delta, causal: bool = False,
+                 grad_dtype: Optional[torch.dtype] = None):
+    """The dQ pass: ``dq`` [BH, S, D] in ``grad_dtype`` or q's dtype. CPU
+    tensors run :func:`flash_bwd_dq_reference`; CUDA tensors launch
+    ``csrc/flash_attention_bwd_dq.cu`` (``flash_bwd_dq.launches`` counts
+    them) or raise."""
+    _refuse_autograd("flash_bwd_dq", q3, k3, v3, do3)
+    _check_bwd("flash_bwd_dq", q3, k3, v3, do3, m, l, delta, grad_dtype)
+    if _placement("flash_bwd_dq", q3, k3, v3, do3, m, l, delta) == "cpu":
+        return flash_bwd_dq_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    odt = grad_dtype or q3.dtype
+    dq = torch.empty(q3.shape, dtype=odt, device=q3.device)
+    bh, s, d = q3.shape
+    _call("flash_attention_bwd_dq", q3.device,
+          q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+          m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+          bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd(q3, k3, v3, o3, m, l, do3, causal: bool = False, *,
+              delta: Optional[torch.Tensor] = None,
+              grad_dtype: Optional[torch.dtype] = None):
+    """The FlashAttention-2 backward of :func:`flash_fwd` (``_bwd_pallas``):
+    ``(dq, dk, dv)``. ``do3`` may be a strided view (autograd hands one
+    over): it is copied to the kernels' layout. ``delta`` (``rowsum(do *
+    o)``, [BH, S] f32) may be passed precomputed, as the ring backward
+    does; ``grad_dtype`` overrides the output dtypes."""
+    do3 = do3.contiguous()
+    if o3.shape != q3.shape:
+        raise ValueError(f"o has shape {tuple(o3.shape)}, q {tuple(q3.shape)}")
+    if delta is None:
+        delta = _delta(do3, o3)
+    dk, dv = flash_bwd_dkdv(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    dq = flash_bwd_dq(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash``'s ``custom_vjp``: the forward kernel saves (out, m, l),
+    the two backward kernels recompute P from them."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal):
+        out, m, l = flash_fwd(q3, k3, v3, causal)
+        ctx.save_for_backward(q3, k3, v3, out, m, l)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, out, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q3, k3, v3, out, m, l, do3, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False):
     """Attention on [B, S, H, D], drop-in for
     :func:`tpu_dist_torch.nn.attention.full_attention` (f32 softmax
-    accumulation, output in ``q.dtype``)."""
+    accumulation, output in ``q.dtype``), differentiable through the
+    backward kernels."""
     b, s, h, d = q.shape
 
     def to3(t):
         # reshape may keep a strided view (b == 1): copy to the kernel's layout
         return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
-    out3, _, _ = flash_fwd(to3(q), to3(k), to3(v), causal)
+    out3 = _FlashAttention.apply(to3(q), to3(k), to3(v), causal)
     return out3.reshape(b, h, s, d).permute(0, 2, 1, 3)
