@@ -9,17 +9,24 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. build: compile every CUDA source under ``tpu_dist_torch/csrc/`` with
    ``nvcc`` (one process per source, all started together) into
-   ``tpu_dist_torch/csrc/build/``.
+   ``tpu_dist_torch/csrc/build/``; print each kernel instance's registers
+   and spills (``-Xptxas -v``, on a fresh build) and its tensor-core
+   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass`` of the library,
+   read every time); fail if a tensor-core instance of the forward or
+   dK/dV kernel has none.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge cases (causal, bf16, ragged S, other
-   head dims), with the tolerance of each; CUDA-event times of the
+   the main path's shapes and at edge cases (causal, ragged S, every head
+   dim, bf16 in with f32 out), with the tolerance of each; f32 inputs take
+   the CUDA-core kernels, bf16 inputs the tensor-core kernels; a misaligned
+   bf16 input must be refused. CUDA-event times of the
    kernel, its plain version and one library call computing the same
    function (a yardstick the port never calls).
 3. kernels at the training shapes: the flash backward's dK/dV and dQ
    kernels against their plain versions at ViT-B/16's [BH, S, D] =
    [768, 196, 64] (batch 64 x 12 heads) in bf16 and f32, and at edge cases
-   (causal, S = 77 with D = 32 and 128, bf16 in with f32 gradients, a
-   strided ``do``); the fused SGD over ViT-B/16's 151 leaves for 3 steps,
+   (causal, S = 5, 77, 196 and 300 with D = 16 to 128, bf16 in with f32
+   gradients, a strided ``do``, each in both dtypes); the forward at the
+   training shape in bf16; the fused SGD over ViT-B/16's 151 leaves for 3 steps,
    bit for bit against its plain version; times of each kernel, its plain
    version and a library call (the backward of
    ``F.scaled_dot_product_attention``, ``torch.optim.SGD(fused=True)``),
@@ -29,17 +36,19 @@ Phases; any failure exits non-zero and prints no result line:
    ``attn_impl="flash"``: warmup, then 32 requests in alternating 3- and
    7-request bursts. Launch counts are set to 0 just before and read just
    after; every request must complete with finite logits, the flash kernel
-   must have run 12 times per forward, and the logits must agree with the
-   same engine run with ``attn_impl="xla"``.
+   must have run 12 times per forward, all on the f32 route, and the
+   logits must agree with the same engine run with ``attn_impl="xla"``.
 5. train: ViT-B/16 at full width, weights from numpy seed 0 through the
    bridge, through ``make_train_step``. (a) f32 parity, TF32 off: batch 8,
    3 steps of flash attention + fused SGD against plain attention + plain
    SGD from the same weights; losses per step and the parameters after
-   step 3 must agree. (b) the ``vit_b16_imagenet_flash`` configuration
+   step 3 must agree. (b) bf16 parity: the same at bf16 compute; the losses
+   must agree per step. (c) the ``vit_b16_imagenet_flash`` configuration
    (bf16 compute, batch 64, SGD lr 0.1, momentum 0.9, weight decay 1e-4,
    fused): 2 warmup steps, then 10 timed steps with the launch counts set
    to 0 just before and read just after (12 forward, 12 dK/dV, 12 dQ and
-   1 SGD launch per step) and a finite loss every step; step time,
+   1 SGD launch per step; every forward and dK/dV launch on the
+   tensor-core route) and a finite loss every step; step time,
    images/s, peak memory and each kernel's share of the step; then one
    ``make_eval_step`` over the batch.
 6. report: the card's name and power limit, one JSON line of every ported
@@ -53,6 +62,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import math
+import pathlib
 import re
 import shutil
 import subprocess
@@ -105,6 +115,22 @@ TOL = {
 # (|g| up to ~10) agree to a few ulps of that size. bf16 out: as above,
 # two bf16 steps plus the f32 floor.
 TOL_BWD = {"f32": (1e-4, 1e-4), "bf16": (1e-4, 2 ** -6)}
+# The tensor-core route (bf16 inputs) against plain versions that round P
+# (forward) and P, dS (dK/dV) to bf16 where the kernels do. Products of
+# bf16 values are exact in f32 on both sides, so what differs is f32
+# summation order and expf vs torch.exp, which can flip one bf16 step
+# (2^-8 relative) of a P or dS element. The forward also rounds P against
+# the running row max of its 64-key tiles, the plain version against the
+# final max, so a row's early tiles round other values: up to one bf16
+# step of each such P element. out is a convex combination of v rows
+# (|v| <~ 5 here), so these steps, of random sign over ~100 keys, move it
+# by ~1e-3: atol 4e-3 (one bf16 step of a unit value), plus two bf16 steps
+# of the result for bf16 out or one for f32 out. m and l are f32 and keep
+# TOL. dK/dV see only the flips (P and dS from the final m, l): each moves
+# a gradient by 2^-8 |p do| or 2^-8 |ds q|, ~1e-4 apiece: atol 1e-3, plus
+# the same steps of the result.
+TOL_MMA = {"out_f32": (4e-3, 2 ** -8), "out_bf16": (4e-3, 2 ** -6)}
+TOL_BWD_MMA = {"f32": (1e-3, 2 ** -8), "bf16": (1e-3, 2 ** -6)}
 # ViT-B/16 logits, flash vs xla attention on the card: the attention
 # outputs differ by f32 rounding (~1e-6) and 12 blocks carry that on.
 LOGITS_TOL = (1e-3, 1e-3)
@@ -123,6 +149,15 @@ PARITY_BATCH, PARITY_STEPS = 8, 3
 # the 3 steps (plus 1e-6 for parameters that barely move).
 PARITY_LOSS_RTOL = 1e-4
 PARITY_PARAM_RTOL, PARITY_PARAM_ATOL = 1e-3, 1e-6
+# bf16 parity, the same two paths at bf16 compute. Everything but the
+# attention is the same code, so they differ only where the two attentions
+# round: xla rounds the scores and the normalised probabilities to bf16,
+# flash keeps f32 scores and rounds the unnormalised P. That is rounding
+# placement, as between the JAX and the port's bf16 steps, whose one-step
+# loss the CPU test holds to 2e-3 relative
+# (tests/test_torch_train_step_variants.py::test_one_bf16_step_matches_jax_loosely);
+# the same limit holds here for each of the 3 steps.
+PARITY_BF16_LOSS_RTOL = 2e-3
 
 KERNELS = {
     "flash_attention_fwd": {
@@ -153,11 +188,23 @@ WRAPPERS = {
     "flash_attention_bwd_dq": fa.flash_bwd_dq,
     "fused_sgd": fs.fused_sgd,
 }
+# the kernels with a tensor-core route for bf16 inputs (a second count,
+# ``launches_mma``, on the wrapper), and the instances of that route each
+# library must hold: 2 output dtypes x 4 head dims
+MMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv")
+MMA_INSTANCES = 8
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name in MMA_KERNELS:
+        WRAPPERS[name].launches_mma = 0
+
+
+def read_mma_launches() -> dict:
+    return {name: WRAPPERS[name].launches_mma for name in MMA_KERNELS}
 
 
 def read_launches() -> dict:
@@ -243,6 +290,27 @@ def phase_build() -> None:
         for fn, regs, spill in _ptxas_entries(log):
             print(f"[build]   {fn}: {regs} registers, {spill} bytes spilled")
     print(f"[build] all sources: {time.perf_counter() - t0:.1f} s wall")
+    tool = _cuobjdump()
+    for name, (path, _, _) in results.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+        counts = _sass_tensor_core_counts(sass)
+        for fn, ops in counts.items():
+            print(f"[build]   {fn}: " + ", ".join(f"{n} {op}" for op, n in ops.items()))
+        if name in MMA_KERNELS:
+            _check_tensor_core_instances(name, counts)
+
+
+def _demangle(names):
+    """Kernel instance names as C++ (``c++filt``, where it exists), without
+    ``void``, the parameter list and the anonymous namespace."""
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout.splitlines()
+        if len(out) == len(names):
+            return [re.sub(r"^void |\(.*\)$", "", n.replace("(anonymous namespace)::", ""))
+                    for n in out]
+    return list(names)
 
 
 def _ptxas_entries(log: str):
@@ -256,13 +324,43 @@ def _ptxas_entries(log: str):
             entries[-1][2] = int(m.group(1))
         elif entries and (m := re.search(r"Used (\d+) registers", line)):
             entries[-1][1] = int(m.group(1))
-    if entries and shutil.which("c++filt"):
-        names = subprocess.run(["c++filt"], input="\n".join(e[0] for e in entries),
-                               capture_output=True, text=True).stdout.splitlines()
-        if len(names) == len(entries):
-            for e, n in zip(entries, names):
-                e[0] = re.sub(r"^void |\(.*\)$", "", n.replace("(anonymous namespace)::", ""))
+    for e, name in zip(entries, _demangle([e[0] for e in entries])):
+        e[0] = name
     return entries
+
+
+def _cuobjdump() -> str:
+    """``cuobjdump`` of the toolkit whose ``nvcc`` built the kernels."""
+    path = shutil.which("cuobjdump", path=str(pathlib.Path(_build.nvcc()).parent))
+    check(path is not None, f"no cuobjdump beside {_build.nvcc()}")
+    return path
+
+
+def _sass_tensor_core_counts(sass: str) -> dict:
+    """{kernel instance: {"HMMA": n, "HGMMA": n}} from ``cuobjdump -sass``:
+    the tensor-core instructions in each function's code (``HMMA`` from
+    ``mma.sync``, ``HGMMA`` from ``wgmma``), names demangled."""
+    counts = {}
+    ops = None
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function\s*:\s*(\S+)", line):
+            ops = counts.setdefault(m.group(1), dict.fromkeys(TENSOR_CORE_OPS, 0))
+        elif ops is not None:
+            for op in TENSOR_CORE_OPS:
+                ops[op] += len(re.findall(rf"\b{op}\b", line))
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def _check_tensor_core_instances(name: str, counts: dict) -> None:
+    """The library of a kernel with a tensor-core route holds that route's
+    instances (``*_mma_kernel``), each with tensor-core instructions, and
+    as many CUDA-core instances (f32 inputs only)."""
+    mma = {fn: ops for fn, ops in counts.items() if "mma_kernel" in fn}
+    check(len(mma) == MMA_INSTANCES and len(counts) == 2 * MMA_INSTANCES,
+          f"{name}: {len(mma)} tensor-core instances of {len(counts)}, expected "
+          f"{MMA_INSTANCES} of {2 * MMA_INSTANCES}: {sorted(counts)}")
+    bare = [fn for fn, ops in mma.items() if sum(ops.values()) == 0]
+    check(not bare, f"{name}: no tensor-core instruction in {bare}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -290,26 +388,22 @@ def phase_kernels() -> dict:
         ("ragged S=77 D=128 causal", (24, 77, 128), True, f32, None),
         ("ragged S=77 D=16 bf16 causal", (24, 77, 16), True, bf16, None),
         ("S=5 D=64 causal (one partial tile)", (4, 5, 64), True, f32, None),
+        # the tensor-core route at every head dim, ragged and causal
+        ("bf16 S=77 D=32", (24, 77, 32), False, bf16, None),
+        ("bf16 S=77 D=64 causal, f32 out", (24, 77, 64), True, bf16, f32),
+        ("bf16 S=77 D=128 causal", (24, 77, 128), True, bf16, None),
+        ("bf16 S=196 D=128, f32 out", (24, 196, 128), False, bf16, f32),
+        ("bf16 S=5 D=16 (one partial tile)", (4, 5, 16), False, bf16, None),
+        ("bf16 S=5 D=64 causal", (4, 5, 64), True, bf16, None),
+        ("bf16 S=300 D=64 causal (5 tiles)", (8, 300, 64), True, bf16, None),
     ]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     main_err = None
     for name, shape, causal, dt, odt in cases:
-        q, k, v = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(3))
-        out, m, l = fa.flash_fwd(q, k, v, causal, odt)
-        torch.cuda.synchronize()  # a fault in the kernel surfaces here
-        r_out, r_m, r_l = fa.flash_fwd_reference(q, k, v, causal, odt)
-        check(out.dtype == r_out.dtype and out.shape == r_out.shape,
-              f"{name}: out {out.dtype} {tuple(out.shape)} vs {r_out.dtype} {tuple(r_out.shape)}")
-        tol_out = TOL["out_bf16" if out.dtype == bf16 else "out_f32"]
-        e_out, ok_out = _err(out, r_out, *tol_out)
-        e_m, ok_m = _err(m, r_m, *TOL["m"])
-        e_l, ok_l = _err(l, r_l, *TOL["l"])
-        print(f"[kernels] flash_attention_fwd {name}: max|err| out {e_out:.3g} "
-              f"m {e_m:.3g} l {e_l:.3g}")
-        check(ok_out and ok_m and ok_l, f"flash_attention_fwd {name}: outside tolerance")
-        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+        e_out = _fwd_case(name, shape, causal, dt, odt, gen)
         if main_err is None:
             main_err = e_out
+    _check_misaligned_refused(gen)
 
     q, k, v = (torch.randn(VIT_B16_FWD_SHAPE, device=DEVICE, generator=gen) for _ in range(3))
     q4, k4, v4 = (t.view(SERVE_MAX_BATCH, 12, s, d) for t in (q, k, v))
@@ -328,6 +422,54 @@ def phase_kernels() -> dict:
     }}
 
 
+def _fwd_case(name, shape, causal, dt, odt, gen) -> float:
+    """The forward kernel against its plain version on one case, with the
+    tolerance of its route; returns max |err| of out."""
+    q, k, v = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(3))
+    before = fa.flash_fwd.launches_mma
+    out, m, l = fa.flash_fwd(q, k, v, causal, odt)
+    torch.cuda.synchronize()  # a fault in the kernel surfaces here
+    mma = fa.flash_fwd.launches_mma > before
+    check(mma == (dt == torch.bfloat16), f"{name}: {dt} took the wrong route")
+    r_out, r_m, r_l = fa.flash_fwd_reference(q, k, v, causal, odt)
+    check(out.dtype == r_out.dtype and out.shape == r_out.shape,
+          f"{name}: out {out.dtype} {tuple(out.shape)} vs {r_out.dtype} {tuple(r_out.shape)}")
+    out_key = "out_bf16" if out.dtype == torch.bfloat16 else "out_f32"
+    e_out, ok_out = _err(out, r_out, *(TOL_MMA if mma else TOL)[out_key])
+    e_m, ok_m = _err(m, r_m, *TOL["m"])
+    e_l, ok_l = _err(l, r_l, *TOL["l"])
+    print(f"[kernels] flash_attention_fwd {name} ({'tensor cores' if mma else 'f32'}): "
+          f"max|err| out {e_out:.3g} m {e_m:.3g} l {e_l:.3g}")
+    check(ok_out and ok_m and ok_l, f"flash_attention_fwd {name}: outside tolerance")
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+    return e_out
+
+
+def _check_misaligned_refused(gen) -> None:
+    """No fallback: a bf16 input whose data starts 2 bytes past a 16-byte
+    boundary is refused by both tensor-core wrappers, before any launch."""
+    shape = (4, 77, 64)
+    n = math.prod(shape)
+    flat = torch.randn(n + 8, device=DEVICE, generator=gen).to(torch.bfloat16)
+    bad = flat[1:n + 1].view(shape)  # contiguous, one element off
+    good = torch.randn(shape, device=DEVICE, generator=gen).to(torch.bfloat16)
+    stats = torch.zeros(shape[:2], device=DEVICE)
+    before = {name: WRAPPERS[name].launches for name in MMA_KERNELS}
+    for name, call in (("flash_fwd", lambda: fa.flash_fwd(bad, good, good)),
+                       ("flash_bwd_dkdv", lambda: fa.flash_bwd_dkdv(
+                           good, good, good, bad, stats, stats, stats))):
+        try:
+            call()
+        except ValueError as exc:
+            check("aligned" in str(exc), f"{name}: {exc}")
+        else:
+            raise SmokeError(f"{name} took a misaligned bf16 input")
+    check({name: WRAPPERS[name].launches for name in MMA_KERNELS} == before,
+          "a misaligned input reached a kernel")
+    print("[kernels] a bf16 input 2 bytes off 16-byte alignment: refused by flash_fwd and "
+          "flash_bwd_dkdv, no launch")
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -337,6 +479,7 @@ def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
     q, k, v, do = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(4))
     out, m, l = fa.flash_fwd(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1)
+    before = fa.flash_bwd_dkdv.launches_mma
     if strided_do:  # same values, strided as autograd may hand them over
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
         dq, dk, dv = fa.flash_bwd(q, k, v, out, m, l, do, causal, grad_dtype=grad_dtype)
@@ -344,23 +487,26 @@ def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
         dk, dv = fa.flash_bwd_dkdv(q, k, v, do, m, l, delta, causal, grad_dtype)
         dq = fa.flash_bwd_dq(q, k, v, do, m, l, delta, causal, grad_dtype)
     torch.cuda.synchronize()  # a fault in a kernel surfaces here
+    mma = fa.flash_bwd_dkdv.launches_mma > before
+    check(mma == (dt == torch.bfloat16), f"{name}: {dt} took the wrong dK/dV route")
     do = do.contiguous()
     r_dk, r_dv = fa.flash_bwd_dkdv_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
     r_dq = fa.flash_bwd_dq_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
     errs = {}
-    for kernel, pairs in (("flash_attention_bwd_dkdv", ((dk, r_dk), (dv, r_dv))),
-                          ("flash_attention_bwd_dq", ((dq, r_dq),))):
+    for kernel, pairs, tol in (
+            ("flash_attention_bwd_dkdv", ((dk, r_dk), (dv, r_dv)), TOL_BWD_MMA if mma else TOL_BWD),
+            ("flash_attention_bwd_dq", ((dq, r_dq),), TOL_BWD)):
         worst = 0.0
         for got, ref in pairs:
             check(got.dtype == ref.dtype and got.shape == ref.shape,
                   f"{kernel} {name}: {got.dtype} {tuple(got.shape)} vs {ref.dtype} {tuple(ref.shape)}")
             check(bool(torch.isfinite(got.float()).all()), f"{kernel} {name}: non-finite gradient")
-            err, ok = _err(got, ref, *TOL_BWD["bf16" if got.dtype == torch.bfloat16 else "f32"])
+            err, ok = _err(got, ref, *tol["bf16" if got.dtype == torch.bfloat16 else "f32"])
             check(ok, f"{kernel} {name}: max |err| {err:.3g} outside tolerance")
             worst = max(worst, err)
         errs[kernel] = worst
-    print(f"[kernels] backward {name}: max|err| dK/dV {errs['flash_attention_bwd_dkdv']:.3g} "
-          f"dQ {errs['flash_attention_bwd_dq']:.3g}")
+    print(f"[kernels] backward {name} (dK/dV on {'tensor cores' if mma else 'f32'}): max|err| "
+          f"dK/dV {errs['flash_attention_bwd_dkdv']:.3g} dQ {errs['flash_attention_bwd_dq']:.3g}")
     return errs
 
 
@@ -385,9 +531,18 @@ def phase_kernels_train() -> dict:
         ("ragged S=77 D=32", (24, 77, 32), False, f32, None, False),
         ("ragged S=77 D=128 causal", (24, 77, 128), True, f32, None, False),
         ("S=5 D=16 bf16 causal (one partial tile)", (4, 5, 16), True, bf16, None, False),
+        # the tensor-core dK/dV route at every head dim, ragged and causal
+        ("bf16 S=196 D=64 causal", (96, 196, 64), True, bf16, None, False),
+        ("bf16 strided do (flash_bwd)", (96, 196, 64), False, bf16, None, True),
+        ("bf16 S=77 D=32", (24, 77, 32), False, bf16, None, False),
+        ("bf16 S=77 D=128 causal, f32 grads", (24, 77, 128), True, bf16, f32, False),
+        ("bf16 S=196 D=128", (24, 196, 128), False, bf16, None, False),
+        ("bf16 S=5 D=64", (4, 5, 64), False, bf16, None, False),
+        ("bf16 S=300 D=64 causal (5 tiles)", (8, 300, 64), True, bf16, None, False),
     ]
     errs = [_bwd_case(*case, gen=gen) for case in cases]
     main_err = errs[0]  # the main path's case: training shape, bf16
+    fwd_err = _fwd_case("vit_b16 train bf16", TRAIN_SHAPE, False, bf16, None, gen)
 
     # fused SGD: 3 steps over ViT-B/16's leaves, bit for bit
     params, ref_params = _sgd_leaves(2), _sgd_leaves(2)
@@ -464,6 +619,7 @@ def phase_kernels_train() -> dict:
                              "bound_ms": sgd_bound_ms, "bound_by": sgd_by,
                              "library_ms": sgd_lib_ms}
     measured["flash_attention_fwd"] = {
+        "max_abs_err_train_shape": fwd_err,
         "ms_train_shape": fwd["ms"], "plain_ms_train_shape": fwd["plain_ms"],
         "library_ms_train_shape": fwd["library_ms"], "bound_ms_train_shape": fwd_bound,
     }
@@ -530,6 +686,7 @@ def phase_serve() -> dict:
     reset_launches()
     engine, done, scalars = _serve(model, payloads)
     served = read_launches()
+    served_mma = read_mma_launches()
     launches = served["flash_attention_fwd"]
     forwards = counters_lib.get("serve.forwards")
     check(all(n == 0 for name, n in served.items() if name != "flash_attention_fwd"),
@@ -545,6 +702,8 @@ def phase_serve() -> dict:
     check(launches == model.depth * forwards,
           f"flash kernel launched {launches} times in {forwards} forwards "
           f"(expected {model.depth} per forward)")
+    check(served_mma["flash_attention_fwd"] == 0,
+          f"serving (f32) took the tensor-core route {served_mma} times")
     check(engine.stats.check_invariants() == [], str(engine.stats.check_invariants()))
     phase_sums = {p: h.sum * 1e3 for p, h in engine.stats.phases.items()}
     print(f"[serve] flash: {len(done)} requests in {engine.stats.batches} batches "
@@ -554,7 +713,8 @@ def phase_serve() -> dict:
           f"(bucket upper bounds), mean {engine.stats.total.sum / len(done) * 1e3:.3f} ms")
     print("[serve] flash: phase sums over requests (ms): "
           + ", ".join(f"{p} {v:.3f}" for p, v in phase_sums.items()))
-    print(f"[serve] flash: {launches} kernel launches in {forwards} forwards")
+    print(f"[serve] flash: {launches} kernel launches in {forwards} forwards, "
+          f"{launches - served_mma['flash_attention_fwd']} of them on the f32 route")
 
     flash_logits = {r.id: r.result for r in done}
     model.attn_impl = "xla"
@@ -591,14 +751,10 @@ def _bridged_vit_b16(attn_impl: str):
     return bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=TRAIN_SEED))
 
 
-def _train_parity() -> None:
-    """(a) f32, TF32 off: flash + fused SGD against xla + plain SGD."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[train] parity: f32, torch.backends.cuda.matmul.allow_tf32 = "
-          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 = "
-          f"{torch.backends.cudnn.allow_tf32}; batch {PARITY_BATCH}, {PARITY_STEPS} steps, "
-          f"lr {TRAIN_LR}")
+def _parity_runs(compute_dtype) -> dict:
+    """{impl: (losses, initial params, final params)} of PARITY_STEPS steps of
+    flash + fused SGD and xla + plain SGD from the same bridged weights and
+    batches, at ``compute_dtype``."""
     rng = np.random.default_rng(1)
     images = torch.from_numpy(rng.standard_normal(
         (PARITY_STEPS, PARITY_BATCH) + IMAGE, dtype=np.float32)).to(DEVICE)
@@ -609,12 +765,24 @@ def _train_parity() -> None:
         init = [p.detach().clone() for p in model.parameters()]
         opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=fused)
         st = state_lib.TrainState.create(model, opt)
-        train_step = step_lib.make_train_step(opt)
+        train_step = step_lib.make_train_step(opt, compute_dtype=compute_dtype)
         losses = []
         for i in range(PARITY_STEPS):
             st, metrics = train_step(st, images[i], labels[i], TRAIN_LR)
             losses.append(metrics["loss"].item())
         runs[impl] = (losses, init, [p.detach() for p in model.parameters()])
+    return runs
+
+
+def _train_parity() -> None:
+    """(a) f32, TF32 off: flash + fused SGD against xla + plain SGD."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[train] parity: f32, torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}; batch {PARITY_BATCH}, {PARITY_STEPS} steps, "
+          f"lr {TRAIN_LR}")
+    runs = _parity_runs(torch.float32)
     (flash_losses, init, flash_p), (xla_losses, _, xla_p) = runs["flash"], runs["xla"]
     for i, (a, b) in enumerate(zip(flash_losses, xla_losses)):
         check(math.isfinite(a) and abs(a - b) <= PARITY_LOSS_RTOL * abs(b),
@@ -630,6 +798,24 @@ def _train_parity() -> None:
     print(f"[train] parity after step {PARITY_STEPS}: largest parameter difference {worst:.3g}; "
           f"largest as a share of its parameter's update {worst_share:.3g} (limit "
           f"{PARITY_PARAM_RTOL} + {PARITY_PARAM_ATOL} absolute)")
+
+
+def _train_parity_bf16() -> None:
+    """(b) bf16 compute: flash (the tensor-core kernels) + fused SGD against
+    xla + plain SGD, the losses per step."""
+    before = read_mma_launches()
+    runs = _parity_runs(torch.bfloat16)
+    mma = read_mma_launches()
+    check(all(mma[name] - before[name] == 12 * PARITY_STEPS for name in MMA_KERNELS),
+          f"bf16 parity: tensor-core launches {mma} (from {before})")
+    flash_losses, xla_losses = runs["flash"][0], runs["xla"][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(flash_losses, xla_losses)]
+    print(f"[train] bf16 parity: batch {PARITY_BATCH}, {PARITY_STEPS} steps, losses flash "
+          f"{flash_losses} vs xla {xla_losses}; relative differences {rel} (limit "
+          f"{PARITY_BF16_LOSS_RTOL})")
+    for i, (a, r) in enumerate(zip(flash_losses, rel)):
+        check(math.isfinite(a) and r <= PARITY_BF16_LOSS_RTOL,
+              f"bf16 parity step {i}: loss flash {a!r} vs xla {xla_losses[i]!r}")
 
 
 def _profile_steps(train_step, st, images, labels) -> None:
@@ -695,12 +881,16 @@ def _train_config(kernel_ms: dict) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
     launches = read_launches()
+    mma = read_mma_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
 
     for name, per_step in PER_STEP.items():
         check(launches[name] == per_step * TRAIN_STEPS,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps "
               f"(expected {per_step} per step)")
+    for name in MMA_KERNELS:
+        check(mma[name] == launches[name],
+              f"{name}: {mma[name]} of {launches[name]} launches on the tensor-core route")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(st.step == TRAIN_WARMUP + TRAIN_STEPS, f"state step {st.step}")
     mean_ms = float(np.mean(step_ms))
@@ -711,7 +901,8 @@ def _train_config(kernel_ms: dict) -> dict:
           f"{float(np.median(step_ms)):.3f}, mean {mean_ms:.3f}, min {min(step_ms):.3f}, max "
           f"{max(step_ms):.3f}; {TRAIN_BATCH / mean_ms * 1e3:.1f} images/s; "
           f"max_memory_allocated {peak_bytes} bytes ({peak_bytes / 2 ** 30:.2f} GiB)")
-    print(f"[train] launches in {TRAIN_STEPS} steps: {launches}")
+    print(f"[train] launches in {TRAIN_STEPS} steps: {launches}; on the tensor-core route: "
+          f"{mma}")
     print("[train] share of the mean step per kernel (launches per step x its time "
           "alone at this shape): " + ", ".join(
               f"{name} {PER_STEP[name] * kernel_ms[name] / mean_ms:.3f}" for name in PER_STEP))
@@ -724,12 +915,13 @@ def _train_config(kernel_ms: dict) -> dict:
     print(f"[train] eval over the batch: loss {sums['loss'] / sums['count']:.4f}, top1 "
           f"{sums['top1']:.0f}, top5 {sums['top5']:.0f} of {sums['count']:.0f}")
     _profile_steps(train_step, st, images, labels)
-    return launches
+    return launches, mma
 
 
 def phase_train(kernel_ms: dict) -> dict:
     t0 = time.perf_counter()
     _train_parity()
+    _train_parity_bf16()
     launches = _train_config(kernel_ms)
     print(f"[train] phase: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -751,11 +943,13 @@ def main() -> int:
     for name, numbers in phase_kernels_train().items():
         measured.setdefault(name, {}).update(numbers)
     served = phase_serve()
-    trained = phase_train({
+    trained, trained_mma = phase_train({
         "flash_attention_fwd": measured["flash_attention_fwd"]["ms_train_shape"],
         **{name: measured[name]["ms"] for name in PER_STEP if name != "flash_attention_fwd"},
     })
     launches = {name: served[name] + trained[name] for name in KERNELS}
+    for name in MMA_KERNELS:  # serving's are all f32 (checked there)
+        measured[name]["launches_tensor_core"] = trained_mma[name]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -4,6 +4,8 @@ content hash in the library's name is computed."""
 
 import pathlib
 
+import pytest
+
 import chip_smoke
 from tpu_dist_torch.ops import _build
 
@@ -64,3 +66,79 @@ def test_the_smoke_run_knows_every_kernel_source():
         assert (ROOT / entry["source"]).exists()
         path, line = entry["replaces"].split(":")
         assert "pallas_call" in (ROOT / path).read_text().splitlines()[int(line) - 1]
+
+
+SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,8]
+host = linux
+compile_size = 64bit
+
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_mma_kernelIfLi64EEEvPK13__nv_bfloat16S3_S3_PT_PfS7_ifi
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0350*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
+        /*0360*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
+        /*0370*/                   LDSM.16.MT88.4 R8, [R3] ;
+        /*0380*/                   HMMA.16816.F32.BF16 R32, R8, R20, R32 ;
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelIffLi64EEEvPKT_S3_S3_PT0_PfS6_ifi
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FFMA R2, R4, R5, R2 ;
+\t\t..........
+
+\t\tFunction : _Z11gemm_kernelv
+        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0110*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0120*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+"""
+
+
+def test_the_smoke_run_counts_tensor_core_instructions_per_kernel():
+    counts = chip_smoke._sass_tensor_core_counts(SASS)
+    assert len(counts) == 3
+    by_kernel = {next(k for k in ("flash_fwd_mma_kernel", "flash_fwd_kernel", "gemm_kernel")
+                      if k in name): ops for name, ops in counts.items()}
+    assert by_kernel["flash_fwd_mma_kernel"] == {"HMMA": 3, "HGMMA": 0}
+    assert by_kernel["flash_fwd_kernel"] == {"HMMA": 0, "HGMMA": 0}
+    assert by_kernel["gemm_kernel"] == {"HMMA": 0, "HGMMA": 2}
+
+
+def _instances(hmma_of_mma):
+    """A library's kernel instances: 8 CUDA-core ones and 8 tensor-core ones
+    with the given HMMA counts."""
+    counts = {f"flash_fwd_kernel<float, float, {d}>": {"HMMA": 0, "HGMMA": 0}
+              for d in range(8)}
+    counts.update({f"flash_fwd_mma_kernel<float, {d}>": {"HMMA": n, "HGMMA": 0}
+                   for d, n in enumerate(hmma_of_mma)})
+    return counts
+
+
+def test_the_smoke_run_fails_a_tensor_core_instance_without_tensor_core_code():
+    chip_smoke._check_tensor_core_instances("flash_attention_fwd", _instances([64] * 8))
+    with pytest.raises(chip_smoke.SmokeError, match="no tensor-core instruction"):
+        chip_smoke._check_tensor_core_instances("flash_attention_fwd",
+                                                _instances([64] * 7 + [0]))
+    with pytest.raises(chip_smoke.SmokeError, match="tensor-core instances"):
+        chip_smoke._check_tensor_core_instances("flash_attention_fwd", _instances([64] * 7))
+
+
+def test_the_shared_mma_header_is_hashed_into_both_libraries(tmp_path, monkeypatch):
+    """Editing ``flash_attention_mma.cuh`` rebuilds the forward and the dK/dV
+    libraries (and, as every header does, the others)."""
+    real = ROOT / "tpu_dist_torch" / "csrc"
+    csrc = _csrc(tmp_path, monkeypatch, {
+        p.name: p.read_text() for p in (*real.glob("*.cu"), *real.glob("*.cuh"))})
+    users = [p.stem for p in real.glob("*.cu")
+             if '#include "flash_attention_mma.cuh"' in p.read_text()]
+    assert sorted(users) == ["flash_attention_bwd_dkdv", "flash_attention_fwd"]
+    before = {name: _build.library_path(name) for name in users}
+    header = csrc / "flash_attention_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    for name in users:
+        assert _build.library_path(name) != before[name]

@@ -9,6 +9,9 @@ numpy seed and go to both sides as the same arrays.
 """
 
 import functools
+import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +187,100 @@ def test_meta_tensors_are_refused():
     t = torch.zeros(1, 8, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(t, t, t)
+
+
+# -- the two routes on the card: bf16 on the tensor cores, f32 on the CUDA cores
+
+CSRC = pathlib.Path(fa.__file__).resolve().parent.parent / "csrc"
+
+
+def _direct_f32_fwd(q, k, v, causal):
+    """The f32 forward written out once more, op for op as before the
+    tensor-core route existed: the f32 plain version must stay this, bit
+    for bit."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool)
+    if causal:
+        mask = torch.arange(s.shape[-2])[:, None] >= torch.arange(s.shape[-1])[None, :]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    return torch.matmul(p, v) / torch.clamp(l, min=1e-30)[..., None], m, l
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_f32_plain_forward_is_unchanged_bit_for_bit(causal):
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 77, 32)).astype(np.float32))
+               for _ in range(3))
+    for got, want in zip(fa.flash_fwd_reference(q, k, v, causal), _direct_f32_fwd(q, k, v, causal)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_bf16_plain_forward_rounds_p_before_pv_only(causal):
+    """bf16 inputs: P enters P V as bf16 (the tensor cores' operand), while
+    m, l and the division stay f32 and l sums the unrounded P."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 77, 32)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    out, m, l = fa.flash_fwd_reference(q, k, v, causal, torch.float32)
+    f_out, f_m, f_l = _direct_f32_fwd(*(t.float() for t in (q, k, v)), causal)
+    assert torch.equal(m, f_m) and torch.equal(l, f_l)
+    scale = 1.0 / math.sqrt(32)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    mask = torch.ones(77, 77, dtype=torch.bool)
+    if causal:
+        mask = torch.arange(77)[:, None] >= torch.arange(77)[None, :]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.where(mask, torch.exp(s - f_m[..., None]), torch.zeros_like(s))
+    pv = torch.matmul(p.to(torch.bfloat16).float(), v.float())
+    want = pv / torch.clamp(f_l, min=1e-30)[..., None]
+    assert torch.equal(out, want)
+    assert not torch.equal(out, f_out)  # the rounding is there, and it is small:
+    # one bf16 step (2^-8 relative) of each P element, of random sign
+    torch.testing.assert_close(out, f_out, atol=4e-3, rtol=0)
+
+
+def test_route_rule_is_by_input_dtype():
+    assert fa.uses_tensor_cores(torch.bfloat16)
+    assert not fa.uses_tensor_cores(torch.float32)
+
+
+def test_route_rule_matches_the_c_dispatch():
+    """The wrappers count a launch as a tensor-core one by the rule the C
+    dispatch applies: ``tensor_core_route`` of the shared header is true for
+    the dtype code of bf16 alone, and both kernels' C entry points branch on
+    it."""
+    header = (CSRC / "flash_attention_mma.cuh").read_text()
+    codes = dict(re.findall(r"constexpr int DTYPE_(F32|BF16) = (\d+);", header))
+    assert {"F32": "0", "BF16": "1"} == codes
+    assert codes["BF16"] == str(fa._DTYPE_CODES[torch.bfloat16])
+    assert codes["F32"] == str(fa._DTYPE_CODES[torch.float32])
+    rule = re.search(r"bool tensor_core_route\(int in_dtype\) \{\s*return ([^;]+);", header)
+    assert rule.group(1).strip() == "in_dtype == DTYPE_BF16"
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd_dkdv.cu"):
+        entry = (CSRC / source).read_text().split('extern "C"')[1]
+        assert "tensor_core_route(in_dtype)" in entry, source
+
+
+def test_misaligned_base_pointer_is_refused():
+    """cp.async moves 16 bytes: a view starting 2 bytes into a bf16 buffer
+    is refused; a fresh tensor passes."""
+    flat = torch.zeros(8 * 16 + 8, dtype=torch.bfloat16)
+    fa._check_aligned("flash_fwd", flat[:128].view(1, 8, 16))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_aligned("flash_fwd", flat[1:129].view(1, 8, 16))
+
+
+def test_launch_counts_split_by_route():
+    def wrapper():
+        pass
+
+    wrapper.launches = wrapper.launches_mma = 0
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        fa._count_launch(wrapper, dtype)
+    assert (wrapper.launches, wrapper.launches_mma) == (3, 2)
+    assert fa.flash_fwd.launches_mma >= 0 and fa.flash_bwd_dkdv.launches_mma >= 0

@@ -10,6 +10,7 @@ the same arrays; ``m`` and ``l`` come from the JAX forward.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -111,17 +112,32 @@ def test_delta_passed_in_equals_delta_computed():
 @pytest.mark.parametrize("causal", (False, True))
 def test_grad_dtype_f32_on_bf16_input_matches_jax(causal):
     """The ring backward's f32 partials for bf16 inputs: no bf16 rounding of
-    the gradients, so the f32 tolerance holds."""
+    the gradients, so the f32 tolerance holds. dQ is held against the JAX
+    Pallas backward. dK and dV take P and dS as bf16, as the tensor cores
+    do, so they are held against the JAX package's own P and dS
+    (``_recompute_p_ds`` over whole rows) rounded the same way, with the
+    two products in f32."""
     (q, k, v, do), _, _ = _case(causal, 64, 16, "bfloat16")
     jq, jk, jv, jdo = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do))
     out, m, l = jax_fa._fwd(jq, jk, jv, causal, 128, 128, True)
     expect = jax_fa._bwd_pallas(jq, jk, jv, out, m, l, jdo, causal, 128, 128, True,
                                 grad_dtype=jnp.float32)
+    delta = jnp.sum(jdo.astype(jnp.float32) * out.astype(jnp.float32), axis=-1)
+    rows = lambda t: t[None]  # noqa: E731 - one bh as a [1, S, D] block
+    expect_dk, expect_dv = [], []
+    for b in range(H):
+        qb, dob, p, ds = jax_fa._recompute_p_ds(
+            rows(jq[b]), rows(jk[b]), rows(jv[b]), rows(jdo[b]), m[b][None], l[b][None],
+            delta[b][None], 0, 0, scale=1.0 / np.sqrt(16), causal=causal, block_q=64,
+            block_k=64, q_len=64, kv_len=64)
+        r = lambda t: t.astype(jnp.bfloat16).astype(jnp.float32)  # noqa: E731
+        expect_dk.append(np.asarray(r(ds).T @ qb))
+        expect_dv.append(np.asarray(r(p).T @ dob))
     got = fa.flash_bwd(*(_t(a, "bfloat16") for a in (q, k, v)),
                        _t(np.asarray(out, np.float32), "bfloat16"),
                        _t(np.asarray(m)), _t(np.asarray(l)), _t(do, "bfloat16"), causal,
                        grad_dtype=torch.float32)
-    for g, e in zip(got, expect):
+    for g, e in zip(got, (expect[0], np.stack(expect_dk), np.stack(expect_dv))):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(e), **TOL["float32"])
 
@@ -210,3 +226,83 @@ def test_bad_backward_inputs_raise():
         fa.flash_bwd(meta, meta, meta, meta, st.to("meta"), st.to("meta"), meta)
     with pytest.raises(RuntimeError, match="not differentiable"):
         fa.flash_bwd(q.clone().requires_grad_(), q, q, q, st, st, q)
+
+
+# -- the two routes: bf16 dK/dV on the tensor cores (P, dS rounded), the rest f32
+
+
+def _direct_p_ds(q, k, v, do, m, l, delta, causal):
+    """P and dS written out once more in f32, op for op as before the
+    tensor-core route existed."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool)
+    if causal:
+        mask = torch.arange(s.shape[-2])[:, None] >= torch.arange(s.shape[-1])[None, :]
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    p = p / torch.clamp(l, min=1e-30)[..., None]
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    return p, ds
+
+
+def _bwd_args(causal, dtype):
+    (q, k, v, do), (out, m, l), _ = _case(causal, 77, 16, dtype)
+    q3, k3, v3, do3 = (_t(a, dtype) for a in (q, k, v, do))
+    m3, l3 = _t(m), _t(l)
+    delta = (do3.float() * _t(out, dtype).float()).sum(-1)
+    return q3, k3, v3, do3, m3, l3, delta
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_f32_plain_backward_is_unchanged_bit_for_bit(causal):
+    args = _bwd_args(causal, "float32")
+    q, k, v, do = args[:4]
+    p, ds = _direct_p_ds(*args, causal)
+    dk, dv = fa.flash_bwd_dkdv_reference(*args, causal)
+    assert torch.equal(dk, torch.matmul(ds.transpose(-1, -2), q))
+    assert torch.equal(dv, torch.matmul(p.transpose(-1, -2), do))
+    assert torch.equal(fa.flash_bwd_dq_reference(*args, causal), torch.matmul(ds, k))
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_bf16_plain_dkdv_rounds_p_and_ds_and_dq_does_not(causal):
+    """bf16 inputs: P and dS enter dV = P^T dO and dK = dS^T Q as bf16 (the
+    tensor cores' operands); dQ = dS K keeps the f32 dS (its kernel runs on
+    the CUDA cores)."""
+    args = _bwd_args(causal, "bfloat16")
+    q, k, _, do = (t.float() for t in args[:4])
+    p, ds = _direct_p_ds(*(t.float() for t in args[:4]), *args[4:], causal)
+    r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    dk, dv = fa.flash_bwd_dkdv_reference(*args, causal, torch.float32)
+    assert torch.equal(dk, torch.matmul(r(ds).transpose(-1, -2), q))
+    assert torch.equal(dv, torch.matmul(r(p).transpose(-1, -2), do))
+    dq = fa.flash_bwd_dq_reference(*args, causal, torch.float32)
+    assert torch.equal(dq, torch.matmul(ds, k))
+    # the rounding is there, and within the file's bf16 tolerance
+    unrounded = torch.matmul(ds.transpose(-1, -2), q)
+    assert not torch.equal(dk, unrounded)
+    np.testing.assert_allclose(dk.numpy(), unrounded.numpy(), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_bf16_flash_attention_grads_match_jax_grad(causal):
+    """bf16 inputs end to end through the autograd function (the rounding
+    plain versions on the CPU) against ``jax.grad`` through the JAX
+    ``custom_vjp`` with the Pallas backward, which keeps P and dS in f32:
+    the bf16 tolerance covers the rounding."""
+    rng = np.random.default_rng(20 + int(causal))
+    q, k, v = (_bf16_round(rng.standard_normal((1, 40, 2, 16)).astype(np.float32))
+               for _ in range(3))
+    w = rng.standard_normal((1, 40, 2, 16)).astype(np.float32)
+
+    def jloss(q, k, v):
+        o = jax_fa.flash_attention(q, k, v, causal=causal, interpret=True, bwd="pallas")
+        return jnp.sum(o.astype(jnp.float32) * w)
+
+    expect = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    tq, tk, tv = (_t(t, "bfloat16").requires_grad_() for t in (q, k, v))
+    torch.sum(fa.flash_attention(tq, tk, tv, causal=causal).float() * _t(w)).backward()
+    for g, e in zip((tq.grad, tk.grad, tv.grad), expect):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(e, np.float32),
+                                   **TOL["bfloat16"])

@@ -21,7 +21,13 @@ and may be passed in precomputed.
 Dispatch is by where the tensors lie: CPU tensors go to the plain versions
 (``*_reference``: whole score matrices, f32 accumulation); CUDA tensors go
 to the kernels in ``csrc/`` or the call raises. There is no fallback from
-one to the other. The kernel wrappers are not differentiable themselves:
+one to the other. On the card the forward and the dK/dV pass have two
+routes, by the input dtype (:func:`uses_tensor_cores`, the rule of the C
+dispatch): bf16 inputs run on the bf16 tensor cores, where the
+probabilities ``P`` (and, in dK/dV, the score gradients ``dS``) enter their
+products as bf16, so the plain versions round them there too for bf16
+inputs; f32 inputs keep the full-f32 CUDA-core kernels. The dQ pass has one
+route (f32 ``dS`` on the CUDA cores). The kernel wrappers are not differentiable themselves:
 with grad enabled they refuse a tensor that requires grad, and
 :func:`flash_attention` is the differentiable entry point.
 """
@@ -39,6 +45,7 @@ from tpu_dist_torch.ops import _build
 NEG_INF = -1e30  # the TPU kernel's fill: keeps exp() NaN-free
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CP_ASYNC_ALIGN = 16  # bytes a cp.async moves: the tensor-core kernels' operand alignment
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +64,36 @@ def _call(source: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
+
+
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Whether inputs of ``dtype`` take the tensor-core route of the forward
+    and dK/dV kernels: bf16 does, f32 keeps the f32 CUDA-core kernels (the
+    rule of csrc/flash_attention_mma.cuh::tensor_core_route)."""
+    return dtype == torch.bfloat16
+
+
+def _round_like_tensor_cores(x: torch.Tensor, in_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (f32) as the tensor-core kernels take it into a product: rounded
+    to bf16 (to nearest even) for bf16 inputs, unchanged otherwise."""
+    return x.to(torch.bfloat16).float() if uses_tensor_cores(in_dtype) else x
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    """cp.async copies 16 bytes at a time: refuse a base pointer that is not
+    16-byte aligned (a view that starts inside a tensor can be)."""
+    for t in tensors:
+        if t.data_ptr() % CP_ASYNC_ALIGN:
+            raise ValueError(
+                f"{name} takes tensors whose data starts {CP_ASYNC_ALIGN}-byte aligned "
+                f"(the kernels' cp.async); got an address {t.data_ptr() % CP_ASYNC_ALIGN} "
+                "bytes past it: pass a fresh .clone()"
+            )
+
+
+def _count_launch(wrapper, dtype: torch.dtype) -> None:
+    wrapper.launches += 1
+    wrapper.launches_mma += int(uses_tensor_cores(dtype))
 
 
 def _refuse_autograd(name: str, *tensors) -> None:
@@ -96,7 +133,8 @@ def _score_mask(s_q: int, s_k: int, causal: bool, device) -> torch.Tensor:
 def flash_fwd_reference(q3, k3, v3, causal: bool = False,
                         out_dtype: Optional[torch.dtype] = None):
     """The plain PyTorch version of :func:`flash_fwd`: the whole [S, S]
-    score matrix, one softmax, f32 throughout."""
+    score matrix, one softmax, f32 throughout; for bf16 inputs P enters
+    P V rounded to bf16, as on the tensor cores (l sums the f32 P)."""
     qf, kf, vf = (t.float() for t in (q3, k3, v3))
     scale = 1.0 / math.sqrt(q3.shape[-1])
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale        # [BH, Sq, Sk]
@@ -105,7 +143,8 @@ def flash_fwd_reference(q3, k3, v3, causal: bool = False,
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
-    out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)[..., None]
+    pv = torch.matmul(_round_like_tensor_cores(p, q3.dtype), vf)
+    out = pv / torch.clamp(l, min=1e-30)[..., None]
     return out.to(out_dtype or q3.dtype), m, l
 
 
@@ -137,12 +176,14 @@ def flash_fwd(q3, k3, v3, causal: bool = False,
     """[BH, S, D] q, k, v -> (out [BH, S, D], m [BH, S], l [BH, S]).
 
     CPU tensors run :func:`flash_fwd_reference`; CUDA tensors launch the
-    kernel (``flash_fwd.launches`` counts those launches) or raise."""
+    kernel or raise. ``flash_fwd.launches`` counts the launches and
+    ``flash_fwd.launches_mma`` those of the tensor-core route."""
     _refuse_autograd("flash_fwd", q3, k3, v3)
     _check_qkv("flash_fwd", q3, k3, v3)
     _check_dtype_override("out_dtype", out_dtype)
     if _placement("flash_fwd", q3, k3, v3) == "cpu":
         return flash_fwd_reference(q3, k3, v3, causal, out_dtype)
+    _check_aligned("flash_fwd", q3, k3, v3)
     bh, s, d = q3.shape
     odt = out_dtype or q3.dtype
     out = torch.empty((bh, s, d), dtype=odt, device=q3.device)
@@ -152,11 +193,12 @@ def flash_fwd(q3, k3, v3, causal: bool = False,
           q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
           out.data_ptr(), m.data_ptr(), l.data_ptr(),
           bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
-    flash_fwd.launches += 1
+    _count_launch(flash_fwd, q3.dtype)
     return out, m, l
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_mma = 0
 
 
 # -- backward ------------------------------------------------------------------
@@ -184,8 +226,11 @@ def _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal):
 
 def flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal: bool = False,
                              grad_dtype: Optional[torch.dtype] = None):
-    """The plain version of :func:`flash_bwd_dkdv`: dV = P^T dO, dK = dS^T Q."""
+    """The plain version of :func:`flash_bwd_dkdv`: dV = P^T dO, dK = dS^T Q;
+    for bf16 inputs P and dS enter the two products rounded to bf16, as on
+    the tensor cores."""
     qf, _, dof, p, ds = _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal)
+    p, ds = (_round_like_tensor_cores(t, q3.dtype) for t in (p, ds))
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     return dk.to(grad_dtype or k3.dtype), dv.to(grad_dtype or v3.dtype)
@@ -232,12 +277,14 @@ def flash_bwd_dkdv(q3, k3, v3, do3, m, l, delta, causal: bool = False,
                    grad_dtype: Optional[torch.dtype] = None):
     """The dK/dV pass: ``(dk, dv)`` [BH, S, D] in ``grad_dtype`` or the
     inputs' dtype. CPU tensors run :func:`flash_bwd_dkdv_reference`; CUDA
-    tensors launch ``csrc/flash_attention_bwd_dkdv.cu``
-    (``flash_bwd_dkdv.launches`` counts them) or raise."""
+    tensors launch ``csrc/flash_attention_bwd_dkdv.cu`` or raise
+    (``flash_bwd_dkdv.launches`` counts the launches,
+    ``flash_bwd_dkdv.launches_mma`` those of the tensor-core route)."""
     _refuse_autograd("flash_bwd_dkdv", q3, k3, v3, do3)
     _check_bwd("flash_bwd_dkdv", q3, k3, v3, do3, m, l, delta, grad_dtype)
     if _placement("flash_bwd_dkdv", q3, k3, v3, do3, m, l, delta) == "cpu":
         return flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    _check_aligned("flash_bwd_dkdv", q3, k3, v3, do3)
     odt = grad_dtype or q3.dtype
     dk = torch.empty(q3.shape, dtype=odt, device=q3.device)
     dv = torch.empty(q3.shape, dtype=odt, device=q3.device)
@@ -246,11 +293,12 @@ def flash_bwd_dkdv(q3, k3, v3, do3, m, l, delta, causal: bool = False,
           q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
           m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
-    flash_bwd_dkdv.launches += 1
+    _count_launch(flash_bwd_dkdv, q3.dtype)
     return dk, dv
 
 
 flash_bwd_dkdv.launches = 0
+flash_bwd_dkdv.launches_mma = 0
 
 
 def flash_bwd_dq(q3, k3, v3, do3, m, l, delta, causal: bool = False,
