@@ -12,13 +12,14 @@ Phases; any failure exits non-zero and prints no result line:
    ``tpu_dist_torch/csrc/build/``; print each kernel instance's registers
    and spills (``-Xptxas -v``, on a fresh build) and its tensor-core
    instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass`` of the library,
-   read every time); fail if a tensor-core instance of the forward or
-   dK/dV kernel has none.
+   read every time); fail if a tensor-core instance of a flash kernel has
+   none.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge cases (causal, ragged S, every head
    dim, bf16 in with f32 out), with the tolerance of each; f32 inputs take
-   the CUDA-core kernels, bf16 inputs the tensor-core kernels; a misaligned
-   bf16 input must be refused. CUDA-event times of the
+   the f32-accurate kernels (the forward's 3xTF32, the backward's CUDA
+   cores), bf16 inputs the bf16 tensor-core kernels; a misaligned bf16
+   input must be refused. CUDA-event times of the
    kernel, its plain version and one library call computing the same
    function (a yardstick the port never calls).
 3. kernels at the training shapes: the flash backward's dK/dV and dQ
@@ -47,7 +48,7 @@ Phases; any failure exits non-zero and prints no result line:
    (bf16 compute, batch 64, SGD lr 0.1, momentum 0.9, weight decay 1e-4,
    fused): 2 warmup steps, then 10 timed steps with the launch counts set
    to 0 just before and read just after (12 forward, 12 dK/dV, 12 dQ and
-   1 SGD launch per step; every forward and dK/dV launch on the
+   1 SGD launch per step; every forward, dK/dV and dQ launch on the
    tensor-core route) and a finite loss every step; step time,
    images/s, peak memory and each kernel's share of the step; then one
    ``make_eval_step`` over the batch.
@@ -85,6 +86,7 @@ from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit.
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 (the kernel's products)
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 inputs
+PEAK_TF32_FLOPS = 495e12     # tensor cores, TF32 inputs (the f32 forward's 3xTF32)
 PEAK_BYTES_PER_S = 3.35e12   # HBM3
 
 DEVICE = "cuda"  # every tensor of the run lives on the card
@@ -126,8 +128,9 @@ TOL_BWD = {"f32": (1e-4, 1e-4), "bf16": (1e-4, 2 ** -6)}
 # (|v| <~ 5 here), so these steps, of random sign over ~100 keys, move it
 # by ~1e-3: atol 4e-3 (one bf16 step of a unit value), plus two bf16 steps
 # of the result for bf16 out or one for f32 out. m and l are f32 and keep
-# TOL. dK/dV see only the flips (P and dS from the final m, l): each moves
-# a gradient by 2^-8 |p do| or 2^-8 |ds q|, ~1e-4 apiece: atol 1e-3, plus
+# TOL. dK/dV and dQ see only the flips (P and dS from the final m, l, and
+# the plain versions round dS for dQ as for dK): each moves a gradient by
+# 2^-8 |p do|, 2^-8 |ds q| or 2^-8 |ds k|, ~1e-4 apiece: atol 1e-3, plus
 # the same steps of the result.
 TOL_MMA = {"out_f32": (4e-3, 2 ** -8), "out_bf16": (4e-3, 2 ** -6)}
 TOL_BWD_MMA = {"f32": (1e-3, 2 ** -8), "bf16": (1e-3, 2 ** -6)}
@@ -189,10 +192,17 @@ WRAPPERS = {
     "fused_sgd": fs.fused_sgd,
 }
 # the kernels with a tensor-core route for bf16 inputs (a second count,
-# ``launches_mma``, on the wrapper), and the instances of that route each
-# library must hold: 2 output dtypes x 4 head dims
-MMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv")
+# ``launches_mma``, on the wrapper); each library holds 8 instances of
+# each route (2 output dtypes x 4 head dims), and the kernel functions
+# named here must show tensor-core instructions in every instance: the
+# bf16 route's, and the f32 forward's 3xTF32 kernel
+MMA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 MMA_INSTANCES = 8
+TENSOR_CORE_FUNCTIONS = {
+    "flash_attention_fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel"),
+    "flash_attention_bwd_dkdv": ("dkdv_mma_kernel",),
+    "flash_attention_bwd_dq": ("dq_mma_kernel",),
+}
 TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 
 
@@ -254,6 +264,25 @@ def flash_bound(bh: int, s: int, d: int, dtype=torch.float32):
     operations."""
     item = torch.finfo(dtype).bits // 8
     return bound(item * 4 * bh * s * d + 4 * 2 * bh * s, 4 * bh * s * s * d, _peak(dtype))
+
+
+def flash_bound_3xtf32(bh: int, s: int, d: int):
+    """The f32 forward as its kernel runs it: the bytes of
+    :func:`flash_bound`, and each of the two products as three TF32
+    products on the tensor cores (3 * 4 * BH * S^2 * D operations)."""
+    return bound(4 * 4 * bh * s * d + 4 * 2 * bh * s, 3 * 4 * bh * s * s * d, PEAK_TF32_FLOPS)
+
+
+def _library_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches (torch.profiler),
+    to show which backend served a library call; [] where the profiler
+    records none."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")})
 
 
 def flash_bwd_bounds(bh: int, s: int, d: int, dtype):
@@ -352,13 +381,17 @@ def _sass_tensor_core_counts(sass: str) -> dict:
 
 
 def _check_tensor_core_instances(name: str, counts: dict) -> None:
-    """The library of a kernel with a tensor-core route holds that route's
-    instances (``*_mma_kernel``), each with tensor-core instructions, and
-    as many CUDA-core instances (f32 inputs only)."""
-    mma = {fn: ops for fn, ops in counts.items() if "mma_kernel" in fn}
-    check(len(mma) == MMA_INSTANCES and len(counts) == 2 * MMA_INSTANCES,
+    """The library of a kernel with a tensor-core route holds the 8
+    instances of each route, and every instance of a function in
+    ``TENSOR_CORE_FUNCTIONS[name]`` has tensor-core instructions."""
+    funcs = TENSOR_CORE_FUNCTIONS[name]
+    # the function's name ends at "<" (demangled) or "I" (mangled)
+    mma = {fn: ops for fn, ops in counts.items()
+           if any(re.search(rf"(?<![a-z_]){f}[<I]", fn) for f in funcs)}
+    want = MMA_INSTANCES * len(funcs)
+    check(len(mma) == want and len(counts) == 2 * MMA_INSTANCES,
           f"{name}: {len(mma)} tensor-core instances of {len(counts)}, expected "
-          f"{MMA_INSTANCES} of {2 * MMA_INSTANCES}: {sorted(counts)}")
+          f"{want} of {2 * MMA_INSTANCES}: {sorted(counts)}")
     bare = [fn for fn, ops in mma.items() if sum(ops.values()) == 0]
     check(not bare, f"{name}: no tensor-core instruction in {bare}")
 
@@ -410,15 +443,20 @@ def phase_kernels() -> dict:
     kernel_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v))
     plain_ms = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-    bound_ms, bound_by = flash_bound(bh, s, d)
+    # the least time for this work: its products as the kernel runs them
+    # (3xTF32 on the tensor cores); and as f32 on the CUDA cores
+    bound_ms, bound_by = flash_bound_3xtf32(bh, s, d)
+    cuda_core_ms, cuda_core_by = flash_bound(bh, s, d)
     print(f"[kernels] flash_attention_fwd at [BH, S, D] = {list(VIT_B16_FWD_SHAPE)} f32: "
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"({bound_by}; 3xTF32) or {cuda_core_ms:.4f} ms ({cuda_core_by}; f32 CUDA cores)")
+    print("[kernels] the f32 scaled_dot_product_attention call runs: "
+          + ", ".join(_library_kernels(lambda: F.scaled_dot_product_attention(q4, k4, v4))))
     return {"flash_attention_fwd": {
         "max_abs_err": main_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_f32_cuda_cores": cuda_core_ms, "library_ms": library_ms,
     }}
 
 
@@ -447,7 +485,7 @@ def _fwd_case(name, shape, causal, dt, odt, gen) -> float:
 
 def _check_misaligned_refused(gen) -> None:
     """No fallback: a bf16 input whose data starts 2 bytes past a 16-byte
-    boundary is refused by both tensor-core wrappers, before any launch."""
+    boundary is refused by every tensor-core wrapper, before any launch."""
     shape = (4, 77, 64)
     n = math.prod(shape)
     flat = torch.randn(n + 8, device=DEVICE, generator=gen).to(torch.bfloat16)
@@ -457,7 +495,9 @@ def _check_misaligned_refused(gen) -> None:
     before = {name: WRAPPERS[name].launches for name in MMA_KERNELS}
     for name, call in (("flash_fwd", lambda: fa.flash_fwd(bad, good, good)),
                        ("flash_bwd_dkdv", lambda: fa.flash_bwd_dkdv(
-                           good, good, good, bad, stats, stats, stats))):
+                           good, good, good, bad, stats, stats, stats)),
+                       ("flash_bwd_dq", lambda: fa.flash_bwd_dq(
+                           good, bad, good, good, stats, stats, stats))):
         try:
             call()
         except ValueError as exc:
@@ -466,20 +506,21 @@ def _check_misaligned_refused(gen) -> None:
             raise SmokeError(f"{name} took a misaligned bf16 input")
     check({name: WRAPPERS[name].launches for name in MMA_KERNELS} == before,
           "a misaligned input reached a kernel")
-    print("[kernels] a bf16 input 2 bytes off 16-byte alignment: refused by flash_fwd and "
-          "flash_bwd_dkdv, no launch")
+    print("[kernels] a bf16 input 2 bytes off 16-byte alignment: refused by flash_fwd, "
+          "flash_bwd_dkdv and flash_bwd_dq, no launch")
 
 
 # -- phase 3 -----------------------------------------------------------------
 
 
 def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
-    """Both backward kernels against their plain versions on one case;
-    returns {kernel: max |err|}."""
+    """Both backward kernels against their plain versions on one case, each
+    on the route its input dtype selects; returns {kernel: max |err|}."""
     q, k, v, do = (torch.randn(shape, device=DEVICE, generator=gen).to(dt) for _ in range(4))
     out, m, l = fa.flash_fwd(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1)
-    before = fa.flash_bwd_dkdv.launches_mma
+    before = {kernel: WRAPPERS[kernel].launches_mma
+              for kernel in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
     if strided_do:  # same values, strided as autograd may hand them over
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
         dq, dk, dv = fa.flash_bwd(q, k, v, out, m, l, do, causal, grad_dtype=grad_dtype)
@@ -487,15 +528,20 @@ def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
         dk, dv = fa.flash_bwd_dkdv(q, k, v, do, m, l, delta, causal, grad_dtype)
         dq = fa.flash_bwd_dq(q, k, v, do, m, l, delta, causal, grad_dtype)
     torch.cuda.synchronize()  # a fault in a kernel surfaces here
-    mma = fa.flash_bwd_dkdv.launches_mma > before
-    check(mma == (dt == torch.bfloat16), f"{name}: {dt} took the wrong dK/dV route")
+    mma = {kernel: WRAPPERS[kernel].launches_mma > n for kernel, n in before.items()}
+    for kernel, on_mma in mma.items():
+        check(on_mma == (dt == torch.bfloat16), f"{kernel} {name}: {dt} took the wrong route")
     do = do.contiguous()
     r_dk, r_dv = fa.flash_bwd_dkdv_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
     r_dq = fa.flash_bwd_dq_reference(q, k, v, do, m, l, delta, causal, grad_dtype)
     errs = {}
-    for kernel, pairs, tol in (
-            ("flash_attention_bwd_dkdv", ((dk, r_dk), (dv, r_dv)), TOL_BWD_MMA if mma else TOL_BWD),
-            ("flash_attention_bwd_dq", ((dq, r_dq),), TOL_BWD)):
+    # each kernel's tolerance follows its route: bf16 inputs take the
+    # tensor-core kernels, held to TOL_BWD_MMA against plain versions that
+    # round P and dS where the kernels do (dQ's rounds dS); f32 inputs take
+    # the CUDA-core kernels, held to TOL_BWD
+    for kernel, pairs in (("flash_attention_bwd_dkdv", ((dk, r_dk), (dv, r_dv))),
+                          ("flash_attention_bwd_dq", ((dq, r_dq),))):
+        tol = TOL_BWD_MMA if mma[kernel] else TOL_BWD
         worst = 0.0
         for got, ref in pairs:
             check(got.dtype == ref.dtype and got.shape == ref.shape,
@@ -505,7 +551,8 @@ def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
             check(ok, f"{kernel} {name}: max |err| {err:.3g} outside tolerance")
             worst = max(worst, err)
         errs[kernel] = worst
-    print(f"[kernels] backward {name} (dK/dV on {'tensor cores' if mma else 'f32'}): max|err| "
+    route = "tensor cores" if mma["flash_attention_bwd_dkdv"] else "f32"
+    print(f"[kernels] backward {name} (dK/dV and dQ on {route}): max|err| "
           f"dK/dV {errs['flash_attention_bwd_dkdv']:.3g} dQ {errs['flash_attention_bwd_dq']:.3g}")
     return errs
 

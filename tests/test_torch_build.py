@@ -2,6 +2,7 @@
 builds to, and what makes it build again. No ``nvcc`` is needed: only the
 content hash in the library's name is computed."""
 
+import functools
 import pathlib
 
 import pytest
@@ -109,34 +110,44 @@ def test_the_smoke_run_counts_tensor_core_instructions_per_kernel():
     assert by_kernel["gemm_kernel"] == {"HMMA": 0, "HGMMA": 2}
 
 
-def _instances(hmma_of_mma):
-    """A library's kernel instances: 8 CUDA-core ones and 8 tensor-core ones
-    with the given HMMA counts."""
-    counts = {f"flash_fwd_kernel<float, float, {d}>": {"HMMA": 0, "HGMMA": 0}
-              for d in range(8)}
-    counts.update({f"flash_fwd_mma_kernel<float, {d}>": {"HMMA": n, "HGMMA": 0}
+def _instances(f32, hmma_of_f32, mma, hmma_of_mma):
+    """A library's kernel instances: 8 of the f32 route's kernel ``f32`` and
+    8 of the bf16 tensor-core kernel ``mma``, with the given HMMA counts."""
+    counts = {f"{f32}<float, {d}>": {"HMMA": n, "HGMMA": 0} for d, n in enumerate(hmma_of_f32)}
+    counts.update({f"{mma}<float, {d}>": {"HMMA": n, "HGMMA": 0}
                    for d, n in enumerate(hmma_of_mma)})
     return counts
 
 
 def test_the_smoke_run_fails_a_tensor_core_instance_without_tensor_core_code():
-    chip_smoke._check_tensor_core_instances("flash_attention_fwd", _instances([64] * 8))
+    """Every instance of the bf16 routes' kernels needs tensor-core code, and
+    so does every instance of the forward's f32 (3xTF32) kernel; the f32
+    backward kernels run on the CUDA cores and need none."""
+    fwd = functools.partial(_instances, "flash_fwd_kernel", mma="flash_fwd_mma_kernel")
+    check = chip_smoke._check_tensor_core_instances
+    check("flash_attention_fwd", fwd([96] * 8, hmma_of_mma=[64] * 8))
     with pytest.raises(chip_smoke.SmokeError, match="no tensor-core instruction"):
-        chip_smoke._check_tensor_core_instances("flash_attention_fwd",
-                                                _instances([64] * 7 + [0]))
+        check("flash_attention_fwd", fwd([96] * 8, hmma_of_mma=[64] * 7 + [0]))
+    with pytest.raises(chip_smoke.SmokeError, match="no tensor-core instruction"):
+        check("flash_attention_fwd", fwd([96] * 7 + [0], hmma_of_mma=[64] * 8))
     with pytest.raises(chip_smoke.SmokeError, match="tensor-core instances"):
-        chip_smoke._check_tensor_core_instances("flash_attention_fwd", _instances([64] * 7))
+        check("flash_attention_fwd", fwd([96] * 8, hmma_of_mma=[64] * 7))
+    dq = functools.partial(_instances, "dq_kernel", [0] * 8, "dq_mma_kernel")
+    check("flash_attention_bwd_dq", dq([96] * 8))
+    with pytest.raises(chip_smoke.SmokeError, match="no tensor-core instruction"):
+        check("flash_attention_bwd_dq", dq([96] * 7 + [0]))
 
 
 def test_the_shared_mma_header_is_hashed_into_both_libraries(tmp_path, monkeypatch):
-    """Editing ``flash_attention_mma.cuh`` rebuilds the forward and the dK/dV
-    libraries (and, as every header does, the others)."""
+    """Editing ``flash_attention_mma.cuh`` rebuilds the forward, the dK/dV
+    and the dQ libraries (and, as every header does, the others)."""
     real = ROOT / "tpu_dist_torch" / "csrc"
     csrc = _csrc(tmp_path, monkeypatch, {
         p.name: p.read_text() for p in (*real.glob("*.cu"), *real.glob("*.cuh"))})
     users = [p.stem for p in real.glob("*.cu")
              if '#include "flash_attention_mma.cuh"' in p.read_text()]
-    assert sorted(users) == ["flash_attention_bwd_dkdv", "flash_attention_fwd"]
+    assert sorted(users) == ["flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                             "flash_attention_fwd"]
     before = {name: _build.library_path(name) for name in users}
     header = csrc / "flash_attention_mma.cuh"
     header.write_text(header.read_text() + "// edited\n")

@@ -252,8 +252,8 @@ def test_route_rule_is_by_input_dtype():
 def test_route_rule_matches_the_c_dispatch():
     """The wrappers count a launch as a tensor-core one by the rule the C
     dispatch applies: ``tensor_core_route`` of the shared header is true for
-    the dtype code of bf16 alone, and both kernels' C entry points branch on
-    it."""
+    the dtype code of bf16 alone, and every flash kernel's C entry point
+    branches on it."""
     header = (CSRC / "flash_attention_mma.cuh").read_text()
     codes = dict(re.findall(r"constexpr int DTYPE_(F32|BF16) = (\d+);", header))
     assert {"F32": "0", "BF16": "1"} == codes
@@ -261,7 +261,8 @@ def test_route_rule_matches_the_c_dispatch():
     assert codes["F32"] == str(fa._DTYPE_CODES[torch.float32])
     rule = re.search(r"bool tensor_core_route\(int in_dtype\) \{\s*return ([^;]+);", header)
     assert rule.group(1).strip() == "in_dtype == DTYPE_BF16"
-    for source in ("flash_attention_fwd.cu", "flash_attention_bwd_dkdv.cu"):
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd_dkdv.cu",
+                   "flash_attention_bwd_dq.cu"):
         entry = (CSRC / source).read_text().split('extern "C"')[1]
         assert "tensor_core_route(in_dtype)" in entry, source
 
@@ -283,4 +284,4 @@ def test_launch_counts_split_by_route():
     for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
         fa._count_launch(wrapper, dtype)
     assert (wrapper.launches, wrapper.launches_mma) == (3, 2)
-    assert fa.flash_fwd.launches_mma >= 0 and fa.flash_bwd_dkdv.launches_mma >= 0
+    assert all(w.launches_mma >= 0 for w in (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq))

@@ -112,32 +112,30 @@ def test_delta_passed_in_equals_delta_computed():
 @pytest.mark.parametrize("causal", (False, True))
 def test_grad_dtype_f32_on_bf16_input_matches_jax(causal):
     """The ring backward's f32 partials for bf16 inputs: no bf16 rounding of
-    the gradients, so the f32 tolerance holds. dQ is held against the JAX
-    Pallas backward. dK and dV take P and dS as bf16, as the tensor cores
-    do, so they are held against the JAX package's own P and dS
-    (``_recompute_p_ds`` over whole rows) rounded the same way, with the
-    two products in f32."""
+    the gradients, so the f32 tolerance holds. dQ, dK and dV take P and dS
+    as bf16, as the tensor cores do, so they are held against the JAX
+    package's own P and dS (``_recompute_p_ds`` over whole rows) rounded
+    the same way, with the three products in f32."""
     (q, k, v, do), _, _ = _case(causal, 64, 16, "bfloat16")
     jq, jk, jv, jdo = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do))
     out, m, l = jax_fa._fwd(jq, jk, jv, causal, 128, 128, True)
-    expect = jax_fa._bwd_pallas(jq, jk, jv, out, m, l, jdo, causal, 128, 128, True,
-                                grad_dtype=jnp.float32)
     delta = jnp.sum(jdo.astype(jnp.float32) * out.astype(jnp.float32), axis=-1)
     rows = lambda t: t[None]  # noqa: E731 - one bh as a [1, S, D] block
-    expect_dk, expect_dv = [], []
+    expect_dq, expect_dk, expect_dv = [], [], []
     for b in range(H):
         qb, dob, p, ds = jax_fa._recompute_p_ds(
             rows(jq[b]), rows(jk[b]), rows(jv[b]), rows(jdo[b]), m[b][None], l[b][None],
             delta[b][None], 0, 0, scale=1.0 / np.sqrt(16), causal=causal, block_q=64,
             block_k=64, q_len=64, kv_len=64)
         r = lambda t: t.astype(jnp.bfloat16).astype(jnp.float32)  # noqa: E731
+        expect_dq.append(np.asarray(r(ds) @ jk[b].astype(jnp.float32)))
         expect_dk.append(np.asarray(r(ds).T @ qb))
         expect_dv.append(np.asarray(r(p).T @ dob))
     got = fa.flash_bwd(*(_t(a, "bfloat16") for a in (q, k, v)),
                        _t(np.asarray(out, np.float32), "bfloat16"),
                        _t(np.asarray(m)), _t(np.asarray(l)), _t(do, "bfloat16"), causal,
                        grad_dtype=torch.float32)
-    for g, e in zip(got, (expect[0], np.stack(expect_dk), np.stack(expect_dv))):
+    for g, e in zip(got, (np.stack(expect_dq), np.stack(expect_dk), np.stack(expect_dv))):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(e), **TOL["float32"])
 
@@ -228,7 +226,7 @@ def test_bad_backward_inputs_raise():
         fa.flash_bwd(q.clone().requires_grad_(), q, q, q, st, st, q)
 
 
-# -- the two routes: bf16 dK/dV on the tensor cores (P, dS rounded), the rest f32
+# -- the two routes: bf16 on the tensor cores (P, dS rounded), f32 unrounded
 
 
 def _direct_p_ds(q, k, v, do, m, l, delta, causal):
@@ -265,10 +263,9 @@ def test_f32_plain_backward_is_unchanged_bit_for_bit(causal):
 
 
 @pytest.mark.parametrize("causal", (False, True))
-def test_bf16_plain_dkdv_rounds_p_and_ds_and_dq_does_not(causal):
-    """bf16 inputs: P and dS enter dV = P^T dO and dK = dS^T Q as bf16 (the
-    tensor cores' operands); dQ = dS K keeps the f32 dS (its kernel runs on
-    the CUDA cores)."""
+def test_bf16_plain_backward_rounds_p_and_ds_where_the_tensor_cores_do(causal):
+    """bf16 inputs: P and dS enter dV = P^T dO, dK = dS^T Q and dQ = dS K as
+    bf16 (the tensor cores' operands); everything else stays f32."""
     args = _bwd_args(causal, "bfloat16")
     q, k, _, do = (t.float() for t in args[:4])
     p, ds = _direct_p_ds(*(t.float() for t in args[:4]), *args[4:], causal)
@@ -277,11 +274,12 @@ def test_bf16_plain_dkdv_rounds_p_and_ds_and_dq_does_not(causal):
     assert torch.equal(dk, torch.matmul(r(ds).transpose(-1, -2), q))
     assert torch.equal(dv, torch.matmul(r(p).transpose(-1, -2), do))
     dq = fa.flash_bwd_dq_reference(*args, causal, torch.float32)
-    assert torch.equal(dq, torch.matmul(ds, k))
+    assert torch.equal(dq, torch.matmul(r(ds), k))
     # the rounding is there, and within the file's bf16 tolerance
-    unrounded = torch.matmul(ds.transpose(-1, -2), q)
-    assert not torch.equal(dk, unrounded)
-    np.testing.assert_allclose(dk.numpy(), unrounded.numpy(), **TOL["bfloat16"])
+    for got, unrounded in ((dk, torch.matmul(ds.transpose(-1, -2), q)),
+                           (dq, torch.matmul(ds, k))):
+        assert not torch.equal(got, unrounded)
+        np.testing.assert_allclose(got.numpy(), unrounded.numpy(), **TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("causal", (False, True))
@@ -306,3 +304,47 @@ def test_bf16_flash_attention_grads_match_jax_grad(causal):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), np.asarray(e, np.float32),
                                    **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("causal", (False, True))
+@pytest.mark.parametrize("d", (16, 64))
+def test_bf16_flash_bwd_matches_jax_bwd_pallas(causal, d):
+    """bf16 inputs through the port's ``flash_bwd`` (dS rounded to bf16 in
+    dQ as in dK/dV) against the JAX Pallas backward in interpret mode,
+    which keeps P and dS in f32: the file's bf16 tolerance covers the
+    rounding."""
+    (q, k, v, do), (out, m, l), expect = _case(causal, 77, d, "bfloat16")
+    got = fa.flash_bwd(*(_t(a, "bfloat16") for a in (q, k, v, out)), _t(m), _t(l),
+                       _t(do, "bfloat16"), causal)
+    for name, g, e in zip(("dq", "dk", "dv"), got, expect):
+        assert g.dtype == torch.bfloat16 and g.shape == (H, 77, d), name
+        np.testing.assert_allclose(g.float().numpy(), e, **TOL["bfloat16"], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_dq_launches_mma_moves_only_with_a_tensor_core_launch(dtype, monkeypatch):
+    """``flash_bwd_dq.launches_mma`` counts the launches of the bf16
+    tensor-core route: a CPU call moves no count, an f32 launch moves
+    ``launches`` alone, a bf16 launch both, and a misaligned bf16 input is
+    refused before any launch. The launch itself is stubbed: the kernel
+    runs only on the card."""
+    args = _bwd_args(False, dtype)
+    monkeypatch.setattr(fa.flash_bwd_dq, "launches", 0)
+    monkeypatch.setattr(fa.flash_bwd_dq, "launches_mma", 0)
+    fa.flash_bwd_dq(*args)
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_mma) == (0, 0)
+
+    calls = []
+    monkeypatch.setattr(fa, "_placement", lambda name, *tensors: "cuda")
+    monkeypatch.setattr(fa, "_call", lambda source, device, *a: calls.append((source, a)))
+    fa.flash_bwd_dq(*args)
+    bf16 = dtype == "bfloat16"
+    assert [source for source, _ in calls] == ["flash_attention_bwd_dq"]
+    assert calls[0][1][-3:-1] == (int(bf16), int(bf16))  # in_dtype, out_dtype codes
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dq.launches_mma) == (1, int(bf16))
+    if bf16:
+        flat = torch.zeros(args[1].numel() + 8, dtype=torch.bfloat16)
+        bad = flat[1:args[1].numel() + 1].view(args[1].shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_bwd_dq(args[0], bad, *args[2:])
+        assert len(calls) == 1 and fa.flash_bwd_dq.launches == 1

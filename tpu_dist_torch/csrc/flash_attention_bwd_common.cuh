@@ -1,11 +1,13 @@
-// Shared block math of the two flash-attention backward kernels
+// Shared block math of the flash-attention backward kernels
 // (flash_attention_bwd_dkdv.cu and flash_attention_bwd_dq.cu).
 //
 // Counterpart of tpu_dist/ops/flash_attention.py::_recompute_p_ds: one
 // definition of the mask, the max(l, 1e-30) clamp and the probability /
-// score-gradient recompute, so the dK/dV and the dQ passes never desync.
-// Both kernels use 64-row tiles of q and of k, 256 threads, and four
-// threads per tile row; operands are staged in shared memory as f32.
+// score-gradient recompute, so the dK/dV and the dQ passes, on either
+// route, never desync. Every kernel uses 64-row tiles of q and of k. The
+// f32 CUDA-core kernels (dkdv_kernel, dq_kernel) run 256 threads, four per
+// tile row, with operands staged in shared memory as f32; the tensor-core
+// kernels take their geometry from flash_attention_mma.cuh.
 
 #pragma once
 
@@ -87,8 +89,9 @@ __host__ __device__ constexpr size_t tile_floats() {
   return (size_t)BLOCK * (D + PAD);
 }
 
-// Runtime dtype codes (0 = float32, 1 = bfloat16) and head dim to one
-// template instance: calls f(tag<TI>, tag<TO>, integral_constant<D>).
+// Runtime output dtype code (0 = float32, 1 = bfloat16) and head dim to one
+// template instance of input type TI: calls f(tag<TI>, tag<TO>,
+// integral_constant<D>).
 template <typename T>
 struct tag {
   using type = T;
@@ -109,13 +112,6 @@ template <typename TI, typename F>
 cudaError_t dispatch_out(int out_dtype, int D, F& f) {
   if (out_dtype == 0) return dispatch_d<TI, float>(D, f);
   if (out_dtype == 1) return dispatch_d<TI, __nv_bfloat16>(D, f);
-  return cudaErrorInvalidValue;
-}
-
-template <typename F>
-cudaError_t dispatch(int in_dtype, int out_dtype, int D, F f) {
-  if (in_dtype == 0) return dispatch_out<float>(out_dtype, D, f);
-  if (in_dtype == 1) return dispatch_out<__nv_bfloat16>(out_dtype, D, f);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,5 @@
-// bf16 tensor-core toolkit of the flash-attention kernels (forward, dK/dV,
-// and dQ next): warp-level mma.sync.m16n8k16 with f32 accumulation, operands
+// bf16 tensor-core toolkit of the flash-attention kernels (forward, dK/dV
+// and dQ): warp-level mma.sync.m16n8k16 with f32 accumulation, operands
 // staged by cp.async and read into fragments by ldmatrix. Inline PTX only;
 // no library code.
 //
@@ -35,8 +35,9 @@ constexpr int DTYPE_BF16 = 1;
 
 // The route rule, one definition for every flash kernel's C dispatch (and
 // mirrored by ops/flash_attention.py::uses_tensor_cores): bf16 inputs take
-// the tensor-core kernels; f32 inputs keep the f32 CUDA-core kernels, whose
-// full-f32 products the serving path is checked against.
+// the bf16 tensor-core kernels; f32 inputs keep f32-accurate kernels (the
+// forward's 3xTF32 products, the backward's f32 CUDA cores), which the
+// serving path and the f32 training parity hold to full-f32 results.
 __host__ __device__ constexpr bool tensor_core_route(int in_dtype) {
   return in_dtype == DTYPE_BF16;
 }

@@ -21,15 +21,15 @@ and may be passed in precomputed.
 Dispatch is by where the tensors lie: CPU tensors go to the plain versions
 (``*_reference``: whole score matrices, f32 accumulation); CUDA tensors go
 to the kernels in ``csrc/`` or the call raises. There is no fallback from
-one to the other. On the card the forward and the dK/dV pass have two
-routes, by the input dtype (:func:`uses_tensor_cores`, the rule of the C
-dispatch): bf16 inputs run on the bf16 tensor cores, where the
-probabilities ``P`` (and, in dK/dV, the score gradients ``dS``) enter their
-products as bf16, so the plain versions round them there too for bf16
-inputs; f32 inputs keep the full-f32 CUDA-core kernels. The dQ pass has one
-route (f32 ``dS`` on the CUDA cores). The kernel wrappers are not differentiable themselves:
-with grad enabled they refuse a tensor that requires grad, and
-:func:`flash_attention` is the differentiable entry point.
+one to the other. On the card every kernel has two routes, by the input
+dtype (:func:`uses_tensor_cores`, the rule of the C dispatch): bf16 inputs
+run on the bf16 tensor cores, where the probabilities ``P`` (forward,
+dK/dV) and the score gradients ``dS`` (dK/dV, dQ) enter their products as
+bf16, so the plain versions round them there too for bf16 inputs; f32
+inputs keep f32-accurate kernels, and their plain versions round nothing.
+The kernel wrappers are not differentiable themselves: with grad enabled
+they refuse a tensor that requires grad, and :func:`flash_attention` is
+the differentiable entry point.
 """
 
 from __future__ import annotations
@@ -67,9 +67,9 @@ def _call(source: str, device: torch.device, *args) -> None:
 
 
 def uses_tensor_cores(dtype: torch.dtype) -> bool:
-    """Whether inputs of ``dtype`` take the tensor-core route of the forward
-    and dK/dV kernels: bf16 does, f32 keeps the f32 CUDA-core kernels (the
-    rule of csrc/flash_attention_mma.cuh::tensor_core_route)."""
+    """Whether inputs of ``dtype`` take the bf16 tensor-core route of the
+    forward, dK/dV and dQ kernels: bf16 does, f32 keeps the f32-accurate
+    kernels (the rule of csrc/flash_attention_mma.cuh::tensor_core_route)."""
     return dtype == torch.bfloat16
 
 
@@ -238,9 +238,10 @@ def flash_bwd_dkdv_reference(q3, k3, v3, do3, m, l, delta, causal: bool = False,
 
 def flash_bwd_dq_reference(q3, k3, v3, do3, m, l, delta, causal: bool = False,
                            grad_dtype: Optional[torch.dtype] = None):
-    """The plain version of :func:`flash_bwd_dq`: dQ = dS K."""
+    """The plain version of :func:`flash_bwd_dq`: dQ = dS K; for bf16 inputs
+    dS enters the product rounded to bf16, as on the tensor cores."""
     _, kf, _, _, ds = _p_ds_reference(q3, k3, v3, do3, m, l, delta, causal)
-    return torch.matmul(ds, kf).to(grad_dtype or q3.dtype)
+    return torch.matmul(_round_like_tensor_cores(ds, q3.dtype), kf).to(grad_dtype or q3.dtype)
 
 
 def flash_bwd_reference(q3, k3, v3, o3, m, l, do3, causal: bool = False, *,
@@ -305,12 +306,14 @@ def flash_bwd_dq(q3, k3, v3, do3, m, l, delta, causal: bool = False,
                  grad_dtype: Optional[torch.dtype] = None):
     """The dQ pass: ``dq`` [BH, S, D] in ``grad_dtype`` or q's dtype. CPU
     tensors run :func:`flash_bwd_dq_reference`; CUDA tensors launch
-    ``csrc/flash_attention_bwd_dq.cu`` (``flash_bwd_dq.launches`` counts
-    them) or raise."""
+    ``csrc/flash_attention_bwd_dq.cu`` or raise (``flash_bwd_dq.launches``
+    counts the launches, ``flash_bwd_dq.launches_mma`` those of the
+    tensor-core route)."""
     _refuse_autograd("flash_bwd_dq", q3, k3, v3, do3)
     _check_bwd("flash_bwd_dq", q3, k3, v3, do3, m, l, delta, grad_dtype)
     if _placement("flash_bwd_dq", q3, k3, v3, do3, m, l, delta) == "cpu":
         return flash_bwd_dq_reference(q3, k3, v3, do3, m, l, delta, causal, grad_dtype)
+    _check_aligned("flash_bwd_dq", q3, k3, v3, do3)
     odt = grad_dtype or q3.dtype
     dq = torch.empty(q3.shape, dtype=odt, device=q3.device)
     bh, s, d = q3.shape
@@ -318,11 +321,12 @@ def flash_bwd_dq(q3, k3, v3, do3, m, l, delta, causal: bool = False,
           q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
           m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
           bh, s, d, _DTYPE_CODES[q3.dtype], _DTYPE_CODES[odt], int(bool(causal)))
-    flash_bwd_dq.launches += 1
+    _count_launch(flash_bwd_dq, q3.dtype)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_mma = 0
 
 
 def flash_bwd(q3, k3, v3, o3, m, l, do3, causal: bool = False, *,
