@@ -52,7 +52,26 @@ Phases; any failure exits non-zero and prints no result line:
    tensor-core route) and a finite loss every step; step time,
    images/s, peak memory and each kernel's share of the step; then one
    ``make_eval_step`` over the batch.
-6. report: the card's name and power limit, one JSON line of every ported
+6. train ResNet-18 (``resnet18_cifar100``): the fused SGD kernel at
+   ResNet-18's 62 leaves (11,220,132 parameters), 3 steps bit for bit
+   against its plain version, then times of the kernel, its plain version
+   and ``torch.optim.SGD(fused=True).step()`` beside its bytes bound. Then
+   over a 1-rank NCCL process group: (a) f32 parity, TF32 off, batch 32, 3
+   steps of fused against plain SGD from the same bridged weights through
+   the data-parallel step (SyncBN on), losses to 1e-4 relative; (b) the
+   main path, ``Trainer(cfg).fit()`` at full width (CIFAR stem, widths
+   64-512, 100 classes): bf16 compute over f32 masters, global batch 256,
+   SyncBN, fused SGD, synthetic 50,000 images, 2 epochs of 20 steps, an
+   eval of the 10,000 test images after each. Counts are set to 0 just
+   before ``fit`` and read just after: finite losses, 1 fused SGD launch
+   and 1 gradient all-reduce (the port's own counter in
+   ``comm/collectives.py``) per step, 10,000 real eval examples per eval;
+   step times (each step ended by ``synchronize``), images/s, peak memory,
+   the eval top-1, and a profile of 2 more steps. (c) The real entry point
+   as a subprocess: ``python -m tpu_dist_torch.cli.distributed_mp
+   --dataset synthetic --synthetic_n 2560 --epochs 1 --steps_per_epoch 3
+   --batch_size 256`` must exit 0 with one rank-0 epoch line.
+7. report: the card's name and power limit, one JSON line of every ported
    kernel, and the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -75,6 +94,9 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dist_torch import bridge
+from tpu_dist_torch.comm import mesh as mesh_lib
+from tpu_dist_torch.config.config import TrainConfig
+from tpu_dist_torch.nn import resnet as resnet_lib
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import counters as counters_lib
 from tpu_dist_torch.ops import _build
@@ -82,6 +104,7 @@ from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
 from tpu_dist_torch.serve.engine import ServingEngine
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
+from tpu_dist_torch.train import trainer as trainer_lib
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit.
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 (the kernel's products)
@@ -865,11 +888,11 @@ def _train_parity_bf16() -> None:
               f"bf16 parity step {i}: loss flash {a!r} vs xla {xla_losses[i]!r}")
 
 
-def _profile_steps(train_step, st, images, labels) -> None:
+def _profile_steps(train_step, st, images, labels, lr=TRAIN_LR, tag="train") -> None:
     """Device time by kernel over 2 steps under torch.profiler; the device's
     busy share of that (profiled, so slowed) window. Prints what the
-    profiler gives; a profiler without device times is reported, not
-    fatal."""
+    profiler gives, under ``[tag]``; a profiler without device times is
+    reported, not fatal."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     try:
@@ -877,7 +900,7 @@ def _profile_steps(train_step, st, images, labels) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(2):
-                st, _ = train_step(st, images, labels, TRAIN_LR)
+                st, _ = train_step(st, images, labels, lr)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -890,17 +913,17 @@ def _profile_steps(train_step, st, images, labels) -> None:
                         key=dev_us, reverse=True)
         busy_us = sum(dev_us(e) for e in events)
         if busy_us <= 0:
-            print("[train] profiler: no device time recorded")
+            print(f"[{tag}] profiler: no device time recorded")
             return
-        print(f"[train] profiler, 2 steps: device busy {busy_us / 1e3:.3f} ms of "
+        print(f"[{tag}] profiler, 2 steps: device busy {busy_us / 1e3:.3f} ms of "
               f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.3f}; idle share "
               f"{1 - busy_us / wall_us:.3f}, under the profiler)")
         for e in events[:12]:
             if dev_us(e) > 0:
-                print(f"[train]   {dev_us(e) / 1e3:9.3f} ms  {dev_us(e) / busy_us:6.3f}  "
+                print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms  {dev_us(e) / busy_us:6.3f}  "
                       f"x{e.count}  {e.key[:90]}")
     except Exception as exc:  # noqa: BLE001 — an optional measurement
-        print(f"[train] profiler: not available ({type(exc).__name__}: {exc})")
+        print(f"[{tag}] profiler: not available ({type(exc).__name__}: {exc})")
 
 
 def _train_config(kernel_ms: dict) -> dict:
@@ -974,6 +997,226 @@ def phase_train(kernel_ms: dict) -> dict:
     return launches
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+RESNET_LEAVES, RESNET_PARAMS = 62, 11_220_132  # ResNet-18, 100 classes
+RESNET_RUN = dict(  # bench.py's resnet18_cifar100, cut to 2 x 20 steps
+    model="resnet18", num_classes=100, dataset="synthetic", synthetic_n=50_000,
+    batch_size=256, bf16=True, sync_bn=True, fused_optimizer=True, lr=0.1,
+    epochs=2, steps_per_epoch=20, eval_every=1, log_every=10, seed=1,
+)
+RESNET_WARMUP = 2  # first steps of the run, left out of the step times
+RESNET_PARITY_BATCH, RESNET_PARITY_STEPS = 32, 3
+# f32 parity, TF32 off, fused SGD vs plain SGD from the same weights: the
+# two updates are bit-identical (the kernel phase checks that), so what
+# differs is cuDNN's backward, which may sum in another order from one call
+# to the next: ~1e-6 relative in the loss after 3 steps. Limit 1e-4.
+RESNET_PARITY_LOSS_RTOL = 1e-4
+
+
+def _free_port() -> int:
+    import socket  # noqa: PLC0415
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _resnet_sgd_kernel() -> dict:
+    """The fused SGD kernel at ResNet-18's 62 leaves: 3 steps bit for bit
+    against its plain version, then CUDA-event times of the kernel, the
+    plain version and ``torch.optim.SGD(fused=True).step()`` on the same
+    leaves, and the bytes bound."""
+    shapes = [p.shape for p in resnet_lib.resnet18(device="meta").parameters()]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def leaves():
+        return [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+
+    params = leaves()
+    ref_params = [p.clone() for p in params]
+    bufs, ref_bufs = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+    n_params = sum(p.numel() for p in params)
+    check(len(params) == RESNET_LEAVES and n_params == RESNET_PARAMS,
+          f"resnet18: {len(params)} leaves, {n_params} parameters")
+    lr = torch.full((), RESNET_RUN["lr"], device=DEVICE)
+    err = 0.0
+    for _ in range(3):
+        grads = leaves()
+        fs.fused_sgd(params, grads, bufs, lr)
+        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
+        torch.cuda.synchronize()
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip(params + bufs, ref_params + ref_bufs)))
+    check(err == 0.0, f"fused_sgd at resnet18's leaves differs from its plain version by {err}")
+    grads = leaves()
+    lib_params = [torch.nn.Parameter(p.clone()) for p in ref_params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib_opt = torch.optim.SGD(lib_params, lr=RESNET_RUN["lr"], momentum=0.9, weight_decay=1e-4,
+                              fused=True)
+    out = {
+        "max_abs_err_resnet18": err,
+        "ms_resnet18": cuda_ms(lambda: fs.fused_sgd(params, grads, bufs, lr), iters=50),
+        "plain_ms_resnet18": cuda_ms(
+            lambda: fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr), iters=20),
+        "library_ms_resnet18": cuda_ms(lib_opt.step, iters=50),
+    }
+    out["bound_ms_resnet18"], out["bound_by_resnet18"] = sgd_bound(n_params)
+    print(f"[resnet] fused_sgd over resnet18's {len(params)} leaves, {n_params} parameters: "
+          f"3 steps bit for bit with its plain version; kernel {out['ms_resnet18']:.4f} ms, "
+          f"plain {out['plain_ms_resnet18']:.4f} ms, torch.optim.SGD(fused=True).step() "
+          f"{out['library_ms_resnet18']:.4f} ms, bound {out['bound_ms_resnet18']:.4f} ms "
+          f"({out['bound_by_resnet18']}: {20 * n_params / 1e6:.1f} MB)")
+    return out
+
+
+def _resnet_parity() -> None:
+    """f32, TF32 off: fused SGD against plain SGD from the same bridged
+    weights, through the data-parallel step over the 1-rank NCCL group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params, bn_state = bridge.resnet_params_to_jax(resnet_lib.resnet18(device="cpu", seed=0))
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.standard_normal(
+        (RESNET_PARITY_STEPS, RESNET_PARITY_BATCH, 32, 32, 3), dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 100, (RESNET_PARITY_STEPS, RESNET_PARITY_BATCH),
+                                           dtype=np.int32)).to(DEVICE)
+    runs = {}
+    for fused in (True, False):
+        model = bridge.load_jax_resnet(resnet_lib.resnet18(device=DEVICE), params, bn_state)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=fused)
+        st = state_lib.TrainState.create(model, opt)
+        train_step = step_lib.make_train_step(opt, sync_bn=True)
+        before = fs.fused_sgd.launches
+        losses = []
+        for i in range(RESNET_PARITY_STEPS):
+            st, metrics = train_step(st, images[i], labels[i], RESNET_RUN["lr"])
+            losses.append(metrics["loss"].item())
+        check(fs.fused_sgd.launches - before == (RESNET_PARITY_STEPS if fused else 0),
+              f"resnet parity (fused={fused}): {fs.fused_sgd.launches - before} kernel launches")
+        runs[fused] = (losses, [p.detach() for p in model.parameters()])
+    (f_losses, f_params), (p_losses, p_params) = runs[True], runs[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f_losses, p_losses)]
+    worst = max(float((a - b).abs().max()) for a, b in zip(f_params, p_params))
+    print(f"[resnet] parity, f32 (TF32 off), batch {RESNET_PARITY_BATCH}, {RESNET_PARITY_STEPS} "
+          f"steps: losses fused {f_losses} vs plain {p_losses}; relative differences {rel} "
+          f"(limit {RESNET_PARITY_LOSS_RTOL}); largest parameter difference {worst:.3g}")
+    for i, (a, r) in enumerate(zip(f_losses, rel)):
+        check(math.isfinite(a) and r <= RESNET_PARITY_LOSS_RTOL,
+              f"resnet parity step {i}: loss fused {a!r} vs plain {p_losses[i]!r}")
+
+
+def _resnet_fit() -> dict:
+    """The main path: ``Trainer(cfg).fit()`` with the counts set to 0 just
+    before and read just after; every step timed to its synchronize."""
+    cfg = TrainConfig(**RESNET_RUN, device=DEVICE)
+    trainer = trainer_lib.Trainer(cfg)
+    try:
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        check(n_params == RESNET_PARAMS, f"resnet18 has {n_params} parameters")
+        inner, step_ms, losses = trainer.train_step, [], []
+
+        def timed_step(st, images, labels, lr):
+            t0 = time.perf_counter()
+            st, metrics = inner(st, images, labels, lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            if len(step_ms) == RESNET_WARMUP:  # peak memory of the steady steps
+                torch.cuda.reset_peak_memory_stats()
+            return st, metrics
+
+        trainer.train_step = timed_step
+        torch.cuda.synchronize()
+        counters_lib.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        last = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches, counts = read_launches(), counters_lib.snapshot()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        steps = cfg.epochs * cfg.steps_per_epoch
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{len(losses)} steps, losses {losses}")
+        check(launches["fused_sgd"] == steps,
+              f"fused_sgd: {launches['fused_sgd']} launches in {steps} steps (expected 1 a step)")
+        check(all(n == 0 for name, n in launches.items() if name != "fused_sgd"),
+              f"resnet18 launched a flash kernel: {launches}")
+        check(counts.get("comm.all_reduce.grad") == steps,
+              f"{counts.get('comm.all_reduce.grad')} gradient all-reduces in {steps} steps")
+        n_test = RESNET_RUN["synthetic_n"] // 5
+        check(counts.get("eval.examples") == cfg.epochs * n_test,
+              f"eval counted {counts.get('eval.examples')} examples in {cfg.epochs} evals "
+              f"of {n_test}")
+        check(math.isfinite(last["val_loss"]) and 0.0 <= last["val_top1"] <= 100.0,
+              f"eval: {last}")
+        timed = step_ms[RESNET_WARMUP:]
+        mean_ms = float(np.mean(timed))
+        comm = {k.removeprefix("comm.all_reduce."): v for k, v in counts.items()
+                if k.startswith("comm.all_reduce.")}
+        print(f"[resnet] resnet18_cifar100 through Trainer.fit: {n_params} parameters, bf16 "
+              f"compute, global batch {cfg.batch_size} on {trainer.n_devices} rank "
+              f"({torch.distributed.get_backend()}), "
+              f"SyncBN, fused SGD; {steps} steps in {cfg.epochs} epochs, an eval of {n_test} "
+              f"after each; fit {fit_s:.1f} s")
+        print(f"[resnet] losses {[round(x, 4) for x in losses]}")
+        print(f"[resnet] step ms (host clock, each step ended by synchronize; {len(timed)} "
+              f"steps after {RESNET_WARMUP}): median {float(np.median(timed)):.3f}, mean "
+              f"{mean_ms:.3f}, min {min(timed):.3f}, max {max(timed):.3f}; "
+              f"{cfg.batch_size / mean_ms * 1e3:.1f} images/s; max_memory_allocated "
+              f"{peak_bytes} bytes ({peak_bytes / 2 ** 30:.2f} GiB)")
+        print(f"[resnet] launches in {steps} steps: {launches}; all-reduces by kind: {comm}")
+        print(f"[resnet] eval after epoch {cfg.epochs - 1}: top-1 {last['val_top1']:.3f}, "
+              f"top-5 {last['val_top5']:.3f}, loss {last['val_loss']:.4f} over "
+              f"{counts.get('eval.examples') / cfg.epochs:.0f} real examples")
+        batches = iter(trainer.train_loader)
+        images, labels = next(batches)
+        batches.close()
+        _profile_steps(inner, trainer.state, images, labels,
+                       lr=torch.full((), RESNET_RUN["lr"], device=DEVICE), tag="resnet")
+        return launches
+    finally:
+        trainer.close()
+
+
+def _resnet_cli() -> None:
+    """The real entry point, as a user starts it: one spawned rank per
+    visible card; it must exit 0 and print one rank-0 epoch line."""
+    cmd = [sys.executable, "-m", "tpu_dist_torch.cli.distributed_mp", "--dataset", "synthetic",
+           "--synthetic_n", "2560", "--epochs", "1", "--steps_per_epoch", "3",
+           "--batch_size", "256", "--device", DEVICE, "--port", str(_free_port())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    lines = proc.stdout.splitlines()
+    done = [line for line in lines if line.startswith("Epoch 0 done")]
+    print(f"[resnet] {' '.join(cmd[1:])}: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + (done[0] if done else "no epoch line"))
+    check(proc.returncode == 0, f"distributed_mp exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(len(done) == 1, f"{len(done)} epoch lines from one rank-0 process:\n{proc.stdout}")
+
+
+def phase_train_resnet() -> tuple:
+    """ResNet-18 on CIFAR-100-shaped data through the port's trainer over a
+    1-rank NCCL group. Returns (launches of the main path, fused SGD's
+    numbers at ResNet-18's leaves)."""
+    t0 = time.perf_counter()
+    sgd = _resnet_sgd_kernel()
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        _resnet_parity()
+        launches = _resnet_fit()
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    _resnet_cli()
+    print(f"[resnet] phase: {time.perf_counter() - t0:.1f} s")
+    return launches, sgd
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -994,7 +1237,9 @@ def main() -> int:
         "flash_attention_fwd": measured["flash_attention_fwd"]["ms_train_shape"],
         **{name: measured[name]["ms"] for name in PER_STEP if name != "flash_attention_fwd"},
     })
-    launches = {name: served[name] + trained[name] for name in KERNELS}
+    resnet_launches, resnet_sgd = phase_train_resnet()
+    measured["fused_sgd"].update(resnet_sgd)
+    launches = {name: served[name] + trained[name] + resnet_launches[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there)
         measured[name]["launches_tensor_core"] = trained_mma[name]
     smi = subprocess.run(

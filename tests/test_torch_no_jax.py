@@ -39,7 +39,17 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.nn.attention", "tpu_dist_torch.nn.vit",
                  "tpu_dist_torch.bridge", "tpu_dist_torch.ops.fused_sgd",
                  "tpu_dist_torch.nn.functional", "tpu_dist_torch.train.optim",
-                 "tpu_dist_torch.train.state", "tpu_dist_torch.train.step"):
+                 "tpu_dist_torch.train.state", "tpu_dist_torch.train.step",
+                 "tpu_dist_torch.comm.mesh", "tpu_dist_torch.comm.collectives",
+                 "tpu_dist_torch.nn.initializers", "tpu_dist_torch.nn.layers",
+                 "tpu_dist_torch.nn.resnet", "tpu_dist_torch.data.synthetic",
+                 "tpu_dist_torch.data.transforms", "tpu_dist_torch.data.cifar",
+                 "tpu_dist_torch.data.sampler", "tpu_dist_torch.data.loader",
+                 "tpu_dist_torch.evaluation.validate", "tpu_dist_torch.metrics.meters",
+                 "tpu_dist_torch.metrics.logging", "tpu_dist_torch.config.config",
+                 "tpu_dist_torch.train.trainer", "tpu_dist_torch.cli.train",
+                 "tpu_dist_torch.cli.distributed", "tpu_dist_torch.cli.distributed_mp",
+                 "tpu_dist_torch.cli.dataparallel"):
         assert name in MODULES
 
 

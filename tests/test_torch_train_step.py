@@ -115,7 +115,6 @@ UNPORTED = [
     ("remat", True, "Queue A 6"),
     ("grad_compression", "bf16", "Queue A 6"),
     ("grad_compression", "int8_ef", "Queue A 6"),
-    ("pmean_fusion", "per_leaf", "Queue A 2"),
     ("rs_ag_chunks", 2, "Queue A 6"),
     ("device_metrics", True, "Queue A 6"),
 ]
@@ -128,6 +127,19 @@ def test_unported_flags_raise_a_typed_error(flag, value, queue):
         step.make_train_step(optim.SGD(), **{flag: value})
     assert info.value.flag == flag and queue in str(info.value)
     assert isinstance(info.value, NotImplementedError)
+
+
+def test_per_leaf_gradient_reduce_is_ported():
+    """``pmean_fusion="per_leaf"`` (one all-reduce per gradient leaf) is the
+    DDP reduce of the data-parallel step now; without a process group it is
+    the one-device step, bit for bit the fused one."""
+    losses = []
+    for fusion in ("fused", "per_leaf"):
+        _, _, model, _ = jax_setup()
+        tstep = step.make_train_step(optim.SGD(), pmean_fusion=fusion)
+        _, m = tstep(state.TrainState.create(model, optim.SGD()), *batch(0), LRS[0])
+        losses.append(m["loss"].item())
+    assert losses[0] == losses[1]
 
 
 @pytest.mark.parametrize("kw", [
@@ -252,3 +264,22 @@ def test_topk_correct_and_accuracy_match_jax(classes):
     want_acc = jax_F.accuracy(jl, jy, (1, 5))
     np.testing.assert_allclose([float(g) for g in got_acc], [float(w) for w in want_acc],
                                rtol=1e-6)
+
+
+def test_fused_sgd_takes_channels_last_gradients_without_a_process_group():
+    """The ResNets feed channels-last activations, so the convolutions hand
+    back channels-last (non-contiguous) weight gradients; without a process
+    group no flat all-reduce makes them contiguous, and the fused update
+    refuses anything else. The step makes them contiguous itself."""
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+
+    x, y = batch(0)
+    params = []
+    for fused in (True, False):
+        model = resnet.ResNet("basic", (1, 1, 1, 1), 10, widths=(8, 16, 32, 64), device="cpu")
+        st = state.TrainState.create(model, optim.SGD(fused=fused))
+        st, m = step.make_train_step(optim.SGD(fused=fused))(st, x, y, 0.1)
+        assert np.isfinite(m["loss"].item())
+        params.append([p.detach().clone() for p in model.parameters()])
+    for a, b in zip(*params):  # the fused update is the plain one, bit for bit
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

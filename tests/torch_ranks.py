@@ -1,0 +1,160 @@
+"""Run a function on N CPU ranks of a gloo process group, for the port's
+multi-rank tests.
+
+Each rank is a process started with the ``spawn`` method (a fresh
+interpreter that imports only this module, torch and the port, never
+JAX), joins a gloo group on a free localhost port, calls
+``fn(rank, world, *args)`` and writes what it returns to a pickle file
+that the parent reads back, in rank order. The parent waits at most
+``timeout`` seconds and then kills the ranks and fails.
+
+The rank functions for those tests live here too, so the children import
+nothing else.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import tempfile
+import time
+
+import torch
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank, world, port, out_dir, fn, args):
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+
+    torch.set_num_threads(1)
+    mesh.initialize_distributed("cpu", world_size=world, rank=rank, master_port=port)
+    try:
+        result = fn(rank, world, *args)
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, timeout: float = 120.0) -> list:
+    """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each run
+    on its own rank of a ``world``-rank gloo group."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(_entry, args=(world, free_port(), out_dir, fn, args),
+                                 nprocs=world, join=False, start_method="spawn")
+        try:
+            deadline = time.monotonic() + timeout
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks still running after {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out = []
+        for rank in range(world):
+            with open(os.path.join(out_dir, f"{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+# -- rank functions ----------------------------------------------------------
+
+
+def bn_rank(rank, world, cases):
+    """Each case ``(x, w, scale, bias, sync, dtype)``: BatchNorm, synced over
+    the group or per rank, on this rank's contiguous share of the global
+    NHWC batch ``x``; returns per case the output, the new running
+    statistics and the gradient of sum(y * w) by the input (NHWC)."""
+    from tpu_dist_torch.comm import collectives  # noqa: PLC0415
+    from tpu_dist_torch.nn import layers  # noqa: PLC0415
+
+    def nchw(a):
+        n = a.shape[0] // world
+        return torch.from_numpy(a[rank * n:(rank + 1) * n]).permute(0, 3, 1, 2)
+
+    def nhwc(t):
+        return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+    out = []
+    for x, w, scale, bias, sync, dtype in cases:
+        xt = nchw(x).to(getattr(torch, dtype)).detach().requires_grad_()
+        bn = layers.BatchNorm(x.shape[-1])
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(scale))
+            bn.bias.copy_(torch.from_numpy(bias))
+        y = bn(xt, train=True, group=collectives.sync_group(sync))
+        (gx,) = torch.autograd.grad((y.float() * nchw(w)).sum(), xt)
+        out.append({"y": nhwc(y), "gx": nhwc(gx), "mean": bn.running_mean.numpy(),
+                    "var": bn.running_var.numpy()})
+    return out
+
+
+def dp_step_rank(rank, world, cases, model_kw, params, bn_state, batches):
+    """Each case: the port's train step on this rank's half of every global
+    batch, from the bridged JAX weights; returns, per case, the metrics of
+    each step and the final parameters, momentum and BN state (as JAX
+    pytrees) with the collective counts of the run."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = {}
+    for name, kw in cases.items():
+        model = resnet.ResNet(**model_kw, device="cpu")
+        bridge.load_jax_resnet(model, params, bn_state)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+        st = state.TrainState.create(model, opt)
+        dtype = torch.bfloat16 if kw.get("bf16") else torch.float32
+        train_step = step.make_train_step(
+            opt, grad_accum_steps=kw["K"], sync_bn=kw["sync_bn"], compute_dtype=dtype,
+            pmean_fusion=kw["fusion"])
+        counters.reset()
+        metrics = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, m = train_step(st, images[rank * n:(rank + 1) * n],
+                               labels[rank * n:(rank + 1) * n], lr)
+            metrics.append({k: v.item() for k, v in m.items()})
+        p, s = bridge.resnet_params_to_jax(model)
+        out[name] = {"metrics": metrics, "params": p, "bn_state": s,
+                     "momentum": bridge.resnet_sgd_state_to_jax(model, st.opt_state),
+                     "counts": {k: v for k, v in counters.snapshot().items()
+                                if k.startswith("comm.")}}
+    return out
+
+
+def collectives_rank(rank, world, x_global):
+    """Each collective of ``tpu_dist_torch.comm.collectives`` on this rank's
+    row of ``x_global``; returns the results and the all-reduce counts."""
+    from tpu_dist_torch.comm import collectives  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+
+    x = torch.from_numpy(x_global[rank])
+    out = {
+        "reduce_mean": collectives.reduce_mean(x).numpy(),
+        "reduce_sum": collectives.reduce_sum(x, kind="test").numpy(),
+        "all_gather": collectives.all_gather(x).numpy(),
+        "broadcast_from": collectives.broadcast_from(x.clone(), src=world - 1).numpy(),
+        "host_allreduce_mean": collectives.host_allreduce_mean(float(rank)),
+    }
+    collectives.barrier()
+    model = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        model.weight.fill_(rank)
+    collectives.broadcast_module(model)
+    out["broadcast_module"] = model.weight.detach().numpy().copy()
+    out["input_unchanged"] = bool((x == torch.from_numpy(x_global[rank])).all())
+    out["counts"] = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
+    return out

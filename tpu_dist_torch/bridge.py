@@ -1,12 +1,17 @@
-"""Weights across the two packages, both ways: a JAX ViT parameter pytree
-(as numpy arrays, the layout ``tpu_dist.nn.vit.ViTDef.init`` makes) to
-and from the port's :class:`~tpu_dist_torch.nn.vit.ViT` state dict, and
-the SGD momentum pytree (which mirrors it) to and from the port's
-momentum buffers.
+"""Weights across the two packages, both ways: a JAX parameter pytree (as
+numpy arrays, the layout ``ViTDef.init`` / ``ResNetDef.init`` makes) to
+and from the port's :class:`~tpu_dist_torch.nn.vit.ViT` or
+:class:`~tpu_dist_torch.nn.resnet.ResNet` state dict, and the SGD momentum
+pytree (which mirrors the parameters) to and from the port's momentum
+buffers, in the model's parameter order.
 
 * Dense ``{"w": [in, out], "b"}`` <-> Linear ``weight [out, in]``, ``bias``;
 * LayerNorm ``{"scale", "bias"}`` <-> ``weight``, ``bias``;
-* ``pos`` and ``blocks[i]`` map by name.
+* ViT: ``pos`` and ``blocks[i]`` map by name;
+* ResNet: conv ``{"w": HWIO}`` <-> ``weight`` OIHW; BatchNorm
+  ``{"scale", "bias"}`` and its state ``{"mean", "var"}`` <-> ``weight``,
+  ``bias``, ``running_mean``, ``running_var``; ``stageK[i]`` <->
+  ``stageK.i``.
 
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
@@ -96,7 +101,9 @@ def vit_state_dict_to_jax(sd: Dict[str, np.ndarray]):
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A copy: an f32 CPU tensor's ``.numpy()`` would share its memory, and
+    the converted pytree would follow the live weights as they train."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def vit_params_to_jax(module: torch.nn.Module):
@@ -113,11 +120,9 @@ def sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
     return vit_state_dict_to_jax({n: _numpy(b) for n, b in zip(names, opt_state)})
 
 
-def sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
-    """A JAX SGD momentum pytree -> buffers in parameter order, on each
-    parameter's device and in its dtype. Raises on any unknown, missing or
-    misshapen entry."""
-    sd = vit_state_dict_from_jax(momentum)
+def _in_param_order(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> list:
+    """``{parameter name: array}`` -> tensors in parameter order, on each
+    parameter's device and in its dtype."""
     named = dict(module.named_parameters())
     unknown, missing = sorted(set(sd) - set(named)), sorted(set(named) - set(sd))
     if unknown or missing:
@@ -131,10 +136,10 @@ def sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
     return out
 
 
-def load_jax_vit(module: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy a JAX ViT pytree into ``module`` in place (on its device, in
-    its dtype). Raises on any unknown, missing or misshapen entry."""
-    sd = vit_state_dict_from_jax(params)
+def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """Copy ``{state-dict name: array}`` into ``module`` in place (on its
+    device, in its dtype). Raises on any unknown, missing or misshapen
+    entry."""
     own = module.state_dict()
     unknown = sorted(set(sd) - set(own))
     missing = sorted(set(own) - set(sd))
@@ -151,6 +156,19 @@ def load_jax_vit(module: torch.nn.Module, params) -> torch.nn.Module:
             dst = own[name]
             dst.copy_(torch.as_tensor(np.array(arr, dtype=np.float32)).to(dst.dtype))
     return module
+
+
+def sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
+    """A JAX SGD momentum pytree of a ViT -> buffers in parameter order, on
+    each parameter's device and in its dtype. Raises on any unknown,
+    missing or misshapen entry."""
+    return _in_param_order(module, vit_state_dict_from_jax(momentum))
+
+
+def load_jax_vit(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy a JAX ViT pytree into ``module`` in place (on its device, in
+    its dtype). Raises on any unknown, missing or misshapen entry."""
+    return _load(module, vit_state_dict_from_jax(params))
 
 
 def numpy_vit_params(model, seed: int = 0):
@@ -181,3 +199,129 @@ def numpy_vit_params(model, seed: int = 0):
         "ln_f": ln(dim),
         "head": dense(dim, model.num_classes),
     }
+
+
+# -- ResNet ------------------------------------------------------------------
+
+_BN_P = ("scale", "bias")
+_BN_S = ("mean", "var")
+_BLOCK_UNITS = ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3", "sc_conv", "sc_bn")
+_STAGES = tuple(f"stage{i}" for i in range(1, 5))
+
+
+def _units(where: str, node, state) -> None:
+    """Check one block's (or the stem's) parameter and state dicts: conv
+    and bn units of known names, each BN in both."""
+    if not isinstance(node, dict) or not set(node) <= set(_BLOCK_UNITS):
+        raise KeyError(f"{where}: unknown units {sorted(set(node) - set(_BLOCK_UNITS))}")
+    bns = {k for k in node if k.startswith(("bn", "sc_bn"))}
+    if state is not None and set(state) != bns:
+        raise KeyError(f"{where}: BN params {sorted(bns)} vs BN state {sorted(state)}")
+
+
+def resnet_state_dict_from_jax(params, bn_state=None) -> Dict[str, np.ndarray]:
+    """JAX ResNet ``(params, bn_state)`` pytrees -> ``{state-dict name:
+    numpy array}``. With ``bn_state=None`` only parameters are converted
+    (a momentum pytree, which mirrors them). Raises ``KeyError`` on an
+    unknown or missing key."""
+    params = _leaves("params", params, ("stem_conv", "stem_bn", *_STAGES, "fc"))
+    if bn_state is not None:
+        bn_state = _leaves("bn_state", bn_state, ("stem_bn", *_STAGES))
+    out: Dict[str, np.ndarray] = {}
+
+    def unit(prefix, name, node, state):
+        if "conv" in name:
+            w = np.asarray(_leaves(f"{prefix}{name}", node, ("w",))["w"])
+            out[f"{prefix}{name}.weight"] = w.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            return
+        node = _leaves(f"{prefix}{name}", node, _BN_P)
+        out[f"{prefix}{name}.weight"] = np.asarray(node["scale"])
+        out[f"{prefix}{name}.bias"] = np.asarray(node["bias"])
+        if state is not None:
+            st = _leaves(f"{prefix}{name} state", state, _BN_S)
+            out[f"{prefix}{name}.running_mean"] = np.asarray(st["mean"])
+            out[f"{prefix}{name}.running_var"] = np.asarray(st["var"])
+
+    unit("", "stem_conv", params["stem_conv"], None)
+    unit("", "stem_bn", params["stem_bn"], None if bn_state is None else bn_state["stem_bn"])
+    for stage in _STAGES:
+        blocks = params[stage]
+        states = None if bn_state is None else bn_state[stage]
+        if not isinstance(blocks, (list, tuple)) or (
+                states is not None and len(states) != len(blocks)):
+            raise KeyError(f"{stage}: expected a list of blocks (and one state per block)")
+        for i, blk in enumerate(blocks):
+            st = None if states is None else states[i]
+            _units(f"{stage}[{i}]", blk, st)
+            for name, node in blk.items():
+                unit(f"{stage}.{i}.", name, node, None if st is None else st.get(name))
+    fc = _leaves("fc", params["fc"], _DENSE)
+    out["fc.weight"] = np.asarray(fc["w"]).T
+    out["fc.bias"] = np.asarray(fc["b"])
+    return out
+
+
+def resnet_state_dict_to_jax(sd: Dict[str, np.ndarray]):
+    """``{state-dict name: array}`` -> JAX ``(params, bn_state)`` pytrees of
+    numpy arrays (the inverse of :func:`resnet_state_dict_from_jax`);
+    ``bn_state`` is None when ``sd`` holds no running statistics. Raises
+    ``KeyError`` on an unknown name."""
+    params: dict = {stage: [] for stage in _STAGES}
+    state: dict = {stage: [] for stage in _STAGES}
+    with_state = any(n.endswith(".running_mean") for n in sd)
+
+    def slot(tree, parts):
+        if parts[0] in _STAGES:
+            blocks, i = tree[parts[0]], int(parts[1])
+            while len(blocks) <= i:
+                blocks.append({})
+            return blocks[i], parts[2]
+        return tree, parts[0]
+
+    for name, arr in sd.items():
+        parts = name.split(".")
+        leaf, arr = parts[-1], np.asarray(arr)
+        if parts[0] == "fc" and leaf in ("weight", "bias"):
+            params.setdefault("fc", {})["w" if leaf == "weight" else "b"] = (
+                arr.T if leaf == "weight" else arr)
+            continue
+        node, unit = slot(params, parts[:-1])
+        if "conv" in unit and leaf == "weight":
+            node[unit] = {"w": arr.transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+        elif "bn" in unit and leaf in ("weight", "bias"):
+            node.setdefault(unit, {})["scale" if leaf == "weight" else "bias"] = arr
+        elif "bn" in unit and leaf in ("running_mean", "running_var"):
+            snode, _ = slot(state, parts[:-1])
+            snode.setdefault(unit, {})["mean" if leaf == "running_mean" else "var"] = arr
+        else:
+            raise KeyError(f"unknown ResNet state dict name {name!r}")
+    # round-trip check: every key the forward direction expects is there
+    resnet_state_dict_from_jax(params, state if with_state else None)
+    return params, (state if with_state else None)
+
+
+def load_jax_resnet(module: torch.nn.Module, params, bn_state) -> torch.nn.Module:
+    """Copy JAX ResNet ``(params, bn_state)`` into ``module`` in place (on
+    its device, in its dtype). Raises on any unknown, missing or misshapen
+    entry."""
+    return _load(module, resnet_state_dict_from_jax(params, bn_state))
+
+
+def resnet_params_to_jax(module: torch.nn.Module):
+    """The module's weights and running statistics as JAX-layout
+    ``(params, bn_state)`` pytrees of numpy f32 arrays."""
+    return resnet_state_dict_to_jax({n: _numpy(t) for n, t in module.state_dict().items()})
+
+
+def resnet_sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
+    """A JAX SGD momentum pytree of a ResNet -> buffers in parameter order."""
+    return _in_param_order(module, resnet_state_dict_from_jax(momentum))
+
+
+def resnet_sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
+    """SGD momentum buffers (parameter order) as the JAX ResNet momentum
+    pytree."""
+    names = [n for n, _ in module.named_parameters()]
+    if len(opt_state) != len(names):
+        raise KeyError(f"{len(opt_state)} momentum buffers for {len(names)} parameters")
+    return resnet_state_dict_to_jax({n: _numpy(b) for n, b in zip(names, opt_state)})[0]

@@ -1,0 +1,49 @@
+"""Training CLI: the port's counterpart of ``tpu_dist/cli/train.py``.
+
+Every flag of the JAX trainer parses (``tpu_dist_torch/config/config.py``);
+one that the port cannot run yet stops with ``NotPortedError``. This
+process is one rank: ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
+``MASTER_ADDR``/``MASTER_PORT`` (as ``torchrun`` sets them) or
+``--num_processes``/``--process_id``/``--ip``/``--port`` place it in the
+process group; alone it is a world of one.
+
+Usage::
+
+    python -m tpu_dist_torch.cli.train --batch_size 256 --epochs 200 --lr 0.1
+    python -m tpu_dist_torch.cli.train --device cpu --dataset synthetic ...
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from tpu_dist_torch.config.config import add_reference_flags, config_from_args
+from tpu_dist_torch.metrics.logging import rank0_print
+
+
+def parse(argv: Optional[Sequence[str]] = None, **preset):
+    parser = argparse.ArgumentParser(description="tpu_dist_torch trainer (DDP over NCCL)")
+    add_reference_flags(parser)
+    return config_from_args(parser.parse_args(argv), **preset)
+
+
+def main(argv: Optional[Sequence[str]] = None, **preset) -> None:
+    cfg = parse(argv, **preset)
+    from tpu_dist_torch.train.trainer import Trainer  # noqa: PLC0415
+
+    trainer = Trainer(cfg)
+    try:
+        rank0_print(
+            f"tpu_dist_torch: model={cfg.model} ranks={trainer.n_devices} "
+            f"device={trainer.device.type} global_batch={cfg.batch_size} bf16={cfg.bf16} "
+            f"sync_bn={cfg.sync_bn} grad_accu_steps={cfg.grad_accu_steps} "
+            f"fused_optimizer={cfg.fused_optimizer}"
+        )
+        trainer.fit()
+    finally:
+        trainer.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,138 @@
+"""Collectives over the default process group: the port's counterpart of
+``tpu_dist/comm/collectives.py`` (``reduce_mean``, ``reduce_sum``,
+``all_gather``, ``broadcast_from``, ``barrier``, ``host_allreduce_mean``).
+
+The JAX functions are traced ``lax`` collectives inside a ``shard_map``;
+these are eager ``torch.distributed`` calls (NCCL on the card, gloo on the
+CPU) on tensors of this rank. Each all-reduce goes through
+:func:`all_reduce_`, which adds one to the counter ``comm.all_reduce.<kind>``
+(``tpu_dist_torch.obs.counters``) per call, so a caller can show how many
+collectives of each kind a step issued: ``grad`` (the DDP gradient
+reduce), ``bn`` (SyncBN statistics), ``bn_state``, ``metrics``, ``eval``.
+
+Without an initialised process group every function is the identity of a
+world of one process and counts nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpu_dist_torch.obs import counters
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def active() -> bool:
+    """Whether a process group exists (else every collective is the
+    identity of a world of one)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size(group=None) -> int:
+    return dist.get_world_size(group) if active() else 1
+
+
+def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
+                kind: str = "other") -> torch.Tensor:
+    """In-place all-reduce of ``x`` (``op`` in sum/max/min); counted under
+    ``comm.all_reduce.<kind>``. Returns ``x``."""
+    if active():
+        counters.inc(f"comm.all_reduce.{kind}")
+        dist.all_reduce(x, op=_OPS[op], group=group)
+    return x
+
+
+class _SumAcrossRanks(torch.autograd.Function):
+    """All-reduce sum whose backward is the all-reduce sum of the
+    cotangent: JAX's transpose of ``psum`` (and so, with the 1/n, of
+    ``pmean``) inside a ``shard_map``. Each rank's backward thus carries
+    the other ranks' terms through the shared statistic."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group=group, kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce_(out, group=ctx.group, kind=ctx.kind + "_grad"), None, None
+
+
+def sum_across_ranks(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Tensor:
+    """Differentiable cross-rank sum (counted as ``kind`` forward and
+    ``<kind>_grad`` backward); the identity without a process group."""
+    return _SumAcrossRanks.apply(x, group, kind) if active() else x
+
+
+def reduce_sum(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Tensor:
+    """Cross-rank sum (``dist.all_reduce(op=SUM)``) into a new tensor."""
+    return all_reduce_(x.clone(), group=group, kind=kind)
+
+
+def reduce_mean(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Tensor:
+    """Cross-rank mean: clone, all-reduce the sum, divide by the world size
+    (the reference's ``reduce_mean``, ``utils/util.py:5-9``)."""
+    return reduce_sum(x, group=group, kind=kind) / world_size(group)
+
+
+def all_gather(x: torch.Tensor, *, group=None, axis: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``axis`` in rank order (the
+    JAX function's ``tiled=True``)."""
+    if not active():
+        return x.clone()
+    parts = [torch.empty_like(x) for _ in range(world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
+
+
+def broadcast_from(x: torch.Tensor, src: int = 0, *, group=None) -> torch.Tensor:
+    """``src``'s value on every rank, in place in ``x`` (returned): the DDP
+    init-time parameter broadcast."""
+    if active():
+        dist.broadcast(x, src=src, group=group)
+    return x
+
+
+def barrier(group=None) -> None:
+    """Host-level fence across the group."""
+    if active():
+        dist.barrier(group=group)
+
+
+def group_device(group=None) -> torch.device:
+    """The device whose tensors the group's backend reduces: the current
+    card under NCCL, else the CPU."""
+    if active() and dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def host_allreduce_mean(x, *, group=None) -> np.ndarray:
+    """Eager cross-rank mean of a host value (a number or array); returns
+    numpy. For occasional host-side aggregation, not the hot loop."""
+    t = torch.as_tensor(np.asarray(x, dtype=np.float64), device=group_device(group))
+    return reduce_mean(t, group=group, kind="host").cpu().numpy()
+
+
+def broadcast_module(module: torch.nn.Module, src: int = 0, *, group=None) -> None:
+    """Copy rank ``src``'s parameters and buffers into every rank's module,
+    in place: DDP's construction-time broadcast (the JAX trainer's
+    ``_place_state``)."""
+    if not active():
+        return
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            dist.broadcast(t.data, src=src, group=group)
+
+
+def sync_group(sync: bool) -> Optional[object]:
+    """The group SyncBN averages over: the world when ``sync`` and a
+    process group exists, else None (per-rank statistics)."""
+    return dist.group.WORLD if sync and active() else None

@@ -1,1 +1,2 @@
-"""Models of the port: attention and the Vision Transformer."""
+"""Models of the port: attention, the Vision Transformer, the ResNets and
+their layers."""

@@ -1,2 +1,2 @@
-"""Training on one device: the optimizer and its schedules, the train state,
-and the train and eval steps."""
+"""Training: the optimizer and its schedules, the train state, the train
+and eval steps, and the trainer."""

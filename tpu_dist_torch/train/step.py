@@ -1,22 +1,39 @@
-"""The train and eval steps on one device: the port's counterpart of
-``tpu_dist/train/step.py`` (``make_train_step``, ``make_eval_step``) with
-every collective over a one-device mesh taken out.
+"""The train and eval steps: the port's counterpart of
+``tpu_dist/train/step.py`` (``make_train_step``, ``make_eval_step``) on the
+data-parallel (DP) family, one process per device.
 
 * The loss casts the images to ``compute_dtype``; the model casts each
-  weight to the activation dtype where it uses it (``nn/vit.py``), exactly
-  where the JAX step casts the parameter tree, so f32 master weights take
-  f32 gradients. There is no autocast and no loss scaling.
+  weight to the activation dtype where it uses it (``nn/vit.py``,
+  ``nn/layers.py``), exactly where the JAX step casts the parameter tree,
+  so f32 master weights take f32 gradients. There is no autocast and no
+  loss scaling.
+* Models with BatchNorm (their running statistics are the module's
+  buffers, ``state.bn_state``) take ``group=``: with ``sync_bn`` their
+  statistics are averaged over the process group (SyncBN), without it each
+  rank keeps its own and the running statistics are averaged over the
+  ranks after the step (``tpu_dist/train/step.py:638-642``).
 * Gradient accumulation over ``grad_accum_steps`` K chunks sums the K
-  chunk gradients and divides by K; the loss is the mean of the K chunk
-  losses, and the metrics read all chunks' logits.
-* ``grad_clip_norm`` clips by the global norm of all gradients.
-* Metrics are 0-dim tensors on the device (no host sync): ``loss``, and
-  ``acc1``/``acc5`` in percent.
+  chunk gradients and divides by K (BN state threads through the chunks);
+  the loss is the mean of the K chunk losses, and the metrics read all
+  chunks' logits.
+* The DDP gradient reduce runs ONCE per step, after the K chunks (torch's
+  ``no_sync`` semantics): a mean over the ranks, by one all-reduce of one
+  flat buffer (``pmean_fusion="fused"``) or one all-reduce per leaf
+  (``"per_leaf"``). ``torch.autograd.grad`` takes the gradients, so the
+  model is never wrapped in ``DistributedDataParallel`` (whose reducer
+  hooks it would bypass, and whose ``broadcast_buffers`` copies rank 0's
+  BN statistics where the JAX package averages them).
+* ``grad_clip_norm`` clips the reduced gradients by their global norm.
+* Metrics are 0-dim tensors on the device (no host sync), reduced in one
+  all-reduce: ``loss`` the mean over ranks, ``acc1``/``acc5`` in percent of
+  the global batch.
 
-The step updates the model and its momentum buffers in place (the JAX
-step's ``donate=True``) and returns a state with ``step + 1``. Options
-whose subsystem is not ported raise :class:`NotPortedError`, which names
-the flag and the ROADMAP queue that owns it.
+Without a process group every collective is the identity (a world of one
+process). The step updates the model, its BN statistics and its momentum
+buffers in place (the JAX step's ``donate=True``) and returns a state with
+``step + 1``. Options whose subsystem is not ported raise
+:class:`NotPortedError`, which names the flag and the ROADMAP queue that
+owns it.
 """
 
 from __future__ import annotations
@@ -26,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn import functional as F
 from tpu_dist_torch.train.state import TrainState
 
@@ -41,18 +59,18 @@ WAITS_FOR = {
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
     "remat": "Queue A 6 (activation rematerialization)",
     "grad_compression": "Queue A 6 (compressed collectives, comm/quantize.py)",
-    "pmean_fusion": "Queue A 2 (the DDP gradient all-reduce over NCCL)",
     "device_metrics": "Queue A 6 (training-health telemetry, obs/device_stats.py)",
 }
 
 
 class NotPortedError(NotImplementedError):
-    """A step option whose subsystem is not ported yet: names the flag and
-    the ROADMAP queue it waits for, instead of being a silent no-op."""
+    """An option whose subsystem is not ported yet: names the flag and the
+    ROADMAP item it waits for (``WAITS_FOR[flag]`` unless ``queue`` is
+    given), instead of being a silent no-op."""
 
-    def __init__(self, flag: str, value):
+    def __init__(self, flag: str, value, queue: Optional[str] = None):
         self.flag = flag
-        self.queue = WAITS_FOR[flag]
+        self.queue = queue or WAITS_FOR[flag]
         super().__init__(
             f"{flag}={value!r} is not ported to tpu_dist_torch yet; it waits for "
             f"ROADMAP.md {self.queue}"
@@ -62,8 +80,8 @@ class NotPortedError(NotImplementedError):
 def _refuse_unported(**options) -> None:
     defaults = {"shard_weight_update": False, "seq_axis": None, "tp_axis": None,
                 "ep_axis": None, "pp_axis": None, "remat": False,
-                "grad_compression": "none", "pmean_fusion": "fused",
-                "rs_ag_chunks": 1, "device_metrics": False}
+                "grad_compression": "none", "rs_ag_chunks": 1,
+                "device_metrics": False}
     for flag, value in options.items():
         if value != defaults[flag]:
             raise NotPortedError(flag, value)
@@ -73,10 +91,20 @@ def _to(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, device=device, dtype=dtype)
 
 
+def _flat_all_reduce_mean(tensors, kind: str) -> list:
+    """One all-reduce over the concatenation of ``tensors``, divided by the
+    world size; returns contiguous views of the reduced buffer in their
+    shapes."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    collectives.all_reduce_(flat, kind=kind).div_(collectives.world_size())
+    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_train_step(
     optimizer,
     *,
     grad_accum_steps: int = 1,
+    sync_bn: bool = True,
     compute_dtype: torch.dtype = torch.float32,
     label_smoothing: float = 0.0,
     grad_clip_norm: float = 0.0,
@@ -93,9 +121,10 @@ def make_train_step(
 ):
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
-    ``state.params`` is the model (``images [B, ...] -> logits``); images
-    and labels are tensors or arrays, moved to the model's device; ``lr``
-    is a float or a float32 scalar tensor there."""
+    ``state.params`` is the model (``images [B, ...] -> logits``, this
+    rank's share of the global batch); images and labels are tensors or
+    arrays, moved to the model's device; ``lr`` is a float or a float32
+    scalar tensor there."""
     if grad_compression not in GRAD_COMPRESSION_MODES:
         raise ValueError(
             f"grad_compression must be one of {GRAD_COMPRESSION_MODES}, got {grad_compression!r}"
@@ -107,12 +136,24 @@ def make_train_step(
     _refuse_unported(
         shard_weight_update=shard_weight_update, seq_axis=seq_axis, tp_axis=tp_axis,
         ep_axis=ep_axis, pp_axis=pp_axis, remat=remat, grad_compression=grad_compression,
-        pmean_fusion=pmean_fusion, rs_ag_chunks=int(rs_ag_chunks),
+        rs_ag_chunks=int(rs_ag_chunks),
         device_metrics=device_metrics,
     )
     K = int(grad_accum_steps)
     if K < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+
+    def reduce_grads(grads):
+        """The DDP gradient reduce: the mean over the ranks, once a step.
+        The result is contiguous (the fused SGD kernel needs it; cuDNN
+        hands back channels-last weight gradients)."""
+        if not collectives.active():
+            return [g.contiguous() for g in grads]
+        if pmean_fusion == "fused":
+            return _flat_all_reduce_mean(grads, "grad")
+        world = collectives.world_size()
+        return [collectives.all_reduce_(g.contiguous(), kind="grad").div_(world)
+                for g in grads]
 
     def clip_grads(grads):
         """Global-norm clip: scale = min(1, clip / max(norm, 1e-12))."""
@@ -130,11 +171,13 @@ def make_train_step(
         if images.shape[0] % K:
             raise ValueError(f"batch {images.shape[0]} does not split into {K} chunks")
         n = images.shape[0] // K
+        # BatchNorm models take the SyncBN group; the ViT has none
+        fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else {}
         model.train()
         grads, losses, logits = None, [], []
         for c in range(K):
             with torch.enable_grad():
-                out = model(images[c * n:(c + 1) * n].to(compute_dtype))
+                out = model(images[c * n:(c + 1) * n].to(compute_dtype), **fwd_kw)
                 loss = F.cross_entropy(out, labels[c * n:(c + 1) * n],
                                        label_smoothing=label_smoothing)
                 g = torch.autograd.grad(loss, params)
@@ -144,14 +187,24 @@ def make_train_step(
         if K > 1:
             grads = [g / K for g in grads]
         loss = torch.stack(losses).mean() if K > 1 else losses[0]
-        optimizer.update(clip_grads(grads), state.opt_state, params, lr)
+        if state.bn_state and not sync_bn and collectives.active():
+            # per-rank statistics diverged: average them so every rank
+            # holds the same running state (the JAX step's pmean)
+            bufs = list(state.bn_state.values())
+            with torch.no_grad():
+                for b, avg in zip(bufs, _flat_all_reduce_mean(bufs, "bn_state")):
+                    b.copy_(avg)
+        optimizer.update(clip_grads(reduce_grads(grads)), state.opt_state, params, lr)
 
         c1, c5 = F.topk_correct(torch.cat(logits).float(), labels, (1, 5))
-        b = labels.shape[0]
+        # loss, top-1 and top-5 counts in ONE all-reduce
+        sums = collectives.all_reduce_(
+            torch.stack([loss.float(), c1.float(), c5.float()]), kind="metrics")
+        world, b = collectives.world_size(), labels.shape[0]
         metrics = {
-            "loss": loss,
-            "acc1": c1.float() / b * 100.0,
-            "acc5": c5.float() / b * 100.0,
+            "loss": sums[0] / world,
+            "acc1": sums[1] / (b * world) * 100.0,
+            "acc5": sums[2] / (b * world) * 100.0,
         }
         return dataclasses.replace(state, step=state.step + 1), metrics
 
@@ -161,8 +214,9 @@ def make_train_step(
 def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
     """Build ``eval_step(state, images, labels, mask) -> sums``: the
     masked sums ``loss`` (of the per-example cross-entropy), ``top1``,
-    ``top5`` and ``count``, as 0-dim f32 tensors, so the caller divides
-    once at the end. ``mask`` is 1.0 for real examples, 0.0 for padding."""
+    ``top5`` and ``count`` over every rank's batch (one all-reduce), as
+    0-dim f32 tensors, so the caller divides once at the end. ``mask`` is
+    1.0 for real examples, 0.0 for padding."""
 
     def eval_step(state: TrainState, images, labels, mask):
         model = state.params
@@ -178,12 +232,11 @@ def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
                 maxk = min(5, logits.shape[-1])
                 pred = torch.topk(logits.float(), maxk, dim=-1).indices
                 hits = (pred == labels.long()[:, None]).float() * mask[:, None]
-                return {
-                    "loss": torch.sum(nll * mask),
-                    "top1": torch.sum(hits[:, :1]),
-                    "top5": torch.sum(hits[:, :maxk]),
-                    "count": torch.sum(mask),
-                }
+                sums = collectives.all_reduce_(torch.stack([
+                    torch.sum(nll * mask), torch.sum(hits[:, :1]),
+                    torch.sum(hits[:, :maxk]), torch.sum(mask),
+                ]), kind="eval")
+                return dict(zip(("loss", "top1", "top5", "count"), sums))
         finally:
             model.train(was_training)
 
