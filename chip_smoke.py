@@ -19,19 +19,30 @@ Phases; any failure exits non-zero and prints no result line:
    dim, bf16 in with f32 out), with the tolerance of each; f32 inputs take
    the f32-accurate kernels (the forward's 3xTF32, the backward's CUDA
    cores), bf16 inputs the bf16 tensor-core kernels; a misaligned bf16
-   input must be refused. CUDA-event times of the
-   kernel, its plain version and one library call computing the same
-   function (a yardstick the port never calls).
+   input must be refused. Device times of the kernel and of one library
+   call computing the same function (a yardstick the port never calls),
+   each with a head start (``obs/timing.py``: the device sleeps until the
+   host has queued every timed call, so the events see device time only)
+   and the host's enqueue time a call beside it; the plain version's
+   period back to back.
 3. kernels at the training shapes: the flash backward's dK/dV and dQ
    kernels against their plain versions at ViT-B/16's [BH, S, D] =
    [768, 196, 64] (batch 64 x 12 heads) in bf16 and f32, and at edge cases
    (causal, S = 5, 77, 196 and 300 with D = 16 to 128, bf16 in with f32
    gradients, a strided ``do``, each in both dtypes); the forward at the
-   training shape in bf16; the fused SGD over ViT-B/16's 151 leaves for 3 steps,
-   bit for bit against its plain version; times of each kernel, its plain
-   version and a library call (the backward of
-   ``F.scaled_dot_product_attention``, ``torch.optim.SGD(fused=True)``),
-   and of the forward kernel at the training shape.
+   training shape in bf16; times of each kernel, its plain version and a
+   library call (the backward of ``F.scaled_dot_product_attention``), and
+   of the forward kernel at the training shape. The fused SGD over
+   ViT-B/16's 151 leaves: 3 steps bit for bit against its plain version;
+   the kernel and ``torch.optim.SGD(fused=True).step()`` timed in turns
+   (``obs/fused_sgd_bench.py``), the profiler's duration of the kernel
+   within 15% + 3 us of its head-start time, no host-to-device copy
+   in 10 profiled calls on unchanged leaves, and the host time of a plan
+   cache miss (leaves that moved). Then its edge cases, each 3
+   steps bit for bit: p and g 4, 8 and 12 bytes off 16-byte alignment
+   with lengths that leave a scalar tail; 808 leaves (two launches a
+   step); and one call captured in a ``torch.cuda.CUDAGraph`` over static
+   buffers, replayed for 3 steps with new gradients and learning rates.
 4. serve: ViT-B/16 at full width, random weights from a numpy seed carried
    in through the bridge, served by ``ServingEngine(max_batch=8)`` with
    ``attn_impl="flash"``: warmup, then 32 requests in alternating 3- and
@@ -50,12 +61,13 @@ Phases; any failure exits non-zero and prints no result line:
    to 0 just before and read just after (12 forward, 12 dK/dV, 12 dQ and
    1 SGD launch per step; every forward, dK/dV and dQ launch on the
    tensor-core route) and a finite loss every step; step time,
-   images/s, peak memory and each kernel's share of the step; then one
+   images/s, peak memory, each kernel's share of the step and the fused
+   SGD's plan cache hits and misses over the 10 steps; then one
    ``make_eval_step`` over the batch.
 6. train ResNet-18 (``resnet18_cifar100``): the fused SGD kernel at
-   ResNet-18's 62 leaves (11,220,132 parameters), 3 steps bit for bit
-   against its plain version, then times of the kernel, its plain version
-   and ``torch.optim.SGD(fused=True).step()`` beside its bytes bound. Then
+   ResNet-18's 62 leaves (11,220,132 parameters), as at ViT-B/16's in
+   phase 3 (bit for bit, times in turns with the library, profiler,
+   no host-to-device copy), beside its bytes bound. Then
    over a 1-rank NCCL process group: (a) f32 parity, TF32 off, batch 32, 3
    steps of fused against plain SGD from the same bridged weights through
    the data-parallel step (SyncBN on), losses to 1e-4 relative; (b) the
@@ -67,12 +79,15 @@ Phases; any failure exits non-zero and prints no result line:
    and 1 gradient all-reduce (the port's own counter in
    ``comm/collectives.py``) per step, 10,000 real eval examples per eval;
    step times (each step ended by ``synchronize``), images/s, peak memory,
+   the fused SGD's plan cache hits and misses after the 2 first steps,
    the eval top-1, and a profile of 2 more steps. (c) The real entry point
    as a subprocess: ``python -m tpu_dist_torch.cli.distributed_mp
    --dataset synthetic --synthetic_n 2560 --epochs 1 --steps_per_epoch 3
    --batch_size 256`` must exit 0 with one rank-0 epoch line.
 7. report: the card's name and power limit, one JSON line of every ported
-   kernel, and the last line ``{"ok": true, "device": {...}}``.
+   kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
+   call as ``library_ms`` and ``library_host_us``), and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -85,6 +100,7 @@ import math
 import pathlib
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -99,6 +115,7 @@ from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.nn import resnet as resnet_lib
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import counters as counters_lib
+from tpu_dist_torch.obs import fused_sgd_bench, timing
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
@@ -244,6 +261,22 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+PLAN_COUNTS = {}  # model: (hits, misses) of the fused SGD's plan cache on its main path
+
+
+def reset_plan_counts() -> None:
+    fs.PLANS.hits = fs.PLANS.misses = 0
+
+
+def read_plan_counts(model: str, tag: str) -> None:
+    """Hits (leaves unmoved since a validated call: the plan is reused) and
+    misses (leaves validated and planned anew) of the fused SGD's plan cache
+    since :func:`reset_plan_counts`."""
+    hits, misses = PLAN_COUNTS[model] = fs.PLANS.hits, fs.PLANS.misses
+    print(f"[{tag}] fused_sgd plan cache over these steps: {hits} hits, {misses} misses "
+          f"(hit share {hits / max(hits + misses, 1):.3f})")
+
+
 class SmokeError(AssertionError):
     """A phase of the smoke run failed."""
 
@@ -253,21 +286,16 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events, after ``warmup`` calls; inputs stay L2-warm, as they are
-    when the model produces them just before)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, head_start: bool = True):
+    """(device ms, host us) a call of ``fn`` (``obs/timing.py::device_ms``;
+    inputs stay L2-warm, as they are when the model produces them just
+    before). With the head start (every kernel and library call) the device
+    sleeps until the host has queued all ``iters`` calls, so the events read
+    device time only, and a host that did not finish in time fails the
+    run. Without it (the plain versions: their hundreds of eager launches a
+    call would fill the launch queue behind the sleep) the events read the
+    period of back-to-back calls, the host's pace where that is slower."""
+    return timing.device_ms(fn, iters, warmup, head_start)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -463,23 +491,25 @@ def phase_kernels() -> dict:
 
     q, k, v = (torch.randn(VIT_B16_FWD_SHAPE, device=DEVICE, generator=gen) for _ in range(3))
     q4, k4, v4 = (t.view(SERVE_MAX_BATCH, 12, s, d) for t in (q, k, v))
-    kernel_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v))
-    plain_ms = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    kernel_ms, host_us = cuda_ms(lambda: fa.flash_fwd(q, k, v))
+    plain_ms, _ = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v), head_start=False)
+    library_ms, library_host_us = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
     # the least time for this work: its products as the kernel runs them
     # (3xTF32 on the tensor cores); and as f32 on the CUDA cores
     bound_ms, bound_by = flash_bound_3xtf32(bh, s, d)
     cuda_core_ms, cuda_core_by = flash_bound(bh, s, d)
     print(f"[kernels] flash_attention_fwd at [BH, S, D] = {list(VIT_B16_FWD_SHAPE)} f32: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"kernel {kernel_ms:.4f} ms (host {host_us:.1f} us a call), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (host {library_host_us:.1f} us), "
+          f"bound {bound_ms:.4f} ms "
           f"({bound_by}; 3xTF32) or {cuda_core_ms:.4f} ms ({cuda_core_by}; f32 CUDA cores)")
     print("[kernels] the f32 scaled_dot_product_attention call runs: "
           + ", ".join(_library_kernels(lambda: F.scaled_dot_product_attention(q4, k4, v4))))
     return {"flash_attention_fwd": {
-        "max_abs_err": main_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
+        "max_abs_err": main_err, "ms": kernel_ms, "kernel_ms": kernel_ms, "host_us": host_us,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_ms_f32_cuda_cores": cuda_core_ms, "library_ms": library_ms,
+        "library_host_us": library_host_us,
     }}
 
 
@@ -580,11 +610,144 @@ def _bwd_case(name, shape, causal, dt, grad_dtype, strided_do, gen):
     return errs
 
 
-def _sgd_leaves(seed: int):
-    """ViT-B/16's 151 parameter shapes as f32 tensors on the card."""
+# the fused SGD's profiler duration against its head-start time: kernels
+# queued back to back are timed across the gaps between them (~1-2 us each),
+# the profiler's rows without them
+SGD_PROFILER_TOL = (0.15, 0.003)  # relative, plus ms
+
+
+def _sgd_steps(shapes, seed: int, steps: int = 3, lr=TRAIN_LR, offset: int = 0) -> float:
+    """``steps`` fused SGD steps against the plain version from the same
+    leaves, new gradients each step; returns max |kernel - plain| over p and
+    b. With ``offset``, every p and g starts that many f32 elements into a
+    larger buffer (misaligned for 16-byte loads unless it is a multiple of
+    4)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    shapes = [p.shape for p in vit_b16(device="meta").parameters()]
-    return [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+
+    def leaves():
+        return [torch.randn(math.prod(s) + offset, device=DEVICE, generator=gen)[offset:]
+                .view(s) for s in shapes]
+
+    params = leaves()
+    ref_params = [p.clone() for p in params]
+    bufs, ref_bufs = [torch.zeros(s, device=DEVICE) for s in shapes], [
+        torch.zeros(s, device=DEVICE) for s in shapes]
+    err = 0.0
+    for _ in range(steps):
+        grads = leaves()
+        fs.fused_sgd(params, grads, bufs, lr)
+        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip(params + bufs, ref_params + ref_bufs)))
+    return err
+
+
+def _sgd_kernel(model: str, seed: int) -> dict:
+    """The fused SGD at ``model``'s leaves: 3 steps bit for bit against its
+    plain version, then the kernel and ``torch.optim.SGD(fused=True).step()``
+    timed in turns (``obs/fused_sgd_bench.py::measure``: device ms with a
+    head start, host us a call, the profiler's kernel duration and the
+    host-to-device copies of 10 calls on unchanged leaves), the plain
+    version's period, and the bytes bound. Keys carry ``_resnet18`` for
+    ResNet-18."""
+    shapes = fused_sgd_bench.leaf_shapes(model)
+    n_params = sum(s.numel() for s in shapes)
+    lr = torch.full((), TRAIN_LR, device=DEVICE)
+    err = _sgd_steps(shapes, seed, lr=lr)
+    check(err == 0.0, f"fused_sgd at {model}'s leaves differs from its plain version by {err}")
+    m = fused_sgd_bench.measure(fs, shapes, seed=seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+    grads = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+    bufs = [torch.zeros_like(p) for p in params]
+    plain_ms, _ = cuda_ms(lambda: fs.fused_sgd_reference(params, grads, bufs, lr), iters=10,
+                          head_start=False)
+    out = {"max_abs_err": err, "ms": statistics.fmean(m["ms"]),
+           "host_us": statistics.fmean(m["host_us"]), "plain_ms": plain_ms,
+           "library_ms": statistics.fmean(m["library_ms"]),
+           "library_host_us": statistics.fmean(m["library_host_us"]),
+           "profiler_ms": m["profiler_ms"], "miss_us": m["miss_us"]}
+    out["bound_ms"], out["bound_by"] = sgd_bound(n_params)
+    print(f"[kernels] fused_sgd at {model}'s {len(shapes)} leaves, {n_params} parameters: 3 "
+          f"steps bit for bit with its plain version; in turns (kernel, library, library, "
+          f"kernel): kernel {m['ms']} ms, host {[round(x, 1) for x in m['host_us']]} us a call; "
+          f"torch.optim.SGD(fused=True).step() {m['library_ms']} ms, host "
+          f"{[round(x, 1) for x in m['library_host_us']]} us; plain {plain_ms:.4f} ms; bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {20 * n_params / 1e6:.1f} MB); "
+          f"{out['bound_ms'] / out['ms']:.1%} of it")
+    print(f"[kernels] fused_sgd at {model}'s leaves under torch.profiler, 10 calls on unchanged "
+          f"leaves: {m['profiler_kernels']} {m['profiler_ms']} ms a call; host-to-device copies: "
+          f"{m['htod_copies']}; a plan cache miss (make_plan) {m['miss_us']:.1f} us of host "
+          f"time")
+    check(m["profiler_ms"] is not None, "torch.profiler recorded no fused_sgd kernel")
+    tol_rel, tol_ms = SGD_PROFILER_TOL
+    check(abs(m["profiler_ms"] - out["ms"]) <= tol_rel * out["ms"] + tol_ms,
+          f"fused_sgd: profiler {m['profiler_ms']} ms vs head-start {out['ms']} ms")
+    check(m["htod_copies"] == 0, f"fused_sgd copied to the device {m['htod_copies']} times "
+          f"in 10 calls on unchanged leaves")
+    if model == "vit_b16":
+        return out
+    return {f"{k}_{model}": v for k, v in out.items()}
+
+
+def _sgd_edge_cases() -> None:
+    """The fused SGD off the main paths' shapes, each 3 steps bit for bit:
+    misaligned p and g with lengths that leave a scalar tail; more leaves
+    than one launch's table holds (two launches); then one call captured in
+    a CUDA graph over static buffers and replayed for 3 steps."""
+    shapes = [(fs.TILE + 3,), (5,), (3, 129), (2, fs.TILE), (64,)]
+    for offset in (1, 2, 3):
+        err = _sgd_steps(shapes, seed=4, offset=offset)
+        print(f"[kernels] fused_sgd, p and g {4 * offset} bytes off 16-byte alignment, lengths "
+              f"{[math.prod(s) for s in shapes]}: max |kernel - plain| {err}")
+        check(err == 0.0, f"fused_sgd misaligned by {offset}: differs by {err}")
+    before = fs.fused_sgd.launches
+    many = [(1 + i % 37,) for i in range(fs.MAX_LEAVES + 40)]
+    err = _sgd_steps(many, seed=5)
+    check(fs.fused_sgd.launches - before == 2 * 3,
+          f"{len(many)} leaves: {fs.fused_sgd.launches - before} launches in 3 steps")
+    print(f"[kernels] fused_sgd over {len(many)} leaves: 2 launches a step, max |kernel - "
+          f"plain| {err}")
+    check(err == 0.0, f"fused_sgd over {len(many)} leaves differs by {err}")
+    _sgd_graph()
+
+
+def _sgd_graph() -> None:
+    """One ``fs.fused_sgd`` call at ResNet-18's leaves captured in a
+    ``torch.cuda.CUDAGraph`` over static p, g, b and lr, replayed for 3 steps
+    with new gradients and learning rates copied in; bit for bit with the
+    plain version."""
+    shapes = fused_sgd_bench.leaf_shapes("resnet18")
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    params = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+    grads = [torch.zeros(s, device=DEVICE) for s in shapes]
+    bufs = [torch.zeros(s, device=DEVICE) for s in shapes]
+    ref_params, ref_bufs = [p.clone() for p in params], [b.clone() for b in bufs]
+    lr = torch.zeros((), device=DEVICE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture: the plan is built here
+        fs.fused_sgd(params, grads, bufs, lr)
+        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fs.fused_sgd(params, grads, bufs, lr)
+    err = 0.0
+    for step, step_lr in enumerate((0.1, 0.05, 0.02)):
+        new = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+        for g, n in zip(grads, new):
+            g.copy_(n)
+        lr.fill_(step_lr)
+        graph.replay()
+        fs.fused_sgd_reference(ref_params, new, ref_bufs, lr)
+        torch.cuda.synchronize()
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip(params + bufs, ref_params + ref_bufs)))
+    print(f"[kernels] fused_sgd captured in a CUDA graph at resnet18's leaves, 3 replays with "
+          f"new gradients and lr: max |kernel - plain| {err}")
+    check(err == 0.0, f"fused_sgd under CUDA-graph replay differs by {err}")
 
 
 def phase_kernels_train() -> dict:
@@ -614,26 +777,6 @@ def phase_kernels_train() -> dict:
     main_err = errs[0]  # the main path's case: training shape, bf16
     fwd_err = _fwd_case("vit_b16 train bf16", TRAIN_SHAPE, False, bf16, None, gen)
 
-    # fused SGD: 3 steps over ViT-B/16's leaves, bit for bit
-    params, ref_params = _sgd_leaves(2), _sgd_leaves(2)
-    bufs = [torch.zeros_like(p) for p in params]
-    ref_bufs = [torch.zeros_like(p) for p in params]
-    n_params = sum(p.numel() for p in params)
-    check(len(params) == 151 and n_params == 86_566_120,
-          f"{len(params)} leaves, {n_params} parameters")
-    lr = torch.full((), TRAIN_LR, device=DEVICE)
-    sgd_err = 0.0
-    for i in range(3):
-        grads = _sgd_leaves(10 + i)
-        fs.fused_sgd(params, grads, bufs, lr)
-        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
-        torch.cuda.synchronize()
-        sgd_err = max(sgd_err, max(float((a - b).abs().max())
-                                   for a, b in zip(params + bufs, ref_params + ref_bufs)))
-    print(f"[kernels] fused_sgd: {len(params)} leaves, {n_params} parameters, 3 steps: "
-          f"max |kernel - plain| {sgd_err} (p and b)")
-    check(sgd_err == 0.0, f"fused_sgd differs from its plain version by {sgd_err}")
-
     # times at the training shapes (bf16, as vit_b16_imagenet_flash runs them)
     q, k, v, do = (torch.randn(TRAIN_SHAPE, device=DEVICE, generator=gen).to(bf16)
                    for _ in range(4))
@@ -643,55 +786,43 @@ def phase_kernels_train() -> dict:
     q4, k4, v4, do4 = (t.view(TRAIN_BATCH, 12, s, d) for t in (q, k, v, do))
     q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
     sdpa_out = F.scaled_dot_product_attention(q4, k4, v4)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
-                                                      retain_graph=True), iters=20)
+    sdpa_bwd_ms, sdpa_bwd_us = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (q4, k4, v4), do4, retain_graph=True), iters=20)
     with torch.no_grad():
-        fwd = {
-            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=20),
-            "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v), iters=10),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters=20),
-        }
+        fwd_ms, fwd_us = cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=20)
+        fwd_plain_ms, _ = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v), iters=10,
+                                  head_start=False)
+        fwd_lib_ms, fwd_lib_us = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                         iters=20)
     fwd_bound, fwd_by = flash_bound(bh, s, d, bf16)
     print(f"[kernels] flash_attention_fwd at [BH, S, D] = {list(TRAIN_SHAPE)} bf16: kernel "
-          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, scaled_dot_product_attention "
-          f"{fwd['library_ms']:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
+          f"{fwd_ms:.4f} ms (host {fwd_us:.1f} us a call), plain {fwd_plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {fwd_lib_ms:.4f} ms (host {fwd_lib_us:.1f} us), bound "
+          f"{fwd_bound:.4f} ms ({fwd_by})")
     bounds = flash_bwd_bounds(bh, s, d, bf16)
     measured = {}
     for name, kernel, plain in (
         ("flash_attention_bwd_dkdv", fa.flash_bwd_dkdv, fa.flash_bwd_dkdv_reference),
         ("flash_attention_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
     ):
-        kernel_ms = cuda_ms(lambda: kernel(*bwd_args), iters=20)
-        plain_ms = cuda_ms(lambda: plain(*bwd_args), iters=10)
+        kernel_ms, host_us = cuda_ms(lambda: kernel(*bwd_args), iters=20)
+        plain_ms, _ = cuda_ms(lambda: plain(*bwd_args), iters=10, head_start=False)
         bound_ms, bound_by = bounds[name]
-        measured[name] = {"max_abs_err": main_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_bwd_ms}
+        measured[name] = {"max_abs_err": main_err[name], "ms": kernel_ms, "host_us": host_us,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": sdpa_bwd_ms, "library_host_us": sdpa_bwd_us}
         print(f"[kernels] {name} at [BH, S, D] = {list(TRAIN_SHAPE)} bf16: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); the whole scaled_dot_product_attention backward "
-              f"{sdpa_bwd_ms:.4f} ms")
+              f"{kernel_ms:.4f} ms (host {host_us:.1f} us a call), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}); the whole scaled_dot_product_attention "
+              f"backward {sdpa_bwd_ms:.4f} ms (host {sdpa_bwd_us:.1f} us)")
 
-    grads = _sgd_leaves(20)
-    lib_params = [torch.nn.Parameter(p.clone()) for p in ref_params]
-    for p, g in zip(lib_params, grads):
-        p.grad = g
-    lib_opt = torch.optim.SGD(lib_params, lr=TRAIN_LR, momentum=0.9, weight_decay=1e-4,
-                              fused=True)
-    sgd_ms = cuda_ms(lambda: fs.fused_sgd(params, grads, bufs, lr), iters=20)
-    sgd_plain_ms = cuda_ms(lambda: fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr),
-                           iters=10)
-    sgd_lib_ms = cuda_ms(lib_opt.step, iters=20)
-    sgd_bound_ms, sgd_by = sgd_bound(n_params)
-    print(f"[kernels] fused_sgd over {n_params} parameters: kernel {sgd_ms:.4f} ms, plain "
-          f"{sgd_plain_ms:.4f} ms, torch.optim.SGD(fused=True).step() {sgd_lib_ms:.4f} ms, "
-          f"bound {sgd_bound_ms:.4f} ms ({sgd_by})")
-    measured["fused_sgd"] = {"max_abs_err": sgd_err, "ms": sgd_ms, "plain_ms": sgd_plain_ms,
-                             "bound_ms": sgd_bound_ms, "bound_by": sgd_by,
-                             "library_ms": sgd_lib_ms}
+    measured["fused_sgd"] = _sgd_kernel("vit_b16", seed=2)
+    _sgd_edge_cases()
     measured["flash_attention_fwd"] = {
         "max_abs_err_train_shape": fwd_err,
-        "ms_train_shape": fwd["ms"], "plain_ms_train_shape": fwd["plain_ms"],
-        "library_ms_train_shape": fwd["library_ms"], "bound_ms_train_shape": fwd_bound,
+        "ms_train_shape": fwd_ms, "host_us_train_shape": fwd_us,
+        "plain_ms_train_shape": fwd_plain_ms, "library_ms_train_shape": fwd_lib_ms,
+        "library_host_us_train_shape": fwd_lib_us, "bound_ms_train_shape": fwd_bound,
     }
     return measured
 
@@ -727,7 +858,7 @@ def _forward_split(model, batch: np.ndarray) -> None:
     for impl in ("flash", "xla", "xla", "flash"):
         model.attn_impl = impl
         with torch.inference_mode():
-            period_ms = cuda_ms(lambda: model(x), iters=20, warmup=3)
+            period_ms, _ = cuda_ms(lambda: model(x), iters=20, warmup=3, head_start=False)
             enqueue = []
             for _ in range(10):
                 torch.cuda.synchronize()
@@ -943,6 +1074,7 @@ def _train_config(kernel_ms: dict) -> dict:
 
     # the main path: counts set to 0 just before, read just after
     reset_launches()
+    reset_plan_counts()
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -953,6 +1085,7 @@ def _train_config(kernel_ms: dict) -> dict:
     launches = read_launches()
     mma = read_mma_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
+    read_plan_counts("vit_b16", "train")
 
     for name, per_step in PER_STEP.items():
         check(launches[name] == per_step * TRAIN_STEPS,
@@ -999,7 +1132,7 @@ def phase_train(kernel_ms: dict) -> dict:
 
 # -- phase 6 -----------------------------------------------------------------
 
-RESNET_LEAVES, RESNET_PARAMS = 62, 11_220_132  # ResNet-18, 100 classes
+RESNET_PARAMS = 11_220_132  # ResNet-18, 100 classes
 RESNET_RUN = dict(  # bench.py's resnet18_cifar100, cut to 2 x 20 steps
     model="resnet18", num_classes=100, dataset="synthetic", synthetic_n=50_000,
     batch_size=256, bf16=True, sync_bn=True, fused_optimizer=True, lr=0.1,
@@ -1020,55 +1153,6 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-def _resnet_sgd_kernel() -> dict:
-    """The fused SGD kernel at ResNet-18's 62 leaves: 3 steps bit for bit
-    against its plain version, then CUDA-event times of the kernel, the
-    plain version and ``torch.optim.SGD(fused=True).step()`` on the same
-    leaves, and the bytes bound."""
-    shapes = [p.shape for p in resnet_lib.resnet18(device="meta").parameters()]
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-
-    def leaves():
-        return [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
-
-    params = leaves()
-    ref_params = [p.clone() for p in params]
-    bufs, ref_bufs = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
-    n_params = sum(p.numel() for p in params)
-    check(len(params) == RESNET_LEAVES and n_params == RESNET_PARAMS,
-          f"resnet18: {len(params)} leaves, {n_params} parameters")
-    lr = torch.full((), RESNET_RUN["lr"], device=DEVICE)
-    err = 0.0
-    for _ in range(3):
-        grads = leaves()
-        fs.fused_sgd(params, grads, bufs, lr)
-        fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr)
-        torch.cuda.synchronize()
-        err = max(err, max(float((a - b).abs().max())
-                           for a, b in zip(params + bufs, ref_params + ref_bufs)))
-    check(err == 0.0, f"fused_sgd at resnet18's leaves differs from its plain version by {err}")
-    grads = leaves()
-    lib_params = [torch.nn.Parameter(p.clone()) for p in ref_params]
-    for p, g in zip(lib_params, grads):
-        p.grad = g
-    lib_opt = torch.optim.SGD(lib_params, lr=RESNET_RUN["lr"], momentum=0.9, weight_decay=1e-4,
-                              fused=True)
-    out = {
-        "max_abs_err_resnet18": err,
-        "ms_resnet18": cuda_ms(lambda: fs.fused_sgd(params, grads, bufs, lr), iters=50),
-        "plain_ms_resnet18": cuda_ms(
-            lambda: fs.fused_sgd_reference(ref_params, grads, ref_bufs, lr), iters=20),
-        "library_ms_resnet18": cuda_ms(lib_opt.step, iters=50),
-    }
-    out["bound_ms_resnet18"], out["bound_by_resnet18"] = sgd_bound(n_params)
-    print(f"[resnet] fused_sgd over resnet18's {len(params)} leaves, {n_params} parameters: "
-          f"3 steps bit for bit with its plain version; kernel {out['ms_resnet18']:.4f} ms, "
-          f"plain {out['plain_ms_resnet18']:.4f} ms, torch.optim.SGD(fused=True).step() "
-          f"{out['library_ms_resnet18']:.4f} ms, bound {out['bound_ms_resnet18']:.4f} ms "
-          f"({out['bound_by_resnet18']}: {20 * n_params / 1e6:.1f} MB)")
-    return out
 
 
 def _resnet_parity() -> None:
@@ -1123,8 +1207,9 @@ def _resnet_fit() -> dict:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(metrics["loss"].item())
-            if len(step_ms) == RESNET_WARMUP:  # peak memory of the steady steps
+            if len(step_ms) == RESNET_WARMUP:  # peak memory and plans of the steady steps
                 torch.cuda.reset_peak_memory_stats()
+                reset_plan_counts()
             return st, metrics
 
         trainer.train_step = timed_step
@@ -1136,6 +1221,7 @@ def _resnet_fit() -> dict:
         fit_s = time.perf_counter() - t0
         launches, counts = read_launches(), counters_lib.snapshot()
         peak_bytes = torch.cuda.max_memory_allocated()
+        read_plan_counts("resnet18", "resnet")
         steps = cfg.epochs * cfg.steps_per_epoch
         check(len(losses) == steps and all(math.isfinite(x) for x in losses),
               f"{len(losses)} steps, losses {losses}")
@@ -1203,7 +1289,7 @@ def phase_train_resnet() -> tuple:
     1-rank NCCL group. Returns (launches of the main path, fused SGD's
     numbers at ResNet-18's leaves)."""
     t0 = time.perf_counter()
-    sgd = _resnet_sgd_kernel()
+    sgd = _sgd_kernel("resnet18", seed=3)
     _, created = mesh_lib.initialize_distributed(
         DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
     try:
@@ -1239,6 +1325,8 @@ def main() -> int:
     })
     resnet_launches, resnet_sgd = phase_train_resnet()
     measured["fused_sgd"].update(resnet_sgd)
+    for model, (hits, misses) in PLAN_COUNTS.items():
+        measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there)
         measured[name]["launches_tensor_core"] = trained_mma[name]
@@ -1253,7 +1341,8 @@ def main() -> int:
     ]
     for k in kernels:
         check(all(isinstance(k[key], (int, float)) and math.isfinite(k[key])
-                  for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
+                  for key in ("max_abs_err", "ms", "host_us", "plain_ms", "bound_ms",
+                              "library_ms", "library_host_us")),
               f"{k['name']}: a measurement is missing")
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

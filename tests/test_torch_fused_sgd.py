@@ -8,10 +8,16 @@ On the CPU ``fused_sgd`` runs its plain version; the CUDA kernel is held
 bit for bit against the same plain version on the card by ``chip_smoke.py``.
 """
 
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from tpu_dist.ops import fused_sgd as jax_fused
 from tpu_dist.train import optim as jax_optim
@@ -144,19 +150,171 @@ def test_mismatched_leaves_are_refused():
     fs.fused_sgd([], [], [], 0.1)  # nothing to update: a no-op
 
 
-def test_chunk_table_layout():
-    """The kernel's table: pointers, lengths and first chunks in leaf order;
-    an empty leaf owns no chunk."""
-    leaves = [torch.zeros(fs.CHUNK + 1), torch.zeros(0), torch.zeros(3)]
-    grads = [torch.zeros_like(t) for t in leaves]
-    bufs = [torch.zeros_like(t) for t in leaves]
-    table, n_chunks = fs.chunk_table(leaves, grads, bufs)
-    assert n_chunks == 3
-    assert table[:3] == [t.data_ptr() for t in leaves]
-    assert table[3:6] == [t.data_ptr() for t in grads]
-    assert table[6:9] == [t.data_ptr() for t in bufs]
-    assert table[9:12] == [fs.CHUNK + 1, 0, 3]
-    assert table[12:15] == [0, 2, 2]
+# -- the launch plan (pure Python), held against a model of the kernel's walk --
+
+TILES = (1024, 2048, fs.TILE)  # the tiles csrc/fused_sgd.cu builds at VEC 1, 2, 4
+LENGTHS = st.one_of(
+    st.sampled_from([0, 1, 3, 4, 5, 64, 100, 512]),
+    st.integers(0, 64).map(lambda k: 4 * k + 1),
+    st.sampled_from(TILES).flatmap(lambda t: st.sampled_from([t - 1, t, t + 1, 3 * t + 2])),
+)
+
+
+def _walk(first, lengths, tile, grid, ptrs=None):
+    """A model of the kernel's walk over one launch (``fused_sgd_kernel`` in
+    ``csrc/fused_sgd.cu``): ``(cta, leaf, start, stop, vector)`` for every
+    tile each of ``grid`` CTAs takes (tile ``cta``, ``cta + grid``, ...),
+    ``leaf`` indexing the launch's leaves. ``vector`` is whether the tile
+    takes the float4 path: all three of the leaf's ``(p, g, b)`` byte
+    addresses in ``ptrs`` 16-byte aligned."""
+    n_tiles = first[-1]
+    for cta in range(grid):
+        leaf = 0
+        for t in range(cta, n_tiles, grid):
+            while first[leaf + 1] <= t:
+                leaf += 1
+            start = (t - first[leaf]) * tile
+            vector = ptrs is not None and not (ptrs[leaf][0] | ptrs[leaf][1] | ptrs[leaf][2]) & 15
+            yield cta, leaf, start, min(start + tile, lengths[leaf]), vector
+
+
+def _covered(launches, lengths, tile, grid):
+    """{leaf: [(start, stop), ...]} over every tile every CTA takes."""
+    spans = {}
+    for leaves, first in launches:
+        for _, k, start, stop, _ in _walk(first, [lengths[i] for i in leaves], tile, grid):
+            spans.setdefault(leaves[k], []).append((start, stop))
+    return spans
+
+
+def test_the_plan_uses_the_sizes_the_kernel_is_built_with():
+    """``TILE`` and ``MAX_LEAVES`` here are the defaults of
+    ``csrc/fused_sgd.cu`` (its entry point refuses a table planned for
+    another tile), and a full table fits CUDA's parameter limit."""
+    src = (Path(fs.__file__).resolve().parent.parent / "csrc" / "fused_sgd.cu").read_text()
+    define = {m[0]: int(m[1]) for m in re.findall(r"#define (FUSED_SGD_\w+) (\d+)", src)}
+    assert fs.TILE == 256 * 4 * define["FUSED_SGD_VEC"]
+    assert fs.MAX_LEAVES == define["FUSED_SGD_MAX_LEAVES"]
+    assert 40 * fs.MAX_LEAVES + 16 + 32 <= 32_764  # sizeof(LeafTable) + the other parameters
+
+
+@settings(max_examples=60, deadline=None)
+@given(lengths=st.lists(LENGTHS, min_size=1, max_size=40), tile=st.sampled_from(TILES),
+       grid=st.integers(1, 9), max_leaves=st.integers(1, 50))
+def test_tile_walk_covers_every_element_of_every_leaf_once(lengths, tile, grid, max_leaves):
+    launches = fs.split_launches(lengths, tile, max_leaves)
+    spans = _covered(launches, lengths, tile, grid)
+    assert sorted(spans) == [i for i, n in enumerate(lengths) if n > 0]  # empty leaves: no tile
+    for i, s in spans.items():
+        s.sort()
+        assert s[0][0] == 0 and s[-1][1] == lengths[i]
+        assert all(a[1] == b[0] for a, b in zip(s, s[1:]))  # no gap, no overlap
+        assert all(0 < stop - start <= tile and start % tile == 0 for start, stop in s)
+
+
+def test_many_tiny_leaves_share_the_ctas():
+    """ResNet-style BN leaves: each is one partial tile, walked by the same
+    persistent CTAs as the large leaves (no CTA of its own)."""
+    lengths = [64] * 40 + [100] + [3 * fs.TILE + 7]
+    (leaves, first), = fs.split_launches(lengths)
+    assert first[-1] == 41 + 4
+    tiles = list(_walk(first, lengths, fs.TILE, grid=8))
+    assert len(tiles) == first[-1] and {cta for cta, *_ in tiles} == set(range(8))
+
+
+def _leaf_set(seed, shapes, offset=0):
+    """f32 p, g, b per shape on the CPU; with ``offset``, g starts
+    ``offset`` elements into a larger buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    ps = [torch.randn(s, generator=gen) for s in shapes]
+    gs = [torch.randn(math.prod(s) + offset, generator=gen)[offset:].view(s) for s in shapes]
+    bs = [torch.zeros(s) for s in shapes]
+    return ps, gs, bs
+
+
+@pytest.mark.parametrize("offset", (0, 1, 2, 3), ids=lambda o: f"g+{4 * o}B")
+def test_vector_tiles_start_16_byte_aligned(offset):
+    shapes = [(fs.TILE + 5,), (3,), (2, fs.TILE), (129,)]
+    ps, gs, bs = _leaf_set(0, shapes, offset)
+    assert all(t.data_ptr() % 16 == 0 for t in ps + bs)
+    plan = fs.make_plan(ps, gs, bs)
+    (one,) = plan.launches
+    ptrs = [(ps[i].data_ptr(), gs[i].data_ptr(), bs[i].data_ptr()) for i in one.leaves]
+    tiles = list(_walk(one.first, one.lengths, fs.TILE, 3, ptrs))
+    assert len(tiles) == one.first[-1]
+    for _, k, start, _, vector in tiles:
+        assert vector == (offset == 0)  # a misaligned g sends its leaf down the scalar path
+        if vector:
+            assert all((a + 4 * start) % 16 == 0 for a in ptrs[k])
+
+
+def test_a_table_past_the_parameter_limit_splits_into_launches():
+    # 2 * MAX_LEAVES + 5 leaves with work, and an empty one after every 6th
+    lengths = [0 if i % 7 == 6 else 1 + i % 5 * 3 for i in range((2 * fs.MAX_LEAVES + 5) * 7 // 6)]
+    assert sum(k > 0 for k in lengths) == 2 * fs.MAX_LEAVES + 5
+    ps = [torch.zeros(k) for k in lengths]
+    gs = [torch.zeros(k) for k in lengths]
+    bs = [torch.zeros(k) for k in lengths]
+    plan = fs.make_plan(ps, gs, bs)
+    assert len(plan.launches) == 3 and plan.device == -1
+    assert ([i for one in plan.launches for i in one.leaves]
+            == [i for i, k in enumerate(lengths) if k])
+    for one in plan.launches:
+        m = len(one.leaves)
+        assert 0 < m <= fs.MAX_LEAVES and 40 * m + 16 <= 32_764  # the kernel's parameter bytes
+        table = list(one.table)
+        assert len(table) == 5 * m + 1
+        assert table[:m + 1] == list(one.first) and table[m + 1:2 * m + 1] == list(one.lengths)
+        for j, ts in enumerate((ps, gs, bs)):
+            assert table[(2 + j) * m + 1:(3 + j) * m + 1] == [ts[i].data_ptr() for i in one.leaves]
+    spans = _covered([(one.leaves, one.first) for one in plan.launches], lengths, fs.TILE, 4)
+    assert sum(stop - start for s in spans.values() for start, stop in s) == sum(lengths)
+
+
+def _change(kind, g):
+    if kind == "moved":
+        return g.clone()
+    if kind == "resized":
+        return torch.zeros(g.numel() + 4)
+    if kind == "reshaped":
+        return g.view(g.shape[::-1])  # same pointer, same length
+    if kind == "retyped":
+        return g.double()
+    return torch.zeros(g.shape[::-1]).t()  # non-contiguous, same shape
+
+
+@pytest.mark.parametrize("kind,error", [("moved", None), ("resized", ValueError),
+                                        ("reshaped", ValueError), ("retyped", TypeError),
+                                        ("non-contiguous", ValueError)])
+@pytest.mark.parametrize("which", ("p", "g", "b"))
+def test_plan_cache_never_reuses_a_stale_plan(kind, error, which):
+    shapes = [(7,), (4, 6)]  # the second changes
+    leaves = list(_leaf_set(1, shapes))
+    cache = fs.PlanCache()
+    plan = cache.get(*leaves)
+    assert cache.get(*[list(ts) for ts in leaves]) is plan  # same leaves, new lists: a hit
+    assert (cache.hits, cache.misses) == (1, 1)
+    slot = "pgb".index(which)
+    leaves[slot] = [leaves[slot][0], _change(kind, leaves[slot][1])]
+    if error:
+        with pytest.raises(error):
+            cache.get(*leaves)
+        assert (cache.hits, cache.misses) == (1, 2)
+        return
+    new = cache.get(*leaves)
+    assert new is not plan and (cache.hits, cache.misses) == (1, 2)
+    table = list(new.launches[0].table)
+    assert leaves[slot][1].data_ptr() in table and leaves[slot][1].data_ptr() not in list(
+        plan.launches[0].table)
+
+
+def test_plan_cache_keeps_a_few_leaf_sets():
+    cache = fs.PlanCache(size=2)
+    sets = [_leaf_set(s, [(5,)]) for s in range(3)]
+    plans = [cache.get(*s) for s in sets]
+    assert cache.get(*sets[2]) is plans[2] and cache.get(*sets[1]) is plans[1]
+    assert cache.get(*sets[0]) is not plans[0]  # the oldest was dropped
+    assert (cache.hits, cache.misses) == (2, 4)
 
 
 @pytest.mark.parametrize("milestones,gamma,warmup", [

@@ -49,7 +49,8 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.metrics.logging", "tpu_dist_torch.config.config",
                  "tpu_dist_torch.train.trainer", "tpu_dist_torch.cli.train",
                  "tpu_dist_torch.cli.distributed", "tpu_dist_torch.cli.distributed_mp",
-                 "tpu_dist_torch.cli.dataparallel"):
+                 "tpu_dist_torch.cli.dataparallel", "tpu_dist_torch.obs.timing",
+                 "tpu_dist_torch.obs.fused_sgd_bench"):
         assert name in MODULES
 
 

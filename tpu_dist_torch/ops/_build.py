@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``csrc/build/lib<name>-<hash>.so`` and loaded with ``ctypes``; the hash
 covers the source, the shared headers and the flags, so an edited source
-or header is rebuilt and a stale library is never loaded. Nothing is
+or header is rebuilt and a stale library is never loaded. A source's
+compile-time sizes can be set by ``-D`` defines (``defines``), each set
+building a library of its own. Nothing is
 built at import time: the CPU test suite imports every module on a
 machine without ``nvcc``.
 """
@@ -19,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -31,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -49,28 +51,33 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to. The hash covers the source, every
     ``csrc/*.cuh`` header (so an edited shared header rebuilds the sources
-    that may include it) and the flags."""
+    that may include it) and the flags, ``defines`` (``NAME=value``)
+    included."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Tuple[Path, float, str]:
+def build(name: str, defines: Sequence[str] = ()) -> Tuple[Path, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library already exists.
     Returns ``(path, seconds, compiler log)``; seconds and log are 0 and
     empty when nothing had to be built. Raises with the compiler's output
     when ``nvcc`` fails."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -82,21 +89,24 @@ def build(name: str) -> Tuple[Path, float, str]:
     return out, seconds, log
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines``),
+    built first if needed."""
+    key = (name, *defines)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            path, _, _ = build(name)
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+            path, _, _ = build(name, defines)
+            lib = _LIBS[key] = ctypes.CDLL(str(path))
         return lib
 
 
-def bind(name: str, symbol: str, argtypes):
-    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
-    types declared (``c_void_p`` for pointers and the stream, so none is
-    cut to 32 bits) and its CUDA error code as the result."""
-    fn = getattr(load(name), symbol)
+def bind(name: str, symbol: str, argtypes, defines: Sequence[str] = ()):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built with
+    ``defines``) with its argument types declared (``c_void_p`` for
+    pointers and the stream, so none is cut to 32 bits) and its CUDA error
+    code as the result."""
+    fn = getattr(load(name, defines), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
