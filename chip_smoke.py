@@ -84,6 +84,27 @@ Phases; any failure exits non-zero and prints no result line:
    as a subprocess: ``python -m tpu_dist_torch.cli.distributed_mp
    --dataset synthetic --synthetic_n 2560 --epochs 1 --steps_per_epoch 3
    --batch_size 256`` must exit 0 with one rank-0 epoch line.
+   (d) Checkpoint/resume of the main path, over the same NCCL group: the
+   run of (b) with ``ckpt_dir`` (a temporary directory), ``save_every=1``
+   and ``mid_epoch_save_every=10``, whose 30th step (epoch 1, its 10th)
+   first sends this process SIGTERM: ``fit`` must raise ``PreemptedError``
+   at that step boundary, leaving an emergency snapshot stamped
+   ``mid_epoch_step=10`` whose arrays equal the live state bit for bit.
+   A new ``Trainer(resume=True)`` must restore exactly the file's arrays
+   and run the 10 remaining steps: 40 fused SGD launches and 40 gradient
+   all-reduces over both runs, the first resumed loss equal to the same
+   step taken from the interrupted run's live state and close to step 30
+   of (b), and the fused SGD's plan cache hitting on at least 0.9 of the
+   resumed steps after the first 2. Then the card's times of a
+   synchronous save, of the blocking part of an async save and of a
+   CRC-verified restore with its copy onto the card, and the file's bytes.
+   (e) The real entry point once more, through the launcher:
+   ``python -m tpu_dist_torch.cli.launch --nproc 1 -- python -m
+   tpu_dist_torch.cli.train ... --ckpt_dir D --log_file D/h.jsonl``,
+   sent SIGTERM after its first epoch line, must exit 75 with a checkpoint
+   on disk; rerun with ``--resume`` it must exit 0 and print its
+   ``=> resumed from`` line, and the history must be JSONL with
+   ``train_epoch`` and ``eval`` records.
 7. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
@@ -95,14 +116,19 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -110,6 +136,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dist_torch import bridge
+from tpu_dist_torch import ckpt as ckpt_lib
 from tpu_dist_torch.comm import mesh as mesh_lib
 from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.nn import resnet as resnet_lib
@@ -119,6 +146,7 @@ from tpu_dist_torch.obs import fused_sgd_bench, timing
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
+from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
 from tpu_dist_torch.serve.engine import ServingEngine
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 from tpu_dist_torch.train import trainer as trainer_lib
@@ -1261,7 +1289,7 @@ def _resnet_fit() -> dict:
         batches.close()
         _profile_steps(inner, trainer.state, images, labels,
                        lr=torch.full((), RESNET_RUN["lr"], device=DEVICE), tag="resnet")
-        return launches
+        return launches, losses
     finally:
         trainer.close()
 
@@ -1284,21 +1312,257 @@ def _resnet_cli() -> None:
     check(len(done) == 1, f"{len(done)} epoch lines from one rank-0 process:\n{proc.stdout}")
 
 
+RESNET_STOP_CALL = 29  # the 30th step (epoch 1, its 10th) sends SIGTERM before it runs
+RESNET_MID_SAVE = 10   # mid_epoch_save_every of the interrupted run
+RESNET_STEADY = 2      # resumed steps before the plan cache's steady window
+# The first resumed step against step 30 of (b)'s own run: the restored
+# state is the interrupted run's bit for bit, but that run and (b) are two
+# bf16 runs whose cuDNN backward may sum in another order from one run to
+# the next (and cuDNN may pick other algorithms), so their weights part at
+# f32 rounding after the first step and 30 SGD steps at lr 0.1 carry that
+# into the loss; each bf16 rounding is 2^-8 (3.9e-3) relative. Limit 2e-2
+# relative; the first 30 losses of the two runs, printed beside, show the
+# spread of the two runs before any checkpoint is involved.
+RESNET_RESUME_LOSS_RTOL = 2e-2
+# The first resumed step against the same step taken from the interrupted
+# run's live state: the same state bits, the same batch, the same learning
+# rate, and a loss that comes from the forward alone, whose cuDNN
+# algorithms are deterministic: exact is expected, 1e-6 relative allowed.
+RESNET_NEXT_LOSS_RTOL = 1e-6
+CKPT_TIMING_REPEATS = 3
+
+
+def _flat_equal(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _ckpt_io_times(state, ckpt_dir: str) -> None:
+    """The card's times of the checkpoint I/O of the ResNet-18 state
+    (parameters, momentum, BN statistics): a synchronous ``save``, the
+    blocking part of an ``AsyncCheckpointer.save`` (the device-to-host
+    snapshot) and a CRC-verified ``restore`` with its copy into the live
+    tensors on the card; medians of a few, and the file's bytes."""
+    times = {"save": [], "async": [], "restore": []}
+    for i in range(CKPT_TIMING_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt_lib.save(ckpt_dir, state, 100 + i)
+        times["save"].append((time.perf_counter() - t0) * 1e3)
+        writer = ckpt_lib.AsyncCheckpointer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.save(ckpt_dir, state, 200 + i)
+        times["async"].append((time.perf_counter() - t0) * 1e3)
+        check(writer.close(), "async checkpoint write did not drain")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = bridge.load_train_state(state, ckpt_lib.restore(path, verify=True))
+        torch.cuda.synchronize()
+        times["restore"].append((time.perf_counter() - t0) * 1e3)
+    flat = bridge.train_state_to_flat(state)
+    arrays = sum(a.nbytes for a in flat.values())
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[ckpt] ResNet-18 state, {len(flat)} arrays, {arrays} bytes; file {os.path.getsize(path)} "
+          f"bytes (a temporary directory of the machine); medians of {CKPT_TIMING_REPEATS} (ms): "
+          f"save {med['save']:.1f}, async save blocking {med['async']:.1f}, restore "
+          f"(CRC-verified) + copy onto the card {med['restore']:.1f}; all: {times}")
+    print(f"[ckpt] card: {_smi_line()}")
+
+
+def _resnet_resume(fit_losses: list) -> None:
+    """(d): the main path interrupted by SIGTERM at its 30th step and
+    resumed by a new trainer, with the launch and all-reduce counts over
+    both runs."""
+    steps = RESNET_RUN["epochs"] * RESNET_RUN["steps_per_epoch"]
+    done = RESNET_STOP_CALL + 1
+    mid_step = done - RESNET_RUN["steps_per_epoch"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        cfg = TrainConfig(**RESNET_RUN, device=DEVICE, ckpt_dir=ckpt_dir, save_every=1,
+                          mid_epoch_save_every=RESNET_MID_SAVE)
+        first = trainer_lib.Trainer(cfg)
+        second = None
+        try:
+            inner, losses = first.train_step, []
+
+            def stopping_step(st, images, labels, lr):
+                if len(losses) == RESNET_STOP_CALL:
+                    os.kill(os.getpid(), signal.SIGTERM)  # the flag only: this step runs
+                st, metrics = inner(st, images, labels, lr)
+                losses.append(metrics["loss"].item())
+                return st, metrics
+
+            first.train_step = stopping_step
+            torch.cuda.synchronize()
+            reset_launches()
+            preempted = False
+            try:
+                first.fit()
+            except PreemptedError:
+                preempted = True
+            counts1 = counters_lib.snapshot()
+            check(preempted and len(losses) == done,
+                  f"SIGTERM at step {done}: preempted={preempted} after {len(losses)} steps")
+            path = os.path.join(ckpt_dir, "ckpt_1.npz")
+            meta = ckpt_lib.read_meta(path)
+            snapshot = ckpt_lib.restore(path, verify=True)
+            check(meta.get("mid_epoch_step") == mid_step and meta.get("step") == done,
+                  f"emergency snapshot meta {meta.get('mid_epoch_step')=} {meta.get('step')=}")
+            check(_flat_equal(snapshot, bridge.train_state_to_flat(first.state)),
+                  "the emergency snapshot differs from the live state")
+            check(counts1.get("preemption.observed") == 1, f"counters {counts1}")
+
+            second = trainer_lib.Trainer(dataclasses.replace(cfg, resume=True))
+            check((second.start_epoch, second._resume_step) == (1, mid_step),
+                  f"resumed at epoch {second.start_epoch} step {second._resume_step}")
+            check(_flat_equal(bridge.train_state_to_flat(second.state), snapshot),
+                  "the restored state differs from the file")
+            inner2, rest = second.train_step, []
+
+            def resumed_step(st, images, labels, lr):
+                st, metrics = inner2(st, images, labels, lr)
+                rest.append(metrics["loss"].item())
+                if len(rest) == RESNET_STEADY:
+                    reset_plan_counts()
+                return st, metrics
+
+            second.train_step = resumed_step
+            t0 = time.perf_counter()
+            last = second.fit()
+            resume_s = time.perf_counter() - t0
+            launches, counts2 = read_launches(), counters_lib.snapshot()
+            read_plan_counts("resnet18_resumed", "resume")
+            hits, misses = PLAN_COUNTS["resnet18_resumed"]
+            check(len(rest) == steps - done and all(math.isfinite(x) for x in losses + rest),
+                  f"resumed {len(rest)} steps, losses {rest}")
+            check(launches["fused_sgd"] == steps,
+                  f"fused_sgd: {launches['fused_sgd']} launches over both runs (expected {steps})")
+            for kind in ("grad", "metrics"):
+                n = counts1.get(f"comm.all_reduce.{kind}", 0) + counts2.get(
+                    f"comm.all_reduce.{kind}", 0)
+                check(n == steps, f"{n} {kind} all-reduces over both runs (expected {steps})")
+            check(hits >= 0.9 * (hits + misses) and hits + misses == len(rest) - RESNET_STEADY,
+                  f"plan cache over the resumed steady steps: {hits} hits, {misses} misses")
+            check(math.isfinite(last["val_loss"]), f"eval after the resume: {last}")
+
+            # the same step from the interrupted run's live state
+            first.train_sampler.set_epoch(1)
+            batches = first.train_loader.iter_from(mid_step)
+            images, labels = next(batches)
+            batches.close()
+            _, metrics = inner(first.state, images, labels,
+                               torch.full((), first._lr(1), device=DEVICE))
+            next_loss = metrics["loss"].item()
+            spread = max(_rel(a, b) for a, b in zip(losses, fit_losses))
+            rel30 = _rel(rest[0], fit_losses[done])
+            print(f"[resume] SIGTERM before step {done} of {steps}: PreemptedError at its boundary; "
+                  f"emergency snapshot mid_epoch_step={mid_step} equal to the live state; resumed "
+                  f"{len(rest)} steps + eval in {resume_s:.1f} s; fused_sgd launches over both "
+                  f"runs {launches['fused_sgd']}; gradient all-reduces "
+                  f"{counts1.get('comm.all_reduce.grad')} + {counts2.get('comm.all_reduce.grad')}")
+            print(f"[resume] first resumed loss {rest[0]!r}: vs the same step from the live state "
+                  f"{next_loss!r} (relative {_rel(rest[0], next_loss):.3g}, limit "
+                  f"{RESNET_NEXT_LOSS_RTOL}); vs step {done} of (b) {fit_losses[done]!r} (relative "
+                  f"{rel30:.3g}, limit {RESNET_RESUME_LOSS_RTOL}); the first {done} losses of the "
+                  f"two runs differ by up to {spread:.3g} relative")
+            check(_rel(rest[0], next_loss) <= RESNET_NEXT_LOSS_RTOL,
+                  f"first resumed loss {rest[0]!r} vs the live state's next step {next_loss!r}")
+            check(rel30 <= RESNET_RESUME_LOSS_RTOL,
+                  f"first resumed loss {rest[0]!r} vs step {done} of (b) {fit_losses[done]!r}")
+            _ckpt_io_times(second.state, ckpt_dir)
+        finally:
+            first.close()
+            if second is not None:
+                second.close()
+
+
+def _smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+# the main path's configuration through the CLI, cut to 3 steps an epoch
+LAUNCH_TRAIN_ARGS = ["--dataset", "synthetic", "--synthetic_n", "2560", "--batch_size", "256",
+                     "--steps_per_epoch", "3", "--bf16", "--fused_optimizer"]
+
+
+def _resnet_launch() -> None:
+    """(e): the launcher's SIGTERM contract (exit 75) and ``--resume``."""
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
+        log = os.path.join(d, "h.jsonl")
+        train = [sys.executable, "-m", "tpu_dist_torch.cli.train", *LAUNCH_TRAIN_ARGS,
+                 "--device", DEVICE, "--ckpt_dir", d, "--log_file", log]
+        launch = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1", "--"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(launch + train + ["--epochs", "1000"], cwd=root, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        guard = threading.Timer(300, proc.kill)  # a launcher that never prints an epoch
+        guard.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("Epoch 0 done"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            guard.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out = "".join(lines) + out
+        newest = ckpt_lib.latest_checkpoint(d)
+        print(f"[launch] {' '.join(launch[1:])} ... --epochs 1000, SIGTERM after its first epoch "
+              f"line: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s; newest "
+              f"checkpoint {newest}")
+        check(proc.returncode == PREEMPTION_EXIT_CODE and newest is not None,
+              f"launcher under SIGTERM: rc {proc.returncode}, checkpoint {newest}:\n{out[-3000:]}")
+        path, epoch = newest
+        check(ckpt_lib.verify_npz(path)["epoch"] == epoch, f"{path} does not verify")
+        t0 = time.perf_counter()
+        again = subprocess.run(launch + train + ["--epochs", str(epoch + 2), "--resume"],
+                               cwd=root, text=True, capture_output=True, timeout=300)
+        resumed = [ln for ln in again.stdout.splitlines() if ln.startswith("=> resumed from")]
+        print(f"[launch] rerun with --resume --epochs {epoch + 2}: rc {again.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; " + (resumed[0] if resumed else "no resume line"))
+        check(again.returncode == 0 and resumed and path in resumed[0],
+              f"resumed launch: rc {again.returncode}\n{again.stdout[-3000:]}\n"
+              f"{again.stderr[-3000:]}")
+        with open(log) as f:
+            kinds = [json.loads(line)["kind"] for line in f]
+        print(f"[launch] history {log}: {len(kinds)} records, kinds {sorted(set(kinds))}")
+        check("train_epoch" in kinds and "eval" in kinds, f"history kinds {kinds}")
+
+
 def phase_train_resnet() -> tuple:
     """ResNet-18 on CIFAR-100-shaped data through the port's trainer over a
-    1-rank NCCL group. Returns (launches of the main path, fused SGD's
-    numbers at ResNet-18's leaves)."""
+    1-rank NCCL group, then its checkpoint/resume. Returns (launches of the
+    main path, fused SGD's numbers at ResNet-18's leaves)."""
     t0 = time.perf_counter()
     sgd = _sgd_kernel("resnet18", seed=3)
     _, created = mesh_lib.initialize_distributed(
         DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
     try:
         _resnet_parity()
-        launches = _resnet_fit()
+        launches, losses = _resnet_fit()
+        t1 = time.perf_counter()
+        _resnet_resume(losses)
+        print(f"[resume] part (d): {time.perf_counter() - t1:.1f} s")
     finally:
         if created:
             torch.distributed.destroy_process_group()
     _resnet_cli()
+    t1 = time.perf_counter()
+    _resnet_launch()
+    print(f"[launch] part (e): {time.perf_counter() - t1:.1f} s")
     print(f"[resnet] phase: {time.perf_counter() - t0:.1f} s")
     return launches, sgd
 
@@ -1330,11 +1594,7 @@ def main() -> int:
     launches = {name: served[name] + trained[name] + resnet_launches[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there)
         measured[name]["launches_tensor_core"] = trained_mma[name]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_smi_line())
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}
         for name in KERNELS

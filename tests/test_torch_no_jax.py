@@ -50,7 +50,12 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.train.trainer", "tpu_dist_torch.cli.train",
                  "tpu_dist_torch.cli.distributed", "tpu_dist_torch.cli.distributed_mp",
                  "tpu_dist_torch.cli.dataparallel", "tpu_dist_torch.obs.timing",
-                 "tpu_dist_torch.obs.fused_sgd_bench"):
+                 "tpu_dist_torch.obs.fused_sgd_bench", "tpu_dist_torch.resilience.retry",
+                 "tpu_dist_torch.resilience.preemption", "tpu_dist_torch.ckpt",
+                 "tpu_dist_torch.ckpt.checkpoint", "tpu_dist_torch.metrics.history",
+                 "tpu_dist_torch.cli.launch", "tpu_dist_torch.cli.dataparallel_apex",
+                 "tpu_dist_torch.cli.distributed_apex",
+                 "tpu_dist_torch.cli.distributed_gradient_accumulation"):
         assert name in MODULES
 
 

@@ -7,7 +7,8 @@ against the JAX package's ``Trainer``.
   steps each and an eval after each; the per-epoch train loss and accuracy
   and the eval top-1/top-5/loss. The JAX trainer's augmentation is held to
   its numpy path (its C++ pipeline draws crops from another RNG stream).
-* Every unported flag raises ``NotPortedError`` naming its ROADMAP item.
+* Every flag of ``UNPORTED`` raises ``NotPortedError`` naming its ROADMAP
+  item.
 * ``python -m tpu_dist_torch.cli.distributed_mp --device cpu`` with 2 ranks.
 """
 
@@ -108,24 +109,42 @@ def test_epoch_dict_has_the_jax_keys(runs):
     assert set(port_epochs[-1]) == set(jax_epochs[-1]) - {"mfu"}
 
 
-@pytest.mark.parametrize("flag,value,queue", [
-    (flag, value, queue) for flag, value, queue in (
-        ("ckpt_dir", "/nonexistent", "Queue A 2a"), ("resume", True, "Queue A 2a"),
-        ("log_file", "run.jsonl", "Queue A 2c"), ("tensorboard_dir", "tb", "Queue A 6"),
-        ("fused_epoch", True, "Queue A 6"), ("fsdp", True, "Queue A 6"),
-        ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
-        ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"), ("fault_plan", "x", "Queue A 6"),
-        ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
-        ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
-        ("optimizer", "adamw", "Queue A 6"), ("grad_compression", "bf16", "Queue A 6"),
-        ("shard_weight_update", True, "Queue A 6"), ("anomaly_action", "warn", "Queue A 6"),
-        ("straggler_threshold", 1.5, "Queue A 6"), ("auto_recover", 1, "Queue A 2a"),
-    )
-], ids=lambda v: str(v))
+# One case for every flag of trainer.UNPORTED. The checkpoint/resume and
+# history flags (ckpt_dir, resume, keep_last_ckpts, mid_epoch_save_every,
+# async_ckpt, auto_recover, log_file, per_host_log) are ported and run in
+# tests/test_torch_resume.py::test_the_checkpoint_and_history_flags_work_through_fit.
+UNPORTED_CASES = (
+    ("tensorboard_dir", "tb", "Queue A 6"),
+    ("fused_epoch", True, "Queue A 6"), ("fsdp", True, "Queue A 6"),
+    ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
+    ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"), ("fault_plan", "x", "Queue A 6"),
+    ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
+    ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
+    ("optimizer", "adamw", "Queue A 6"), ("grad_compression", "bf16", "Queue A 6"),
+    ("shard_weight_update", True, "Queue A 6"), ("anomaly_action", "warn", "Queue A 6"),
+    ("straggler_threshold", 1.5, "Queue A 6"),
+    ("sharded_ckpt", True, "Queue A 6"), ("remat", True, "Queue A 6"),
+    ("quant_chunk", 64, "Queue A 6"), ("rs_ag_chunks", 2, "Queue A 6"),
+    ("device_metrics", True, "Queue A 6"), ("pp_microbatches", 4, "Queue A 6"),
+    ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
+    ("trace_file", "trace.json", "Queue A 6"), ("heartbeat_file", "hb.json", "Queue A 6"),
+    ("metrics_file", "m.prom", "Queue A 6"), ("metrics_port", 9100, "Queue A 6"),
+    ("alert_rules", "rules.json", "Queue A 6"), ("crash_dir", "crash", "Queue A 6"),
+    ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),
+    ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
+    ("compile_cache_dir", "cache", "Queue A 6"),
+)
+
+
+@pytest.mark.parametrize("flag,value,queue", UNPORTED_CASES, ids=lambda v: str(v))
 def test_unported_flags_raise_a_typed_error(flag, value, queue):
     with pytest.raises(step.NotPortedError, match=flag) as info:
         trainer.Trainer(TrainConfig(**{**RUN, flag: value}, device="cpu", port=free_port()))
     assert info.value.flag == flag and queue in str(info.value)
+
+
+def test_the_refusal_cases_cover_every_unported_flag():
+    assert sorted(flag for flag, _, _ in UNPORTED_CASES) == sorted(trainer.UNPORTED)
 
 
 def test_every_unported_flag_has_a_config_field_at_its_default():

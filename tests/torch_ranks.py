@@ -158,3 +158,104 @@ def collectives_rank(rank, world, x_global):
     out["input_unchanged"] = bool((x == torch.from_numpy(x_global[rank])).all())
     out["counts"] = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
     return out
+
+
+# -- Trainer.fit runs (checkpoint / resume / preemption) ----------------------
+
+NARROW = dict(block="basic", stage_blocks=(1, 1, 1, 1), widths=(8, 16, 32, 64))
+
+
+def narrow_resnet(num_classes, device, seed):
+    """The narrow ResNet of the trainer tests, for ``register_model``."""
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+
+    return resnet.ResNet(NARROW["block"], NARROW["stage_blocks"], num_classes,
+                         widths=NARROW["widths"], device=device, seed=seed)
+
+
+def fit_run(cfg_kw, *, epochs=None, interrupt_at=None, kill_at=None, nan_at=None,
+            interrupt_rank=0):
+    """``Trainer(TrainConfig(**cfg_kw)).fit(epochs)`` with its step wrapped:
+    the call numbered ``interrupt_at`` (counting from 0, on rank
+    ``interrupt_rank`` only) first sends this process SIGTERM, the call
+    ``kill_at`` raises ``RuntimeError`` instead of stepping (a crash: no
+    emergency snapshot), and the call ``nan_at`` reports a NaN loss. Returns
+    a dict: per-call losses and learning rates, the epoch dicts, the final
+    state as the flat checkpoint dict, the start epoch, the LR scale and the
+    exception ``fit`` raised (its type name), if any."""
+    import signal  # noqa: PLC0415
+
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.resilience.preemption import PreemptedError  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    t = trainer.Trainer(TrainConfig(**cfg_kw))
+    out = {"losses": [], "lrs": [], "epochs": [], "start_epoch": t.start_epoch, "error": None}
+    calls = [0]
+    inner_step, inner_epoch = t.train_step, t.train_epoch
+
+    def step(st, images, labels, lr):
+        i = calls[0]
+        calls[0] += 1
+        if i == kill_at:
+            raise RuntimeError(f"killed at call {i}")
+        if i == interrupt_at and mesh.process_index() == interrupt_rank:
+            os.kill(os.getpid(), signal.SIGTERM)
+        st, m = inner_step(st, images, labels, lr)
+        if i == nan_at:
+            m["loss"] = torch.full((), float("nan"))
+        out["losses"].append(m["loss"].item())
+        out["lrs"].append(float(lr))
+        return st, m
+
+    def train_epoch(epoch, *a, **k):
+        out["epochs"].append(inner_epoch(epoch, *a, **k))
+        return out["epochs"][-1]
+
+    t.train_step, t.train_epoch = step, train_epoch
+    try:
+        t.fit(epochs)
+    except (PreemptedError, RuntimeError) as e:
+        out["error"] = type(e).__name__
+    finally:
+        t.close()
+    out["state"] = bridge.train_state_to_flat(t.state)
+    out["lr_scale"] = t._lr_scale
+    return out
+
+
+def resume_rank(rank, world, cfg_kw, root, interrupt_at):
+    """An uninterrupted run, and the same run interrupted by a SIGTERM that
+    only rank 0 sees, then resumed, each in its own ckpt_dir under
+    ``root``."""
+    from tpu_dist_torch import ckpt  # noqa: PLC0415
+    from tpu_dist_torch.comm import collectives  # noqa: PLC0415
+
+    full = fit_run({**cfg_kw, "ckpt_dir": os.path.join(root, "full")})
+    cut = fit_run({**cfg_kw, "ckpt_dir": os.path.join(root, "cut")}, interrupt_at=interrupt_at)
+    collectives.barrier()  # rank 0 has published the emergency snapshot
+    cut["meta"] = ckpt.read_meta(ckpt.latest_checkpoint(os.path.join(root, "cut"))[0])
+    rest = fit_run({**cfg_kw, "ckpt_dir": os.path.join(root, "cut"), "resume": True})
+    return full, cut, rest
+
+
+def ladder_rank(rank, world, cfg_kw):
+    """A resuming trainer's start epoch, step and restored state."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    t = trainer.Trainer(TrainConfig(**cfg_kw))
+    try:
+        return t.start_epoch, t.state.step, bridge.train_state_to_flat(t.state)
+    finally:
+        t.close()
+
+
+def fit_rank(rank, world, cfg_kw):
+    """:func:`fit_run` on one rank; returns the error it raised (None)."""
+    return fit_run(cfg_kw)["error"]

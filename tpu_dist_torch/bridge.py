@@ -13,16 +13,29 @@ buffers, in the model's parameter order.
   ``bias``, ``running_mean``, ``running_var``; ``stageK[i]`` <->
   ``stageK.i``.
 
+A whole :class:`~tpu_dist_torch.train.state.TrainState` goes to and from
+the flat ``{keystr: array}`` dict that a plain checkpoint holds
+(``tpu_dist/ckpt/checkpoint.py::_flatten``): :func:`train_state_to_flat`
+and :func:`load_train_state`. Its keys are ``jax.tree_util.keystr`` paths
+of the JAX ``TrainState._asdict()`` (``['params']['fc']['w']``,
+``['opt_state']['stage1'][0]['conv1']['w']``, ``['step']``), written here
+by :func:`keystr_flatten`.
+
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from typing import Dict
 
 import numpy as np
 import torch
+
+from tpu_dist_torch.nn.resnet import ResNet
+from tpu_dist_torch.nn.vit import ViT
 
 _DENSE = ("w", "b")
 _LN = ("scale", "bias")
@@ -102,8 +115,10 @@ def vit_state_dict_to_jax(sd: Dict[str, np.ndarray]):
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     """A copy: an f32 CPU tensor's ``.numpy()`` would share its memory, and
-    the converted pytree would follow the live weights as they train."""
-    return t.detach().float().cpu().numpy().copy()
+    the converted pytree would follow the live weights as they train (a
+    device tensor's ``.cpu()`` is a copy already)."""
+    host = t.detach().float().cpu()
+    return host.numpy().copy() if t.device.type == "cpu" else host.numpy()
 
 
 def vit_params_to_jax(module: torch.nn.Module):
@@ -136,25 +151,41 @@ def _in_param_order(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> list:
     return out
 
 
+def _checked_pairs(own: Dict[str, torch.Tensor], sd: Dict[str, np.ndarray],
+                   what: str = "state dict") -> list:
+    """``[(live tensor, array)]`` for every name of ``own``. Raises on any
+    unknown, missing or misshapen entry, before anything is copied."""
+    unknown = sorted(set(sd) - set(own))
+    missing = sorted(set(own) - set(sd))
+    if unknown or missing:
+        raise KeyError(f"{what} mismatch: unknown {unknown}, missing {missing}")
+    for name, arr in sd.items():
+        if tuple(np.shape(arr)) != tuple(own[name].shape):
+            raise ValueError(
+                f"{name}: JAX shape {tuple(np.shape(arr))} vs port shape "
+                f"{tuple(own[name].shape)}"
+            )
+    return [(own[name], sd[name]) for name in own]
+
+
+def _copy_pairs(pairs) -> None:
+    """Copy each array into its live tensor in place (on its device, in its
+    dtype): the tensors keep their storage. A transposed view (a JAX
+    layout read back) crosses to the device as it lies in memory and is
+    permuted there, not by a strided copy on the host."""
+    with torch.no_grad():
+        for dst, arr in pairs:
+            arr = np.asarray(arr, dtype=np.float32)
+            if not arr.flags.writeable:  # torch wraps only writable memory
+                arr = arr.copy(order="K")  # keeps the layout: no strided gather
+            dst.copy_(torch.from_numpy(arr).to(dst.device))
+
+
 def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> torch.nn.Module:
     """Copy ``{state-dict name: array}`` into ``module`` in place (on its
     device, in its dtype). Raises on any unknown, missing or misshapen
     entry."""
-    own = module.state_dict()
-    unknown = sorted(set(sd) - set(own))
-    missing = sorted(set(own) - set(sd))
-    if unknown or missing:
-        raise KeyError(f"state dict mismatch: unknown {unknown}, missing {missing}")
-    for name, arr in sd.items():
-        if tuple(arr.shape) != tuple(own[name].shape):
-            raise ValueError(
-                f"{name}: JAX shape {tuple(arr.shape)} vs port shape "
-                f"{tuple(own[name].shape)}"
-            )
-    with torch.no_grad():
-        for name, arr in sd.items():
-            dst = own[name]
-            dst.copy_(torch.as_tensor(np.array(arr, dtype=np.float32)).to(dst.dtype))
+    _copy_pairs(_checked_pairs(module.state_dict(), sd))
     return module
 
 
@@ -325,3 +356,136 @@ def resnet_sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
     if len(opt_state) != len(names):
         raise KeyError(f"{len(opt_state)} momentum buffers for {len(names)} parameters")
     return resnet_state_dict_to_jax({n: _numpy(b) for n, b in zip(names, opt_state)})[0]
+
+
+# -- TrainState <-> the flat JAX-keyed dict of a checkpoint --------------------
+
+_KEY_PART = re.compile(r"\[(?:'([^'\\]*)'|(\d+))\]")
+
+
+def keystr_flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The leaves of a pytree of dicts, lists/tuples and arrays as
+    ``{jax.tree_util.keystr(path): C-contiguous numpy array}``, in JAX's
+    flattening order (dict keys sorted, sequences by index). An empty dict
+    or tuple has no leaves."""
+    if isinstance(tree, dict):
+        out: Dict[str, np.ndarray] = {}
+        for key in sorted(tree):
+            out.update(keystr_flatten(tree[key], f"{prefix}[{key!r}]"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, node in enumerate(tree):
+            out.update(keystr_flatten(node, f"{prefix}[{i}]"))
+        return out
+    arr = np.asarray(tree)
+    return {prefix: arr if arr.flags.c_contiguous else np.array(arr, order="C")}
+
+
+def _parse_keystr(key: str) -> list:
+    parts = [m.group(1) if m.group(2) is None else int(m.group(2))
+             for m in _KEY_PART.finditer(key)]
+    if "".join(m.group(0) for m in _KEY_PART.finditer(key)) != key or not parts:
+        raise KeyError(f"not a keystr path of dict keys and list indices: {key!r}")
+    return parts
+
+
+def _as_lists(node):
+    if not isinstance(node, dict):
+        return node
+    out = {k: _as_lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        if sorted(out) != list(range(len(out))):
+            raise KeyError(f"list indices {sorted(out)} are not 0..{len(out) - 1}")
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def keystr_unflatten(flat: Dict[str, np.ndarray]) -> dict:
+    """The inverse of :func:`keystr_flatten`: nested dicts and lists."""
+    root: dict = {}
+    for key, arr in flat.items():
+        parts = _parse_keystr(key)
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise KeyError(f"{key!r} nests under a leaf")
+        node[parts[-1]] = arr
+    return _as_lists(root)
+
+
+def _host_in_jax_order(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` in the port's shape whose memory already holds
+    the JAX layout: a 4-D conv weight lies as HWIO, a 2-D weight as its
+    transpose. The converters' transposes then give C-contiguous JAX
+    arrays with no strided copy on the host; the permutation runs on
+    ``t``'s device. Always a copy, never a view of the live tensor."""
+    t = t.detach().float()
+    if t.dim() == 4:  # OIHW -> HWIO in memory
+        return t.permute(2, 3, 1, 0).clone(
+            memory_format=torch.contiguous_format).cpu().numpy().transpose(3, 2, 0, 1)
+    if t.dim() == 2:  # [out, in] -> [in, out] in memory
+        return t.t().clone(memory_format=torch.contiguous_format).cpu().numpy().T
+    return _numpy(t)
+
+
+def train_state_to_flat(state) -> Dict[str, np.ndarray]:
+    """A port ``TrainState`` (a ResNet's or a ViT's, SGD momentum) as the
+    ``{keystr: array}`` dict of a JAX ``TrainState``: HWIO conv kernels,
+    ``mean``/``var`` BN statistics, the momentum pytree mirroring the
+    parameters, ``step`` as an int32 scalar; the ViT's ``bn_state`` is
+    ``{}`` and ``ef`` is ``()``, so neither has an entry. Host copies: the
+    dict does not follow the live tensors."""
+    model = state.params
+    names = [n for n, _ in model.named_parameters()]
+    if len(state.opt_state) != len(names):
+        raise KeyError(f"{len(state.opt_state)} momentum buffers for {len(names)} parameters")
+    sd = {n: _host_in_jax_order(t) for n, t in model.state_dict().items()}
+    mom = {n: _host_in_jax_order(b) for n, b in zip(names, state.opt_state)}
+    if isinstance(model, ResNet):
+        params, bn_state = resnet_state_dict_to_jax(sd)
+        momentum = resnet_state_dict_to_jax(mom)[0]
+    elif isinstance(model, ViT):
+        params, bn_state, momentum = vit_state_dict_to_jax(sd), {}, vit_state_dict_to_jax(mom)
+    else:
+        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+    return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": momentum,
+                           "step": np.asarray(state.step, np.int32), "ef": ()})
+
+
+def load_train_state(state, flat: Dict[str, np.ndarray]):
+    """Copy a checkpoint's ``{keystr: array}`` dict into the live ``state``
+    in place (``copy_`` into the parameters, BN buffers and momentum
+    buffers, which keep their storage) and return it with the saved
+    ``step``. Everything is checked before anything is copied: an unknown,
+    missing or misshapen entry raises and leaves the state as it was.
+    Entries under ``['ef']`` (error-feedback residuals, which the port
+    does not keep) are ignored, as the JAX restore ignores entries its
+    template lacks."""
+    tree = keystr_unflatten({k: v for k, v in flat.items() if not k.startswith("['ef']")})
+    unknown = sorted(set(tree) - {"params", "bn_state", "opt_state", "step"})
+    missing = sorted({"params", "opt_state", "step"} - set(tree))
+    if unknown or missing:
+        raise KeyError(f"checkpoint entries: unknown {unknown}, missing {missing}")
+    model = state.params
+    names = [n for n, _ in model.named_parameters()]
+    if len(state.opt_state) != len(names):
+        raise KeyError(f"{len(state.opt_state)} momentum buffers for {len(names)} parameters")
+    if isinstance(model, ResNet):
+        sd = resnet_state_dict_from_jax(tree["params"], tree.get("bn_state", {}))
+        momentum = resnet_state_dict_from_jax(tree["opt_state"])
+    elif isinstance(model, ViT):
+        if tree.get("bn_state"):
+            raise KeyError(f"a ViT has no BN state; the checkpoint has {sorted(tree['bn_state'])}")
+        sd = vit_state_dict_from_jax(tree["params"])
+        momentum = vit_state_dict_from_jax(tree["opt_state"])
+    else:
+        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype.kind not in "iu":
+        raise ValueError(f"['step'] must be an integer scalar, got {step.dtype} {step.shape}")
+    pairs = (_checked_pairs(model.state_dict(), sd)
+             + _checked_pairs(dict(zip(names, state.opt_state)), momentum, "momentum"))
+    _copy_pairs(pairs)
+    return dataclasses.replace(state, step=int(step))

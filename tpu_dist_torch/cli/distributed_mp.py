@@ -4,7 +4,8 @@ recommended path): this process starts one rank per visible card with
 ``--device cpu`` needs to run more than one) and each rank runs the
 trainer over NCCL (gloo on the CPU), rendezvousing at ``--ip``/``--port``.
 As in the JAX preset, ``--seed 1`` is the default (the reference's
-``init_seeds(local_rank + 1)``)::
+``init_seeds(local_rank + 1)``). A rank that exits 75 (preempted, its
+snapshot written) makes this process exit 75 too::
 
     python -m tpu_dist_torch.cli.distributed_mp --dataset synthetic --epochs 1
 """
@@ -17,6 +18,7 @@ import sys
 from tpu_dist_torch.cli.train import main as _main
 from tpu_dist_torch.cli.train import parse
 from tpu_dist_torch.comm import mesh
+from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE
 
 
 def _rank(rank: int, argv: list, world: int, addr: str, port: int) -> None:
@@ -35,7 +37,12 @@ def main(argv=None) -> None:
     world = cfg.num_processes or mesh.local_device_count(cfg.device)
     if world < 1:
         raise SystemExit(f"no {cfg.device} device to start a rank on")
-    mp.spawn(_rank, args=(argv, world, cfg.ip, cfg.port), nprocs=world, join=True)
+    try:
+        mp.spawn(_rank, args=(argv, world, cfg.ip, cfg.port), nprocs=world, join=True)
+    except mp.ProcessExitedException as e:
+        if e.exit_code == PREEMPTION_EXIT_CODE:
+            raise SystemExit(PREEMPTION_EXIT_CODE) from None
+        raise
 
 
 if __name__ == "__main__":

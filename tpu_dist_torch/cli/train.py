@@ -4,8 +4,11 @@ Every flag of the JAX trainer parses (``tpu_dist_torch/config/config.py``);
 one that the port cannot run yet stops with ``NotPortedError``. This
 process is one rank: ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
 ``MASTER_ADDR``/``MASTER_PORT`` (as ``torchrun`` sets them) or
-``--num_processes``/``--process_id``/``--ip``/``--port`` place it in the
-process group; alone it is a world of one.
+``--num_processes``/``--process_id``/``--ip``/``--port`` (as
+``tpu_dist_torch.cli.launch`` passes them) place it in the process group;
+alone it is a world of one. A SIGTERM ends the run at a step boundary
+with the emergency snapshot and exit code 75 (``PREEMPTION_EXIT_CODE``):
+resume with ``--resume``.
 
 Usage::
 
@@ -20,6 +23,7 @@ from typing import Optional, Sequence
 
 from tpu_dist_torch.config.config import add_reference_flags, config_from_args
 from tpu_dist_torch.metrics.logging import rank0_print
+from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
 
 
 def parse(argv: Optional[Sequence[str]] = None, **preset):
@@ -41,6 +45,10 @@ def main(argv: Optional[Sequence[str]] = None, **preset) -> None:
             f"fused_optimizer={cfg.fused_optimizer}"
         )
         trainer.fit()
+    except PreemptedError as e:
+        # fit() wrote the emergency snapshot; exit with the requeue-me code
+        rank0_print(f"=> preempted: {e}; exiting {PREEMPTION_EXIT_CODE}")
+        raise SystemExit(PREEMPTION_EXIT_CODE) from None
     finally:
         trainer.close()
 

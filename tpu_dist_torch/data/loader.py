@@ -6,6 +6,8 @@
   batch), a last partial batch padded with wrap-around samples from the
   start of the rank's epoch stream, and each batch's augmentation seeded
   by ``np.random.default_rng((seed, epoch, shard_id, batch))``.
+* :meth:`DataLoader.iter_from` starts the epoch at a given batch (the
+  exact mid-epoch resume); ``iter(loader)`` is ``iter_from(0)``.
 * A background thread produces the host batches one step ahead (the
   ``pin_memory`` + workers role); for a CUDA device it pins each batch's
   host tensors, and the consumer copies them to the rank's device with
@@ -110,13 +112,20 @@ class DataLoader:
     def __iter__(self):
         """Yields the epoch's batches as tensors on ``device``, produced one
         step ahead."""
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int):
+        """The epoch's batches from batch ``start_batch`` on: the exact
+        mid-epoch resume's entry point. Skipped batches are never gathered
+        or augmented, and batch b is the one an uninterrupted epoch gives
+        (its augmentation stream is keyed by b)."""
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         err = []
         stop = threading.Event()
 
         def producer():
             try:
-                for hb in self._host_batches():
+                for hb in self._host_batches(start_batch):
                     batch = self._to_host_tensors(hb)
                     counters.inc("loader.batches_produced")
                     # bounded put that notices consumer abandonment (the

@@ -26,7 +26,10 @@ data-parallel (DP) family, one process per device.
 * ``grad_clip_norm`` clips the reduced gradients by their global norm.
 * Metrics are 0-dim tensors on the device (no host sync), reduced in one
   all-reduce: ``loss`` the mean over ranks, ``acc1``/``acc5`` in percent of
-  the global batch.
+  the global batch, and ``preempt`` the number of ranks that had seen
+  SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) when they built
+  the step's metrics, so every rank reads the same stop decision at the
+  same step boundary with no collective of its own.
 
 Without a process group every collective is the identity (a world of one
 process). The step updates the model, its BN statistics and its momentum
@@ -45,6 +48,7 @@ import torch
 
 from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn import functional as F
+from tpu_dist_torch.resilience import preemption
 from tpu_dist_torch.train.state import TrainState
 
 GRAD_COMPRESSION_MODES = ("none", "bf16", "int8", "int8_ef")
@@ -197,14 +201,17 @@ def make_train_step(
         optimizer.update(clip_grads(reduce_grads(grads)), state.opt_state, params, lr)
 
         c1, c5 = F.topk_correct(torch.cat(logits).float(), labels, (1, 5))
-        # loss, top-1 and top-5 counts in ONE all-reduce
+        # loss, top-1 and top-5 counts and the preemption flag in ONE
+        # all-reduce (a fill kernel carries the flag: no host-to-device copy)
+        stop = torch.full((), float(preemption.requested()), device=dev)
         sums = collectives.all_reduce_(
-            torch.stack([loss.float(), c1.float(), c5.float()]), kind="metrics")
+            torch.stack([loss.float(), c1.float(), c5.float(), stop]), kind="metrics")
         world, b = collectives.world_size(), labels.shape[0]
         metrics = {
             "loss": sums[0] / world,
             "acc1": sums[1] / (b * world) * 100.0,
             "acc5": sums[2] / (b * world) * 100.0,
+            "preempt": sums[3],
         }
         return dataclasses.replace(state, step=state.step + 1), metrics
 

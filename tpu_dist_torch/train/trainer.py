@@ -16,6 +16,31 @@ kernel; MultiStepLR or cosine, with warmup and the linear scaling rule;
 ``fit`` with a distributed ``validate`` every ``eval_every`` epochs. Only
 rank 0 prints. The per-epoch dict has the JAX trainer's keys.
 
+Checkpoint / resume, preemption and the history are the JAX trainer's:
+
+* ``ckpt_dir`` takes a plain-format checkpoint (:mod:`tpu_dist_torch.ckpt`,
+  the JAX file format) every ``save_every`` epochs (and every epoch while
+  ``mid_epoch_save_every`` is on), an exact mid-epoch snapshot every
+  ``mid_epoch_save_every`` steps, and ``ckpt_best.npz`` on a better eval
+  top-1; ``async_ckpt`` writes them on a worker thread after a
+  synchronous device-to-host snapshot; ``keep_last_ckpts`` prunes.
+* ``resume`` walks the checkpoints newest first (the restore ladder): a
+  corrupt or unreadable file is quarantined to ``*.corrupt`` and the next
+  older one is tried; a checkpoint of another configuration raises. The
+  arrays are copied into the live parameters, BN buffers and momentum
+  buffers (their storage, and so the fused SGD's cached launch plan,
+  stays valid), and a mid-epoch snapshot re-enters its epoch at its step.
+  Every rank checks that all picked the same checkpoint.
+* SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) and Ctrl-C stop at
+  a step boundary that every rank agrees on (the flag rides the step's
+  metrics all-reduce), write the emergency snapshot and raise;
+  ``cli/train.py`` exits 75 on SIGTERM.
+* ``auto_recover`` reloads the newest checkpoint after a non-finite loss
+  and scales the learning rate by ``recover_lr_factor``.
+* ``log_file`` writes the JSONL history
+  (:mod:`tpu_dist_torch.metrics.history`): ``train_epoch``, ``eval`` and
+  ``auto_recover`` records, rank 0 only unless ``per_host_log``.
+
 Every config flag whose subsystem is not ported raises
 :class:`~tpu_dist_torch.train.step.NotPortedError` naming its ROADMAP item
 (:data:`UNPORTED`); none is ignored.
@@ -23,23 +48,32 @@ Every config flag whose subsystem is not ported raises
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import hashlib
+import json
 import math
+import os
 import time
 from typing import Optional
 
 import torch
 
+from tpu_dist_torch import bridge
+from tpu_dist_torch import ckpt as ckpt_lib
 from tpu_dist_torch.comm import collectives, mesh
 from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.data import cifar, synthetic, transforms
 from tpu_dist_torch.data.loader import DataLoader
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.evaluation.validate import validate
+from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
 from tpu_dist_torch.obs import counters
+from tpu_dist_torch.resilience import preemption
+from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train.optim import SGD, cosine_lr, linear_scaled_lr, multistep_lr
 from tpu_dist_torch.train.state import TrainState
 from tpu_dist_torch.train.step import WAITS_FOR, NotPortedError, make_eval_step, make_train_step
@@ -50,11 +84,10 @@ _MODELS = {
     "vit_b16": vit.vit_b16, "vit_s16": vit.vit_s16, "vit_tiny": vit.vit_tiny,
 }
 
-_CKPT = "Queue A 2a (checkpoint/resume, ckpt/checkpoint.py)"
-_HISTORY = "Queue A 2c (the JSONL history, metrics/history.py)"
 _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 _PARALLEL = "Queue A 6 (model parallelism, parallel/*)"
 _ANALYSIS = "Queue A 6 (the analysis layer)"
+_ELASTIC = "Queue A 6 (elastic training, elastic/remap.py)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
@@ -75,15 +108,7 @@ UNPORTED = {
     "pp_microbatches": (0, _PARALLEL),
     "pp_interleave": (1, _PARALLEL),
     "moe_top_k": (1, _PARALLEL),
-    "ckpt_dir": (None, _CKPT),
-    "resume": (False, _CKPT),
-    "keep_last_ckpts": (None, _CKPT),
-    "mid_epoch_save_every": (0, _CKPT),
-    "async_ckpt": (False, _CKPT),
-    "auto_recover": (0, _CKPT),
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
-    "log_file": (None, _HISTORY),
-    "per_host_log": (False, _HISTORY),
     "tensorboard_dir": (None, _TELEMETRY),
     "trace_file": (None, _TELEMETRY),
     "heartbeat_file": (None, _TELEMETRY),
@@ -262,20 +287,351 @@ class Trainer:
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
 
+        # -- checkpoint / resume --------------------------------------------
+        ckpt_lib.set_io_retries(cfg.ckpt_io_retries)
+        self._async_ckpt = None  # made by _ckpt_io, released by _ckpt_close
+        self._lr_scale = 1.0  # the auto-recovery backoff, carried in the meta
+        self._state_poisoned = False  # the live state holds a diverged step
+        self._best_top1 = -1.0
+        self._params_len = ckpt_lib.params_len(self.model)
+        # one id a run (config hash + construction second), in every record
+        cfg_hash = hashlib.sha1(json.dumps(dataclasses.asdict(cfg), sort_keys=True,
+                                           default=str).encode()).hexdigest()[:8]
+        self._run_id = f"{cfg_hash}-{int(time.time())}"
+        self._t0 = time.monotonic()  # the history's rel_s origin
+        self.start_epoch = 0
+        self._resume_step = 0  # > 0 only after restoring a mid-epoch snapshot
+        self._resume_metrics = None  # that snapshot's last-step metrics
+        self._step_metrics = None  # (epoch, steps done, metrics) of the last step
+        self._last_epoch = 0
+        # The training position of the live self.state, for _emergency_save:
+        # (epoch, steps done in it, epoch complete). The step updates the
+        # state in place, so while one runs (_in_step) the state may be
+        # half updated and no snapshot is taken.
+        self._progress = (-1, 0, True)
+        self._in_step = False
+        if cfg.resume and cfg.ckpt_dir:
+            epoch = self._restore_latest()
+            if epoch is not None:
+                # a mid-epoch snapshot re-enters its own epoch at its step
+                self.start_epoch = epoch if self._resume_step else epoch + 1
+
     def close(self) -> None:
         """Leave the process group if this trainer created it."""
         if self._owns_group and collectives.active():
             torch.distributed.destroy_process_group()
         self._owns_group = False
 
+    def _lr(self, epoch: int) -> float:
+        """The scheduled learning rate times the auto-recovery scale."""
+        return self.lr_schedule(epoch) * self._lr_scale
+
+    def _stop_agreed(self, votes: Optional[torch.Tensor] = None) -> bool:
+        """Whether to stop for a SIGTERM at this boundary, decided alike on
+        every rank. ``votes`` is the step's all-reduced count of ranks
+        that had seen one; at an epoch boundary (no step) one all-reduce of
+        the flags decides. A world of one reads its own flag, which costs
+        no device sync."""
+        if self.n_devices == 1:
+            return preemption.requested()
+        if votes is None:
+            votes = collectives.all_reduce_(
+                torch.full((), float(preemption.requested()),
+                           device=collectives.group_device()), kind="preempt")
+        return votes.item() > 0
+
+    # -- checkpoint I/O ------------------------------------------------------
+
+    def _ckpt_io(self):
+        """The module's synchronous functions, or with ``async_ckpt`` the
+        async writer (made anew after ``_ckpt_close`` released one)."""
+        if not self.cfg.async_ckpt:
+            return ckpt_lib
+        if self._async_ckpt is None:
+            self._async_ckpt = ckpt_lib.AsyncCheckpointer()
+        return self._async_ckpt
+
+    def _ckpt_close(self, suppress: bool = False) -> None:
+        """Drain and release the async writer, waiting at most
+        ``ckpt_drain_timeout_s`` (<= 0 waits for ever). ``suppress=True``
+        logs a writer error instead of raising, where another exception is
+        already on its way out. A drain that times out with writes in
+        flight is a loud, counted loss (``ckpt.drain_abandoned``)."""
+        if self._async_ckpt is None:
+            return
+        writer, self._async_ckpt = self._async_ckpt, None
+        timeout = self.cfg.ckpt_drain_timeout_s
+        timeout = timeout if timeout and timeout > 0 else None
+        try:
+            drained = writer.close(timeout=timeout)
+        except Exception as e:
+            if not suppress:
+                raise
+            rank0_print(f"WARNING: background checkpoint write failed: {e}")
+            return
+        if not drained:
+            n = writer.in_flight
+            counters.inc("ckpt.drain_abandoned", n)
+            rank0_print(
+                f"WARNING: abandoned {n} in-flight background checkpoint write(s) after "
+                f"the {timeout:.0f}s drain timeout (--ckpt_drain_timeout_s) — their "
+                "snapshots are LOST; the newest checkpoint on disk is the last one published"
+            )
+            if not suppress:
+                raise RuntimeError(
+                    f"background checkpoint drain timed out with {n} write(s) in flight")
+
+    def _ckpt_meta(self) -> dict:
+        """The layout stamps of every checkpoint: the pipeline layout (the
+        JAX trainer refuses a mismatch), the auto-recovery LR scale, and
+        the ``elastic`` stamp whose ``params_len`` the JAX restore checks."""
+        cfg = self.cfg
+        meta = {"pp": cfg.pp, "pp_interleave": cfg.pp_interleave}
+        if self._lr_scale != 1.0:
+            meta["lr_scale"] = self._lr_scale
+        meta["elastic"] = ckpt_lib.elastic_stamp(self.n_devices, self.n_devices,
+                                                 self._params_len)
+        return meta
+
+    def _mid_epoch_position(self, steps_done: int) -> dict:
+        """The data position of a mid-epoch snapshot: the step offset, the
+        global batch size and seed that pin it, the process count and the
+        consumed examples (which the JAX trainer's elastic resume reads),
+        and the last step's metrics when they describe this position."""
+        cfg = self.cfg
+        out = {
+            "mid_epoch_step": int(steps_done),
+            "mid_epoch_batch_size": cfg.batch_size,
+            "mid_epoch_seed": cfg.seed or 0,
+            "mid_epoch_procs": self.n_devices,
+            # the last batch of a drop_last=False epoch is padded: clamp to N
+            "mid_epoch_examples": min(int(steps_done) * cfg.batch_size,
+                                      len(self.train_data[0])),
+        }
+        stamped = self._step_metrics
+        if stamped is not None and stamped[:2] == (self._progress[0], int(steps_done)):
+            out["mid_epoch_metrics"] = {k: v.item() for k, v in stamped[2].items()}
+        return out
+
+    def _check_ckpt_meta(self, meta: dict, path: str) -> None:
+        """Refuse a readable checkpoint of another configuration (raises
+        :class:`~tpu_dist_torch.ckpt.ConfigMismatchError`, never
+        quarantines): another pipeline layout, or another model's
+        parameter count."""
+        cfg = self.cfg
+        ck_v, ck_pp = meta.get("pp_interleave"), meta.get("pp")
+        if ck_v is not None and (ck_v != cfg.pp_interleave or (
+                (ck_v > 1 or cfg.pp_interleave > 1) and ck_pp != cfg.pp)):
+            raise ckpt_lib.ConfigMismatchError(
+                f"checkpoint {path} was written with pp={ck_pp}, pp_interleave={ck_v}; its "
+                f"block storage order is layout-specific (this run: pp={cfg.pp}, "
+                f"pp_interleave={cfg.pp_interleave})")
+        stamped = (meta.get("elastic") or {}).get("params_len")
+        if stamped is not None and int(stamped) != self._params_len:
+            raise ckpt_lib.ConfigMismatchError(
+                f"checkpoint {path} was written with params_len={stamped} but the model has "
+                f"{self._params_len} parameters — a different model")
+
+    def _quarantine_ckpt(self, path: str, err: Exception) -> None:
+        """Rank 0 renames a failed checkpoint to ``*.corrupt``; the other
+        ranks only log (they stop seeing the file once the rename lands)."""
+        if mesh.process_index() == 0:
+            try:
+                dst = ckpt_lib.quarantine(path)
+            except OSError:
+                dst = path + ".corrupt (rename failed)"
+        else:
+            dst = path + ".corrupt"
+        rank0_print(f"WARNING: checkpoint {path} failed integrity verification ({err}) — "
+                    f"quarantined to {dst}; falling back to the next older checkpoint")
+
+    def _check_ladder_agreement(self, picked_epoch: int) -> None:
+        """Every rank walks the ladder itself (reads and transient errors
+        are local); resuming different epochs on different ranks would be
+        silent divergence. One all-reduce of (pick, -pick) under MAX gives
+        the largest and the smallest pick. Every rank reaches this once
+        per restore (-1 when nothing usable was found)."""
+        if self.n_devices <= 1:
+            return
+        picks = torch.tensor([picked_epoch, -picked_epoch], dtype=torch.int64,
+                             device=collectives.group_device())
+        collectives.all_reduce_(picks, "max", kind="ckpt_ladder")
+        hi, lo = int(picks[0]), -int(picks[1])
+        if hi != lo:
+            raise RuntimeError(
+                f"ranks disagree on the resume checkpoint (picks from epoch {lo} to {hi}): a "
+                "transient read error or a racing quarantine made the walks diverge; "
+                "inspect ckpt_dir (quarantined *.corrupt files) and relaunch")
+
+    def _restore_latest(self) -> Optional[int]:
+        """Restore the newest intact checkpoint of ``ckpt_dir`` into the
+        live state; returns its epoch, or None when there is none.
+
+        The ladder: newest to oldest, a candidate that is unreadable or
+        fails its CRC32 stamps (``ckpt_verify``, fused into the one read)
+        is quarantined and the next older one is tried. A checkpoint of
+        another configuration, or one the port cannot lay out, raises."""
+        cfg = self.cfg
+        if mesh.process_index() == 0:
+            # no write is in flight at start-up: sweep what a crash leaked
+            ckpt_lib.sweep_stale_tmp(cfg.ckpt_dir)
+        candidates = ckpt_lib.all_checkpoints(cfg.ckpt_dir)
+        if not candidates:
+            if os.path.isdir(cfg.ckpt_dir) and any(
+                    n.endswith(".manifest.json") for n in os.listdir(cfg.ckpt_dir)):
+                raise NotPortedError("sharded_ckpt", f"checkpoints in {cfg.ckpt_dir}",
+                                     UNPORTED["sharded_ckpt"][1])
+            self._check_ladder_agreement(-1)
+            return None
+        chosen = None
+        for path, epoch in candidates:
+            try:
+                meta = ckpt_lib.read_meta(path)
+            except ckpt_lib.CKPT_READ_ERRORS as e:
+                self._quarantine_ckpt(path, e)
+                continue
+            self._check_ckpt_meta(meta, path)
+            try:
+                flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify)
+            except (ckpt_lib.CheckpointCorruptError,) + ckpt_lib.CKPT_READ_ERRORS as e:
+                self._quarantine_ckpt(path, e)
+                continue
+            chosen = (path, epoch, meta, flat)
+            break
+        self._check_ladder_agreement(chosen[1] if chosen is not None else -1)
+        if chosen is None:
+            rank0_print(f"WARNING: every checkpoint in {cfg.ckpt_dir} was corrupt and has been "
+                        "quarantined — starting from scratch")
+            return None
+        path, epoch, meta, flat = chosen
+        resume_step = int(meta.get("mid_epoch_step", 0))
+        if resume_step:
+            self._check_mid_epoch(meta, path, resume_step)
+        # copy_ into the live tensors: the step's module, its momentum list
+        # and the fused SGD's plan cache keep pointing at the same storage
+        self.state = bridge.load_train_state(self.state, flat)
+        self._lr_scale = float(meta.get("lr_scale", 1.0))
+        self._resume_step = resume_step
+        self._resume_metrics = meta.get("mid_epoch_metrics") if resume_step else None
+        self._state_poisoned = False
+        self._progress = (epoch, resume_step, not resume_step)
+        counters.inc("ckpt.restores")
+        if resume_step:
+            rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, continuing at step "
+                        f"{resume_step})")
+        else:
+            rank0_print(f"=> resumed from {path} (epoch {epoch})")
+        return epoch
+
+    def _check_mid_epoch(self, meta: dict, path: str, resume_step: int) -> None:
+        """A mid-epoch snapshot re-enters its epoch at the same data
+        position only with the same global batch size and seed (else it
+        raises), and at the same process count with no example offset:
+        anything else needs the elastic re-partition, not ported."""
+        cfg = self.cfg
+        for key, current in (("mid_epoch_batch_size", cfg.batch_size),
+                             ("mid_epoch_seed", cfg.seed or 0)):
+            saved = meta.get(key)
+            if saved is not None and saved != current:
+                raise ckpt_lib.ConfigMismatchError(
+                    f"checkpoint {path} is a mid-epoch snapshot taken with "
+                    f"{key.removeprefix('mid_epoch_')}={saved}; this run uses {current}, so "
+                    "the step offset would re-enter the epoch at the wrong data position. "
+                    "Resume with the matching value, or from the last clean epoch checkpoint.")
+        procs, examples = meta.get("mid_epoch_procs"), meta.get("mid_epoch_examples")
+        here = min(resume_step * cfg.batch_size, len(self.train_data[0]))
+        if (procs is not None and int(procs) != self.n_devices) or (
+                examples is not None and int(examples) != here):
+            raise NotPortedError(
+                "resume", f"a mid-epoch snapshot of {procs} process(es) at example "
+                f"{examples}, resumed on {self.n_devices}", _ELASTIC)
+
+    def _auto_recover(self, err: TrainingDivergedError) -> None:
+        """The divergence response (``auto_recover``): reload the newest
+        checkpoint and scale the LR schedule by ``recover_lr_factor`` (a
+        bare retry on the same data order would diverge the same way).
+        Raises ``err`` when there is no checkpoint to reload."""
+        self._ckpt_close(suppress=True)
+        epoch = self._restore_latest() if self.cfg.ckpt_dir else None
+        if epoch is None:
+            raise err
+        self.start_epoch = epoch if self._resume_step else epoch + 1
+        self._lr_scale *= self.cfg.recover_lr_factor
+        rank0_print(f"=> AUTO-RECOVER: {err}; resumed from epoch {epoch}, LR scale now "
+                    f"{self._lr_scale:g} (factor {self.cfg.recover_lr_factor})")
+
+    def _emergency_save(self) -> None:
+        """The snapshot on SIGTERM or Ctrl-C, from ``self._progress``:
+
+        - complete through epoch e: save the clean epoch e (kept as it is
+          when ``ckpt_e`` exists); nothing when no epoch completed;
+        - epoch e with k > 0 steps done: the exact snapshot under e stamped
+          ``mid_epoch_step=k`` (and the batch size and seed that pin the
+          data position), so ``resume`` continues epoch e at batch k;
+        - epoch e with 0 steps done: the clean e - 1 (kept when on disk).
+
+        Skipped while the live state holds a diverged step, or when Ctrl-C
+        landed inside a step (the in-place update may be half done)."""
+        cfg = self.cfg
+        if not cfg.ckpt_dir:
+            return
+        if self._state_poisoned:
+            rank0_print("=> interrupted while the live state was NaN-poisoned — emergency "
+                        "snapshot skipped; the last periodic checkpoint stays the newest")
+            return
+        if self._in_step:
+            rank0_print("=> interrupted inside a step, whose in-place update may be half "
+                        "done — emergency snapshot skipped; resume from the last periodic "
+                        "checkpoint")
+            return
+        # the emergency snapshot must be the last file published
+        self._ckpt_close(suppress=True)
+        epoch, steps_done, complete = self._progress
+
+        def clean_exists(e: int) -> bool:
+            return os.path.exists(os.path.join(cfg.ckpt_dir, f"ckpt_{e}.npz"))
+
+        def save(ckpt_epoch: int, extra_meta: dict, msg: str) -> None:
+            ckpt_lib.save(cfg.ckpt_dir, self.state, ckpt_epoch, cfg.keep_last_ckpts,
+                          extra_meta=extra_meta)
+            rank0_print(msg)
+
+        if complete:
+            if epoch < 0:
+                return  # nothing trained yet
+            if clean_exists(epoch):
+                rank0_print(f"=> interrupted after epoch {epoch} completed; clean "
+                            f"ckpt_{epoch} already on disk — kept as-is")
+                return
+            save(epoch, self._ckpt_meta(),
+                 f"=> interrupted after epoch {epoch} completed; saved as epoch {epoch}")
+            return
+        if steps_done > 0:
+            save(epoch, {**self._ckpt_meta(), **self._mid_epoch_position(steps_done)},
+                 f"=> interrupted mid-epoch {epoch} after step {steps_done - 1}; exact "
+                 f"snapshot saved — resume continues epoch {epoch} at step {steps_done}")
+            return
+        if epoch <= 0:
+            return
+        prev = epoch - 1
+        if clean_exists(prev):
+            rank0_print(f"=> interrupted mid-epoch {epoch}; clean ckpt_{prev} already on disk "
+                        f"— kept as-is, resume re-runs epoch {epoch}")
+            return
+        save(prev, self._ckpt_meta(),
+             f"=> interrupted mid-epoch {epoch}; state saved to {cfg.ckpt_dir} as epoch "
+             f"{prev} — resume re-runs epoch {epoch}")
+
     def _guard(self, loss: float, where: str, lr: float) -> None:
         if self.cfg.nan_guard and not math.isfinite(loss):
             raise TrainingDivergedError(f"non-finite loss {loss} {where} (lr={lr})")
 
-    def train_epoch(self, epoch: int) -> dict:
+    def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
+        """Train one epoch from batch ``start_step`` (a mid-epoch resume);
+        returns the epoch's dict."""
         cfg = self.cfg
         self.train_sampler.set_epoch(epoch)
-        lr = self.lr_schedule(epoch)
+        lr = self._lr(epoch)
         lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
         losses = AverageMeter("Loss", ":.4e")  # epoch average of the logged steps
         images_seen, steps_run, metrics = 0, 0, {}
@@ -283,33 +639,60 @@ class Trainer:
         timer = _StepTimer(warmup_steps=1)
         phase = {"data": 0.0, "dispatch": 0.0, "fetch": 0.0}
         t0 = time.time()
-        it = iter(self.train_loader)
-        for step in range(nb):
-            if cfg.steps_per_epoch is not None and step >= cfg.steps_per_epoch:
-                break
-            t_w = time.perf_counter()
-            try:
-                images, labels = next(it)
-            except StopIteration:
-                break
-            t_d = time.perf_counter()
-            phase["data"] += t_d - t_w
-            self.state, metrics = self.train_step(self.state, images, labels, lr_t)
-            phase["dispatch"] += time.perf_counter() - t_d
-            images_seen += cfg.batch_size
-            steps_run += 1
-            timer.tick()
-            if step % cfg.log_every == 0:
-                t_f = time.perf_counter()
-                m = {k: v.item() for k, v in metrics.items()}
-                phase["fetch"] += time.perf_counter() - t_f
-                self._guard(m["loss"], f"at epoch {epoch} step {step}", lr)
-                losses.update(m["loss"], cfg.batch_size)
-                rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] step:[{step}/{nb}] "
-                            f"lr={lr:.5f} loss={m['loss']:.4f} "
-                            f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}")
-        it.close()  # stop the prefetch thread of an epoch cut short
-        out = {k: v.item() for k, v in metrics.items()}
+        self._progress = (epoch, start_step, False)
+        it = self.train_loader.iter_from(start_step)
+        try:
+            for step in range(start_step, nb):
+                if cfg.steps_per_epoch is not None and step >= cfg.steps_per_epoch:
+                    break
+                t_w = time.perf_counter()
+                try:
+                    images, labels = next(it)
+                except StopIteration:
+                    break
+                t_d = time.perf_counter()
+                phase["data"] += t_d - t_w
+                self._in_step = True
+                self.state, metrics = self.train_step(self.state, images, labels, lr_t)
+                votes = metrics.pop("preempt")
+                self._step_metrics = (epoch, step + 1, metrics)
+                self._progress = (epoch, step + 1, False)
+                self._in_step = False
+                phase["dispatch"] += time.perf_counter() - t_d
+                images_seen += cfg.batch_size
+                steps_run += 1
+                timer.tick()
+                want_save = bool(cfg.mid_epoch_save_every and cfg.ckpt_dir
+                                 and (step + 1) % cfg.mid_epoch_save_every == 0)
+                want_log = step % cfg.log_every == 0
+                if want_save or want_log:  # one fetch serves the guard, the save and the log
+                    t_f = time.perf_counter()
+                    m = {k: v.item() for k, v in metrics.items()}
+                    phase["fetch"] += time.perf_counter() - t_f
+                    # a periodic exact snapshot never publishes a diverged state
+                    self._guard(m["loss"], f"at epoch {epoch} step {step}", lr)
+                if want_save:
+                    self._ckpt_io().save(
+                        cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
+                        extra_meta={**self._ckpt_meta(), **self._mid_epoch_position(step + 1)})
+                if want_log:
+                    losses.update(m["loss"], cfg.batch_size)
+                    rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] step:[{step}/{nb}] "
+                                f"lr={lr:.5f} loss={m['loss']:.4f} "
+                                f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}")
+                if self._stop_agreed(votes):
+                    raise PreemptedError(f"SIGTERM observed at epoch {epoch} after step {step} "
+                                         "— shutting down at the step boundary")
+        finally:
+            it.close()  # stop the prefetch thread of an epoch cut short
+        if metrics:
+            out = {k: v.item() for k, v in metrics.items()}
+        elif steps_run == 0 and start_step:
+            # the snapshot was taken after the epoch's last step: replay its
+            # stamped metrics, so the epoch record matches the uninterrupted run
+            out = dict(self._resume_metrics or {})
+        else:
+            out = {}
         if out:
             self._guard(out["loss"], f"at end of epoch {epoch}", lr)
         dt = time.time() - t0
@@ -330,13 +713,80 @@ class Trainer:
         return out
 
     def fit(self, epochs: Optional[int] = None) -> dict:
-        """Train ``epochs`` (default ``cfg.epochs``) epochs, validating every
-        ``eval_every``; returns the last epoch's dict."""
+        """Train from ``start_epoch`` to ``epochs`` (default ``cfg.epochs``),
+        validating every ``eval_every`` epochs and checkpointing into
+        ``ckpt_dir``; returns the last epoch's dict. SIGTERM and Ctrl-C
+        write the emergency snapshot and propagate (``PreemptedError``,
+        ``KeyboardInterrupt``). Up to ``auto_recover`` times, a non-finite
+        loss reloads the newest checkpoint at a lower LR."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.epochs
+        log_path = cfg.log_file
+        if cfg.per_host_log and cfg.log_file:
+            log_path = per_rank_path(cfg.log_file, mesh.process_index())
+        history = MetricsHistory(log_path, run_id=self._run_id, t0=self._t0,
+                                 all_processes=cfg.per_host_log)
+        self._last_epoch = self.start_epoch
+        self._best_top1 = -1.0
+        attempts = cfg.auto_recover
+        sig_token = preemption.install()
+        preemption.clear()
+        try:
+            while True:
+                try:
+                    result = self._fit_loop(epochs, history)
+                    self._ckpt_close()  # the success path: writer errors raise
+                    return result
+                except TrainingDivergedError as e:
+                    # until the restore lands, the live state is poisoned
+                    self._state_poisoned = True
+                    if attempts <= 0:
+                        raise
+                    attempts -= 1
+                    self._auto_recover(e)
+                    history.log("auto_recover", epoch=self._last_epoch,
+                                lr_scale=self._lr_scale)
+        except (KeyboardInterrupt, PreemptedError) as e:
+            # one snapshot discipline for both; cli/train.py maps a
+            # PreemptedError to exit 75
+            if isinstance(e, PreemptedError):
+                counters.inc("preemption.observed")
+            self._emergency_save()
+            raise
+        finally:
+            preemption.restore(sig_token)
+            self._ckpt_close(suppress=True)
+            history.close()
+
+    def _fit_loop(self, epochs: int, history: MetricsHistory) -> dict:
         cfg, last = self.cfg, {}
-        for epoch in range(epochs if epochs is not None else cfg.epochs):
-            last = self.train_epoch(epoch)
+        for epoch in range(self.start_epoch, epochs):
+            self._last_epoch = epoch
+            # a restored mid-epoch snapshot applies to its own epoch only
+            start_step, self._resume_step = self._resume_step, 0
+            last = self.train_epoch(epoch, start_step=start_step)
+            self._progress = (epoch, 0, True)
+            history.log("train_epoch", epoch=epoch, **last)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                 t1, t5, vloss = validate(self.test_loader, self.state, self.eval_step,
                                          epoch=epoch)
                 last.update(val_top1=t1, val_top5=t5, val_loss=vloss)
-        return last
+                history.log("eval", epoch=epoch, top1=t1, top5=t5, loss=vloss)
+                if cfg.ckpt_dir and t1 > self._best_top1:
+                    self._best_top1 = t1
+                    self._ckpt_io().save_best(cfg.ckpt_dir, self.state, epoch, t1,
+                                              extra_meta=self._ckpt_meta())
+            # with mid-epoch snapshots on, every epoch end writes the clean
+            # checkpoint, or a stale mid-epoch ckpt_e would stay the newest
+            if cfg.ckpt_dir and ((epoch + 1) % cfg.save_every == 0
+                                 or cfg.mid_epoch_save_every > 0):
+                self._ckpt_io().save(cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
+                                     extra_meta=self._ckpt_meta())
+            if self._stop_agreed():
+                # SIGTERM during the eval or the save: the epoch is complete
+                raise PreemptedError(f"SIGTERM observed after epoch {epoch} completed — "
+                                     "shutting down at the epoch boundary")
+        if cfg.ckpt_dir:
+            self._ckpt_io().save(cfg.ckpt_dir, self.state, epochs - 1, cfg.keep_last_ckpts,
+                                 extra_meta=self._ckpt_meta())
+        return last  # fit() drains the async writer
