@@ -105,6 +105,27 @@ Phases; any failure exits non-zero and prints no result line:
    on disk; rerun with ``--resume`` it must exit 0 and print its
    ``=> resumed from`` line, and the history must be JSONL with
    ``train_epoch`` and ``eval`` records.
+   (f) The fused epoch (``bench.py:243``'s ``resnet18_cifar100_fused``),
+   over the same NCCL group: ``Trainer(cfg with fused_epoch=True).fit()``,
+   2 epochs of all 195 steps with a fused eval of the 10,000 test images
+   after each, the dataset on the card and one step captured in a CUDA
+   graph and replayed (``train/epoch.py``). Counts set to 0 just before
+   ``fit`` and read just after: finite losses, 390 fused SGD launches and
+   390 gradient (and metrics) all-reduces, 20,000 eval examples. Capture
+   seconds, seconds per epoch, images/s, step ms (epoch time / 195), peak
+   memory and the dataset's bytes on the card, beside (b)'s step median.
+   Under torch.profiler over 25 replays: 1 ``fused_sgd_kernel`` a step on
+   the device and the device's idle share; the NCCL all-reduce kernels
+   a step (none at a world of one, where NCCL's in-place sum is no device
+   work, so the 42 all-reduces a step are held to the profiler's
+   host-side record of one eager step and to the capture's counts). Then
+   graph replay against the eager ``make_train_step`` from the same bridged
+   weights on the same batches, 5 steps that warm up, capture and replay
+   and 5 that only replay: f32 (TF32 off, deterministic cuDNN) losses to
+   1e-5 relative and parameters to 1e-5 of their update; bf16 losses to
+   2e-3 relative. Last, the same configuration through the real entry
+   point in a fresh process: ``python -m tpu_dist_torch.cli.distributed_mp
+   --fused_epoch --epochs 1 ...`` must exit 0 with one fused epoch line.
 7. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
@@ -139,6 +160,7 @@ from tpu_dist_torch import bridge
 from tpu_dist_torch import ckpt as ckpt_lib
 from tpu_dist_torch.comm import mesh as mesh_lib
 from tpu_dist_torch.config.config import TrainConfig
+from tpu_dist_torch.data import transforms
 from tpu_dist_torch.nn import resnet as resnet_lib
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import counters as counters_lib
@@ -148,6 +170,7 @@ from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
 from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
 from tpu_dist_torch.serve.engine import ServingEngine
+from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 from tpu_dist_torch.train import trainer as trainer_lib
 
@@ -1289,7 +1312,7 @@ def _resnet_fit() -> dict:
         batches.close()
         _profile_steps(inner, trainer.state, images, labels,
                        lr=torch.full((), RESNET_RUN["lr"], device=DEVICE), tag="resnet")
-        return launches, losses
+        return launches, losses, float(np.median(timed))
     finally:
         trainer.close()
 
@@ -1544,27 +1567,265 @@ def _resnet_launch() -> None:
 
 def phase_train_resnet() -> tuple:
     """ResNet-18 on CIFAR-100-shaped data through the port's trainer over a
-    1-rank NCCL group, then its checkpoint/resume. Returns (launches of the
-    main path, fused SGD's numbers at ResNet-18's leaves)."""
+    1-rank NCCL group, then its checkpoint/resume and the fused epoch.
+    Returns (launches of the main paths, fused SGD's numbers at
+    ResNet-18's leaves)."""
     t0 = time.perf_counter()
     sgd = _sgd_kernel("resnet18", seed=3)
     _, created = mesh_lib.initialize_distributed(
         DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
     try:
         _resnet_parity()
-        launches, losses = _resnet_fit()
+        launches, losses, step_median = _resnet_fit()
         t1 = time.perf_counter()
         _resnet_resume(losses)
         print(f"[resume] part (d): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        fused = _resnet_fused(step_median)
+        launches = {name: launches[name] + fused[name] for name in launches}
+        print(f"[fused] part (f): {time.perf_counter() - t1:.1f} s")
     finally:
         if created:
             torch.distributed.destroy_process_group()
     _resnet_cli()
+    _resnet_fused_cli()
     t1 = time.perf_counter()
     _resnet_launch()
     print(f"[launch] part (e): {time.perf_counter() - t1:.1f} s")
     print(f"[resnet] phase: {time.perf_counter() - t0:.1f} s")
     return launches, sgd
+
+
+# -- phase 6 (f): the fused epoch ----------------------------------------------
+
+# bench.py:243's resnet18_cifar100_fused: the streaming run's configuration
+# with every step of each epoch (50,000 // 256 = 195) in a captured graph
+RESNET_FUSED_RUN = {**RESNET_RUN, "steps_per_epoch": None, "fused_epoch": True}
+FUSED_STEPS = 195
+NCCL_PER_STEP = 42         # 1 grad, 1 metrics, 20 bn, 20 bn_grad
+FUSED_PROFILE_STEPS = 25   # graph replays under torch.profiler
+FUSED_PARITY_STEPS = 5
+FUSED_PARITY_MODEL = resnet_lib.resnet18
+# Graph replay against the eager step, both on the card from the same state
+# on the same batches (the same order and crops). f32, TF32 off and cuDNN's
+# deterministic algorithms on both sides: the graph replays the kernels the
+# eager step launches, so only a kernel whose result depends on its launch
+# could part them: each loss to 1e-5 relative, and each parameter's
+# difference to 1e-5 of that parameter's largest update over the 5 replays.
+# bf16 (the main path's algorithms): a flip of one bf16 rounding where the
+# f32 values straddle it, carried through 5 steps: the loss to 2e-3
+# relative, the bf16 limit of the other parity checks.
+FUSED_PARITY_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+FUSED_PARITY_PARAM_RTOL = 1e-5
+
+
+def _fused_profile(trainer, images, labels, lr) -> None:
+    """``FUSED_PROFILE_STEPS`` replays of the captured step under
+    torch.profiler: the device's count of fused SGD and NCCL all-reduce
+    kernels a step, and the device's busy share of the window. At a world
+    of one NCCL's in-place sum is no device work (no kernel), so the 42
+    collectives a step are held to the profiler's host-side record of one
+    eager step instead, beside the counts the capture set aside."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    runner = trainer._fused_runner
+    order, offsets = runner.draw(2, len(images), DEVICE)
+    order, offsets = order[:FUSED_PROFILE_STEPS], offsets[:FUSED_PROFILE_STEPS]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(trainer.state, images, labels, lr, order, offsets)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
+    counts = {e.key: e.count for e in rows}
+    sgd = sum(n for k, n in counts.items() if "fused_sgd_kernel" in k)
+    nccl = sum(n for k, n in counts.items() if "nccl" in k.lower() and "allreduce" in k.lower())
+    print(f"[fused] profiler over {FUSED_PROFILE_STEPS} replays: fused_sgd_kernel {sgd}, NCCL "
+          f"all-reduce kernels {nccl} ({sgd / FUSED_PROFILE_STEPS:g} and "
+          f"{nccl / FUSED_PROFILE_STEPS:g} a step); device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall (idle share {1 - busy_us / wall_us:.3f}, under the "
+          f"profiler); {sum(counts.values()) / FUSED_PROFILE_STEPS:.0f} kernels a step")
+    for key, n in sorted(counts.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[fused]   x{n}  {key[:90]}")
+    world = trainer.n_devices
+    check(sgd == FUSED_PROFILE_STEPS, f"{sgd} fused_sgd kernels in {FUSED_PROFILE_STEPS} replays")
+    check(nccl == (NCCL_PER_STEP * FUSED_PROFILE_STEPS if world > 1 else 0),
+          f"{nccl} NCCL all-reduce kernels in {FUSED_PROFILE_STEPS} replays at world {world}")
+
+    # the collectives one step issues: the profiler's record of an eager
+    # step on the same batch, and the counts the capture set aside
+    mean, std_inv = epoch_lib.normalizer(transforms.CIFAR100_MEAN, transforms.CIFAR100_STD,
+                                         DEVICE)
+    x = epoch_lib.augment(images, order[0], offsets[0], pad=4, mean=mean, std_inv=std_inv,
+                          dtype=torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.train_step(trainer.state, x, labels.index_select(0, order[0]), lr)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "allreduce" in e.key.lower().replace("_", "")}
+    captured = {k.removeprefix("comm.all_reduce."): v for k, v in runner._loop._counts.items()
+                if k.startswith("comm.all_reduce.")}
+    print(f"[fused] one eager step under torch.profiler, all-reduce ranges on the host: {calls}; "
+          f"the capture's counts a replay: {captured}")
+    check(calls.get("c10d::allreduce_") == NCCL_PER_STEP == sum(captured.values()),
+          f"all-reduces a step: profiler {calls}, capture {captured} (expected {NCCL_PER_STEP})")
+
+
+def _fused_parity(compute_dtype, images, labels) -> None:
+    """Graph replay against the port's eager step from the same bridged
+    weights on the same batches: 5 steps that warm up, capture and replay,
+    then 5 steps that only replay, each against ``make_train_step``."""
+    f32 = compute_dtype == torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = f32
+    params, bn_state = bridge.resnet_params_to_jax(FUSED_PARITY_MODEL(device="cpu", seed=0))
+    pairs = []
+    for _ in range(2):
+        model = bridge.load_jax_resnet(FUSED_PARITY_MODEL(device=DEVICE), params, bn_state)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+        pairs.append((model, opt, state_lib.TrainState.create(model, opt)))
+    (graph_model, graph_opt, graph_st), (eager_model, eager_opt, eager_st) = pairs
+    batch = RESNET_RUN["batch_size"]
+    runner = epoch_lib.make_fused_epoch(graph_opt, batch_per_device=batch,
+                                        compute_dtype=compute_dtype, seed=7)
+    train_step = step_lib.make_train_step(eager_opt, sync_bn=True, compute_dtype=compute_dtype)
+    lr = torch.full((), RESNET_RUN["lr"], device=DEVICE)
+    order, offsets = runner.draw(0, len(images), DEVICE)
+    mean, std_inv = epoch_lib.normalizer(transforms.CIFAR100_MEAN, transforms.CIFAR100_STD,
+                                         DEVICE)
+    before_launches = fs.fused_sgd.launches
+    graph_losses, eager_losses = [], []
+    for lo in (0, FUSED_PARITY_STEPS):
+        rows = slice(lo, lo + FUSED_PARITY_STEPS)
+        before = [p.detach().clone() for p in graph_model.parameters()]
+        graph_st, _ = runner.run(graph_st, images, labels, lr, order[rows], offsets[rows])
+        graph_losses.append(runner.step_metrics[:, 0].tolist())
+        losses = []
+        for i in range(lo, lo + FUSED_PARITY_STEPS):
+            x = epoch_lib.augment(images, order[i], offsets[i], pad=4, mean=mean,
+                                  std_inv=std_inv, dtype=compute_dtype)
+            eager_st, m = train_step(eager_st, x, labels.index_select(0, order[i]), lr)
+            losses.append(m["loss"].item())
+        eager_losses.append(losses)
+    torch.backends.cudnn.deterministic = False
+    check(runner._loop.graph is not None, "the fused runner captured no graph")
+    launched = fs.fused_sgd.launches - before_launches
+    check(launched == 4 * FUSED_PARITY_STEPS,
+          f"{launched} fused_sgd launches counted over 2 x {2 * FUSED_PARITY_STEPS} steps")
+    tol = FUSED_PARITY_TOL[compute_dtype]
+    rel = max(_rel(a, b) for g, e in zip(graph_losses, eager_losses) for a, b in zip(g, e))
+    worst = max(
+        float((a - b).abs().max()) / max(float((a - p0).abs().max()), 1e-30)
+        for a, b, p0 in zip(graph_model.parameters(), eager_model.parameters(), before)
+        for a, b in [(a.detach(), b.detach())])
+    name = "f32 (TF32 off, deterministic cuDNN)" if f32 else "bf16"
+    print(f"[fused] parity {name}, batch {batch}: warmup + capture + replays, then "
+          f"{FUSED_PARITY_STEPS} replays, against the eager step; losses graph "
+          f"{graph_losses} vs eager {eager_losses}; largest relative loss difference {rel:.3g} "
+          f"(limit {tol}); largest parameter difference over the replayed steps' update "
+          f"{worst:.3g}" + (f" (limit {FUSED_PARITY_PARAM_RTOL})" if f32 else ""))
+    check(all(math.isfinite(x) for g in graph_losses for x in g) and rel <= tol,
+          f"graph replay vs eager step ({name}): loss differs by {rel:.3g} relative")
+    if f32:
+        check(worst <= FUSED_PARITY_PARAM_RTOL,
+              f"graph replay vs eager step: parameters differ by {worst:.3g} of their update")
+
+
+def _resnet_fused(step_median_ms: float) -> dict:
+    """(f): ``Trainer(fused_epoch=True).fit()``, 2 epochs of 195 captured
+    steps with a fused eval of the 10,000 test images after each, the
+    counts set to 0 just before and read just after; then a profile of the
+    replays and the graph-vs-eager parity. Returns the fit's launches."""
+    cfg = TrainConfig(**RESNET_FUSED_RUN, device=DEVICE)
+    trainer = trainer_lib.Trainer(cfg)
+    try:
+        epochs, inner = [], trainer.train_epoch
+
+        def train_epoch(epoch, *a, **k):
+            epochs.append(inner(epoch, *a, **k))
+            return epochs[-1]
+
+        trainer.train_epoch = train_epoch
+        images, labels = trainer._fused_data
+        test_images, test_labels = trainer._fused_test_data
+        data_bytes = sum(t.numel() * t.element_size()
+                         for t in (images, labels, test_images, test_labels))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters_lib.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        last = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches, counts = read_launches(), counters_lib.snapshot()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        steps = cfg.epochs * FUSED_STEPS
+        losses = [e["loss"] for e in epochs]
+        comm = {k.removeprefix("comm.all_reduce."): v for k, v in counts.items()
+                if k.startswith("comm.all_reduce.")}
+        runner = trainer._fused_runner
+        print(f"[fused] resnet18_cifar100_fused through Trainer(fused_epoch=True).fit: "
+              f"{len(images)} train images ({images.numel()} bytes) and {len(test_images)} test "
+              f"images on the card ({data_bytes} bytes with labels), {cfg.epochs} epochs of "
+              f"{FUSED_STEPS} steps, a fused eval after each; fit {fit_s:.1f} s")
+        captures = {"train": runner.capture_s, "eval": trainer._fused_eval.capture_s}
+        print(f"[fused] capture (warmup {epoch_lib.WARMUP_STEPS} steps + capture), seconds: "
+              f"{captures}")
+        check(None not in captures.values(), f"a fused path captured no graph: {captures}")
+        for e, rec in enumerate(epochs):
+            print(f"[fused] epoch {e}: {rec['epoch_time']:.3f} s, {rec['images_per_sec']:.1f} "
+                  f"images/s, step {rec['epoch_time'] / FUSED_STEPS * 1e3:.3f} ms (epoch time / "
+                  f"{FUSED_STEPS}), loss {rec['loss']:.4f}, acc1 {rec['acc1']:.2f}")
+        print(f"[fused] beside: the streaming resnet18_cifar100 step median {step_median_ms:.3f} "
+              f"ms in this run; max_memory_allocated {peak_bytes} bytes "
+              f"({peak_bytes / 2 ** 30:.2f} GiB)")
+        print(f"[fused] launches in {steps} steps: {launches}; all-reduces by kind: {comm}; "
+              f"eval examples {counts.get('eval.examples')}")
+        check(len(losses) == cfg.epochs and all(math.isfinite(x) for x in losses),
+              f"fused epoch losses {losses}")
+        check(launches["fused_sgd"] == counts.get("comm.all_reduce.grad") == steps,
+              f"fused_sgd {launches['fused_sgd']} launches and "
+              f"{counts.get('comm.all_reduce.grad')} gradient all-reduces in {steps} steps")
+        check(counts.get("comm.all_reduce.metrics") == steps,
+              f"{counts.get('comm.all_reduce.metrics')} metrics all-reduces in {steps} steps")
+        check(all(n == 0 for name, n in launches.items() if name != "fused_sgd"),
+              f"resnet18 launched a flash kernel: {launches}")
+        n_test = RESNET_RUN["synthetic_n"] // 5
+        check(counts.get("eval.examples") == cfg.epochs * n_test,
+              f"fused eval counted {counts.get('eval.examples')} examples in {cfg.epochs} "
+              f"evals of {n_test}")
+        check(math.isfinite(last["val_loss"]), f"fused eval: {last}")
+        _fused_profile(trainer, images, labels, torch.full((), RESNET_RUN["lr"], device=DEVICE))
+        for dtype in (torch.float32, torch.bfloat16):
+            _fused_parity(dtype, images, labels)
+        print(f"[fused] card: {_smi_line()}")
+        return launches
+    finally:
+        trainer.close()
+
+
+def _resnet_fused_cli() -> None:
+    """The fused path through the real entry point, in a fresh process (so
+    its first epoch carries the process's first cuDNN and NCCL set-up as
+    well as the capture): one epoch of 195 replayed steps and an eval."""
+    cmd = [sys.executable, "-m", "tpu_dist_torch.cli.distributed_mp", "--dataset", "synthetic",
+           "--synthetic_n", str(RESNET_RUN["synthetic_n"]), "--epochs", "1",
+           "--batch_size", str(RESNET_RUN["batch_size"]), "--bf16", "--fused_optimizer",
+           "--fused_epoch", "--device", DEVICE, "--port", str(_free_port())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    lines = proc.stdout.splitlines()
+    done = [line for line in lines if line.startswith("Epoch 0 done")]
+    fused = [line for line in lines if line.startswith("Epoch:[0/1] (fused)")]
+    print(f"[fused] {' '.join(cmd[1:])}: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(fused + done))
+    check(proc.returncode == 0, f"distributed_mp --fused_epoch exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(len(done) == len(fused) == 1, f"epoch lines of the fused run:\n{proc.stdout}")
 
 
 # -- main --------------------------------------------------------------------

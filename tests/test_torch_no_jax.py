@@ -55,7 +55,8 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.ckpt.checkpoint", "tpu_dist_torch.metrics.history",
                  "tpu_dist_torch.cli.launch", "tpu_dist_torch.cli.dataparallel_apex",
                  "tpu_dist_torch.cli.distributed_apex",
-                 "tpu_dist_torch.cli.distributed_gradient_accumulation"):
+                 "tpu_dist_torch.cli.distributed_gradient_accumulation",
+                 "tpu_dist_torch.train.epoch"):
         assert name in MODULES
 
 

@@ -112,10 +112,11 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # One case for every flag of trainer.UNPORTED. The checkpoint/resume and
 # history flags (ckpt_dir, resume, keep_last_ckpts, mid_epoch_save_every,
 # async_ckpt, auto_recover, log_file, per_host_log) are ported and run in
-# tests/test_torch_resume.py::test_the_checkpoint_and_history_flags_work_through_fit.
+# tests/test_torch_resume.py::test_the_checkpoint_and_history_flags_work_through_fit;
+# fused_epoch is ported and runs in tests/test_torch_fused_trainer.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
-    ("fused_epoch", True, "Queue A 6"), ("fsdp", True, "Queue A 6"),
+    ("fsdp", True, "Queue A 6"),
     ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
     ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"), ("fault_plan", "x", "Queue A 6"),
     ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
@@ -132,7 +133,7 @@ UNPORTED_CASES = (
     ("alert_rules", "rules.json", "Queue A 6"), ("crash_dir", "crash", "Queue A 6"),
     ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
-    ("compile_cache_dir", "cache", "Queue A 6"),
+    ("compile_cache_dir", "cache", "No port owed"),
 )
 
 

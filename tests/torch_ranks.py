@@ -259,3 +259,63 @@ def ladder_rank(rank, world, cfg_kw):
 def fit_rank(rank, world, cfg_kw):
     """:func:`fit_run` on one rank; returns the error it raised (None)."""
     return fit_run(cfg_kw)["error"]
+
+
+# -- the fused epoch ------------------------------------------------------------
+
+
+def fused_epoch_rank(rank, world, cases, model_kw, params, bn_state, images, labels):
+    """Each case (``pad``, ``bf16``, ``batch``, ``lr`` and ``draws``, where
+    ``draws[epoch][rank]`` is this rank's ``(order, offsets)``): the port's
+    fused epochs on this rank's share of ``images``/``labels``
+    (``put_dataset_on_device``) from the bridged JAX weights, with plain
+    SGD. Returns per case the epoch metrics and the final parameters,
+    momentum and BN state as JAX pytrees, and this rank's device data."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.train import epoch, optim, state  # noqa: PLC0415
+
+    x, y = epoch.put_dataset_on_device(images, labels, world=world, rank=rank, device="cpu")
+    out = {"data": (x.numpy(), y.numpy())}
+    for name, case in cases.items():
+        model = resnet.ResNet(**model_kw, device="cpu")
+        bridge.load_jax_resnet(model, params, bn_state)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4)
+        st = state.TrainState.create(model, opt)
+        runner = epoch.make_fused_epoch(
+            opt, batch_per_device=case["batch"], pad=case["pad"],
+            compute_dtype=torch.bfloat16 if case["bf16"] else torch.float32)
+        metrics = []
+        for draw in case["draws"]:
+            order, offsets = (torch.from_numpy(a) for a in draw[rank])
+            st, m = runner.run(st, x, y, case["lr"], order, offsets)
+            metrics.append({k: v.item() for k, v in m.items()})
+        p, s = bridge.resnet_params_to_jax(model)
+        out[name] = {"metrics": metrics, "params": p, "bn_state": s, "step": st.step,
+                     "momentum": bridge.resnet_sgd_state_to_jax(model, st.opt_state)}
+    return out
+
+
+def fused_eval_rank(rank, world, model_kw, params, bn_state, images, labels, batch):
+    """The port's fused eval of the bridged weights over this rank's share
+    of ``images``/``labels``; returns the global sums as floats."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.train import epoch, optim, state  # noqa: PLC0415
+
+    model = resnet.ResNet(**model_kw, device="cpu")
+    bridge.load_jax_resnet(model, params, bn_state)
+    st = state.TrainState.create(model, optim.SGD())
+    x, y = epoch.put_dataset_on_device(images, labels, world=world, rank=rank, device="cpu")
+    sums = epoch.make_fused_eval(batch_per_device=batch, compute_dtype=torch.float32)(st, x, y)
+    return {k: v.item() for k, v in sums.items()}
+
+
+def fused_fit_rank(rank, world, cfg_kw):
+    """:func:`fit_run` of a ``fused_epoch`` config on one rank, with the
+    counters after it."""
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+
+    out = fit_run(cfg_kw)
+    out["counters"] = counters.snapshot()
+    return out

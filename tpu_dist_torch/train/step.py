@@ -31,6 +31,13 @@ data-parallel (DP) family, one process per device.
   the step's metrics, so every rank reads the same stop decision at the
   same step boundary with no collective of its own.
 
+The step is :func:`make_step_body` (the work on device tensors, ending in
+the metrics all-reduce, with nothing read back to the host) inside
+:func:`make_train_step` (placement, the metrics dict, the step counter).
+The fused epoch (:mod:`tpu_dist_torch.train.epoch`) runs the same body in
+a CUDA graph, built without the SIGTERM flag, whose host read a graph
+would freeze.
+
 Without a process group every collective is the identity (a world of one
 process). The step updates the model, its BN statistics and its momentum
 buffers in place (the JAX step's ``donate=True``) and returns a state with
@@ -104,7 +111,7 @@ def _flat_all_reduce_mean(tensors, kind: str) -> list:
     return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def make_train_step(
+def make_step_body(
     optimizer,
     *,
     grad_accum_steps: int = 1,
@@ -112,37 +119,22 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.float32,
     label_smoothing: float = 0.0,
     grad_clip_norm: float = 0.0,
-    shard_weight_update: bool = False,
-    seq_axis: Optional[str] = None,
-    tp_axis: Optional[str] = None,
-    ep_axis: Optional[str] = None,
-    pp_axis: Optional[str] = None,
-    remat: bool = False,
-    grad_compression: str = "none",
     pmean_fusion: str = "fused",
-    rs_ag_chunks: int = 1,
-    device_metrics: bool = False,
+    preempt_flag: bool = True,
 ):
-    """Build ``step(state, images, labels, lr) -> (state, metrics)``.
-
-    ``state.params`` is the model (``images [B, ...] -> logits``, this
-    rank's share of the global batch); images and labels are tensors or
-    arrays, moved to the model's device; ``lr`` is a float or a float32
-    scalar tensor there."""
-    if grad_compression not in GRAD_COMPRESSION_MODES:
-        raise ValueError(
-            f"grad_compression must be one of {GRAD_COMPRESSION_MODES}, got {grad_compression!r}"
-        )
+    """Build ``body(state, images, labels, lr) -> sums``: the step on
+    tensors already on the model's device. Forward and backward over the K
+    chunks, the BN-state average without SyncBN, the gradient reduce, the
+    clip and the optimizer's in-place update; then ONE all-reduce of
+    ``[loss, top-1 hits, top-5 hits]`` (f32, summed over the ranks), which
+    it returns. With ``preempt_flag`` a 4th element carries this rank's
+    SIGTERM flag as read on the host when the step is built; without it
+    (a step captured in a CUDA graph, where that read would be frozen) the
+    body reads nothing of the host's state and nothing back from the
+    device, so a graph can hold it. ``lr`` must then be a device tensor (a
+    float would be frozen into the graph too)."""
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
-    if int(rs_ag_chunks) < 1:
-        raise ValueError(f"rs_ag_chunks={rs_ag_chunks}: must be >= 1")
-    _refuse_unported(
-        shard_weight_update=shard_weight_update, seq_axis=seq_axis, tp_axis=tp_axis,
-        ep_axis=ep_axis, pp_axis=pp_axis, remat=remat, grad_compression=grad_compression,
-        rs_ag_chunks=int(rs_ag_chunks),
-        device_metrics=device_metrics,
-    )
     K = int(grad_accum_steps)
     if K < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -167,11 +159,9 @@ def make_train_step(
         scale = torch.clamp(grad_clip_norm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
         return [g * scale for g in grads]
 
-    def step(state: TrainState, images, labels, lr):
+    def body(state: TrainState, images, labels, lr) -> torch.Tensor:
         model = state.params
         params = list(model.parameters())
-        dev = params[0].device
-        images, labels = _to(images, dev), _to(labels, dev)
         if images.shape[0] % K:
             raise ValueError(f"batch {images.shape[0]} does not split into {K} chunks")
         n = images.shape[0] // K
@@ -201,21 +191,89 @@ def make_train_step(
         optimizer.update(clip_grads(reduce_grads(grads)), state.opt_state, params, lr)
 
         c1, c5 = F.topk_correct(torch.cat(logits).float(), labels, (1, 5))
-        # loss, top-1 and top-5 counts and the preemption flag in ONE
-        # all-reduce (a fill kernel carries the flag: no host-to-device copy)
-        stop = torch.full((), float(preemption.requested()), device=dev)
-        sums = collectives.all_reduce_(
-            torch.stack([loss.float(), c1.float(), c5.float(), stop]), kind="metrics")
-        world, b = collectives.world_size(), labels.shape[0]
-        metrics = {
-            "loss": sums[0] / world,
-            "acc1": sums[1] / (b * world) * 100.0,
-            "acc5": sums[2] / (b * world) * 100.0,
-            "preempt": sums[3],
-        }
+        sums = [loss.float(), c1.float(), c5.float()]
+        if preempt_flag:
+            # a fill kernel carries the flag: no host-to-device copy
+            sums.append(torch.full((), float(preemption.requested()), device=loss.device))
+        return collectives.all_reduce_(torch.stack(sums), kind="metrics")
+
+    return body
+
+
+def metrics_from_sums(sums: torch.Tensor, batch: int) -> dict:
+    """The step's metrics from ``body``'s all-reduced sums and the per-rank
+    batch: ``loss`` the mean over the ranks, ``acc1``/``acc5`` in percent
+    of the global batch (0-dim tensors)."""
+    world = collectives.world_size()
+    return {
+        "loss": sums[0] / world,
+        "acc1": sums[1] / (batch * world) * 100.0,
+        "acc5": sums[2] / (batch * world) * 100.0,
+    }
+
+
+def make_train_step(
+    optimizer,
+    *,
+    grad_accum_steps: int = 1,
+    sync_bn: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    label_smoothing: float = 0.0,
+    grad_clip_norm: float = 0.0,
+    shard_weight_update: bool = False,
+    seq_axis: Optional[str] = None,
+    tp_axis: Optional[str] = None,
+    ep_axis: Optional[str] = None,
+    pp_axis: Optional[str] = None,
+    remat: bool = False,
+    grad_compression: str = "none",
+    pmean_fusion: str = "fused",
+    rs_ag_chunks: int = 1,
+    device_metrics: bool = False,
+):
+    """Build ``step(state, images, labels, lr) -> (state, metrics)``.
+
+    ``state.params`` is the model (``images [B, ...] -> logits``, this
+    rank's share of the global batch); images and labels are tensors or
+    arrays, moved to the model's device; ``lr`` is a float or a float32
+    scalar tensor there."""
+    if grad_compression not in GRAD_COMPRESSION_MODES:
+        raise ValueError(
+            f"grad_compression must be one of {GRAD_COMPRESSION_MODES}, got {grad_compression!r}"
+        )
+    if int(rs_ag_chunks) < 1:
+        raise ValueError(f"rs_ag_chunks={rs_ag_chunks}: must be >= 1")
+    _refuse_unported(
+        shard_weight_update=shard_weight_update, seq_axis=seq_axis, tp_axis=tp_axis,
+        ep_axis=ep_axis, pp_axis=pp_axis, remat=remat, grad_compression=grad_compression,
+        rs_ag_chunks=int(rs_ag_chunks),
+        device_metrics=device_metrics,
+    )
+    body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
+                          compute_dtype=compute_dtype, label_smoothing=label_smoothing,
+                          grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion)
+
+    def step(state: TrainState, images, labels, lr):
+        dev = next(state.params.parameters()).device
+        sums = body(state, _to(images, dev), _to(labels, dev), lr)
+        metrics = metrics_from_sums(sums, len(labels))
+        metrics["preempt"] = sums[3]
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step
+
+
+def eval_sums(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``[loss, top1, top5, count]`` of one batch, unreduced: the masked
+    sums of the per-example cross-entropy and of the top-1/top-5 hits, and
+    the mask's sum (1.0 for real examples, 0.0 for padding, whose labels
+    must still index a class)."""
+    nll = F.cross_entropy(logits, labels, reduction="none")
+    maxk = min(5, logits.shape[-1])
+    pred = torch.topk(logits.float(), maxk, dim=-1).indices
+    hits = (pred == labels.long()[:, None]).float() * mask[:, None]
+    return torch.stack([torch.sum(nll * mask), torch.sum(hits[:, :1]),
+                        torch.sum(hits[:, :maxk]), torch.sum(mask)])
 
 
 def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
@@ -235,14 +293,7 @@ def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
         try:
             with torch.no_grad():
                 logits = model(images.to(compute_dtype))
-                nll = F.cross_entropy(logits, labels, reduction="none")
-                maxk = min(5, logits.shape[-1])
-                pred = torch.topk(logits.float(), maxk, dim=-1).indices
-                hits = (pred == labels.long()[:, None]).float() * mask[:, None]
-                sums = collectives.all_reduce_(torch.stack([
-                    torch.sum(nll * mask), torch.sum(hits[:, :1]),
-                    torch.sum(hits[:, :maxk]), torch.sum(mask),
-                ]), kind="eval")
+                sums = collectives.all_reduce_(eval_sums(logits, labels, mask), kind="eval")
                 return dict(zip(("loss", "top1", "top5", "count"), sums))
         finally:
             model.train(was_training)

@@ -41,6 +41,15 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   (:mod:`tpu_dist_torch.metrics.history`): ``train_epoch``, ``eval`` and
   ``auto_recover`` records, rank 0 only unless ``per_host_log``.
 
+``fused_epoch`` runs each epoch through :mod:`tpu_dist_torch.train.epoch`:
+the dataset on the device, one step captured in a CUDA graph and replayed
+(on the CPU, the same step eagerly), and the eval the same way; the
+epoch's record has the JAX fused path's keys (``data_stall_frac`` 0.0).
+A SIGTERM is honoured at the epoch boundary, and the whole epoch counts as
+inside a step for the emergency snapshot (the replays update the state in
+place). Options that JAX's fused runner never receives are refused
+(:data:`FUSED_REFUSED`), as are mid-epoch snapshots and their resume.
+
 Every config flag whose subsystem is not ported raises
 :class:`~tpu_dist_torch.train.step.NotPortedError` naming its ROADMAP item
 (:data:`UNPORTED`); none is ignored.
@@ -57,6 +66,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tpu_dist_torch import bridge
@@ -71,9 +81,10 @@ from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
-from tpu_dist_torch.obs import counters
+from tpu_dist_torch.obs import counters, spans
 from tpu_dist_torch.resilience import preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
+from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train.optim import SGD, cosine_lr, linear_scaled_lr, multistep_lr
 from tpu_dist_torch.train.state import TrainState
 from tpu_dist_torch.train.step import WAITS_FOR, NotPortedError, make_eval_step, make_train_step
@@ -92,7 +103,6 @@ _ELASTIC = "Queue A 6 (elastic training, elastic/remap.py)"
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
     "optimizer": ("sgd", "Queue A 6 (AdamW, LARS, LAMB)"),
-    "fused_epoch": (False, "Queue A 6 (the fused epoch, train/epoch.py)"),
     "shard_weight_update": (False, WAITS_FOR["shard_weight_update"]),
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
     "remat": (False, WAITS_FOR["remat"]),
@@ -127,8 +137,20 @@ UNPORTED = {
     "fault_plan": (None, "Queue A 6 (resilience, resilience/faults.py)"),
     "auto_shard": ("off", _ANALYSIS),
     "tune_report": ("", _ANALYSIS),
-    "compile_cache_dir": (None, "Queue A 6 (the fused epoch's CUDA-graph capture; "
-                                "the port compiles no XLA program to cache)"),
+    "compile_cache_dir": (None, 'Queue A "No port owed" (the port compiles no XLA '
+                                "program to cache)"),
+}
+
+# With fused_epoch: flag -> (its default, why the fused runner refuses it).
+# JAX's make_fused_epoch never receives these (tpu_dist/train/trainer.py:
+# 892-899, and its fused train_epoch ignores steps_per_epoch), so the JAX
+# trainer drops them silently; the port refuses them instead.
+FUSED_REFUSED = {
+    "grad_accu_steps": (1, "the fused step takes the whole per-rank batch at once"),
+    "label_smoothing": (0.0, "the fused step's loss is the plain cross-entropy"),
+    "grad_clip_norm": (0.0, "the fused step does not clip the gradients"),
+    "steps_per_epoch": (None, "a fused epoch runs every step of its data"),
+    "mid_epoch_save_every": (0, "the fused epoch has no step boundary to snapshot at"),
 }
 
 _DATASET_CLASSES = {"cifar100": 100, "cifar10": 10, "synthetic_learnable": 4,
@@ -162,6 +184,18 @@ def refuse_unported(cfg: TrainConfig) -> None:
         value = getattr(cfg, flag)
         if value != default:
             raise NotPortedError(flag, value, queue)
+
+
+def refuse_fused_options(cfg: TrainConfig) -> None:
+    """With ``fused_epoch``, raise ``ValueError`` for the first option of
+    :data:`FUSED_REFUSED` that is not at its default."""
+    if not cfg.fused_epoch:
+        return
+    for flag, (default, why) in FUSED_REFUSED.items():
+        value = getattr(cfg, flag)
+        if value != default:
+            raise ValueError(f"{flag}={value!r} does not work with --fused_epoch: {why}; "
+                             "drop the option or --fused_epoch")
 
 
 def _load_data(cfg: TrainConfig, world: int):
@@ -208,6 +242,7 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         refuse_unported(cfg)
+        refuse_fused_options(cfg)
         # a run is one Trainer's lifetime: its counters start at 0
         counters.reset()
         self.device, self._owns_group = mesh.initialize_distributed(
@@ -286,6 +321,24 @@ class Trainer:
             grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion,
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
+        self._fused_runner = self._fused_eval = None
+        if cfg.fused_epoch:
+            place = functools.partial(epoch_lib.put_dataset_on_device, world=world, rank=rank,
+                                      device=self.device)
+            self._fused_data = place(*self.train_data)
+            self._fused_runner = epoch_lib.make_fused_epoch(
+                self.optimizer, batch_per_device=self.local_batch, sync_bn=cfg.sync_bn,
+                compute_dtype=compute_dtype, pmean_fusion=cfg.pmean_fusion, seed=seed, **stats)
+            # round the test set up to a multiple of the world with label -1
+            # padding, so the fused eval counts every real example once
+            ti, tl = self.test_data
+            pad = (-len(tl)) % world
+            if pad:
+                ti = np.concatenate([ti, np.zeros((pad,) + ti.shape[1:], ti.dtype)])
+                tl = np.concatenate([tl, np.full(pad, -1, tl.dtype)])
+            self._fused_test_data = place(ti, tl)
+            self._fused_eval = epoch_lib.make_fused_eval(
+                batch_per_device=self.local_batch, compute_dtype=compute_dtype, **stats)
 
         # -- checkpoint / resume --------------------------------------------
         ckpt_lib.set_io_retries(cfg.ckpt_io_retries)
@@ -580,9 +633,9 @@ class Trainer:
                         "snapshot skipped; the last periodic checkpoint stays the newest")
             return
         if self._in_step:
-            rank0_print("=> interrupted inside a step, whose in-place update may be half "
-                        "done — emergency snapshot skipped; resume from the last periodic "
-                        "checkpoint")
+            rank0_print("=> interrupted inside a step (or a fused epoch), whose in-place "
+                        "update may be half done — emergency snapshot skipped; resume from "
+                        "the last periodic checkpoint")
             return
         # the emergency snapshot must be the last file published
         self._ckpt_close(suppress=True)
@@ -629,6 +682,13 @@ class Trainer:
     def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
         """Train one epoch from batch ``start_step`` (a mid-epoch resume);
         returns the epoch's dict."""
+        if self._fused_runner is not None:
+            if start_step:
+                raise ValueError(
+                    f"mid-epoch resume (checkpoint carries mid_epoch_step={start_step}) is not "
+                    "possible with --fused_epoch: the whole epoch is one run of the captured "
+                    "step; resume without --fused_epoch to continue from the exact batch")
+            return self._train_epoch_fused(epoch)
         cfg = self.cfg
         self.train_sampler.set_epoch(epoch)
         lr = self._lr(epoch)
@@ -712,6 +772,55 @@ class Trainer:
         counters.inc("train.steps", steps_run)
         return out
 
+    def _train_epoch_fused(self, epoch: int) -> dict:
+        """One fused epoch (:mod:`tpu_dist_torch.train.epoch`); its metrics
+        are fetched once, at its end."""
+        cfg = self.cfg
+        self._progress = (epoch, 0, False)
+        lr = self._lr(epoch)
+        t0 = time.time()
+        t_pc = time.perf_counter()
+        # the replays update the state in place: until the epoch's metrics
+        # are on the host, the state may be half trained
+        self._in_step = True
+        self.state, metrics = self._fused_runner(self.state, *self._fused_data, lr, epoch)
+        m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+        self._in_step = False
+        spans.add_event("train/fused_epoch", t_pc, time.perf_counter() - t_pc, epoch=epoch)
+        steps = len(self._fused_data[0]) // self.local_batch
+        counters.inc("train.epochs")
+        counters.inc("train.steps", steps)
+        self._guard(m["loss"], f"in fused epoch {epoch}", lr)
+        dt = time.time() - t0
+        n_images = len(self._fused_data[0]) * self.n_devices
+        ips = n_images / dt if dt > 0 else 0.0
+        rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] (fused) lr={lr:.5f} loss={m['loss']:.4f} "
+                    f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}")
+        rank0_print(f"Epoch {epoch} done in {dt:.2f}s ({ips:.0f} img/s)")
+        # the data is on the device: there is no input pipeline to stall on
+        m.update(epoch_time=dt, images_per_sec=ips, data_stall_frac=0.0)
+        if self._stop_agreed():
+            # the fused epoch has no step grain: its end is the first point a
+            # SIGTERM can be honoured at, and the epoch is complete there
+            self._progress = (epoch, 0, True)
+            raise PreemptedError(f"SIGTERM observed during fused epoch {epoch} — shutting "
+                                 "down at the epoch boundary")
+        return m
+
+    def _validate_fused(self, epoch: int):
+        """The fused eval over the test set on the device; ``(top1, top5,
+        loss)`` as :func:`validate` returns them."""
+        t_ev = time.perf_counter()
+        sums = self._fused_eval(self.state, *self._fused_test_data)
+        sums = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
+        spans.add_event("eval/fused", t_ev, time.perf_counter() - t_ev, epoch=epoch)
+        counters.inc("eval.runs")
+        counters.inc("eval.examples", sums["count"])
+        n = max(sums["count"], 1.0)
+        t1, t5, vloss = sums["top1"] / n * 100.0, sums["top5"] / n * 100.0, sums["loss"] / n
+        rank0_print(f" * Acc@1 {t1:.3f} Acc@5 {t5:.3f} (epoch {epoch}, fused)")
+        return t1, t5, vloss
+
     def fit(self, epochs: Optional[int] = None) -> dict:
         """Train from ``start_epoch`` to ``epochs`` (default ``cfg.epochs``),
         validating every ``eval_every`` epochs and checkpointing into
@@ -768,8 +877,11 @@ class Trainer:
             self._progress = (epoch, 0, True)
             history.log("train_epoch", epoch=epoch, **last)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                t1, t5, vloss = validate(self.test_loader, self.state, self.eval_step,
-                                         epoch=epoch)
+                if self._fused_eval is not None:
+                    t1, t5, vloss = self._validate_fused(epoch)
+                else:
+                    t1, t5, vloss = validate(self.test_loader, self.state, self.eval_step,
+                                             epoch=epoch)
                 last.update(val_top1=t1, val_top5=t5, val_loss=vloss)
                 history.log("eval", epoch=epoch, top1=t1, top5=t5, loss=vloss)
                 if cfg.ckpt_dir and t1 > self._best_top1:
