@@ -50,6 +50,24 @@ Phases; any failure exits non-zero and prints no result line:
    after; every request must complete with finite logits, the flash kernel
    must have run 12 times per forward, all on the f32 route, and the
    logits must agree with the same engine run with ``attn_impl="xla"``.
+   Then ViT-B/16 from a checkpoint: the same weights with ``ckpt.save``,
+   beside the flat momentum a ZeRO-1 run at dp = 16 leaves (8 zeros of
+   pad) under its ``elastic`` stamp, and a newer copy with one flipped
+   byte. ``load_serving_state`` must quarantine the copy, remap the
+   momentum (``zero1_flat``) and give the written parameters bit for bit.
+   The 32 requests are served twice from them, in f32 and with
+   ``quantize=True``, each with the default SLO rules, a history JSONL,
+   an exporter on a free local port and a heartbeat file: 12 f32-route
+   flash launches a forward in both runs, the f32 logits equal to the
+   live module's bit for bit, the int8 engine's allocation on the card
+   the int8 weights and scales only (no f32 copy), the heartbeat present
+   while serving and gone after ``sweep_heartbeat``, one HTTP scrape with
+   the ``serve_*`` gauges and histogram families, and ``python -m
+   tpu_dist_torch.serve report`` on the history exiting 0. ``[serve]``
+   lines: load ms and file bytes, weights bytes on the card in f32 and
+   int8, requests/s and p50/p99 of each run, the dequantize's host us
+   and device ms a forward, int8-vs-f32 logits (max |diff|, top-1
+   agreement) and the SLO alerts that fired.
 5. train: ViT-B/16 at full width, weights from numpy seed 0 through the
    bridge, through ``make_train_step``. (a) f32 parity, TF32 off: batch 8,
    3 steps of flash attention + fused SGD against plain attention + plain
@@ -95,8 +113,11 @@ Phases; any failure exits non-zero and prints no result line:
    all-reduces over both runs, the first resumed loss equal to the same
    step taken from the interrupted run's live state and close to step 30
    of (b), and the fused SGD's plan cache hitting on at least 0.9 of the
-   resumed steps after the first 2. Then the card's times of a
-   synchronous save, of the blocking part of an async save and of a
+   resumed steps after the first 2. The resumed run's newest checkpoint
+   then loads through ``load_serving_state`` into a fresh module and
+   serves 8 requests in one batch through ``ServingEngine`` (f32): the
+   logits must equal an eval-mode forward of the resumed trainer's model
+   bit for bit. Then the card's times of a synchronous save, of the blocking part of an async save and of a
    CRC-verified restore with its copy onto the card, and the file's bytes.
    (e) The real entry point once more, through the launcher:
    ``python -m tpu_dist_torch.cli.launch --nproc 1 -- python -m
@@ -169,7 +190,11 @@ from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
 from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
-from tpu_dist_torch.serve.engine import ServingEngine
+from tpu_dist_torch.comm.quantize import padded_len
+from tpu_dist_torch.elastic import elastic_stamp
+from tpu_dist_torch.metrics.history import MetricsHistory
+from tpu_dist_torch.obs import export as export_lib
+from tpu_dist_torch.serve.engine import ServingEngine, load_serving_state
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 from tpu_dist_torch.train import trainer as trainer_lib
@@ -881,10 +906,10 @@ def phase_kernels_train() -> dict:
 # -- phase 4 -----------------------------------------------------------------
 
 
-def _serve(model, payloads):
+def _serve(model, payloads, **engine_kw):
     """Warm an engine up, then drive the bursty request stream through it.
     Returns (engine, completed requests, scalars of the measured window)."""
-    engine = ServingEngine(model, max_batch=SERVE_MAX_BATCH, device=DEVICE)
+    engine = ServingEngine(model, max_batch=SERVE_MAX_BATCH, device=DEVICE, **engine_kw)
     engine.warmup(IMAGE)
     engine.record_window()  # the measured window opens after warmup
     done, submitted, burst_idx = [], 0, 0
@@ -988,7 +1013,164 @@ def phase_serve() -> dict:
           f"(tolerance {LOGITS_TOL[0]} + {LOGITS_TOL[1]} * |xla|)")
 
     _forward_split(model, payloads[:SERVE_MAX_BATCH])
-    return served
+    from_ckpt = _serve_from_checkpoint(model, payloads, flash_logits)
+    return {name: served[name] + from_ckpt[name] for name in served}
+
+
+# -- phase 4, second half: serving ViT-B/16 from a checkpoint -------------------
+
+# The ZeRO-1 layout a data-parallel run of 16 leaves: ViT-B/16's
+# 86,566,120 parameters divide by 8 (a flat vector at dp = 8 has no pad,
+# and the serving extent's length equals it: nothing to remap), not by 16,
+# whose flat vector carries 8 zeros of pad that the remapper must crop.
+SERVE_CKPT_DP = 16
+# int8 against f32 logits of the same requests: reported (max |diff|, top-1
+# agreement). The weights are random, so the top two of the 1000 logits of a
+# request can lie closer than int8's error and swap: the limit is a sanity
+# floor that a wrong dequantize (a transposed or misplaced leaf) fails.
+INT8_TOP1_AGREEMENT = 0.5
+
+
+def _flip_byte_in_largest_entry(path: str) -> None:
+    """One byte flipped halfway through the data of the archive's largest
+    entry (``np.savez`` stores entries uncompressed, one zip member each)."""
+    import zipfile  # noqa: PLC0415
+
+    with zipfile.ZipFile(path) as zf:
+        info = max(zf.infolist(), key=lambda i: i.file_size)
+    at = info.header_offset + 30 + len(info.filename) + info.file_size // 2
+    with open(path, "r+b") as f:
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _serve_run(tag: str, model, payloads, d: str, **engine_kw):
+    """One 32-request run with the SLO rules, a history, an exporter on a
+    free local port and a heartbeat file; launch counts set to 0 just
+    before and read just after. Returns (engine, {id: logits}, scalars,
+    flash launches, history path)."""
+    log = os.path.join(d, f"{tag}.jsonl")
+    hb = os.path.join(d, f"{tag}.beat")
+    history = MetricsHistory(log)
+    exporter = export_lib.MetricsExporter(port=0, host="127.0.0.1")
+    try:
+        counters_lib.reset()
+        reset_launches()
+        engine, done, scalars = _serve(model, payloads, slo_rules="default", history=history,
+                                       exporter=exporter, heartbeat_file=hb, **engine_kw)
+        launches, mma = read_launches(), read_mma_launches()
+        forwards = counters_lib.get("serve.forwards")
+        check(len(done) == len(payloads) and all(r.ok for r in done),
+              f"{tag}: {sum(r.ok for r in done)} of {len(payloads)} requests completed")
+        check(all(bool(np.isfinite(r.result).all()) for r in done), f"{tag}: non-finite logits")
+        check(launches["flash_attention_fwd"] == model.depth * forwards
+              and mma["flash_attention_fwd"] == 0,
+              f"{tag}: {launches['flash_attention_fwd']} flash launches "
+              f"({mma['flash_attention_fwd']} tensor-core) in {forwards} forwards")
+        check(all(n == 0 for k, n in launches.items() if k != "flash_attention_fwd"),
+              f"{tag}: serving launched a training kernel: {launches}")
+        check(os.path.exists(hb), f"{tag}: no heartbeat file while serving")
+        engine.sweep_heartbeat()
+        check(not os.path.exists(hb), f"{tag}: the heartbeat file outlived sweep_heartbeat")
+        vals = export_lib.scrape(port=exporter.port)
+        check(vals is not None
+              and vals.get(export_lib.metric_name("serve.completed")) == len(payloads)
+              and export_lib.metric_name("serve.latency_p99_ms") in vals
+              and vals.get("tpu_dist_serve_latency_seconds_count") == len(payloads)
+              and all(f"tpu_dist_serve_phase_{p}_seconds_count" in vals
+                      for p in engine.stats.phases),
+              f"{tag}: the scrape lacks the serve gauges or histograms: {sorted(vals or {})[:20]}")
+    finally:
+        exporter.close()
+        history.close()
+    phase_ms = {p: h.sum * 1e3 for p, h in engine.stats.phases.items()}
+    print(f"[serve] {tag}: {scalars['serve.requests_per_s']} requests/s, latency p50 <= "
+          f"{scalars['serve.latency_p50_ms']} ms, p99 <= {scalars['serve.latency_p99_ms']} ms; "
+          f"phase sums over requests (ms): dispatch {phase_ms['dispatch']:.3f}, device "
+          f"{phase_ms['device']:.3f}; {launches['flash_attention_fwd']} flash launches in "
+          f"{forwards} forwards, all f32 route; scrape {len(vals)} samples; heartbeat beaten "
+          f"and swept")
+    return engine, {r.id: r.result for r in done}, scalars, launches, log
+
+
+def _serve_from_checkpoint(live, payloads, live_logits: dict) -> dict:
+    """ViT-B/16 served from a checkpoint, in f32 and in int8 (module
+    docstring, phase 4). Returns the flash launches of both runs."""
+    root = pathlib.Path(__file__).resolve().parent
+    n_params = sum(p.numel() for p in live.parameters())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        ckdir = os.path.join(d, "ck")
+        mom = torch.zeros(padded_len(n_params, SERVE_CKPT_DP), device=DEVICE)
+        mom[:n_params] = torch.arange(1, n_params + 1, device=DEVICE) % 17 * 0.01
+        state = state_lib.TrainState(params=live, bn_state={}, opt_state=mom, step=120)
+        good = ckpt_lib.save(ckdir, state, 1, extra_meta={
+            "elastic": elastic_stamp(SERVE_CKPT_DP, SERVE_CKPT_DP, n_params)})
+        del mom, state
+        newest = os.path.join(ckdir, "ckpt_2.npz")
+        shutil.copy(good, newest)
+        _flip_byte_in_largest_entry(newest)
+        t0 = time.perf_counter()
+        loaded = load_serving_state(ckdir, live)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(loaded["path"] == good and os.path.exists(newest + ".corrupt")
+              and not os.path.exists(newest),
+              f"the corrupt newest file was not quarantined: served {loaded['path']}")
+        check(loaded["remapped"] == [("['opt_state']", "zero1_flat")],
+              f"remapped {loaded['remapped']}")
+        written = bridge.keystr_flatten(bridge.numpy_vit_params(live, seed=SERVE_SEED))
+        got = bridge.keystr_flatten(loaded["params"])
+        check(list(got) == list(written) and all(np.array_equal(got[k], written[k]) for k in got),
+              "the loaded parameters differ from the written ones")
+        print(f"[serve] checkpoint: ViT-B/16 + a ZeRO-1 flat momentum at dp = {SERVE_CKPT_DP}, "
+              f"{os.path.getsize(good)} bytes a file; load_serving_state {load_ms:.1f} ms "
+              f"(quarantined the newer file with one flipped byte, remapped "
+              f"{loaded['remapped']}, parameters equal to the written ones bit for bit)")
+
+        f32_model = vit_b16(attn_impl="flash", device=DEVICE)
+        bridge.load_jax_params(f32_model, loaded["params"], loaded["bn_state"])
+        _, f32_logits, _, f32_launches, _ = _serve_run("f32", f32_model, payloads, d)
+        check(all(np.array_equal(f32_logits[i], live_logits[i]) for i in live_logits),
+              "f32 logits from the checkpoint differ from the live module's")
+        del f32_model
+
+        host_model = vit_b16(attn_impl="flash", device="cpu")
+        bridge.load_jax_params(host_model, loaded["params"], loaded["bn_state"])
+        del loaded
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        engine = ServingEngine(host_model, max_batch=SERVE_MAX_BATCH, quantize=True,
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - before
+        f32_bytes = 4 * n_params
+        check(engine.int8.nbytes <= resident < 0.3 * f32_bytes,
+              f"int8 engine: {resident} bytes on the card for {engine.int8.nbytes} of int8 "
+              f"weights ({f32_bytes} in f32)")
+        del engine
+        int8_engine, int8_logits, _, int8_launches, log = _serve_run(
+            "int8", host_model, payloads, d, quantize=True)
+        deq_ms, deq_us = cuda_ms(int8_engine.int8.dequantize, iters=20, warmup=3)
+        diff = max(float(np.abs(int8_logits[i] - f32_logits[i]).max()) for i in f32_logits)
+        top1 = float(np.mean([int8_logits[i].argmax() == f32_logits[i].argmax()
+                              for i in f32_logits]))
+        print(f"[serve] weights on the card: f32 {f32_bytes} bytes, int8 {int8_engine.int8.nbytes} "
+              f"bytes (q + scales; the int8 engine's allocation {resident}); dequantize a forward: "
+              f"host {deq_us:.1f} us, device {deq_ms:.4f} ms (one launch)")
+        print(f"[serve] int8 vs f32 logits over {len(f32_logits)} requests: max |diff| "
+              f"{diff:.4g}, top-1 agreement {top1:.3f} (limit {INT8_TOP1_AGREEMENT})")
+        check(top1 >= INT8_TOP1_AGREEMENT, f"int8 top-1 agreement {top1}")
+        report = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "report", log],
+                                cwd=root, capture_output=True, text=True, timeout=120)
+        check(report.returncode == 0, f"serve report: rc {report.returncode}\n{report.stderr}")
+        with open(log) as f:
+            alerts = [json.loads(line) for line in f if '"kind": "alert"' in line]
+        print(f"[serve] python -m tpu_dist_torch.serve report: rc 0, "
+              f"{report.stdout.splitlines()[0]}; SLO alerts fired: "
+              f"{[a['rule'] for a in alerts] or 'none'}")
+        print(f"[serve] card: {_smi_line()}")
+    return {name: f32_launches[name] + int8_launches[name] for name in f32_launches}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1496,11 +1678,51 @@ def _resnet_resume(fit_losses: list) -> None:
                   f"first resumed loss {rest[0]!r} vs the live state's next step {next_loss!r}")
             check(rel30 <= RESNET_RESUME_LOSS_RTOL,
                   f"first resumed loss {rest[0]!r} vs step {done} of (b) {fit_losses[done]!r}")
+            _serve_resnet_checkpoint(ckpt_dir, second.state.params, cfg)
             _ckpt_io_times(second.state, ckpt_dir)
         finally:
             first.close()
             if second is not None:
                 second.close()
+
+
+RESNET_SERVE_REQUESTS = 8
+RESNET_IMAGE = (32, 32, 3)
+
+
+def _serve_resnet_checkpoint(ckpt_dir: str, trained, cfg) -> None:
+    """(d), last: the newest checkpoint of the resumed run, loaded with
+    ``load_serving_state`` into a fresh module and served (f32); its logits
+    must equal an eval-mode forward of the resumed trainer's model."""
+    t0 = time.perf_counter()
+    loaded = load_serving_state(ckpt_dir, trained)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    model = trainer_lib.build_model(cfg, DEVICE, seed=123)
+    bridge.load_jax_params(model, loaded["params"], loaded["bn_state"])
+    payloads = np.random.default_rng(SERVE_SEED).standard_normal(
+        (RESNET_SERVE_REQUESTS,) + RESNET_IMAGE, dtype=np.float32)
+    engine = ServingEngine(model, max_batch=RESNET_SERVE_REQUESTS, device=DEVICE)
+    engine.warmup(RESNET_IMAGE)
+    reset_launches()
+    for i, x in enumerate(payloads):  # one full batch: the shape of the forward below
+        engine.submit(x, id=i)
+    t0 = time.perf_counter()
+    done = engine.pump()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    check(sum(read_launches().values()) == 0, f"serving ResNet launched {read_launches()}")
+    check(len(done) == RESNET_SERVE_REQUESTS and all(r.ok for r in done),
+          "the ResNet engine did not complete every request")
+    was_training = trained.training
+    trained.eval()
+    with torch.inference_mode():
+        want = trained(torch.from_numpy(payloads).to(DEVICE)).cpu().numpy()
+    trained.train(was_training)
+    worst = max(float(np.abs(r.result - want[r.id]).max()) for r in done)
+    print(f"[serve] ResNet-18 from {os.path.basename(loaded['path'])} (step {loaded['step']}, "
+          f"remapped {loaded['remapped']}): load {load_ms:.1f} ms; {len(done)} requests in "
+          f"one batch, {serve_ms:.2f} ms; logits vs the resumed trainer's "
+          f"eval-mode forward: max |diff| {worst:.3g}")
+    check(worst == 0.0, "served ResNet logits differ from the trainer's eval-mode forward")
 
 
 def _smi_line() -> str:

@@ -56,7 +56,11 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.cli.launch", "tpu_dist_torch.cli.dataparallel_apex",
                  "tpu_dist_torch.cli.distributed_apex",
                  "tpu_dist_torch.cli.distributed_gradient_accumulation",
-                 "tpu_dist_torch.train.epoch"):
+                 "tpu_dist_torch.train.epoch", "tpu_dist_torch.comm.quantize",
+                 "tpu_dist_torch.elastic", "tpu_dist_torch.elastic.errors",
+                 "tpu_dist_torch.elastic.remap", "tpu_dist_torch.obs.alerts",
+                 "tpu_dist_torch.obs.heartbeat", "tpu_dist_torch.obs.export",
+                 "tpu_dist_torch.obs.summarize", "tpu_dist_torch.serve.__main__"):
         assert name in MODULES
 
 

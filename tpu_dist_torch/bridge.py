@@ -358,28 +358,61 @@ def resnet_sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
     return resnet_state_dict_to_jax({n: _numpy(b) for n, b in zip(names, opt_state)})[0]
 
 
+def load_jax_params(module: torch.nn.Module, params, bn_state=None) -> torch.nn.Module:
+    """Copy JAX ``(params, bn_state)`` pytrees into a ResNet or a ViT in
+    place (a ViT has no BN state: ``bn_state`` must be empty)."""
+    if isinstance(module, ResNet):
+        return load_jax_resnet(module, params, bn_state)
+    if isinstance(module, ViT):
+        if bn_state:
+            raise KeyError(f"a ViT has no BN state; got {sorted(bn_state)}")
+        return load_jax_vit(module, params)
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet or a ViT")
+
+
+def jax_layout_template(module: torch.nn.Module):
+    """``(params, bn_state)`` pytrees of ``module`` in JAX layout whose
+    leaves are zero-stride f32 numpy views: every leaf's shape and dtype,
+    and no copy of the weights (a restore template)."""
+    sd = {n: np.broadcast_to(np.float32(0), tuple(t.shape))
+          for n, t in module.state_dict().items()}
+    if isinstance(module, ResNet):
+        return resnet_state_dict_to_jax(sd)
+    if isinstance(module, ViT):
+        return vit_state_dict_to_jax(sd), {}
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet or a ViT")
+
+
 # -- TrainState <-> the flat JAX-keyed dict of a checkpoint --------------------
 
 _KEY_PART = re.compile(r"\[(?:'([^'\\]*)'|(\d+))\]")
 
 
-def keystr_flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """The leaves of a pytree of dicts, lists/tuples and arrays as
-    ``{jax.tree_util.keystr(path): C-contiguous numpy array}``, in JAX's
-    flattening order (dict keys sorted, sequences by index). An empty dict
-    or tuple has no leaves."""
+def keystr_leaves(tree, prefix: str = "") -> dict:
+    """The leaves of a pytree of dicts, lists/tuples and leaves as
+    ``{jax.tree_util.keystr(path): leaf}``, in JAX's flattening order (dict
+    keys sorted, sequences by index), each leaf as it is. An empty dict or
+    tuple has no leaves."""
     if isinstance(tree, dict):
-        out: Dict[str, np.ndarray] = {}
+        out: dict = {}
         for key in sorted(tree):
-            out.update(keystr_flatten(tree[key], f"{prefix}[{key!r}]"))
+            out.update(keystr_leaves(tree[key], f"{prefix}[{key!r}]"))
         return out
     if isinstance(tree, (list, tuple)):
         out = {}
         for i, node in enumerate(tree):
-            out.update(keystr_flatten(node, f"{prefix}[{i}]"))
+            out.update(keystr_leaves(node, f"{prefix}[{i}]"))
         return out
-    arr = np.asarray(tree)
-    return {prefix: arr if arr.flags.c_contiguous else np.array(arr, order="C")}
+    return {prefix: tree}
+
+
+def keystr_flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """:func:`keystr_leaves` with every leaf a C-contiguous numpy array."""
+    out = {}
+    for key, leaf in keystr_leaves(tree, prefix).items():
+        arr = np.asarray(leaf)
+        out[key] = arr if arr.flags.c_contiguous else np.array(arr, order="C")
+    return out
 
 
 def _parse_keystr(key: str) -> list:
@@ -435,21 +468,28 @@ def train_state_to_flat(state) -> Dict[str, np.ndarray]:
     ``{keystr: array}`` dict of a JAX ``TrainState``: HWIO conv kernels,
     ``mean``/``var`` BN statistics, the momentum pytree mirroring the
     parameters, ``step`` as an int32 scalar; the ViT's ``bn_state`` is
-    ``{}`` and ``ef`` is ``()``, so neither has an entry. Host copies: the
-    dict does not follow the live tensors."""
+    ``{}`` and ``ef`` is ``()``, so neither has an entry. An ``opt_state``
+    that is one 1-D tensor is a ZeRO-1 flat momentum vector (the raveled
+    parameters' momentum, padded to the data-parallel extent) and is
+    written as the single entry ``['opt_state']``. Host copies: the dict
+    does not follow the live tensors."""
     model = state.params
     names = [n for n, _ in model.named_parameters()]
-    if len(state.opt_state) != len(names):
+    flat_momentum = isinstance(state.opt_state, torch.Tensor)
+    if not flat_momentum and len(state.opt_state) != len(names):
         raise KeyError(f"{len(state.opt_state)} momentum buffers for {len(names)} parameters")
     sd = {n: _host_in_jax_order(t) for n, t in model.state_dict().items()}
-    mom = {n: _host_in_jax_order(b) for n, b in zip(names, state.opt_state)}
+    mom = {} if flat_momentum else {
+        n: _host_in_jax_order(b) for n, b in zip(names, state.opt_state)}
     if isinstance(model, ResNet):
         params, bn_state = resnet_state_dict_to_jax(sd)
-        momentum = resnet_state_dict_to_jax(mom)[0]
+        momentum = mom and resnet_state_dict_to_jax(mom)[0]
     elif isinstance(model, ViT):
-        params, bn_state, momentum = vit_state_dict_to_jax(sd), {}, vit_state_dict_to_jax(mom)
+        params, bn_state, momentum = vit_state_dict_to_jax(sd), {}, mom and vit_state_dict_to_jax(mom)
     else:
         raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+    if flat_momentum:
+        momentum = _numpy(state.opt_state)
     return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": momentum,
                            "step": np.asarray(state.step, np.int32), "ef": ()})
 

@@ -35,6 +35,8 @@ import numpy as np
 
 from tpu_dist_torch import bridge
 from tpu_dist_torch.comm import mesh
+from tpu_dist_torch.elastic.errors import ConfigMismatchError, ElasticShapeMismatch
+from tpu_dist_torch.elastic.remap import classify
 from tpu_dist_torch.obs import counters, spans
 from tpu_dist_torch.resilience import retry as retry_lib
 
@@ -46,13 +48,6 @@ class CheckpointCorruptError(RuntimeError):
     """A checkpoint file failed integrity verification (torn write, CRC
     mismatch, unreadable archive). The restore ladder quarantines the file
     and falls back to the next older checkpoint."""
-
-
-class ConfigMismatchError(ValueError):
-    """A readable checkpoint that this run must not resume: another model,
-    pipeline layout, batch size or seed (the JAX package's
-    ``tpu_dist/elastic/errors.py::ConfigMismatchError``). The restore
-    ladder raises it; it never quarantines it."""
 
 
 #: What a read of a damaged checkpoint raises below the integrity layer;
@@ -80,20 +75,6 @@ def _entry_crc(arr: np.ndarray) -> int:
     if not arr.flags.c_contiguous:
         arr = np.array(arr, order="C")
     return zlib.crc32(arr.data) & 0xFFFFFFFF
-
-
-def params_len(model) -> int:
-    """The length of the raveled parameter vector (``tpu_dist/elastic/
-    remap.py::params_len`` of the parameter pytree)."""
-    return sum(p.numel() for p in model.parameters())
-
-
-def elastic_stamp(n_data: int, procs: int, L: int) -> dict:
-    """The ``elastic`` meta stamp, as ``tpu_dist/elastic/remap.py:86``
-    writes it: the data-parallel extent, the process count and the
-    parameter length. The JAX trainer's restore checks ``params_len``
-    against its model."""
-    return {"dp": int(n_data), "procs": int(procs), "params_len": int(L)}
 
 
 def _flatten(state) -> Dict[str, np.ndarray]:
@@ -381,11 +362,54 @@ def read_meta(path: str) -> dict:
         return _read_meta(z)
 
 
-def restore(path: str, verify: bool = False) -> Dict[str, np.ndarray]:
+def restore(path: str, verify: bool = False, template: Optional[dict] = None,
+            remap=None) -> Dict[str, np.ndarray]:
     """The checkpoint's arrays as host numpy, ``{keystr: array}``; copy them
     into a live state with :func:`tpu_dist_torch.bridge.load_train_state`.
     ``verify=True`` checks each entry against its CRC32 stamp as it is
     read: the coverage of :func:`verify_npz` in the one decompression pass
-    the restore makes anyway."""
+    the restore makes anyway.
+
+    With ``template`` (``{keystr: leaf}`` in the JAX package's leaf order;
+    only each leaf's shape and dtype are read) the result is shaped like
+    it, as the JAX ``restore(path, template, remap=)`` shapes its
+    ``TrainState``: an entry the template lacks is dropped, a missing
+    ``['ef']`` leaf is zeros, each array is cast to its leaf's dtype, and
+    a shape mismatch goes through ``remap`` (the elastic hook,
+    :class:`~tpu_dist_torch.elastic.remap.Remapper`) or raises."""
     with spans.span("ckpt/restore", file=os.path.basename(path)), np.load(path) as z:
-        return _read_checked(path, z, verify)
+        flat = _read_checked(path, z, verify)
+    if template is None:
+        return flat
+    out = {}
+    for key, leaf in template.items():
+        if key not in flat:
+            if key.startswith("['ef']"):  # zero residuals are the cold start
+                out[key] = np.zeros(np.shape(leaf), leaf.dtype)
+                continue
+            raise KeyError(f"checkpoint missing array for {key}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(np.shape(leaf)):
+            arr = _resolve_shape_mismatch(remap, key, arr, leaf, template)
+        out[key] = arr.astype(leaf.dtype)
+    return out
+
+
+def _resolve_shape_mismatch(remap, key: str, arr: np.ndarray, leaf, template: dict):
+    """A checkpoint entry's shape disagrees with the template: the elastic
+    ``remap`` hook rebuilds it, or the typed error says why not
+    (:class:`ElasticShapeMismatch` for a leaf of an elastic family,
+    :class:`ConfigMismatchError` for anything else)."""
+    want, got = tuple(np.shape(leaf)), tuple(arr.shape)
+    if remap is not None:
+        out = remap(key, arr, leaf)
+        if out is not None:
+            if tuple(np.shape(out)) != want:
+                raise ConfigMismatchError(
+                    f"elastic remap of {key} produced shape {tuple(np.shape(out))}, "
+                    f"template wants {want} — remapper/template disagreement")
+            return out
+    L = sum(int(np.prod(np.shape(v))) for k, v in template.items() if k.startswith("['params']"))
+    if L and classify(key, got, want, L) is not None:
+        raise ElasticShapeMismatch(key, got, want)
+    raise ConfigMismatchError(f"shape mismatch for {key}: ckpt {got} vs state {want}")

@@ -29,15 +29,9 @@ from typing import Optional
 
 from tpu_dist_torch.comm import mesh
 from tpu_dist_torch.obs import counters
+from tpu_dist_torch.obs.heartbeat import per_rank_path  # noqa: F401  (re-exported: --per_host_log names its files so)
 
 SCHEMA_VERSION = 15  # the JAX package's (tpu_dist/metrics/history.py:81)
-
-
-def per_rank_path(base: str, rank: int) -> str:
-    """The per-rank file naming of ``--per_host_log``
-    (``tpu_dist/obs/heartbeat.py::per_rank_path``): rank 0 keeps the bare
-    path, rank k appends ``.h<k>``."""
-    return base if rank == 0 else f"{base}.h{rank}"
 
 
 class MetricsHistory:

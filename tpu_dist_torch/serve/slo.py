@@ -1,13 +1,21 @@
-"""Serving latency stats: streaming histograms and per-phase request
-accounting, the port's copy of the stats half of ``tpu_dist/serve/slo.py``.
+"""Serving latency stats and SLO rules: the port's copy of
+``tpu_dist/serve/slo.py``.
 
 Histograms use fixed log-spaced buckets (:data:`DEFAULT_EDGES`, 0.1 ms to
 ~209 s in powers of two), not a sample list: ``observe`` is one bisect
-and an increment, and memory is O(buckets). Quantiles come back as upper
-bounds (the upper edge of the bucket holding the q-th sample), at most
-one bucket (2x) off in the conservative direction. Merging and reading back serialized
-histograms, the SLO rules, the history and exporter plumbing and the
-offline serve report wait for a later slice.
+and an increment, memory is O(buckets), and two histograms merge by
+adding their buckets. Quantiles come back as upper bounds (the upper
+edge of the bucket holding the q-th sample), at most one bucket (2x) off
+in the conservative direction. The same buckets render as OpenMetrics
+``histogram`` families (``obs/export.py``).
+
+SLO rules are :class:`~tpu_dist_torch.obs.alerts.AlertRule`\\s over the
+``serve.*`` metrics, evaluated once a window by the
+:class:`~tpu_dist_torch.obs.alerts.AlertEngine`: ``default`` loads
+:data:`SLO_BUILTINS`, a ``.toml``/``.json`` spec uses the ``[[rule]]``
+grammar of ``obs/alerts.py``. :func:`serve_report` folds a history's
+``serve`` and ``alert`` records into the report that ``python -m
+tpu_dist_torch.serve report`` prints, as the JAX package's CLI prints it.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import bisect
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import counters as counters_lib
 
 #: Fixed log-spaced bucket edges (seconds): 0.1 ms -> ~209 s in powers of
@@ -54,6 +63,24 @@ class LatencyHistogram:
         self.min = v if self.min is None else min(self.min, v)
         self.max = v if self.max is None else max(self.max, v)
 
+    def merge(self, other: "LatencyHistogram") -> None:
+        """Fold ``other`` in (across ranks or run segments). Refuses
+        another bucket layout: re-bucketing would invent a distribution."""
+        if other.edges != self.edges:
+            raise ValueError(
+                f"cannot merge histograms with different bucket layouts "
+                f"({len(other.edges)} vs {len(self.edges)} edges)"
+            )
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.sum += other.sum
+        self.count += other.count
+        for attr, pick in (("min", min), ("max", max)):
+            o = getattr(other, attr)
+            if o is not None:
+                s = getattr(self, attr)
+                setattr(self, attr, o if s is None else pick(s, o))
+
     def quantile_bound(self, q: float) -> Optional[float]:
         """Upper bound on the q-quantile: the upper edge of the bucket
         holding the ceil(q * count)-th sample (the exact ``max`` for the
@@ -80,6 +107,42 @@ class LatencyHistogram:
             "min": self.min,
             "max": self.max,
         }
+
+    @classmethod
+    def from_dict(cls, d: dict, edges: Sequence[float] = DEFAULT_EDGES) -> "LatencyHistogram":
+        """The inverse of :meth:`to_dict`. A bucket index outside the
+        layout raises (a foreign record must not write into the overflow
+        bucket through a negative index)."""
+        if int(d.get("edges", len(DEFAULT_EDGES))) != len(edges):
+            raise ValueError(
+                f"serialized histogram has {d.get('edges')} edges, "
+                f"reader expects {len(edges)}"
+            )
+        h = cls(edges)
+        for i, c in (d.get("buckets") or {}).items():
+            i = int(i)
+            if not 0 <= i < len(h.counts):
+                raise ValueError(
+                    f"serialized histogram bucket index {i} out of range "
+                    f"(0..{len(h.counts) - 1})"
+                )
+            h.counts[i] = int(c)
+        h.sum = float(d.get("sum", 0.0))
+        h.count = int(d.get("count", 0))
+        h.min = d.get("min")
+        h.max = d.get("max")
+        return h
+
+    def to_openmetrics(self) -> dict:
+        """What ``export.render(histograms=...)`` takes: cumulative
+        ``(le, count)`` pairs ending with ``+Inf``, and ``sum``/``count``."""
+        buckets = []
+        cum = 0
+        for edge, c in zip(self.edges, self.counts):
+            cum += c
+            buckets.append((format(edge, ".6g"), cum))
+        buckets.append(("+Inf", self.count))
+        return {"buckets": buckets, "sum": self.sum, "count": self.count}
 
 
 class ServeStats:
@@ -185,6 +248,17 @@ class ServeStats:
             counters_lib.set_gauge(name, v)
         return scalars
 
+    def histogram_families(self) -> Dict[str, dict]:
+        """The exposition's histogram families (total, TTFB, each phase),
+        keyed by registry-style names, for ``export.render(histograms=)``."""
+        fams = {
+            "serve.latency_seconds": self.total.to_openmetrics(),
+            "serve.ttfb_seconds": self.ttfb.to_openmetrics(),
+        }
+        for p, h in self.phases.items():
+            fams[f"serve.phase_{p}_seconds"] = h.to_openmetrics()
+        return fams
+
     def check_invariants(self) -> List[str]:
         """The drill and test invariants; returns the violations (empty =
         healthy): every histogram's buckets sum to its count, every phase
@@ -217,3 +291,148 @@ class ServeStats:
                 f"latency sum {self.total.sum:.6f}s"
             )
         return probs
+
+
+# -- SLO rules ---------------------------------------------------------------
+
+#: The built-in serving SLO library (``slo_rules="default"``), the JAX
+#: package's rules and thresholds. ``serve_retrace`` watches
+#: ``compile.retraces``, which the port never counts (eager PyTorch
+#: compiles nothing per shape): it loads and never fires.
+SLO_BUILTINS: Dict[str, alerts_lib.AlertRule] = {
+    r.name: r
+    for r in (
+        alerts_lib.AlertRule("slo_p99_high", "serve.latency_p99_ms", ">",
+                             500.0, sustain=2, cooldown=3),
+        alerts_lib.AlertRule("slo_p50_high", "serve.latency_p50_ms", ">",
+                             100.0, sustain=2, cooldown=3),
+        alerts_lib.AlertRule("slo_ttfb_high", "serve.ttfb_p99_ms", ">",
+                             250.0, sustain=2, cooldown=3),
+        alerts_lib.AlertRule("slo_availability_low", "serve.availability",
+                             "<", 0.999, sustain=1, cooldown=3),
+        alerts_lib.AlertRule("slo_rps_low", "serve.requests_per_s", "<",
+                             1.0, sustain=2, cooldown=3),
+        alerts_lib.AlertRule("slo_queue_deep", "serve.queue_depth", ">",
+                             64.0, sustain=2, cooldown=3),
+        alerts_lib.AlertRule("serve_retrace", "compile.retraces", ">",
+                             0.0, sustain=1, cooldown=1, delta=True),
+    )
+}
+
+
+def load_slo_rules(spec: str) -> List[alerts_lib.AlertRule]:
+    """A ``--slo_rules`` value -> a validated rule list: ``default`` loads
+    :data:`SLO_BUILTINS`; otherwise a ``.toml``/``.json`` path in the
+    ``[[rule]]`` grammar, where ``builtin =`` resolves against the
+    training and serving libraries both."""
+    if spec in ("default", "builtin"):
+        return list(SLO_BUILTINS.values())
+    return alerts_lib.load_rules(
+        spec, builtins={**alerts_lib.BUILTIN_RULES, **SLO_BUILTINS}
+    )
+
+
+def make_slo_engine(rules: List[alerts_lib.AlertRule]) -> alerts_lib.AlertEngine:
+    """The alert engine over the serve windows, its delta rules seeded
+    from the registry now."""
+    eng = alerts_lib.AlertEngine(rules)
+    eng.seed_deltas(counters_lib.snapshot())
+    return eng
+
+
+# -- the offline serve report (``python -m tpu_dist_torch.serve report``) ----
+
+
+def serve_report(records: List[dict]) -> dict:
+    """Fold a history's ``serve`` records into one report: the window
+    table, the last window's scalars, the alerts that fired on serve
+    metrics and the run's latency histogram."""
+    windows = [
+        r for r in records
+        if r.get("kind") == "serve" and not r.get("event")
+    ]
+    alerts = [
+        r for r in records
+        if r.get("kind") == "alert"
+        and str(r.get("metric", "")).startswith("serve.")
+    ]
+    last = windows[-1] if windows else {}
+    total = LatencyHistogram()
+    for w in windows:
+        h = w.get("latency_hist")
+        if isinstance(h, dict):
+            try:
+                # windows carry cumulative histograms: the last one that
+                # parses is the run's (merging them would count twice)
+                total = LatencyHistogram.from_dict(h)
+            except (ValueError, TypeError, KeyError):
+                continue
+    return {
+        "n_windows": len(windows),
+        "windows": windows,
+        "alerts": alerts,
+        "last": {
+            k: last.get(k)
+            for k in ("requests", "completed", "requests_per_s",
+                      "latency_p50_ms", "latency_p95_ms", "latency_p99_ms",
+                      "ttfb_p50_ms", "ttfb_p99_ms", "availability",
+                      "batch_occupancy", "queue_depth_max", "retraces")
+            if last.get(k) is not None
+        },
+        "latency_hist": total.to_dict() if total.count else None,
+    }
+
+
+def window_table_lines(windows: List[dict]) -> List[str]:
+    """The serve-window table: a header, one row a window, and a warning
+    line under a window that counted retraces."""
+    lines = [
+        f"{'window':>7} {'req/s':>8} {'p50_ms':>8} {'p99_ms':>8} "
+        f"{'ttfb99':>8} {'avail':>7} {'occup':>6} {'queue':>6} {'compl':>6}"
+    ]
+
+    def fmt(v, spec, width):
+        return (format(v, spec) if isinstance(v, (int, float)) else "-").rjust(width)
+
+    for i, w in enumerate(windows):
+        lines.append(
+            f"{i:>7} {fmt(w.get('requests_per_s'), '.1f', 8)} "
+            f"{fmt(w.get('latency_p50_ms'), '.2f', 8)} "
+            f"{fmt(w.get('latency_p99_ms'), '.2f', 8)} "
+            f"{fmt(w.get('ttfb_p99_ms'), '.2f', 8)} "
+            f"{fmt(w.get('availability'), '.3f', 7)} "
+            f"{fmt(w.get('batch_occupancy'), '.2f', 6)} "
+            f"{fmt(w.get('queue_depth_max'), 'd', 6)} "
+            f"{fmt(w.get('completed'), 'd', 6)}"
+        )
+        if w.get("retraces"):
+            lines.append(
+                f"      WARNING: {w['retraces']:g} mid-serve retrace(s) "
+                "— a batch escaped the bucket ladder"
+            )
+    return lines
+
+
+def format_report_text(report: dict) -> str:
+    """The report as text: a title, the window table, one line a fired
+    SLO alert and the last window's scalars."""
+    lines = [
+        f"serve report — {report['n_windows']} window(s), "
+        f"{len(report['alerts'])} SLO alert(s)"
+    ]
+    if not report["n_windows"]:
+        return lines[0] + " (no serve records — not a serving log?)"
+    lines.extend(window_table_lines(report["windows"]))
+    for a in report["alerts"]:
+        lines.append(
+            f"  SLO ALERT {a.get('rule')}: {a.get('metric')} "
+            f"{a.get('value')} {a.get('op')} {a.get('threshold')} "
+            f"(sustained {a.get('sustained')} window(s))"
+        )
+    last = report.get("last") or {}
+    if last:
+        lines.append(
+            "final: "
+            + ", ".join(f"{k}={v}" for k, v in sorted(last.items()))
+        )
+    return "\n".join(lines)
