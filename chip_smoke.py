@@ -68,6 +68,7 @@ Phases; any failure exits non-zero and prints no result line:
    int8, requests/s and p50/p99 of each run, the dequantize's host us
    and device ms a forward, int8-vs-f32 logits (max |diff|, top-1
    agreement) and the SLO alerts that fired.
+   The checkpoint directory stays for phase 7.
 5. train: ViT-B/16 at full width, weights from numpy seed 0 through the
    bridge, through ``make_train_step``. (a) f32 parity, TF32 off: batch 8,
    3 steps of flash attention + fused SGD against plain attention + plain
@@ -125,7 +126,11 @@ Phases; any failure exits non-zero and prints no result line:
    sent SIGTERM after its first epoch line, must exit 75 with a checkpoint
    on disk; rerun with ``--resume`` it must exit 0 and print its
    ``=> resumed from`` line, and the history must be JSONL with
-   ``train_epoch`` and ``eval`` records.
+   ``train_epoch`` and ``eval`` records. Both runs have ``--crash_dir``:
+   after the SIGTERM ``python -m tpu_dist_torch.obs postmortem`` must give
+   rank 0 ``preempted`` with the flight ring's last ``step`` record where
+   the run stopped, after the resume ``clean``; and the host us of one
+   ``FlightRecorder.step`` (median of 1,000 calls).
    (f) The fused epoch (``bench.py:243``'s ``resnet18_cifar100_fused``),
    over the same NCCL group: ``Trainer(cfg with fused_epoch=True).fit()``,
    2 epochs of all 195 steps with a fused eval of the 10,000 test images
@@ -147,7 +152,28 @@ Phases; any failure exits non-zero and prints no result line:
    2e-3 relative. Last, the same configuration through the real entry
    point in a fresh process: ``python -m tpu_dist_torch.cli.distributed_mp
    --fused_epoch --epochs 1 ...`` must exit 0 with one fused epoch line.
-7. report: the card's name and power limit, one JSON line of every ported
+7. supervise: the supervised replica, from phase 4's checkpoint
+   directory, after every phase that reads torch.profiler (once a few
+   CUDA processes of their own have come and gone on the card, this
+   process's CUDA-only profiler sessions record nothing at random): the
+   port's ``ReplicaSupervisor`` (wall clock; at most 3 restarts, a beat
+   stale after 5 s, 10 ms backoff) spawns one child at a time, a
+   ``python -c`` process that runs ``serve/replica.py``'s ``serve`` with
+   ViT-B/16 (``attn_impl="flash"``, ``--max_batch 8``, 224x224x3 payloads)
+   on phase 1's kernel library. Its first incarnation must be ``ready``;
+   SIGKILLed, ``poll_once()`` must say ``crash`` with a ``postmortem``
+   bundle whose rank 0 reads ``no-clean-exit``; the second incarnation
+   must be ``ready`` with the same ``weights_digest``, and under SIGTERM
+   write ``drained`` while ``poll_once()`` says ``exit``. A second
+   supervisor's replica (``--serve_n 16 --wedge_after 16``) stops pumping
+   and must read as ``wedge``, be terminated, bundled and relaunched. Each
+   drained child's flash launches are 12 a forward, all f32. ``[replica]``
+   lines: spawn -> ready seconds of each incarnation, the down time (crash
+   or wedge verdict -> the next ``ready``), the seconds to detect the
+   wedge, and requests/s and p50/p99 from the replica's own ``serve``
+   records. Last, ``python -m tpu_dist_torch.serve drill`` on the card
+   must exit 0.
+8. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -194,7 +220,7 @@ from tpu_dist_torch.comm.quantize import padded_len
 from tpu_dist_torch.elastic import elastic_stamp
 from tpu_dist_torch.metrics.history import MetricsHistory
 from tpu_dist_torch.obs import export as export_lib
-from tpu_dist_torch.serve.engine import ServingEngine, load_serving_state
+from tpu_dist_torch.serve.engine import ServingEngine, batch_buckets, load_serving_state
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 from tpu_dist_torch.train import trainer as trainer_lib
@@ -947,7 +973,7 @@ def _forward_split(model, batch: np.ndarray) -> None:
               f"{period_ms:.3f} ms (CUDA events, 20 back to back)")
 
 
-def phase_serve() -> dict:
+def phase_serve(work: str) -> dict:
     t0 = time.perf_counter()
     model = vit_b16(attn_impl="flash", device=DEVICE)
     bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=SERVE_SEED))
@@ -1013,8 +1039,23 @@ def phase_serve() -> dict:
           f"(tolerance {LOGITS_TOL[0]} + {LOGITS_TOL[1]} * |xla|)")
 
     _forward_split(model, payloads[:SERVE_MAX_BATCH])
-    from_ckpt = _serve_from_checkpoint(model, payloads, flash_logits)
+    from_ckpt = _serve_from_checkpoint(model, payloads, flash_logits, work)
     return {name: served[name] + from_ckpt[name] for name in served}
+
+
+def _serve_drill() -> None:
+    """``python -m tpu_dist_torch.serve drill`` on the card must exit 0."""
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drill_") as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "drill",
+                               "--workdir", d, "--device", DEVICE],
+                              cwd=root, capture_output=True, text=True, timeout=300)
+        ok = [ln for ln in proc.stdout.splitlines() if ln.startswith("serve-drill OK")]
+        check(proc.returncode == 0 and ok,
+              f"serve drill: rc {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        print(f"[drill] python -m tpu_dist_torch.serve drill --device {DEVICE}: rc 0 in "
+              f"{time.perf_counter() - t0:.1f} s; {ok[0]}")
 
 
 # -- phase 4, second half: serving ViT-B/16 from a checkpoint -------------------
@@ -1095,82 +1136,311 @@ def _serve_run(tag: str, model, payloads, d: str, **engine_kw):
     return engine, {r.id: r.result for r in done}, scalars, launches, log
 
 
-def _serve_from_checkpoint(live, payloads, live_logits: dict) -> dict:
-    """ViT-B/16 served from a checkpoint, in f32 and in int8 (module
-    docstring, phase 4). Returns the flash launches of both runs."""
+def _serve_from_checkpoint(live, payloads, live_logits: dict, d: str) -> dict:
+    """ViT-B/16 served from a checkpoint written under ``d``, in f32 and in
+    int8 (module docstring, phase 4). Returns the flash launches of both
+    runs; the checkpoint directory ``d/ck`` stays for phase 7."""
     root = pathlib.Path(__file__).resolve().parent
     n_params = sum(p.numel() for p in live.parameters())
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
-        ckdir = os.path.join(d, "ck")
-        mom = torch.zeros(padded_len(n_params, SERVE_CKPT_DP), device=DEVICE)
-        mom[:n_params] = torch.arange(1, n_params + 1, device=DEVICE) % 17 * 0.01
-        state = state_lib.TrainState(params=live, bn_state={}, opt_state=mom, step=120)
-        good = ckpt_lib.save(ckdir, state, 1, extra_meta={
-            "elastic": elastic_stamp(SERVE_CKPT_DP, SERVE_CKPT_DP, n_params)})
-        del mom, state
-        newest = os.path.join(ckdir, "ckpt_2.npz")
-        shutil.copy(good, newest)
-        _flip_byte_in_largest_entry(newest)
-        t0 = time.perf_counter()
-        loaded = load_serving_state(ckdir, live)
-        load_ms = (time.perf_counter() - t0) * 1e3
-        check(loaded["path"] == good and os.path.exists(newest + ".corrupt")
-              and not os.path.exists(newest),
-              f"the corrupt newest file was not quarantined: served {loaded['path']}")
-        check(loaded["remapped"] == [("['opt_state']", "zero1_flat")],
-              f"remapped {loaded['remapped']}")
-        written = bridge.keystr_flatten(bridge.numpy_vit_params(live, seed=SERVE_SEED))
-        got = bridge.keystr_flatten(loaded["params"])
-        check(list(got) == list(written) and all(np.array_equal(got[k], written[k]) for k in got),
-              "the loaded parameters differ from the written ones")
-        print(f"[serve] checkpoint: ViT-B/16 + a ZeRO-1 flat momentum at dp = {SERVE_CKPT_DP}, "
-              f"{os.path.getsize(good)} bytes a file; load_serving_state {load_ms:.1f} ms "
-              f"(quarantined the newer file with one flipped byte, remapped "
-              f"{loaded['remapped']}, parameters equal to the written ones bit for bit)")
+    ckdir = os.path.join(d, "ck")
+    mom = torch.zeros(padded_len(n_params, SERVE_CKPT_DP), device=DEVICE)
+    mom[:n_params] = torch.arange(1, n_params + 1, device=DEVICE) % 17 * 0.01
+    state = state_lib.TrainState(params=live, bn_state={}, opt_state=mom, step=120)
+    good = ckpt_lib.save(ckdir, state, 1, extra_meta={
+        "elastic": elastic_stamp(SERVE_CKPT_DP, SERVE_CKPT_DP, n_params)})
+    del mom, state
+    newest = os.path.join(ckdir, "ckpt_2.npz")
+    shutil.copy(good, newest)
+    _flip_byte_in_largest_entry(newest)
+    t0 = time.perf_counter()
+    loaded = load_serving_state(ckdir, live)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(loaded["path"] == good and os.path.exists(newest + ".corrupt")
+          and not os.path.exists(newest),
+          f"the corrupt newest file was not quarantined: served {loaded['path']}")
+    check(loaded["remapped"] == [("['opt_state']", "zero1_flat")],
+          f"remapped {loaded['remapped']}")
+    written = bridge.keystr_flatten(bridge.numpy_vit_params(live, seed=SERVE_SEED))
+    got = bridge.keystr_flatten(loaded["params"])
+    check(list(got) == list(written) and all(np.array_equal(got[k], written[k]) for k in got),
+          "the loaded parameters differ from the written ones")
+    print(f"[serve] checkpoint: ViT-B/16 + a ZeRO-1 flat momentum at dp = {SERVE_CKPT_DP}, "
+          f"{os.path.getsize(good)} bytes a file; load_serving_state {load_ms:.1f} ms "
+          f"(quarantined the newer file with one flipped byte, remapped "
+          f"{loaded['remapped']}, parameters equal to the written ones bit for bit)")
 
-        f32_model = vit_b16(attn_impl="flash", device=DEVICE)
-        bridge.load_jax_params(f32_model, loaded["params"], loaded["bn_state"])
-        _, f32_logits, _, f32_launches, _ = _serve_run("f32", f32_model, payloads, d)
-        check(all(np.array_equal(f32_logits[i], live_logits[i]) for i in live_logits),
-              "f32 logits from the checkpoint differ from the live module's")
-        del f32_model
+    f32_model = vit_b16(attn_impl="flash", device=DEVICE)
+    bridge.load_jax_params(f32_model, loaded["params"], loaded["bn_state"])
+    _, f32_logits, _, f32_launches, _ = _serve_run("f32", f32_model, payloads, d)
+    check(all(np.array_equal(f32_logits[i], live_logits[i]) for i in live_logits),
+          "f32 logits from the checkpoint differ from the live module's")
+    del f32_model
 
-        host_model = vit_b16(attn_impl="flash", device="cpu")
-        bridge.load_jax_params(host_model, loaded["params"], loaded["bn_state"])
-        del loaded
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        engine = ServingEngine(host_model, max_batch=SERVE_MAX_BATCH, quantize=True,
-                               device=DEVICE)
-        torch.cuda.synchronize()
-        resident = torch.cuda.memory_allocated() - before
-        f32_bytes = 4 * n_params
-        check(engine.int8.nbytes <= resident < 0.3 * f32_bytes,
-              f"int8 engine: {resident} bytes on the card for {engine.int8.nbytes} of int8 "
-              f"weights ({f32_bytes} in f32)")
-        del engine
-        int8_engine, int8_logits, _, int8_launches, log = _serve_run(
-            "int8", host_model, payloads, d, quantize=True)
-        deq_ms, deq_us = cuda_ms(int8_engine.int8.dequantize, iters=20, warmup=3)
-        diff = max(float(np.abs(int8_logits[i] - f32_logits[i]).max()) for i in f32_logits)
-        top1 = float(np.mean([int8_logits[i].argmax() == f32_logits[i].argmax()
-                              for i in f32_logits]))
-        print(f"[serve] weights on the card: f32 {f32_bytes} bytes, int8 {int8_engine.int8.nbytes} "
-              f"bytes (q + scales; the int8 engine's allocation {resident}); dequantize a forward: "
-              f"host {deq_us:.1f} us, device {deq_ms:.4f} ms (one launch)")
-        print(f"[serve] int8 vs f32 logits over {len(f32_logits)} requests: max |diff| "
-              f"{diff:.4g}, top-1 agreement {top1:.3f} (limit {INT8_TOP1_AGREEMENT})")
-        check(top1 >= INT8_TOP1_AGREEMENT, f"int8 top-1 agreement {top1}")
-        report = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "report", log],
-                                cwd=root, capture_output=True, text=True, timeout=120)
-        check(report.returncode == 0, f"serve report: rc {report.returncode}\n{report.stderr}")
-        with open(log) as f:
-            alerts = [json.loads(line) for line in f if '"kind": "alert"' in line]
-        print(f"[serve] python -m tpu_dist_torch.serve report: rc 0, "
-              f"{report.stdout.splitlines()[0]}; SLO alerts fired: "
-              f"{[a['rule'] for a in alerts] or 'none'}")
-        print(f"[serve] card: {_smi_line()}")
+    host_model = vit_b16(attn_impl="flash", device="cpu")
+    bridge.load_jax_params(host_model, loaded["params"], loaded["bn_state"])
+    del loaded
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = ServingEngine(host_model, max_batch=SERVE_MAX_BATCH, quantize=True,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - before
+    f32_bytes = 4 * n_params
+    check(engine.int8.nbytes <= resident < 0.3 * f32_bytes,
+          f"int8 engine: {resident} bytes on the card for {engine.int8.nbytes} of int8 "
+          f"weights ({f32_bytes} in f32)")
+    del engine
+    int8_engine, int8_logits, _, int8_launches, log = _serve_run(
+        "int8", host_model, payloads, d, quantize=True)
+    deq_ms, deq_us = cuda_ms(int8_engine.int8.dequantize, iters=20, warmup=3)
+    diff = max(float(np.abs(int8_logits[i] - f32_logits[i]).max()) for i in f32_logits)
+    top1 = float(np.mean([int8_logits[i].argmax() == f32_logits[i].argmax()
+                          for i in f32_logits]))
+    print(f"[serve] weights on the card: f32 {f32_bytes} bytes, int8 {int8_engine.int8.nbytes} "
+          f"bytes (q + scales; the int8 engine's allocation {resident}); dequantize a forward: "
+          f"host {deq_us:.1f} us, device {deq_ms:.4f} ms (one launch)")
+    print(f"[serve] int8 vs f32 logits over {len(f32_logits)} requests: max |diff| "
+          f"{diff:.4g}, top-1 agreement {top1:.3f} (limit {INT8_TOP1_AGREEMENT})")
+    check(top1 >= INT8_TOP1_AGREEMENT, f"int8 top-1 agreement {top1}")
+    report = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "report", log],
+                            cwd=root, capture_output=True, text=True, timeout=120)
+    check(report.returncode == 0, f"serve report: rc {report.returncode}\n{report.stderr}")
+    with open(log) as f:
+        alerts = [json.loads(line) for line in f if '"kind": "alert"' in line]
+    print(f"[serve] python -m tpu_dist_torch.serve report: rc 0, "
+          f"{report.stdout.splitlines()[0]}; SLO alerts fired: "
+          f"{[a['rule'] for a in alerts] or 'none'}")
+    print(f"[serve] card: {_smi_line()}")
     return {name: f32_launches[name] + int8_launches[name] for name in f32_launches}
+
+
+# -- phase 4, the supervised replica ---------------------------------------------
+
+# What ReplicaSupervisor drives: one serving replica at a time, each a fresh
+# process serving ViT-B/16 from the checkpoint directory through the port's
+# replica function, and, after it returns, adding its flash-forward launches
+# (and whether the kernel library existed, unchanged, before it started) to
+# its status file. The library is phase 1's: a child loads it, never builds.
+REPLICA_CHILD = """
+import sys
+from tpu_dist_torch.nn.vit import vit_b16
+from tpu_dist_torch.obs import counters
+from tpu_dist_torch.ops import _build
+from tpu_dist_torch.ops import flash_attention as fa
+from tpu_dist_torch.serve import replica
+
+args = replica.parse(sys.argv[1:])
+lib = _build.library_path("flash_attention_fwd")
+mtime = lambda: lib.stat().st_mtime_ns if lib.exists() else None
+before = mtime()
+rc = replica.serve(vit_b16(attn_impl="flash", device=args.device), (224, 224, 3), args)
+replica._status(args.status_file, event="launches", flash=fa.flash_fwd.launches,
+                flash_mma=fa.flash_fwd.launches_mma, forwards=counters.get("serve.forwards"),
+                library_before=before, library_after=mtime())
+sys.exit(rc)
+"""
+# stale_after_s stays above the heartbeat's 1 s write throttle
+# (obs/heartbeat.py); the warmup grace (120 s) covers a child's start-up
+REPLICA_POLICY = dict(max_restarts=3, stale_after_s=5.0, backoff_base_s=0.01)
+REPLICA_BLOCKS = 12        # ViT-B/16's blocks: flash launches a forward
+REPLICA_SERVE_S = 3.0      # how long an incarnation serves before the signal
+REPLICA_WAIT_S = 240.0     # the longest wait for one status line
+WEDGE_AFTER = 16           # --serve_n and --wedge_after of the wedge drill
+
+
+class _Replicas:
+    """The status file and the Popen factory of one supervised run."""
+
+    def __init__(self, ckdir: str, work: str, extra=()):
+        self.root = pathlib.Path(__file__).resolve().parent
+        self.work, self.status = work, os.path.join(work, "replica_status.jsonl")
+        self.argv = ["--ckpt", ckdir, "--workdir", work, "--status_file", self.status,
+                     "--max_batch", str(SERVE_MAX_BATCH), "--device", DEVICE, *extra]
+        os.makedirs(work, exist_ok=True)
+        self.events = []  # (wall time, supervisor event)
+
+    def spawn(self, incarnation: int):
+        log = open(os.path.join(self.work, f"child{incarnation}.log"), "w")
+        try:
+            return subprocess.Popen([sys.executable, "-c", REPLICA_CHILD, *self.argv],
+                                    cwd=self.root, stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()
+
+    def on_event(self, ev: dict) -> None:
+        self.events.append((time.time(), ev))
+
+    def lines(self, pid: int, event: str) -> list:
+        if not os.path.exists(self.status):
+            return []
+        with open(self.status) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        return [r for r in recs if r.get("pid") == pid and r.get("event") == event]
+
+    def wait_line(self, sup, event: str) -> dict:
+        """The current incarnation's first ``event`` status line, polling
+        the supervisor meanwhile (a verdict there fails the run)."""
+        pid, deadline = sup.proc.pid, time.monotonic() + REPLICA_WAIT_S
+        while time.monotonic() < deadline:
+            got = self.lines(pid, event)
+            if got:
+                return got[0]
+            verdict = sup.poll_once()
+            check(verdict is None, f"waiting for {event!r} of pid {pid}: supervisor says "
+                                   f"{verdict}\n{self.log_tail(sup.incarnation)}")
+            time.sleep(0.05)
+        raise SmokeError(f"no {event!r} line from pid {pid} in {REPLICA_WAIT_S} s\n"
+                         f"{self.log_tail(sup.incarnation)}")
+
+    def log_tail(self, incarnation: int) -> str:
+        path = os.path.join(self.work, f"child{incarnation}.log")
+        with open(path) as f:
+            return f.read()[-3000:]
+
+    def event_time(self, kind: str, nth: int = 0) -> float:
+        return [t for t, ev in self.events if ev["event"] == kind][nth]
+
+
+def _check_bundle(reps: _Replicas, verdict: str) -> None:
+    pms = [ev for _, ev in reps.events if ev["event"] in ("postmortem", "bundle_failed")]
+    check(pms and pms[-1]["event"] == "postmortem",
+          f"no postmortem bundle: {[ev for _, ev in reps.events]}")
+    with open(pms[-1]["bundle"]) as f:
+        bundle = json.load(f)
+    got = {r["rank"]: r["verdict"] for r in bundle["ranks"]}
+    check(got.get(0) == verdict, f"bundle {pms[-1]['bundle']}: verdicts {got}, want {verdict}")
+
+
+def _replica_launches(reps: _Replicas, pid: int) -> int:
+    """A drained incarnation's flash launches, held to 12 a forward, all
+    on the f32 route, through phase 1's library."""
+    got = reps.lines(pid, "launches")
+    check(len(got) == 1, f"pid {pid}: launch lines {got}")
+    n = got[0]
+    check(n["library_before"] is not None and n["library_before"] == n["library_after"],
+          f"pid {pid}: the kernel library was built or rebuilt by the child: {n}")
+    check(n["forwards"] > len(batch_buckets(SERVE_MAX_BATCH))
+          and n["flash"] == REPLICA_BLOCKS * n["forwards"] and n["flash_mma"] == 0,
+          f"pid {pid}: {n['flash']} flash launches ({n['flash_mma']} tensor-core) in "
+          f"{n['forwards']} forwards")
+    return n["flash"]
+
+
+def _serve_windows(path: str) -> str:
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if '"kind": "serve"' in line]
+    wins = [r for r in recs if r.get("requests_per_s") and not r.get("event")]
+    if not wins:
+        return "no serve window"
+    rates = [r["requests_per_s"] for r in wins]
+    return (f"{len(wins)} serve windows: requests/s median {statistics.median(rates):.3f} "
+            f"(min {min(rates)}, max {max(rates)}), latency p50 <= "
+            f"{statistics.median(r['latency_p50_ms'] for r in wins)} ms, p99 <= "
+            f"{max(r['latency_p99_ms'] for r in wins)} ms (median / worst window, "
+            f"bucket bounds)")
+
+
+def phase_supervised(work: str) -> dict:
+    """Phase 7: the supervised ViT-B/16 replica from phase 4's checkpoint
+    directory, then the serving drill. It runs after every phase that reads
+    torch.profiler: once a few CUDA processes of their own have come and
+    gone on the card, this process's CUDA-only profiler sessions record
+    nothing at random (``PERF.md`` §6). Returns the flash launches of
+    the replicas that drained."""
+    t0 = time.perf_counter()
+    launches = _supervised_replica(os.path.join(work, "ck"), work)
+    print(f"[replica] part: {time.perf_counter() - t0:.1f} s")
+    _serve_drill()
+    return launches
+
+
+def _supervised_replica(ckdir: str, d: str) -> dict:
+    """ViT-B/16 replicas under ``ReplicaSupervisor`` from the checkpoint
+    directory (module docstring, phase 4). Returns the flash launches of
+    the incarnations that drained."""
+    from tpu_dist_torch.serve.supervisor import ReplicaPolicy, ReplicaSupervisor  # noqa: PLC0415
+
+    launches = 0
+    # 1-4: ready, SIGKILL -> crash -> bundle -> relaunch, same digest, SIGTERM
+    reps = _Replicas(ckdir, os.path.join(d, "replica"))
+    sup = ReplicaSupervisor(reps.spawn, heartbeat_file=os.path.join(reps.work, "hb.json"),
+                            policy=ReplicaPolicy(**REPLICA_POLICY), postmortem_dirs=[reps.work],
+                            on_event=reps.on_event)
+    sup.start()
+    first = reps.wait_line(sup, "ready")
+    print(f"[replica] incarnation 1 (pid {sup.proc.pid}): spawn -> ready "
+          f"{first['ts'] - reps.event_time('spawn', 0):.2f} s, weights_digest "
+          f"{first['weights_digest']}, {first['warmup_compiles']} warmup buckets, "
+          f"{os.path.basename(first['ckpt'])}")
+    time.sleep(REPLICA_SERVE_S)
+    pid = sup.proc.pid
+    os.kill(pid, signal.SIGKILL)
+    sup.proc.wait(timeout=60)
+    verdict = sup.poll_once()
+    check(verdict == "crash", f"after SIGKILL: poll_once() = {verdict}")
+    _check_bundle(reps, "no-clean-exit")
+    second = reps.wait_line(sup, "ready")
+    crash_down = second["ts"] - reps.event_time("crash")
+    check(second["weights_digest"] == first["weights_digest"],
+          f"relaunch digest {second['weights_digest']} vs {first['weights_digest']}")
+    print(f"[replica] SIGKILL -> poll_once() 'crash', bundle verdict no-clean-exit, "
+          f"incarnation 2 (pid {sup.proc.pid}) spawn -> ready "
+          f"{second['ts'] - reps.event_time('spawn', 1):.2f} s with the same digest; "
+          f"down time crash verdict -> next ready {crash_down:.2f} s")
+    time.sleep(REPLICA_SERVE_S)
+    pid = sup.proc.pid
+    sup.proc.terminate()
+    check(sup.proc.wait(timeout=120) == 0, f"SIGTERM: rc {sup.proc.returncode}")
+    drained = reps.lines(pid, "drained")
+    verdict = sup.poll_once()
+    check(drained and verdict == "exit", f"SIGTERM: drained {drained}, poll_once() {verdict}")
+    launches += _replica_launches(reps, pid)
+    print(f"[replica] SIGTERM -> drained ({drained[0]['served']} served, "
+          f"{drained[0]['retraces']} retraces, {drained[0]['shed']} shed), poll_once() 'exit'")
+    print(f"[replica] history of incarnations 1-2: "
+          f"{_serve_windows(os.path.join(reps.work, 'replica.jsonl'))}")
+
+    # 5: a wedge: stale beat -> SIGTERM (grace) -> bundle -> relaunch
+    reps = _Replicas(ckdir, os.path.join(d, "wedge"),
+                     ("--serve_n", str(WEDGE_AFTER), "--wedge_after", str(WEDGE_AFTER)))
+    sup = ReplicaSupervisor(reps.spawn, heartbeat_file=os.path.join(reps.work, "hb.json"),
+                            policy=ReplicaPolicy(**REPLICA_POLICY), postmortem_dirs=[reps.work],
+                            on_event=reps.on_event)
+    sup.start()
+    ready = reps.wait_line(sup, "ready")
+    print(f"[replica] wedge run, incarnation 1 (pid {sup.proc.pid}): spawn -> ready "
+          f"{ready['ts'] - reps.event_time('spawn', 0):.2f} s")
+    pid = sup.proc.pid
+    wedged_at = reps.wait_line(sup, "serving")["ts"]
+    deadline = time.monotonic() + 60
+    verdict = None
+    while verdict is None and time.monotonic() < deadline:
+        verdict = sup.poll_once()
+        time.sleep(0.05)
+    check(verdict == "wedge", f"wedged replica: poll_once() = {verdict}")
+    kinds = [ev["event"] for _, ev in reps.events]
+    check(kinds[-4:] == ["wedge", "postmortem", "relaunch", "spawn"], f"events {kinds}")
+    _check_bundle(reps, "failed")  # the vacate closed the ring with exit, not clean
+    launches += _replica_launches(reps, pid)
+    ready = reps.wait_line(sup, "ready")
+    wedge_down = ready["ts"] - reps.event_time("wedge")
+    check(ready["weights_digest"] == first["weights_digest"], "wedge relaunch digest")
+    print(f"[replica] wedge: no beat since the 'serving' line -> verdict "
+          f"{reps.event_time('wedge') - wedged_at:.2f} s (stale_after_s "
+          f"{REPLICA_POLICY['stale_after_s']}), SIGTERM -> exit {sup.last_rc}, bundled, "
+          f"incarnation 2 (pid {sup.proc.pid}) spawn -> ready "
+          f"{ready['ts'] - reps.event_time('spawn', 1):.2f} s; down time wedge verdict -> "
+          f"next ready {wedge_down:.2f} s")
+    pid = sup.proc.pid
+    reps.wait_line(sup, "serving")
+    sup.proc.terminate()
+    check(sup.proc.wait(timeout=120) == 0, f"SIGTERM: rc {sup.proc.returncode}")
+    check(sup.poll_once() == "exit", "the last incarnation did not exit cleanly")
+    launches += _replica_launches(reps, pid)
+    print(f"[replica] {launches} flash launches in the drained incarnations, "
+          f"{REPLICA_BLOCKS} a forward, all on the f32 route; down time: crash "
+          f"{crash_down:.2f} s, wedge {wedge_down:.2f} s; card: {_smi_line()}")
+    return {name: launches if name == "flash_attention_fwd" else 0 for name in KERNELS}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1737,13 +2007,51 @@ LAUNCH_TRAIN_ARGS = ["--dataset", "synthetic", "--synthetic_n", "2560", "--batch
                      "--steps_per_epoch", "3", "--bf16", "--fused_optimizer"]
 
 
+_STOPPED_AT = re.compile(r"SIGTERM observed (?:at epoch (\d+) after step (\d+)|"
+                         r"after epoch (\d+) completed)")
+
+
+def _postmortem(root, crash: str, d: str) -> dict:
+    """``python -m tpu_dist_torch.obs postmortem crash d``: rank 0's report
+    of the bundle it writes."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs", "postmortem", crash, d],
+                          cwd=root, capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"obs postmortem: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+    with open(os.path.join(crash, "postmortem.json")) as f:
+        ranks = json.load(f)["ranks"]
+    check([r["rank"] for r in ranks] == [0], f"postmortem ranks {[r['rank'] for r in ranks]}")
+    return ranks[0]
+
+
+def _flight_step_us() -> float:
+    """Host us of one ``FlightRecorder.step`` (the ring's pwrite and the
+    counter delta), median over 1,000 calls, with the registry as the
+    training runs left it."""
+    from tpu_dist_torch.obs import flight as flight_lib  # noqa: PLC0415
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as d:
+        ring = flight_lib.FlightRecorder(os.path.join(d, flight_lib.RING_NAME))
+        times = []
+        for i in range(1000):
+            counters_lib.inc("train.steps")
+            t = time.perf_counter()
+            ring.step(0, i)
+            times.append(time.perf_counter() - t)
+        ring.close()
+        check(flight_lib.last_step(flight_lib.decode(ring.path))["step"] == 999,
+              "the ring does not end at the last step record")
+    return statistics.median(times) * 1e6
+
+
 def _resnet_launch() -> None:
-    """(e): the launcher's SIGTERM contract (exit 75) and ``--resume``."""
+    """(e): the launcher's SIGTERM contract (exit 75) and ``--resume``, with
+    the crash forensics of ``--crash_dir`` read after each."""
     root = pathlib.Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
         log = os.path.join(d, "h.jsonl")
+        crash = os.path.join(d, "crash")
         train = [sys.executable, "-m", "tpu_dist_torch.cli.train", *LAUNCH_TRAIN_ARGS,
-                 "--device", DEVICE, "--ckpt_dir", d, "--log_file", log]
+                 "--device", DEVICE, "--ckpt_dir", d, "--log_file", log, "--crash_dir", crash]
         launch = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1", "--"]
         t0 = time.perf_counter()
         proc = subprocess.Popen(launch + train + ["--epochs", "1000"], cwd=root, text=True,
@@ -1772,6 +2080,19 @@ def _resnet_launch() -> None:
               f"launcher under SIGTERM: rc {proc.returncode}, checkpoint {newest}:\n{out[-3000:]}")
         path, epoch = newest
         check(ckpt_lib.verify_npz(path)["epoch"] == epoch, f"{path} does not verify")
+        stop = _STOPPED_AT.search(out)
+        check(stop is not None, f"no SIGTERM line in the launcher's output:\n{out[-3000:]}")
+        at = ((int(stop[1]), int(stop[2])) if stop[1] is not None
+              else (int(stop[3]), int(LAUNCH_TRAIN_ARGS[LAUNCH_TRAIN_ARGS.index(
+                  "--steps_per_epoch") + 1]) - 1))
+        pm = _postmortem(root, crash, d)
+        last = pm["flight"]["last_step"]
+        check(pm["verdict"] == "preempted" and (last["epoch"], last["step"]) == at,
+              f"postmortem after SIGTERM: verdict {pm['verdict']}, ring's last step {last}, "
+              f"the run stopped at {at}")
+        print(f"[flight] obs postmortem after SIGTERM: rank 0 {pm['verdict']}, "
+              f"{pm['flight']['n_records']} ring records, last step record epoch "
+              f"{last['epoch']} step {last['step']} (the run stopped there)")
         t0 = time.perf_counter()
         again = subprocess.run(launch + train + ["--epochs", str(epoch + 2), "--resume"],
                                cwd=root, text=True, capture_output=True, timeout=300)
@@ -1785,6 +2106,12 @@ def _resnet_launch() -> None:
             kinds = [json.loads(line)["kind"] for line in f]
         print(f"[launch] history {log}: {len(kinds)} records, kinds {sorted(set(kinds))}")
         check("train_epoch" in kinds and "eval" in kinds, f"history kinds {kinds}")
+        pm = _postmortem(root, crash, d)
+        check(pm["verdict"] == "clean", f"postmortem after --resume: {pm['verdict']}")
+        print(f"[flight] obs postmortem after --resume: rank 0 {pm['verdict']}, "
+              f"{pm['flight']['n_records']} ring records")
+    print(f"[flight] FlightRecorder.step: {_flight_step_us():.2f} us of host a call "
+          f"(median of 1,000); card: {_smi_line()}")
 
 
 def phase_train_resnet() -> tuple:
@@ -2061,20 +2388,30 @@ def main() -> int:
     torch.cuda.set_device(0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _phases(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phases(work: str) -> int:
     phase_build()
     measured = phase_kernels()
     for name, numbers in phase_kernels_train().items():
         measured.setdefault(name, {}).update(numbers)
-    served = phase_serve()
+    served = phase_serve(work)
     trained, trained_mma = phase_train({
         "flash_attention_fwd": measured["flash_attention_fwd"]["ms_train_shape"],
         **{name: measured[name]["ms"] for name in PER_STEP if name != "flash_attention_fwd"},
     })
     resnet_launches, resnet_sgd = phase_train_resnet()
+    replicas = phase_supervised(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
-    launches = {name: served[name] + trained[name] + resnet_launches[name] for name in KERNELS}
+    launches = {name: served[name] + trained[name] + resnet_launches[name] + replicas[name]
+                for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there)
         measured[name]["launches_tensor_core"] = trained_mma[name]
     print(_smi_line())

@@ -60,7 +60,12 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.elastic", "tpu_dist_torch.elastic.errors",
                  "tpu_dist_torch.elastic.remap", "tpu_dist_torch.obs.alerts",
                  "tpu_dist_torch.obs.heartbeat", "tpu_dist_torch.obs.export",
-                 "tpu_dist_torch.obs.summarize", "tpu_dist_torch.serve.__main__"):
+                 "tpu_dist_torch.obs.summarize", "tpu_dist_torch.serve.__main__",
+                 "tpu_dist_torch.obs.flight", "tpu_dist_torch.obs.postmortem",
+                 "tpu_dist_torch.obs.compare", "tpu_dist_torch.obs.__main__",
+                 "tpu_dist_torch.obs.memory", "tpu_dist_torch.obs.goodput",
+                 "tpu_dist_torch.serve.supervisor", "tpu_dist_torch.serve.replica",
+                 "tpu_dist_torch.serve.drill"):
         assert name in MODULES
 
 

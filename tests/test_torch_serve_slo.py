@@ -483,12 +483,19 @@ def test_report_exit_codes_equal_the_jax_cli(tmp_path, capsys):
     assert e.value.code == 2
 
 
-def test_report_runs_as_a_module_and_drill_is_not_ported(tmp_path):
+def test_report_runs_as_a_module_and_drill_and_replica_run(tmp_path, capsys):
     path = str(tmp_path / "h.jsonl")
     _history_with_serve_records(path)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "report", path],
                           cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.startswith("serve report — 2 window(s)")
-    for sub in ("drill", "replica"):
-        assert cli.main([sub]) == 2
+    work = str(tmp_path / "drill")
+    assert cli.main(["drill", "--workdir", work, "--device", "cpu"]) == 0
+    assert "serve-drill OK" in capsys.readouterr().out
+    status = str(tmp_path / "status.jsonl")
+    assert cli.main(["replica", "--ckpt", os.path.join(work, "ckpt"), "--workdir",
+                     str(tmp_path / "replica"), "--status_file", status, "--device", "cpu",
+                     "--serve_n", "4"]) == 0
+    with open(status) as f:
+        assert [json.loads(line)["event"] for line in f] == ["ready", "serving"]

@@ -113,7 +113,8 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # history flags (ckpt_dir, resume, keep_last_ckpts, mid_epoch_save_every,
 # async_ckpt, auto_recover, log_file, per_host_log) are ported and run in
 # tests/test_torch_resume.py::test_the_checkpoint_and_history_flags_work_through_fit;
-# fused_epoch is ported and runs in tests/test_torch_fused_trainer.py.
+# fused_epoch is ported and runs in tests/test_torch_fused_trainer.py;
+# crash_dir is ported and runs in tests/test_torch_trainer_forensics.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
@@ -130,7 +131,7 @@ UNPORTED_CASES = (
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
     ("trace_file", "trace.json", "Queue A 6"), ("heartbeat_file", "hb.json", "Queue A 6"),
     ("metrics_file", "m.prom", "Queue A 6"), ("metrics_port", 9100, "Queue A 6"),
-    ("alert_rules", "rules.json", "Queue A 6"), ("crash_dir", "crash", "Queue A 6"),
+    ("alert_rules", "rules.json", "Queue A 6"),
     ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),

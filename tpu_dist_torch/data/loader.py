@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from tpu_dist_torch.data.sampler import DistributedSampler
-from tpu_dist_torch.obs import counters
+from tpu_dist_torch.obs import counters, spans
 
 
 class LoaderProducerDiedError(RuntimeError):
@@ -125,8 +125,9 @@ class DataLoader:
 
         def producer():
             try:
-                for hb in self._host_batches(start_batch):
-                    batch = self._to_host_tensors(hb)
+                for b, hb in enumerate(self._host_batches(start_batch), start=start_batch):
+                    with spans.span("loader/produce", batch=b):
+                        batch = self._to_host_tensors(hb)
                     counters.inc("loader.batches_produced")
                     # bounded put that notices consumer abandonment (the
                     # trainer's steps_per_epoch early break)

@@ -80,6 +80,24 @@ def snapshot() -> Dict[str, object]:
         return out
 
 
+def delta(prev: Optional[Dict[str, object]], cur: Dict[str, object]) -> Dict[str, float]:
+    """Numeric difference ``cur - prev`` per key. Keys that are non-numeric
+    in either snapshot (gauges holding strings) and zero deltas are
+    omitted; a key absent from ``prev`` counts from 0."""
+    prev = prev or {}
+    out: Dict[str, float] = {}
+    for k, v in cur.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        p = prev.get(k, 0)
+        if isinstance(p, bool) or not isinstance(p, (int, float)):
+            continue
+        d = v - p
+        if d:
+            out[k] = round(d, 6) if isinstance(d, float) else d
+    return out
+
+
 def reset() -> None:
     """Clear everything: test isolation and the start of a fresh run."""
     with _LOCK:

@@ -7,9 +7,10 @@ file). While the recorder is enabled, each :func:`span` also opens
 a ``torch.profiler.record_function`` range, so a ``torch.profiler``
 capture shows the same names on its timeline (this takes the place of
 the JAX package's ``jax.profiler.TraceAnnotation`` bridge). A disabled
-recorder's :func:`span` returns a shared no-op context. The JAX
-package's span-open listener (its flight recorder's tap) and trace-file
-export have no user in the port yet and are left out.
+recorder's :func:`span` returns a shared no-op context, unless a span-open
+listener is set (:func:`set_open_listener`, the flight recorder's tap):
+then every span open calls it, on every rank, buffering nothing. The JAX
+package's trace-file export has no user in the port yet and is left out.
 
 Usage::
 
@@ -35,6 +36,7 @@ _ENABLED = False
 _EVENTS: List[dict] = []
 _DROPPED = 0
 _T0 = time.perf_counter()
+_OPEN_LISTENER = None  # fn(name, args), called at every span open
 
 
 class _NullSpan:
@@ -61,23 +63,42 @@ class _Span:
         self._range = None
 
     def __enter__(self):
-        self._range = torch.profiler.record_function(self.name)
-        self._range.__enter__()
+        lis = _OPEN_LISTENER
+        if lis is not None:
+            lis(self.name, self.args)
+        if _ENABLED:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         end = time.perf_counter()
-        self._range.__exit__(*exc)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         add_event(self.name, self._t0, end - self._t0, **self.args)
         return False
 
 
 def span(name: str, **args):
-    """Context manager timing a host region; free when disabled."""
-    if not _ENABLED:
+    """Context manager timing a host region. Free when disabled (a span
+    that only tells the open listener is made when one is set)."""
+    if not _ENABLED and _OPEN_LISTENER is None:
         return _NULL
     return _Span(name, args)
+
+
+def set_open_listener(fn) -> None:
+    """Arm the span-open tap (one a process; the trainer and the serving
+    replica point it at their flight recorder): ``fn(name, args)`` is
+    called at every span open, enabled or not."""
+    global _OPEN_LISTENER
+    _OPEN_LISTENER = fn
+
+
+def clear_open_listener() -> None:
+    global _OPEN_LISTENER
+    _OPEN_LISTENER = None
 
 
 def add_event(name: str, t_start: float, duration: float, **args) -> None:

@@ -1,4 +1,5 @@
-"""CLI: ``python -m tpu_dist_torch.serve`` — the serving report.
+"""CLI: ``python -m tpu_dist_torch.serve`` — serving reports, the drill and
+the replica; the port's counterpart of ``python -m tpu_dist.serve``.
 
 Subcommands::
 
@@ -10,11 +11,21 @@ Subcommands::
         ``python -m tpu_dist.serve report``. Exit 1 when the log holds no
         serve records.
 
-    drill, replica
-        Not ported: exit 2 naming the ROADMAP item they wait for.
+    drill --workdir DIR [--format text|json] [--device cuda|cpu]
+        The serving proof (``serve/drill.py``): a deterministic trace
+        replay from a dp = 4 ZeRO-1 checkpoint through the elastic
+        remapper, zero post-warmup retraces, the histogram invariants, and
+        the ``obs compare --slo`` exit contract (an injected regression
+        exits 1, an improvement 0). Exit 1 when an invariant fails.
 
-Exit codes: 0 ok, 1 unusable input, 2 bad invocation or not ported. The
-report is file crunching only: no device.
+    replica --ckpt C --workdir D [--device cuda|cpu] [...]
+        One supervised serving replica (``serve/replica.py``): restore
+        ladder, warmup, paced synthetic serving with the heartbeat, flight
+        ring, exposition and history armed; SIGTERM runs the shed, drain,
+        sweep vacate. ``ReplicaSupervisor`` spawns these.
+
+Exit codes: 0 ok, 1 unusable input or a failed drill, 2 bad invocation.
+The report is file crunching only: no device.
 """
 
 from __future__ import annotations
@@ -23,19 +34,11 @@ import argparse
 import json
 import sys
 
-#: The subcommands of ``python -m tpu_dist.serve`` that the port lacks.
-UNPORTED = {
-    "drill": "Queue A 5 (replica, supervisor, drill): serve/drill.py, obs/flight.py, "
-             "obs/postmortem.py",
-    "replica": "Queue A 5 (replica, supervisor, drill): serve/replica.py, "
-               "serve/supervisor.py, obs/flight.py, obs/postmortem.py",
-}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpu_dist_torch.serve",
-        description="serving SLO reports",
+        description="serving SLO reports, the serving drill and the replica",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser(
@@ -43,16 +46,25 @@ def main(argv=None) -> int:
     )
     r.add_argument("log", help="history JSONL holding serve records")
     r.add_argument("--format", choices=("text", "json"), default="text")
-    for name in UNPORTED:
-        sub.add_parser(name, add_help=False, help="not ported")
+    d = sub.add_parser("drill", help="deterministic serving drill")
+    d.add_argument("--workdir", required=True)
+    d.add_argument("--format", choices=("text", "json"), default="text")
+    d.add_argument("--device", default="cuda")
+    sub.add_parser("replica", add_help=False,
+                   help="one supervised serving replica (serve/replica.py)")
     args, rest = ap.parse_known_args(argv)
 
-    if args.cmd in UNPORTED:
-        print(f"tpu_dist_torch.serve: {args.cmd!r} is not ported to tpu_dist_torch yet; "
-              f"it waits for ROADMAP.md {UNPORTED[args.cmd]}", file=sys.stderr)
-        return 2
+    if args.cmd == "replica":
+        from tpu_dist_torch.serve import replica as replica_lib  # noqa: PLC0415
+
+        return replica_lib.main(rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.cmd == "drill":
+        from tpu_dist_torch.serve import drill as drill_lib  # noqa: PLC0415
+
+        return drill_lib.main(["--workdir", args.workdir, "--format", args.format,
+                               "--device", args.device])
 
     from tpu_dist_torch.obs.summarize import load_records  # noqa: PLC0415
     from tpu_dist_torch.serve import slo as slo_lib  # noqa: PLC0415

@@ -40,6 +40,20 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
 * ``log_file`` writes the JSONL history
   (:mod:`tpu_dist_torch.metrics.history`): ``train_epoch``, ``eval`` and
   ``auto_recover`` records, rank 0 only unless ``per_host_log``.
+* ``crash_dir`` arms the crash forensics of every rank for ``fit``
+  (:mod:`tpu_dist_torch.obs.flight`): a flight ring at
+  ``per_rank_path(crash_dir/flight.ring, rank)`` with an ``open`` record,
+  a ``resume`` record after a restore, a ``step`` record at every step
+  boundary (once an epoch on the fused path), ``auto_recover`` records, a
+  slot for every host span opened, a ``fatal`` slot from an unhandled
+  exception, and the terminal record: ``exit`` (``clean`` or not),
+  ``preempt``, ``interrupt``, or ``fatal`` then ``exit``; a faulthandler
+  on ``stacks.txt`` (hard faults, and SIGUSR1 dumps every thread); and
+  on an out-of-memory error (``torch.OutOfMemoryError``) the parsed
+  report as a ``memory`` OOM history record, an ``oom`` ring record and
+  ``oom.json``, which ``python -m tpu_dist_torch.obs postmortem`` reads
+  as the ``oom`` verdict. The memory ledger snapshot beside the report
+  is empty: the ledger is not ported.
 
 ``fused_epoch`` runs each epoch through :mod:`tpu_dist_torch.train.epoch`:
 the dataset on the device, one step captured in a CUDA graph and replayed
@@ -63,6 +77,7 @@ import hashlib
 import json
 import math
 import os
+import sys
 import time
 from typing import Optional
 
@@ -82,6 +97,8 @@ from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
 from tpu_dist_torch.obs import counters, spans
+from tpu_dist_torch.obs import flight as flight_lib
+from tpu_dist_torch.obs import memory as memory_lib
 from tpu_dist_torch.resilience import preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train import epoch as epoch_lib
@@ -127,7 +144,6 @@ UNPORTED = {
     "metrics_file": (None, _TELEMETRY),
     "metrics_port": (0, _TELEMETRY),
     "alert_rules": (None, _TELEMETRY),
-    "crash_dir": (None, _TELEMETRY),
     "memory_check": ("off", _TELEMETRY),
     "hbm_budget_bytes": (None, _TELEMETRY),
     "profile_dir": (None, _TELEMETRY),
@@ -363,6 +379,8 @@ class Trainer:
         # half updated and no snapshot is taken.
         self._progress = (-1, 0, True)
         self._in_step = False
+        self._flight = None  # the rank's flight recorder, armed by fit (crash_dir)
+        self._resumed = None  # the restore's 'resume' ring record, stamped by fit
         if cfg.resume and cfg.ckpt_dir:
             epoch = self._restore_latest()
             if epoch is not None:
@@ -545,7 +563,8 @@ class Trainer:
                 continue
             self._check_ckpt_meta(meta, path)
             try:
-                flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify)
+                with spans.span("ckpt/restore_ladder", file=path):
+                    flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify)
             except (ckpt_lib.CheckpointCorruptError,) + ckpt_lib.CKPT_READ_ERRORS as e:
                 self._quarantine_ckpt(path, e)
                 continue
@@ -568,6 +587,8 @@ class Trainer:
         self._resume_metrics = meta.get("mid_epoch_metrics") if resume_step else None
         self._state_poisoned = False
         self._progress = (epoch, resume_step, not resume_step)
+        self._resumed = {"epoch": epoch, "world": mesh.process_count(), "dp": self.n_devices,
+                         "resharded": False}
         counters.inc("ckpt.restores")
         if resume_step:
             rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, continuing at step "
@@ -608,6 +629,8 @@ class Trainer:
         epoch = self._restore_latest() if self.cfg.ckpt_dir else None
         if epoch is None:
             raise err
+        # a mid-fit recovery is no new segment: its record is auto_recover
+        self._resumed = None
         self.start_epoch = epoch if self._resume_step else epoch + 1
         self._lr_scale *= self.cfg.recover_lr_factor
         rank0_print(f"=> AUTO-RECOVER: {err}; resumed from epoch {epoch}, LR scale now "
@@ -722,6 +745,10 @@ class Trainer:
                 images_seen += cfg.batch_size
                 steps_run += 1
                 timer.tick()
+                if self._flight is not None:
+                    # one pwrite a step: a killed rank's ring ends at its
+                    # last completed step
+                    self._flight.step(epoch, step)
                 want_save = bool(cfg.mid_epoch_save_every and cfg.ckpt_dir
                                  and (step + 1) % cfg.mid_epoch_save_every == 0)
                 want_log = step % cfg.log_every == 0
@@ -790,6 +817,8 @@ class Trainer:
         steps = len(self._fused_data[0]) // self.local_batch
         counters.inc("train.epochs")
         counters.inc("train.steps", steps)
+        if self._flight is not None:
+            self._flight.step(epoch, None)  # the fused path's only grain
         self._guard(m["loss"], f"in fused epoch {epoch}", lr)
         dt = time.time() - t0
         n_images = len(self._fused_data[0]) * self.n_devices
@@ -838,6 +867,7 @@ class Trainer:
         self._last_epoch = self.start_epoch
         self._best_top1 = -1.0
         attempts = cfg.auto_recover
+        fault_handle = self._arm_flight() if cfg.crash_dir else None
         sig_token = preemption.install()
         preemption.clear()
         try:
@@ -855,6 +885,8 @@ class Trainer:
                     self._auto_recover(e)
                     history.log("auto_recover", epoch=self._last_epoch,
                                 lr_scale=self._lr_scale)
+                    if self._flight is not None:
+                        self._flight.record("auto_recover", epoch=self._last_epoch)
         except (KeyboardInterrupt, PreemptedError) as e:
             # one snapshot discipline for both; cli/train.py maps a
             # PreemptedError to exit 75
@@ -865,7 +897,69 @@ class Trainer:
         finally:
             preemption.restore(sig_token)
             self._ckpt_close(suppress=True)
+            self._oom_forensics(history)
             history.close()
+            if self._flight is not None:
+                self._close_flight(fault_handle)
+
+    def _arm_flight(self):
+        """The rank's flight ring (excepthooks, the span-open tap, the
+        ``open`` and ``resume`` records) and its faulthandler on
+        ``stacks.txt``; returns the faulthandler's handle."""
+        cfg, rank = self.cfg, mesh.process_index()
+        self._flight = flight_lib.FlightRecorder(
+            per_rank_path(os.path.join(cfg.crash_dir, flight_lib.RING_NAME), rank),
+            run_id=self._run_id, rank=rank)
+        self._flight.install_excepthooks()
+        spans.set_open_listener(self._flight.span_open)
+        self._flight.record("open", epoch=self.start_epoch, world=mesh.process_count(),
+                            dp=self.n_devices)
+        if self._resumed is not None:
+            self._flight.record("resume", **self._resumed)
+        return flight_lib.arm_faulthandler(
+            per_rank_path(os.path.join(cfg.crash_dir, flight_lib.STACKS_NAME), rank))
+
+    def _close_flight(self, fault_handle) -> None:
+        """The terminal record, from the exception ``fit`` is raising (if
+        any), then the hooks and the faulthandler restored. A ring that
+        ends without one was a hard kill."""
+        spans.clear_open_listener()
+        self._flight.uninstall_excepthooks()
+        et, ev, tb = sys.exc_info()
+        if et is None:
+            self._flight.close("exit", clean=True)
+        elif issubclass(et, PreemptedError):
+            self._flight.close("preempt", epoch=self._last_epoch)
+        elif issubclass(et, KeyboardInterrupt):
+            self._flight.close("interrupt", epoch=self._last_epoch)
+        else:
+            self._flight.fatal(et, ev, tb)
+            self._flight.close("exit", clean=False)
+        self._flight = None
+        flight_lib.disarm_faulthandler(fault_handle)
+
+    def _oom_forensics(self, history: MetricsHistory) -> None:
+        """An out-of-memory error on its way out of ``fit``, parsed into the
+        typed report: a ``memory`` OOM history record, an ``oom`` ring
+        record and ``crash_dir``'s per-rank ``oom.json``, beside an empty
+        ledger snapshot."""
+        _, err, _ = sys.exc_info()
+        oom = memory_lib.parse_resource_exhausted(str(err)) if err is not None else None
+        if oom is None:
+            return
+        counters.inc("mem.oom_events")
+        snap: dict = {}
+        rank0_print("FATAL: device " + memory_lib.oom_summary_line(oom) + " — "
+                    + memory_lib.summary_line(snap))
+        history.log("memory", event="oom", epoch=self._last_epoch, oom=oom, ledger=snap)
+        if self._flight is not None:
+            self._flight.record("oom", epoch=self._last_epoch,
+                                requested=oom.get("requested_bytes"),
+                                used=oom.get("used_bytes"), limit=oom.get("limit_bytes"))
+        if self.cfg.crash_dir:
+            memory_lib.write_oom_report(
+                per_rank_path(os.path.join(self.cfg.crash_dir, memory_lib.OOM_NAME),
+                              mesh.process_index()), oom, snap)
 
     def _fit_loop(self, epochs: int, history: MetricsHistory) -> dict:
         cfg, last = self.cfg, {}
