@@ -1326,18 +1326,36 @@ def _replica_launches(reps: _Replicas, pid: int) -> int:
     return n["flash"]
 
 
-def _serve_windows(path: str) -> str:
-    with open(path) as f:
-        recs = [json.loads(line) for line in f if '"kind": "serve"' in line]
-    wins = [r for r in recs if r.get("requests_per_s") and not r.get("event")]
-    if not wins:
-        return "no serve window"
-    rates = [r["requests_per_s"] for r in wins]
-    return (f"{len(wins)} serve windows: requests/s median {statistics.median(rates):.3f} "
-            f"(min {min(rates)}, max {max(rates)}), latency p50 <= "
-            f"{statistics.median(r['latency_p50_ms'] for r in wins)} ms, p99 <= "
-            f"{max(r['latency_p99_ms'] for r in wins)} ms (median / worst window, "
-            f"bucket bounds)")
+def _serve_windows(reps: "_Replicas") -> str:
+    """Requests/s and latency of the replicas of ``reps`` from their own
+    ``serve`` history records: every request served over the time from
+    each incarnation's ``ready`` line to its last window, and p50/p99 from
+    the merged latency histogram of every incarnation (a window carries
+    its incarnation's cumulative histogram; the records are told apart by
+    the supervisor's spawn times)."""
+    from tpu_dist_torch.serve.slo import LatencyHistogram  # noqa: PLC0415
+
+    with open(os.path.join(reps.work, "replica.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    wins = [r for r in recs if r.get("kind") == "serve" and not r.get("event")]
+    spawns = [(t, ev["pid"]) for t, ev in reps.events if ev["event"] == "spawn"]
+    served, seconds, hist = 0, 0.0, LatencyHistogram()
+    for k, (t, pid) in enumerate(spawns):
+        end = spawns[k + 1][0] if k + 1 < len(spawns) else math.inf
+        mine = [r for r in wins if t <= r["ts"] < end]
+        ready = reps.lines(pid, "ready")
+        if not mine or not ready:
+            continue
+        served += int(mine[-1]["completed"])
+        seconds += mine[-1]["ts"] - ready[0]["ts"]
+        hist.merge(LatencyHistogram.from_dict(mine[-1]["latency_hist"]))
+    if not served or seconds <= 0:
+        return "no request served"
+    rates = [r["requests_per_s"] for r in wins if "requests_per_s" in r]
+    return (f"{served} requests in {seconds:.3f} s from ready to the last window: "
+            f"{served / seconds:.3f} requests/s (windows: min {min(rates)}, max {max(rates)}), "
+            f"latency p50 <= {hist.quantile_bound(0.5) * 1e3:g} ms, "
+            f"p99 <= {hist.quantile_bound(0.99) * 1e3:g} ms (merged histogram, bucket bounds)")
 
 
 def phase_supervised(work: str) -> dict:
@@ -1398,7 +1416,7 @@ def _supervised_replica(ckdir: str, d: str) -> dict:
     print(f"[replica] SIGTERM -> drained ({drained[0]['served']} served, "
           f"{drained[0]['retraces']} retraces, {drained[0]['shed']} shed), poll_once() 'exit'")
     print(f"[replica] history of incarnations 1-2: "
-          f"{_serve_windows(os.path.join(reps.work, 'replica.jsonl'))}")
+          f"{_serve_windows(reps)}")
 
     # 5: a wedge: stale beat -> SIGTERM (grace) -> bundle -> relaunch
     reps = _Replicas(ckdir, os.path.join(d, "wedge"),

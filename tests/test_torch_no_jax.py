@@ -65,7 +65,8 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.obs.compare", "tpu_dist_torch.obs.__main__",
                  "tpu_dist_torch.obs.memory", "tpu_dist_torch.obs.goodput",
                  "tpu_dist_torch.serve.supervisor", "tpu_dist_torch.serve.replica",
-                 "tpu_dist_torch.serve.drill"):
+                 "tpu_dist_torch.serve.drill", "tpu_dist_torch.fleet",
+                 "tpu_dist_torch.fleet.scheduler"):
         assert name in MODULES
 
 

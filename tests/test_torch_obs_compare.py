@@ -107,7 +107,8 @@ def logs(tmp_path_factory):
     w = drill.write_training_ckpt(str(d / "ck"), model)
     for name, step in (("base", drill.BASE_STEP_S), ("reg", drill.REGRESSED_STEP_S),
                        ("imp", drill.IMPROVED_STEP_S)):
-        out[name] = drill.replay(str(d), name, model, w, auto_step_s=step)["log"]
+        out[name] = drill.replay(str(d), name, model, w, auto_step_s=step,
+                                 device="cpu")["log"]
     # a slower, lossier copy of the training run, for the default gate
     with open(out["train"]) as f:
         recs = [json.loads(line) for line in f]

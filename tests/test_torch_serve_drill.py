@@ -24,6 +24,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from tpu_dist.obs import counters as jax_counters
 from tpu_dist.serve import drill as jax_drill
@@ -68,7 +69,7 @@ def test_the_baseline_replay_records_equal_a_jax_replay(tmp_path, jax_baseline):
     model = drill._drill_model("cpu")
     # the same restored weights as the JAX replay's (only shapes matter here)
     ours = drill.replay(str(tmp_path), "baseline", model, jax_baseline["loaded"],
-                        auto_step_s=drill.BASE_STEP_S)
+                        auto_step_s=drill.BASE_STEP_S, device="cpu")
     counters.reset()
     got = _records(ours["log"])
     assert got == jax_baseline["records"]
@@ -111,3 +112,15 @@ def test_the_drill_runs_from_the_cli(tmp_path):
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout[proc.stdout.index("{"):])
     assert summary["requests"] == 48 and summary["compare_slo"]["regression_rc"] == 1
+
+
+def test_the_drill_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
+    """``_drill_model``, ``replay`` and ``run_drill`` default to CUDA, as
+    every entry point of the port does: without a GPU they raise."""
+    if torch.cuda.is_available():
+        assert next(drill._drill_model().parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drill._drill_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drill.run_drill(str(tmp_path))

@@ -77,7 +77,7 @@ class ManualClock:
         self.t = max(self.t, t)
 
 
-def _drill_model(device="cpu"):
+def _drill_model(device="cuda"):
     """The drill's narrow ResNet (the ``resnet18`` code path at miniature
     widths), as the JAX drill's ``ResNetDef``."""
     from tpu_dist_torch.nn.resnet import ResNet  # noqa: PLC0415
@@ -122,7 +122,7 @@ def write_training_ckpt(ckpt_dir: str, model, *, dp: int = 4) -> dict:
 
 
 def replay(workdir: str, name: str, model, weights: dict, *, auto_step_s: float,
-           trace: Optional[List[float]] = None, device="cpu") -> dict:
+           trace: Optional[List[float]] = None, device="cuda") -> dict:
     """One deterministic replay of ``model`` with ``weights`` (JAX-layout
     trees, as :func:`~tpu_dist_torch.serve.engine.load_serving_state`
     returns them) -> ``{log, engine, stats, scalars, completed,
@@ -176,7 +176,7 @@ def replay(workdir: str, name: str, model, weights: dict, *, auto_step_s: float,
     }
 
 
-def run_drill(workdir: str, fmt: str = "text", device="cpu") -> dict:
+def run_drill(workdir: str, fmt: str = "text", device="cuda") -> dict:
     """The whole proof; raises :class:`DrillError` on any broken invariant
     and returns the summary dict."""
     from tpu_dist_torch import bridge  # noqa: PLC0415
