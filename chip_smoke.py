@@ -173,7 +173,29 @@ Phases; any failure exits non-zero and prints no result line:
    wedge, and requests/s and p50/p99 from the replica's own ``serve``
    records. Last, ``python -m tpu_dist_torch.serve drill`` on the card
    must exit 0.
-8. report: the card's name and power limit, one JSON line of every ported
+8. forensics: the training forensics chain, after phase 7 because it
+   also spawns CUDA children. (a) A healthy round: ``python -m
+   tpu_dist_torch.cli.launch --nproc 1`` with ``--heartbeat_dir``,
+   ``--metrics_dir``, ``--crash_dir`` and a 120 s ``--watchdog_timeout``
+   over the trainer's CLI (``bench.py:240``'s ``resnet18_cifar100``
+   shapes: full width, 100 classes, batch 256, bf16, fused SGD; 1 epoch of
+   20 steps, ``--metrics_port`` a free port), the child printing its fused
+   SGD launches at exit. It must exit 0 with 20 launches; the heartbeat
+   file, read every 20 ms while it runs, must show one process whose
+   counter only grows (``start``, then steps), and be gone after the clean
+   exit; the metrics textfile must parse (``export.parse``) with 21 beats
+   and 20 steps; one HTTP scrape of the rank-0 endpoint must answer during
+   the run. ``[forensics]`` lines: the seconds of the round and the longest
+   gap between two beats the watchdog sees, spawn counted as the first.
+   (b) The wedge: ``python -m tpu_dist_torch.obs.drill --device cuda`` at
+   the same shapes with ``hang@epoch=0:step=5`` and a watchdog timeout of
+   (a)'s longest gap plus the larger of 5 s and half of it. It must exit 0
+   (the drill's own checks: found, dumped, killed, bundled), its bundle's
+   ring must end at step 5 and its stuck frame be ``faults._hang``.
+   ``[forensics]`` lines: the detection time (the last beat landed -> the
+   wedge line), the dump's wait (SIGUSR1 -> the dump settled), SIGTERM ->
+   exit, the bundle's verdict and stuck frame, and the phase's seconds.
+9. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -198,6 +220,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -2395,6 +2418,164 @@ def _resnet_fused_cli() -> None:
     check(len(done) == len(fused) == 1, f"epoch lines of the fused run:\n{proc.stdout}")
 
 
+# -- phase 8: the training forensics chain -------------------------------------
+
+# bench.py:240's resnet18_cifar100 shapes through the real entry points
+FORENSICS_SHAPE = ["--model", "resnet18", "--num_classes", "100", "--batch_size", "256"]
+FORENSICS_FLAGS = ["--bf16", "--fused_optimizer"]
+FORENSICS_STEPS = 20
+FORENSICS_HANG_STEP = 5
+# the healthy child: the trainer's CLI, then its fused SGD launch count
+FORENSICS_CHILD = (
+    "from tpu_dist_torch.cli import train\n"
+    "from tpu_dist_torch.ops import fused_sgd\n"
+    "try:\n"
+    "    train.main()\n"
+    "finally:\n"
+    "    print(f'[child] fused_sgd launches {fused_sgd.fused_sgd.launches}', flush=True)\n"
+)
+
+
+def _watch_healthy(proc, hb: str, port: int) -> tuple:
+    """While the launcher runs: every distinct beat of ``hb`` as ``(pid,
+    counter, mono_s, phase, step)``, and one HTTP scrape of the rank-0
+    endpoint that returns samples (the trainer publishes after its first
+    step), parsed, or None."""
+    from tpu_dist_torch.obs import heartbeat as heartbeat_lib  # noqa: PLC0415
+
+    beats, scraped = [], None
+    while proc.poll() is None:
+        rec = heartbeat_lib.read(hb)
+        if rec is not None and (not beats or beats[-1][:2] != (rec["pid"], rec["counter"])):
+            beats.append((rec["pid"], rec["counter"], rec["mono_s"], rec["phase"], rec["step"]))
+        if scraped is None and beats:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                    scraped = export_lib.parse(r.read().decode()) or None
+            except OSError:  # not listening yet, or already closed
+                pass
+        time.sleep(0.02)
+    return beats, scraped
+
+
+def _healthy_round(root, d: str) -> tuple:
+    """(a): the launcher with every forensic flag over a healthy ResNet-18
+    trainer. Returns its fused SGD launches and the longest gap between two
+    beats the watchdog saw (spawn counts as the first)."""
+    hb_dir, metrics_dir, crash = (os.path.join(d, k) for k in ("hb", "metrics", "crash"))
+    port = _free_port()
+    cmd = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1",
+           "--heartbeat_dir", hb_dir, "--metrics_dir", metrics_dir, "--crash_dir", crash,
+           "--watchdog_timeout", "120", "--watchdog_dump_grace", "5", "--watchdog_grace", "5",
+           "--", sys.executable, "-c", FORENSICS_CHILD, "--dataset", "synthetic",
+           *FORENSICS_SHAPE, *FORENSICS_FLAGS, "--device", DEVICE, "--epochs", "1", "--steps_per_epoch", str(FORENSICS_STEPS),
+           "--log_every", "10", "--metrics_port", str(port)]
+    t_spawn = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=root, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    out: list = []
+    reader = threading.Thread(target=lambda: out.extend(proc.stdout), daemon=True)
+    reader.start()
+    guard = threading.Timer(300, proc.kill)
+    guard.start()
+    try:
+        beats, scraped = _watch_healthy(proc, os.path.join(hb_dir, "hb.json"), port)
+    finally:
+        guard.cancel()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        reader.join(timeout=10)
+    took = time.monotonic() - t_spawn
+    out = "".join(out)
+    check(proc.returncode == 0, f"healthy launcher round: rc {proc.returncode}\n{out[-3000:]}")
+    launched = re.search(r"\[child\] fused_sgd launches (\d+)", out)
+    launches = int(launched[1]) if launched else -1
+    check(launches == FORENSICS_STEPS, f"the healthy child launched fused_sgd {launches} times "
+          f"in {FORENSICS_STEPS} steps")
+    check(not os.path.exists(os.path.join(hb_dir, "hb.json")),
+          "the clean exit left its heartbeat file")
+    counters_seen = [b[1] for b in beats]
+    check(beats and counters_seen == sorted(set(counters_seen))
+          and len({b[0] for b in beats}) == 1 and beats[0][3] == "start",
+          f"the heartbeat's records over the run: {beats}")
+    with open(os.path.join(metrics_dir, "metrics.prom")) as f:
+        expo = export_lib.parse(f.read())
+    # one beat at the start and one a step, however many the 1 s throttle wrote
+    check(expo.get("tpu_dist_heartbeat_beats") == 1 + FORENSICS_STEPS
+          and expo.get("tpu_dist_train_steps") == FORENSICS_STEPS,
+          f"the last exposition: beats {expo.get('tpu_dist_heartbeat_beats')}, steps "
+          f"{expo.get('tpu_dist_train_steps')}")
+    check(scraped is not None and "tpu_dist_loader_batches_consumed" in scraped,
+          f"no HTTP scrape of the rank-0 endpoint during the run: {scraped}")
+    scraped = scraped or {}
+    times = [t_spawn] + [b[2] for b in beats]
+    names = ["spawn"] + [f"{b[3]} (beat {b[1]}, step {b[4]})" for b in beats]
+    gaps = [(b - a, f"{names[i]} -> {names[i + 1]}") for i, (a, b) in
+            enumerate(zip(times, times[1:]))]
+    longest, where = max(gaps)
+    print(f"[forensics] healthy: launcher + {FORENSICS_STEPS} steps of "
+          f"{' '.join(FORENSICS_SHAPE + FORENSICS_FLAGS)}: rc {proc.returncode} in {took:.1f} s; "
+          f"{len(beats)} heartbeat "
+          f"records seen (counters {counters_seen}); last exposition "
+          f"{len(expo)} samples, heartbeat_beats {expo['tpu_dist_heartbeat_beats']:g}; one "
+          f"HTTP scrape with {len(scraped)} samples; fused_sgd launches {launches}")
+    print(f"[forensics] healthy: longest beat gap {longest:.3f} s ({where}); gaps "
+          f"{[round(g, 3) for g, _ in gaps]}")
+    return launches, longest
+
+
+def _wedge_drill(root, d: str, longest_gap: float) -> None:
+    """(b): ``python -m tpu_dist_torch.obs.drill`` at the same shapes, wedged
+    at step 5, with a watchdog timeout above (a)'s longest gap."""
+    timeout = math.ceil(longest_gap + max(5.0, 0.5 * longest_gap))
+    work = os.path.join(d, "drill")
+    cmd = [sys.executable, "-m", "tpu_dist_torch.obs.drill", "--device", DEVICE,
+           "--workdir", work, *FORENSICS_SHAPE, "--steps_per_epoch", str(FORENSICS_STEPS),
+           "--hang_step", str(FORENSICS_HANG_STEP), "--watchdog_timeout", str(timeout),
+           "--watchdog_dump_grace", "10", "--watchdog_grace", "2", "--round_timeout", "240",
+           "--", *FORENSICS_FLAGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the drill: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("postmortem-drill: timings ")), None)
+    check(line is not None, f"the drill printed no timings:\n{proc.stdout[-3000:]}")
+    timings = json.loads(line.removeprefix("postmortem-drill: timings "))
+    with open(os.path.join(work, "postmortem.json")) as f:
+        rank0 = next(r for r in json.load(f)["ranks"] if r["rank"] == 0)
+    last = rank0["flight"]["last_step"]
+    check((last["epoch"], last["step"]) == (0, FORENSICS_HANG_STEP)
+          and "_hang" in rank0["stack"]["stuck_frame"],
+          f"the bundle: ring ends at {last}, stuck frame {rank0['stack']['stuck_frame']}")
+    wedge = next((ln for ln in proc.stderr.splitlines() if "wedged" in ln), "")
+    print(f"[forensics] drill: {' '.join(FORENSICS_SHAPE)} wedged by hang@epoch=0:step="
+          f"{FORENSICS_HANG_STEP}, "
+          f"--watchdog_timeout {timeout} s: rc 0 in {took:.1f} s; {wedge.strip()}")
+    print(f"[forensics] drill: detection {timings['detect_s']} s (the last beat landed -> the "
+          f"wedge line; last beat {timings['last_beat'].get('phase')} step "
+          f"{timings['last_beat'].get('step')}), dump wait {timings['dump_wait_s']} s (SIGUSR1 "
+          f"-> the dump settled), SIGTERM -> exit {timings['sigterm_to_exit_s']} s")
+    print(f"[forensics] drill: bundle verdict {rank0['verdict']}, stuck frame "
+          f"{rank0['stack']['stuck_frame']}, ring ends at epoch {last['epoch']} step "
+          f"{last['step']}")
+
+
+def phase_forensics(work: str) -> dict:
+    """Phase 8: the training forensics chain on the card (module docstring).
+    Returns the fused SGD launches of the healthy child."""
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "forensics")
+    os.makedirs(d)
+    launches, longest = _healthy_round(root, d)
+    _wedge_drill(root, d, longest)
+    print(f"[forensics] phase: {time.perf_counter() - t0:.1f} s; card: {_smi_line()}")
+    return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2425,11 +2606,12 @@ def _phases(work: str) -> int:
     })
     resnet_launches, resnet_sgd = phase_train_resnet()
     replicas = phase_supervised(work)
+    forensics = phase_forensics(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name] + replicas[name]
-                for name in KERNELS}
+                + forensics[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there)
         measured[name]["launches_tensor_core"] = trained_mma[name]
     print(_smi_line())

@@ -114,12 +114,15 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # async_ckpt, auto_recover, log_file, per_host_log) are ported and run in
 # tests/test_torch_resume.py::test_the_checkpoint_and_history_flags_work_through_fit;
 # fused_epoch is ported and runs in tests/test_torch_fused_trainer.py;
-# crash_dir is ported and runs in tests/test_torch_trainer_forensics.py.
+# crash_dir is ported and runs in tests/test_torch_trainer_forensics.py;
+# fault_plan runs in tests/test_torch_faults.py, and heartbeat_file,
+# metrics_file, metrics_port and alert_rules in
+# tests/test_torch_trainer_telemetry.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
     ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
-    ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"), ("fault_plan", "x", "Queue A 6"),
+    ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
     ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
     ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
     ("optimizer", "adamw", "Queue A 6"), ("grad_compression", "bf16", "Queue A 6"),
@@ -129,9 +132,7 @@ UNPORTED_CASES = (
     ("quant_chunk", 64, "Queue A 6"), ("rs_ag_chunks", 2, "Queue A 6"),
     ("device_metrics", True, "Queue A 6"), ("pp_microbatches", 4, "Queue A 6"),
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
-    ("trace_file", "trace.json", "Queue A 6"), ("heartbeat_file", "hb.json", "Queue A 6"),
-    ("metrics_file", "m.prom", "Queue A 6"), ("metrics_port", 9100, "Queue A 6"),
-    ("alert_rules", "rules.json", "Queue A 6"),
+    ("trace_file", "trace.json", "Queue A 6"),
     ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),

@@ -11,6 +11,9 @@ meta and a CRC32 per entry. So a checkpoint written by either package
 restores in the other. A file is published atomically (write to
 ``.tmp``, then ``os.replace``), retried on a transient ``OSError``
 (:func:`set_io_retries`), and only rank 0 writes; every rank can read.
+The ``--fault_plan`` hooks (:mod:`tpu_dist_torch.resilience.faults`) sit
+where the JAX writer has them: at the top of each write attempt, inside
+the retry ladder, and after the publish.
 
 Where the JAX writer may hold references to immutable arrays, the port's
 parameters and momentum are updated in place by the next step, so the
@@ -38,6 +41,7 @@ from tpu_dist_torch.comm import mesh
 from tpu_dist_torch.elastic.errors import ConfigMismatchError, ElasticShapeMismatch
 from tpu_dist_torch.elastic.remap import classify
 from tpu_dist_torch.obs import counters, spans
+from tpu_dist_torch.resilience import faults
 from tpu_dist_torch.resilience import retry as retry_lib
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
@@ -99,6 +103,7 @@ def _write_npz(ckpt_dir: str, name: str, flat: dict, meta: dict,
     tmp = path + ".tmp"
 
     def attempt() -> None:
+        faults.on_ckpt_write()  # a no-op unless a --fault_plan clause is armed
         with open(tmp, "wb") as f:  # every caller holds the rank-0 guard
             np.savez(f, **flat)
         os.replace(tmp, path)  # atomic: a checkpoint is absent or complete
@@ -110,6 +115,7 @@ def _write_npz(ckpt_dir: str, name: str, flat: dict, meta: dict,
         counters.inc("ckpt.bytes_written", os.path.getsize(path))
     except OSError:  # telemetry only: a racing prune must not fail the publish
         pass
+    faults.on_ckpt_published(path)  # the --fault_plan ckpt_corrupt hook (a no-op off)
     if keep_last is not None and keep_last > 0:
         with spans.span("ckpt/prune", keep_last=keep_last):
             sweep_stale_tmp(ckpt_dir)

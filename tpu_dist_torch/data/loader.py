@@ -14,7 +14,10 @@
   ``non_blocking=True``.
 * A consumer watchdog: a producer thread that died without finishing the
   epoch raises :class:`LoaderProducerDiedError` within one
-  ``watchdog_timeout`` tick instead of blocking forever.
+  ``watchdog_timeout`` tick instead of blocking forever. The
+  ``loader_stall`` clause of ``--fault_plan``
+  (:func:`tpu_dist_torch.resilience.faults.on_loader_batch`) kills the
+  producer before a given batch, as the JAX loader's does.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.obs import counters, spans
+from tpu_dist_torch.resilience import faults
 
 
 class LoaderProducerDiedError(RuntimeError):
@@ -122,10 +126,16 @@ class DataLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         err = []
         stop = threading.Event()
+        killed = []  # --fault_plan loader_stall: the producer died, no sentinel
 
         def producer():
             try:
                 for b, hb in enumerate(self._host_batches(start_batch), start=start_batch):
+                    if faults.on_loader_batch(b, self.sampler.epoch) == "die":
+                        # a producer killed mid-epoch: it exits without the
+                        # sentinel, and the consumer's watchdog must notice
+                        killed.append(b)
+                        return
                     with spans.span("loader/produce", batch=b):
                         batch = self._to_host_tensors(hb)
                     counters.inc("loader.batches_produced")
@@ -142,7 +152,7 @@ class DataLoader:
             except Exception as e:  # surfaced on the consumer side
                 err.append(e)
             finally:
-                if not stop.is_set():
+                if not stop.is_set() and not killed:
                     q.put(None)
 
         t = threading.Thread(target=producer, daemon=True)

@@ -54,6 +54,24 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   ``oom.json``, which ``python -m tpu_dist_torch.obs postmortem`` reads
   as the ``oom`` verdict. The memory ledger snapshot beside the report
   is empty: the ledger is not ported.
+* ``heartbeat_file``, ``metrics_file``, ``metrics_port`` and
+  ``alert_rules``, the live telemetry the launcher's watchdog reads
+  (``tpu_dist/train/trainer.py:2802-2860``): every rank beats its own
+  ``per_rank_path`` file (``start``, then each step, throttled to 1 s;
+  once an epoch on the fused path; ``preempted`` before the emergency
+  snapshot; the file swept on a clean exit); an exporter publishes the
+  counter registry and the epoch rollup as a per-rank OpenMetrics
+  textfile and, on rank 0, over HTTP; the alert rules run at the epoch
+  grain and at each metrics fetch, and a fired rule writes a warning, an
+  ``alert`` history and ring record, and its ``alert_active`` gauge. The
+  JAX exposition's goodput, MFU, memory and compile gauges belong to
+  subsystems the port does not have yet.
+* ``fault_plan`` (and ``$TPU_DIST_FAULT_PLAN``) installs
+  :mod:`tpu_dist_torch.resilience.faults` at construction. Its step hook
+  runs once a completed step, beside the flight ring's; ``nan_loss``
+  raises :class:`TrainingDivergedError`, and a ``sigterm`` clause stops
+  every rank at the step where it fired, as in the JAX trainer. The
+  fused path refuses the step-grain sites.
 
 ``fused_epoch`` runs each epoch through :mod:`tpu_dist_torch.train.epoch`:
 the dataset on the device, one step captured in a CUDA graph and replayed
@@ -96,10 +114,13 @@ from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
+from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import counters, spans
 from tpu_dist_torch.obs import flight as flight_lib
 from tpu_dist_torch.obs import memory as memory_lib
-from tpu_dist_torch.resilience import preemption
+from tpu_dist_torch.obs.export import MetricsExporter
+from tpu_dist_torch.obs.heartbeat import Heartbeat
+from tpu_dist_torch.resilience import faults, preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train.optim import SGD, cosine_lr, linear_scaled_lr, multistep_lr
@@ -138,19 +159,14 @@ UNPORTED = {
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
     "trace_file": (None, _TELEMETRY),
-    "heartbeat_file": (None, _TELEMETRY),
     "straggler_threshold": (0.0, _TELEMETRY),
     "anomaly_action": ("off", _TELEMETRY),
-    "metrics_file": (None, _TELEMETRY),
-    "metrics_port": (0, _TELEMETRY),
-    "alert_rules": (None, _TELEMETRY),
     "memory_check": ("off", _TELEMETRY),
     "hbm_budget_bytes": (None, _TELEMETRY),
     "profile_dir": (None, _TELEMETRY),
     "profile_trigger": ("off", _TELEMETRY),
     "profile_steps": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
-    "fault_plan": (None, "Queue A 6 (resilience, resilience/faults.py)"),
     "auto_shard": ("off", _ANALYSIS),
     "tune_report": ("", _ANALYSIS),
     "compile_cache_dir": (None, 'Queue A "No port owed" (the port compiles no XLA '
@@ -214,6 +230,36 @@ def refuse_fused_options(cfg: TrainConfig) -> None:
                              "drop the option or --fused_epoch")
 
 
+def install_fault_plan(cfg: TrainConfig) -> Optional[faults.FaultPlan]:
+    """Install ``cfg.fault_plan`` (else ``$TPU_DIST_FAULT_PLAN``; with
+    neither, clear a plan installed before) and return it. With
+    ``fused_epoch`` its step- and batch-grain sites raise ``ValueError``:
+    the epoch is one replayed graph with no step boundary and no streaming
+    loader, so they would never fire (``tpu_dist/train/trainer.py:181-197``).
+    A malformed spec raises :class:`~tpu_dist_torch.resilience.faults.FaultPlanError`."""
+    plan = faults.configure(cfg.fault_plan)
+    if plan is not None and cfg.fused_epoch:
+        stepwise = sorted({c.site for c in plan.clauses} & faults.STEPWISE_SITES)
+        if stepwise:
+            raise ValueError(
+                f"--fault_plan sites {stepwise} act at the step/batch grain, which "
+                "--fused_epoch does not have (the epoch is one replayed CUDA graph and the "
+                "streaming loader is bypassed): they would never fire. Use ckpt_write/"
+                "ckpt_corrupt clauses, or drop --fused_epoch for chaos runs")
+    return plan
+
+
+def load_live_telemetry(cfg: TrainConfig) -> Optional[list]:
+    """Check ``metrics_port`` and parse ``alert_rules`` before any model or
+    data work (``tpu_dist/train/trainer.py:249-259``); returns the rules,
+    or None."""
+    if cfg.metrics_port < 0 or cfg.metrics_port > 65535:
+        raise ValueError(f"metrics_port must be 0 (off) or a valid TCP port, got "
+                         f"{cfg.metrics_port}")
+    # raises on a malformed spec, an unknown builtin or duplicate names
+    return alerts_lib.load_rules(cfg.alert_rules) if cfg.alert_rules else None
+
+
 def _load_data(cfg: TrainConfig, world: int):
     if cfg.dataset == "synthetic":
         return (synthetic.synthetic_cifar(cfg.synthetic_n, cfg.num_classes, seed=1),
@@ -259,6 +305,8 @@ class Trainer:
         self.cfg = cfg
         refuse_unported(cfg)
         refuse_fused_options(cfg)
+        install_fault_plan(cfg)
+        self._alert_rule_list = load_live_telemetry(cfg)
         # a run is one Trainer's lifetime: its counters start at 0
         counters.reset()
         self.device, self._owns_group = mesh.initialize_distributed(
@@ -380,6 +428,14 @@ class Trainer:
         self._progress = (-1, 0, True)
         self._in_step = False
         self._flight = None  # the rank's flight recorder, armed by fit (crash_dir)
+        # the live telemetry of fit: heartbeat_file, metrics_file/_port and
+        # alert_rules (made by _arm_live, released by _close_live)
+        self._heartbeat = None
+        self._exporter = None
+        self._alerts = None
+        self._history = None  # fit's history, for the alert records
+        self._export_rollup: dict = {}
+        self._export_t = float("-inf")
         self._resumed = None  # the restore's 'resume' ring record, stamped by fit
         if cfg.resume and cfg.ckpt_dir:
             epoch = self._restore_latest()
@@ -745,10 +801,16 @@ class Trainer:
                 images_seen += cfg.batch_size
                 steps_run += 1
                 timer.tick()
+                if self._heartbeat is not None:
+                    self._heartbeat.beat(epoch=epoch, step=step)  # throttled to 1 s
                 if self._flight is not None:
                     # one pwrite a step: a killed rank's ring ends at its
                     # last completed step
                     self._flight.step(epoch, step)
+                if self._exporter is not None:
+                    self._export_live()  # the heartbeat's throttle: a clock read
+                acts = (self._apply_step_faults(epoch, step, lr)
+                        if faults.active() is not None else frozenset())
                 want_save = bool(cfg.mid_epoch_save_every and cfg.ckpt_dir
                                  and (step + 1) % cfg.mid_epoch_save_every == 0)
                 want_log = step % cfg.log_every == 0
@@ -756,6 +818,10 @@ class Trainer:
                     t_f = time.perf_counter()
                     m = {k: v.item() for k, v in metrics.items()}
                     phase["fetch"] += time.perf_counter() - t_f
+                    if self._alerts is not None:  # the step-fetch grain rules
+                        fired = self._alerts.observe(m)
+                        if fired:
+                            self._fire_alerts(fired, epoch, step)
                     # a periodic exact snapshot never publishes a diverged state
                     self._guard(m["loss"], f"at epoch {epoch} step {step}", lr)
                 if want_save:
@@ -767,7 +833,11 @@ class Trainer:
                     rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] step:[{step}/{nb}] "
                                 f"lr={lr:.5f} loss={m['loss']:.4f} "
                                 f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}")
-                if self._stop_agreed(votes):
+                # The vote in this step's metrics was cast before a sigterm@
+                # clause fired after the step. Every rank runs the same plan,
+                # so all fired here: one more all-reduce of the flags stops
+                # them at this boundary, where the JAX trainer stops.
+                if self._stop_agreed(None if faults.SIGTERM in acts else votes):
                     raise PreemptedError(f"SIGTERM observed at epoch {epoch} after step {step} "
                                          "— shutting down at the step boundary")
         finally:
@@ -817,6 +887,8 @@ class Trainer:
         steps = len(self._fused_data[0]) // self.local_batch
         counters.inc("train.epochs")
         counters.inc("train.steps", steps)
+        if self._heartbeat is not None:
+            self._heartbeat.beat(epoch=epoch, phase="fused_epoch", force=True)
         if self._flight is not None:
             self._flight.step(epoch, None)  # the fused path's only grain
         self._guard(m["loss"], f"in fused epoch {epoch}", lr)
@@ -868,6 +940,8 @@ class Trainer:
         self._best_top1 = -1.0
         attempts = cfg.auto_recover
         fault_handle = self._arm_flight() if cfg.crash_dir else None
+        self._history = history
+        self._arm_live()
         sig_token = preemption.install()
         preemption.clear()
         try:
@@ -875,6 +949,8 @@ class Trainer:
                 try:
                     result = self._fit_loop(epochs, history)
                     self._ckpt_close()  # the success path: writer errors raise
+                    if self._heartbeat is not None:
+                        self._heartbeat.sweep()  # a clean exit: the beat's absence says so
                     return result
                 except TrainingDivergedError as e:
                     # until the restore lands, the live state is poisoned
@@ -892,15 +968,130 @@ class Trainer:
             # PreemptedError to exit 75
             if isinstance(e, PreemptedError):
                 counters.inc("preemption.observed")
+            if self._heartbeat is not None:
+                # the last beat marks the position and stays on disk: with
+                # the exit code it tells a watchdog the run was preempted
+                self._heartbeat.beat(epoch=self._last_epoch, phase="preempted", force=True)
             self._emergency_save()
             raise
         finally:
             preemption.restore(sig_token)
             self._ckpt_close(suppress=True)
+            self._close_live()
             self._oom_forensics(history)
+            self._history = None
             history.close()
             if self._flight is not None:
                 self._close_flight(fault_handle)
+
+    def _arm_live(self) -> None:
+        """The live telemetry of this ``fit`` (``tpu_dist/train/trainer.py:
+        2802-2860``): every rank's heartbeat (``per_rank_path``, the scheme
+        the launcher's watchdog reads) with its ``start`` beat; an exporter
+        of the counter registry and the epoch rollup, as a per-rank
+        textfile and a rank-0-only HTTP endpoint (a rank >= 1 with only
+        ``metrics_port`` has nowhere to export and gets none); and the
+        alert engine, fresh each ``fit``, its delta rules seeded with the
+        counters now. All on the host: the captured graph is unchanged."""
+        cfg, rank = self.cfg, mesh.process_index()
+        if cfg.heartbeat_file:
+            self._heartbeat = Heartbeat(per_rank_path(cfg.heartbeat_file, rank))
+            self._heartbeat.beat(epoch=self.start_epoch, phase="start", force=True)
+        self._export_rollup = {}
+        self._export_t = float("-inf")
+        textfile = per_rank_path(cfg.metrics_file, rank) if cfg.metrics_file else None
+        port = (cfg.metrics_port or None) if rank == 0 else None
+        if textfile or port:
+            self._exporter = MetricsExporter(textfile=textfile, port=port, rank=rank)
+        if self._alert_rule_list:
+            self._alerts = alerts_lib.AlertEngine(self._alert_rule_list)
+            # a delta rule fires on the change since fit began
+            self._alerts.seed_deltas(counters.snapshot())
+
+    def _close_live(self) -> None:
+        """One last forced exposition (the textfile stays: it says how the
+        run ended), then the HTTP thread stopped; the heartbeat's file is
+        swept only on a clean exit, by ``fit``."""
+        if self._exporter is not None:
+            try:
+                self._export_live(force=True)
+            finally:
+                self._exporter.close()
+                self._exporter = None
+        self._alerts = None
+        self._heartbeat = None
+
+    def _export_live(self, force: bool = False) -> None:
+        """Publish one exposition: the counter registry, the epoch rollup,
+        the heartbeat's age and the ``alert_active`` gauge of each rule.
+        Throttled here to the exporter's ``min_interval``, so a step inside
+        the window costs one clock read."""
+        now = time.monotonic()
+        if not force and now - self._export_t < self._exporter.min_interval:
+            return
+        self._export_t = now
+        values = dict(counters.snapshot())
+        values.update(self._export_rollup)
+        if self._heartbeat is not None:
+            age = self._heartbeat.age()
+            if age != float("inf"):
+                values["heartbeat.age_s"] = round(age, 3)
+        labeled = {"alert_active": self._alerts.active()} if self._alerts is not None else None
+        self._exporter.update(values, labeled, force=True)
+
+    def _epoch_live_update(self, epoch: int, last: dict) -> None:
+        """The end of an epoch for the live layer: the exporter's rollup,
+        the epoch-grain alert rules over the epoch's numbers and the
+        counters, and a forced exposition."""
+        rollup = self._export_rollup
+        rollup["train.epoch"] = epoch
+        for key in ("images_per_sec", "loss", "data_stall_frac", "epoch_time"):
+            if isinstance(last.get(key), (int, float)):
+                rollup[f"train.{key}"] = last[key]
+        for key in ("step_time_p50", "step_time_p95", "step_time_p99"):
+            if isinstance(last.get(key), (int, float)):
+                rollup[f"train.{key}_s"] = last[key]
+        if isinstance(last.get("val_top1"), (int, float)):
+            rollup["eval.top1"] = last["val_top1"]
+        if self._alerts is not None:
+            window = {k: v for k, v in last.items() if isinstance(v, (int, float))}
+            window.update(counters.snapshot())
+            fired = self._alerts.observe(window)
+            if fired:
+                self._fire_alerts(fired, epoch, None)
+        if self._exporter is not None:
+            self._export_live(force=True)
+
+    def _fire_alerts(self, fired: list, epoch: int, step) -> None:
+        """For each fired rule: the ``alerts.fired`` counter, a rank-0
+        warning, an ``alert`` ring record and history record; then a forced
+        exposition, whose ``alert_active`` gauge of the rule reads 1."""
+        for a in fired:
+            counters.inc("alerts.fired")
+            rank0_print(f"WARNING: ALERT {a['rule']}: {a['metric']} = {a['value']} {a['op']} "
+                        f"threshold {a['threshold']} (sustained {a['sustained']} window(s))")
+            where = {"epoch": epoch, **({"step": step} if step is not None else {})}
+            if self._flight is not None:
+                self._flight.record("alert", rule=a["rule"], **where)
+            if self._history is not None:
+                self._history.log("alert", **where, **a)
+        if self._exporter is not None:
+            self._export_live(force=True)
+
+    def _apply_step_faults(self, epoch: int, step: int, lr: float) -> frozenset:
+        """The ``--fault_plan`` actions of a completed step; returns them.
+        A ``sigterm`` clause has sent the real signal inside ``on_step``;
+        ``nan_loss`` raises the NaN guard's error, so ``auto_recover``
+        runs as for a real divergence."""
+        acts = faults.on_step(epoch, step, rank=mesh.process_index())
+        if faults.NAN_LOSS in acts:
+            if self.cfg.nan_guard:
+                raise TrainingDivergedError(
+                    f"non-finite loss nan at epoch {epoch} step {step} (lr={lr}) "
+                    "[fault-injected]; restore from ckpt_dir to recover")
+            rank0_print(f"[faults] nan_loss injected at epoch {epoch} step {step} but "
+                        "--no_nan_guard is set — ignored")
+        return acts
 
     def _arm_flight(self):
         """The rank's flight ring (excepthooks, the span-open tap, the
@@ -988,6 +1179,8 @@ class Trainer:
                                  or cfg.mid_epoch_save_every > 0):
                 self._ckpt_io().save(cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
                                      extra_meta=self._ckpt_meta())
+            if self._exporter is not None or self._alerts is not None:
+                self._epoch_live_update(epoch, last)
             if self._stop_agreed():
                 # SIGTERM during the eval or the save: the epoch is complete
                 raise PreemptedError(f"SIGTERM observed after epoch {epoch} completed — "
