@@ -186,7 +186,9 @@ Phases; any failure exits non-zero and prints no result line:
    exit; the metrics textfile must parse (``export.parse``) with 21 beats
    and 20 steps; one HTTP scrape of the rank-0 endpoint must answer during
    the run. ``[forensics]`` lines: the seconds of the round and the longest
-   gap between two beats the watchdog sees, spawn counted as the first.
+   gap between two beats the watchdog sees, spawn counted as the first and
+   the launcher's exit as the last (the last beat -> exit gap holds the
+   epoch-end eval, printed apart).
    (b) The wedge: ``python -m tpu_dist_torch.obs.drill --device cuda`` at
    the same shapes with ``hang@epoch=0:step=5`` and a watchdog timeout of
    (a)'s longest gap plus the larger of 5 s and half of it. It must exit 0
@@ -416,8 +418,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5, head_start: bool = True):
     inputs stay L2-warm, as they are when the model produces them just
     before). With the head start (every kernel and library call) the device
     sleeps until the host has queued all ``iters`` calls, so the events read
-    device time only, and a host that did not finish in time fails the
-    run. Without it (the plain versions: their hundreds of eager launches a
+    device time only; a late host's reading is taken again, and a host late
+    in three readings fails the run. Without it (the plain versions: their hundreds of eager launches a
     call would fill the launch queue behind the sleep) the events read the
     period of back-to-back calls, the host's pace where that is slower."""
     return timing.device_ms(fn, iters, warmup, head_start)
@@ -2421,8 +2423,9 @@ def _resnet_fused_cli() -> None:
 # -- phase 8: the training forensics chain -------------------------------------
 
 # bench.py:240's resnet18_cifar100 shapes through the real entry points
-FORENSICS_SHAPE = ["--model", "resnet18", "--num_classes", "100", "--batch_size", "256"]
-FORENSICS_FLAGS = ["--bf16", "--fused_optimizer"]
+# the drill's own flags, then the trainer's flags (after the drill's ``--``)
+FORENSICS_SHAPE = ["--model", "resnet18", "--batch_size", "256"]
+FORENSICS_FLAGS = ["--num_classes", "100", "--bf16", "--fused_optimizer"]
 FORENSICS_STEPS = 20
 FORENSICS_HANG_STEP = 5
 # the healthy child: the trainer's CLI, then its fused SGD launch count
@@ -2438,9 +2441,10 @@ FORENSICS_CHILD = (
 
 def _watch_healthy(proc, hb: str, port: int) -> tuple:
     """While the launcher runs: every distinct beat of ``hb`` as ``(pid,
-    counter, mono_s, phase, step)``, and one HTTP scrape of the rank-0
+    counter, mono_s, phase, step)``, one HTTP scrape of the rank-0
     endpoint that returns samples (the trainer publishes after its first
-    step), parsed, or None."""
+    step), parsed, or None, and the clock when the launcher was seen to
+    exit."""
     from tpu_dist_torch.obs import heartbeat as heartbeat_lib  # noqa: PLC0415
 
     beats, scraped = [], None
@@ -2455,21 +2459,24 @@ def _watch_healthy(proc, hb: str, port: int) -> tuple:
             except OSError:  # not listening yet, or already closed
                 pass
         time.sleep(0.02)
-    return beats, scraped
+    return beats, scraped, time.monotonic()
 
 
 def _healthy_round(root, d: str) -> tuple:
     """(a): the launcher with every forensic flag over a healthy ResNet-18
     trainer. Returns its fused SGD launches and the longest gap between two
-    beats the watchdog saw (spawn counts as the first)."""
+    beats the watchdog saw, spawn counting as the first and the launcher's
+    exit as the last (the last step's beat to the exit holds the epoch-end
+    eval, the gap a run of more epochs has before its next beat)."""
     hb_dir, metrics_dir, crash = (os.path.join(d, k) for k in ("hb", "metrics", "crash"))
     port = _free_port()
     cmd = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1",
            "--heartbeat_dir", hb_dir, "--metrics_dir", metrics_dir, "--crash_dir", crash,
            "--watchdog_timeout", "120", "--watchdog_dump_grace", "5", "--watchdog_grace", "5",
            "--", sys.executable, "-c", FORENSICS_CHILD, "--dataset", "synthetic",
-           *FORENSICS_SHAPE, *FORENSICS_FLAGS, "--device", DEVICE, "--epochs", "1", "--steps_per_epoch", str(FORENSICS_STEPS),
-           "--log_every", "10", "--metrics_port", str(port)]
+           *FORENSICS_SHAPE, *FORENSICS_FLAGS, "--device", DEVICE, "--epochs", "1",
+           "--steps_per_epoch", str(FORENSICS_STEPS), "--log_every", "10",
+           "--metrics_port", str(port)]
     t_spawn = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=root, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
@@ -2479,7 +2486,7 @@ def _healthy_round(root, d: str) -> tuple:
     guard = threading.Timer(300, proc.kill)
     guard.start()
     try:
-        beats, scraped = _watch_healthy(proc, os.path.join(hb_dir, "hb.json"), port)
+        beats, scraped, t_exit = _watch_healthy(proc, os.path.join(hb_dir, "hb.json"), port)
     finally:
         guard.cancel()
         if proc.poll() is None:
@@ -2509,8 +2516,8 @@ def _healthy_round(root, d: str) -> tuple:
     check(scraped is not None and "tpu_dist_loader_batches_consumed" in scraped,
           f"no HTTP scrape of the rank-0 endpoint during the run: {scraped}")
     scraped = scraped or {}
-    times = [t_spawn] + [b[2] for b in beats]
-    names = ["spawn"] + [f"{b[3]} (beat {b[1]}, step {b[4]})" for b in beats]
+    times = [t_spawn] + [b[2] for b in beats] + [t_exit]
+    names = ["spawn"] + [f"{b[3]} (beat {b[1]}, step {b[4]})" for b in beats] + ["exit"]
     gaps = [(b - a, f"{names[i]} -> {names[i + 1]}") for i, (a, b) in
             enumerate(zip(times, times[1:]))]
     longest, where = max(gaps)
@@ -2520,7 +2527,8 @@ def _healthy_round(root, d: str) -> tuple:
           f"records seen (counters {counters_seen}); last exposition "
           f"{len(expo)} samples, heartbeat_beats {expo['tpu_dist_heartbeat_beats']:g}; one "
           f"HTTP scrape with {len(scraped)} samples; fused_sgd launches {launches}")
-    print(f"[forensics] healthy: longest beat gap {longest:.3f} s ({where}); gaps "
+    print(f"[forensics] healthy: longest beat gap {longest:.3f} s ({where}); the last beat -> "
+          f"exit (the epoch-end eval and the teardown) {gaps[-1][0]:.3f} s; gaps "
           f"{[round(g, 3) for g, _ in gaps]}")
     return launches, longest
 
@@ -2551,9 +2559,8 @@ def _wedge_drill(root, d: str, longest_gap: float) -> None:
           and "_hang" in rank0["stack"]["stuck_frame"],
           f"the bundle: ring ends at {last}, stuck frame {rank0['stack']['stuck_frame']}")
     wedge = next((ln for ln in proc.stderr.splitlines() if "wedged" in ln), "")
-    print(f"[forensics] drill: {' '.join(FORENSICS_SHAPE)} wedged by hang@epoch=0:step="
-          f"{FORENSICS_HANG_STEP}, "
-          f"--watchdog_timeout {timeout} s: rc 0 in {took:.1f} s; {wedge.strip()}")
+    print(f"[forensics] drill: {' '.join(FORENSICS_SHAPE + FORENSICS_FLAGS)} wedged by "
+          f"hang@epoch=0:step={FORENSICS_HANG_STEP}, --watchdog_timeout {timeout} s: rc 0 in {took:.1f} s; {wedge.strip()}")
     print(f"[forensics] drill: detection {timings['detect_s']} s (the last beat landed -> the "
           f"wedge line; last beat {timings['last_beat'].get('phase')} step "
           f"{timings['last_beat'].get('step')}), dump wait {timings['dump_wait_s']} s (SIGUSR1 "

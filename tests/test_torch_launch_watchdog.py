@@ -208,22 +208,33 @@ def test_watchdog_timeout_needs_heartbeat_dir(capsys, which):
     assert "--watchdog_timeout needs --heartbeat_dir" in capsys.readouterr().err
 
 
+LATE_BEATS = """
+    time.sleep(1.5)
+    hb.beat(epoch=0, step=0, force=True)
+    time.sleep(2.3)
+    hb.beat(epoch=0, step=1, force=True)
+"""
+
+
+@pytest.mark.parametrize("child", ["beats_late", "never_beats"])
 @pytest.mark.parametrize("which", list(MAINS))
-def test_a_beat_left_by_another_process_is_not_the_childs(tmp_path, capsys, which):
-    # a dead process's beat (counter 1) is on disk; the child's own first beat
-    # is counter 1 too, 1.5 s in, and its second comes 2.3 s later
+def test_a_beat_left_by_another_process_is_not_the_childs(tmp_path, capsys, which, child):
+    # a dead process's beat (counter 1, epoch 0 step 9) is on disk. One child's
+    # own first beat is counter 1 too, 1.5 s in, and its second comes 2.3 s
+    # later; the other child never beats
     with open(tmp_path / "hb.json", "w") as f:
         json.dump({"counter": 1, "epoch": 0, "step": 9, "phase": "train", "pid": 1}, f)
     rc, _, err = _run(which, capsys, [
         "--nproc", "1", "--heartbeat_dir", str(tmp_path), "--watchdog_timeout", "3",
-        "--watchdog_grace", "0.5"], """
-        time.sleep(1.5)
-        hb.beat(epoch=0, step=0, force=True)
-        time.sleep(2.3)
-        hb.beat(epoch=0, step=1, force=True)
-    """)
-    if which == "port":
-        assert rc == 0 and "WATCHDOG" not in err  # the new pid's beat is an advance
+        "--watchdog_grace", "0.5"], LATE_BEATS if child == "beats_late" else "time.sleep(60)")
+    if child == "never_beats":
+        assert rc not in (0, 75) and "WATCHDOG: worker 0 wedged" in err
+        if which == "port":  # the dead process's position is not the child's
+            assert "before its first beat" in err and "step 9" not in err
+        else:  # the JAX launcher reports the dead process's beat as the child's
+            assert "epoch 0 step 9" in err
+    elif which == "port":
+        assert rc == 0 and "WATCHDOG" not in err  # the child's own beat is an advance
     else:
         # the JAX launcher sees counter 1 then 1: no advance for 3 s
         assert rc == 1 and "WATCHDOG: worker 0 wedged" in err

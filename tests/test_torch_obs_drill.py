@@ -96,3 +96,11 @@ def test_the_drill_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         drill.main(["--workdir", str(tmp_path / "d")])
     assert not (tmp_path / "d").exists()  # nothing started
+
+
+def test_a_hang_step_past_the_epoch_is_a_parser_error(tmp_path):
+    # the epoch holds --steps_per_epoch steps, 0 to 5: a hang at step 6 never fires
+    with pytest.raises(SystemExit) as info:
+        drill.main(["--device", "cpu", "--workdir", str(tmp_path / "d"), "--hang_step", "6"])
+    assert info.value.code == 2
+    assert not (tmp_path / "d").exists()  # nothing started

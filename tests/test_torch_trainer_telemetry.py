@@ -23,6 +23,8 @@ and a fused run. Held:
 
 import json
 import os
+import socket
+import sys
 import urllib.request
 
 import pytest
@@ -36,7 +38,7 @@ from tpu_dist.resilience import faults as jax_faults
 from tpu_dist.resilience import preemption as jax_preemption
 from tpu_dist.train import trainer as jax_trainer
 from tpu_dist_torch.config.config import TrainConfig
-from tpu_dist_torch.obs import alerts, export, heartbeat
+from tpu_dist_torch.obs import alerts, export, flight, heartbeat, spans
 from tpu_dist_torch.resilience import faults, preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train import trainer
@@ -291,6 +293,31 @@ def test_rank_0_answers_a_scrape_during_the_run(tmp_path):
     assert len(scraped) == 1 and scraped[0]["tpu_dist_loader_batches_consumed"] >= 1
     with pytest.raises(OSError):  # the endpoint stops with the run
         urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2)
+
+
+def test_a_metrics_port_in_use_fails_fit_and_releases_what_it_armed(tmp_path):
+    # the exporter cannot bind, after the flight ring and the start beat are
+    # armed: fit raises, and the ring's hooks, its terminal record, the
+    # faulthandler and the history are released all the same
+    crash, log = tmp_path / "crash", tmp_path / "run.jsonl"
+    with socket.socket() as busy:
+        busy.bind(("", 0))
+        busy.listen(1)
+        t = trainer.Trainer(TrainConfig(
+            model="narrow_resnet", device="cpu", port=free_port(), **{**RUN, "eval_every": 0},
+            metrics_port=busy.getsockname()[1], crash_dir=str(crash), log_file=str(log),
+            heartbeat_file=str(tmp_path / "hb.json")))
+        hook = sys.excepthook  # the process group's, set up by the trainer
+        try:
+            with pytest.raises(OSError):
+                t.fit()
+        finally:
+            t.close()
+    assert sys.excepthook is hook and spans._OPEN_LISTENER is None
+    assert t._flight is None and t._exporter is None and t._history is None
+    ring = flight.decode(str(crash / flight.RING_NAME))["records"]
+    assert [r["kind"] for r in ring[-2:]] == ["fatal", "exit"] and ring[-1]["clean"] is False
+    assert heartbeat.read(str(tmp_path / "hb.json"))["phase"] == "start"  # a crash keeps it
 
 
 def _two_rank_telemetry(rank, world, root, metrics_port):

@@ -45,11 +45,12 @@ Watchdog contract (``tpu_dist/cli/launch.py:31-73``):
   design.
 
 Size the timeout above the longest gap between two beats of a healthy
-run, which is start-up to the first step (CUDA and cuDNN set-up). Beside
+run: start-up to the first step (CUDA and cuDNN set-up), or an epoch's
+last step to the next beat (the epoch-end eval and checkpoint). Beside
 the JAX launcher's lines, the port's says when a wedged worker's process
-ended and how long after the SIGTERM. A beat counts as new when its
-counter or its ``pid`` changed, so a beat left on disk by an earlier
-process never passes for this child's.
+ended and how long after the SIGTERM. Only a beat that carries the
+child's own ``pid`` counts, so a beat left on disk by an earlier process
+never passes for this child's: until the child beats, it has not beaten.
 
 ``--devices_per_proc`` other than 1 and the elastic supervisor's options
 are not ported: each raises ``NotPortedError`` naming its ROADMAP item.
@@ -272,7 +273,9 @@ class _Watchdog:
             self._terminate(pr, rank, t)
             return False
         rec = heartbeat_lib.read(heartbeat_lib.per_rank_path(self.hb_base, rank))
-        beat = (rec.get("pid"), rec.get("counter")) if rec else None
+        if rec is not None and rec.get("pid") != pr.pid:
+            rec = None  # another process's beat (a dead run's) is no beat of this child
+        beat = rec.get("counter") if rec else None
         last_beat, last_adv = self.seen[rank]
         if beat != last_beat:
             self.seen[rank] = (beat, t)

@@ -27,10 +27,10 @@ reports the worker's end). They are printed as one JSON object on a
 It runs on the card by default and raises without one; ``--device cpu``
 runs the trainer on the CPU. ``--model`` picks the model (``vit_tiny``,
 as the JAX drill; ``resnet18`` at full width on the card), and anything
-after ``--`` is passed on to the trainer (``--bf16 --fused_optimizer``)::
+after ``--`` is passed on to the trainer (``--num_classes 100 --bf16``)::
 
     python -m tpu_dist_torch.obs.drill --workdir D [--device cpu] \\
-        [--model resnet18 --num_classes 100 --batch_size 256] [-- --bf16]
+        [--model resnet18 --batch_size 256] [-- --num_classes 100 --bf16]
 """
 
 from __future__ import annotations
@@ -127,12 +127,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--workdir", required=True, help="scratch directory")
     p.add_argument("--device", default="cuda", help="the trainer's device (default cuda)")
     p.add_argument("--model", default="vit_tiny")
-    p.add_argument("--num_classes", type=int, default=10)
     p.add_argument("--steps_per_epoch", type=int, default=6)
     p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--synthetic_n", type=int, default=None,
-                   help="synthetic training images (default --steps_per_epoch x --batch_size, "
-                        "so the epoch holds every step it asks for)")
     p.add_argument("--hang_epoch", type=int, default=0)
     p.add_argument("--hang_step", type=int, default=3)
     p.add_argument("--watchdog_timeout", type=float, default=10.0,
@@ -145,8 +141,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("train_args", nargs=argparse.REMAINDER,
                    help="-- more flags for the trainer")
     args = p.parse_args(argv)
-    synthetic_n = args.synthetic_n or args.steps_per_epoch * args.batch_size
-    if args.hang_step >= min(args.steps_per_epoch, synthetic_n // args.batch_size):
+    if args.hang_step >= args.steps_per_epoch:
         p.error(f"--hang_step {args.hang_step} is past the epoch's last step")
     resolve_device(args.device)  # no GPU and no --device cpu: raise here
     extra = list(args.train_args)
@@ -167,9 +162,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "--",
         sys.executable, "-m", "tpu_dist_torch.cli.train", "--device", args.device,
         "--dataset", "synthetic", "--model", args.model,
-        "--num_classes", str(args.num_classes), "--batch_size", str(args.batch_size),
+        "--num_classes", "10", "--batch_size", str(args.batch_size),
         "--epochs", "2", "--steps_per_epoch", str(args.steps_per_epoch),
-        "--synthetic_n", str(synthetic_n), "--seed", "0", "--eval_every", "0",
+        # the epoch holds every step it asks for, the hang step among them
+        "--synthetic_n", str(args.steps_per_epoch * args.batch_size),
+        "--seed", "0", "--eval_every", "0",
         "--log_every", "2", "--log_file", log, "--fault_plan", fault, *extra,
     ]
     _say(f"wedging a real {args.model} run on {args.device} with {fault!r} under the "

@@ -48,45 +48,51 @@ def cycles_per_ms() -> float:
     return cycles / start.elapsed_time(end)
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5, head_start: bool = True):
+def device_ms(fn, iters: int = 50, warmup: int = 5, head_start: bool = True,
+              attempts: int = 3):
     """``(device ms a call, host us a call)`` of ``fn`` over ``iters`` calls
     after ``warmup``; inputs stay L2-warm, as when the model produces them
     just before.
 
     With ``head_start`` the device sleeps first for twice the measured
-    enqueue time of the ``iters`` calls plus 1 ms, and the call raises
-    :class:`HeadStartError` if the host's clock or the start event shows
-    that the device reached the first call before the host had queued the
-    last. Without it (for a function of thousands of launches, which would
-    fill the launch queue while the device sleeps), the events read the
-    period of back-to-back calls: the host's pace where that is slower."""
-    enqueue_us = host_us(fn, iters, warmup)
+    enqueue time of the ``iters`` calls plus 1 ms. If the host's clock or
+    the start event shows that the device reached the first call before
+    the host had queued the last (a stall of the host), that reading is
+    thrown away and taken again, the enqueue time measured anew, up to
+    ``attempts`` readings; the last late one raises
+    :class:`HeadStartError`. Without it (for a function of thousands of
+    launches, which would fill the launch queue while the device sleeps),
+    the events read the period of back-to-back calls: the host's pace where
+    that is slower."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if not head_start:
+        enqueue_us = host_us(fn, iters, warmup)
         start.record()
         for _ in range(iters):
             fn()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters, enqueue_us
-    sleep_ms = 2 * enqueue_us * iters / 1e3 + 1.0
-    cycles = int(sleep_ms * cycles_per_ms())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    torch.cuda._sleep(cycles)
-    start.record()
-    for _ in range(iters):
-        fn()
-    queued_ms = (time.perf_counter() - t0) * 1e3
-    reached = start.query()  # the sleep is over: the device may have begun
-    end.record()
-    end.synchronize()
-    if reached or queued_ms >= sleep_ms:
-        raise HeadStartError(
-            f"the host took {queued_ms:.3f} ms to enqueue {iters} calls behind a "
-            f"{sleep_ms:.3f} ms head start (the device had "
-            f"{'reached' if reached else 'not reached'} the first call)")
-    return start.elapsed_time(end) / iters, enqueue_us
+    for attempt in range(attempts):
+        enqueue_us = host_us(fn, iters, warmup)
+        sleep_ms = 2 * enqueue_us * iters / 1e3 + 1.0
+        cycles = int(sleep_ms * cycles_per_ms())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        reached = start.query()  # the sleep is over: the device may have begun
+        end.record()
+        end.synchronize()
+        if not (reached or queued_ms >= sleep_ms):
+            return start.elapsed_time(end) / iters, enqueue_us
+    raise HeadStartError(
+        f"the host took {queued_ms:.3f} ms to enqueue {iters} calls behind a "
+        f"{sleep_ms:.3f} ms head start in the last of {attempts} readings (the device had "
+        f"{'reached' if reached else 'not reached'} the first call)")
 
 
 def profile_device(fn, iters: int = 10) -> dict:

@@ -941,10 +941,10 @@ class Trainer:
         attempts = cfg.auto_recover
         fault_handle = self._arm_flight() if cfg.crash_dir else None
         self._history = history
-        self._arm_live()
         sig_token = preemption.install()
         preemption.clear()
         try:
+            self._arm_live()  # a port it cannot bind raises into the finally below
             while True:
                 try:
                     result = self._fit_loop(epochs, history)
