@@ -8,7 +8,8 @@ Run from the root of a checkout, with one CUDA card visible::
 Phases; any failure exits non-zero and prints no result line:
 
 1. build: compile every CUDA source under ``tpu_dist_torch/csrc/`` with
-   ``nvcc`` (one process per source, all started together) into
+   ``nvcc``, and the input pipeline's ``pipeline.cpp`` with the host
+   compiler (one process per source, all started together), into
    ``tpu_dist_torch/csrc/build/``; print each kernel instance's registers
    and spills (``-Xptxas -v``, on a fresh build) and its tensor-core
    instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass`` of the library,
@@ -68,7 +69,7 @@ Phases; any failure exits non-zero and prints no result line:
    int8, requests/s and p50/p99 of each run, the dequantize's host us
    and device ms a forward, int8-vs-f32 logits (max |diff|, top-1
    agreement) and the SLO alerts that fired.
-   The checkpoint directory stays for phase 7.
+   The checkpoint directory stays for phase 8.
 5. train: ViT-B/16 at full width, weights from numpy seed 0 through the
    bridge, through ``make_train_step``. (a) f32 parity, TF32 off: batch 8,
    3 steps of flash attention + fused SGD against plain attention + plain
@@ -152,7 +153,34 @@ Phases; any failure exits non-zero and prints no result line:
    2e-3 relative. Last, the same configuration through the real entry
    point in a fresh process: ``python -m tpu_dist_torch.cli.distributed_mp
    --fused_epoch --epochs 1 ...`` must exit 0 with one fused epoch line.
-7. supervise: the supervised replica, from phase 4's checkpoint
+7. optimizers: AdamW, LARS and LAMB, ``remat`` and the native input
+   pipeline, after phase 6 and before the phases that start CUDA children
+   of their own (but for (d), its last part). (a) ViT-B/16 at
+   ``vit_b16_imagenet_flash``'s shapes (bf16, batch 64, flash) with AdamW
+   as the trainer builds it (``trainer.make_optimizer``; lr 1e-3): 2
+   warmup and 10 timed steps, the counts set to 0 just before and read
+   just after: 12/12/12 flash launches a step on the tensor-core route, no
+   fused SGD launch, finite losses, ``count`` 12; step ms, images/s, peak
+   memory. (b) The same with ``remat=True``: 24 forward launches a step
+   (the recomputation), losses equal to (a)'s within 2e-3 relative, peak
+   memory and step ms beside (a)'s. AdamW's update alone at ViT-B/16's
+   151 leaves: device ms with a head start, beside its bytes bound (28
+   bytes a parameter) and ``torch.optim.AdamW(fused=True).step()`` as a
+   yardstick. (c) f32 parity, TF32 off, batch 8, 3 steps: flash against
+   plain attention with AdamW, then with LAMB, from the same bridged
+   weights: losses per step to 1e-4 relative, and the parameters (but the
+   key biases, whose exact gradient is 0) to 1e-3 of their update (norm).
+   (e) The fused epoch with AdamW over a 1-rank NCCL group: one epoch of
+   195 replays, a finite loss, ``count`` 195, no fused SGD launch; then
+   graph replay against the eager step, f32, as in phase 6 (f). The host
+   ms of one 256-image ``gather_augment``, native and numpy, side by side.
+   (d) The real entry point: ``python -m tpu_dist_torch.cli.train
+   --optimizer lars --lr_base_batch 256 --warmup_epochs 1`` at
+   ``bench.py:240``'s ResNet-18 shapes (bf16, batch 256, SyncBN), one epoch
+   of 20 steps, without and with ``--remat``: each exits 0, its rank-0
+   start line says ``input=native``, and its history's
+   ``data_stall_frac`` is printed.
+8. supervise: the supervised replica, from phase 4's checkpoint
    directory, after every phase that reads torch.profiler (once a few
    CUDA processes of their own have come and gone on the card, this
    process's CUDA-only profiler sessions record nothing at random): the
@@ -173,7 +201,7 @@ Phases; any failure exits non-zero and prints no result line:
    wedge, and requests/s and p50/p99 from the replica's own ``serve``
    records. Last, ``python -m tpu_dist_torch.serve drill`` on the card
    must exit 0.
-8. forensics: the training forensics chain, after phase 7 because it
+9. forensics: the training forensics chain, after phase 8 because it
    also spawns CUDA children. (a) A healthy round: ``python -m
    tpu_dist_torch.cli.launch --nproc 1`` with ``--heartbeat_dir``,
    ``--metrics_dir``, ``--crash_dir`` and a 120 s ``--watchdog_timeout``
@@ -197,7 +225,7 @@ Phases; any failure exits non-zero and prints no result line:
    ``[forensics]`` lines: the detection time (the last beat landed -> the
    wedge line), the dump's wait (SIGUSR1 -> the dump settled), SIGTERM ->
    exit, the bundle's verdict and stuck frame, and the phase's seconds.
-9. report: the card's name and power limit, one JSON line of every ported
+10. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -232,7 +260,7 @@ from tpu_dist_torch import bridge
 from tpu_dist_torch import ckpt as ckpt_lib
 from tpu_dist_torch.comm import mesh as mesh_lib
 from tpu_dist_torch.config.config import TrainConfig
-from tpu_dist_torch.data import transforms
+from tpu_dist_torch.data import native, transforms
 from tpu_dist_torch.nn import resnet as resnet_lib
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import counters as counters_lib
@@ -490,8 +518,12 @@ def phase_build() -> None:
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     check(sorted(KERNELS) == names, f"csrc sources {names} vs kernels {sorted(KERNELS)}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
+        host = ex.submit(_build.build_host, native.NAME)  # the input pipeline's C++
         results = dict(zip(names, ex.map(_build.build, names)))
+        host_path, host_s, host_log = host.result()
+    print(f"[build] {native.NAME}.cpp ({_build.cxx()}): {host_s:.1f} s -> {host_path.name}"
+          + (f"\n{host_log.strip()}" if host_log.strip() else ""))
     for name, (path, seconds, log) in results.items():
         print(f"[build] {name}: {seconds:.1f} s -> {path.name}")
         for fn, regs, spill in _ptxas_entries(log):
@@ -1164,7 +1196,7 @@ def _serve_run(tag: str, model, payloads, d: str, **engine_kw):
 def _serve_from_checkpoint(live, payloads, live_logits: dict, d: str) -> dict:
     """ViT-B/16 served from a checkpoint written under ``d``, in f32 and in
     int8 (module docstring, phase 4). Returns the flash launches of both
-    runs; the checkpoint directory ``d/ck`` stays for phase 7."""
+    runs; the checkpoint directory ``d/ck`` stays for phase 8."""
     root = pathlib.Path(__file__).resolve().parent
     n_params = sum(p.numel() for p in live.parameters())
     ckdir = os.path.join(d, "ck")
@@ -1239,7 +1271,7 @@ def _serve_from_checkpoint(live, payloads, live_logits: dict, d: str) -> dict:
     return {name: f32_launches[name] + int8_launches[name] for name in f32_launches}
 
 
-# -- phase 4, the supervised replica ---------------------------------------------
+# -- phase 8, the supervised replica ---------------------------------------------
 
 # What ReplicaSupervisor drives: one serving replica at a time, each a fresh
 # process serving ViT-B/16 from the checkpoint directory through the port's
@@ -1384,7 +1416,7 @@ def _serve_windows(reps: "_Replicas") -> str:
 
 
 def phase_supervised(work: str) -> dict:
-    """Phase 7: the supervised ViT-B/16 replica from phase 4's checkpoint
+    """Phase 8: the supervised ViT-B/16 replica from phase 4's checkpoint
     directory, then the serving drill. It runs after every phase that reads
     torch.profiler: once a few CUDA processes of their own have come and
     gone on the card, this process's CUDA-only profiler sessions record
@@ -1498,24 +1530,30 @@ def _bridged_vit_b16(attn_impl: str):
     return bridge.load_jax_vit(model, bridge.numpy_vit_params(model, seed=TRAIN_SEED))
 
 
-def _parity_runs(compute_dtype) -> dict:
+def _sgd_for(impl: str):
+    """flash + fused SGD, xla + plain SGD."""
+    return optim.SGD(momentum=0.9, weight_decay=1e-4, fused=impl == "flash")
+
+
+def _parity_runs(compute_dtype, make_opt=_sgd_for, lr=TRAIN_LR) -> dict:
     """{impl: (losses, initial params, final params)} of PARITY_STEPS steps of
-    flash + fused SGD and xla + plain SGD from the same bridged weights and
+    flash and xla attention, each with ``make_opt(impl)`` (by default flash +
+    fused SGD and xla + plain SGD), from the same bridged weights and
     batches, at ``compute_dtype``."""
     rng = np.random.default_rng(1)
     images = torch.from_numpy(rng.standard_normal(
         (PARITY_STEPS, PARITY_BATCH) + IMAGE, dtype=np.float32)).to(DEVICE)
     labels = torch.from_numpy(rng.integers(0, 1000, (PARITY_STEPS, PARITY_BATCH))).to(DEVICE)
     runs = {}
-    for impl, fused in (("flash", True), ("xla", False)):
+    for impl in ("flash", "xla"):
         model = _bridged_vit_b16(impl)
         init = [p.detach().clone() for p in model.parameters()]
-        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=fused)
+        opt = make_opt(impl)
         st = state_lib.TrainState.create(model, opt)
         train_step = step_lib.make_train_step(opt, compute_dtype=compute_dtype)
         losses = []
         for i in range(PARITY_STEPS):
-            st, metrics = train_step(st, images[i], labels[i], TRAIN_LR)
+            st, metrics = train_step(st, images[i], labels[i], lr)
             losses.append(metrics["loss"].item())
         runs[impl] = (losses, init, [p.detach() for p in model.parameters()])
     return runs
@@ -2265,10 +2303,12 @@ def _fused_profile(trainer, images, labels, lr) -> None:
           f"all-reduces a step: profiler {calls}, capture {captured} (expected {NCCL_PER_STEP})")
 
 
-def _fused_parity(compute_dtype, images, labels) -> None:
+def _fused_parity(compute_dtype, images, labels, make_opt=None, tag="fused") -> None:
     """Graph replay against the port's eager step from the same bridged
     weights on the same batches: 5 steps that warm up, capture and replay,
-    then 5 steps that only replay, each against ``make_train_step``."""
+    then 5 steps that only replay, each against ``make_train_step``.
+    ``make_opt()`` makes each side's optimizer (the fused SGD by default)."""
+    make_opt = make_opt or (lambda: optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True))
     f32 = compute_dtype == torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2277,7 +2317,7 @@ def _fused_parity(compute_dtype, images, labels) -> None:
     pairs = []
     for _ in range(2):
         model = bridge.load_jax_resnet(FUSED_PARITY_MODEL(device=DEVICE), params, bn_state)
-        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+        opt = make_opt()
         pairs.append((model, opt, state_lib.TrainState.create(model, opt)))
     (graph_model, graph_opt, graph_st), (eager_model, eager_opt, eager_st) = pairs
     batch = RESNET_RUN["batch_size"]
@@ -2305,7 +2345,8 @@ def _fused_parity(compute_dtype, images, labels) -> None:
     torch.backends.cudnn.deterministic = False
     check(runner._loop.graph is not None, "the fused runner captured no graph")
     launched = fs.fused_sgd.launches - before_launches
-    check(launched == 4 * FUSED_PARITY_STEPS,
+    per_step = 1 if getattr(graph_opt, "fused", False) else 0
+    check(launched == 4 * FUSED_PARITY_STEPS * per_step,
           f"{launched} fused_sgd launches counted over 2 x {2 * FUSED_PARITY_STEPS} steps")
     tol = FUSED_PARITY_TOL[compute_dtype]
     rel = max(_rel(a, b) for g, e in zip(graph_losses, eager_losses) for a, b in zip(g, e))
@@ -2314,7 +2355,7 @@ def _fused_parity(compute_dtype, images, labels) -> None:
         for a, b, p0 in zip(graph_model.parameters(), eager_model.parameters(), before)
         for a, b in [(a.detach(), b.detach())])
     name = "f32 (TF32 off, deterministic cuDNN)" if f32 else "bf16"
-    print(f"[fused] parity {name}, batch {batch}: warmup + capture + replays, then "
+    print(f"[{tag}] parity {name}, batch {batch}: warmup + capture + replays, then "
           f"{FUSED_PARITY_STEPS} replays, against the eager step; losses graph "
           f"{graph_losses} vs eager {eager_losses}; largest relative loss difference {rel:.3g} "
           f"(limit {tol}); largest parameter difference over the replayed steps' update "
@@ -2420,7 +2461,303 @@ def _resnet_fused_cli() -> None:
     check(len(done) == len(fused) == 1, f"epoch lines of the fused run:\n{proc.stdout}")
 
 
-# -- phase 8: the training forensics chain -------------------------------------
+# -- phase 7: AdamW, LARS and LAMB, remat, the native input pipeline ----------
+
+# vit_b16_imagenet_flash's shapes (bench.py:260-263) with AdamW as the trainer
+# builds it (weight decay 1e-4, decay mask "auto", b1 0.9, b2 0.999, eps
+# 1e-8) at the usual ViT AdamW learning rate (SGD's 0.1 would diverge)
+OPTIM_LR = 1e-3
+OPTIM_CFG = TrainConfig(optimizer="adamw")
+# AdamW's update moves 7 f32 arrays of the parameters' size: p, g, mu and nu
+# read once, p, mu and nu written once (28 bytes a parameter); ~16 f32
+# operations a parameter (the moments 6, the bias-corrected direction 5, the
+# decay and the step 4 on decayed leaves)
+ADAMW_BYTES, ADAMW_FLOPS = 28, 16
+# (b) remat against (a): the recomputed forward repeats the same kernels on
+# the same inputs, so the losses should agree exactly; a cuBLAS heuristic
+# that picked another algorithm under the recomputation's other memory
+# state would move them by bf16 rounding: the 2e-3 relative of the other
+# bf16 parity checks
+REMAT_LOSS_RTOL = 2e-3
+# (c) f32 parity, TF32 off, flash vs plain attention with AdamW or LAMB:
+# the attention's gradients differ by f32 rounding (~1e-6 relative), which
+# Adam's normalised step carries into the update at the same relative
+# size, but for the key part of each qkv bias: its gradient is 0 in exact
+# arithmetic (a shift of every key by one vector moves a query's scores by
+# a constant, which the softmax ignores), so each side's is rounding noise,
+# which Adam normalises into steps of ~lr of either sign. So the losses to
+# 1e-4 relative, as with SGD; the parameters but those elements by the norm
+# over all of them, |p_flash - p_xla| / |p_xla - p_0| <= 1e-3; the key
+# biases finite, their difference printed
+OPTIM_PARITY_PARAM_RTOL = 1e-3
+# (d) the real entry point, ResNet-18 with LARS and the large-batch recipe
+OPTIM_CLI_ARGS = ["--model", "resnet18", "--num_classes", "100", "--dataset", "synthetic",
+                  "--synthetic_n", "50000", "--batch_size", "256", "--bf16",
+                  "--optimizer", "lars", "--lr_base_batch", "256", "--warmup_epochs", "1",
+                  "--epochs", "1", "--steps_per_epoch", "20", "--eval_every", "0"]
+GATHER_REPEATS = 20
+# (e) the fused epoch with AdamW: one epoch of all 195 steps
+OPTIM_FUSED_RUN = {**RESNET_FUSED_RUN, "optimizer": "adamw", "fused_optimizer": False,
+                   "lr": OPTIM_LR, "epochs": 1}
+
+
+def adamw_bound(n: int):
+    return bound(ADAMW_BYTES * n, ADAMW_FLOPS * n, PEAK_F32_FLOPS)
+
+
+def _vit_adamw(remat: bool, images, labels) -> dict:
+    """(a)/(b): the ViT-B/16 AdamW step, TRAIN_WARMUP + TRAIN_STEPS steps,
+    the launch counts set to 0 just before the timed steps and read just
+    after."""
+    model = _bridged_vit_b16("flash")
+    opt = trainer_lib.make_optimizer(OPTIM_CFG)
+    st = state_lib.TrainState.create(model, opt)
+    train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16, remat=remat)
+    for _ in range(TRAIN_WARMUP):
+        st, _ = train_step(st, images, labels, OPTIM_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        st, metrics = train_step(st, images, labels, OPTIM_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches, mma = read_launches(), read_mma_launches()
+    peak = torch.cuda.max_memory_allocated()
+    fwd = 24 if remat else 12  # the recomputation runs each block's forward again
+    want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dkdv": 12,
+            "flash_attention_bwd_dq": 12, "fused_sgd": 0}
+    for name, per_step in want.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"adamw remat={remat}: {name} {launches[name]} launches in {TRAIN_STEPS} steps "
+              f"(expected {per_step} a step)")
+    for name in MMA_KERNELS:
+        check(mma[name] == launches[name], f"adamw remat={remat}: {name} {mma[name]} of "
+              f"{launches[name]} launches on the tensor-core route")
+    check(all(math.isfinite(x) for x in losses), f"adamw remat={remat}: losses {losses}")
+    check(int(st.opt_state["count"].item()) == TRAIN_WARMUP + TRAIN_STEPS,
+          f"adamw count {st.opt_state['count'].item()}")
+    mean_ms = float(np.mean(step_ms))
+    print(f"[optim] ViT-B/16 AdamW (lr {OPTIM_LR}, bf16, batch {TRAIN_BATCH}, flash), remat="
+          f"{remat}: {TRAIN_STEPS} steps after {TRAIN_WARMUP}: losses "
+          f"{[round(x, 5) for x in losses]}; step ms median {float(np.median(step_ms)):.3f}, "
+          f"mean {mean_ms:.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}; "
+          f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s; max_memory_allocated {peak} bytes "
+          f"({peak / 2 ** 30:.2f} GiB); launches {launches}, tensor-core {mma}")
+    return {"losses": losses, "ms": mean_ms, "median_ms": float(np.median(step_ms)),
+            "peak": peak, "launches": launches, "mma": mma}
+
+
+def _adamw_update_ms() -> None:
+    """AdamW's update alone at ViT-B/16's 151 leaves: device ms with a head
+    start and host us a call, beside its bytes bound and, as a yardstick
+    the port never calls, ``torch.optim.AdamW(fused=True).step()``."""
+    shapes = fused_sgd_bench.leaf_shapes("vit_b16")
+    n = sum(s.numel() for s in shapes)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    params = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+    grads = [torch.randn(s, device=DEVICE, generator=gen) * 1e-2 for s in shapes]
+    opt = trainer_lib.make_optimizer(OPTIM_CFG)
+    st = opt.init(params)
+    lr = torch.full((), OPTIM_LR, device=DEVICE)
+    # ~80 multi-tensor launches a call: 5 calls stay inside the launch queue
+    # while the device sleeps through the head start (20 filled it)
+    ms, host = cuda_ms(lambda: opt.update(grads, st, params, lr), iters=5, warmup=2)
+    lib_params = [p.clone() for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=OPTIM_LR, weight_decay=1e-4, fused=True)
+    lib_ms, lib_host = cuda_ms(lib.step, iters=20)
+    bound_ms, by = adamw_bound(n)
+    print(f"[optim] AdamW update at ViT-B/16's {len(shapes)} leaves, {n} parameters: "
+          f"{ms:.4f} ms on the device, host {host:.1f} us a call; bound {bound_ms:.4f} ms "
+          f"({by}: {ADAMW_BYTES * n / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; yardstick "
+          f"torch.optim.AdamW(fused=True).step() {lib_ms:.4f} ms, host {lib_host:.1f} us")
+
+
+def _key_bias_masks() -> list:
+    """Per ViT-B/16 parameter (in order), a bool mask of the elements whose
+    gradient is 0 in exact arithmetic: the key part of each block's qkv
+    bias (adding one vector to every key shifts each query's scores by a
+    constant, which the softmax ignores), or None for a parameter without
+    such elements."""
+    model = vit_b16(device="meta")
+    masks = []
+    for name, p in model.named_parameters():
+        if name.endswith("qkv.bias"):
+            mask = torch.zeros(p.shape, dtype=torch.bool)
+            heads = model.blocks[0].heads
+            mask.view(heads, 3, -1)[:, 1, :] = True  # [heads, (q, k, v), head dim]
+            masks.append(mask.to(DEVICE))
+        else:
+            masks.append(None)
+    return masks
+
+
+def _optim_parity(name: str, make_opt) -> None:
+    """(c): f32, TF32 off, flash against plain attention with ``make_opt()``
+    from the same bridged weights on the same batches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = _parity_runs(torch.float32, make_opt=lambda impl: make_opt(), lr=OPTIM_LR)
+    (flash_losses, init, flash_p), (xla_losses, _, xla_p) = runs["flash"], runs["xla"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(flash_losses, xla_losses)]
+    diff = moved = key_worst = 0.0
+    n_key = 0
+    for mask, p0, a, b in zip(_key_bias_masks(), init, flash_p, xla_p):
+        d, m = (a - b).double(), (b - p0).double()
+        if mask is not None:
+            check(bool(torch.isfinite(a[mask]).all()), f"{name} parity: a key bias is not finite")
+            key_worst = max(key_worst, float(d[mask].abs().max()))
+            n_key += int(mask.sum())
+            d, m = d[~mask], m[~mask]
+        diff += float(d.square().sum())
+        moved += float(m.square().sum())
+    diff, moved = math.sqrt(diff), math.sqrt(moved)
+    print(f"[optim] f32 parity (TF32 off), flash vs xla attention, {name}: batch "
+          f"{PARITY_BATCH}, {PARITY_STEPS} steps; losses flash {flash_losses} vs xla "
+          f"{xla_losses}, relative {rel} (limit {PARITY_LOSS_RTOL}); parameters but the "
+          f"{n_key} key-bias elements: |diff| / |update| {diff / moved:.3g} (limit "
+          f"{OPTIM_PARITY_PARAM_RTOL}); key biases (rounding noise normalised into steps of "
+          f"~lr): largest difference {key_worst:.3g} ({key_worst / OPTIM_LR:.3g} lr)")
+    for i, (a, r) in enumerate(zip(flash_losses, rel)):
+        check(math.isfinite(a) and r <= PARITY_LOSS_RTOL,
+              f"{name} parity step {i}: loss flash {a!r} vs xla {xla_losses[i]!r}")
+    check(diff <= OPTIM_PARITY_PARAM_RTOL * moved,
+          f"{name} parity: parameters differ by {diff:.3g} over an update of {moved:.3g}")
+
+
+def _gather_ms() -> None:
+    """The host ms of one 256-image train batch through the native library
+    and through the numpy path, on CIFAR-shaped data (median of
+    GATHER_REPEATS calls each, in turns)."""
+    images = np.random.default_rng(0).integers(0, 256, (50_000, 32, 32, 3), dtype=np.uint8)
+    sel = np.random.default_rng(1).permutation(len(images))[:RESNET_RUN["batch_size"]]
+    times = {"native": [], "numpy": []}
+    for i in range(GATHER_REPEATS):
+        for name, fn in (("native", native.gather_augment),
+                         ("numpy", transforms.gather_augment)):
+            t0 = time.perf_counter()
+            fn(images, sel, seed=i, train=True)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[optim] gather_augment of {len(sel)} CIFAR images (train), host ms, median of "
+          f"{GATHER_REPEATS}: native {med['native']:.3f} (min {min(times['native']):.3f}), "
+          f"numpy {med['numpy']:.3f} (min {min(times['numpy']):.3f}); {os.cpu_count()} CPUs")
+
+
+def _optim_cli(d: str) -> None:
+    """(d): ResNet-18 with LARS through ``python -m tpu_dist_torch.cli.train``,
+    without and with ``--remat``: exit 0, the native pipeline on the rank-0
+    start line, ``data_stall_frac`` from the history."""
+    for remat in (False, True):
+        log = os.path.join(d, f"lars_remat{int(remat)}.jsonl")
+        cmd = [sys.executable, "-m", "tpu_dist_torch.cli.train", *OPTIM_CLI_ARGS,
+               "--log_file", log, "--device", DEVICE, "--port", str(_free_port())]
+        if remat:
+            cmd.append("--remat")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=pathlib.Path(__file__).resolve().parent)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        start = [line for line in lines if line.startswith("tpu_dist_torch: model=")]
+        check(proc.returncode == 0, f"cli.train --optimizer lars remat={remat} exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        check(len(start) == 1 and "optimizer=lars" in start[0] and f"remat={remat}" in start[0]
+              and "input=native" in start[0], f"the rank-0 start line: {start}")
+        with open(log) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        epoch = [r for r in recs if r.get("kind") == "train_epoch"]
+        check(len(epoch) == 1 and epoch[0]["steps"] == 20 and math.isfinite(epoch[0]["loss"]),
+              f"lars remat={remat}: train_epoch records {epoch}")
+        e = epoch[0]
+        print(f"[optim] cli.train LARS (lr 0.1 x 256/256, 1 warmup epoch), remat={remat}: rc "
+              f"{proc.returncode} in {secs:.1f} s; {start[0]}")
+        print(f"[optim]   20 steps: data_stall_frac {e['data_stall_frac']}, data_wait_s "
+              f"{e['data_wait_s']}, epoch_time {e['epoch_time']:.3f} s, step p50 "
+              f"{e.get('step_time_p50', float('nan')) * 1e3:.3f} ms, loss {e['loss']:.4f}, "
+              f"{e['images_per_sec']:.1f} images/s")
+
+
+def _optim_fused() -> int:
+    """(e): ``Trainer(fused_epoch=True, optimizer="adamw").fit()``, one epoch
+    of 195 replays, over the 1-rank NCCL group; then replay against the
+    eager step, f32, as phase 6 (f). Returns the fused SGD launches (0)."""
+    cfg = TrainConfig(**OPTIM_FUSED_RUN, device=DEVICE)
+    trainer = trainer_lib.Trainer(cfg)
+    try:
+        epochs, inner = [], trainer.train_epoch
+
+        def train_epoch(epoch, *a, **k):
+            epochs.append(inner(epoch, *a, **k))
+            return epochs[-1]
+
+        trainer.train_epoch = train_epoch
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()["fused_sgd"]
+        count = int(trainer.state.opt_state["count"].item())
+        e, capture_s = epochs[0], trainer._fused_runner.capture_s
+        # the epoch holds the eager warmup steps and the capture, then the replays
+        replays = FUSED_STEPS - epoch_lib.WARMUP_STEPS
+        replay_ms = ((e["epoch_time"] - capture_s) / replays * 1e3 if capture_s is not None
+                     else float("nan"))
+        print(f"[optim] resnet18_cifar100_fused with AdamW (lr {OPTIM_LR}): fit {fit_s:.1f} s, "
+              f"epoch {e['epoch_time']:.3f} s of which warmup + capture {capture_s} s; the "
+              f"replayed step {replay_ms:.3f} ms ({replays} replays); loss {e['loss']:.4f}, "
+              f"count {count}, fused_sgd launches {launches}")
+        check(math.isfinite(e["loss"]) and count == FUSED_STEPS and launches == 0,
+              f"fused AdamW epoch: loss {e['loss']}, count {count}, fused_sgd {launches}")
+        images, labels = trainer._fused_data
+        _fused_parity(torch.float32, images, labels,
+                      make_opt=lambda: trainer_lib.make_optimizer(OPTIM_CFG), tag="optim")
+        return launches
+    finally:
+        trainer.close()
+
+
+def phase_optim(work: str) -> dict:
+    """Phase 7. Returns the flash kernels' launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    check(native.available(), f"the native input pipeline: {native.describe()}")
+    print(f"[optim] input pipeline: {native.describe()}")
+    rng = np.random.default_rng(TRAIN_SEED)
+    images = torch.from_numpy(
+        rng.standard_normal((TRAIN_BATCH,) + IMAGE, dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH).astype(np.int32)).to(DEVICE)
+    plain = _vit_adamw(False, images, labels)
+    remat = _vit_adamw(True, images, labels)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"], plain["losses"]))
+    print(f"[optim] remat vs plain: losses differ by {rel:.3g} relative at most (limit "
+          f"{REMAT_LOSS_RTOL}); peak memory {remat['peak']} vs {plain['peak']} bytes "
+          f"({remat['peak'] / plain['peak']:.3f}); step ms median {remat['median_ms']:.3f} vs "
+          f"{plain['median_ms']:.3f} ({remat['median_ms'] / plain['median_ms']:.3f})")
+    check(rel <= REMAT_LOSS_RTOL, f"remat losses {remat['losses']} vs {plain['losses']}")
+    _adamw_update_ms()
+    _optim_parity("AdamW", lambda: trainer_lib.make_optimizer(OPTIM_CFG))
+    _optim_parity("LAMB", lambda: optim.LAMB(weight_decay=1e-4))
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        fused_sgd = _optim_fused()
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    _gather_ms()
+    _optim_cli(work)  # CUDA children last: they can empty this process's profiler
+    print(f"[optim] card: {_smi_line()}")
+    print(f"[optim] phase: {time.perf_counter() - t0:.1f} s")
+    return {name: plain["launches"][name] + remat["launches"][name]
+            + (fused_sgd if name == "fused_sgd" else 0) for name in KERNELS}
+
+
+# -- phase 9: the training forensics chain -------------------------------------
 
 # bench.py:240's resnet18_cifar100 shapes through the real entry points
 # the drill's own flags, then the trainer's flags (after the drill's ``--``)
@@ -2571,7 +2908,7 @@ def _wedge_drill(root, d: str, longest_gap: float) -> None:
 
 
 def phase_forensics(work: str) -> dict:
-    """Phase 8: the training forensics chain on the card (module docstring).
+    """Phase 9: the training forensics chain on the card (module docstring).
     Returns the fused SGD launches of the healthy child."""
     t0 = time.perf_counter()
     root = pathlib.Path(__file__).resolve().parent
@@ -2612,15 +2949,16 @@ def _phases(work: str) -> int:
         **{name: measured[name]["ms"] for name in PER_STEP if name != "flash_attention_fwd"},
     })
     resnet_launches, resnet_sgd = phase_train_resnet()
+    optim_launches = phase_optim(work)
     replicas = phase_supervised(work)
     forensics = phase_forensics(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
-    launches = {name: served[name] + trained[name] + resnet_launches[name] + replicas[name]
-                + forensics[name] for name in KERNELS}
-    for name in MMA_KERNELS:  # serving's are all f32 (checked there)
-        measured[name]["launches_tensor_core"] = trained_mma[name]
+    launches = {name: served[name] + trained[name] + resnet_launches[name]
+                + optim_launches[name] + replicas[name] + forensics[name] for name in KERNELS}
+    for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
+        measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
     print(_smi_line())
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}

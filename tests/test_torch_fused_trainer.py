@@ -115,9 +115,10 @@ def test_fused_epoch_refuses_the_options_its_runner_never_receives(flag, value):
 
 
 def test_the_refusal_cases_cover_every_refused_option():
+    # remat's refusal case is in tests/test_torch_trainer_optim.py
     assert sorted(trainer.FUSED_REFUSED) == sorted(
         ["grad_accu_steps", "label_smoothing", "grad_clip_norm", "steps_per_epoch",
-         "mid_epoch_save_every"])
+         "mid_epoch_save_every", "remat"])
     # without fused_epoch, each is an ordinary option
     trainer.refuse_fused_options(TrainConfig(**{**RUN, "fused_epoch": False,
                                                 "grad_accu_steps": 2}))

@@ -1,5 +1,5 @@
 """Resume through the port's ``Trainer.fit`` (``tpu_dist_torch/train/
-trainer.py``), held to the uninterrupted run and to the JAX trainer.
+trainer.py``), held to the uninterrupted run.
 
 * f32, one CPU rank: a run stopped by SIGTERM in mid-epoch, after the last
   step of an epoch, at an epoch end, or by a crash after a periodic async
@@ -13,30 +13,19 @@ trainer.py``), held to the uninterrupted run and to the JAX trainer.
   checkpoint after rank 0 quarantined the corrupt newest one.
 * ``auto_recover`` reloads the newest checkpoint and scales the LR.
 * Every checkpoint and history flag works through ``fit``.
-* Across packages: a JAX ``Trainer`` checkpoint taken after epoch 0
-  resumes in the port's ``Trainer``, and a port checkpoint in the JAX
-  ``Trainer``; each resumed epoch matches the other package's
-  uninterrupted epoch 1 to the 2e-3 relative of
-  ``tests/test_torch_trainer.py`` (ROADMAP Queue C: XLA's f32 gradients on
-  cropped inputs on the CPU).
+
+The checkpoints that cross between the packages are held in
+``tests/test_torch_resume_cross.py``.
 """
 
 import json
 import os
-import shutil
 
-import jax
 import numpy as np
 import pytest
-from torch_ranks import fit_run, free_port, ladder_rank, narrow_resnet, resume_rank, run_ranks
+from torch_ranks import fit_run, free_port, ladder_rank, resume_rank, run_ranks
 
-import tpu_dist.data.native as jax_native
-from tpu_dist.comm import mesh as mesh_lib
-from tpu_dist.config import TrainConfig as JaxConfig
-from tpu_dist.nn.resnet import ResNetDef
-from tpu_dist.train import trainer as jax_trainer
 from tpu_dist_torch import ckpt
-from tpu_dist_torch.train import trainer
 
 RUN = dict(model="narrow_resnet", num_classes=10, dataset="synthetic", synthetic_n=96,
            batch_size=16, epochs=2, steps_per_epoch=3, lr=0.02, lr_milestones=(1,),
@@ -204,76 +193,3 @@ def test_the_checkpoint_and_history_flags_work_through_fit(flag, tmp_path):
         cfg = {**cfg, "log_file": os.path.join(d, cfg["log_file"])}
     run = fit_run(_port(ckpt_dir=d if flag != "log_file" else None, **cfg), **run_kw)
     check(d, run)
-
-
-# -- across packages -------------------------------------------------------------
-
-JAX_RUN = {k: v for k, v in RUN.items() if k != "device"}
-# 6 f32 steps at lr 0.02 then 0.01 from the same checkpoint on the same
-# batches; XLA's f32 gradients on the loader's zero-padded crops are up to
-# ~1% off f64 on the CPU, the port's ~1e-6 (ROADMAP Queue C), which moves
-# the loss by up to ~8e-4 relative over such steps: 2e-3 relative, as in
-# tests/test_torch_trainer.py. Hit counts of logits that close agree but
-# for near-ties: at most one example of the 16 in a step, of the 19 in
-# the eval.
-LOSS_TOL = dict(rtol=2e-3)
-
-
-def _jax_fit(cfg_kw):
-    epochs, t = [], jax_trainer.Trainer(
-        JaxConfig(**cfg_kw), mesh=mesh_lib.device_mesh([1], [mesh_lib.DATA_AXIS],
-                                                       jax.devices()[:1]))
-    inner = t.train_epoch
-
-    def train_epoch(epoch, *a, **k):
-        epochs.append(inner(epoch, *a, **k))
-        return epochs[-1]
-
-    t.train_epoch = train_epoch
-    t.fit()
-    return t, epochs
-
-
-@pytest.fixture(scope="module")
-def crossed(tmp_path_factory):
-    """Each package's uninterrupted 2-epoch run with a checkpoint after every
-    epoch, and each one's epoch 1 resumed by the other from epoch 0."""
-    root = tmp_path_factory.mktemp("crossed")
-    jax_trainer.register_model("narrow_resnet", lambda num_classes: ResNetDef(
-        "basic", (1, 1, 1, 1), num_classes, widths=(8, 16, 32, 64)))
-    trainer.register_model("narrow_resnet", narrow_resnet)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_native, "_load", lambda: None)  # the numpy augmentation path
-    try:
-        jax_full = _jax_fit({**JAX_RUN, "ckpt_dir": str(root / "jax"), "save_every": 1})[1]
-        port_full = fit_run(_port(ckpt_dir=str(root / "port"), save_every=1))
-        for src, dst in (("jax", "jax0"), ("port", "port0")):
-            os.makedirs(root / dst)
-            shutil.copy(root / src / "ckpt_0.npz", root / dst / "ckpt_0.npz")
-        port_from_jax = fit_run(_port(ckpt_dir=str(root / "jax0"), resume=True))
-        jt, jax_from_port = _jax_fit({**JAX_RUN, "ckpt_dir": str(root / "port0"),
-                                      "resume": True})
-    finally:
-        mp.undo()
-    return jax_full, port_full, port_from_jax, (jt, jax_from_port)
-
-
-def _assert_epoch_close(ours, theirs):
-    assert ours["steps"] == theirs["steps"] == 3
-    for key in ("loss", "val_loss"):
-        np.testing.assert_allclose(ours[key], theirs[key], **LOSS_TOL, err_msg=key)
-    for key, n in (("acc1", 16), ("acc5", 16), ("val_top1", 19), ("val_top5", 19)):
-        assert abs(ours[key] - theirs[key]) <= 100.0 / n + 1e-9, key
-
-
-def test_a_jax_trainer_checkpoint_resumes_in_the_port(crossed):
-    jax_full, _, port_from_jax, _ = crossed
-    assert port_from_jax["start_epoch"] == 1 and len(port_from_jax["epochs"]) == 1
-    assert port_from_jax["lrs"] == _lrs((0.01, 3))
-    _assert_epoch_close(port_from_jax["epochs"][0], jax_full[1])
-
-
-def test_a_port_checkpoint_resumes_in_the_jax_trainer(crossed):
-    _, port_full, _, (jt, jax_from_port) = crossed
-    assert jt.start_epoch == 1 and len(jax_from_port) == 1 and int(jt.state.step) == 6
-    _assert_epoch_close(port_full["epochs"][1], jax_from_port[0])

@@ -112,7 +112,6 @@ UNPORTED = [
     ("tp_axis", "model", "Queue A 6"),
     ("ep_axis", "expert", "Queue A 6"),
     ("pp_axis", "pipe", "Queue A 6"),
-    ("remat", True, "Queue A 6"),
     ("grad_compression", "bf16", "Queue A 6"),
     ("grad_compression", "int8_ef", "Queue A 6"),
     ("rs_ag_chunks", 2, "Queue A 6"),

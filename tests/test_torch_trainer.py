@@ -5,8 +5,9 @@ against the JAX package's ``Trainer``.
   bridged initial state, against the JAX ``Trainer`` on a one-device mesh:
   the same narrow ResNet registered in both, synthetic data, 2 epochs of 3
   steps each and an eval after each; the per-epoch train loss and accuracy
-  and the eval top-1/top-5/loss. The JAX trainer's augmentation is held to
-  its numpy path (its C++ pipeline draws crops from another RNG stream).
+  and the eval top-1/top-5/loss. Both trainers' augmentation is held to
+  the numpy path (the C++ pipeline both take by default is held apart, in
+  ``tests/test_torch_native_pipeline.py``).
 * Every flag of ``UNPORTED`` raises ``NotPortedError`` naming its ROADMAP
   item.
 * ``python -m tpu_dist_torch.cli.distributed_mp --device cpu`` with 2 ranks.
@@ -22,6 +23,7 @@ import pytest
 from torch_ranks import free_port
 
 import tpu_dist.data.native as jax_native
+import tpu_dist_torch.data.native as port_native
 from tpu_dist.comm import mesh as mesh_lib
 from tpu_dist.config import TrainConfig as JaxConfig
 from tpu_dist.nn.resnet import ResNetDef
@@ -60,6 +62,7 @@ def runs():
         device=device, seed=seed))
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_native, "_load", lambda: None)
+    mp.setattr(port_native, "_load", lambda: None)
     try:
         jt = jax_trainer.Trainer(
             JaxConfig(**RUN), mesh=mesh_lib.device_mesh([1], [mesh_lib.DATA_AXIS],
@@ -68,15 +71,15 @@ def runs():
                             for t in jax.device_get((jt.state.params, jt.state.bn_state)))
         jax_epochs = _record_epochs(jt)
         jt.fit()
+        pt = trainer.Trainer(TrainConfig(**RUN, device="cpu", port=free_port()))
+        try:
+            bridge.load_jax_resnet(pt.model, params, bn_state)
+            port_epochs = _record_epochs(pt)
+            pt.fit()
+        finally:
+            pt.close()
     finally:
         mp.undo()
-    pt = trainer.Trainer(TrainConfig(**RUN, device="cpu", port=free_port()))
-    try:
-        bridge.load_jax_resnet(pt.model, params, bn_state)
-        port_epochs = _record_epochs(pt)
-        pt.fit()
-    finally:
-        pt.close()
     return jax_epochs, port_epochs
 
 
@@ -117,7 +120,10 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # crash_dir is ported and runs in tests/test_torch_trainer_forensics.py;
 # fault_plan runs in tests/test_torch_faults.py, and heartbeat_file,
 # metrics_file, metrics_port and alert_rules in
-# tests/test_torch_trainer_telemetry.py.
+# tests/test_torch_trainer_telemetry.py; optimizer (adamw, lars, lamb) runs
+# in tests/test_torch_trainer_optim.py and tests/test_torch_resume_cross.py,
+# and remat in tests/test_torch_remat.py and
+# tests/test_torch_trainer_optim.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
@@ -125,10 +131,10 @@ UNPORTED_CASES = (
     ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
     ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
     ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
-    ("optimizer", "adamw", "Queue A 6"), ("grad_compression", "bf16", "Queue A 6"),
+    ("grad_compression", "bf16", "Queue A 6"),
     ("shard_weight_update", True, "Queue A 6"), ("anomaly_action", "warn", "Queue A 6"),
     ("straggler_threshold", 1.5, "Queue A 6"),
-    ("sharded_ckpt", True, "Queue A 6"), ("remat", True, "Queue A 6"),
+    ("sharded_ckpt", True, "Queue A 6"),
     ("quant_chunk", 64, "Queue A 6"), ("rs_ag_chunks", 2, "Queue A 6"),
     ("device_metrics", True, "Queue A 6"), ("pp_microbatches", 4, "Queue A 6"),
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),

@@ -135,6 +135,33 @@ def dp_step_rank(rank, world, cases, model_kw, params, bn_state, batches):
     return out
 
 
+def remat_rank(rank, world, model_kw, batches):
+    """The port's train step (SyncBN, fused gradient reduce) without and
+    with ``remat`` from the same seeded weights on this rank's half of
+    every global batch; returns, for each, the final module state dict and
+    SGD momentum (numpy) and the collective counts of the run."""
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = {}
+    for remat in (False, True):
+        model = resnet.ResNet(**model_kw, device="cpu", seed=0)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4)
+        st = state.TrainState.create(model, opt)
+        train_step = step.make_train_step(opt, sync_bn=True, remat=remat)
+        counters.reset()
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, _ = train_step(st, images[rank * n:(rank + 1) * n],
+                               labels[rank * n:(rank + 1) * n], lr)
+        out[remat] = {"state": {k: v.numpy().copy() for k, v in model.state_dict().items()},
+                      "momentum": [b.numpy().copy() for b in st.opt_state],
+                      "counts": {k: v for k, v in counters.snapshot().items()
+                                 if k.startswith("comm.")}}
+    return out
+
+
 def collectives_rank(rank, world, x_global):
     """Each collective of ``tpu_dist_torch.comm.collectives`` on this rank's
     row of ``x_global``; returns the results and the all-reduce counts."""

@@ -19,7 +19,9 @@ the flat ``{keystr: array}`` dict that a plain checkpoint holds
 and :func:`load_train_state`. Its keys are ``jax.tree_util.keystr`` paths
 of the JAX ``TrainState._asdict()`` (``['params']['fc']['w']``,
 ``['opt_state']['stage1'][0]['conv1']['w']``, ``['step']``), written here
-by :func:`keystr_flatten`.
+by :func:`keystr_flatten`. AdamW's and LAMB's state crosses as the JAX
+dict (``['opt_state']['mu']...``, ``['opt_state']['nu']...``,
+``['opt_state']['count']``), so either package resumes the other's run.
 
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
@@ -463,45 +465,71 @@ def _host_in_jax_order(t: torch.Tensor) -> np.ndarray:
     return _numpy(t)
 
 
-def train_state_to_flat(state) -> Dict[str, np.ndarray]:
-    """A port ``TrainState`` (a ResNet's or a ViT's, SGD momentum) as the
-    ``{keystr: array}`` dict of a JAX ``TrainState``: HWIO conv kernels,
-    ``mean``/``var`` BN statistics, the momentum pytree mirroring the
-    parameters, ``step`` as an int32 scalar; the ViT's ``bn_state`` is
-    ``{}`` and ``ef`` is ``()``, so neither has an entry. An ``opt_state``
-    that is one 1-D tensor is a ZeRO-1 flat momentum vector (the raveled
-    parameters' momentum, padded to the data-parallel extent) and is
-    written as the single entry ``['opt_state']``. Host copies: the dict
-    does not follow the live tensors."""
-    model = state.params
+def _param_tree(model, buffers, what: str):
+    """Per-parameter buffers (parameter order) as a JAX pytree mirroring
+    the parameters: host copies in the JAX layout."""
     names = [n for n, _ in model.named_parameters()]
-    flat_momentum = isinstance(state.opt_state, torch.Tensor)
-    if not flat_momentum and len(state.opt_state) != len(names):
-        raise KeyError(f"{len(state.opt_state)} momentum buffers for {len(names)} parameters")
+    if len(buffers) != len(names):
+        raise KeyError(f"{len(buffers)} {what} buffers for {len(names)} parameters")
+    sd = {n: _host_in_jax_order(b) for n, b in zip(names, buffers)}
+    if isinstance(model, ResNet):
+        return resnet_state_dict_to_jax(sd)[0]
+    return vit_state_dict_to_jax(sd)
+
+
+def _is_adam(opt_state) -> bool:
+    """AdamW's and LAMB's state: ``{"mu": [...], "nu": [...], "count"}``."""
+    if not isinstance(opt_state, dict):
+        return False
+    if set(opt_state) != {"mu", "nu", "count"}:
+        raise KeyError(f"optimizer state keys {sorted(opt_state)}: expected count, mu, nu")
+    return True
+
+
+def train_state_to_flat(state) -> Dict[str, np.ndarray]:
+    """A port ``TrainState`` (a ResNet's or a ViT's) as the ``{keystr:
+    array}`` dict of a JAX ``TrainState``: HWIO conv kernels, ``mean``/
+    ``var`` BN statistics, the optimizer state, ``step`` as an int32
+    scalar; the ViT's ``bn_state`` is ``{}`` and ``ef`` is ``()``, so
+    neither has an entry. The optimizer state is the momentum pytree
+    mirroring the parameters (SGD, LARS); AdamW's and LAMB's ``{"mu",
+    "nu", "count"}`` as the JAX dict (``['opt_state']['mu']...``,
+    ``['opt_state']['count']`` int32); or, when it is one 1-D tensor, a
+    ZeRO-1 flat momentum vector (the raveled parameters' momentum, padded
+    to the data-parallel extent) written as the single entry
+    ``['opt_state']``. Host copies: the dict does not follow the live
+    tensors."""
+    model = state.params
+    if not isinstance(model, (ResNet, ViT)):
+        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
     sd = {n: _host_in_jax_order(t) for n, t in model.state_dict().items()}
-    mom = {} if flat_momentum else {
-        n: _host_in_jax_order(b) for n, b in zip(names, state.opt_state)}
     if isinstance(model, ResNet):
         params, bn_state = resnet_state_dict_to_jax(sd)
-        momentum = mom and resnet_state_dict_to_jax(mom)[0]
-    elif isinstance(model, ViT):
-        params, bn_state, momentum = vit_state_dict_to_jax(sd), {}, mom and vit_state_dict_to_jax(mom)
     else:
-        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
-    if flat_momentum:
-        momentum = _numpy(state.opt_state)
-    return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": momentum,
+        params, bn_state = vit_state_dict_to_jax(sd), {}
+    opt = state.opt_state
+    if isinstance(opt, torch.Tensor):
+        opt_tree = _numpy(opt)
+    elif _is_adam(opt):
+        opt_tree = {"mu": _param_tree(model, opt["mu"], "mu"),
+                    "nu": _param_tree(model, opt["nu"], "nu"),
+                    "count": np.asarray(opt["count"].item(), np.int32)}
+    else:
+        opt_tree = _param_tree(model, opt, "momentum")
+    return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": opt_tree,
                            "step": np.asarray(state.step, np.int32), "ef": ()})
 
 
 def load_train_state(state, flat: Dict[str, np.ndarray]):
     """Copy a checkpoint's ``{keystr: array}`` dict into the live ``state``
-    in place (``copy_`` into the parameters, BN buffers and momentum
-    buffers, which keep their storage) and return it with the saved
-    ``step``. Everything is checked before anything is copied: an unknown,
-    missing or misshapen entry raises and leaves the state as it was.
-    Entries under ``['ef']`` (error-feedback residuals, which the port
-    does not keep) are ignored, as the JAX restore ignores entries its
+    in place (``copy_`` into the parameters, BN buffers and optimizer
+    state, which keep their storage) and return it with the saved
+    ``step``. The optimizer state must be of the live optimizer's kind:
+    per-parameter momentum (SGD, LARS) or AdamW's and LAMB's ``mu``,
+    ``nu`` and ``count``. Everything is checked before anything is copied:
+    an unknown, missing or misshapen entry raises and leaves the state as
+    it was. Entries under ``['ef']`` (error-feedback residuals, which the
+    port does not keep) are ignored, as the JAX restore ignores entries its
     template lacks."""
     tree = keystr_unflatten({k: v for k, v in flat.items() if not k.startswith("['ef']")})
     unknown = sorted(set(tree) - {"params", "bn_state", "opt_state", "step"})
@@ -510,22 +538,39 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
         raise KeyError(f"checkpoint entries: unknown {unknown}, missing {missing}")
     model = state.params
     names = [n for n, _ in model.named_parameters()]
-    if len(state.opt_state) != len(names):
-        raise KeyError(f"{len(state.opt_state)} momentum buffers for {len(names)} parameters")
     if isinstance(model, ResNet):
         sd = resnet_state_dict_from_jax(tree["params"], tree.get("bn_state", {}))
-        momentum = resnet_state_dict_from_jax(tree["opt_state"])
+        from_jax = resnet_state_dict_from_jax
     elif isinstance(model, ViT):
         if tree.get("bn_state"):
             raise KeyError(f"a ViT has no BN state; the checkpoint has {sorted(tree['bn_state'])}")
         sd = vit_state_dict_from_jax(tree["params"])
-        momentum = vit_state_dict_from_jax(tree["opt_state"])
+        from_jax = vit_state_dict_from_jax
     else:
         raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
     step = np.asarray(tree["step"])
     if step.shape != () or step.dtype.kind not in "iu":
         raise ValueError(f"['step'] must be an integer scalar, got {step.dtype} {step.shape}")
-    pairs = (_checked_pairs(model.state_dict(), sd)
-             + _checked_pairs(dict(zip(names, state.opt_state)), momentum, "momentum"))
+    pairs = _checked_pairs(model.state_dict(), sd)
+    opt, saved = state.opt_state, tree["opt_state"]
+    count = None
+    if _is_adam(opt):
+        if not isinstance(saved, dict) or set(saved) != {"mu", "nu", "count"}:
+            raise KeyError("the checkpoint's ['opt_state'] is not an AdamW/LAMB state "
+                           "(mu, nu, count): it was written by another optimizer")
+        count = np.asarray(saved["count"])
+        if count.shape != () or count.dtype.kind not in "iu":
+            raise ValueError(f"['opt_state']['count'] must be an integer scalar, got "
+                             f"{count.dtype} {count.shape}")
+        for key in ("mu", "nu"):
+            if len(opt[key]) != len(names):
+                raise KeyError(f"{len(opt[key])} {key} buffers for {len(names)} parameters")
+            pairs += _checked_pairs(dict(zip(names, opt[key])), from_jax(saved[key]), key)
+    else:
+        if len(opt) != len(names):
+            raise KeyError(f"{len(opt)} momentum buffers for {len(names)} parameters")
+        pairs += _checked_pairs(dict(zip(names, opt)), from_jax(saved), "momentum")
     _copy_pairs(pairs)
+    if count is not None:
+        opt["count"].fill_(int(count))
     return dataclasses.replace(state, step=int(step))

@@ -14,6 +14,12 @@ Usage::
 
     python -m tpu_dist_torch.cli.train --batch_size 256 --epochs 200 --lr 0.1
     python -m tpu_dist_torch.cli.train --device cpu --dataset synthetic ...
+    python -m tpu_dist_torch.cli.train --optimizer lars --lr_base_batch 256 \
+        --warmup_epochs 1 --remat ...
+
+The rank-0 start line names the optimizer, ``remat`` and the input
+pipeline that feeds the run: ``input=native (...)``, or ``input=numpy
+(<why the C++ library is not there>)``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ def main(argv: Optional[Sequence[str]] = None, **preset) -> None:
             f"tpu_dist_torch: model={cfg.model} ranks={trainer.n_devices} "
             f"device={trainer.device.type} global_batch={cfg.batch_size} bf16={cfg.bf16} "
             f"sync_bn={cfg.sync_bn} grad_accu_steps={cfg.grad_accu_steps} "
-            f"fused_optimizer={cfg.fused_optimizer}"
+            f"fused_optimizer={cfg.fused_optimizer} optimizer={cfg.optimizer} "
+            f"remat={cfg.remat} input={trainer.input_pipeline}"
         )
         trainer.fit()
     except PreemptedError as e:

@@ -226,7 +226,8 @@ class TrainConfig:
     fused_optimizer: bool = False  # the CUDA fused SGD kernel (ops/fused_sgd.py)
     flash_attention: bool = False  # the CUDA flash attention kernels
                                    # (ops/flash_attention.py) for the ViTs
-    remat: bool = False            # jax.checkpoint the forward (less memory)
+    remat: bool = False            # recompute the forward in the backward
+                                   # (torch.utils.checkpoint; less memory)
     grad_compression: str = "none" # none | bf16 | int8 | int8_ef: gradient
                                    # wire format for the cross-replica reduce
                                    # (DDP comm-hook equivalent). bf16 halves
@@ -365,7 +366,8 @@ def add_reference_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="the hand-written CUDA flash attention kernels for "
                         "the ViTs")
     p.add_argument("--remat", action="store_true",
-                   help="jax.checkpoint the forward (less activation memory)")
+                   help="recompute the forward in the backward "
+                        "(torch.utils.checkpoint: less activation memory)")
     p.add_argument("--grad_compression",
                    choices=("none", "bf16", "int8", "int8_ef"),
                    default=d.grad_compression,

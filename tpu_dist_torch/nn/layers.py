@@ -28,6 +28,8 @@ computes its statistics with another (Welford) formula.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -93,7 +95,8 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 class BatchNorm(nn.Module):
     """BatchNorm2d with the running statistics as buffers, updated in place
     on every training forward (the JAX ``new_state``, read back through
-    ``running_mean``/``running_var``)."""
+    ``running_mean``/``running_var``), except inside
+    :func:`running_stats_frozen`."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -101,14 +104,32 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
+        self.update_running_stats = True
 
     def forward(self, x, *, train: bool, group=None):
         y, new_mean, new_var = bn_apply(self.weight, self.bias, self.running_mean,
                                         self.running_var, x, train=train, group=group)
-        if train:
+        if train and self.update_running_stats:
             self.running_mean.copy_(new_mean)
             self.running_var.copy_(new_var)
         return y
+
+
+@contextlib.contextmanager
+def running_stats_frozen(model: nn.Module):
+    """Inside, ``model``'s BatchNorm layers normalise as in training but
+    leave their running statistics as they are: the forward that activation
+    checkpointing runs again in the backward (``train/step.py``'s
+    ``remat``) must not apply the EMA a second time. The SyncBN all-reduce
+    of the statistics still runs, as JAX's recomputed ``pmean`` does."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_running_stats = True
 
 
 def conv_module(in_ch: int, out_ch: int, ksize: int, gen: torch.Generator) -> nn.Conv2d:

@@ -19,7 +19,10 @@ one each. What the JAX runner does, this one does:
   ``(0/255 - mean)/std``, as in the numpy loader), crops, normalises into
   the compute dtype, and runs the step's body
   (:func:`~tpu_dist_torch.train.step.make_step_body`: forward, SyncBN,
-  ``autograd.grad``, the gradient all-reduce, the optimizer's update);
+  ``autograd.grad``, the gradient all-reduce, the optimizer's update, any
+  of SGD, AdamW, LARS and LAMB: their norms and AdamW's and LAMB's step
+  count are device tensors, captured with the step, so each replay reads
+  the count as it stands);
 * the metrics are the epoch means of the per-step ``loss``, ``acc1`` and
   ``acc5``, kept in a device buffer and fetched by the caller once.
 

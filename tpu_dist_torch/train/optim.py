@@ -1,22 +1,35 @@
-"""SGD + momentum + weight decay and the learning-rate schedules: the
-port's counterpart of ``tpu_dist/train/optim.py`` (``SGD``,
-``multistep_lr``, ``linear_scaled_lr``, ``cosine_lr``).
+"""The optimizers and the learning-rate schedules: the port's counterpart
+of ``tpu_dist/train/optim.py`` (``SGD``, ``AdamW``, ``_trust_ratio``,
+``LARS``, ``LAMB``, ``multistep_lr``, ``linear_scaled_lr``,
+``cosine_lr``).
 
-The update is the JAX package's, per leaf in f32:
+SGD's update is the JAX package's, per leaf in f32:
 
 * weight decay is added to the gradient (L2, not decoupled): ``g' = g + wd·p``;
 * momentum buffer ``b ← μ·b + g'`` (no dampening);
 * update ``p ← p − lr·b``, or ``p ← p − lr·(g' + μ·b)`` with Nesterov.
 
-Where the JAX optimizer returns new pytrees, this one updates the
-parameters and buffers IN PLACE and returns them. AdamW, LARS and LAMB
-are not ported yet (ROADMAP Queue A 6).
+AdamW, LARS and LAMB keep the JAX formulas operation for operation, not
+``torch.optim``'s (which decays first, as ``p·(1 − lr·wd)``, and divides by
+``sqrt(v)/sqrt(bc2)``: other roundings). Their rank ≤ 1 exclusions read the
+leaf's rank, which is the JAX leaf's for every ResNet and ViT leaf
+(``tests/test_torch_optim.py`` pins it).
+
+Where the JAX optimizers return new pytrees, these update the parameters
+and their state IN PLACE and return them. Nothing here reads a value back
+to the host: AdamW's and LAMB's step ``count`` is a 0-d int32 tensor on the
+parameters' device and the bias corrections are computed from it there, and
+the trust ratios are device tensors, so a step captured in a CUDA graph
+(``train/epoch.py``) replays with the current count, not the captured one.
+XLA fuses these updates and the JAX package has no Pallas kernel for them:
+here they are ``torch._foreach_*`` ops (AdamW, and LAMB's moments) and a loop
+over the leaves (the per-leaf norms).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -61,6 +74,147 @@ class SGD:
                     g2 = g + p * wd
                     b.copy_(b * mu + g2)
                     p.copy_(p - (g2 + b * mu) * lr)
+        return params, opt_state
+
+
+def _moments(grads, opt_state, b1: float, b2: float):
+    """The Adam moments of AdamW and LAMB, in place: ``count += 1``,
+    ``mu ← b1·mu + (1 − b1)·g``, ``nu ← b2·nu + (1 − b2)·g²``. Returns the
+    bias corrections ``(1 − b1^count, 1 − b2^count)`` as f32 device
+    tensors."""
+    mu, nu, count = opt_state["mu"], opt_state["nu"], opt_state["count"]
+    count.add_(1)
+    cf = count.float()
+    bc1 = 1.0 - torch.pow(b1, cf)
+    bc2 = 1.0 - torch.pow(b2, cf)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+    return bc1, bc2
+
+
+def _adam_direction(opt_state, bc1, bc2, eps: float) -> List[torch.Tensor]:
+    """``(mu/bc1) / (sqrt(nu/bc2) + eps)`` of every leaf (new tensors)."""
+    den = torch._foreach_div(opt_state["nu"], bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    u = torch._foreach_div(opt_state["mu"], bc1)
+    torch._foreach_div_(u, den)
+    return u
+
+
+def _adam_init(params) -> Dict[str, object]:
+    """Zero f32 moments, one each per parameter, and a 0-d int32 step count
+    on the parameters' device."""
+    device = params[0].device if params else None
+    return {"mu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+            "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+class AdamW:
+    """Decoupled-weight-decay Adam (Loshchilov & Hutter), the JAX package's
+    formula: ``p ← p − lr·((mu/bc1)/(sqrt(nu/bc2) + eps) + wd·p)``. State:
+    ``{"mu": [...], "nu": [...], "count": 0-d int32}``, the JAX dict."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.01, decay_mask: str = "auto"):
+        """``decay_mask``: ``"auto"`` skips the decay on rank ≤ 1 leaves
+        (biases, LayerNorm/BN scales, 1-D tables); ``"all"`` decays every
+        leaf."""
+        if decay_mask not in ("auto", "all"):
+            raise ValueError(f"decay_mask must be 'auto' or 'all', got {decay_mask!r}")
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.decay_mask = decay_mask
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict[str, object]:
+        return _adam_init(params)
+
+    def update(self, grads, opt_state, params, lr):
+        """Apply one step in place; returns ``(params, opt_state)``. ``lr``
+        is a float or a float32 scalar tensor."""
+        with torch.no_grad():
+            bc1, bc2 = _moments(grads, opt_state, self.b1, self.b2)
+            u = _adam_direction(opt_state, bc1, bc2, self.eps)
+            wd = self.weight_decay
+            decayed = [i for i, p in enumerate(params)
+                       if self.decay_mask == "all" or p.dim() > 1]
+            if decayed:
+                ud = [u[i] for i in decayed]
+                torch._foreach_add_(ud, torch._foreach_mul([params[i] for i in decayed], wd))
+            torch._foreach_sub_(list(params), torch._foreach_mul(u, lr))
+        return params, opt_state
+
+
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor, eps: float) -> torch.Tensor:
+    """``‖p‖/(‖u‖ + eps)``, shared by LARS and LAMB; 1.0 when either norm
+    is 0 (fresh zero leaves, dead gradients). A device tensor."""
+    pn = torch.linalg.vector_norm(p)
+    un = torch.linalg.vector_norm(u)
+    return torch.where((pn > 0.0) & (un > 0.0), pn / (un + eps), torch.ones_like(pn))
+
+
+class LARS:
+    """Layer-wise Adaptive Rate Scaling (You, Gitman & Ginsburg): SGD with
+    momentum whose step on each leaf of rank > 1 is scaled by
+    ``eta·‖p‖/(‖g‖ + wd·‖p‖ + eps)`` (1.0 when a norm is 0) and takes the
+    weight decay; rank ≤ 1 leaves take neither. State: one momentum buffer
+    per parameter, as SGD's."""
+
+    def __init__(self, momentum: float = 0.9, weight_decay: float = 1e-4,
+                 trust_coefficient: float = 1e-3, eps: float = 1e-9):
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.trust_coefficient = trust_coefficient
+        self.eps = eps
+
+    def init(self, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.zeros_like(p, requires_grad=False) for p in params]
+
+    def update(self, grads, opt_state, params, lr):
+        """Apply one step in place; returns ``(params, opt_state)``."""
+        mu, wd, eta, eps = self.momentum, self.weight_decay, self.trust_coefficient, self.eps
+        with torch.no_grad():
+            for p, g, b in zip(params, grads, opt_state):
+                if p.dim() > 1:
+                    pn = torch.linalg.vector_norm(p)
+                    gn = torch.linalg.vector_norm(g)
+                    local = torch.where((pn > 0.0) & (gn > 0.0),
+                                        eta * pn / (gn + wd * pn + eps), torch.ones_like(pn))
+                    b.copy_(b * mu + local * (g + wd * p))
+                else:
+                    b.copy_(b * mu + g)
+                p.sub_(lr * b)
+        return params, opt_state
+
+
+class LAMB:
+    """Layer-wise Adaptive Moments (You et al.): AdamW's bias-corrected
+    direction ``u`` plus ``wd·p``, scaled on each leaf of rank > 1 by the
+    trust ratio ``‖p‖/‖u‖`` (:func:`_trust_ratio`); rank ≤ 1 leaves take
+    neither the decay nor the ratio. State: AdamW's dict."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict[str, object]:
+        return _adam_init(params)
+
+    def update(self, grads, opt_state, params, lr):
+        """Apply one step in place; returns ``(params, opt_state)``."""
+        with torch.no_grad():
+            bc1, bc2 = _moments(grads, opt_state, self.b1, self.b2)
+            u = _adam_direction(opt_state, bc1, bc2, self.eps)
+            for p, ui in zip(params, u):
+                if p.dim() > 1:
+                    ui = ui + self.weight_decay * p
+                    p.sub_(lr * _trust_ratio(p, ui, self.eps) * ui)
+                else:
+                    p.sub_(lr * ui)
         return params, opt_state
 
 

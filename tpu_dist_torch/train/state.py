@@ -1,8 +1,11 @@
 """TrainState: the port's counterpart of ``tpu_dist/train/state.py``.
 
 The JAX state is one immutable pytree; here ``params`` is the
-``nn.Module`` itself and ``opt_state`` its momentum buffers, one per
-parameter in parameter order. The train step updates both in place and
+``nn.Module`` itself and ``opt_state`` the optimizer's state, as its
+``init`` makes it: one momentum buffer per parameter in parameter order
+(SGD, LARS), or AdamW's and LAMB's ``{"mu": [...], "nu": [...],
+"count": 0-d int32 tensor}``, the JAX dict with lists in parameter
+order. The train step updates both in place and
 returns a state with the step counter advanced. ``bn_state`` maps the
 model's buffer names to its buffers (the ResNets' BatchNorm running
 statistics, which the forward updates in place; empty for the ViT), and
@@ -22,7 +25,7 @@ import torch
 class TrainState:
     params: torch.nn.Module  # the model; its parameters are the trained leaves
     bn_state: Any            # BatchNorm running statistics, by name ({} for the ViT)
-    opt_state: Any           # momentum buffers, one per parameter, in order
+    opt_state: Any           # the optimizer's state (optimizer.init), in parameter order
     step: int = 0            # global step counter
     ef: Any = ()             # error-feedback residuals (not ported: always ())
 

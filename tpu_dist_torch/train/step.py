@@ -24,6 +24,15 @@ data-parallel (DP) family, one process per device.
   hooks it would bypass, and whose ``broadcast_buffers`` copies rank 0's
   BN statistics where the JAX package averages them).
 * ``grad_clip_norm`` clips the reduced gradients by their global norm.
+* ``remat`` runs each chunk's forward and loss under
+  ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps its
+  loss in ``jax.checkpoint``: the activations are recomputed in the
+  backward instead of kept. The recomputed forward leaves the BN running
+  statistics alone (:func:`~tpu_dist_torch.nn.layers.running_stats_frozen`),
+  so they are the plain step's bit for bit; its SyncBN all-reduces run
+  again, on every rank in the same order, as JAX's recomputed ``pmean``
+  does, so ``comm.all_reduce.bn`` counts twice the plain step's (the
+  forward's and the recomputation's) and ``bn_grad`` the same.
 * Metrics are 0-dim tensors on the device (no host sync), reduced in one
   all-reduce: ``loss`` the mean over ranks, ``acc1``/``acc5`` in percent of
   the global batch, and ``preempt`` the number of ranks that had seen
@@ -48,13 +57,16 @@ owns it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn import functional as F
+from tpu_dist_torch.nn import layers
 from tpu_dist_torch.resilience import preemption
 from tpu_dist_torch.train.state import TrainState
 
@@ -68,7 +80,6 @@ WAITS_FOR = {
     "tp_axis": "Queue A 6 (tensor parallelism, parallel/tensor.py)",
     "ep_axis": "Queue A 6 (expert parallelism, parallel/expert.py)",
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
-    "remat": "Queue A 6 (activation rematerialization)",
     "grad_compression": "Queue A 6 (compressed collectives, comm/quantize.py)",
     "device_metrics": "Queue A 6 (training-health telemetry, obs/device_stats.py)",
 }
@@ -90,8 +101,7 @@ class NotPortedError(NotImplementedError):
 
 def _refuse_unported(**options) -> None:
     defaults = {"shard_weight_update": False, "seq_axis": None, "tp_axis": None,
-                "ep_axis": None, "pp_axis": None, "remat": False,
-                "grad_compression": "none", "rs_ag_chunks": 1,
+                "ep_axis": None, "pp_axis": None, "grad_compression": "none", "rs_ag_chunks": 1,
                 "device_metrics": False}
     for flag, value in options.items():
         if value != defaults[flag]:
@@ -121,6 +131,7 @@ def make_step_body(
     grad_clip_norm: float = 0.0,
     pmean_fusion: str = "fused",
     preempt_flag: bool = True,
+    remat: bool = False,
 ):
     """Build ``body(state, images, labels, lr) -> sums``: the step on
     tensors already on the model's device. Forward and backward over the K
@@ -132,7 +143,8 @@ def make_step_body(
     (a step captured in a CUDA graph, where that read would be frozen) the
     body reads nothing of the host's state and nothing back from the
     device, so a graph can hold it. ``lr`` must then be a device tensor (a
-    float would be frozen into the graph too)."""
+    float would be frozen into the graph too). ``remat`` recomputes each
+    chunk's forward in its backward."""
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
     K = int(grad_accum_steps)
@@ -168,12 +180,24 @@ def make_step_body(
         # BatchNorm models take the SyncBN group; the ViT has none
         fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else {}
         model.train()
+
+        def forward_loss(x, y):
+            out = model(x.to(compute_dtype), **fwd_kw)
+            return F.cross_entropy(out, y, label_smoothing=label_smoothing), out
+
         grads, losses, logits = None, [], []
         for c in range(K):
+            x, y = images[c * n:(c + 1) * n], labels[c * n:(c + 1) * n]
             with torch.enable_grad():
-                out = model(images[c * n:(c + 1) * n].to(compute_dtype), **fwd_kw)
-                loss = F.cross_entropy(out, labels[c * n:(c + 1) * n],
-                                       label_smoothing=label_smoothing)
+                if remat:
+                    # the forward draws no random numbers: no RNG state to
+                    # keep (keeping it would read the card's back each step)
+                    loss, out = torch.utils.checkpoint.checkpoint(
+                        forward_loss, x, y, use_reentrant=False, preserve_rng_state=False,
+                        context_fn=lambda: (contextlib.nullcontext(),
+                                            layers.running_stats_frozen(model)))
+                else:
+                    loss, out = forward_loss(x, y)
                 g = torch.autograd.grad(loss, params)
             grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
             losses.append(loss.detach())
@@ -245,13 +269,14 @@ def make_train_step(
         raise ValueError(f"rs_ag_chunks={rs_ag_chunks}: must be >= 1")
     _refuse_unported(
         shard_weight_update=shard_weight_update, seq_axis=seq_axis, tp_axis=tp_axis,
-        ep_axis=ep_axis, pp_axis=pp_axis, remat=remat, grad_compression=grad_compression,
+        ep_axis=ep_axis, pp_axis=pp_axis, grad_compression=grad_compression,
         rs_ag_chunks=int(rs_ag_chunks),
         device_metrics=device_metrics,
     )
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
-                          grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion)
+                          grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
+                          remat=remat)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device

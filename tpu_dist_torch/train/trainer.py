@@ -11,10 +11,16 @@ all-reduce once per step, SyncBN unless ``--no_sync_bn``). Parameters and
 buffers are broadcast from rank 0 once at construction (DDP's init
 broadcast; the model is never wrapped in ``DistributedDataParallel``).
 SGD with momentum and weight decay, plain or through the fused CUDA
-kernel; MultiStepLR or cosine, with warmup and the linear scaling rule;
+kernel, or AdamW, LARS or LAMB (:func:`make_optimizer`, the JAX trainer's
+dispatch and refusals); ``remat`` recomputes the forward in the backward;
+MultiStepLR or cosine, with warmup and the linear scaling rule;
 ``train_epoch`` with ``steps_per_epoch``, ``log_every`` and the NaN guard;
-``fit`` with a distributed ``validate`` every ``eval_every`` epochs. Only
-rank 0 prints. The per-epoch dict has the JAX trainer's keys.
+``fit`` with a distributed ``validate`` every ``eval_every`` epochs. The
+loaders augment through the native C++ pipeline
+(:mod:`tpu_dist_torch.data.native`), as the JAX trainer's do, and
+``input_pipeline`` says which one feeds the run (native, or numpy with
+the reason). Only rank 0 prints. The per-epoch dict has the JAX trainer's
+keys.
 
 Checkpoint / resume, preemption and the history are the JAX trainer's:
 
@@ -30,7 +36,9 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   arrays are copied into the live parameters, BN buffers and momentum
   buffers (their storage, and so the fused SGD's cached launch plan,
   stays valid), and a mid-epoch snapshot re-enters its epoch at its step.
-  Every rank checks that all picked the same checkpoint.
+  Every rank checks that all picked the same checkpoint. AdamW stamps its
+  ``adamw_decay_mask`` in every checkpoint; a resume under another mask
+  raises, and one from a checkpoint without the stamp warns.
 * SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) and Ctrl-C stop at
   a step boundary that every rank agrees on (the flag rides the step's
   metrics all-reduce), write the emergency snapshot and raise;
@@ -106,7 +114,7 @@ from tpu_dist_torch import bridge
 from tpu_dist_torch import ckpt as ckpt_lib
 from tpu_dist_torch.comm import collectives, mesh
 from tpu_dist_torch.config.config import TrainConfig
-from tpu_dist_torch.data import cifar, synthetic, transforms
+from tpu_dist_torch.data import cifar, native, synthetic, transforms
 from tpu_dist_torch.data.loader import DataLoader
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.evaluation.validate import validate
@@ -123,7 +131,8 @@ from tpu_dist_torch.obs.heartbeat import Heartbeat
 from tpu_dist_torch.resilience import faults, preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train import epoch as epoch_lib
-from tpu_dist_torch.train.optim import SGD, cosine_lr, linear_scaled_lr, multistep_lr
+from tpu_dist_torch.train.optim import (LAMB, LARS, SGD, AdamW, cosine_lr, linear_scaled_lr,
+                                        multistep_lr)
 from tpu_dist_torch.train.state import TrainState
 from tpu_dist_torch.train.step import WAITS_FOR, NotPortedError, make_eval_step, make_train_step
 
@@ -140,10 +149,8 @@ _ELASTIC = "Queue A 6 (elastic training, elastic/remap.py)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
-    "optimizer": ("sgd", "Queue A 6 (AdamW, LARS, LAMB)"),
     "shard_weight_update": (False, WAITS_FOR["shard_weight_update"]),
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "remat": (False, WAITS_FOR["remat"]),
     "grad_compression": ("none", WAITS_FOR["grad_compression"]),
     "quant_chunk": (0, WAITS_FOR["grad_compression"]),
     "rs_ag_chunks": (1, WAITS_FOR["rs_ag_chunks"]),
@@ -183,6 +190,7 @@ FUSED_REFUSED = {
     "grad_clip_norm": (0.0, "the fused step does not clip the gradients"),
     "steps_per_epoch": (None, "a fused epoch runs every step of its data"),
     "mid_epoch_save_every": (0, "the fused epoch has no step boundary to snapshot at"),
+    "remat": (False, "the fused step keeps its activations (no recomputation)"),
 }
 
 _DATASET_CLASSES = {"cifar100": 100, "cifar10": 10, "synthetic_learnable": 4,
@@ -228,6 +236,36 @@ def refuse_fused_options(cfg: TrainConfig) -> None:
         if value != default:
             raise ValueError(f"{flag}={value!r} does not work with --fused_epoch: {why}; "
                              "drop the option or --fused_epoch")
+
+
+def make_optimizer(cfg: TrainConfig):
+    """The optimizer of ``cfg.optimizer``, with the JAX trainer's refusals
+    and rank-0 lines (``tpu_dist/train/trainer.py:670-723``): the fused CUDA
+    kernel is SGD's only, so ``fused_optimizer`` with another optimizer
+    raises ``ValueError``; AdamW prints its decay mask; LARS and LAMB warn
+    without the large-batch recipe (``lr_base_batch`` and
+    ``warmup_epochs``). LARS and LAMB with ``shard_weight_update`` meet
+    :data:`UNPORTED`'s ``NotPortedError`` first (the JAX trainer refuses
+    the pair, whose flat layout loses the per-layer norms)."""
+    if cfg.optimizer == "sgd":
+        return SGD(momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                   fused=cfg.fused_optimizer)
+    if cfg.optimizer not in ("adamw", "lars", "lamb"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r} (sgd | adamw | lars | lamb)")
+    if cfg.fused_optimizer:
+        raise ValueError(f"fused_optimizer is the CUDA fused-SGD kernel; {cfg.optimizer} uses "
+                         "the plain (torch._foreach) update")
+    if cfg.optimizer == "adamw":
+        rank0_print(f"=> adamw decay_mask={cfg.adamw_decay_mask} (auto: rank<=1 leaves excluded "
+                    "from weight decay; --adamw_decay_mask all restores decay-everything)")
+        return AdamW(weight_decay=cfg.weight_decay, decay_mask=cfg.adamw_decay_mask)
+    if cfg.lr_base_batch <= 0 or cfg.warmup_epochs <= 0:
+        rank0_print(f"=> WARNING: {cfg.optimizer} without the full large-batch recipe "
+                    "(--lr_base_batch for linear LR scaling + --warmup_epochs) — trust ratios "
+                    "alone rarely save an unscaled schedule")
+    if cfg.optimizer == "lars":
+        return LARS(momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    return LAMB(weight_decay=cfg.weight_decay)
 
 
 def install_fault_plan(cfg: TrainConfig) -> Optional[faults.FaultPlan]:
@@ -351,20 +389,24 @@ class Trainer:
             stats = dict(mean=transforms.CIFAR10_MEAN, std=transforms.CIFAR10_STD)
         else:
             stats = dict(mean=transforms.CIFAR100_MEAN, std=transforms.CIFAR100_STD)
+        # the fused C++ gather + crop + normalise, as the JAX trainer's
+        # loaders take it; numpy when it cannot be built, with the reason
+        self.input_pipeline = native.describe()
+        if not native.available():
+            rank0_print(f"=> WARNING: input pipeline: {self.input_pipeline}")
         self.train_loader = DataLoader(
             *self.train_data, self.local_batch, self.train_sampler, device=self.device,
-            gather_transform=functools.partial(transforms.gather_augment, train=True, **stats),
+            gather_transform=functools.partial(native.gather_augment, train=True, **stats),
             seed=seed, prefetch=cfg.num_workers,
         )
         self.test_loader = DataLoader(
             *self.test_data, self.local_batch, self.test_sampler, device=self.device,
-            gather_transform=functools.partial(transforms.gather_augment, train=False, **stats),
+            gather_transform=functools.partial(native.gather_augment, train=False, **stats),
             seed=seed, prefetch=cfg.num_workers, with_mask=True,
         )
 
         # -- model / optimizer state ----------------------------------------
-        self.optimizer = SGD(momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-                             fused=cfg.fused_optimizer)
+        self.optimizer = make_optimizer(cfg)
         # DDP's init-time broadcast: every rank starts from rank 0's weights
         collectives.broadcast_module(self.model)
         self.state = TrainState.create(self.model, self.optimizer)
@@ -382,7 +424,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.optimizer, grad_accum_steps=cfg.grad_accu_steps, sync_bn=cfg.sync_bn,
             compute_dtype=compute_dtype, label_smoothing=cfg.label_smoothing,
-            grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion,
+            grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion, remat=cfg.remat,
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
         self._fused_runner = self._fused_eval = None
@@ -510,10 +552,14 @@ class Trainer:
 
     def _ckpt_meta(self) -> dict:
         """The layout stamps of every checkpoint: the pipeline layout (the
-        JAX trainer refuses a mismatch), the auto-recovery LR scale, and
+        JAX trainer refuses a mismatch), AdamW's decay mask (its state's
+        shapes do not depend on it, so only the stamp tells a resume that
+        would change which leaves decay), the auto-recovery LR scale, and
         the ``elastic`` stamp whose ``params_len`` the JAX restore checks."""
         cfg = self.cfg
         meta = {"pp": cfg.pp, "pp_interleave": cfg.pp_interleave}
+        if cfg.optimizer == "adamw":
+            meta["adamw_decay_mask"] = cfg.adamw_decay_mask
         if self._lr_scale != 1.0:
             meta["lr_scale"] = self._lr_scale
         meta["elastic"] = ckpt_lib.elastic_stamp(self.n_devices, self.n_devices,
@@ -543,8 +589,9 @@ class Trainer:
     def _check_ckpt_meta(self, meta: dict, path: str) -> None:
         """Refuse a readable checkpoint of another configuration (raises
         :class:`~tpu_dist_torch.ckpt.ConfigMismatchError`, never
-        quarantines): another pipeline layout, or another model's
-        parameter count."""
+        quarantines): another pipeline layout, another model's parameter
+        count, or another AdamW decay mask (a checkpoint without the stamp
+        warns: which mask trained it is unknown)."""
         cfg = self.cfg
         ck_v, ck_pp = meta.get("pp_interleave"), meta.get("pp")
         if ck_v is not None and (ck_v != cfg.pp_interleave or (
@@ -558,6 +605,20 @@ class Trainer:
             raise ckpt_lib.ConfigMismatchError(
                 f"checkpoint {path} was written with params_len={stamped} but the model has "
                 f"{self._params_len} parameters — a different model")
+        if cfg.optimizer == "adamw":
+            ck_mask = meta.get("adamw_decay_mask")
+            if ck_mask is None:
+                rank0_print(
+                    f"WARNING: checkpoint {path} predates the adamw_decay_mask stamp; resuming "
+                    f"with --adamw_decay_mask {cfg.adamw_decay_mask} — if the run was trained "
+                    "with a different mask, weight decay on bias/norm leaves silently changes "
+                    "from here on")
+            elif ck_mask != cfg.adamw_decay_mask:
+                raise ckpt_lib.ConfigMismatchError(
+                    f"checkpoint {path} was trained with adamw_decay_mask={ck_mask!r} but this "
+                    f"run uses {cfg.adamw_decay_mask!r} — the optimizer state's shapes are the "
+                    "same, so resuming would silently change which leaves get weight decay; "
+                    f"pass --adamw_decay_mask {ck_mask} to resume faithfully")
 
     def _quarantine_ckpt(self, path: str, err: Exception) -> None:
         """Rank 0 renames a failed checkpoint to ``*.corrupt``; the other
