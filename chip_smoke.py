@@ -225,7 +225,35 @@ Phases; any failure exits non-zero and prints no result line:
    ``[forensics]`` lines: the detection time (the last beat landed -> the
    wedge line), the dump's wait (SIGUSR1 -> the dump settled), SIGTERM ->
    exit, the bundle's verdict and stuck frame, and the phase's seconds.
-10. report: the card's name and power limit, one JSON line of every ported
+10. elastic: ZeRO-1, the compressed gradient reduce and the elastic
+   resume, last because (d) starts CUDA children; (a)-(c) over a 1-rank
+   NCCL group, with deterministic cuDNN in (a) and (b). (a)
+   ``resnet18_cifar100`` at full width (bf16, batch 256, SyncBN, fused
+   SGD; 20 steps on 5,120 synthetic images, no eval) through
+   ``Trainer.fit``, plain and with ``shard_weight_update``, from the same
+   weights: the same losses bit for bit (at one rank the shard is the
+   whole raveled vector and its update the plain update), 1 fused SGD
+   launch a step on the flat shard of 11,220,132 f32, one reduce-scatter
+   and one all-gather a step and no gradient all-reduce; step ms and peak
+   memory of both. (b) The same run on the ``bf16``, ``int8`` and
+   ``int8_ef`` wires: losses against ``none`` within 5% relative at every
+   step, step ms beside ``none``'s, non-zero residual norms; the reduce
+   alone (``compressed_pmean`` of ResNet-18's 62 gradient leaves, device
+   ms with a head start) against NCCL's all-reduce of the same 11.2 M f32;
+   and the ``int8_ef`` run stopped by ``sigterm@epoch=0:step=9`` and
+   resumed: its 10 + 10 losses are the uninterrupted run's bit for bit.
+   (c) ``resnet18_cifar100_fused`` on the ``int8_ef`` wire: one epoch of
+   195 steps (``state.step`` 195), 195 fused SGD launches, non-zero
+   residuals; then graph replay against the eager step, f32, as phase 6
+   (f). (d) ``python -m tpu_dist_torch.elastic.drill --device cpu
+   --shrink_device cuda``: the golden and preempted ``vit_tiny`` runs as 4
+   gloo ranks on the CPU, the shrink-resume at one rank on the card; it
+   must exit 0 with ``PASS``, its resume record and each epoch's loss gap
+   printed. The fused SGD kernel at the flat shard's shape is timed in
+   phase 6, before any CUDA child: 3 steps bit for bit, device ms in turns
+   with ``torch.optim.SGD(fused=True)`` on the one leaf, the plain
+   version's period and the bound (``*_zero1_flat`` in the kernels line).
+11. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -269,6 +297,7 @@ from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
 from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
+from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.comm.quantize import padded_len
 from tpu_dist_torch.elastic import elastic_stamp
 from tpu_dist_torch.metrics.history import MetricsHistory
@@ -848,6 +877,45 @@ def _sgd_kernel(model: str, seed: int) -> dict:
     if model == "vit_b16":
         return out
     return {f"{k}_{model}": v for k, v in out.items()}
+
+
+def _sgd_flat_shard(seed: int) -> dict:
+    """The fused SGD at ZeRO-1's shape (phase 10): one flat leaf of
+    ResNet-18's 11,220,132 f32 parameters (a rank's shard of the padded
+    raveled vector, all of it at a world of one): 3 steps bit for bit
+    against its plain version, the kernel and ``torch.optim.SGD(fused=True)``
+    on the one leaf in turns (device ms with a head start, no profiler
+    session here), the plain version's period and the bound."""
+    shapes = [torch.Size([RESNET_PARAMS])]
+    lr = torch.full((), TRAIN_LR, device=DEVICE)
+    err = _sgd_steps(shapes, seed, lr=lr)
+    check(err == 0.0, f"fused_sgd on the flat shard differs from its plain version by {err}")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p, g = (torch.randn(RESNET_PARAMS, device=DEVICE, generator=gen) for _ in range(2))
+    b = torch.zeros_like(p)
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = g
+    lib = torch.optim.SGD([lib_p], lr=TRAIN_LR, momentum=0.9, weight_decay=1e-4, fused=True)
+    times = {"kernel": [], "library": []}
+    for which in ("kernel", "library", "library", "kernel"):
+        fn = (lambda: fs.fused_sgd([p], [g], [b], lr)) if which == "kernel" else lib.step
+        times[which].append(cuda_ms(fn))
+    plain_ms, _ = cuda_ms(lambda: fs.fused_sgd_reference([p], [g], [b], lr), iters=10,
+                          head_start=False)
+    out = {"max_abs_err_zero1_flat": err,
+           "ms_zero1_flat": statistics.fmean(ms for ms, _ in times["kernel"]),
+           "host_us_zero1_flat": statistics.fmean(us for _, us in times["kernel"]),
+           "plain_ms_zero1_flat": plain_ms,
+           "library_ms_zero1_flat": statistics.fmean(ms for ms, _ in times["library"])}
+    out["bound_ms_zero1_flat"], _ = sgd_bound(RESNET_PARAMS)
+    print(f"[kernels] fused_sgd on ZeRO-1's flat shard, one leaf of {RESNET_PARAMS} f32: 3 "
+          f"steps bit for bit with its plain version; in turns: kernel "
+          f"{[round(ms, 4) for ms, _ in times['kernel']]} ms, library "
+          f"(torch.optim.SGD(fused=True) on the one leaf) "
+          f"{[round(ms, 4) for ms, _ in times['library']]} ms; plain {plain_ms:.4f} ms; bound "
+          f"{out['bound_ms_zero1_flat']:.4f} ms (bytes); "
+          f"{out['bound_ms_zero1_flat'] / out['ms_zero1_flat']:.1%} of it")
+    return out
 
 
 def _sgd_edge_cases() -> None:
@@ -2202,6 +2270,7 @@ def phase_train_resnet() -> tuple:
     ResNet-18's leaves)."""
     t0 = time.perf_counter()
     sgd = _sgd_kernel("resnet18", seed=3)
+    sgd.update(_sgd_flat_shard(seed=5))
     _, created = mesh_lib.initialize_distributed(
         DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
     try:
@@ -2303,11 +2372,14 @@ def _fused_profile(trainer, images, labels, lr) -> None:
           f"all-reduces a step: profiler {calls}, capture {captured} (expected {NCCL_PER_STEP})")
 
 
-def _fused_parity(compute_dtype, images, labels, make_opt=None, tag="fused") -> None:
+def _fused_parity(compute_dtype, images, labels, make_opt=None, tag="fused",
+                  wire="none") -> None:
     """Graph replay against the port's eager step from the same bridged
     weights on the same batches: 5 steps that warm up, capture and replay,
     then 5 steps that only replay, each against ``make_train_step``.
-    ``make_opt()`` makes each side's optimizer (the fused SGD by default)."""
+    ``make_opt()`` makes each side's optimizer (the fused SGD by default);
+    ``wire`` is both sides' ``grad_compression`` (under ``int8_ef`` each
+    starts from zero residuals)."""
     make_opt = make_opt or (lambda: optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True))
     f32 = compute_dtype == torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2318,12 +2390,18 @@ def _fused_parity(compute_dtype, images, labels, make_opt=None, tag="fused") -> 
     for _ in range(2):
         model = bridge.load_jax_resnet(FUSED_PARITY_MODEL(device=DEVICE), params, bn_state)
         opt = make_opt()
-        pairs.append((model, opt, state_lib.TrainState.create(model, opt)))
+        st = state_lib.TrainState.create(model, opt)
+        if wire == "int8_ef":
+            lay = step_lib.flat_layout(model)
+            st = dataclasses.replace(st, ef=step_lib.init_ef_state(model, layout=lay), layout=lay)
+        pairs.append((model, opt, st))
     (graph_model, graph_opt, graph_st), (eager_model, eager_opt, eager_st) = pairs
     batch = RESNET_RUN["batch_size"]
     runner = epoch_lib.make_fused_epoch(graph_opt, batch_per_device=batch,
-                                        compute_dtype=compute_dtype, seed=7)
-    train_step = step_lib.make_train_step(eager_opt, sync_bn=True, compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype, seed=7,
+                                        grad_compression=wire)
+    train_step = step_lib.make_train_step(eager_opt, sync_bn=True, compute_dtype=compute_dtype,
+                                          grad_compression=wire)
     lr = torch.full((), RESNET_RUN["lr"], device=DEVICE)
     order, offsets = runner.draw(0, len(images), DEVICE)
     mean, std_inv = epoch_lib.normalizer(transforms.CIFAR100_MEAN, transforms.CIFAR100_STD,
@@ -2354,7 +2432,8 @@ def _fused_parity(compute_dtype, images, labels, make_opt=None, tag="fused") -> 
         float((a - b).abs().max()) / max(float((a - p0).abs().max()), 1e-30)
         for a, b, p0 in zip(graph_model.parameters(), eager_model.parameters(), before)
         for a, b in [(a.detach(), b.detach())])
-    name = "f32 (TF32 off, deterministic cuDNN)" if f32 else "bf16"
+    name = ("f32 (TF32 off, deterministic cuDNN)" if f32 else "bf16") + (
+        f", grad_compression {wire}" if wire != "none" else "")
     print(f"[{tag}] parity {name}, batch {batch}: warmup + capture + replays, then "
           f"{FUSED_PARITY_STEPS} replays, against the eager step; losses graph "
           f"{graph_losses} vs eager {eager_losses}; largest relative loss difference {rel:.3g} "
@@ -2920,6 +2999,240 @@ def phase_forensics(work: str) -> dict:
     return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
 
 
+# -- phase 10: ZeRO-1, the compressed reduce, the elastic resume ----------------
+
+# bench.py:240's resnet18_cifar100 at full width, one epoch of 20 steps of
+# 256 on 5,120 synthetic images (the data cut to what 20 steps read); no
+# eval. Every run of (a) and (b) has deterministic cuDNN, so runs that
+# should agree can be held to each other exactly; their step times are
+# compared with one another only.
+ELASTIC_RUN = {**RESNET_RUN, "synthetic_n": 5_120, "epochs": 1, "eval_every": 0}
+ELASTIC_STEPS = 20
+ELASTIC_WARMUP = 2
+ELASTIC_STOP = "sigterm@epoch=0:step=9"  # the int8_ef run stopped after its 10th step
+# The compressed wires against "none", per step: bf16 rounds each reduced
+# gradient entry to 8 bits (2^-9 relative at most); int8 moves each by at
+# most one quantisation step, 1/127 of its 256-entry chunk's largest entry:
+# at most 5% of the chunk's RMS where the largest entry is 6 RMS,
+# unbiased. The step's update, and so the loss of the next batch, moves by
+# no more than that fraction: the limit is 5% relative at every step (a
+# narrow ResNet on the CPU, 20 steps at lr 0.1, moved 1.2% under bf16 and
+# 2.7% under int8).
+COMPRESSED_LOSS_RTOL = {"bf16": 5e-2, "int8": 5e-2, "int8_ef": 5e-2}
+REDUCE_ITERS = 5  # the quantized reduce is ~30 launches a call: 5 calls fit the head start
+ELASTIC_DRILL_ARGS = ["--device", "cpu", "--shrink_device", "cuda"]
+ELASTIC_DRILL_TIMEOUT = 420
+
+
+def _elastic_fit(tag: str, ckpt_dir=None, **kw) -> dict:
+    """``Trainer.fit`` of ELASTIC_RUN with ``kw``: counts set to 0 just
+    before and read just after, every step ended by ``synchronize``.
+    Returns the losses, the step times after the warmup, the peak memory
+    of those steps, the fused SGD launches, the collectives' counts, the
+    state's flat parts, and ``preempted`` when a ``fault_plan`` stopped it."""
+    cfg = TrainConfig(**{**ELASTIC_RUN, **kw}, device=DEVICE, ckpt_dir=ckpt_dir)
+    trainer = trainer_lib.Trainer(cfg)
+    try:
+        inner, step_ms, losses = trainer.train_step, [], []
+
+        def timed_step(st, images, labels, lr):
+            t0 = time.perf_counter()
+            st, metrics = inner(st, images, labels, lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            if len(step_ms) == ELASTIC_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            return st, metrics
+
+        trainer.train_step = timed_step
+        torch.cuda.synchronize()
+        counters_lib.reset()
+        reset_launches()
+        preempted = False
+        try:
+            trainer.fit()
+        except PreemptedError:
+            preempted = True
+        st = trainer.state
+        ef = {k: float(v.norm()) for k, v in (st.ef or {}).items()}
+        out = {"losses": losses, "step_ms": step_ms[ELASTIC_WARMUP:],
+               "peak": torch.cuda.max_memory_allocated(), "launches": read_launches(),
+               "counts": counters_lib.snapshot(), "ef_norms": ef, "preempted": preempted,
+               "layout": st.layout, "start_epoch": trainer.start_epoch}
+        med = float(np.median(out["step_ms"])) if out["step_ms"] else float("nan")
+        print(f"[elastic] {tag}: {len(losses)} steps, losses {[round(x, 5) for x in losses]}; "
+              f"step ms median {med:.3f} ({len(out['step_ms'])} after {ELASTIC_WARMUP}); "
+              f"max_memory_allocated {out['peak']} bytes; fused_sgd launches "
+              f"{out['launches']['fused_sgd']}; collectives "
+              f"{ {k: v for k, v in out['counts'].items() if k.startswith('comm.')} }"
+              + (f"; residual norms {ef}" if ef else ""))
+        out["median_ms"] = med
+        return out
+    finally:
+        trainer.close()
+
+
+def _zero1_vs_plain() -> dict:
+    """(a) ZeRO-1 against the plain DP step from the same weights."""
+    plain = _elastic_fit("plain DP step")
+    zero1 = _elastic_fit("ZeRO-1 (shard_weight_update)", shard_weight_update=True)
+    n = zero1["layout"].chunk if zero1["layout"] else None
+    print(f"[elastic] (a) ZeRO-1 vs plain at one rank: losses equal {zero1['losses'] == plain['losses']}; "
+          f"the flat shard {n} f32; step ms median {zero1['median_ms']:.3f} vs "
+          f"{plain['median_ms']:.3f} ({zero1['median_ms'] / plain['median_ms']:.3f}); peak "
+          f"memory {zero1['peak']} vs {plain['peak']} bytes ({zero1['peak'] - plain['peak']:+d})")
+    # at one rank the shard is the whole raveled vector and its update the
+    # plain update's six roundings: the same losses, bit for bit
+    check(zero1["losses"] == plain["losses"] and len(plain["losses"]) == ELASTIC_STEPS,
+          f"ZeRO-1 losses {zero1['losses']} vs plain {plain['losses']}")
+    check(n == RESNET_PARAMS, f"the flat shard has {n} elements")
+    check(zero1["launches"]["fused_sgd"] == ELASTIC_STEPS,
+          f"fused_sgd on the flat shard: {zero1['launches']['fused_sgd']} launches in "
+          f"{ELASTIC_STEPS} steps")
+    c = zero1["counts"]
+    check(c.get("comm.reduce_scatter.grad") == c.get("comm.all_gather.params") == ELASTIC_STEPS
+          and "comm.all_reduce.grad" not in c, f"ZeRO-1's collectives: {c}")
+    return {"plain": plain, "zero1": zero1}
+
+
+def _reduce_ms() -> None:
+    """(b) The compressed reduce alone at ResNet-18's 62 gradient leaves
+    (11.2 M f32) against NCCL's all-reduce of the same flat buffer, device
+    ms with a head start, at one rank."""
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    grads = [torch.randn(s, device=DEVICE, generator=gen)
+             for s in fused_sgd_bench.leaf_shapes("resnet18")]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    lay = step_lib.flat_layout(grads)
+    ef = step_lib.init_ef_state(grads, layout=lay)
+    nccl_ms, _ = cuda_ms(lambda: collectives.all_reduce_(flat, kind="timing"), iters=REDUCE_ITERS)
+    times = {"none": cuda_ms(lambda: step_lib.compressed_pmean(grads, "none"),
+                             iters=REDUCE_ITERS)[0]}
+    key = step_lib.quant_key(0)
+    for mode in ("bf16", "int8", "int8_ef"):
+        times[mode] = cuda_ms(lambda: step_lib.compressed_pmean(
+            grads, mode, key=key, ef=ef if mode == "int8_ef" else ()), iters=REDUCE_ITERS)[0]
+    wire = {"none": 4, "bf16": 2, "int8": 1, "int8_ef": 1}
+    print(f"[elastic] (b) the gradient reduce at ResNet-18's {len(grads)} leaves ({flat.numel()} "
+          f"f32), device ms a call with a head start, one rank: NCCL all_reduce of the flat "
+          f"buffer {nccl_ms:.4f}; compressed_pmean {{mode: ms}} "
+          f"{ {k: round(v, 4) for k, v in times.items()} }; wire bytes an element {wire}")
+    check(all(math.isfinite(v) for v in times.values()), f"reduce times {times}")
+
+
+def _compressed(plain: dict) -> dict:
+    """(b) Trainer.fit on each compressed wire against ``none``, and the
+    int8_ef run stopped by SIGTERM after its 10th step and resumed: the
+    resumed losses must be the uninterrupted run's, bit for bit."""
+    runs = {}
+    for mode in ("bf16", "int8", "int8_ef"):
+        runs[mode] = r = _elastic_fit(f"grad_compression {mode}", grad_compression=mode)
+        rel = max(_rel(a, b) for a, b in zip(r["losses"], plain["losses"]))
+        print(f"[elastic] (b) {mode} vs none: losses within {rel:.3g} relative (limit "
+              f"{COMPRESSED_LOSS_RTOL[mode]}); step ms median {r['median_ms']:.3f} vs "
+              f"{plain['median_ms']:.3f} ({r['median_ms'] / plain['median_ms']:.3f})")
+        check(len(r["losses"]) == ELASTIC_STEPS and rel <= COMPRESSED_LOSS_RTOL[mode],
+              f"{mode}: losses {r['losses']} vs none {plain['losses']}")
+    check(all(v > 0 for v in runs["int8_ef"]["ef_norms"].values())
+          and set(runs["int8_ef"]["ef_norms"]) == {"r1", "r2"},
+          f"int8_ef residual norms {runs['int8_ef']['ef_norms']}")
+    c = runs["int8"]["counts"]
+    check(c.get("comm.all_to_all.grad") == c.get("comm.all_gather.grad") == ELASTIC_STEPS,
+          f"the int8 reduce's collectives: {c}")
+    d = tempfile.mkdtemp(prefix="elastic_ckpt_")
+    try:
+        cut = _elastic_fit("int8_ef stopped by SIGTERM", ckpt_dir=d, grad_compression="int8_ef",
+                           fault_plan=ELASTIC_STOP)
+        rest = _elastic_fit("int8_ef resumed", ckpt_dir=d, grad_compression="int8_ef",
+                            resume=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    whole = cut["losses"] + rest["losses"]
+    print(f"[elastic] (b) int8_ef, SIGTERM after step 9 and resume: {len(cut['losses'])} + "
+          f"{len(rest['losses'])} steps; equal to the uninterrupted run's losses: "
+          f"{whole == runs['int8_ef']['losses']}")
+    check(cut["preempted"] and len(cut["losses"]) == 10 and rest["start_epoch"] == 0,
+          f"the stopped run: preempted {cut['preempted']}, {len(cut['losses'])} steps")
+    check(whole == runs["int8_ef"]["losses"],
+          f"resumed int8_ef losses {whole} vs {runs['int8_ef']['losses']}")
+    return runs
+
+
+def _fused_int8_ef() -> int:
+    """(c) The fused epoch on the int8_ef wire: one epoch of 195 replays
+    over the 1-rank NCCL group, then replay against the eager step (f32).
+    Returns its fused SGD launches."""
+    cfg = TrainConfig(**{**RESNET_FUSED_RUN, "epochs": 1, "eval_every": 0,
+                         "grad_compression": "int8_ef"}, device=DEVICE)
+    trainer = trainer_lib.Trainer(cfg)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        last = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()["fused_sgd"]
+        steps = trainer.state.step
+        ef = {k: float(v.norm()) for k, v in trainer.state.ef.items()}
+        print(f"[elastic] (c) resnet18_cifar100_fused on the int8_ef wire: fit {fit_s:.1f} s, "
+              f"loss {last['loss']:.4f}, steps (state.step) {steps}, fused_sgd launches "
+              f"{launches}, residual norms {ef}, capture {trainer._fused_runner.capture_s} s")
+        check(math.isfinite(last["loss"]) and steps == FUSED_STEPS
+              and launches == FUSED_STEPS and all(v > 0 for v in ef.values()),
+              f"fused int8_ef epoch: loss {last['loss']}, steps {steps}, launches {launches}, "
+              f"residuals {ef}")
+        images, labels = trainer._fused_data
+        _fused_parity(torch.float32, images, labels, tag="elastic", wire="int8_ef")
+        return launches
+    finally:
+        trainer.close()
+
+
+def _elastic_drill(d: str) -> None:
+    """(d) ``python -m tpu_dist_torch.elastic.drill``: golden and preempted
+    runs as 4 gloo ranks on the CPU, asked for explicitly, and the
+    shrink-resume at one rank on the card. It must exit 0 with ``PASS``."""
+    cmd = [sys.executable, "-m", "tpu_dist_torch.elastic.drill", "--workdir", d,
+           *ELASTIC_DRILL_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=ELASTIC_DRILL_TIMEOUT,
+                          cwd=str(pathlib.Path(__file__).resolve().parent))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("elastic-drill:")]
+    for ln in lines:
+        if "resume record" in ln or ln.startswith("elastic-drill: epoch") or "PASS" in ln \
+                or "FAIL" in ln or "exit" in ln:
+            print(f"[elastic] (d) {ln}")
+    print(f"[elastic] (d) drill: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0 and any("PASS" in ln for ln in lines),
+          f"the elastic drill failed (exit {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+
+
+def phase_elastic(work: str) -> dict:
+    """Phase 10 (module docstring). Returns the fused SGD launches of its
+    main paths: the ZeRO-1 run's on the flat shard, and the fused epoch's."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        runs = _zero1_vs_plain()
+        _reduce_ms()
+        _compressed(runs["plain"])
+        torch.backends.cudnn.deterministic = False
+        fused = _fused_int8_ef()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if created:
+            torch.distributed.destroy_process_group()
+    d = os.path.join(work, "elastic")
+    os.makedirs(d)
+    _elastic_drill(d)
+    print(f"[elastic] phase: {time.perf_counter() - t0:.1f} s; card: {_smi_line()}")
+    return {name: runs["zero1"]["launches"][name] + (fused if name == "fused_sgd" else 0)
+            for name in KERNELS}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2952,11 +3265,13 @@ def _phases(work: str) -> int:
     optim_launches = phase_optim(work)
     replicas = phase_supervised(work)
     forensics = phase_forensics(work)
+    elastic = phase_elastic(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
-                + optim_launches[name] + replicas[name] + forensics[name] for name in KERNELS}
+                + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
+                for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
     print(_smi_line())

@@ -45,11 +45,11 @@ MODEL = dict(block="basic", stage_blocks=(1, 1, 1, 1), num_classes=10, widths=(8
 # there; at 0.05 and 0.02 the same perturbation moves them by ulps.
 N, SIZE, BATCH, LR, EPOCHS = 64, 16, 8, 0.02, 2
 
-# (world, pad, bf16) of each case
+# (world, pad, bf16[, grad_compression]) of each case
 CASES = {
     "w1-f32-pad0": (1, 0, False), "w1-f32-pad4": (1, 4, False),
     "w2-f32-pad0": (2, 0, False), "w2-f32-pad4": (2, 4, False),
-    "w2-bf16-pad4": (2, 4, True),
+    "w2-bf16-pad4": (2, 4, True), "w2-f32-pad0-wire_bf16": (2, 0, False, "bf16"),
 }
 
 
@@ -91,7 +91,7 @@ def _jax_draws(epoch_idx, world, n_local, pad):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(world, pad, bf16):
+def _jax_run(world, pad, bf16, wire="none"):
     md, params, bn_state = _init()
     mesh = _mesh(world)
     dx, dy = jax_epoch.put_dataset_on_device(mesh, *_data())
@@ -100,7 +100,7 @@ def _jax_run(world, pad, bf16):
                         mesh_lib.replicated(mesh))
     runner = jax_epoch.make_fused_epoch(
         md.apply, opt, mesh, batch_per_device=BATCH, pad=pad,
-        compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+        compute_dtype=jnp.bfloat16 if bf16 else jnp.float32, grad_compression=wire)
     metrics = []
     for e in range(EPOCHS):
         st, m = runner(st, dx, dy, LR, e)
@@ -115,10 +115,11 @@ def port_results():
     out = {}
     for world in (1, 2):
         cases = {}
-        for name, (w, pad, bf16) in CASES.items():
+        for name, (w, pad, bf16, *wire) in CASES.items():
             if w == world:
                 draws = [_jax_draws(e, world, N // world, pad) for e in range(EPOCHS)]
-                cases[name] = dict(pad=pad, bf16=bf16, batch=BATCH, lr=LR, draws=draws)
+                cases[name] = dict(pad=pad, bf16=bf16, batch=BATCH, lr=LR, draws=draws,
+                                   wire=(wire or ["none"])[0])
         out[world] = run_ranks(fused_epoch_rank, world, cases, MODEL, params, bn_state,
                                images, labels, timeout=240)
     return out
@@ -158,8 +159,8 @@ BF16_LOSS_RTOL = 2e-3
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_fused_epoch_matches_jax(name, port_results):
-    world, pad, bf16 = CASES[name]
-    want_metrics, want = _jax_run(world, pad, bf16)
+    world, pad, bf16, *wire = CASES[name]
+    want_metrics, want = _jax_run(world, pad, bf16, *wire)
     ranks = [r[name] for r in port_results[world]]
     for other in ranks[1:]:  # every rank ends with the same metrics and state
         assert other["metrics"] == ranks[0]["metrics"]
@@ -168,6 +169,24 @@ def test_fused_epoch_matches_jax(name, port_results):
                 np.testing.assert_array_equal(a, b, err_msg=key)
     got = ranks[0]
     assert got["step"] == int(want.step) == EPOCHS * (N // world // BATCH)
+    if wire:
+        # the bf16 wire rounds each mean gradient to bf16 on both sides;
+        # where the two f32 means straddle a rounding boundary they round
+        # one bf16 step (2^-8) apart, and that moves the weights more than
+        # f32's summation order does. The losses keep f32's limit; the
+        # leaves are held as the bf16 compute case holds them: typically
+        # (the median) no farther from JAX's bf16-wire leaves than those
+        # lie from JAX's f32-wire ones, each within 1.5 times that
+        # (measured: medians 0.52 and 0.66, largest 0.65 and 0.78).
+        for g, w in zip(got["metrics"], want_metrics):
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=LOSS_RTOL)
+        f32 = _jax_run(world, pad, bf16)[1]
+        for key, theirs, plain in (("params", want.params, f32.params),
+                                   ("momentum", want.opt_state, f32.opt_state)):
+            ratios = [np.linalg.norm(a - b) / max(np.linalg.norm(b - f), 1e-30)
+                      for a, b, f in zip(_leaves(got[key]), _leaves(theirs), _leaves(plain))]
+            assert np.median(ratios) <= 1.0 and max(ratios) <= 1.5, (key, ratios)
+        return
     if bf16:
         np.testing.assert_allclose(got["metrics"][0]["loss"], want_metrics[0]["loss"],
                                    rtol=BF16_LOSS_RTOL)
@@ -232,6 +251,18 @@ def test_fused_run_equals_the_train_step_bit_for_bit():
     ``make_train_step`` fed the batches the run gathers (computed here in
     numpy, the JAX runner's formula) give the same losses and state, bit
     for bit: the same step body on the same inputs."""
+    _fused_run_against_the_train_step("none")
+
+
+def test_fused_run_on_the_int8_ef_wire_equals_the_train_step_bit_for_bit():
+    """The same on the int8_ef wire: the fused step keys its rounding on
+    its device step count (the run's first step plus its counter), the
+    eager step on ``state.step``, so both draw the same and carry the same
+    residuals."""
+    _fused_run_against_the_train_step("int8_ef")
+
+
+def _fused_run_against_the_train_step(wire):
     _, params, bn_state = _init()
     images, labels = _data()
     pad, steps = 4, 3
@@ -242,17 +273,21 @@ def test_fused_run_equals_the_train_step_bit_for_bit():
     def fresh():
         model = bridge.load_jax_resnet(resnet.ResNet(**MODEL, device="cpu"), params, bn_state)
         opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
-        return opt, state.TrainState.create(model, opt)
+        st = state.TrainState.create(model, opt)
+        if wire == "int8_ef":
+            lay = step.flat_layout(model)
+            st.ef, st.layout = step.init_ef_state(model, layout=lay), lay
+        return opt, st
 
     opt, st = fresh()
     runner = epoch.make_fused_epoch(opt, batch_per_device=BATCH, pad=pad,
-                                    compute_dtype=torch.float32)
+                                    compute_dtype=torch.float32, grad_compression=wire)
     x, y = torch.from_numpy(images), torch.from_numpy(labels.astype(np.int64))
     st, _ = runner.run(st, x, y, LR, torch.from_numpy(order), torch.from_numpy(offsets))
     fused_losses = runner.step_metrics[:, 0].tolist()
 
     opt2, st2 = fresh()
-    train_step = step.make_train_step(opt2)
+    train_step = step.make_train_step(opt2, grad_compression=wire)
     std_inv = (1.0 / CIFAR100_STD).astype(np.float32)
     losses = []
     for i in range(steps):
@@ -263,6 +298,8 @@ def test_fused_run_equals_the_train_step_bit_for_bit():
         losses.append(m["loss"].item())
     assert fused_losses == losses
     assert st.step == st2.step == steps
+    if wire == "int8_ef":
+        assert st.ef["r1"].abs().max() > 0  # the residuals were carried
     for a, b in zip(bridge.train_state_to_flat(st).values(),
                     bridge.train_state_to_flat(st2).values()):
         np.testing.assert_array_equal(a, b)

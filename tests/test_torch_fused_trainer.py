@@ -107,7 +107,7 @@ def test_distributed_mp_cli_with_fused_epoch_on_two_cpu_ranks():
 
 @pytest.mark.parametrize("flag,value", [
     ("grad_accu_steps", 2), ("label_smoothing", 0.1), ("grad_clip_norm", 1.0),
-    ("steps_per_epoch", 2), ("mid_epoch_save_every", 2)])
+    ("steps_per_epoch", 2), ("mid_epoch_save_every", 2), ("quant_chunk", 64)])
 def test_fused_epoch_refuses_the_options_its_runner_never_receives(flag, value):
     assert trainer.FUSED_REFUSED[flag][0] != value
     with pytest.raises(ValueError, match=f"{flag}=.*--fused_epoch"):
@@ -118,7 +118,7 @@ def test_the_refusal_cases_cover_every_refused_option():
     # remat's refusal case is in tests/test_torch_trainer_optim.py
     assert sorted(trainer.FUSED_REFUSED) == sorted(
         ["grad_accu_steps", "label_smoothing", "grad_clip_norm", "steps_per_epoch",
-         "mid_epoch_save_every", "remat"])
+         "mid_epoch_save_every", "remat", "quant_chunk"])
     # without fused_epoch, each is an ordinary option
     trainer.refuse_fused_options(TrainConfig(**{**RUN, "fused_epoch": False,
                                                 "grad_accu_steps": 2}))

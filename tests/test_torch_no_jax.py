@@ -67,7 +67,8 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.serve.supervisor", "tpu_dist_torch.serve.replica",
                  "tpu_dist_torch.serve.drill", "tpu_dist_torch.fleet",
                  "tpu_dist_torch.fleet.scheduler", "tpu_dist_torch.resilience.faults",
-                 "tpu_dist_torch.obs.drill", "tpu_dist_torch.data.native"):
+                 "tpu_dist_torch.obs.drill", "tpu_dist_torch.data.native",
+                 "tpu_dist_torch.elastic.drill"):
         assert name in MODULES
 
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_ranks import narrow_resnet
+from torch_ranks import DrawsKey, narrow_resnet
 
 from tpu_dist.comm import quantize as jax_q
 from tpu_dist.nn import vit as jax_vit
@@ -23,7 +23,6 @@ from tpu_dist_torch import bridge
 from tpu_dist_torch.comm import quantize
 from tpu_dist_torch.nn import vit
 from tpu_dist_torch.serve import engine
-from tpu_dist_torch.train.step import NotPortedError
 
 
 def _bits(a) -> np.ndarray:
@@ -101,9 +100,22 @@ def test_rows_quantize_independently_like_jax():
     assert s.shape == (3, 5)
 
 
-def test_stochastic_rounding_is_refused():
-    with pytest.raises(NotPortedError, match="Queue A 6"):
-        quantize.quantize_int8(torch.ones(8), key=0)
+@pytest.mark.parametrize("shape,chunk", [((3, 300), 64), ((2, 36), 16), ((777,), 256)])
+def test_stochastic_rounding_matches_jax_given_its_draws(shape, chunk):
+    """``floor(x/s + u)``: handed ``jax.random.uniform``'s draws under the
+    same key, the port's codes and scales are JAX's bit for bit (an
+    all-zero chunk included)."""
+    x = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    x[..., :chunk] = 0.0
+    key = jax.random.fold_in(jax.random.PRNGKey(0x1D8), 3)
+    k = -(-shape[-1] // chunk)
+    u = np.asarray(jax.random.uniform(key, shape[:-1] + (k, chunk), jnp.float32))
+    q, s = quantize.quantize_int8(torch.from_numpy(x), chunk=chunk, key=DrawsKey({(): u}))
+    jq, js = jax_q.quantize_int8(jnp.asarray(x), chunk=chunk, key=key)
+    _assert_same(q, jq)
+    _assert_same(s, js)
+    # stochastic, not nearest: some codes differ from round-to-nearest's
+    assert not torch.equal(q, quantize.quantize_int8(torch.from_numpy(x), chunk=chunk)[0])
 
 
 # -- int8 serving weights, per leaf, in the JAX layout -------------------------

@@ -14,6 +14,14 @@ cropped inputs on the CPU).
   raises ``ConfigMismatchError`` in both packages, and either package's
   AdamW checkpoint serves through the port's ``load_serving_state`` with
   f32 logits bit for bit.
+* ZeRO-1 with ``int8_ef``, mid-epoch, at another world: a JAX snapshot at
+  dp 4 (one process) resumes in the port at 2 gloo ranks, and a port
+  snapshot at 2 ranks in the JAX trainer at dp 4. The flat momentum and
+  the residual rows are re-laid (their prefix, and the residuals' total,
+  bit for bit), the process count changes, so both re-enter at the
+  consumed-example offset, and the resumed runs train on. The two
+  packages draw their int8 rounding from other streams, so no loss is
+  compared here.
 """
 
 import os
@@ -23,7 +31,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_ranks import fit_run, free_port, narrow_resnet
+from torch_ranks import elastic_fit_rank, fit_run, free_port, narrow_resnet, run_ranks
 
 import tpu_dist.data.native as jax_native
 import tpu_dist_torch.data.native as port_native
@@ -31,6 +39,9 @@ from tpu_dist.comm import mesh as mesh_lib
 from tpu_dist.config import TrainConfig as JaxConfig
 from tpu_dist.elastic.errors import ConfigMismatchError as JaxConfigMismatchError
 from tpu_dist.nn.resnet import ResNetDef
+from tpu_dist.obs import counters as jax_counters
+from tpu_dist.resilience import faults as jax_faults
+from tpu_dist.resilience import preemption as jax_preemption
 from tpu_dist.train import trainer as jax_trainer
 from tpu_dist_torch import bridge, ckpt
 from tpu_dist_torch.config.config import TrainConfig
@@ -247,3 +258,108 @@ def test_an_adamw_checkpoint_serves_with_f32_logits_bit_for_bit(adamw_crossed, w
     assert len(done) == 8 and all(r.ok for r in done)
     for r in done:
         np.testing.assert_array_equal(r.result, logits[r.id])
+
+
+# -- ZeRO-1 + int8_ef, mid-epoch, across packages and worlds ------------------------
+
+ELASTIC = dict(shard_weight_update=True, grad_compression="int8_ef", eval_every=0)
+L_NARROW = 78002  # the narrow ResNet's parameters at 10 classes: 78004 at dp 4, 78002 at 2
+
+
+def _jax_mesh(n):
+    return mesh_lib.device_mesh([n], [mesh_lib.DATA_AXIS], jax.devices()[:n])
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: np.array(z[k]) for k in z.files if k != "__meta__"}
+
+
+def _rows_total(r1, n):
+    return r1.reshape(n, -1)[:, :L_NARROW].sum(axis=0, dtype=np.float32)
+
+
+@pytest.fixture(scope="module")
+def zero1_crossed(tmp_path_factory):
+    """A JAX ZeRO-1 + int8_ef run at dp 4 stopped by SIGTERM after step 0
+    of epoch 1; the port's 2 ranks resuming it, then running the same
+    preempted run of their own; the JAX trainer at dp 4 resuming that."""
+    root = tmp_path_factory.mktemp("zero1")
+    _register()
+    try:
+        jt = jax_trainer.Trainer(JaxConfig(**{**JAX_RUN, **ELASTIC, "ckpt_dir": str(root / "jax"),
+                                              "fault_plan": "sigterm@epoch=1:step=0"}),
+                                 mesh=_jax_mesh(4))
+        with pytest.raises(jax_preemption.PreemptedError):
+            jt.fit()
+        # each resume below overwrites its ckpt_1 at its own world
+        shutil.copy(root / "jax" / "ckpt_1.npz", root / "jax_snapshot.npz")
+        jax_faults.clear()
+        jax_preemption.clear()
+        port = run_ranks(elastic_fit_rank, 2, [
+            {**RUN, **ELASTIC, "ckpt_dir": str(root / "jax"), "resume": True,
+             "log_file": str(root / "port_from_jax.jsonl")},
+            {**RUN, **ELASTIC, "ckpt_dir": str(root / "port"),
+             "fault_plan": "sigterm@epoch=1:step=0"}], timeout=180)
+        shutil.copy(root / "port" / "ckpt_1.npz", root / "port_snapshot.npz")
+        jax_counters.reset()
+        jt2 = jax_trainer.Trainer(JaxConfig(**{**JAX_RUN, **ELASTIC, "ckpt_dir": str(root / "port"),
+                                               "resume": True}), mesh=_jax_mesh(4))
+        restored = jax.device_get(jt2.state)
+        grows = jax_counters.get("elastic.grows")
+        resharded = jax_counters.get("resume.resharded")
+        resume_examples = jt2._resume_examples
+        jax_last = jt2.fit()
+    finally:
+        jax_faults.clear()
+        jax_preemption.clear()
+    return dict(root=root, port=port, restored=restored, grows=grows, resharded=resharded,
+                resume_examples=resume_examples, jax_last=jax_last)
+
+
+def test_a_jax_zero1_ef_snapshot_resumes_in_the_port_at_another_world(zero1_crossed):
+    root = zero1_crossed["root"]
+    saved = _npz(str(root / "jax_snapshot.npz"))
+    meta = ckpt.read_meta(str(root / "jax_snapshot.npz"))
+    assert meta["elastic"]["dp"] == 4 and meta["mid_epoch_procs"] == 1
+    assert saved["['opt_state']"].shape == (78004,)
+    for rank in zero1_crossed["port"]:
+        run = rank[0]
+        assert run["start_epoch"] == 1 and run["resume_examples"] == 16
+        assert run["counters"]["resume.resharded"] == 1
+        got = run["restored"]
+        for k in saved:
+            if k.startswith("['params']") or k.startswith("['bn_state']"):
+                np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
+        np.testing.assert_array_equal(got["['opt_state']"], saved["['opt_state']"][:L_NARROW])
+        np.testing.assert_array_equal(_rows_total(got["['ef']['r1']"], 2),
+                                      _rows_total(saved["['ef']['r1']"], 4))
+        # the offset (one global batch) and the steps after it: 1 and 2
+        assert run["last"]["steps"] == 2 and np.isfinite(run["last"]["loss"])
+    import json
+    rec = [r for r in map(json.loads, open(root / "port_from_jax.jsonl"))
+           if r.get("kind") == "resume"][-1]
+    assert (rec["prev_dp"], rec["prev_procs"], rec["dp"], rec["resharded"]) == (4, 1, 2, True)
+
+
+def test_a_port_zero1_ef_snapshot_resumes_in_the_jax_trainer_at_another_world(zero1_crossed):
+    root = zero1_crossed["root"]
+    path = str(root / "port_snapshot.npz")
+    saved = _npz(path)
+    meta = ckpt.read_meta(path)
+    assert meta["elastic"]["dp"] == 2 and meta["mid_epoch_procs"] == 2
+    assert meta["mid_epoch_examples"] == 16
+    st = zero1_crossed["restored"]
+    assert zero1_crossed["resharded"] == 1 and zero1_crossed["grows"] == 1
+    assert zero1_crossed["resume_examples"] == 16
+    for path_a, a in jax.tree_util.tree_flatten_with_path(st.params)[0]:
+        key = jax.tree_util.keystr(path_a)
+        np.testing.assert_array_equal(np.asarray(a), saved[f"['params']{key}"], err_msg=key)
+    mom = np.asarray(st.opt_state)
+    assert mom.shape == (78004,) and not mom[L_NARROW:].any()
+    np.testing.assert_array_equal(mom[:L_NARROW], saved["['opt_state']"])
+    np.testing.assert_array_equal(_rows_total(np.asarray(st.ef["r1"]), 4),
+                                  _rows_total(saved["['ef']['r1']"], 2))
+    # the JAX trainer counts the rest of the epoch from step 0: 3 steps
+    last = zero1_crossed["jax_last"]
+    assert last["steps"] == 3 and np.isfinite(last["loss"])

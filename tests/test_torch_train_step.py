@@ -107,16 +107,56 @@ def test_eval_step_with_mask_matches_jax():
 
 
 UNPORTED = [
-    ("shard_weight_update", True, "Queue A 6"),
     ("seq_axis", "seq", "Queue A 3"),
     ("tp_axis", "model", "Queue A 6"),
     ("ep_axis", "expert", "Queue A 6"),
     ("pp_axis", "pipe", "Queue A 6"),
-    ("grad_compression", "bf16", "Queue A 6"),
-    ("grad_compression", "int8_ef", "Queue A 6"),
-    ("rs_ag_chunks", 2, "Queue A 6"),
     ("device_metrics", True, "Queue A 6"),
 ]
+
+# The options ported with ZeRO-1 and the compressed reduce, each stepping
+# at one device (no process group): there ZeRO-1 is the plain step bit for
+# bit, in one column group or two; the compressed wires round the reduced
+# gradients (tests/test_torch_zero1.py and test_torch_compression.py hold
+# them against JAX on 2 ranks).
+PORTED = [
+    ("shard_weight_update", dict(shard_weight_update=True)),
+    ("rs_ag_chunks", dict(shard_weight_update=True, rs_ag_chunks=2)),
+    ("grad_compression=bf16", dict(grad_compression="bf16")),
+    ("grad_compression=int8_ef", dict(grad_compression="int8_ef")),
+]
+
+
+@pytest.mark.parametrize("name,kw", PORTED, ids=[n for n, _ in PORTED])
+def test_ported_flags_step_at_one_device(name, kw):
+    models = [vit.vit_tiny(device="cpu") for _ in range(2)]
+    for m in models:
+        bridge.load_jax_vit(m, bridge.numpy_vit_params(m, seed=0))
+    opt = optim.SGD()
+    plain = state.TrainState.create(models[0], opt)
+    lay = step.flat_layout(models[1])
+    st = state.TrainState.create(models[1], opt)
+    if kw.get("shard_weight_update"):
+        st.opt_state = step.init_sharded_opt_state(models[1], opt, layout=lay)
+        st.layout = lay
+    if kw.get("grad_compression") == "int8_ef":
+        st.ef, st.layout = step.init_ef_state(models[1], layout=lay), lay
+    _, mp = step.make_train_step(opt)(plain, *batch(0), LRS[0])
+    st, m = step.make_train_step(opt, **kw)(st, *batch(0), LRS[0])
+    assert st.step == 1 and m["loss"].item() == mp["loss"].item()  # the same forward
+    pairs = list(zip(models[1].parameters(), models[0].parameters()))
+    if kw.get("shard_weight_update"):
+        for a, b in pairs:
+            assert torch.equal(a, b)
+        assert st.opt_state.shape == (lay.chunk,) == (lay.L,)
+        return
+    # a rounded gradient (bf16: 2^-8 relative; int8: 1/254 of a chunk's
+    # largest entry) moves each weight by lr times that, far below 1e-3
+    assert any(not torch.equal(a, b) for a, b in pairs)
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    if st.ef:
+        assert st.ef["r1"].abs().max() > 0 and st.ef["r2"].shape == (lay.chunk,)
 
 
 @pytest.mark.parametrize("flag,value,queue", UNPORTED,

@@ -20,7 +20,7 @@ import sys
 import jax
 import numpy as np
 import pytest
-from torch_ranks import free_port
+from torch_ranks import free_port, narrow_resnet
 
 import tpu_dist.data.native as jax_native
 import tpu_dist_torch.data.native as port_native
@@ -123,7 +123,9 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # tests/test_torch_trainer_telemetry.py; optimizer (adamw, lars, lamb) runs
 # in tests/test_torch_trainer_optim.py and tests/test_torch_resume_cross.py,
 # and remat in tests/test_torch_remat.py and
-# tests/test_torch_trainer_optim.py.
+# tests/test_torch_trainer_optim.py; shard_weight_update, rs_ag_chunks,
+# grad_compression and quant_chunk run below and in
+# tests/test_torch_elastic_trainer.py and test_torch_resume_cross.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
@@ -131,11 +133,9 @@ UNPORTED_CASES = (
     ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
     ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
     ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
-    ("grad_compression", "bf16", "Queue A 6"),
-    ("shard_weight_update", True, "Queue A 6"), ("anomaly_action", "warn", "Queue A 6"),
+    ("anomaly_action", "warn", "Queue A 6"),
     ("straggler_threshold", 1.5, "Queue A 6"),
     ("sharded_ckpt", True, "Queue A 6"),
-    ("quant_chunk", 64, "Queue A 6"), ("rs_ag_chunks", 2, "Queue A 6"),
     ("device_metrics", True, "Queue A 6"), ("pp_microbatches", 4, "Queue A 6"),
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
     ("trace_file", "trace.json", "Queue A 6"),
@@ -150,6 +150,35 @@ def test_unported_flags_raise_a_typed_error(flag, value, queue):
     with pytest.raises(step.NotPortedError, match=flag) as info:
         trainer.Trainer(TrainConfig(**{**RUN, flag: value}, device="cpu", port=free_port()))
     assert info.value.flag == flag and queue in str(info.value)
+
+
+# the flags ported with ZeRO-1 and the compressed reduce, one case each
+PORTED_CASES = (
+    ("grad_compression", dict(grad_compression="bf16")),
+    ("shard_weight_update", dict(shard_weight_update=True)),
+    ("quant_chunk", dict(grad_compression="int8", quant_chunk=64)),
+    ("rs_ag_chunks", dict(shard_weight_update=True, rs_ag_chunks=2)),
+    ("grad_compression-fused_epoch", dict(grad_compression="int8_ef", fused_epoch=True)),
+)
+
+
+@pytest.mark.parametrize("flag,kw", PORTED_CASES, ids=[f for f, _ in PORTED_CASES])
+def test_the_zero1_and_compression_flags_train(flag, kw):
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    steps = None if kw.get("fused_epoch") else 1  # a fused epoch runs all its 10 steps
+    t = trainer.Trainer(TrainConfig(**{**RUN, **kw, "steps_per_epoch": steps, "eval_every": 0},
+                                    device="cpu", port=free_port()))
+    try:
+        last = t.fit(1)
+    finally:
+        t.close()
+    assert t.state.step == (steps or 10) and np.isfinite(last["loss"])
+    if kw.get("shard_weight_update"):
+        # this rank's shard of the flat momentum: the whole of it at one rank
+        assert t.state.layout is not None and t.state.opt_state.shape == (t.state.layout.L,)
+    else:
+        assert isinstance(t.state.opt_state, list)
+        assert (t.state.layout is not None) == (kw["grad_compression"] == "int8_ef")
 
 
 def test_the_refusal_cases_cover_every_unported_flag():

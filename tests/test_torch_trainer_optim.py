@@ -29,7 +29,7 @@ from tpu_dist.nn.resnet import ResNetDef
 from tpu_dist.train import trainer as jax_trainer
 from tpu_dist_torch import bridge, ckpt
 from tpu_dist_torch.config.config import TrainConfig
-from tpu_dist_torch.train import step, trainer
+from tpu_dist_torch.train import trainer
 
 RUN = dict(model="narrow_resnet", num_classes=10, dataset="synthetic", synthetic_n=160,
            batch_size=16, epochs=2, steps_per_epoch=3, lr=0.02, log_every=1, eval_every=1,
@@ -111,13 +111,19 @@ def test_the_fused_sgd_kernel_is_sgds_only(optimizer):
 
 
 @pytest.mark.parametrize("optimizer", ["lars", "lamb"])
-def test_a_trust_ratio_optimizer_with_zero1_meets_not_ported_first(optimizer):
-    """The JAX trainer refuses the pair with a ValueError (the flat layout
-    loses the per-layer norms); the port refuses ``shard_weight_update``
-    itself before it reaches the optimizer."""
-    with pytest.raises(step.NotPortedError) as info:
+def test_a_trust_ratio_optimizer_with_zero1_is_refused(optimizer):
+    """The JAX trainer's ValueError, word for word: the ZeRO-1 flat layout
+    loses the per-layer norms LARS and LAMB need."""
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    jax_trainer.register_model("narrow_resnet", lambda num_classes: ResNetDef(
+        "basic", (1, 1, 1, 1), num_classes, widths=(8, 16, 32, 64)))
+    with pytest.raises(ValueError) as ours:
         trainer.Trainer(_port(optimizer=optimizer, shard_weight_update=True))
-    assert info.value.flag == "shard_weight_update"
+    with pytest.raises(ValueError) as theirs:
+        jax_trainer.Trainer(JaxConfig(**{**RUN, "optimizer": optimizer,
+                                         "shard_weight_update": True}))
+    assert str(ours.value) == str(theirs.value)
+    assert "per-layer norms" in str(ours.value)
 
 
 def test_remat_is_refused_on_the_fused_path():

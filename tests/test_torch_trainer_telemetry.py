@@ -64,8 +64,8 @@ RULES = {"rule": [
 # one package has. The JAX trainer's subsystems that the port does not
 # have yet (ROADMAP Queue A): the live goodput ledger, the cost model's
 # per-step FLOPs and bytes, the XLA compile counters, the memory ledger,
-# the elastic world gauge, the compressed all-reduce's wire bytes, and the
-# loader's wait seconds (counters.add_seconds).
+# the compressed all-reduce's wire-bytes gauge, and the loader's wait
+# seconds (counters.add_seconds). The elastic world gauge is in both.
 JAX_ONLY = {
     "goodput_ckpt_s", "goodput_compile_s", "goodput_data_stall_s", "goodput_eval_s",
     "goodput_goodput_frac", "goodput_preempt_for_serve_s", "goodput_preempt_s",
@@ -73,7 +73,7 @@ JAX_ONLY = {
     "device_bytes_per_step", "device_flops_per_step", "compile_events", "compile_seconds",
     "mem_attributed_bytes", "mem_static_bytes_per_device", "mem_unattributed_bytes",
     "mem_xla_argument_bytes", "mem_xla_code_bytes", "mem_xla_output_bytes",
-    "mem_xla_peak_bytes", "mem_xla_temp_bytes", "elastic_world_size",
+    "mem_xla_peak_bytes", "mem_xla_temp_bytes",
     "comm_grad_wire_bytes_per_step", "loader_data_wait_s", "loader_producer_wait_s",
 }
 # The port's own counts, which the JAX trainer does not keep: its

@@ -20,6 +20,7 @@ import socket
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.multiprocessing as mp
 
@@ -292,7 +293,8 @@ def fit_rank(rank, world, cfg_kw):
 
 
 def fused_epoch_rank(rank, world, cases, model_kw, params, bn_state, images, labels):
-    """Each case (``pad``, ``bf16``, ``batch``, ``lr`` and ``draws``, where
+    """Each case (``pad``, ``bf16``, ``batch``, ``lr``, ``wire`` (the
+    gradient reduce's ``grad_compression``) and ``draws``, where
     ``draws[epoch][rank]`` is this rank's ``(order, offsets)``): the port's
     fused epochs on this rank's share of ``images``/``labels``
     (``put_dataset_on_device``) from the bridged JAX weights, with plain
@@ -311,7 +313,8 @@ def fused_epoch_rank(rank, world, cases, model_kw, params, bn_state, images, lab
         st = state.TrainState.create(model, opt)
         runner = epoch.make_fused_epoch(
             opt, batch_per_device=case["batch"], pad=case["pad"],
-            compute_dtype=torch.bfloat16 if case["bf16"] else torch.float32)
+            compute_dtype=torch.bfloat16 if case["bf16"] else torch.float32,
+            grad_compression=case.get("wire", "none"))
         metrics = []
         for draw in case["draws"]:
             order, offsets = (torch.from_numpy(a) for a in draw[rank])
@@ -346,3 +349,227 @@ def fused_fit_rank(rank, world, cfg_kw):
     out = fit_run(cfg_kw)
     out["counters"] = counters.snapshot()
     return out
+
+
+# -- compressed collectives and ZeRO-1 ----------------------------------------
+
+
+class DrawsKey:
+    """A stand-in for ``quantize.StreamKey`` that hands out given draws (the
+    JAX package's ``jax.random.uniform``), by the path of folds that led to
+    it: ``draws[(1,)]`` is what ``key.fold(1).uniform(...)`` returns."""
+
+    def __init__(self, draws: dict, path: tuple = ()):
+        self.draws, self.path = draws, path
+
+    def fold(self, data) -> "DrawsKey":
+        return DrawsKey(self.draws, self.path + (int(data),))
+
+    def uniform(self, shape, device):
+        return torch.tensor(self.draws[self.path]).reshape(tuple(shape)).to(device)
+
+
+def pmean_rank(rank, world, cases, grads_global):
+    """Each case ``(mode, chunk, ef_global, draws)``: the port's
+    ``compressed_pmean`` of this rank's row of every array in
+    ``grads_global``, with this rank's rows of the global residuals and
+    the JAX draws of this rank (``draws[rank]``); returns the mean
+    gradients, the new residuals and the collective counts."""
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import step  # noqa: PLC0415
+
+    out = {}
+    for name, (mode, chunk, ef_global, draws) in cases.items():
+        grads = [torch.from_numpy(np.ascontiguousarray(g[rank])) for g in grads_global]
+        ef = ()
+        if ef_global:
+            ef = {k: torch.from_numpy(v.reshape(world, -1)[rank].copy())
+                  for k, v in ef_global.items()}
+        counters.reset()
+        key = DrawsKey(draws[rank]) if draws else None
+        red, new_ef = step.compressed_pmean(grads, mode, key=key, ef=ef, chunk=chunk)
+        out[name] = {"grads": [r.numpy() for r in red],
+                     "ef": {k: v.numpy() for k, v in (new_ef or {}).items()},
+                     "counts": {k: v for k, v in counters.snapshot().items()
+                                if k.startswith("comm.")}}
+    return out
+
+
+class Probe(torch.nn.Module):
+    """A model whose flat parameter vector is the same in both packages:
+    two 1-D leaves ``a`` and ``b`` (JAX ravels its sorted dict keys, the
+    port its parameters in order). Its logits are 0 in every class but
+    class 0's, ``sum((p - stop_gradient(p)) * x)`` over the raveled ``p``,
+    which is 0 too, so the gradient is ``x`` scaled by the loss's
+    cotangent, an exact product."""
+
+    def __init__(self, a, b, num_classes):
+        super().__init__()
+        self.a = torch.nn.Parameter(torch.from_numpy(np.array(a)))
+        self.b = torch.nn.Parameter(torch.from_numpy(np.array(b)))
+        self.num_classes = num_classes
+
+    def forward(self, x):
+        flat = torch.cat([self.a, self.b])
+        s = ((flat - flat.detach()) * x).sum(-1)
+        return torch.nn.functional.pad(s[:, None], (0, self.num_classes - 1))
+
+
+def zero1_probe_rank(rank, world, cases, params, num_classes, batches, draws):
+    """Each case (``wire`` int8/int8_ef, ``clip``, ``chunk``): the port's
+    ZeRO-1 step of :class:`Probe` on this rank's half of every global
+    batch, with plain SGD, the int8 rounding handed the JAX draws of this
+    rank and step (``draws[step][rank]``, in place of ``step.quant_key``).
+    Returns per case the losses, the parameters, this rank's momentum
+    shard and ``r1`` row, and the collective counts."""
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    step.quant_key = lambda s, rank=None: DrawsKey({(): draws[int(s)][rank]})
+    out = {}
+    for name, kw in cases.items():
+        model = Probe(params["a"], params["b"], num_classes)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+        lay = step.flat_layout(model)
+        st = state.TrainState(model, {}, step.init_sharded_opt_state(model, opt, layout=lay),
+                              layout=lay)
+        if kw["wire"] == "int8_ef":
+            st.ef = step.init_ef_state(model, zero1=True, layout=lay)
+        train_step = step.make_train_step(opt, shard_weight_update=True,
+                                          grad_compression=kw["wire"], quant_chunk=kw["chunk"],
+                                          grad_clip_norm=kw["clip"])
+        counters.reset()
+        losses = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, m = train_step(st, images[rank * n:(rank + 1) * n],
+                               labels[rank * n:(rank + 1) * n], lr)
+            losses.append(m["loss"].item())
+        out[name] = {"losses": losses, "a": model.a.detach().numpy().copy(),
+                     "b": model.b.detach().numpy().copy(), "mom": st.opt_state.numpy().copy(),
+                     "r1": st.ef["r1"].numpy().copy() if st.ef else None,
+                     "counts": {k: v for k, v in counters.snapshot().items()
+                                if k.startswith("comm.")}}
+    return out
+
+
+def zero1_rank(rank, world, cases, model_kw, params, bn_state, batches, probe=None):
+    """Each case (``optimizer`` sgd/adamw, ``rs_ag_chunks``, ``wire``): the
+    port's ZeRO-1 train step on this rank's half of every global batch,
+    from the bridged JAX weights. Returns per case the metrics of each
+    step, the parameters (JAX pytree), the flat optimizer state as the
+    checkpoint writes it (JAX order, gathered) and the collective counts;
+    then, under ``"probe"``, :func:`zero1_probe_rank` of the arguments
+    ``probe``, if given."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = {}
+    for name, kw in cases.items():
+        model = resnet.ResNet(**model_kw, device="cpu")
+        bridge.load_jax_resnet(model, params, bn_state)
+        opt = (optim.AdamW(weight_decay=0.05) if kw["optimizer"] == "adamw"
+               else optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True))
+        lay = step.flat_layout(model)
+        st = state.TrainState(model, dict(model.named_buffers()),
+                              step.init_sharded_opt_state(model, opt, layout=lay),
+                              layout=lay)
+        if kw.get("wire") == "int8_ef":
+            st.ef = step.init_ef_state(model, zero1=True, layout=lay)
+        train_step = step.make_train_step(
+            opt, shard_weight_update=True, rs_ag_chunks=kw.get("rs_ag_chunks", 1),
+            grad_compression=kw.get("wire", "none"))
+        counters.reset()
+        metrics = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, m = train_step(st, images[rank * n:(rank + 1) * n],
+                               labels[rank * n:(rank + 1) * n], lr * kw.get("lr_scale", 1.0))
+            metrics.append({k: v.item() for k, v in m.items()})
+        counts = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
+        flat = bridge.train_state_to_flat(st)
+        out[name] = {"metrics": metrics, "params": bridge.resnet_params_to_jax(model)[0],
+                     "opt": {k: v for k, v in flat.items() if k.startswith("['opt_state']")
+                             or k.startswith("['ef']")},
+                     "local_opt": (st.opt_state.numpy().copy() if isinstance(st.opt_state, torch.Tensor)
+                                   else st.opt_state["mu"].numpy().copy()),
+                     "counts": counts}
+    if probe is not None:
+        out["probe"] = zero1_probe_rank(rank, world, *probe)
+    return out
+
+
+def elastic_fit_rank(rank, world, runs):
+    """For each ``cfg_kw`` of ``runs`` in turn: ``Trainer.fit`` on this rank
+    (a SIGTERM from a ``--fault_plan`` clause ends it with the emergency
+    snapshot); returns per run the last epoch's dict (None when preempted),
+    the start epoch, the state as the checkpoint writes it (gathered over
+    the ranks; ``restored`` as the resume left it, for a resuming run) and
+    this rank's counters."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.resilience.preemption import PreemptedError  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    out = []
+    for cfg_kw in runs:
+        t = trainer.Trainer(TrainConfig(**cfg_kw))
+        rec = {"start_epoch": t.start_epoch, "resume_examples": t._resume_examples}
+        if cfg_kw.get("resume"):
+            rec["restored"] = bridge.train_state_to_flat(t.state)
+        try:
+            rec["last"] = t.fit()
+        except PreemptedError:
+            rec["last"] = None
+        rec["flat"] = bridge.train_state_to_flat(t.state)
+        rec["counters"] = counters.snapshot()
+        t.close()
+        out.append(rec)
+    return out
+
+
+def ctrl_c_rank(rank, world, cfg_kw, at):
+    """``Trainer.fit`` stopped by Ctrl-C at its step call ``at`` (from 0):
+    on rank 0 it lands inside the step, once the step's collectives are
+    done; on the other ranks after the step, at the stop vote. Returns
+    the error ``fit`` raised (its type name) and the checkpoint files on
+    disk after it."""
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    t = trainer.Trainer(TrainConfig(**cfg_kw))
+    calls = [0]
+    inner_step, inner_stop = t.train_step, t._stop_agreed
+
+    def step(*a):
+        out = inner_step(*a)
+        calls[0] += 1
+        if rank == 0 and calls[0] == at + 1:
+            raise KeyboardInterrupt
+        return out
+
+    def stop(*a, **k):
+        if rank != 0 and calls[0] == at + 1:
+            raise KeyboardInterrupt
+        return inner_stop(*a, **k)
+
+    t.train_step, t._stop_agreed = step, stop
+    error = None
+    try:
+        t.fit()
+    except KeyboardInterrupt:
+        error = "KeyboardInterrupt"
+    finally:
+        t.close()
+    return error, sorted(os.listdir(cfg_kw["ckpt_dir"]))
+
+
+def elastic_and_ctrl_c_rank(rank, world, runs, ctrl_c_kw, at):
+    """:func:`elastic_fit_rank` of ``runs``, then :func:`ctrl_c_rank`, in
+    one start of the ranks."""
+    return elastic_fit_rank(rank, world, runs), ctrl_c_rank(rank, world, ctrl_c_kw, at)

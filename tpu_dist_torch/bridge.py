@@ -23,6 +23,19 @@ by :func:`keystr_flatten`. AdamW's and LAMB's state crosses as the JAX
 dict (``['opt_state']['mu']...``, ``['opt_state']['nu']...``,
 ``['opt_state']['count']``), so either package resumes the other's run.
 
+The flat parts of a state (``TrainState.layout``: ZeRO-1's optimizer
+state, the int8_ef residuals) cross as the JAX package's GLOBAL arrays:
+``['opt_state']`` (or ``['opt_state']['mu']``/``['nu']``) of
+``ceil(L/n)·n``, ``['ef']['r1']`` of ``n`` rows end to end and
+``['ef']['r2']`` of one padded vector, each in the JAX ravel order (the
+sorted pytree leaves, each in its JAX layout: :func:`jax_ravel_order`),
+where the port keeps the model's parameter order. Each rank holds only
+its own shard or row, so writing gathers them (every rank must call
+:func:`train_state_to_flat` then; with ``dst`` only that rank receives
+them and builds the dict), and :func:`load_train_state` takes
+this rank's part of each. :func:`restore_template` gives the global
+shapes a restore (and its elastic remapper) lays a checkpoint onto.
+
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
 """
@@ -31,11 +44,12 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn.resnet import ResNet
 from tpu_dist_torch.nn.vit import ViT
 
@@ -478,7 +492,8 @@ def _param_tree(model, buffers, what: str):
 
 
 def _is_adam(opt_state) -> bool:
-    """AdamW's and LAMB's state: ``{"mu": [...], "nu": [...], "count"}``."""
+    """AdamW's and LAMB's state: ``{"mu": [...], "nu": [...], "count"}``
+    (``mu`` and ``nu`` flat tensors under ZeRO-1)."""
     if not isinstance(opt_state, dict):
         return False
     if set(opt_state) != {"mu", "nu", "count"}:
@@ -486,51 +501,172 @@ def _is_adam(opt_state) -> bool:
     return True
 
 
-def train_state_to_flat(state) -> Dict[str, np.ndarray]:
+_ORDERS: dict = {}
+
+
+def jax_ravel_order(model: torch.nn.Module) -> np.ndarray:
+    """``order[j]``: the index, in the port's flat parameter vector (the
+    parameters in order, each raveled in its torch layout), of element
+    ``j`` of JAX's ``ravel_pytree(params)`` (the sorted leaves, each in
+    its JAX layout). Cached by the parameters' names and shapes."""
+    shapes = tuple((n, tuple(p.shape)) for n, p in model.named_parameters())
+    key = (type(model).__name__, shapes)
+    if key not in _ORDERS:
+        sd, off = {}, 0
+        for name, shape in shapes:
+            k = int(np.prod(shape))
+            sd[name] = np.arange(off, off + k, dtype=np.int64).reshape(shape)
+            off += k
+        tree = (resnet_state_dict_to_jax(sd)[0] if isinstance(model, ResNet)
+                else vit_state_dict_to_jax(sd))
+        _ORDERS[key] = np.concatenate([np.asarray(a).reshape(-1)
+                                       for a in keystr_leaves(tree).values()])
+    return _ORDERS[key]
+
+
+def _flat_parts(state) -> dict:
+    """The flat parts of ``state`` that each rank holds a piece of, by
+    checkpoint key: ``(tensor, "shard" | "row")``."""
+    if state.layout is None:
+        return {}
+    parts = {}
+    opt = state.opt_state
+    if isinstance(opt, torch.Tensor):
+        parts["['opt_state']"] = (opt, "shard")
+    elif isinstance(opt, dict) and isinstance(opt.get("mu"), torch.Tensor):
+        parts["['opt_state']['mu']"] = (opt["mu"], "shard")
+        parts["['opt_state']['nu']"] = (opt["nu"], "shard")
+    for k, v in (state.ef or {}).items():
+        parts[f"['ef'][{k!r}]"] = (v, "row" if k == "r1" else "shard")
+    return parts
+
+
+def _to_jax_order(vec: np.ndarray, order: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(vec)
+    out[:len(order)] = vec[order]
+    return out
+
+
+def _from_jax_order(vec: np.ndarray, order: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(vec)
+    out[order] = vec[:len(order)]
+    return out
+
+
+def _gathered_flat_parts(state, dst: Optional[int] = None) -> Optional[Dict[str, np.ndarray]]:
+    """The flat parts as the JAX package's global arrays, in its ravel
+    order. Gathers over the process group: every rank must call it. With
+    ``dst``, only rank ``dst`` receives the vectors and returns them; the
+    other ranks send their parts and return None."""
+    parts, mine = _flat_parts(state), dst is None or collectives.rank() == dst
+    out = {}
+    for key, (t, kind) in parts.items():
+        x = t.detach().float()
+        full = (collectives.all_gather_flat(x, kind="ckpt") if dst is None
+                else collectives.gather_flat(x, dst, kind="ckpt"))
+        if not mine:
+            continue
+        full, order = full.cpu().numpy(), jax_ravel_order(state.params)
+        if kind == "row":
+            out[key] = np.concatenate([_to_jax_order(r, order)
+                                       for r in full.reshape(state.layout.world, -1)])
+        else:
+            out[key] = _to_jax_order(full, order)
+    return out if mine else None
+
+
+def train_state_to_flat(state, dst: Optional[int] = None) -> Optional[Dict[str, np.ndarray]]:
     """A port ``TrainState`` (a ResNet's or a ViT's) as the ``{keystr:
     array}`` dict of a JAX ``TrainState``: HWIO conv kernels, ``mean``/
     ``var`` BN statistics, the optimizer state, ``step`` as an int32
-    scalar; the ViT's ``bn_state`` is ``{}`` and ``ef`` is ``()``, so
-    neither has an entry. The optimizer state is the momentum pytree
-    mirroring the parameters (SGD, LARS); AdamW's and LAMB's ``{"mu",
-    "nu", "count"}`` as the JAX dict (``['opt_state']['mu']...``,
-    ``['opt_state']['count']`` int32); or, when it is one 1-D tensor, a
-    ZeRO-1 flat momentum vector (the raveled parameters' momentum, padded
-    to the data-parallel extent) written as the single entry
-    ``['opt_state']``. Host copies: the dict does not follow the live
-    tensors."""
+    scalar and the ``ef`` residuals; the ViT's ``bn_state`` is ``{}``, as
+    ``ef`` is without int8_ef, so neither has an entry. The optimizer
+    state is the momentum pytree mirroring the parameters (SGD, LARS);
+    AdamW's and LAMB's ``{"mu", "nu", "count"}`` as the JAX dict
+    (``['opt_state']['mu']...``, ``['opt_state']['count']`` int32); or,
+    with a ``layout``, the ZeRO-1 flat state gathered into the JAX global
+    vectors (every rank must call this then). With ``dst`` only rank
+    ``dst`` builds the dict; the others send their flat parts, if any,
+    and return None. One 1-D tensor without a
+    layout is written as it is, as the single entry ``['opt_state']`` (a
+    global flat momentum already in the JAX order). Host copies: the dict
+    does not follow the live tensors."""
     model = state.params
     if not isinstance(model, (ResNet, ViT)):
         raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+    flat_parts = _gathered_flat_parts(state, dst)
+    if flat_parts is None:
+        return None
     sd = {n: _host_in_jax_order(t) for n, t in model.state_dict().items()}
     if isinstance(model, ResNet):
         params, bn_state = resnet_state_dict_to_jax(sd)
     else:
         params, bn_state = vit_state_dict_to_jax(sd), {}
     opt = state.opt_state
-    if isinstance(opt, torch.Tensor):
+    if "['opt_state']" in flat_parts:
+        opt_tree = flat_parts["['opt_state']"]
+    elif isinstance(opt, torch.Tensor):
         opt_tree = _numpy(opt)
     elif _is_adam(opt):
-        opt_tree = {"mu": _param_tree(model, opt["mu"], "mu"),
-                    "nu": _param_tree(model, opt["nu"], "nu"),
-                    "count": np.asarray(opt["count"].item(), np.int32)}
+        if "['opt_state']['mu']" in flat_parts:
+            mu, nu = flat_parts["['opt_state']['mu']"], flat_parts["['opt_state']['nu']"]
+        else:
+            mu, nu = _param_tree(model, opt["mu"], "mu"), _param_tree(model, opt["nu"], "nu")
+        opt_tree = {"mu": mu, "nu": nu, "count": np.asarray(opt["count"].item(), np.int32)}
     else:
         opt_tree = _param_tree(model, opt, "momentum")
+    ef = {k: flat_parts[f"['ef'][{k!r}]"] for k in (state.ef or {})}
     return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": opt_tree,
-                           "step": np.asarray(state.step, np.int32), "ef": ()})
+                           "step": np.asarray(state.step, np.int32), "ef": ef})
+
+
+def _zeros_like_leaf(shape, dtype=np.float32) -> np.ndarray:
+    return np.broadcast_to(np.zeros((), dtype), tuple(shape))
+
+
+def restore_template(state) -> Dict[str, np.ndarray]:
+    """``{keystr: leaf}`` of ``state`` in the checkpoint's layout, for
+    :func:`tpu_dist_torch.ckpt.restore`'s ``template``: every leaf's
+    global shape and dtype (the flat parts at this run's extent), as
+    zero-stride views (no copy of anything)."""
+    model = state.params
+    params, bn_state = jax_layout_template(model)
+    tree = {"params": params, "bn_state": bn_state or {}}
+    opt, lay = state.opt_state, state.layout
+    # per-leaf optimizer buffers mirror the parameters' (zero-stride) leaves
+    if isinstance(opt, torch.Tensor):
+        tree["opt_state"] = _zeros_like_leaf((lay.padded if lay else opt.numel(),))
+    elif _is_adam(opt):
+        flat = isinstance(opt["mu"], torch.Tensor)
+        tree["opt_state"] = {
+            "mu": _zeros_like_leaf((lay.padded,)) if flat else params,
+            "nu": _zeros_like_leaf((lay.padded,)) if flat else params,
+            "count": _zeros_like_leaf((), np.int32)}
+    else:
+        tree["opt_state"] = params
+    tree["step"] = _zeros_like_leaf((), np.int32)
+    if state.ef:
+        tree["ef"] = {k: _zeros_like_leaf((lay.world * lay.padded,) if k == "r1"
+                                          else (lay.padded,)) for k in state.ef}
+    return keystr_leaves(tree)
 
 
 def load_train_state(state, flat: Dict[str, np.ndarray]):
     """Copy a checkpoint's ``{keystr: array}`` dict into the live ``state``
-    in place (``copy_`` into the parameters, BN buffers and optimizer
-    state, which keep their storage) and return it with the saved
-    ``step``. The optimizer state must be of the live optimizer's kind:
-    per-parameter momentum (SGD, LARS) or AdamW's and LAMB's ``mu``,
-    ``nu`` and ``count``. Everything is checked before anything is copied:
+    in place (``copy_`` into the parameters, BN buffers, optimizer state
+    and residuals, which keep their storage) and return it with the saved
+    ``step``. The optimizer state must be of the live optimizer's kind and
+    layout: per-parameter momentum (SGD, LARS), AdamW's and LAMB's ``mu``,
+    ``nu`` and ``count``, or with a ``layout`` the ZeRO-1 flat state, whose
+    global vectors (JAX order, at this run's extent: restore through the
+    elastic remapper first) give this rank its shard. Residuals: with
+    int8_ef this rank's row of ``['ef']['r1']`` and its shard of
+    ``['ef']['r2']`` (zeros when the checkpoint has none, the cold start);
+    without, the entries are ignored, as the JAX restore ignores entries
+    its template lacks. Everything is checked before anything is copied:
     an unknown, missing or misshapen entry raises and leaves the state as
-    it was. Entries under ``['ef']`` (error-feedback residuals, which the
-    port does not keep) are ignored, as the JAX restore ignores entries its
-    template lacks."""
+    it was."""
+    ef_saved = {k: v for k, v in flat.items() if k.startswith("['ef']")}
     tree = keystr_unflatten({k: v for k, v in flat.items() if not k.startswith("['ef']")})
     unknown = sorted(set(tree) - {"params", "bn_state", "opt_state", "step"})
     missing = sorted({"params", "opt_state", "step"} - set(tree))
@@ -553,8 +689,15 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
         raise ValueError(f"['step'] must be an integer scalar, got {step.dtype} {step.shape}")
     pairs = _checked_pairs(model.state_dict(), sd)
     opt, saved = state.opt_state, tree["opt_state"]
+    parts = _flat_parts(state)
+    flat_saved = dict(ef_saved)
     count = None
-    if _is_adam(opt):
+    if "['opt_state']" in parts:
+        if not isinstance(saved, np.ndarray) or saved.ndim != 1:
+            raise KeyError("the checkpoint's ['opt_state'] is not a ZeRO-1 flat momentum: it "
+                           "was written by another optimizer or layout")
+        flat_saved["['opt_state']"] = saved
+    elif _is_adam(opt):
         if not isinstance(saved, dict) or set(saved) != {"mu", "nu", "count"}:
             raise KeyError("the checkpoint's ['opt_state'] is not an AdamW/LAMB state "
                            "(mu, nu, count): it was written by another optimizer")
@@ -563,6 +706,12 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
             raise ValueError(f"['opt_state']['count'] must be an integer scalar, got "
                              f"{count.dtype} {count.shape}")
         for key in ("mu", "nu"):
+            if f"['opt_state'][{key!r}]" in parts:
+                if np.ndim(saved[key]) != 1:
+                    raise KeyError(f"the checkpoint's ['opt_state'][{key!r}] is per leaf; this "
+                                   "run keeps the ZeRO-1 flat state")
+                flat_saved[f"['opt_state'][{key!r}]"] = saved[key]
+                continue
             if len(opt[key]) != len(names):
                 raise KeyError(f"{len(opt[key])} {key} buffers for {len(names)} parameters")
             pairs += _checked_pairs(dict(zip(names, opt[key])), from_jax(saved[key]), key)
@@ -570,7 +719,37 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
         if len(opt) != len(names):
             raise KeyError(f"{len(opt)} momentum buffers for {len(names)} parameters")
         pairs += _checked_pairs(dict(zip(names, opt)), from_jax(saved), "momentum")
+    pairs += _local_flat_pairs(state, parts, flat_saved)
     _copy_pairs(pairs)
     if count is not None:
         opt["count"].fill_(int(count))
     return dataclasses.replace(state, step=int(step))
+
+
+def _local_flat_pairs(state, parts: dict, saved: dict) -> list:
+    """``[(live tensor, this rank's part)]`` of each flat part: its shard
+    (or row) of the saved global vector, taken back to the port's order;
+    zeros for residuals the checkpoint lacks. Raises on a global length
+    other than this run's extent."""
+    if not parts:
+        return []
+    lay, order = state.layout, jax_ravel_order(state.params)
+    out = []
+    for key, (t, kind) in parts.items():
+        arr = saved.get(key)
+        if arr is None:
+            if not key.startswith("['ef']"):
+                raise KeyError(f"checkpoint missing array for {key}")
+            out.append((t, np.zeros(tuple(t.shape), np.float32)))
+            continue
+        arr = np.asarray(arr, np.float32).reshape(-1)
+        want = lay.world * lay.padded if kind == "row" else lay.padded
+        if arr.size != want:
+            raise ValueError(f"{key}: {arr.size} elements, this run's extent {lay.world} lays "
+                             f"out {want}: restore through the elastic remapper")
+        if kind == "row":
+            part = _from_jax_order(arr.reshape(lay.world, lay.padded)[lay.rank], order)
+        else:
+            part = _from_jax_order(arr, order)[lay.lo:lay.lo + lay.chunk]
+        out.append((t, part))
+    return out

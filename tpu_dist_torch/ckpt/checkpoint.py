@@ -3,14 +3,16 @@ copy of ``tpu_dist/ckpt/checkpoint.py`` up to ``restore`` (the sharded
 format after it is not ported).
 
 One ``ckpt_{epoch}.npz`` holds the whole ``TrainState`` (parameters, BN
-statistics, momentum, step) as flat arrays keyed by the
+statistics, optimizer state, step, residuals) as flat arrays keyed by the
 ``jax.tree_util.keystr`` path of the JAX ``TrainState._asdict()``, in JAX
 layout (:func:`tpu_dist_torch.bridge.train_state_to_flat`), plus a
 ``__meta__`` entry: the JSON of the epoch, the step, the caller's extra
 meta and a CRC32 per entry. So a checkpoint written by either package
 restores in the other. A file is published atomically (write to
 ``.tmp``, then ``os.replace``), retried on a transient ``OSError``
-(:func:`set_io_retries`), and only rank 0 writes; every rank can read.
+(:func:`set_io_retries`), and only rank 0 writes; every rank can read. A
+state with flat parts over the ranks (ZeRO-1, int8_ef) is gathered first,
+so then every rank calls the save.
 The ``--fault_plan`` hooks (:mod:`tpu_dist_torch.resilience.faults`) sit
 where the JAX writer has them: at the top of each write attempt, inside
 the retry ladder, and after the publish.
@@ -37,7 +39,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from tpu_dist_torch import bridge
-from tpu_dist_torch.comm import mesh
 from tpu_dist_torch.elastic.errors import ConfigMismatchError, ElasticShapeMismatch
 from tpu_dist_torch.elastic.remap import classify
 from tpu_dist_torch.obs import counters, spans
@@ -81,10 +82,13 @@ def _entry_crc(arr: np.ndarray) -> int:
     return zlib.crc32(arr.data) & 0xFFFFFFFF
 
 
-def _flatten(state) -> Dict[str, np.ndarray]:
-    """The host snapshot of ``state``: finished when this returns, so the
-    in-place updates of later steps cannot reach it."""
-    return bridge.train_state_to_flat(state)
+def _flatten(state) -> Optional[Dict[str, np.ndarray]]:
+    """The host snapshot of ``state`` on rank 0 (None elsewhere): finished
+    when this returns, so the in-place updates of later steps cannot reach
+    it. A state with a flat layout is gathered to rank 0 over the group,
+    so every rank must call this for it; the others only send their
+    parts."""
+    return bridge.train_state_to_flat(state, dst=0)
 
 
 def _write_npz(ckpt_dir: str, name: str, flat: dict, meta: dict,
@@ -162,9 +166,10 @@ def save(ckpt_dir: str, state, epoch: int, keep_last: Optional[int] = None,
     never matches, so never resumed or pruned); returns its path, or None
     off rank 0. ``keep_last`` prunes to the N newest checkpoints;
     ``extra_meta`` adds JSON keys to the meta."""
-    if mesh.process_index() != 0:
+    flat = _flatten(state)
+    if flat is None:
         return None
-    return _write_npz(ckpt_dir, name or f"ckpt_{epoch}.npz", _flatten(state),
+    return _write_npz(ckpt_dir, name or f"ckpt_{epoch}.npz", flat,
                       _epoch_meta(state, epoch, extra_meta), keep_last)
 
 
@@ -172,11 +177,12 @@ def save_best(ckpt_dir: str, state, epoch: int, metric: float,
               extra_meta: Optional[dict] = None) -> Optional[str]:
     """Write or overwrite ``ckpt_best.npz`` (rank 0, atomic), tagged with
     the metric."""
-    if mesh.process_index() != 0:
+    flat = _flatten(state)
+    if flat is None:
         return None
     meta = {"epoch": epoch, "metric": metric}
     meta.update(extra_meta or {})
-    return _write_npz(ckpt_dir, "ckpt_best.npz", _flatten(state), meta)
+    return _write_npz(ckpt_dir, "ckpt_best.npz", flat, meta)
 
 
 class _AsyncWriter:
@@ -267,19 +273,21 @@ class AsyncCheckpointer(_AsyncWriter):
         """Snapshot now, write in the background; returns the EVENTUAL
         path, which exists only after :meth:`wait` or :meth:`close`. Write
         errors surface on the next save, wait or close."""
-        if mesh.process_index() != 0:
+        flat = _flatten(state)
+        if flat is None:
             return None
-        return self._submit(ckpt_dir, f"ckpt_{epoch}.npz", _flatten(state),
+        return self._submit(ckpt_dir, f"ckpt_{epoch}.npz", flat,
                             _epoch_meta(state, epoch, extra_meta), keep_last)
 
     def save_best(self, ckpt_dir: str, state, epoch: int, metric: float,
                   extra_meta: Optional[dict] = None) -> Optional[str]:
         """The best-model twin of :meth:`save`, with the same contract."""
-        if mesh.process_index() != 0:
+        flat = _flatten(state)
+        if flat is None:
             return None
         meta = {"epoch": epoch, "metric": metric}
         meta.update(extra_meta or {})
-        return self._submit(ckpt_dir, "ckpt_best.npz", _flatten(state), meta)
+        return self._submit(ckpt_dir, "ckpt_best.npz", flat, meta)
 
 
 def all_checkpoints(ckpt_dir: str) -> List[Tuple[str, int]]:

@@ -9,6 +9,13 @@ CPU) on tensors of this rank. Each all-reduce goes through
 (``tpu_dist_torch.obs.counters``) per call, so a caller can show how many
 collectives of each kind a step issued: ``grad`` (the DDP gradient
 reduce), ``bn`` (SyncBN statistics), ``bn_state``, ``metrics``, ``eval``.
+The flat collectives of ZeRO-1 and the int8 gradient wire count the same
+way: :func:`reduce_scatter` under ``comm.reduce_scatter.<kind>``,
+:func:`all_to_all` under ``comm.all_to_all.<kind>`` and
+:func:`all_gather_flat` under ``comm.all_gather.<kind>`` (and
+:func:`gather_flat`, the checkpoint writer's, under ``comm.gather.<kind>``),
+one a call. They run over the group even at a world of one (where they
+are copies).
 
 Without an initialised process group every function is the identity of a
 world of one process and counts nothing.
@@ -37,6 +44,10 @@ def world_size(group=None) -> int:
     return dist.get_world_size(group) if active() else 1
 
 
+def rank(group=None) -> int:
+    return dist.get_rank(group) if active() else 0
+
+
 def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
                 kind: str = "other") -> torch.Tensor:
     """In-place all-reduce of ``x`` (``op`` in sum/max/min); counted under
@@ -45,6 +56,75 @@ def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
         counters.inc(f"comm.all_reduce.{kind}")
         dist.all_reduce(x, op=_OPS[op], group=group)
     return x
+
+
+# the newer names first; older torch has only the *_tensor spellings
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def reduce_scatter(x: torch.Tensor, *, group=None, kind: str = "other",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum-reduce-scatter of a flat tensor whose length divides by the
+    world size ``n``: rank ``r`` gets the sum over the ranks of
+    ``x[r*m:(r+1)*m]``, ``m = len(x)/n`` (``lax.psum_scatter(...,
+    tiled=True)``), in ``out`` when given. Counted under
+    ``comm.reduce_scatter.<kind>``."""
+    n = world_size(group)
+    if x.numel() % n:
+        raise ValueError(f"reduce_scatter of {x.numel()} elements over {n} ranks")
+    if out is None:
+        out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
+    if not active():
+        return out.copy_(x.reshape(-1))
+    counters.inc(f"comm.reduce_scatter.{kind}")
+    _REDUCE_SCATTER(out, x.reshape(-1).contiguous(), group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Tensor:
+    """``x`` of ``n`` equal rows along dim 0 (``n`` the world size): row
+    ``j`` goes to rank ``j``, and row ``i`` of the result came from rank
+    ``i`` (``lax.all_to_all(..., split_axis=0, concat_axis=0,
+    tiled=True)``). Counted under ``comm.all_to_all.<kind>``."""
+    n = world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all of {x.shape[0]} rows over {n} ranks")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if not active():
+        return out.copy_(x)
+    counters.inc(f"comm.all_to_all.{kind}")
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def all_gather_flat(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Tensor:
+    """Every rank's flat ``x`` concatenated in rank order, ``(n·len(x),)``
+    (``lax.all_gather(..., tiled=True)``). Counted under
+    ``comm.all_gather.<kind>``."""
+    out = torch.empty(world_size(group) * x.numel(), dtype=x.dtype, device=x.device)
+    if not active():
+        return out.copy_(x.reshape(-1))
+    counters.inc(f"comm.all_gather.{kind}")
+    _ALL_GATHER(out, x.reshape(-1).contiguous(), group=group)
+    return out
+
+
+def gather_flat(x: torch.Tensor, dst: int = 0, *, group=None,
+                kind: str = "other") -> Optional[torch.Tensor]:
+    """:func:`all_gather_flat` received by rank ``dst`` alone: every rank's
+    flat ``x`` concatenated in rank order there, None on the other ranks.
+    Counted under ``comm.gather.<kind>``."""
+    x = x.reshape(-1).contiguous()
+    if not active():
+        return x.clone()
+    counters.inc(f"comm.gather.{kind}")
+    if rank(group) != dst:
+        dist.gather(x, dst=dst, group=group)
+        return None
+    out = torch.empty(world_size(group) * x.numel(), dtype=x.dtype, device=x.device)
+    dist.gather(x, gather_list=list(out.chunk(world_size(group))), dst=dst, group=group)
+    return out
 
 
 class _SumAcrossRanks(torch.autograd.Function):

@@ -8,6 +8,15 @@
   by ``np.random.default_rng((seed, epoch, shard_id, batch))``.
 * :meth:`DataLoader.iter_from` starts the epoch at a given batch (the
   exact mid-epoch resume); ``iter(loader)`` is ``iter_from(0)``.
+* :meth:`DataLoader.replay_world` (the port's own): for the rest of an
+  epoch that an elastic resume re-entered at the sampler's offset, each
+  step's global batch is the one the old world's ranks would have made,
+  the same examples with the same crops (each old rank's batch keyed by
+  its own ``(seed, epoch, shard_id, batch)``), cut into this world's
+  per-rank slices, so the continued trajectory repeats the interrupted
+  run's inputs. The JAX loader re-partitions the remainder strided over
+  the new shards, whose crops are keyed anew (the same examples, other
+  crops).
 * A background thread produces the host batches one step ahead (the
   ``pin_memory`` + workers role); for a CUDA device it pins each batch's
   host tensors, and the consumer copies them to the rank's device with
@@ -71,41 +80,80 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.with_mask = with_mask
         self.watchdog_timeout = watchdog_timeout
+        self._replay: Optional[int] = None  # the old world of an elastic epoch
+
+    def replay_world(self, old_world: Optional[int]) -> None:
+        """Make the rest of this epoch (past the sampler's offset, a whole
+        number of global batches) the batches ``old_world`` ranks of this
+        per-rank batch times this world's size would have made
+        (module docstring); None, or an offset that is no whole number of
+        global batches, restores the sampler's own partition."""
+        g = self.batch_size * self.sampler.num_shards
+        ok = old_world and g % old_world == 0 and self.sampler.offset % g == 0
+        self._replay = int(old_world) if ok else None
+
+    def _old_sampler(self, rank: int) -> DistributedSampler:
+        s = self.sampler
+        old = DistributedSampler(s.num_examples, self._replay, rank, shuffle=s.shuffle,
+                                 seed=s.seed, drop_last=s.drop_last)
+        old.set_epoch(s.epoch)
+        return old
 
     def __len__(self) -> int:
+        if self._replay:
+            old_batch = self.batch_size * self.sampler.num_shards // self._replay
+            old = len(self._old_sampler(0))
+            nb = old // old_batch if self.sampler.drop_last else -(-old // old_batch)
+            return nb - self.sampler.offset // (self.batch_size * self.sampler.num_shards)
         return len(self.sampler) // self.batch_size if self.sampler.drop_last else -(
             -len(self.sampler) // self.batch_size
         )
 
+    def _batch(self, idx, mask, b: int, shard_id: int, batch_size: int) -> tuple:
+        # epoch-, rank- and batch-keyed augmentation stream: batch b is
+        # the same whether or not batches 0..b-1 were produced here
+        rng = np.random.default_rng((self.seed, self.sampler.epoch, shard_id, b))
+        sel = idx[b * batch_size : (b + 1) * batch_size]
+        pad = batch_size - len(sel)
+        bmask = mask[b * batch_size : b * batch_size + len(sel)] if mask is not None else None
+        if pad:
+            # last partial batch: wrap-around samples from the start of
+            # this shard's epoch stream (torch's sampler padding)
+            sel = np.concatenate([sel, np.resize(idx, pad)])
+            if bmask is not None:
+                bmask = np.concatenate([bmask, np.zeros(pad, bool)])
+        if self.gather_transform is not None:
+            imgs = self.gather_transform(self.images, sel, seed=int(rng.integers(0, 2**63)))
+        else:
+            imgs = self.images[sel]
+        out = (imgs, self.labels[sel])
+        if bmask is not None:
+            out = out + (bmask.astype(np.float32),)
+        return out
+
     def _host_batches(self, start_batch: int = 0) -> Iterator[Tuple[np.ndarray, ...]]:
+        if self._replay:
+            yield from self._replayed_batches(start_batch)
+            return
         idx = self.sampler.indices()
         mask = self.sampler.pad_mask() if self.with_mask else None
-        nb = len(self)
-        for b in range(start_batch, nb):
-            # epoch-, rank- and batch-keyed augmentation stream: batch b is
-            # the same whether or not batches 0..b-1 were produced here
-            rng = np.random.default_rng(
-                (self.seed, self.sampler.epoch, self.sampler.shard_id, b)
-            )
-            sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
-            pad = self.batch_size - len(sel)
-            bmask = mask[b * self.batch_size : b * self.batch_size + len(sel)] if self.with_mask else None
-            if pad:
-                # last partial batch: wrap-around samples from the start of
-                # this shard's epoch stream (torch's sampler padding)
-                sel = np.concatenate([sel, np.resize(idx, pad)])
-                if bmask is not None:
-                    bmask = np.concatenate([bmask, np.zeros(pad, bool)])
-            if self.gather_transform is not None:
-                imgs = self.gather_transform(
-                    self.images, sel, seed=int(rng.integers(0, 2**63))
-                )
-            else:
-                imgs = self.images[sel]
-            out = (imgs, self.labels[sel])
-            if self.with_mask:
-                out = out + (bmask.astype(np.float32),)
-            yield out
+        for b in range(start_batch, len(self)):
+            yield self._batch(idx, mask, b, self.sampler.shard_id, self.batch_size)
+
+    def _replayed_batches(self, start_batch: int) -> Iterator[Tuple[np.ndarray, ...]]:
+        """The old world's batches past the offset, this rank's slice of
+        each: positions ``[rank·B, (rank+1)·B)`` of the old ranks' batches
+        end to end."""
+        b_new, s = self.batch_size, self.sampler
+        b_old = b_new * s.num_shards // self._replay
+        base = s.offset // (b_new * s.num_shards)
+        lo, hi = s.shard_id * b_new, (s.shard_id + 1) * b_new
+        ranks = range(lo // b_old, (hi - 1) // b_old + 1)
+        idx = {q: self._old_sampler(q).indices() for q in ranks}
+        for k in range(start_batch, len(self)):
+            parts = [self._batch(idx[q], None, base + k, q, b_old) for q in ranks]
+            cut = slice(lo - ranks[0] * b_old, hi - ranks[0] * b_old)
+            yield tuple(np.concatenate(a)[cut] for a in zip(*parts))
 
     def _to_host_tensors(self, batch) -> tuple:
         tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)

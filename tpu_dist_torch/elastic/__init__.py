@@ -1,6 +1,7 @@
 """Mesh-shape-portable checkpoints: the port's copy of
-``tpu_dist/elastic/{errors,remap}.py``. The relaunch supervisor and the
-elastic drill are not ported."""
+``tpu_dist/elastic/{errors,remap}.py``, and the elastic drill
+(``python -m tpu_dist_torch.elastic.drill``). The relaunch supervisor is
+not ported."""
 
 from tpu_dist_torch.elastic.errors import ConfigMismatchError, ElasticShapeMismatch
 from tpu_dist_torch.elastic.remap import (

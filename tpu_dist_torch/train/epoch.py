@@ -22,7 +22,11 @@ one each. What the JAX runner does, this one does:
   ``autograd.grad``, the gradient all-reduce, the optimizer's update, any
   of SGD, AdamW, LARS and LAMB: their norms and AdamW's and LAMB's step
   count are device tensors, captured with the step, so each replay reads
-  the count as it stands);
+  the count as it stands), on the ``grad_compression`` wire: under the
+  int8 modes the rounding draws are keyed on a step count on the device
+  (the run's first step plus the step counter), so each replay draws
+  what the eager step at that count draws, and under ``int8_ef`` the
+  residuals of ``state.ef`` are updated in place like the momentum;
 * the metrics are the epoch means of the per-step ``loss``, ``acc1`` and
   ``acc5``, kept in a device buffer and fetched by the caller once.
 
@@ -64,7 +68,8 @@ from tpu_dist_torch.data.transforms import CIFAR100_MEAN, CIFAR100_STD
 from tpu_dist_torch.obs import counters
 from tpu_dist_torch.ops import flash_attention, fused_sgd
 from tpu_dist_torch.train.state import TrainState
-from tpu_dist_torch.train.step import eval_sums, make_step_body, metrics_from_sums
+from tpu_dist_torch.train.step import (QUANTIZED_MODES, eval_sums, make_step_body,
+                                      metrics_from_sums)
 
 WARMUP_STEPS = 3  # eager steps on a side stream before the capture
 # The NCCL watchdog thread polls the events of earlier collectives; under a
@@ -239,12 +244,14 @@ class FusedEpoch(_Runner):
 
     def __init__(self, optimizer, *, batch_per_device: int, sync_bn: bool,
                  compute_dtype: torch.dtype, pad: int, mean, std, pmean_fusion: str,
-                 seed: int):
+                 seed: int, grad_compression: str = "none", quant_chunk: Optional[int] = None):
         super().__init__(batch_per_device=batch_per_device, compute_dtype=compute_dtype,
                          mean=mean, std=std)
         self.pad, self.seed = int(pad), int(seed)
+        self._keyed = grad_compression in QUANTIZED_MODES  # the step count keys the rounding
         self._body = make_step_body(optimizer, sync_bn=sync_bn, compute_dtype=compute_dtype,
-                                    pmean_fusion=pmean_fusion, preempt_flag=False)
+                                    pmean_fusion=pmean_fusion, preempt_flag=False,
+                                    grad_compression=grad_compression, quant_chunk=quant_chunk)
 
     def draw(self, epoch: int, n_local: int, device,
              rank: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -280,10 +287,11 @@ class FusedEpoch(_Runner):
         self._order = order = torch.zeros((rows, b), dtype=torch.int64, device=dev)
         self._offsets = offsets = torch.zeros((rows, b, 2), dtype=torch.int64, device=dev)
         self._counter = counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._step0 = step0 = torch.zeros((), dtype=torch.int64, device=dev)
         self._lr = lr = torch.zeros((), dtype=torch.float32, device=dev)
         self._per_step = per_step = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
         mean, std_inv = normalizer(self._mean, self._std, dev)
-        body, pad, dtype = self._body, self.pad, self.compute_dtype
+        body, pad, dtype, keyed = self._body, self.pad, self.compute_dtype, self._keyed
 
         # the step holds the buffers, not the runner: no reference cycle
         # keeps a dropped runner's graph alive until a collection
@@ -291,7 +299,8 @@ class FusedEpoch(_Runner):
             idx = order.index_select(0, counter)[0]
             offs = offsets.index_select(0, counter)[0]
             x = augment(images_u8, idx, offs, pad=pad, mean=mean, std_inv=std_inv, dtype=dtype)
-            m = metrics_from_sums(body(state, x, labels.index_select(0, idx), lr), b)
+            m = metrics_from_sums(body(state, x, labels.index_select(0, idx), lr,
+                                       step=step0 + counter[0] if keyed else None), b)
             per_step.index_copy_(0, counter, torch.stack([m["loss"], m["acc1"], m["acc5"]])[None])
             counter.add_(1)
 
@@ -317,6 +326,7 @@ class FusedEpoch(_Runner):
         else:
             self._lr.fill_(float(lr))
         self._counter.zero_()
+        self._step0.fill_(int(state.step))
         self._steps = steps
         self._loop.run(steps)
         means = self._per_step[:steps].mean(dim=0)
@@ -335,14 +345,20 @@ def make_fused_epoch(
     std: np.ndarray = CIFAR100_STD,
     pmean_fusion: str = "fused",
     seed: int = 0,
+    grad_compression: str = "none",
+    quant_chunk: Optional[int] = None,
 ) -> FusedEpoch:
     """Build ``epoch(state, images_u8, labels, lr, epoch_idx) -> (state,
     metrics)`` running every step of the epoch on the device, over the
     rank's data from :func:`put_dataset_on_device`. ``state.params`` is the
-    model; the process group (if any) is the data-parallel world."""
+    model; the process group (if any) is the data-parallel world.
+    ``grad_compression`` and ``quant_chunk`` are the streaming step's
+    (under ``int8_ef`` ``state.ef`` holds the residuals:
+    ``step.init_ef_state``)."""
     return FusedEpoch(optimizer, batch_per_device=batch_per_device, sync_bn=sync_bn,
                       compute_dtype=compute_dtype, pad=pad, mean=mean, std=std,
-                      pmean_fusion=pmean_fusion, seed=seed)
+                      pmean_fusion=pmean_fusion, seed=seed, grad_compression=grad_compression,
+                      quant_chunk=quant_chunk)
 
 
 class FusedEval(_Runner):

@@ -24,6 +24,14 @@ the trust ratios are device tensors, so a step captured in a CUDA graph
 XLA fuses these updates and the JAX package has no Pallas kernel for them:
 here they are ``torch._foreach_*`` ops (AdamW, and LAMB's moments) and a loop
 over the leaves (the per-leaf norms).
+
+Under ZeRO-1 (``train/step.py``) the update runs on one flat shard: SGD's
+as one leaf (through the fused kernel with ``fused=True``, as the JAX
+``SGD.update`` hands the flat shard to ``fused_sgd_leaf``), AdamW's on
+its flat state (:meth:`AdamW.init_flat_state`) with the decay mask as a
+per-element vector built from :meth:`AdamW.leaf_wd_intervals`
+(``update(wd_tree=)``). LARS and LAMB need per-layer norms, which the flat
+layout loses: the trainer refuses them there.
 """
 
 from __future__ import annotations
@@ -132,18 +140,45 @@ class AdamW:
     def init(self, params: Sequence[torch.Tensor]) -> Dict[str, object]:
         return _adam_init(params)
 
-    def update(self, grads, opt_state, params, lr):
+    def init_flat_state(self, length: int, device=None) -> Dict[str, object]:
+        """Fresh ZeRO-1 state: f32 ``mu`` and ``nu`` of ``length`` (a rank's
+        shard of the padded raveled parameters) and the 0-d int32 count."""
+        return {"mu": torch.zeros(length, dtype=torch.float32, device=device),
+                "nu": torch.zeros(length, dtype=torch.float32, device=device),
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def _leaf_wd(self, p: torch.Tensor) -> float:
+        return self.weight_decay if self.decay_mask == "all" or p.dim() > 1 else 0.0
+
+    def leaf_wd_intervals(self, params: Sequence[torch.Tensor]) -> List[Tuple[int, int, float]]:
+        """The decay mask in flat coordinates: ``[start, end)`` ranges of the
+        raveled parameters (in ``params``' order) that take weight decay,
+        with their decay."""
+        out, off = [], 0
+        for p in params:
+            w = self._leaf_wd(p)
+            if w:
+                out.append((off, off + p.numel(), float(w)))
+            off += p.numel()
+        return out
+
+    def update(self, grads, opt_state, params, lr, wd_tree=None):
         """Apply one step in place; returns ``(params, opt_state)``. ``lr``
-        is a float or a float32 scalar tensor."""
+        is a float or a float32 scalar tensor. ``wd_tree`` overrides the
+        per-leaf decay: one float or per-element tensor a leaf (the ZeRO-1
+        flat shard passes its positional decay vector)."""
         with torch.no_grad():
             bc1, bc2 = _moments(grads, opt_state, self.b1, self.b2)
             u = _adam_direction(opt_state, bc1, bc2, self.eps)
-            wd = self.weight_decay
-            decayed = [i for i, p in enumerate(params)
-                       if self.decay_mask == "all" or p.dim() > 1]
-            if decayed:
-                ud = [u[i] for i in decayed]
-                torch._foreach_add_(ud, torch._foreach_mul([params[i] for i in decayed], wd))
+            if wd_tree is None:
+                wd = self.weight_decay
+                decayed = [i for i, p in enumerate(params) if self._leaf_wd(p)]
+                if decayed:
+                    ud = [u[i] for i in decayed]
+                    torch._foreach_add_(ud, torch._foreach_mul([params[i] for i in decayed], wd))
+            else:
+                for ui, p, w in zip(u, params, wd_tree):
+                    ui.add_(w * p)
             torch._foreach_sub_(list(params), torch._foreach_mul(u, lr))
         return params, opt_state
 

@@ -8,17 +8,55 @@ The JAX state is one immutable pytree; here ``params`` is the
 order. The train step updates both in place and
 returns a state with the step counter advanced. ``bn_state`` maps the
 model's buffer names to its buffers (the ResNets' BatchNorm running
-statistics, which the forward updates in place; empty for the ViT), and
-``ef`` (the int8 error-feedback residuals) stays empty until compressed
-collectives are ported.
+statistics, which the forward updates in place; empty for the ViT).
+
+Two parts of a state may be flat vectors laid over the ranks, as JAX lays
+them over the data axis; ``layout`` (a :class:`FlatLayout`) then says how:
+
+* under ZeRO-1 (``shard_weight_update``) ``opt_state`` is this rank's
+  shard of the flat optimizer state: SGD's momentum, one f32 tensor of
+  ``layout.chunk`` elements, or AdamW's ``{"mu", "nu", "count"}`` with
+  ``mu`` and ``nu`` such tensors;
+* under ``grad_compression="int8_ef"`` ``ef`` holds this rank's
+  error-feedback residuals: ``{"r1", "r2"}``, ``r1`` its row of
+  ``layout.padded`` elements (JAX's global ``r1`` is the ``world`` rows
+  end to end) and ``r2`` its ``layout.chunk`` elements of the reduced
+  gradient's residual; ZeRO-1 keeps ``r1`` only. Otherwise ``ef`` is
+  ``()``.
+
+The flat coordinates follow the model's parameter order and layout; the
+checkpoint writes them in the JAX ravel order (``bridge.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """The flat state's lay-out over the ranks: ``L`` raveled parameters,
+    padded to ``padded = chunk·world`` (``chunk = ceil(L/world)``) with a
+    zero tail, rank ``rank`` holding ``[rank·chunk, (rank+1)·chunk)``."""
+
+    L: int
+    world: int
+    rank: int
+
+    @property
+    def chunk(self) -> int:
+        return -(-self.L // self.world)
+
+    @property
+    def padded(self) -> int:
+        return self.chunk * self.world
+
+    @property
+    def lo(self) -> int:
+        return self.rank * self.chunk
 
 
 @dataclasses.dataclass
@@ -27,7 +65,8 @@ class TrainState:
     bn_state: Any            # BatchNorm running statistics, by name ({} for the ViT)
     opt_state: Any           # the optimizer's state (optimizer.init), in parameter order
     step: int = 0            # global step counter
-    ef: Any = ()             # error-feedback residuals (not ported: always ())
+    ef: Any = ()             # this rank's error-feedback residuals (int8_ef), else ()
+    layout: Optional[FlatLayout] = None  # how the flat parts lie over the ranks
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer) -> "TrainState":

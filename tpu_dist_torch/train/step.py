@@ -23,7 +23,22 @@ data-parallel (DP) family, one process per device.
   model is never wrapped in ``DistributedDataParallel`` (whose reducer
   hooks it would bypass, and whose ``broadcast_buffers`` copies rank 0's
   BN statistics where the JAX package averages them).
-* ``grad_clip_norm`` clips the reduced gradients by their global norm.
+* ``grad_compression`` puts that reduce on a compressed wire, as the JAX
+  step does (:func:`compressed_pmean`): ``bf16`` casts the gradients for
+  the all-reduce; ``int8`` and ``int8_ef`` run the two-stage quantized
+  reduce (:func:`quantized_pmean_flat`: per-chunk int8 with stochastic
+  rounding, an all-to-all of the rows, a local f32 sum, a re-quantized
+  all-gather), ``int8_ef`` with the error-feedback residuals of
+  ``state.ef``. The rounding draws are keyed on the step count and the
+  rank (:func:`quant_key`).
+* ``shard_weight_update`` is ZeRO-1 (:class:`_ZeroOne`): the gradients,
+  raveled and padded, are reduce-scattered (in ``rs_ag_chunks`` column
+  groups, or on the int8 wire), each rank updates its shard of the flat
+  parameters with its shard of the flat optimizer state (``state.opt_state``,
+  :func:`init_sharded_opt_state`), and an all-gather rebuilds the
+  parameters.
+* ``grad_clip_norm`` clips the reduced gradients by their global norm
+  (under ZeRO-1 from the shards' norms, one all-reduce).
 * ``remat`` runs each chunk's forward and loss under
   ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps its
   loss in ``jax.checkpoint``: the activations are recomputed in the
@@ -48,11 +63,13 @@ a CUDA graph, built without the SIGTERM flag, whose host read a graph
 would freeze.
 
 Without a process group every collective is the identity (a world of one
-process). The step updates the model, its BN statistics and its momentum
-buffers in place (the JAX step's ``donate=True``) and returns a state with
-``step + 1``. Options whose subsystem is not ported raise
-:class:`NotPortedError`, which names the flag and the ROADMAP queue that
-owns it.
+process). The step updates the model, its BN statistics, its optimizer
+state and its residuals in place (the JAX step's ``donate=True``) and
+returns a state with ``step + 1``. The JAX step's walls stand: int8 with
+``pmean_fusion="per_leaf"``, and ``rs_ag_chunks > 1`` off the
+non-quantized ZeRO-1 path, raise ``ValueError``. Options whose subsystem
+is not ported raise :class:`NotPortedError`, which names the flag and the
+ROADMAP queue that owns it.
 """
 
 from __future__ import annotations
@@ -64,23 +81,27 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+import numpy as np
+
 from tpu_dist_torch.comm import collectives
+from tpu_dist_torch.comm.quantize import (DEFAULT_CHUNK, StreamKey, dequantize_int8,
+                                          padded_len, quantize_int8)
 from tpu_dist_torch.nn import functional as F
 from tpu_dist_torch.nn import layers
 from tpu_dist_torch.resilience import preemption
-from tpu_dist_torch.train.state import TrainState
+from tpu_dist_torch.train.state import FlatLayout, TrainState
 
 GRAD_COMPRESSION_MODES = ("none", "bf16", "int8", "int8_ef")
+# the modes that take the quantized two-stage reduce
+QUANTIZED_MODES = ("int8", "int8_ef")
+_QUANT_KEY_SEED = 0x1D8  # the stochastic-rounding stream's seed, folded per step
 
 # option -> what it needs and where in ROADMAP.md that is queued
 WAITS_FOR = {
-    "shard_weight_update": "Queue A 6 (ZeRO-1 weight-update sharding, beside parallel/fsdp.py)",
-    "rs_ag_chunks": "Queue A 6 (the chunked ZeRO-1 reduce-scatter / all-gather)",
     "seq_axis": "Queue A 3 (sequence parallelism)",
     "tp_axis": "Queue A 6 (tensor parallelism, parallel/tensor.py)",
     "ep_axis": "Queue A 6 (expert parallelism, parallel/expert.py)",
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
-    "grad_compression": "Queue A 6 (compressed collectives, comm/quantize.py)",
     "device_metrics": "Queue A 6 (training-health telemetry, obs/device_stats.py)",
 }
 
@@ -100,8 +121,7 @@ class NotPortedError(NotImplementedError):
 
 
 def _refuse_unported(**options) -> None:
-    defaults = {"shard_weight_update": False, "seq_axis": None, "tp_axis": None,
-                "ep_axis": None, "pp_axis": None, "grad_compression": "none", "rs_ag_chunks": 1,
+    defaults = {"seq_axis": None, "tp_axis": None, "ep_axis": None, "pp_axis": None,
                 "device_metrics": False}
     for flag, value in options.items():
         if value != defaults[flag]:
@@ -121,6 +141,236 @@ def _flat_all_reduce_mean(tensors, kind: str) -> list:
     return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
+def validate_grad_compression(mode: str) -> None:
+    if mode not in GRAD_COMPRESSION_MODES:
+        raise ValueError(f"grad_compression must be one of {GRAD_COMPRESSION_MODES}, got {mode!r}")
+
+
+def grad_wire(g: torch.Tensor, mode: str) -> torch.Tensor:
+    """The gradient's wire format for a cross-rank reduce: bf16 under
+    ``'bf16'`` (the int8 modes take :func:`quantized_pmean_flat`)."""
+    return g.to(torch.bfloat16) if mode == "bf16" else g
+
+
+def grad_unwire(g: torch.Tensor, like: torch.Tensor, mode: str) -> torch.Tensor:
+    """The update's dtype again after a compressed reduce."""
+    return g.to(like.dtype) if mode == "bf16" else g
+
+
+def _params_of(params) -> list:
+    return list(params.parameters()) if hasattr(params, "parameters") else list(params)
+
+
+def flat_layout(params, world: Optional[int] = None, rank: Optional[int] = None) -> FlatLayout:
+    """The lay-out of ``params`` (a module or tensors) raveled and padded
+    over the process group (or ``world`` ranks, this one ``rank``)."""
+    return FlatLayout(sum(p.numel() for p in _params_of(params)),
+                      collectives.world_size() if world is None else int(world),
+                      collectives.rank() if rank is None else int(rank))
+
+
+def ef_state_host_zeros(params, n: int, *, zero1: bool = False) -> dict:
+    """Zero residuals in the JAX package's GLOBAL layout at a data-parallel
+    extent of ``n`` (numpy, as a checkpoint holds them): ``r1`` of
+    ``n·P`` (one padded-gradient row a replica), ``r2`` of ``P``
+    (``P = padded_len(L, n)``); ZeRO-1 keeps ``r1`` only."""
+    P = padded_len(sum(p.numel() for p in _params_of(params)), n)
+    ef = {"r1": np.zeros((n * P,), np.float32)}
+    if not zero1:
+        ef["r2"] = np.zeros((P,), np.float32)
+    return ef
+
+
+def init_ef_state(params, *, zero1: bool = False, layout: Optional[FlatLayout] = None) -> dict:
+    """This rank's zero residuals, on the parameters' device: ``r1`` its
+    row (``layout.padded``), ``r2`` its shard (``layout.chunk``)."""
+    params = _params_of(params)
+    layout = layout or flat_layout(params)
+    dev = params[0].device
+    ef = {"r1": torch.zeros(layout.padded, dtype=torch.float32, device=dev)}
+    if not zero1:
+        ef["r2"] = torch.zeros(layout.chunk, dtype=torch.float32, device=dev)
+    return ef
+
+
+def init_sharded_opt_state(params, optimizer=None, *, layout: Optional[FlatLayout] = None):
+    """This rank's shard of the ZeRO-1 flat optimizer state, zeros on the
+    parameters' device: SGD's momentum (``layout.chunk`` f32), or the
+    optimizer's own flat state (AdamW's ``init_flat_state``)."""
+    params = _params_of(params)
+    layout = layout or flat_layout(params)
+    dev = params[0].device
+    if optimizer is not None and hasattr(optimizer, "init_flat_state"):
+        return optimizer.init_flat_state(layout.chunk, dev)
+    return torch.zeros(layout.chunk, dtype=torch.float32, device=dev)
+
+
+def _chunk_bounds(total: int, k: int) -> list:
+    """``[0, total)`` in at most ``k`` contiguous groups of near-equal width
+    (the remainder over the first groups, no padding)."""
+    k = max(1, min(k, total))
+    base, rem = divmod(total, k)
+    bounds, lo = [], 0
+    for i in range(k):
+        hi = lo + base + (1 if i < rem else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def quant_key(step, rank: Optional[int] = None) -> StreamKey:
+    """The step's stochastic-rounding key: the seed, folded with the step
+    count (an int, or a 0-d device tensor a graph replays), then the rank."""
+    return StreamKey(_QUANT_KEY_SEED).fold(step).fold(
+        collectives.rank() if rank is None else rank)
+
+
+def _ravel(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unravel(flat: torch.Tensor, like) -> list:
+    """Views of ``flat`` in the shapes of ``like``."""
+    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+def _quantized_reduce_scatter_rows(rows: torch.Tensor, key, chunk: int):
+    """The quantized reduce-scatter of ``rows`` ``(n, m)``: quantize, an
+    int8 all-to-all (and one of the f32 scales), a local dequantize-sum.
+    Returns ``(this rank's reduced shard (m,), its dequantized
+    transmission (n, m))``, the second for the error feedback."""
+    q, s = quantize_int8(rows, chunk, key)
+    qt = collectives.all_to_all(q, kind="grad")
+    st = collectives.all_to_all(s, kind="grad_scale")
+    reduced = torch.sum(dequantize_int8(qt, st, chunk), dim=0)
+    return reduced, dequantize_int8(q, s, chunk)
+
+
+def quantized_pmean_flat(grads, *, key, ef, chunk: int):
+    """The two-stage quantized mean of ``grads`` (tensors) over the ranks,
+    ``tpu_dist/train/step.py::quantized_pmean_flat``: ravel, pad to a
+    multiple of the world ``n`` and scale by 1/n; leg 1 quantizes the rows
+    and reduce-scatters them (:func:`_quantized_reduce_scatter_rows`,
+    ``key.fold(1)``); leg 2 re-quantizes the reduced shard
+    (``key.fold(2)``) and all-gathers it. ``ef`` is ``()`` or this rank's
+    ``{"r1", "r2"}``: added before each leg's quantization, and the
+    realised errors returned as the new residuals. Returns ``(mean grads
+    in ``grads``' shapes, new_ef)``."""
+    n = collectives.world_size()
+    flat = _ravel(grads)
+    L = flat.numel()
+    P = padded_len(L, n)
+    m = P // n
+    x = torch.nn.functional.pad(flat, (0, P - L)) / n
+    if ef:
+        x = x + ef["r1"]
+    reduced, sent = _quantized_reduce_scatter_rows(x.view(n, m), key.fold(1), chunk)
+    new_ef = ()
+    if ef:
+        new_ef = {"r1": x - sent.reshape(P)}
+        reduced = reduced + ef["r2"]
+    q2, s2 = quantize_int8(reduced, chunk, key.fold(2))
+    if ef:
+        new_ef["r2"] = reduced - dequantize_int8(q2, s2, chunk)
+    qg = collectives.all_gather_flat(q2, kind="grad")
+    sg = collectives.all_gather_flat(s2, kind="grad_scale")
+    full = dequantize_int8(qg.view(n, m), sg.view(n, -1), chunk).reshape(P)[:L]
+    return _unravel(full, grads), new_ef
+
+
+def compressed_pmean(grads, mode: str, *, key=None, ef=(), chunk: Optional[int] = None,
+                     pmean_fusion: str = "fused"):
+    """The cross-rank gradient mean on ``mode``'s wire, the entry point of
+    the streaming and the fused step: ``none`` and ``bf16`` one all-reduce
+    of the (cast) flat gradients (one a leaf with ``per_leaf``), the int8
+    modes :func:`quantized_pmean_flat` (``key`` required; ``ef`` used
+    under ``int8_ef`` only). Returns ``(contiguous mean grads, new_ef)``,
+    ``new_ef`` the ``ef`` given except under ``int8_ef``."""
+    if mode in QUANTIZED_MODES:
+        return quantized_pmean_flat(grads, key=key, ef=ef if mode == "int8_ef" else (),
+                                    chunk=chunk or DEFAULT_CHUNK)
+    if mode == "none" and not collectives.active():
+        return [g.contiguous() for g in grads], ef
+    wired = [grad_wire(g, mode) for g in grads]
+    if pmean_fusion == "fused":
+        red = _flat_all_reduce_mean(wired, "grad")
+    else:
+        world = collectives.world_size()
+        red = [collectives.all_reduce_(g.contiguous(), kind="grad").div_(world) for g in wired]
+    return [grad_unwire(r, g, mode).contiguous() for r, g in zip(red, grads)], ef
+
+
+class _ZeroOne:
+    """ZeRO-1 weight-update sharding for one model, the JAX step's
+    ``_sharded_update``: the persistent buffers of this rank's shard (the
+    parameters and the reduced gradients, ``layout.chunk`` each, so the
+    fused SGD kernel's launch plan holds between steps) and the update."""
+
+    def __init__(self, optimizer, model, *, mode: str, q_chunk: int, rs_ag_chunks: int,
+                 clip: float):
+        self.model, self.optimizer, self.mode, self.q_chunk = model, optimizer, mode, q_chunk
+        self.rs_ag_chunks, self.clip = rs_ag_chunks, clip
+        params = list(model.parameters())
+        self.layout = lay = flat_layout(params)
+        dev = params[0].device
+        self.p_shard = torch.zeros(lay.chunk, dtype=torch.float32, device=dev)
+        self.g_shard = torch.zeros(lay.chunk, dtype=torch.float32, device=dev)
+        self.bounds = _chunk_bounds(lay.chunk, rs_ag_chunks)
+        self.wd = None
+        if hasattr(optimizer, "leaf_wd_intervals"):
+            # the decay mask in flat coordinates, this rank's part of it
+            wd = torch.zeros(lay.padded, dtype=torch.float32)
+            for start, end, w in optimizer.leaf_wd_intervals(params):
+                wd[start:end] = w
+            self.wd = wd[lay.lo:lay.lo + lay.chunk].to(dev)
+
+    def update(self, state: TrainState, params: list, grads: list, lr, step) -> None:
+        lay, mode = self.layout, self.mode
+        n, L, chunk = lay.world, lay.L, lay.chunk
+        x = torch.nn.functional.pad(_ravel(grads) / n, (0, lay.padded - L))
+        if mode in QUANTIZED_MODES:
+            if mode == "int8_ef":
+                x = x + state.ef["r1"]
+            g, sent = _quantized_reduce_scatter_rows(x.view(n, chunk), quant_key(step, lay.rank),
+                                                     self.q_chunk)
+            if mode == "int8_ef":
+                state.ef["r1"].copy_(x - sent.reshape(-1))
+            self.g_shard.copy_(g)
+        elif self.rs_ag_chunks > 1:
+            # column groups of the (n, chunk) rows: shard p of group [c0:c1)
+            # is rows[p, c0:c1], so the pieces concatenate to this rank's shard
+            rows = grad_wire(x, mode).view(n, chunk)
+            self.g_shard.copy_(torch.cat([
+                collectives.reduce_scatter(rows[:, c0:c1].reshape(-1), kind="grad")
+                for c0, c1 in self.bounds]))
+        elif mode == "bf16":
+            self.g_shard.copy_(collectives.reduce_scatter(grad_wire(x, mode), kind="grad"))
+        else:
+            collectives.reduce_scatter(x, kind="grad", out=self.g_shard)
+        if self.clip > 0.0:  # the global norm from the shards' norms
+            sq = collectives.all_reduce_(torch.sum(torch.square(self.g_shard)), kind="clip")
+            self.g_shard.mul_(torch.clamp(self.clip / torch.clamp(torch.sqrt(sq), min=1e-12),
+                                          max=1.0))
+        with torch.no_grad():
+            lo, hi = lay.lo, min(lay.lo + chunk, L)
+            if hi > lo:  # the tail past L stays 0: its gradient and state are 0
+                self.p_shard[:hi - lo].copy_(_ravel(params)[lo:hi])
+        opt = state.opt_state
+        kw = {"wd_tree": [self.wd]} if self.wd is not None else {}
+        view = ({"mu": [opt["mu"]], "nu": [opt["nu"]], "count": opt["count"]}
+                if isinstance(opt, dict) else [opt])
+        self.optimizer.update([self.g_shard], view, [self.p_shard], lr, **kw)
+        if self.rs_ag_chunks > 1:
+            full = torch.cat([
+                collectives.all_gather_flat(self.p_shard[c0:c1], kind="params").view(n, c1 - c0)
+                for c0, c1 in self.bounds], dim=1).reshape(-1)
+        else:
+            full = collectives.all_gather_flat(self.p_shard, kind="params")
+        with torch.no_grad():
+            for p, v in zip(params, _unravel(full[:L], params)):
+                p.copy_(v)
+
+
 def make_step_body(
     optimizer,
     *,
@@ -132,36 +382,58 @@ def make_step_body(
     pmean_fusion: str = "fused",
     preempt_flag: bool = True,
     remat: bool = False,
+    shard_weight_update: bool = False,
+    grad_compression: str = "none",
+    quant_chunk: Optional[int] = None,
+    rs_ag_chunks: int = 1,
 ):
-    """Build ``body(state, images, labels, lr) -> sums``: the step on
-    tensors already on the model's device. Forward and backward over the K
-    chunks, the BN-state average without SyncBN, the gradient reduce, the
-    clip and the optimizer's in-place update; then ONE all-reduce of
-    ``[loss, top-1 hits, top-5 hits]`` (f32, summed over the ranks), which
-    it returns. With ``preempt_flag`` a 4th element carries this rank's
-    SIGTERM flag as read on the host when the step is built; without it
-    (a step captured in a CUDA graph, where that read would be frozen) the
-    body reads nothing of the host's state and nothing back from the
-    device, so a graph can hold it. ``lr`` must then be a device tensor (a
-    float would be frozen into the graph too). ``remat`` recomputes each
-    chunk's forward in its backward."""
+    """Build ``body(state, images, labels, lr, step=None) -> sums``: the
+    step on tensors already on the model's device. Forward and backward
+    over the K chunks, the BN-state average without SyncBN, the gradient
+    reduce (on the ``grad_compression`` wire), the clip and the
+    optimizer's in-place update, or under ``shard_weight_update`` the
+    ZeRO-1 reduce-scatter, shard update and all-gather; then ONE
+    all-reduce of ``[loss, top-1 hits, top-5 hits]`` (f32, summed over the
+    ranks), which it returns. With ``preempt_flag`` a 4th element carries
+    this rank's SIGTERM flag as read on the host when the step is built;
+    without it (a step captured in a CUDA graph, where that read would be
+    frozen) the body reads nothing of the host's state and nothing back
+    from the device, so a graph can hold it. ``lr`` must then be a device
+    tensor (a float would be frozen into the graph too), and so must
+    ``step``, the step count that keys the int8 rounding (default
+    ``state.step``). ``remat`` recomputes each chunk's forward in its
+    backward."""
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
+    validate_grad_compression(grad_compression)
+    quantized = grad_compression in QUANTIZED_MODES
+    if pmean_fusion == "per_leaf" and (quantized or shard_weight_update):
+        raise ValueError("pmean_fusion='per_leaf' is scoped to the non-quantized data-parallel "
+                         "reduce; it cannot combine with grad_compression int8/ep/"
+                         "shard_weight_update")
+    rs_ag_chunks = int(rs_ag_chunks)
+    if rs_ag_chunks < 1:
+        raise ValueError(f"rs_ag_chunks={rs_ag_chunks}: must be >= 1")
+    if rs_ag_chunks > 1 and not (shard_weight_update and not quantized):
+        raise ValueError("rs_ag_chunks > 1 is scoped to the non-quantized ZeRO-1 path "
+                         "(shard_weight_update=True, grad_compression none/bf16)")
+    q_chunk = int(quant_chunk) if quant_chunk else DEFAULT_CHUNK
     K = int(grad_accum_steps)
     if K < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    zero = {}  # the _ZeroOne of the model the body last saw
 
-    def reduce_grads(grads):
-        """The DDP gradient reduce: the mean over the ranks, once a step.
-        The result is contiguous (the fused SGD kernel needs it; cuDNN
-        hands back channels-last weight gradients)."""
-        if not collectives.active():
-            return [g.contiguous() for g in grads]
-        if pmean_fusion == "fused":
-            return _flat_all_reduce_mean(grads, "grad")
-        world = collectives.world_size()
-        return [collectives.all_reduce_(g.contiguous(), kind="grad").div_(world)
-                for g in grads]
+    def reduce_grads(grads, state, step):
+        """The DDP gradient reduce on the ``grad_compression`` wire: the
+        mean over the ranks, once a step (:func:`compressed_pmean`), whose
+        ``int8_ef`` residuals go back into ``state.ef`` in place."""
+        ef = state.ef if grad_compression == "int8_ef" else ()
+        red, new_ef = compressed_pmean(
+            grads, grad_compression, key=quant_key(step) if quantized else None, ef=ef,
+            chunk=q_chunk, pmean_fusion=pmean_fusion)
+        for k, v in (new_ef.items() if ef else ()):
+            state.ef[k].copy_(v)
+        return red
 
     def clip_grads(grads):
         """Global-norm clip: scale = min(1, clip / max(norm, 1e-12))."""
@@ -171,9 +443,24 @@ def make_step_body(
         scale = torch.clamp(grad_clip_norm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
         return [g * scale for g in grads]
 
-    def body(state: TrainState, images, labels, lr) -> torch.Tensor:
+    def sharded(state: TrainState, params: list) -> _ZeroOne:
+        z = zero.get("z")
+        if z is None or z.model is not state.params:
+            opt = state.opt_state
+            mom = opt["mu"] if isinstance(opt, dict) else opt
+            lay = flat_layout(params)
+            if not isinstance(mom, torch.Tensor) or tuple(mom.shape) != (lay.chunk,):
+                raise ValueError("shard_weight_update needs this rank's flat optimizer state "
+                                 f"({lay.chunk} elements: init_sharded_opt_state)")
+            z = zero["z"] = _ZeroOne(optimizer, state.params, mode=grad_compression,
+                                     q_chunk=q_chunk, rs_ag_chunks=rs_ag_chunks,
+                                     clip=grad_clip_norm)
+        return z
+
+    def body(state: TrainState, images, labels, lr, step=None) -> torch.Tensor:
         model = state.params
         params = list(model.parameters())
+        step = state.step if step is None else step
         if images.shape[0] % K:
             raise ValueError(f"batch {images.shape[0]} does not split into {K} chunks")
         n = images.shape[0] // K
@@ -212,7 +499,11 @@ def make_step_body(
             with torch.no_grad():
                 for b, avg in zip(bufs, _flat_all_reduce_mean(bufs, "bn_state")):
                     b.copy_(avg)
-        optimizer.update(clip_grads(reduce_grads(grads)), state.opt_state, params, lr)
+        if shard_weight_update:
+            sharded(state, params).update(state, params, grads, lr, step)
+        else:
+            optimizer.update(clip_grads(reduce_grads(grads, state, step)), state.opt_state,
+                             params, lr)
 
         c1, c5 = F.topk_correct(torch.cat(logits).float(), labels, (1, 5))
         sums = [loss.float(), c1.float(), c5.float()]
@@ -251,6 +542,7 @@ def make_train_step(
     pp_axis: Optional[str] = None,
     remat: bool = False,
     grad_compression: str = "none",
+    quant_chunk: Optional[int] = None,
     pmean_fusion: str = "fused",
     rs_ag_chunks: int = 1,
     device_metrics: bool = False,
@@ -260,23 +552,19 @@ def make_train_step(
     ``state.params`` is the model (``images [B, ...] -> logits``, this
     rank's share of the global batch); images and labels are tensors or
     arrays, moved to the model's device; ``lr`` is a float or a float32
-    scalar tensor there."""
-    if grad_compression not in GRAD_COMPRESSION_MODES:
-        raise ValueError(
-            f"grad_compression must be one of {GRAD_COMPRESSION_MODES}, got {grad_compression!r}"
-        )
-    if int(rs_ag_chunks) < 1:
-        raise ValueError(f"rs_ag_chunks={rs_ag_chunks}: must be >= 1")
-    _refuse_unported(
-        shard_weight_update=shard_weight_update, seq_axis=seq_axis, tp_axis=tp_axis,
-        ep_axis=ep_axis, pp_axis=pp_axis, grad_compression=grad_compression,
-        rs_ag_chunks=int(rs_ag_chunks),
-        device_metrics=device_metrics,
-    )
+    scalar tensor there. With ``shard_weight_update`` ``state.opt_state``
+    is this rank's flat shard (:func:`init_sharded_opt_state`); with
+    ``grad_compression="int8_ef"`` ``state.ef`` holds this rank's
+    residuals (:func:`init_ef_state`)."""
+    validate_grad_compression(grad_compression)
+    _refuse_unported(seq_axis=seq_axis, tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis,
+                     device_metrics=device_metrics)
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
                           grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
-                          remat=remat)
+                          remat=remat, shard_weight_update=shard_weight_update,
+                          grad_compression=grad_compression, quant_chunk=quant_chunk,
+                          rs_ag_chunks=rs_ag_chunks)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device

@@ -13,6 +13,10 @@ broadcast; the model is never wrapped in ``DistributedDataParallel``).
 SGD with momentum and weight decay, plain or through the fused CUDA
 kernel, or AdamW, LARS or LAMB (:func:`make_optimizer`, the JAX trainer's
 dispatch and refusals); ``remat`` recomputes the forward in the backward;
+``shard_weight_update`` (ZeRO-1, with ``rs_ag_chunks``) keeps this rank's
+shard of a flat optimizer state, and ``grad_compression`` (``bf16``,
+``int8``, ``int8_ef`` with ``quant_chunk``) puts the gradient reduce on a
+compressed wire, ``int8_ef`` with its residuals in the state;
 MultiStepLR or cosine, with warmup and the linear scaling rule;
 ``train_epoch`` with ``steps_per_epoch``, ``log_every`` and the NaN guard;
 ``fit`` with a distributed ``validate`` every ``eval_every`` epochs. The
@@ -36,7 +40,24 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   arrays are copied into the live parameters, BN buffers and momentum
   buffers (their storage, and so the fused SGD's cached launch plan,
   stays valid), and a mid-epoch snapshot re-enters its epoch at its step.
-  Every rank checks that all picked the same checkpoint. AdamW stamps its
+  Every rank checks that all picked the same checkpoint. The restore is
+  elastic (``tpu_dist/train/trainer.py:2442-2581``): it lays the
+  checkpoint onto this run's world through
+  :func:`~tpu_dist_torch.elastic.remap.make_remapper` (ZeRO-1's flat
+  state and the int8_ef residuals of another extent are re-laid, counted
+  in ``resume.resharded``; a resume onto a larger world counts
+  ``elastic.grows``), and a mid-epoch snapshot of another process count,
+  or one that entered its epoch at an offset, re-enters through the
+  consumed-example offset (``DistributedSampler.set_offset``): the rest
+  of the epoch is re-partitioned over this world, nothing dropped or seen
+  twice, as the batches the snapshot's world would have made
+  (``DataLoader.replay_world``; the JAX loader re-keys their crops). The
+  offset epoch keeps the whole epoch's step numbers, so
+  ``steps_per_epoch`` caps the epoch, not the rest of it (the JAX trainer
+  counts the rest from 0). ``fit`` logs the ``resume`` record
+  (``resharded``, ``prev_dp``, ``prev_procs``, ``examples_offset``) and
+  sets the ``elastic.world_size`` and ``elastic.restarts`` gauges
+  (``$TPU_DIST_ELASTIC_RESTARTS``). AdamW stamps its
   ``adamw_decay_mask`` in every checkpoint; a resume under another mask
   raises, and one from a checkpoint without the stamp warns.
 * SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) and Ctrl-C stop at
@@ -117,6 +138,7 @@ from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.data import cifar, native, synthetic, transforms
 from tpu_dist_torch.data.loader import DataLoader
 from tpu_dist_torch.data.sampler import DistributedSampler
+from tpu_dist_torch.elastic import remap as remap_lib
 from tpu_dist_torch.evaluation.validate import validate
 from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
@@ -131,6 +153,7 @@ from tpu_dist_torch.obs.heartbeat import Heartbeat
 from tpu_dist_torch.resilience import faults, preemption
 from tpu_dist_torch.resilience.preemption import PreemptedError
 from tpu_dist_torch.train import epoch as epoch_lib
+from tpu_dist_torch.train import step as step_lib
 from tpu_dist_torch.train.optim import (LAMB, LARS, SGD, AdamW, cosine_lr, linear_scaled_lr,
                                         multistep_lr)
 from tpu_dist_torch.train.state import TrainState
@@ -145,15 +168,10 @@ _MODELS = {
 _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 _PARALLEL = "Queue A 6 (model parallelism, parallel/*)"
 _ANALYSIS = "Queue A 6 (the analysis layer)"
-_ELASTIC = "Queue A 6 (elastic training, elastic/remap.py)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
-    "shard_weight_update": (False, WAITS_FOR["shard_weight_update"]),
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "grad_compression": ("none", WAITS_FOR["grad_compression"]),
-    "quant_chunk": (0, WAITS_FOR["grad_compression"]),
-    "rs_ag_chunks": (1, WAITS_FOR["rs_ag_chunks"]),
     "device_metrics": (False, WAITS_FOR["device_metrics"]),
     "sp": (1, WAITS_FOR["seq_axis"]),
     "sp_mode": ("ring", WAITS_FOR["seq_axis"]),
@@ -191,6 +209,7 @@ FUSED_REFUSED = {
     "steps_per_epoch": (None, "a fused epoch runs every step of its data"),
     "mid_epoch_save_every": (0, "the fused epoch has no step boundary to snapshot at"),
     "remat": (False, "the fused step keeps its activations (no recomputation)"),
+    "quant_chunk": (0, "the fused step quantizes in chunks of the default size"),
 }
 
 _DATASET_CLASSES = {"cifar100": 100, "cifar10": 10, "synthetic_learnable": 4,
@@ -244,9 +263,8 @@ def make_optimizer(cfg: TrainConfig):
     kernel is SGD's only, so ``fused_optimizer`` with another optimizer
     raises ``ValueError``; AdamW prints its decay mask; LARS and LAMB warn
     without the large-batch recipe (``lr_base_batch`` and
-    ``warmup_epochs``). LARS and LAMB with ``shard_weight_update`` meet
-    :data:`UNPORTED`'s ``NotPortedError`` first (the JAX trainer refuses
-    the pair, whose flat layout loses the per-layer norms)."""
+    ``warmup_epochs``). LARS and LAMB with ``shard_weight_update`` raise
+    ``ValueError``: the ZeRO-1 flat layout loses their per-layer norms."""
     if cfg.optimizer == "sgd":
         return SGD(momentum=cfg.momentum, weight_decay=cfg.weight_decay,
                    fused=cfg.fused_optimizer)
@@ -255,6 +273,10 @@ def make_optimizer(cfg: TrainConfig):
     if cfg.fused_optimizer:
         raise ValueError(f"fused_optimizer is the CUDA fused-SGD kernel; {cfg.optimizer} uses "
                          "the plain (torch._foreach) update")
+    if cfg.optimizer in ("lars", "lamb") and cfg.shard_weight_update:
+        raise ValueError(f"{cfg.optimizer} needs per-layer norms, which the ZeRO-1 flat layout "
+                         "destroys — use --fsdp (leaf-grained sharding) for a sharded "
+                         "large-batch run")
     if cfg.optimizer == "adamw":
         rank0_print(f"=> adamw decay_mask={cfg.adamw_decay_mask} (auto: rank<=1 leaves excluded "
                     "from weight decay; --adamw_decay_mask all restores decay-everything)")
@@ -407,9 +429,22 @@ class Trainer:
 
         # -- model / optimizer state ----------------------------------------
         self.optimizer = make_optimizer(cfg)
+        if cfg.shard_weight_update and cfg.fused_epoch:
+            raise ValueError("shard_weight_update (ZeRO-1) is scoped to the plain DP step by "
+                             "design — the fused-epoch scan keeps params replicated; use --fsdp "
+                             "for sharded state")
         # DDP's init-time broadcast: every rank starts from rank 0's weights
         collectives.broadcast_module(self.model)
         self.state = TrainState.create(self.model, self.optimizer)
+        if cfg.shard_weight_update or cfg.grad_compression == "int8_ef":
+            # this rank's part of the flat state: ZeRO-1's optimizer shard,
+            # the int8_ef residuals (zeros, the cold start)
+            lay = step_lib.flat_layout(self.model)
+            opt = (step_lib.init_sharded_opt_state(self.model, self.optimizer, layout=lay)
+                   if cfg.shard_weight_update else self.state.opt_state)
+            ef = (step_lib.init_ef_state(self.model, zero1=cfg.shard_weight_update, layout=lay)
+                  if cfg.grad_compression == "int8_ef" else ())
+            self.state = dataclasses.replace(self.state, opt_state=opt, ef=ef, layout=lay)
         base_lr = cfg.lr
         if cfg.lr_base_batch > 0:
             base_lr = linear_scaled_lr(cfg.lr, cfg.lr_base_batch, cfg.batch_size)
@@ -425,6 +460,8 @@ class Trainer:
             self.optimizer, grad_accum_steps=cfg.grad_accu_steps, sync_bn=cfg.sync_bn,
             compute_dtype=compute_dtype, label_smoothing=cfg.label_smoothing,
             grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion, remat=cfg.remat,
+            shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
+            quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
         self._fused_runner = self._fused_eval = None
@@ -434,7 +471,8 @@ class Trainer:
             self._fused_data = place(*self.train_data)
             self._fused_runner = epoch_lib.make_fused_epoch(
                 self.optimizer, batch_per_device=self.local_batch, sync_bn=cfg.sync_bn,
-                compute_dtype=compute_dtype, pmean_fusion=cfg.pmean_fusion, seed=seed, **stats)
+                compute_dtype=compute_dtype, pmean_fusion=cfg.pmean_fusion, seed=seed,
+                grad_compression=cfg.grad_compression, **stats)
             # round the test set up to a multiple of the world with label -1
             # padding, so the fused eval counts every real example once
             ti, tl = self.test_data
@@ -460,6 +498,9 @@ class Trainer:
         self._t0 = time.monotonic()  # the history's rel_s origin
         self.start_epoch = 0
         self._resume_step = 0  # > 0 only after restoring a mid-epoch snapshot
+        self._resume_examples = 0  # > 0 only on an elastic mid-epoch resume (the offset)
+        self._resume_world = None  # the process count of that resume's snapshot
+        self._epoch_start_examples = 0  # the running epoch's entry offset
         self._resume_metrics = None  # that snapshot's last-step metrics
         self._step_metrics = None  # (epoch, steps done, metrics) of the last step
         self._last_epoch = 0
@@ -482,8 +523,9 @@ class Trainer:
         if cfg.resume and cfg.ckpt_dir:
             epoch = self._restore_latest()
             if epoch is not None:
-                # a mid-epoch snapshot re-enters its own epoch at its step
-                self.start_epoch = epoch if self._resume_step else epoch + 1
+                # a mid-epoch snapshot re-enters its own epoch
+                self.start_epoch = (epoch if self._resume_step or self._resume_examples
+                                    else epoch + 1)
 
     def close(self) -> None:
         """Leave the process group if this trainer created it."""
@@ -572,14 +614,17 @@ class Trainer:
         consumed examples (which the JAX trainer's elastic resume reads),
         and the last step's metrics when they describe this position."""
         cfg = self.cfg
+        base = self._epoch_start_examples // cfg.batch_size  # the steps the offset skipped
         out = {
             "mid_epoch_step": int(steps_done),
             "mid_epoch_batch_size": cfg.batch_size,
             "mid_epoch_seed": cfg.seed or 0,
             "mid_epoch_procs": self.n_devices,
-            # the last batch of a drop_last=False epoch is padded: clamp to N
-            "mid_epoch_examples": min(int(steps_done) * cfg.batch_size,
-                                      len(self.train_data[0])),
+            # the entry offset plus the steps since; the last batch of a
+            # drop_last=False epoch is padded: clamp to N
+            "mid_epoch_examples": min(
+                self._epoch_start_examples + (int(steps_done) - base) * cfg.batch_size,
+                len(self.train_data[0])),
         }
         stamped = self._step_metrics
         if stamped is not None and stamped[:2] == (self._progress[0], int(steps_done)):
@@ -658,7 +703,9 @@ class Trainer:
         The ladder: newest to oldest, a candidate that is unreadable or
         fails its CRC32 stamps (``ckpt_verify``, fused into the one read)
         is quarantined and the next older one is tried. A checkpoint of
-        another configuration, or one the port cannot lay out, raises."""
+        another configuration, or one the port cannot lay out, raises.
+        Each candidate is laid onto this run's world through the elastic
+        remapper (``tpu_dist/train/trainer.py:2442-2506``)."""
         cfg = self.cfg
         if mesh.process_index() == 0:
             # no write is in flight at start-up: sweep what a crash leaked
@@ -671,6 +718,7 @@ class Trainer:
                                      UNPORTED["sharded_ckpt"][1])
             self._check_ladder_agreement(-1)
             return None
+        template = bridge.restore_template(self.state)
         chosen = None
         for path, epoch in candidates:
             try:
@@ -679,46 +727,70 @@ class Trainer:
                 self._quarantine_ckpt(path, e)
                 continue
             self._check_ckpt_meta(meta, path)
+            # the world-independent leaves load as they are; the flat
+            # layouts of another extent are re-laid onto this one
+            remapper = remap_lib.make_remapper(self.model, meta, self.n_devices)
             try:
                 with spans.span("ckpt/restore_ladder", file=path):
-                    flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify)
+                    flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify, template=template,
+                                            remap=remapper)
             except (ckpt_lib.CheckpointCorruptError,) + ckpt_lib.CKPT_READ_ERRORS as e:
                 self._quarantine_ckpt(path, e)
                 continue
-            chosen = (path, epoch, meta, flat)
+            if remapper.used:
+                counters.inc("resume.resharded")
+                rank0_print(f"=> elastic resume: remapped {len(remapper.used)} dp-extent-"
+                            f"dependent leaf(s) from dp={(meta.get('elastic') or {}).get('dp')} "
+                            f"onto dp={self.n_devices} (ZeRO-1/EF flat layouts re-laid)")
+            chosen = (path, epoch, meta, flat, bool(remapper.used))
             break
         self._check_ladder_agreement(chosen[1] if chosen is not None else -1)
         if chosen is None:
             rank0_print(f"WARNING: every checkpoint in {cfg.ckpt_dir} was corrupt and has been "
                         "quarantined — starting from scratch")
             return None
-        path, epoch, meta, flat = chosen
+        path, epoch, meta, flat, resharded = chosen
+        stamp = meta.get("elastic") or {}
+        if isinstance(stamp.get("dp"), int) and stamp["dp"] < self.n_devices:
+            counters.inc("elastic.grows")  # a resume onto a larger world
         resume_step = int(meta.get("mid_epoch_step", 0))
-        if resume_step:
-            self._check_mid_epoch(meta, path, resume_step)
+        resume_examples = self._check_mid_epoch(meta, path, resume_step) if resume_step else 0
         # copy_ into the live tensors: the step's module, its momentum list
         # and the fused SGD's plan cache keep pointing at the same storage
         self.state = bridge.load_train_state(self.state, flat)
         self._lr_scale = float(meta.get("lr_scale", 1.0))
-        self._resume_step = resume_step
+        self._resume_step = 0 if resume_examples else resume_step
+        self._resume_examples = resume_examples
+        # the interrupted run's process count: its batches are replayed
+        procs = meta.get("mid_epoch_procs")
+        self._resume_world = int(procs) if resume_examples and procs else None
         self._resume_metrics = meta.get("mid_epoch_metrics") if resume_step else None
         self._state_poisoned = False
-        self._progress = (epoch, resume_step, not resume_step)
+        self._progress = (epoch, self._resume_step, not resume_step)
         self._resumed = {"epoch": epoch, "world": mesh.process_count(), "dp": self.n_devices,
-                         "resharded": False}
+                         "resharded": resharded, "prev_dp": stamp.get("dp"),
+                         "prev_procs": stamp.get("procs"),
+                         "mid_epoch_step": self._resume_step,
+                         "examples_offset": self._resume_examples}
         counters.inc("ckpt.restores")
-        if resume_step:
+        if self._resume_step:
             rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, continuing at step "
-                        f"{resume_step})")
+                        f"{self._resume_step})")
+        elif resume_examples:
+            rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, elastic: continuing at "
+                        f"example offset {resume_examples}, remainder re-partitioned over "
+                        f"{self.n_devices} process(es))")
         else:
             rank0_print(f"=> resumed from {path} (epoch {epoch})")
         return epoch
 
-    def _check_mid_epoch(self, meta: dict, path: str, resume_step: int) -> None:
+    def _check_mid_epoch(self, meta: dict, path: str, resume_step: int) -> int:
         """A mid-epoch snapshot re-enters its epoch at the same data
         position only with the same global batch size and seed (else it
-        raises), and at the same process count with no example offset:
-        anything else needs the elastic re-partition, not ported."""
+        raises). Returns the consumed-example offset to re-enter through,
+        or 0 to replay the per-rank step offset: that replay is exact only
+        at the same process count for a snapshot that entered its epoch at
+        offset 0 (``tpu_dist/train/trainer.py:2516-2566``)."""
         cfg = self.cfg
         for key, current in (("mid_epoch_batch_size", cfg.batch_size),
                              ("mid_epoch_seed", cfg.seed or 0)):
@@ -730,12 +802,13 @@ class Trainer:
                     "the step offset would re-enter the epoch at the wrong data position. "
                     "Resume with the matching value, or from the last clean epoch checkpoint.")
         procs, examples = meta.get("mid_epoch_procs"), meta.get("mid_epoch_examples")
-        here = min(resume_step * cfg.batch_size, len(self.train_data[0]))
-        if (procs is not None and int(procs) != self.n_devices) or (
-                examples is not None and int(examples) != here):
-            raise NotPortedError(
-                "resume", f"a mid-epoch snapshot of {procs} process(es) at example "
-                f"{examples}, resumed on {self.n_devices}", _ELASTIC)
+        same_world = procs is None or int(procs) == self.n_devices
+        offset_free = examples is None or int(examples) == resume_step * cfg.batch_size
+        if same_world and offset_free:
+            return 0
+        # an offset at N is a legally empty epoch; past N is no position
+        return min(int(examples if examples is not None else resume_step * cfg.batch_size),
+                   len(self.train_data[0]))
 
     def _auto_recover(self, err: TrainingDivergedError) -> None:
         """The divergence response (``auto_recover``): reload the newest
@@ -764,15 +837,23 @@ class Trainer:
         - epoch e with 0 steps done: the clean e - 1 (kept when on disk).
 
         Skipped while the live state holds a diverged step, or when Ctrl-C
-        landed inside a step (the in-place update may be half done)."""
+        landed inside a step (the in-place update may be half done). Under
+        a flat layout at a world > 1 the save gathers over the ranks, so
+        they first agree: all skip when any rank must."""
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return
-        if self._state_poisoned:
+        poisoned, in_step = self._state_poisoned, self._in_step
+        if self.state.layout is not None and self.n_devices > 1:
+            flags = torch.tensor([float(poisoned), float(in_step)],
+                                 device=collectives.group_device())
+            poisoned, in_step = (v > 0 for v in
+                                 collectives.all_reduce_(flags, kind="ckpt").tolist())
+        if poisoned:
             rank0_print("=> interrupted while the live state was NaN-poisoned — emergency "
                         "snapshot skipped; the last periodic checkpoint stays the newest")
             return
-        if self._in_step:
+        if in_step:
             rank0_print("=> interrupted inside a step (or a fused epoch), whose in-place "
                         "update may be half done — emergency snapshot skipped; resume from "
                         "the last periodic checkpoint")
@@ -782,7 +863,13 @@ class Trainer:
         epoch, steps_done, complete = self._progress
 
         def clean_exists(e: int) -> bool:
-            return os.path.exists(os.path.join(cfg.ckpt_dir, f"ckpt_{e}.npz"))
+            here = os.path.exists(os.path.join(cfg.ckpt_dir, f"ckpt_{e}.npz"))
+            if self.state.layout is None or self.n_devices == 1:
+                return here
+            # a save gathers the flat state over the ranks: all must take
+            # the same branch, rank 0's (which writes)
+            flag = torch.full((1,), float(here), device=collectives.group_device())
+            return bool(collectives.broadcast_from(flag).item())
 
         def save(ckpt_epoch: int, extra_meta: dict, msg: str) -> None:
             ckpt_lib.save(cfg.ckpt_dir, self.state, ckpt_epoch, cfg.keep_last_ckpts,
@@ -819,18 +906,33 @@ class Trainer:
         if self.cfg.nan_guard and not math.isfinite(loss):
             raise TrainingDivergedError(f"non-finite loss {loss} {where} (lr={lr})")
 
-    def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
-        """Train one epoch from batch ``start_step`` (a mid-epoch resume);
-        returns the epoch's dict."""
+    def train_epoch(self, epoch: int, start_step: int = 0, start_examples: int = 0,
+                    old_world: Optional[int] = None) -> dict:
+        """Train one epoch from batch ``start_step`` (a mid-epoch resume at
+        the same world), or past the first ``start_examples`` examples of
+        the epoch's global order (an elastic resume: the rest is
+        re-partitioned over this world, as the batches ``old_world`` ranks
+        would have made when given, and the steps are numbered from
+        ``start_examples // batch_size``); returns the epoch's dict."""
         if self._fused_runner is not None:
-            if start_step:
+            if start_step or start_examples:
                 raise ValueError(
-                    f"mid-epoch resume (checkpoint carries mid_epoch_step={start_step}) is not "
-                    "possible with --fused_epoch: the whole epoch is one run of the captured "
-                    "step; resume without --fused_epoch to continue from the exact batch")
+                    "mid-epoch resume (checkpoint carries mid_epoch_step="
+                    f"{start_step or start_examples}) is not possible with --fused_epoch: the "
+                    "whole epoch is one run of the captured step; resume without --fused_epoch "
+                    "to continue from the exact batch")
             return self._train_epoch_fused(epoch)
         cfg = self.cfg
         self.train_sampler.set_epoch(epoch)
+        if start_examples:
+            # skip the consumed prefix of the epoch's global order and
+            # re-partition the rest over this world's ranks (set_epoch above
+            # cleared any earlier offset, so only this epoch is shortened)
+            self.train_sampler.set_offset(start_examples)
+        # the interrupted run's batches for the rest of this epoch only
+        self.train_loader.replay_world(old_world if start_examples else None)
+        self._epoch_start_examples = start_examples
+        base = start_examples // cfg.batch_size
         lr = self._lr(epoch)
         lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
         losses = AverageMeter("Loss", ":.4e")  # epoch average of the logged steps
@@ -839,10 +941,10 @@ class Trainer:
         timer = _StepTimer(warmup_steps=1)
         phase = {"data": 0.0, "dispatch": 0.0, "fetch": 0.0}
         t0 = time.time()
-        self._progress = (epoch, start_step, False)
+        self._progress = (epoch, start_step + base, False)
         it = self.train_loader.iter_from(start_step)
         try:
-            for step in range(start_step, nb):
+            for step in range(start_step + base, nb + base):
                 if cfg.steps_per_epoch is not None and step >= cfg.steps_per_epoch:
                     break
                 t_w = time.perf_counter()
@@ -905,7 +1007,7 @@ class Trainer:
             it.close()  # stop the prefetch thread of an epoch cut short
         if metrics:
             out = {k: v.item() for k, v in metrics.items()}
-        elif steps_run == 0 and start_step:
+        elif steps_run == 0 and (start_step or start_examples):
             # the snapshot was taken after the epoch's last step: replay its
             # stamped metrics, so the epoch record matches the uninterrupted run
             out = dict(self._resume_metrics or {})
@@ -1001,6 +1103,7 @@ class Trainer:
         self._best_top1 = -1.0
         attempts = cfg.auto_recover
         fault_handle = self._arm_flight() if cfg.crash_dir else None
+        self._log_segment(history)
         self._history = history
         sig_token = preemption.install()
         preemption.clear()
@@ -1044,6 +1147,22 @@ class Trainer:
             history.close()
             if self._flight is not None:
                 self._close_flight(fault_handle)
+
+    def _log_segment(self, history: MetricsHistory) -> None:
+        """The elastic gauges (``tpu_dist/train/trainer.py:2697-2708``): the
+        world size, and which relaunch this process is
+        (``$TPU_DIST_ELASTIC_RESTARTS``); after a restore, one ``resume``
+        history record that marks the segment's boundary."""
+        counters.set_gauge("elastic.world_size", self.n_devices)
+        try:
+            restarts = int(os.environ.get("TPU_DIST_ELASTIC_RESTARTS", "0") or 0)
+        except ValueError:
+            restarts = 0
+        if restarts:
+            counters.set_gauge("elastic.restarts", restarts)
+        if self._resumed is not None:
+            history.log("resume", restarts=restarts, **self._resumed)
+            self._resumed = None
 
     def _arm_live(self) -> None:
         """The live telemetry of this ``fit`` (``tpu_dist/train/trainer.py:
@@ -1167,7 +1286,8 @@ class Trainer:
         self._flight.record("open", epoch=self.start_epoch, world=mesh.process_count(),
                             dp=self.n_devices)
         if self._resumed is not None:
-            self._flight.record("resume", **self._resumed)
+            self._flight.record("resume", **{k: self._resumed[k]
+                                             for k in ("epoch", "world", "dp", "resharded")})
         return flight_lib.arm_faulthandler(
             per_rank_path(os.path.join(cfg.crash_dir, flight_lib.STACKS_NAME), rank))
 
@@ -1219,7 +1339,9 @@ class Trainer:
             self._last_epoch = epoch
             # a restored mid-epoch snapshot applies to its own epoch only
             start_step, self._resume_step = self._resume_step, 0
-            last = self.train_epoch(epoch, start_step=start_step)
+            start_examples, self._resume_examples = self._resume_examples, 0
+            last = self.train_epoch(epoch, start_step=start_step, start_examples=start_examples,
+                                    old_world=self._resume_world)
             self._progress = (epoch, 0, True)
             history.log("train_epoch", epoch=epoch, **last)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
