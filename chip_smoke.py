@@ -253,7 +253,34 @@ Phases; any failure exits non-zero and prints no result line:
    phase 6, before any CUDA child: 3 steps bit for bit, device ms in turns
    with ``torch.optim.SGD(fused=True)`` on the one leaf, the plain
    version's period and the bound (``*_zero1_flat`` in the kernels line).
-11. report: the card's name and power limit, one JSON line of every ported
+11. elastic supervision: the launcher's elastic supervisor over the
+   trainer's CLI, after phase 10 (every part starts CUDA children):
+   ``python -m tpu_dist_torch.cli.launch --nproc 1 --elastic_min_procs 1``
+   over ``bench.py:240``'s ``resnet18_cifar100`` shapes (full width, 100
+   classes, batch 256, bf16, SyncBN, fused SGD; 20 steps on 5,120
+   synthetic images, no eval), each child printing every step's loss, its
+   restore's span, its fused SGD launches and its ``fleet.decision_id``
+   gauge. (a) A golden run, then the supervised run with
+   ``sigterm@epoch=0:step=9`` in its command and an allocation file
+   ``1 decision=7 cause=goodput`` under a 0.5 s probe: round 0 exits 75
+   after 10 steps, the supervisor relaunches it at world 1 with
+   ``--resume`` and ``TPU_DIST_ELASTIC_RESTARTS=1`` (the clause does not
+   fire again: the resumed epoch starts at step 10), and the launcher exits
+   0; 10 + 10 fused SGD launches; the losses within 2e-3 relative of the
+   golden run's (cuDNN is not deterministic in the children); the decision
+   in the resume record, the gauge and the flight ring's ``resume`` entry;
+   ``[elastic-sup]`` lines split the seconds from round 0's exit to the
+   relaunched child's first step into the backoff, the process start and
+   the restore. (b) ``rank_kill@step=5:rank=0`` leaves no survivor: the
+   launcher gives up with the child's own code (-9), no relaunch. (c) A
+   SIGTERM to the launcher after the first step: exit 75 after one round.
+   (d) ``python -m tpu_dist_torch.fleet.drill --phase grow --device cpu
+   --shrink_device cuda --devices 3``: golden and full-size rounds as 3
+   gloo ranks, the shrunken round on the card, held at its epoch's last
+   step until the probe's SIGTERM; it must exit 0 with ``PASS grow``, its
+   two resume records both ``resharded`` (3 -> 1 -> 3) and each epoch's
+   loss gap printed. The report repeats phase 11's result lines.
+12. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -302,6 +329,7 @@ from tpu_dist_torch.comm.quantize import padded_len
 from tpu_dist_torch.elastic import elastic_stamp
 from tpu_dist_torch.metrics.history import MetricsHistory
 from tpu_dist_torch.obs import export as export_lib
+from tpu_dist_torch.obs import flight as flight_lib
 from tpu_dist_torch.serve.engine import ServingEngine, batch_buckets, load_serving_state
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
@@ -2176,8 +2204,6 @@ def _flight_step_us() -> float:
     """Host us of one ``FlightRecorder.step`` (the ring's pwrite and the
     counter delta), median over 1,000 calls, with the registry as the
     training runs left it."""
-    from tpu_dist_torch.obs import flight as flight_lib  # noqa: PLC0415
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as d:
         ring = flight_lib.FlightRecorder(os.path.join(d, flight_lib.RING_NAME))
         times = []
@@ -3233,6 +3259,286 @@ def phase_elastic(work: str) -> dict:
             for name in KERNELS}
 
 
+# -- phase 11: elastic supervision ------------------------------------------------
+
+# bench.py:240's resnet18_cifar100 at full width through the trainer's CLI,
+# one epoch of 20 steps on 5,120 synthetic images, no eval
+SUP_TRAIN = ["--model", "resnet18", "--num_classes", "100", "--dataset", "synthetic",
+             "--synthetic_n", "5120", "--batch_size", "256", "--bf16", "--fused_optimizer",
+             "--lr", "0.1", "--epochs", "1", "--steps_per_epoch", "20", "--eval_every", "0",
+             "--log_every", "10", "--seed", "1"]
+SUP_STEPS = 20
+SUP_STOP = "sigterm@epoch=0:step=9"   # round 0 stops after its 10th step
+SUP_KILL = "rank_kill@step=5:rank=0"  # (b): the only rank is lost at step 5
+SUP_DECISION = (7, "goodput")         # the allocation file's tokens in (a)
+SUP_BACKOFF = 0.5                     # --elastic_backoff: the first relaunch waits this
+# --seed does not make cuDNN deterministic in the children (the port's
+# trainer never sets torch.backends.cudnn.deterministic), so the resumed
+# run's losses may differ from the golden run's by cuDNN's summation order
+SUP_LOSS_RTOL = 2e-3
+SUP_TIMEOUT = 240
+# 3 -> 1 -> 3: vit_tiny's 107,978 parameters do not divide by 3, so both
+# resumes re-lay the ZeRO-1 state (at 2 -> 1 -> 2 neither would)
+FLEET_DRILL_ARGS = ["--phase", "grow", "--device", "cpu", "--shrink_device", "cuda",
+                    "--devices", "3", "--batch_size", "48"]
+FLEET_DRILL_TIMEOUT = 300
+# the trainer's CLI with every step's loss, the restore's span and the
+# clocks a relaunch is timed by; at exit its fused SGD launches and its
+# fleet.decision_id gauge
+SUP_CHILD = """
+import os, sys, time
+print(f"[child] start {time.time()!r} restarts={os.environ.get('TPU_DIST_ELASTIC_RESTARTS')} "
+      f"resume={'--resume' in sys.argv} "
+      f"decision={os.environ.get('TPU_DIST_FLEET_DECISION_ID')}", flush=True)
+from tpu_dist_torch.cli import train
+from tpu_dist_torch.obs import counters
+from tpu_dist_torch.ops import fused_sgd
+from tpu_dist_torch.train import trainer as trainer_lib
+restore, fit = trainer_lib.Trainer._restore_latest, trainer_lib.Trainer.fit
+def timed_restore(self):
+    t = time.time()
+    try:
+        return restore(self)
+    finally:
+        print(f"[child] restore {t!r} {time.time()!r}", flush=True)
+def logged_fit(self, *a, **k):
+    inner = self.train_step
+    def step(st, images, labels, lr):
+        st, m = inner(st, images, labels, lr)
+        print(f"[child] loss {m['loss'].item()!r} at {time.time()!r}", flush=True)
+        return st, m
+    self.train_step = step
+    return fit(self, *a, **k)
+trainer_lib.Trainer._restore_latest, trainer_lib.Trainer.fit = timed_restore, logged_fit
+try:
+    train.main()
+finally:
+    print(f"[child] fused_sgd launches {fused_sgd.fused_sgd.launches}", flush=True)
+    print(f"[child] gauge {counters.snapshot().get('fleet.decision_id')}", flush=True)
+    print(f"[child] exit {time.time()!r}", flush=True)
+"""
+
+
+def _children(out: str) -> list:
+    """Each child's lines, parsed: its start line's fields, its losses and
+    their clocks, its restore span, its launches, its gauge and its exit
+    clock (None where it printed none: a SIGKILLed child)."""
+    kids = []
+    for line in out.splitlines():
+        if not line.startswith("[child] "):
+            continue
+        word, *rest = line.removeprefix("[child] ").split()
+        if word == "start":
+            fields = dict(f.split("=", 1) for f in rest[1:])
+            kids.append({"start": float(rest[0]), **fields, "losses": [], "loss_at": [],
+                         "restore": None, "launches": None, "gauge": None, "exit": None})
+        elif word == "loss":
+            kids[-1]["losses"].append(float(rest[0]))
+            kids[-1]["loss_at"].append(float(rest[2]))
+        elif word == "restore":
+            kids[-1]["restore"] = (float(rest[0]), float(rest[1]))
+        elif word == "fused_sgd":
+            kids[-1]["launches"] = int(rest[1])
+        elif word == "gauge":
+            kids[-1]["gauge"] = None if rest[0] == "None" else float(rest[0])
+        elif word == "exit":
+            kids[-1]["exit"] = float(rest[0])
+    return kids
+
+
+def _sup_launch(root, d: str, elastic: list, extra: list, on_line=None) -> tuple:
+    """``python -m tpu_dist_torch.cli.launch --nproc 1 <elastic> --`` over
+    SUP_CHILD with SUP_TRAIN and ``extra``. ``on_line(proc, line)`` sees
+    every line of the children's output as it comes. Returns the exit
+    code, the output, the launcher's stderr and the seconds it took."""
+    cmd = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1", *elastic, "--",
+           sys.executable, "-c", SUP_CHILD, *SUP_TRAIN, "--device", DEVICE, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    err: list = []
+    reader = threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)
+    reader.start()
+    guard = threading.Timer(SUP_TIMEOUT, proc.kill)
+    guard.start()
+    out: list = []
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            if on_line is not None:
+                on_line(proc, line)
+        proc.wait()
+    finally:
+        guard.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    return proc.returncode, "".join(out), "".join(err), time.perf_counter() - t0
+
+
+#: phase 11's result lines, printed again by the report just before the
+#: card's line, so they stay in the tail of a long log
+SUP_SUMMARY: list = []
+
+
+def _sup_say(msg: str, keep: bool = True) -> None:
+    print(f"[elastic-sup] {msg}", flush=True)
+    if keep:
+        SUP_SUMMARY.append(msg)
+
+
+def _sup_relaunch(root, d: str) -> int:
+    """(a): a golden run, then the supervised run stopped by SUP_STOP in
+    round 0 and relaunched at world 1 with --resume. Returns the fused SGD
+    launches of both runs."""
+    rc, out, err, took = _sup_launch(root, d, [], ["--ckpt_dir", os.path.join(d, "golden")])
+    [golden] = _children(out)
+    _sup_say(f"(a) golden: launcher --nproc 1 over {' '.join(SUP_TRAIN)}: rc {rc} "
+             f"in {took:.1f} s; {len(golden['losses'])} losses, fused_sgd launches "
+             f"{golden['launches']}")
+    check(rc == 0 and len(golden["losses"]) == SUP_STEPS and golden["launches"] == SUP_STEPS,
+          f"golden run: rc {rc}, {golden}\n{out[-2000:]}\n{err[-2000:]}")
+    cap = os.path.join(d, "allocation")
+    with open(cap, "w") as f:
+        f.write(f"1 decision={SUP_DECISION[0]} cause={SUP_DECISION[1]}\n")
+    log, crash = os.path.join(d, "h.jsonl"), os.path.join(d, "crash")
+    rc, out, err, took = _sup_launch(
+        root, d, ["--elastic_min_procs", "1", "--elastic_backoff", str(SUP_BACKOFF),
+                  "--elastic_probe_interval", "0.5", "--elastic_capacity_file", cap],
+        ["--ckpt_dir", os.path.join(d, "elastic"), "--log_file", log, "--crash_dir", crash,
+         "--fault_plan", SUP_STOP])
+    kids = _children(out)
+    _sup_say(f"(a) supervised, {SUP_STOP} in the command of every round: rc {rc} "
+             f"in {took:.1f} s; rounds {[(k['restarts'], k['resume']) for k in kids]} "
+             f"(TPU_DIST_ELASTIC_RESTARTS, --resume); launcher: "
+             + " | ".join(ln.removeprefix("launch: ") for ln in err.splitlines()
+                          if ln.startswith("launch:")))
+    check(rc == 0 and len(kids) == 2, f"supervised run: rc {rc}, {len(kids)} rounds\n"
+          f"{out[-2000:]}\n{err[-2000:]}")
+    first, second = kids
+    check((first["restarts"], first["resume"], second["restarts"], second["resume"])
+          == ("0", "False", "1", "True")
+          and first["decision"] == second["decision"] == str(SUP_DECISION[0]),
+          f"the rounds' env and flags: {kids}")
+    check(len(first["losses"]) == 10 and len(second["losses"]) == SUP_STEPS - 10
+          and first["launches"] == 10 and second["launches"] == SUP_STEPS - 10,
+          f"round 0: {len(first['losses'])} steps, {first['launches']} launches; round 1: "
+          f"{len(second['losses'])} steps, {second['launches']} launches")
+    both = first["losses"] + second["losses"]
+    rel = max(_rel(a, b) for a, b in zip(both, golden["losses"]))
+    _sup_say(f"(a) losses of 10 + 10 steps vs the golden run: equal bit for bit "
+             f"{both == golden['losses']}, max relative gap {rel:.3g} (limit {SUP_LOSS_RTOL}: "
+             "the children's cuDNN is not deterministic); fused_sgd launches "
+             f"{first['launches']} + {second['launches']}")
+    check(rel <= SUP_LOSS_RTOL, f"resumed losses {both} vs golden {golden['losses']}")
+    with open(log) as f:
+        [resume] = [r for r in map(json.loads, f) if r.get("kind") == "resume"]
+    ring = flight_lib.decode(os.path.join(crash, flight_lib.RING_NAME))
+    slots = [r for r in ring["records"] if r.get("kind") == "resume"]
+    _sup_say(f"(a) resume record: decision_id {resume.get('decision_id')}, "
+             f"decision_cause {resume.get('decision_cause')}, restarts {resume.get('restarts')}, "
+             f"mid_epoch_step {resume.get('mid_epoch_step')}; fleet.decision_id gauge "
+             f"{second['gauge']}; flight ring resume entries {slots}")
+    check((resume.get("decision_id"), resume.get("decision_cause"), resume.get("restarts"))
+          == (SUP_DECISION[0], SUP_DECISION[1], 1) and second["gauge"] == SUP_DECISION[0]
+          and any(r.get("decision_id") == SUP_DECISION[0] for r in slots),
+          f"the decision's tokens: record {resume}, gauge {second['gauge']}, ring {slots}")
+    # the relaunch gap: round 0's exit -> the relaunched child's first step
+    gap = second["loss_at"][0] - first["exit"]
+    begin, end = second["restore"]
+    start = begin - first["exit"] - SUP_BACKOFF
+    _sup_say(f"(a) relaunch: round 0's exit -> the relaunched child's first step "
+             f"{gap:.3f} s = backoff {SUP_BACKOFF:.3f} + process start {start:.3f} (reaping, "
+             f"spawn, interpreter, torch and CUDA, the process group, the model and data, up "
+             f"to the restore) + restore {end - begin:.3f} + to the first step "
+             f"{second['loss_at'][0] - end:.3f}; round 0's first step came "
+             f"{first['loss_at'][0] - first['start']:.3f} s after its script started")
+    return golden["launches"] + first["launches"] + second["launches"]
+
+
+def _sup_gives_up(root, d: str) -> None:
+    """(b): SUP_KILL leaves no survivor: no relaunch, the child's own code."""
+    rc, out, err, took = _sup_launch(root, d, ["--elastic_min_procs", "1"],
+                                     ["--fault_plan", SUP_KILL])
+    kids = _children(out)
+    said = [ln for ln in err.splitlines() if "elastic:" in ln]
+    _sup_say(f"(b) {SUP_KILL}: launcher rc {rc} in {took:.1f} s, {len(kids)} round(s); "
+             + " | ".join(said))
+    # sys.exit(-9) leaves the status -9 & 0xff
+    check(rc == (-signal.SIGKILL) & 0xFF and len(kids) == 1 and kids[0]["exit"] is None
+          and any("giving up with exit -9" in ln for ln in said),
+          f"a lost rank: rc {rc}, rounds {len(kids)}\n{err[-2000:]}")
+
+
+def _sup_stands_down(root, d: str) -> int:
+    """(c): the launcher's own SIGTERM mid-round: 75, one round. Returns the
+    child's fused SGD launches."""
+    sent = []
+
+    def on_line(proc, line):
+        if not sent and line.startswith("[child] loss"):
+            proc.send_signal(signal.SIGTERM)  # after the first step
+            sent.append(time.perf_counter())
+
+    rc, out, err, took = _sup_launch(root, d, ["--elastic_min_procs", "1"],
+                                     ["--ckpt_dir", os.path.join(d, "stand_down")], on_line)
+    kids = _children(out)
+    said = [ln for ln in err.splitlines() if "elastic:" in ln]
+    _sup_say(f"(c) SIGTERM to the launcher after the first step: rc {rc} in "
+             f"{took:.1f} s, {len(kids)} round(s), {len(kids[0]['losses']) if kids else 0} steps, "
+             f"fused_sgd launches {kids[0]['launches'] if kids else None}; " + " | ".join(said))
+    check(rc == PREEMPTION_EXIT_CODE and len(kids) == 1 and sent
+          and any("asked to stop" in ln for ln in said),
+          f"the stand-down: rc {rc}, rounds {len(kids)}\n{err[-2000:]}")
+    check(kids[0]["launches"] == len(kids[0]["losses"]) > 0,
+          f"(c)'s child: {kids[0]['launches']} launches in {len(kids[0]['losses'])} steps")
+    return kids[0]["launches"]
+
+
+def _fleet_drill(root, d: str) -> None:
+    """(d) ``python -m tpu_dist_torch.fleet.drill --phase grow --device cpu
+    --shrink_device cuda``: golden and full-size rounds as 3 gloo ranks, the
+    shrunken round on the card; both resumes re-lay the ZeRO-1 state."""
+    cmd = [sys.executable, "-m", "tpu_dist_torch.fleet.drill", "--workdir", d,
+           *FLEET_DRILL_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=FLEET_DRILL_TIMEOUT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("fleet-drill:")]
+    for ln in lines:
+        if ("resume record" in ln or ln.startswith("fleet-drill: epoch") or "PASS" in ln
+                or "FAIL" in ln or "round" in ln or "capacity" in ln):
+            _sup_say(f"(d) {ln}", keep=not ("round" in ln or "capacity" in ln))
+    _sup_say(f"(d) drill: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0 and any("PASS grow" in ln for ln in lines),
+          f"the fleet drill failed (exit {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    records = [json.loads(ln.split(": ", 2)[2]) for ln in lines
+               if ln.startswith("fleet-drill: resume record (")]
+    check([(r["prev_dp"], r["dp"], r["resharded"]) for r in records]
+          == [(3, 1, True), (1, 3, True)],
+          f"the drill's resume records: {records}")
+
+
+def phase_supervision(work: str) -> dict:
+    """Phase 11 (module docstring). Returns the fused SGD launches of its
+    trainer children."""
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "supervision")
+    os.makedirs(d)
+    launches = _sup_relaunch(root, d)
+    _sup_gives_up(root, d)
+    launches += _sup_stands_down(root, d)
+    drill = os.path.join(d, "fleet_drill")
+    os.makedirs(drill)
+    _fleet_drill(root, drill)
+    _sup_say(f"phase: {time.perf_counter() - t0:.1f} s, fused_sgd launches "
+             f"{launches}; card: {_smi_line()}")
+    return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -3266,14 +3572,18 @@ def _phases(work: str) -> int:
     replicas = phase_supervised(work)
     forensics = phase_forensics(work)
     elastic = phase_elastic(work)
+    supervision = phase_supervision(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
-                for name in KERNELS}
+                + supervision[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
+    print("[summary] phase 11, elastic supervision, again:")
+    for msg in SUP_SUMMARY:
+        print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [
         {"name": name, **KERNELS[name], "launches": launches[name], **measured[name]}

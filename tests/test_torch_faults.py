@@ -4,7 +4,8 @@ against the JAX package's ``tpu_dist/resilience/faults.py``.
 
 * The grammar on the same strings: the parsed clauses, the malformed specs
   both refuse, one-shot firing, the environment fallback; ``truncate_file``
-  and ``bitflip_file`` byte for byte; a bounded ``hang``; a rank-pinned
+  and ``bitflip_file`` byte for byte; a bounded ``hang`` (a SIGTERM
+  during it ends the port's, a deliberate difference); a rank-pinned
   clause never fires without a rank.
 * The hooks: a ``ckpt_write`` EIO retried to a complete file (the JAX
   backoff schedule), retry exhaustion leaving no checkpoint, a
@@ -179,6 +180,43 @@ def test_a_bounded_hang_returns_and_a_rank_pinned_clause_needs_a_rank():
     faults.install("rank_kill@step=1:rank=3")
     assert faults.on_step(0, 1) == frozenset() and faults.on_step(0, 1, rank=0) == frozenset()
     assert faults.active().clauses[0].fired == 0
+
+
+@pytest.mark.parametrize("when", ["during", "before"])
+def test_a_sigterm_during_a_bounded_hang_ends_it(when):
+    """A deliberate difference from the JAX package: the port's bounded
+    hang is a hold that a SIGTERM landing while it holds ends (the
+    trainer's cooperative flag; the fleet drill holds its shrunken world
+    so), where JAX's runs to its bound. A flag already set before the hold
+    does not end it."""
+    import signal
+    import threading
+
+    for mod, flag in ((faults, preemption), (jax_faults, jax_preemption)):
+        token = flag.install()
+        try:
+            if when == "before":
+                os.kill(os.getpid(), signal.SIGTERM)
+                time.sleep(0.05)
+                timer = None
+            else:
+                timer = threading.Timer(0.1, os.kill, (os.getpid(), signal.SIGTERM))
+                timer.start()
+            mod.install("hang@step=1:seconds=0.8")
+            t0 = time.monotonic()
+            assert mod.on_step(0, 1) == {mod.HANG}
+            took = time.monotonic() - t0
+            if timer is not None:
+                timer.join()
+            assert flag.requested()
+            if mod is faults and when == "during":
+                assert took < 0.6, took  # the SIGTERM at 0.1 s ended it
+            else:
+                assert took >= 0.8, took
+        finally:
+            flag.restore(token)
+            flag.clear()
+            mod.clear()
 
 
 # -- the hooks ------------------------------------------------------------------------

@@ -68,7 +68,9 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.serve.drill", "tpu_dist_torch.fleet",
                  "tpu_dist_torch.fleet.scheduler", "tpu_dist_torch.resilience.faults",
                  "tpu_dist_torch.obs.drill", "tpu_dist_torch.data.native",
-                 "tpu_dist_torch.elastic.drill"):
+                 "tpu_dist_torch.elastic.drill", "tpu_dist_torch.elastic.supervisor",
+                 "tpu_dist_torch.fleet.capacity", "tpu_dist_torch.fleet.drill",
+                 "tpu_dist_torch.obs.hub"):
         assert name in MODULES
 
 

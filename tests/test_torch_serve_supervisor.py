@@ -12,8 +12,9 @@ package's.
 * Where the port differs on purpose: a SIGKILLed incarnation's beat left
   behind does not wedge its successor in the port (the JAX supervisor
   reads it as the new process's and, once it is ``stale_after_s`` old,
-  kills a replica still starting up). ``capacity_file`` raises
-  ``NotPortedError``.
+  kills a replica still starting up).
+* With a ``capacity_file`` every spawn event carries the file's
+  ``decision_id``/``decision_cause``, in both packages.
 * ``weights_digest`` of the port's ``load_serving_state`` on a checkpoint
   written by ``tpu_dist.serve.drill.write_training_ckpt`` equals the JAX
   digest of the same file, and the port's own drill checkpoint loads with
@@ -269,11 +270,31 @@ def test_a_killed_incarnations_beat_does_not_wedge_its_successor(tmp_path):
     assert got["jax"] == [None, "crash", "wedge", None]
 
 
-def test_capacity_file_is_not_ported(tmp_path):
-    from tpu_dist_torch.train.step import NotPortedError
-
-    with pytest.raises(NotPortedError, match=r"Queue A 6 \(fleet/\*\)"):
-        supervisor.ReplicaSupervisor(lambda i: None, capacity_file=str(tmp_path / "cap"))
+@pytest.mark.parametrize("content", [None, "2\n", "2 decision=7 cause=serve_breach\n",
+                                     "2 decision=7\n", "torn decision="])
+def test_spawn_event_names_the_capacity_files_decision_as_jax_does(tmp_path, content):
+    """``capacity_file``: every spawn reads the allocation file's decision
+    tokens into its event, in both packages; a crash relaunch reads the
+    file again (the grant may have changed it)."""
+    cap = str(tmp_path / "allocation")
+    if content is not None:
+        with open(cap, "w") as f:
+            f.write(content)
+    events = {}
+    for name, (mod, _) in PACKAGES.items():
+        w = World(str(tmp_path / name))
+        sup = mod.ReplicaSupervisor(w.spawn, heartbeat_file=w.hb, capacity_file=cap,
+                                    now=w.now, sleep=w.sleep)
+        sup.start()
+        w.procs[-1].rc = -9
+        sup.poll_once()  # crash -> relaunch -> a second spawn
+        events[name] = [e for e in sup.events if e["event"] == "spawn"]
+    assert events["port"] == events["jax"]
+    assert len(events["port"]) == 2
+    if content and "decision=7" in content:
+        assert events["port"][0]["decision_id"] == 7
+    else:
+        assert "decision_id" not in events["port"][0]
 
 
 def test_policy_validation_equals_jax():

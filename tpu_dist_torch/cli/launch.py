@@ -52,8 +52,47 @@ ended and how long after the SIGTERM. Only a beat that carries the
 child's own ``pid`` counts, so a beat left on disk by an earlier process
 never passes for this child's: until the child beats, it has not beaten.
 
-``--devices_per_proc`` other than 1 and the elastic supervisor's options
-are not ported: each raises ``NotPortedError`` naming its ROADMAP item.
+Elastic contract (``tpu_dist/cli/launch.py:75-89``): with
+``--elastic_min_procs`` set, the launcher is its own orchestrator for a
+world that loses ranks. A round that ends preempted (exit 75) or with dead
+ranks does not end the run: the supervisor (``elastic/supervisor.py``)
+counts the ranks that survived (exits 0, 75 or the forwarded SIGTERM),
+takes the largest feasible smaller world (a divisor of the original
+``--nproc``, at least the floor), waits the deterministic backoff, and
+relaunches the command with ``--resume`` appended and the round's index
+as ``TPU_DIST_ELASTIC_RESTARTS`` in every child's environment (0 in a
+launch without the supervisor, so no child inherits a stale count); the
+trainer's restore re-lays the checkpoint onto the new world and the epoch
+goes on past the examples already consumed. ``--elastic_max_restarts``
+bounds the relaunches. A SIGTERM to the LAUNCHER itself still means "the
+orchestrator wants the job gone": the policy stands down, before the
+backoff and after it, and the launcher exits 75. Each round is a new set
+of processes on a new rendezvous port; the previous round's children
+are reaped before the next spawn, so no process group or CUDA context
+outlives its round. Every round sweeps the files of ranks outside its
+world.
+
+Scale-up contract (``tpu_dist/cli/launch.py:91-109``): with
+``--elastic_probe_interval`` set, the running round polls a capacity
+census (``fleet/capacity.py``): the ``--elastic_capacity_file``
+allocation file when given (the fleet scheduler's channel), else
+``TPU_DIST_AVAILABLE_PROCS``, else the original ``--nproc``. When the
+census staffs a larger feasible divisor (at most ``--elastic_max_procs``)
+the round SIGTERMs its own world, every rank checkpoints and exits 75, and
+the supervisor relaunches with ``--resume`` at the new size; a census
+below the current size (a donation) takes the same path to a smaller
+world, and a census also caps a failure relaunch. Grows are paced by a
+deterministic cooldown; resizes charge no restart budget; the watchdog
+stands down during a resize as during a preemption. The census rules from
+the start: a census below ``--nproc`` launches round 0 at the granted
+feasible size, and one below the floor refuses to start (exit 1). The
+allocation file's decision tokens (``N decision=<id> cause=<cause>``) are
+read once a round and stamped into every child's environment
+(``TPU_DIST_FLEET_DECISION_ID``/``_CAUSE``), so the trainer's ``resume``
+record names the fleet decision that moved the run.
+
+``--devices_per_proc`` other than 1 is not ported (one card a process):
+it raises ``NotPortedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -67,25 +106,17 @@ import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
+from tpu_dist_torch.elastic import supervisor as supervisor_lib
+from tpu_dist_torch.fleet import capacity as capacity_lib
 from tpu_dist_torch.obs import export as export_lib
 from tpu_dist_torch.obs import flight as flight_lib
 from tpu_dist_torch.obs import heartbeat as heartbeat_lib
 from tpu_dist_torch.obs import postmortem as postmortem_lib
 from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE
-from tpu_dist_torch.train.step import NotPortedError
-
-_ELASTIC = "Queue A 6 (elastic training, elastic/supervisor.py)"
 
 # option -> (its default, the ROADMAP item it waits for)
 UNPORTED = {
     "devices_per_proc": (1, "Queue A 6 (more than one card a process: the port runs one)"),
-    "elastic_min_procs": (0, _ELASTIC),
-    "elastic_max_restarts": (3, _ELASTIC),
-    "elastic_backoff": (0.5, _ELASTIC),
-    "elastic_probe_interval": (0.0, _ELASTIC),
-    "elastic_max_procs": (0, _ELASTIC),
-    "elastic_capacity_file": (None, _ELASTIC),
-    "elastic_same_size_retries": (2, _ELASTIC),
 }
 
 # placement variables of an outer launcher, which would win over the flags
@@ -132,6 +163,28 @@ def parser() -> argparse.ArgumentParser:
                         "the longest gap between two beats of a healthy run")
     p.add_argument("--watchdog_grace", type=float, default=10.0, metavar="S",
                    help="seconds between the watchdog's SIGTERM and its SIGKILL")
+    p.add_argument("--elastic_min_procs", type=int, default=0, metavar="N",
+                   help="the elastic supervisor: when a round ends preempted (exit 75) or with "
+                        "dead ranks, relaunch --resume at the largest feasible smaller world (a "
+                        "divisor of --nproc), never below N; 0 (default): one round")
+    p.add_argument("--elastic_max_restarts", type=int, default=3, metavar="K",
+                   help="give up after K failure relaunches, surfacing the real exit code")
+    p.add_argument("--elastic_backoff", type=float, default=0.5, metavar="S",
+                   help="base of the deterministic backoff between relaunches "
+                        "(S * 2^restart, at most 30 s)")
+    p.add_argument("--elastic_probe_interval", type=float, default=0.0, metavar="S",
+                   help="with the supervisor on: poll the capacity census every S seconds "
+                        "while a round runs, and checkpoint and relaunch --resume at the size "
+                        "it grants (a grow when cards return, a shrink when they were given "
+                        "away); 0 (default) disables the probe")
+    p.add_argument("--elastic_max_procs", type=int, default=0, metavar="N",
+                   help="ceiling of the probe's grows (never above --nproc); 0: --nproc")
+    p.add_argument("--elastic_capacity_file", default=None, metavar="PATH",
+                   help="the allocation file the census reads (fleet/capacity.py); without "
+                        "it TPU_DIST_AVAILABLE_PROCS, then --nproc")
+    p.add_argument("--elastic_same_size_retries", type=int, default=2, metavar="K",
+                   help="retries at the same size after a preemption of the whole world "
+                        "before the supervisor steps down one divisor (floor permitting)")
     for flag, (default, _) in UNPORTED.items():
         kind = type(default) if default is not None else str
         p.add_argument(f"--{flag}", type=kind, default=default,
@@ -146,6 +199,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for flag, (default, queue) in UNPORTED.items():
         value = getattr(args, flag)
         if value != default:
+            from tpu_dist_torch.train.step import NotPortedError  # noqa: PLC0415
+
             raise NotPortedError(flag, value, queue)
     cmd = list(args.cmd)
     if cmd and cmd[0] == "--":
@@ -156,6 +211,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         p.error(f"--nproc must be >= 1, got {args.nproc}")
     if args.watchdog_timeout > 0 and not args.heartbeat_dir:
         p.error("--watchdog_timeout needs --heartbeat_dir (the liveness signal it watches)")
+    if args.elastic_min_procs > args.nproc:
+        p.error(f"--elastic_min_procs {args.elastic_min_procs} exceeds --nproc {args.nproc}")
 
     # one base path each, injected into every child; the ranks derive
     # their files from it (heartbeat.per_rank_path) and the watchdog reads
@@ -188,7 +245,38 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError:  # not the main thread (embedded use)
         prev_term = None
     try:
-        return _run_round(args, cmd, hb_base, metrics_base, live, launcher_sig)
+        probe = None
+        start_procs = None
+        if args.elastic_min_procs > 0 and args.elastic_probe_interval > 0:
+            probe = supervisor_lib.CapacityProbe(
+                capacity_lib.make_census(args.elastic_capacity_file, default=args.nproc),
+                original=args.nproc, min_procs=args.elastic_min_procs,
+                max_procs=args.elastic_max_procs, interval=args.elastic_probe_interval)
+            # the census rules from the start: a run whose cards are lent
+            # out launches at the granted size, never on another run's cards
+            avail = probe.available()
+            if avail is not None and avail < args.nproc:
+                granted = supervisor_lib.next_world_size(args.nproc, avail,
+                                                         args.elastic_min_procs)
+                if granted is None:
+                    _say(f"elastic: capacity census grants only {avail} proc(s) — below "
+                         f"min_procs={args.elastic_min_procs}; refusing to start")
+                    return 1
+                _say(f"elastic: capacity census grants {granted} of {args.nproc} proc(s) "
+                     "at launch")
+                start_procs = granted
+
+        def round_fn(nproc: int, restart: int) -> supervisor_lib.RoundResult:
+            return _run_round(args, cmd, nproc, restart, hb_base, metrics_base, live,
+                              launcher_sig, probe)
+
+        if args.elastic_min_procs <= 0:
+            return round_fn(args.nproc, 0).rc
+        return supervisor_lib.supervise(
+            round_fn, nproc=args.nproc, min_procs=args.elastic_min_procs,
+            max_restarts=args.elastic_max_restarts, backoff_base=args.elastic_backoff,
+            announce=_say, should_continue=lambda: not launcher_sig[0], probe=probe,
+            same_size_retries=args.elastic_same_size_retries, start_procs=start_procs)
     finally:
         if prev_term is not None:
             signal.signal(signal.SIGTERM, prev_term)
@@ -311,15 +399,20 @@ class _Watchdog:
                  f"{time.monotonic() - self.term_at[rank]:.2f}s after SIGTERM")
 
 
-def _run_round(args, cmd: List[str], hb_base: Optional[str], metrics_base: Optional[str],
-               live: List[subprocess.Popen], launcher_sig: List[bool]) -> int:
-    """Start ``args.nproc`` children at one rendezvous port and wait for
+def _run_round(args, cmd: List[str], nproc: int, restart: int, hb_base: Optional[str],
+               metrics_base: Optional[str], live: List[subprocess.Popen],
+               launcher_sig: List[bool], probe=None) -> supervisor_lib.RoundResult:
+    """Start ``nproc`` children at one fresh rendezvous port and wait for
     them: fail fast on the first non-zero exit; the watchdog over their
-    beats; 75 when the round ended preempted (the launcher's SIGTERM, or a
-    child's own exit 75) and no child failed or wedged."""
-    nproc = args.nproc
+    beats; 75 when the round ended preempted (the launcher's SIGTERM, a
+    child's own exit 75, or the probe's resize) and no child failed or
+    wedged. Returns the exit code with every rank's raw exit status (the
+    supervisor's census of survivors) and, when the probe stood the world
+    down, ``resize_to``. ``restart`` is the round's index: a round after
+    the first appends ``--resume``, and every child reads the index from
+    ``TPU_DIST_ELASTIC_RESTARTS``."""
     port = args.port or _free_port()
-    # files of ranks outside this world (left by a wider run) must not
+    # files of ranks outside this world (left by a wider round) must not
     # read as dead workers, to the watchdog or to the postmortem
     stale = [b for b in (hb_base, metrics_base) if b]
     if args.crash_dir:
@@ -328,15 +421,31 @@ def _run_round(args, cmd: List[str], hb_base: Optional[str], metrics_base: Optio
     swept = sum(heartbeat_lib.sweep_stale_ranks(base, nproc) for base in stale)
     if swept:
         _say(f"swept {swept} stale per-rank file(s) from ranks outside the new world of {nproc}")
+    # every child's environment but its card: the round index (round 0
+    # stamps 0 too, so no child inherits a stale count from the launcher's
+    # own environment) and the fleet decision this round carries out, read
+    # once for the whole world (a rewrite of the file mid-spawn must not
+    # split it; a stale id in the launcher's environment is dropped)
+    base_env = {k: v for k, v in os.environ.items() if k not in _PLACEMENT_ENV}
+    base_env["TPU_DIST_ELASTIC_RESTARTS"] = str(restart)
+    meta = supervisor_lib.stamp_decision_env(base_env, args.elastic_capacity_file)
+    if restart > 0 and meta["decision_id"] is not None:
+        _say(f"relaunch actuates fleet decision {meta['decision_id']}"
+             + (f" ({meta['cause']})" if meta["cause"] else ""))
+    if probe is not None:
+        probe.reset_timer()  # a new world gets a whole interval before any resize
     procs: List[subprocess.Popen] = []
     ranks: Dict[subprocess.Popen, int] = {}
+    exits: Dict[int, int] = {}
     preempted = False
+    resize_to: Optional[int] = None
     try:
         for rank in range(nproc):
-            env = {k: v for k, v in os.environ.items() if k not in _PLACEMENT_ENV}
-            env["LOCAL_RANK"] = str(rank)  # one card a process: card `rank`
+            env = dict(base_env, LOCAL_RANK=str(rank))  # one card a process: card `rank`
             child = cmd + ["--num_processes", str(nproc), "--process_id", str(rank),
                            "--ip", args.ip, "--port", str(port)]
+            if restart > 0 and "--resume" not in cmd:
+                child.append("--resume")  # the relaunched world continues the run
             if hb_base is not None:
                 child += ["--heartbeat_file", hb_base]
             if metrics_base is not None:
@@ -353,16 +462,32 @@ def _run_round(args, cmd: List[str], hb_base: Optional[str], metrics_base: Optio
         crash_rc = 0  # the first exit that is neither clean, preempted, nor our SIGTERM
         pending = list(procs)
         while pending:
+            if (probe is not None and resize_to is None and not preempted
+                    and not launcher_sig[0] and crash_rc == 0):
+                target = probe.poll(nproc)
+                if target is not None and target != nproc:
+                    # the capacity changed: every rank checkpoints and
+                    # exits 75, and the supervisor relaunches at the target
+                    resize_to = target
+                    _say(f"elastic: capacity census wants world size {target} (running "
+                         f"{nproc}) — checkpointing this round for the resize")
+                    for pr in pending:
+                        try:
+                            pr.send_signal(signal.SIGTERM)
+                        except OSError:  # the child is already gone
+                            pass
             for pr in list(pending):
                 ret = pr.poll()
                 if ret is None:
-                    # a preemption shutdown goes silent in its emergency
-                    # save by design: the watchdog stands down
-                    if dog is not None and not (preempted or launcher_sig[0]):
+                    # a preemption or resize shutdown goes silent in its
+                    # emergency save by design: the watchdog stands down
+                    if dog is not None and not (preempted or launcher_sig[0]
+                                                or resize_to is not None):
                         if dog.watch(pr, ranks[pr]) and crash_rc == 0:
                             crash_rc = 1  # a wedge is a failure, never a requeue-75
                     continue
                 pending.remove(pr)
+                exits[ranks[pr]] = ret
                 if dog is not None:
                     dog.reaped(ranks[pr], ret)
                 if ret == PREEMPTION_EXIT_CODE:
@@ -382,13 +507,17 @@ def _run_round(args, cmd: List[str], hb_base: Optional[str], metrics_base: Optio
             # the forensic epilogue; it never changes the exit code
             _auto_postmortem(args, dog.wedged)
         if crash_rc:
-            return crash_rc
-        if (preempted or launcher_sig[0]) and rc in (0, PREEMPTION_EXIT_CODE, -signal.SIGTERM):
-            return PREEMPTION_EXIT_CODE
-        return rc
+            # a crash or wedge outranks a preemption and a resize: the
+            # supervisor's failure path must see the real census
+            return supervisor_lib.RoundResult(crash_rc, exits)
+        if ((preempted or launcher_sig[0] or (resize_to is not None and rc != 0))
+                and rc in (0, PREEMPTION_EXIT_CODE, -signal.SIGTERM)):
+            return supervisor_lib.RoundResult(PREEMPTION_EXIT_CODE, exits, resize_to)
+        return supervisor_lib.RoundResult(rc, exits)
     finally:
         for pr in procs:
             pr.kill()  # a no-op on children already reaped
+            pr.wait()  # reaped before any next round spawns
             if pr in live:
                 live.remove(pr)
 

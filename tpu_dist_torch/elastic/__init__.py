@@ -1,7 +1,7 @@
 """Mesh-shape-portable checkpoints: the port's copy of
-``tpu_dist/elastic/{errors,remap}.py``, and the elastic drill
-(``python -m tpu_dist_torch.elastic.drill``). The relaunch supervisor is
-not ported."""
+``tpu_dist/elastic/{errors,remap,supervisor}.py``, and the elastic drill
+(``python -m tpu_dist_torch.elastic.drill``). The relaunch policy
+(``supervisor.py``) is imported by the launcher, not from here."""
 
 from tpu_dist_torch.elastic.errors import ConfigMismatchError, ElasticShapeMismatch
 from tpu_dist_torch.elastic.remap import (

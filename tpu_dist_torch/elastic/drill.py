@@ -64,12 +64,14 @@ def _check_world(n: int, device: str) -> Optional[str]:
     return None
 
 
-def _run_phase(name: str, n: int, device: str, train_args: List[str], extra_env: dict) -> int:
+def _run_phase(name: str, n: int, device: str, train_args: List[str], restarts: int) -> int:
     env = dict(os.environ)
     if device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")  # n ranks share the host's cores
-    env.update(extra_env)
+    # the drill owns the restart count: ``env`` sets it in each rank over
+    # the one-round launcher's own stamp (0)
     cmd = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", str(n), "--",
+           "env", f"TPU_DIST_ELASTIC_RESTARTS={restarts}",
            sys.executable, "-m", "tpu_dist_torch.cli.train", *train_args, "--device", device]
     _say(f"phase {name}: {n} rank(s) on {device}: {' '.join(train_args)}")
     rc = subprocess.call(cmd, env=env)
@@ -136,7 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ]
     rc = _run_phase("golden", args.devices, args.device,
                     base + ["--ckpt_dir", os.path.join(args.workdir, "ck_golden"),
-                            "--log_file", golden_log], {})
+                            "--log_file", golden_log], 0)
     if rc != 0:
         _say(f"FAIL: golden run exited {rc}")
         return 1
@@ -144,13 +146,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     rc = _run_phase("preempt", args.devices, args.device,
                     base + ["--ckpt_dir", elastic_ck, "--log_file", elastic_log,
                             "--fault_plan", f"sigterm@epoch={args.kill_epoch}:step={args.kill_step}"],
-                    {})
+                    0)
     if rc != PREEMPTION_EXIT_CODE:
         _say(f"FAIL: preempted run exited {rc}, wanted {PREEMPTION_EXIT_CODE}")
         return 1
     rc = _run_phase("shrink-resume", args.shrink_to, shrink_device,
                     base + ["--ckpt_dir", elastic_ck, "--log_file", elastic_log, "--resume"],
-                    {"TPU_DIST_ELASTIC_RESTARTS": "1"})
+                    1)
     if rc != 0:
         _say(f"FAIL: shrunk resume exited {rc}")
         return 1

@@ -40,8 +40,12 @@ one job spec drives either package. Sites:
     watchdog exists for this site: frozen-beat detection, the SIGUSR1
     stack dump (which names this loop), SIGTERM then SIGKILL, the
     postmortem bundle. ``seconds`` bounds the hang (0, the default, hangs
-    for ever); SIGTERM does not end it, since the flag is read at step
-    boundaries the process never reaches again.
+    for ever, and a SIGTERM does not end it, since the flag is read at
+    step boundaries the process never reaches again). A bounded hang is a
+    hold: it also ends when a SIGTERM lands while it holds (the trainer's
+    cooperative flag), and the step boundary then reads the flag, so a
+    drill can hold a world at a step until it stops it. The JAX package's
+    bounded hang runs to its bound.
 
 Each clause fires ``times`` times (default 1) and then disarms. The
 injection points call the ``on_*`` hooks below; with no plan installed
@@ -64,6 +68,7 @@ import time
 from typing import Dict, FrozenSet, List, Optional
 
 from tpu_dist_torch.obs import counters as _counters
+from tpu_dist_torch.resilience import preemption
 
 #: The JAX package's variable, so one job spec reaches either package.
 ENV_VAR = "TPU_DIST_FAULT_PLAN"
@@ -325,6 +330,7 @@ def on_step(epoch: int, step: int, rank: Optional[int] = None) -> FrozenSet[str]
         _record_fired("hang")
         actions.add(HANG)
         # live but silent by design: only an outside watchdog ends it
+        # (or, when bounded, a SIGTERM)
         _hang(float(c.params.get("seconds", 0)))
     return frozenset(actions)
 
@@ -333,11 +339,16 @@ def _hang(seconds: float = 0) -> None:
     """Sleep in a loop, the stand-in for a deadlocked collective or stuck
     I/O. ``seconds <= 0`` hangs for ever (the drill: the watchdog's
     SIGKILL is the only way out); a bound makes the site usable in
-    in-process tests. SIGUSR1 interrupts a sleep, the faulthandler dump
+    in-process tests and drills, and a SIGTERM that lands while a bounded
+    hang holds ends it. SIGUSR1 interrupts a sleep, the faulthandler dump
     runs, and the loop goes on, as in a real wedge."""
-    deadline = time.monotonic() + seconds if seconds > 0 else None
-    while deadline is None or time.monotonic() < deadline:
-        time.sleep(0.25)
+    if seconds <= 0:
+        while True:
+            time.sleep(0.25)
+    deadline = time.monotonic() + seconds
+    asked = preemption.requested()  # a flag left from before the hold is no SIGTERM to it
+    while time.monotonic() < deadline and (asked or not preemption.requested()):
+        time.sleep(0.05)
 
 
 def on_loader_batch(batch: int, epoch: Optional[int] = None) -> Optional[str]:

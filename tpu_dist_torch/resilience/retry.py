@@ -16,7 +16,6 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional, Tuple, Type
 
-from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.obs import counters
 
 
@@ -48,6 +47,10 @@ def retry_call(
         try:
             return fn(*args, **kwargs)
         except retry_on as e:
+            # imported here: the schedule alone (the elastic supervisor's)
+            # loads no torch
+            from tpu_dist_torch.metrics.logging import rank0_print  # noqa: PLC0415
+
             counters.inc("io.retries")
             rank0_print(
                 f"WARNING: transient {describe or 'I/O'} failure (attempt "

@@ -25,7 +25,9 @@
 
 The spawn function and both clocks are injectable, so the tests and the
 drill drive the whole state machine deterministically. ``capacity_file``
-(the fleet scheduler's allocation file) is not ported: ROADMAP Queue A 6.
+is the replica's allocation file (``fleet/capacity.py``): every spawn
+event names the fleet decision that sized the replica (its
+``decision_id``/``decision_cause``), when the file carries one.
 """
 
 from __future__ import annotations
@@ -34,11 +36,9 @@ import dataclasses
 import time
 from typing import Callable, List, Optional
 
+from tpu_dist_torch.elastic.supervisor import read_decision
 from tpu_dist_torch.obs import counters as counters_lib
 from tpu_dist_torch.resilience.retry import backoff_delays
-
-#: Where the supervisor's ``capacity_file`` waits.
-CAPACITY_QUEUE = "Queue A 6 (fleet/*)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +95,9 @@ class ReplicaSupervisor:
         self.heartbeat_file = heartbeat_file
         self.policy = policy or ReplicaPolicy()
         self.postmortem_dirs = list(postmortem_dirs or [])
-        if capacity_file is not None:
-            # the allocation file of the fleet scheduler, read through
-            # fleet/capacity.py, which the port does not have yet
-            from tpu_dist_torch.train.step import NotPortedError  # noqa: PLC0415
-
-            raise NotPortedError("capacity_file", capacity_file, CAPACITY_QUEUE)
+        # the replica's allocation file: a spawn names the fleet decision
+        # that sized the replica, when the file carries its tokens
+        self.capacity_file = capacity_file
         self._now = now
         self._sleep = sleep
         self._on_event = on_event
@@ -141,7 +138,13 @@ class ReplicaSupervisor:
         self._spawned_at = self._now()
         self._beat_seen = False
         counters_lib.inc("serve.replica_spawns")
-        self._event("spawn", pid=getattr(self.proc, "pid", None))
+        ev: dict = {"pid": getattr(self.proc, "pid", None)}
+        if self.capacity_file:
+            meta = read_decision(self.capacity_file)
+            if meta["decision_id"] is not None:
+                ev["decision_id"] = meta["decision_id"]
+                ev["decision_cause"] = meta["cause"]
+        self._event("spawn", **ev)
 
     def _bundle(self, verdict_hint: str) -> Optional[str]:
         """Postmortem-bundle the evidence dirs through the existing

@@ -139,6 +139,7 @@ from tpu_dist_torch.data import cifar, native, synthetic, transforms
 from tpu_dist_torch.data.loader import DataLoader
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.elastic import remap as remap_lib
+from tpu_dist_torch.elastic.supervisor import decision_from_env
 from tpu_dist_torch.evaluation.validate import validate
 from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
@@ -1149,10 +1150,12 @@ class Trainer:
                 self._close_flight(fault_handle)
 
     def _log_segment(self, history: MetricsHistory) -> None:
-        """The elastic gauges (``tpu_dist/train/trainer.py:2697-2708``): the
-        world size, and which relaunch this process is
-        (``$TPU_DIST_ELASTIC_RESTARTS``); after a restore, one ``resume``
-        history record that marks the segment's boundary."""
+        """The elastic gauges (``tpu_dist/train/trainer.py:2697-2744``): the
+        world size, which relaunch this process is
+        (``$TPU_DIST_ELASTIC_RESTARTS``) and the fleet decision that moved
+        the run (``fleet.decision_id``); after a restore, one ``resume``
+        history record that marks the segment's boundary, with the
+        decision's id and cause when a fleet decision moved the run."""
         counters.set_gauge("elastic.world_size", self.n_devices)
         try:
             restarts = int(os.environ.get("TPU_DIST_ELASTIC_RESTARTS", "0") or 0)
@@ -1160,8 +1163,11 @@ class Trainer:
             restarts = 0
         if restarts:
             counters.set_gauge("elastic.restarts", restarts)
+        trace = decision_from_env()
+        if "decision_id" in trace:
+            counters.set_gauge("fleet.decision_id", trace["decision_id"])
         if self._resumed is not None:
-            history.log("resume", restarts=restarts, **self._resumed)
+            history.log("resume", restarts=restarts, **trace, **self._resumed)
             self._resumed = None
 
     def _arm_live(self) -> None:
@@ -1287,7 +1293,8 @@ class Trainer:
                             dp=self.n_devices)
         if self._resumed is not None:
             self._flight.record("resume", **{k: self._resumed[k]
-                                             for k in ("epoch", "world", "dp", "resharded")})
+                                             for k in ("epoch", "world", "dp", "resharded")},
+                                **decision_from_env())
         return flight_lib.arm_faulthandler(
             per_rank_path(os.path.join(cfg.crash_dir, flight_lib.STACKS_NAME), rank))
 
