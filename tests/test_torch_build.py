@@ -6,6 +6,7 @@ import functools
 import pathlib
 
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 import chip_smoke
 from tpu_dist_torch.ops import _build

@@ -9,6 +9,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 import tpu_dist.data.native as jax_native
 from tpu_dist.comm import mesh as mesh_lib

@@ -17,13 +17,15 @@ import os
 import subprocess
 import sys
 
+from torch_ranks import child_env
+
 from tpu_dist_torch.elastic import drill
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_the_drill_passes_on_cpu_ranks(tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = child_env(PYTHONPATH=ROOT)
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_dist_torch.elastic.drill", "--workdir", str(tmp_path),
          "--device", "cpu", "--batch_size", "32", "--devices", "2",

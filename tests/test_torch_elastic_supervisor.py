@@ -23,6 +23,7 @@ import signal
 
 import numpy as np
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.elastic import supervisor as jax_sup
 from tpu_dist.fleet import capacity as jax_capacity

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.ops import flash_attention as jax_fa
 from tpu_dist_torch import bridge

@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.fleet import capacity as jax_capacity
 from tpu_dist.fleet import scheduler as jax_sched

@@ -14,6 +14,8 @@ the golden world's batches, so the gaps are summation order only)."""
 import json
 import os
 
+import torch_ranks  # noqa: F401  (one torch thread in this process)
+
 from tpu_dist_torch.fleet import drill
 
 

@@ -23,6 +23,7 @@ import textwrap
 import time
 
 import pytest
+from torch_ranks import child_env
 
 from tpu_dist.obs import counters as jax_counters
 from tpu_dist.obs import flight as jax_flight
@@ -179,7 +180,7 @@ def test_an_unhandled_exception_stamps_the_same_fatal_slot(tmp_path, thread):
         path = str(tmp_path / f"{pkg}.ring")
         child = _FATAL_CHILD.format(root=ROOT, pkg=pkg, path=path, thread=thread)
         proc = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
-                              timeout=60, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+                              timeout=60, env=child_env(JAX_PLATFORMS="cpu"))
         assert proc.returncode == (0 if thread else 1), proc.stderr
         # the previous hook still ran: the traceback reached stderr
         assert ("ZeroDivisionError" if thread else "ValueError: boom") in proc.stderr
@@ -210,7 +211,8 @@ while True:
 
 def test_a_ring_sigkilled_mid_write_keeps_its_complete_slots(tmp_path):
     path = str(tmp_path / "flight.ring")
-    proc = subprocess.Popen([sys.executable, "-c", _HAMMER_CHILD.format(root=ROOT, path=path)])
+    proc = subprocess.Popen([sys.executable, "-c", _HAMMER_CHILD.format(root=ROOT, path=path)],
+                            env=child_env())
     try:
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline:
@@ -272,7 +274,7 @@ def test_a_real_sigusr1_dump_reads_alike(tmp_path):
         path = str(tmp_path / f"{pkg}.stacks.txt")
         proc = subprocess.run(
             [sys.executable, "-c", _DUMP_CHILD.format(root=ROOT, pkg=pkg, path=path)],
-            capture_output=True, text=True, timeout=60, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+            capture_output=True, text=True, timeout=60, env=child_env(JAX_PLATFORMS="cpu"))
         assert proc.returncode == 0, proc.stderr
         ours, theirs = flight.read_stack_dump(path), jax_flight.read_stack_dump(path)
         assert ours == theirs and ours["n_dumps"] == 2 and len(ours["threads"]) >= 2

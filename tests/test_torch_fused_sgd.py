@@ -18,6 +18,7 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.ops import fused_sgd as jax_fused
 from tpu_dist.train import optim as jax_optim

@@ -27,7 +27,8 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch_ranks import fit_run, free_port, fused_fit_rank, narrow_resnet, run_ranks
+from torch_ranks import (child_env, fit_run, free_port, fused_fit_rank, narrow_resnet,
+                         run_ranks)
 
 from tpu_dist.obs import __main__ as jax_obs
 from tpu_dist_torch import ckpt
@@ -92,7 +93,7 @@ def test_the_history_has_the_fused_record_and_summarize_reads_it(tmp_path, capsy
 
 
 def test_distributed_mp_cli_with_fused_epoch_on_two_cpu_ranks():
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    env = child_env(PYTHONPATH=ROOT)
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_dist_torch.cli.distributed_mp", "--device", "cpu",
          "--num_processes", "2", "--port", str(free_port()), "--dataset", "synthetic",

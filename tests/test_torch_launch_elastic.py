@@ -31,6 +31,7 @@ import sys
 import textwrap
 
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.cli import launch as jax_launch
 from tpu_dist_torch.cli import launch

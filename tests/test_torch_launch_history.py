@@ -26,7 +26,7 @@ import sys
 
 import pytest
 import torch.multiprocessing as mp
-from torch_ranks import fit_rank, fit_run, free_port, run_ranks
+from torch_ranks import child_env, fit_rank, fit_run, free_port, run_ranks
 
 import tpu_dist.config as jax_config
 from tpu_dist.metrics import history as jax_history
@@ -88,7 +88,7 @@ TRAIN = [sys.executable, "-m", "tpu_dist_torch.cli.train", "--device", "cpu", "-
 
 
 def _launch(nproc: int, *train_args: str):
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    env = child_env(PYTHONPATH=ROOT)
     return subprocess.Popen(
         [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", str(nproc), "--", *TRAIN,
          *train_args], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -30,6 +30,7 @@ import textwrap
 import time
 
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.cli import launch as jax_launch
 from tpu_dist_torch.cli import launch

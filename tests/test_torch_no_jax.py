@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_ranks import child_env
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "tpu_dist_torch"
@@ -77,7 +78,7 @@ def test_package_has_the_slice_modules():
 def test_importing_the_port_loads_no_jax():
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
-        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=child_env(), capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

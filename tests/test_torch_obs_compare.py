@@ -22,7 +22,7 @@ import subprocess
 import sys
 
 import pytest
-from torch_ranks import fit_run, free_port
+from torch_ranks import child_env, fit_run, free_port
 
 from tpu_dist.metrics.history import MetricsHistory as JaxHistory
 from tpu_dist.obs import __main__ as jax_obs
@@ -212,6 +212,6 @@ def test_the_subcommands_the_port_lacks_exit_2_naming_their_item(capsys, argv):
 
 def test_the_cli_runs_as_a_module(logs):
     proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs", "compare", logs["base"],
-                           logs["reg"], "--slo"], cwd=ROOT, capture_output=True, text=True,
-                          timeout=120)
+                           logs["reg"], "--slo"], cwd=ROOT, env=child_env(),
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1 and "REGRESSED" in proc.stdout

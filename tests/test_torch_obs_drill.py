@@ -39,7 +39,8 @@ RUN = dict(dataset="synthetic", num_classes=10, batch_size=64, epochs=2, steps_p
            log_every=2, eval_every=0, synthetic_n=512, seed=0, num_workers=1)
 
 
-def test_the_drill_passes_on_the_cpu(tmp_path, capsys):
+def test_the_drill_passes_on_the_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the drill's trainer children
     work = str(tmp_path / "drill")
     rc = drill.main(["--device", "cpu", "--workdir", work, "--batch_size", "16",
                      "--watchdog_timeout", "15", "--watchdog_dump_grace", "5",

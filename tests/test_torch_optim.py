@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.config import TrainConfig as JaxConfig
 from tpu_dist.train import optim as jax_optim

@@ -23,6 +23,7 @@ import sys
 import time
 
 import pytest
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.obs import __main__ as jax_obs
 from tpu_dist.obs import counters as jax_counters

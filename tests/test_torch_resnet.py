@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 from test_models import GOLDEN
 
 from tpu_dist.nn import resnet as jax_resnet

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.nn import vit as jax_vit
 from tpu_dist.obs import counters as jax_counters

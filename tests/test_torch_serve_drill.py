@@ -25,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_ranks import child_env
 
 from tpu_dist.obs import counters as jax_counters
 from tpu_dist.serve import drill as jax_drill
@@ -108,7 +109,8 @@ def test_the_drill_model_has_the_jax_drills_parameters():
 def test_the_drill_runs_from_the_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "drill", "--workdir",
                            str(tmp_path), "--device", "cpu", "--format", "json"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+                          cwd=ROOT, env=child_env(), capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout[proc.stdout.index("{"):])
     assert summary["requests"] == 48 and summary["compare_slo"]["regression_rc"] == 1

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_ranks import child_env
 
 from tpu_dist.metrics.history import MetricsHistory as JaxHistory
 from tpu_dist.nn import vit as jax_vit
@@ -488,7 +489,8 @@ def test_report_runs_as_a_module_and_drill_and_replica_run(tmp_path, capsys):
     _history_with_serve_records(path)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.serve", "report", path],
-                          cwd=root, capture_output=True, text=True, timeout=120)
+                          cwd=root, env=child_env(), capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0 and proc.stdout.startswith("serve report — 2 window(s)")
     work = str(tmp_path / "drill")
     assert cli.main(["drill", "--workdir", work, "--device", "cpu"]) == 0

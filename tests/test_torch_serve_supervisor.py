@@ -35,6 +35,7 @@ import time
 import jax
 import numpy as np
 import pytest
+from torch_ranks import child_env
 
 from tpu_dist.obs import counters as jax_counters
 from tpu_dist.serve import drill as jax_drill
@@ -343,7 +344,7 @@ def test_a_real_replica_is_killed_bundled_relaunched_and_drained(tmp_path, ckpts
         return subprocess.Popen(
             [sys.executable, "-m", "tpu_dist_torch.serve", "replica", "--ckpt", ckpts["jax"],
              "--workdir", work, "--status_file", status, "--device", "cpu", "--pace_s", "0.01"],
-            cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"})
+            cwd=ROOT, env=child_env())
 
     sup = supervisor.ReplicaSupervisor(
         spawn, heartbeat_file=os.path.join(work, "hb.json"),

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.comm import mesh as mesh_lib
 from tpu_dist.nn import functional as jax_F

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 from test_torch_train_step import LOSS_TOL, LRS, assert_state_close, batch, jax_setup
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist_torch import bridge
 from tpu_dist_torch.train import optim, state, step

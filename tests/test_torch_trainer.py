@@ -20,7 +20,7 @@ import sys
 import jax
 import numpy as np
 import pytest
-from torch_ranks import free_port, narrow_resnet
+from torch_ranks import child_env, free_port, narrow_resnet
 
 import tpu_dist.data.native as jax_native
 import tpu_dist_torch.data.native as port_native
@@ -204,7 +204,7 @@ def test_backend_must_fit_the_device():
 def test_distributed_mp_cli_on_two_cpu_ranks():
     """Two spawned gloo ranks train full-width ResNet-18 for 2 steps and
     evaluate; only rank 0 prints, so one epoch line."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    env = child_env(PYTHONPATH=ROOT)
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_dist_torch.cli.distributed_mp", "--device", "cpu",
          "--num_processes", "2", "--port", str(free_port()), "--dataset", "synthetic",

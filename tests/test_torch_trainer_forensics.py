@@ -30,7 +30,7 @@ import time
 import jax
 import pytest
 import torch
-from torch_ranks import fit_run, free_port, run_ranks
+from torch_ranks import child_env, fit_run, free_port, run_ranks
 
 import tpu_dist.data.native as jax_native
 from tpu_dist.comm import mesh as mesh_lib
@@ -189,7 +189,7 @@ def test_a_sigkilled_training_process_leaves_its_last_step(tmp_path):
          "vit_tiny", "--num_classes", "10", "--dataset", "synthetic", "--synthetic_n", "2048",
          "--batch_size", "8", "--epochs", "5", "--log_every", "1000", "--crash_dir", crash,
          "--port", str(free_port())],
-        cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        cwd=ROOT, env=child_env(),
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     ring = os.path.join(crash, flight.RING_NAME)
     try:

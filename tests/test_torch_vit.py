@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ranks  # noqa: F401  (one torch thread in this process)
 
 from tpu_dist.nn import attention as jax_attention
 from tpu_dist.nn import vit as jax_vit

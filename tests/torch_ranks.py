@@ -10,6 +10,13 @@ that the parent reads back, in rank order. The parent waits at most
 
 The rank functions for those tests live here too, so the children import
 nothing else.
+
+Every port test module imports this one, and importing it gives the test
+process one intra-op torch thread: the suite's workers share the host's
+cores, and torch's default of a thread per core in each of them
+oversubscribes the host many times over. ``child_env`` gives a test's
+``subprocess`` children the same through ``OMP_NUM_THREADS=1``. The
+program itself keeps torch's defaults.
 """
 
 from __future__ import annotations
@@ -23,6 +30,14 @@ import time
 import numpy as np
 import torch
 import torch.multiprocessing as mp
+
+torch.set_num_threads(1)
+
+
+def child_env(**extra: str) -> dict:
+    """The test process's environment with one OpenMP thread, and ``extra``,
+    for a child started through ``subprocess``."""
+    return {**os.environ, "OMP_NUM_THREADS": "1", **extra}
 
 
 def free_port() -> int:
