@@ -266,9 +266,11 @@ Phases; any failure exits non-zero and prints no result line:
    after 10 steps, the supervisor relaunches it at world 1 with
    ``--resume`` and ``TPU_DIST_ELASTIC_RESTARTS=1`` (the clause does not
    fire again: the resumed epoch starts at step 10), and the launcher exits
-   0; 10 + 10 fused SGD launches; the losses within 2e-3 relative of the
-   golden run's (cuDNN is not deterministic in the children); the decision
-   in the resume record, the gauge and the flight ring's ``resume`` entry;
+   0; 10 + 10 fused SGD launches; the losses equal to the golden run's bit
+   for bit (``--seed`` makes cuDNN deterministic); the decision in the
+   resume record, the gauge and the flight ring's ``resume`` entry; both
+   runs write a history and a textfile, and the relaunched child a
+   heartbeat, which phase 12 (a) reads;
    ``[elastic-sup]`` lines split the seconds from round 0's exit to the
    relaunched child's first step into the backoff, the process start and
    the restore. (b) ``rank_kill@step=5:rank=0`` leaves no survivor: the
@@ -280,7 +282,31 @@ Phases; any failure exits non-zero and prints no result line:
    step until the probe's SIGTERM; it must exit 0 with ``PASS grow``, its
    two resume records both ``resharded`` (3 -> 1 -> 3) and each epoch's
    loss gap printed. The report repeats phase 11's result lines.
-12. report: the card's name and power limit, one JSON line of every ported
+12. goodput, the hub and the tenancy day, after phase 11 (its parts start
+   CUDA children). (a) Phase 11 (a)'s golden and supervised histories hold
+   ``goodput`` records whose buckets sum to each window's and each
+   segment's wall clock (1e-3: 10 terms rounded to 4 decimals); the
+   supervised run's ledger over its two segments charges the relaunch gap
+   to ``preempt_s``, and that gap, reduced to the span of phase 11's
+   relaunch gap, agrees with it within 0.5 s; a ``TelemetryHub`` pass over
+   the relaunched child's textfile and heartbeat, once its epoch's window
+   has closed, renders a page with ``run="trainer"`` labels and its
+   ``goodput_frac``. ``[goodput]`` lines. (b) ``python -m
+   tpu_dist_torch.fleet.tenancy_drill --phase hub --device cpu
+   --shrink_device cuda --devices 2 --shrink_to 1 --fused_optimizer``: the
+   recorded day's policy replay, then the day against the trainer
+   (``vit_tiny``, 4 epochs of 8 steps, ZeRO-1) with 2 gloo ranks at full
+   size and the shrunken round on the card; it must exit 0 with its PASS
+   lines, the shrunken round's fused SGD launches (ZeRO-1's flat shard) one
+   a step it ran, the preemption's latency (the allocation's shrink, the
+   SIGTERM, exit 75) and the decision chain on ``[tenancy]`` lines. (c)
+   ``--phase replica --device cuda --replica_model vit_b16``: a supervised
+   ViT-B/16 replica on the card SIGKILLed, bundled, relaunched with the
+   same digest, serving again (a window of completed requests) and drained;
+   the drained incarnation's flash launches, 12 a
+   forward, all on the f32 route, through phase 1's library (unchanged).
+   The report repeats phase 12's result lines.
+13. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -330,6 +356,7 @@ from tpu_dist_torch.elastic import elastic_stamp
 from tpu_dist_torch.metrics.history import MetricsHistory
 from tpu_dist_torch.obs import export as export_lib
 from tpu_dist_torch.obs import flight as flight_lib
+from tpu_dist_torch.obs import goodput as goodput_lib
 from tpu_dist_torch.serve.engine import ServingEngine, batch_buckets, load_serving_state
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
@@ -3272,10 +3299,6 @@ SUP_STOP = "sigterm@epoch=0:step=9"   # round 0 stops after its 10th step
 SUP_KILL = "rank_kill@step=5:rank=0"  # (b): the only rank is lost at step 5
 SUP_DECISION = (7, "goodput")         # the allocation file's tokens in (a)
 SUP_BACKOFF = 0.5                     # --elastic_backoff: the first relaunch waits this
-# --seed does not make cuDNN deterministic in the children (the port's
-# trainer never sets torch.backends.cudnn.deterministic), so the resumed
-# run's losses may differ from the golden run's by cuDNN's summation order
-SUP_LOSS_RTOL = 2e-3
 SUP_TIMEOUT = 240
 # 3 -> 1 -> 3: vit_tiny's 107,978 parameters do not divide by 3, so both
 # resumes re-lay the ZeRO-1 state (at 2 -> 1 -> 2 neither would)
@@ -3388,11 +3411,51 @@ def _sup_say(msg: str, keep: bool = True) -> None:
         SUP_SUMMARY.append(msg)
 
 
+#: what phase 12 (a) reads of phase 11 (a): the runs' histories and
+#: textfiles, the children's clocks, and the hub's pass over the relaunched
+#: child (``_watch_hub``)
+GOODPUT_RUNS: dict = {}
+
+
+def _watch_hub(metrics: str, beat: str) -> None:
+    """In a thread, from the relaunched child's start: wait for its textfile
+    to carry its closed epoch's goodput (the trainer publishes the totals of
+    closed windows, at the epoch's end), then one ``TelemetryHub`` pass over
+    the textfile and the heartbeat. The child beats until its clean exit
+    sweeps the file, one checkpoint save after the epoch's window closes;
+    a pass that comes after the sweep reads the run as not alive, and says
+    so. The snapshot and page go to GOODPUT_RUNS."""
+    from tpu_dist_torch.obs import hub as hub_lib  # noqa: PLC0415
+
+    def watch():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            vals = export_lib.scrape(textfile=metrics) or {}
+            if vals.get(export_lib.metric_name("goodput.goodput_frac"), 0) > 0:
+                hub = hub_lib.TelemetryHub([hub_lib.RunSource(
+                    "trainer", metrics_file=metrics, heartbeat_file=beat, kind="train")])
+                snap = hub.collect()
+                GOODPUT_RUNS["hub"] = (snap, hub.federated(snap))
+                return
+            time.sleep(0.005)
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    GOODPUT_RUNS["hub_thread"] = thread
+
+
 def _sup_relaunch(root, d: str) -> int:
     """(a): a golden run, then the supervised run stopped by SUP_STOP in
-    round 0 and relaunched at world 1 with --resume. Returns the fused SGD
-    launches of both runs."""
-    rc, out, err, took = _sup_launch(root, d, [], ["--ckpt_dir", os.path.join(d, "golden")])
+    round 0 and relaunched at world 1 with --resume, each with a history
+    and a textfile (read in phase 12 (a)). Returns the fused SGD launches
+    of both runs."""
+    runs = {name: {"log": os.path.join(d, f"{name}.jsonl"),
+                   "metrics": os.path.join(d, f"{name}.prom")}
+            for name in ("golden", "supervised")}
+    GOODPUT_RUNS.update(runs)
+    rc, out, err, took = _sup_launch(
+        root, d, [], ["--ckpt_dir", os.path.join(d, "golden"), "--log_file",
+                      runs["golden"]["log"], "--metrics_file", runs["golden"]["metrics"]])
     [golden] = _children(out)
     _sup_say(f"(a) golden: launcher --nproc 1 over {' '.join(SUP_TRAIN)}: rc {rc} "
              f"in {took:.1f} s; {len(golden['losses'])} losses, fused_sgd launches "
@@ -3402,13 +3465,22 @@ def _sup_relaunch(root, d: str) -> int:
     cap = os.path.join(d, "allocation")
     with open(cap, "w") as f:
         f.write(f"1 decision={SUP_DECISION[0]} cause={SUP_DECISION[1]}\n")
-    log, crash = os.path.join(d, "h.jsonl"), os.path.join(d, "crash")
+    log, crash = runs["supervised"]["log"], os.path.join(d, "crash")
+    beat = os.path.join(d, "supervised.hb")
+
+    def on_line(proc, line):
+        # the relaunched child: the hub's watch begins
+        if line.startswith("[child] start") and "restarts=1" in line:
+            _watch_hub(runs["supervised"]["metrics"], beat)
+
     rc, out, err, took = _sup_launch(
         root, d, ["--elastic_min_procs", "1", "--elastic_backoff", str(SUP_BACKOFF),
                   "--elastic_probe_interval", "0.5", "--elastic_capacity_file", cap],
         ["--ckpt_dir", os.path.join(d, "elastic"), "--log_file", log, "--crash_dir", crash,
-         "--fault_plan", SUP_STOP])
+         "--fault_plan", SUP_STOP, "--metrics_file", runs["supervised"]["metrics"],
+         "--heartbeat_file", beat], on_line)
     kids = _children(out)
+    GOODPUT_RUNS.update(golden_kid=golden, kids=kids)
     _sup_say(f"(a) supervised, {SUP_STOP} in the command of every round: rc {rc} "
              f"in {took:.1f} s; rounds {[(k['restarts'], k['resume']) for k in kids]} "
              f"(TPU_DIST_ELASTIC_RESTARTS, --resume); launcher: "
@@ -3428,10 +3500,9 @@ def _sup_relaunch(root, d: str) -> int:
     both = first["losses"] + second["losses"]
     rel = max(_rel(a, b) for a, b in zip(both, golden["losses"]))
     _sup_say(f"(a) losses of 10 + 10 steps vs the golden run: equal bit for bit "
-             f"{both == golden['losses']}, max relative gap {rel:.3g} (limit {SUP_LOSS_RTOL}: "
-             "the children's cuDNN is not deterministic); fused_sgd launches "
-             f"{first['launches']} + {second['launches']}")
-    check(rel <= SUP_LOSS_RTOL, f"resumed losses {both} vs golden {golden['losses']}")
+             f"{both == golden['losses']} (--seed makes cuDNN deterministic), max relative "
+             f"gap {rel:.3g}; fused_sgd launches {first['launches']} + {second['launches']}")
+    check(both == golden["losses"], f"resumed losses {both} vs golden {golden['losses']}")
     with open(log) as f:
         [resume] = [r for r in map(json.loads, f) if r.get("kind") == "resume"]
     ring = flight_lib.decode(os.path.join(crash, flight_lib.RING_NAME))
@@ -3539,6 +3610,195 @@ def phase_supervision(work: str) -> dict:
     return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
 
 
+# -- phase 12: goodput, the hub and the tenancy day ------------------------------------
+
+# the buckets of a record and its window (or elapsed time): each of the 10
+# terms is rounded to 4 decimals, so their sum drifts by at most ~5e-4
+GOODPUT_TOL = 1e-3
+# the ledger's relaunch gap against phase 11 (a)'s, once each is reduced to
+# the same span (two processes' clocks, the history's ts to the millisecond)
+GOODPUT_GAP_TOL_S = 0.5
+# the recorded diurnal day with JAX's trainer (vit_tiny, 4 epochs x 8 steps,
+# batch 32, ZeRO-1), the fused SGD on, 2 CPU ranks at full size and the
+# shrunken round, 1 rank, on the card (one card holds one rank)
+TENANCY_ARGS = ["--phase", "hub", "--device", "cpu", "--shrink_device", "cuda",
+                "--devices", "2", "--shrink_to", "1", "--fused_optimizer"]
+TENANCY_STEPS = 8  # the drill's --steps_per_epoch
+TENANCY_BATCH = 32
+# a supervised ViT-B/16 replica on the card, its forwards on the flash kernel
+REPLICA_DRILL_ARGS = ["--phase", "replica", "--device", DEVICE, "--replica_model", "vit_b16"]
+TENANCY_TIMEOUT = 300
+
+#: phase 12's result lines, repeated by the report after phase 11's
+GOODPUT_SUMMARY: list = []
+
+
+def _p12_say(tag: str, msg: str, keep: bool = True) -> None:
+    print(f"[{tag}] {msg}", flush=True)
+    if keep:
+        GOODPUT_SUMMARY.append(f"[{tag}] {msg}")
+
+
+def _history(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _bucket_sum(rec: dict) -> float:
+    return sum(rec.get(f"{b}_s", 0.0) for b in goodput_lib.ALL_BUCKETS)
+
+
+def _goodput_on_card() -> None:
+    """(a): the goodput records of phase 11 (a)'s golden and supervised
+    runs, the supervised run's ledger over its two segments, its relaunch
+    gap against phase 11's, and the hub's pass over the relaunched child."""
+    for name in ("golden", "supervised"):
+        recs = _history(GOODPUT_RUNS[name]["log"])
+        gp = [r for r in recs if r.get("kind") == "goodput"]
+        windows = [r for r in gp if not r.get("final")]
+        finals = [r for r in gp if r.get("final")]
+        check(windows and finals, f"{name}: no goodput records in its history")
+        worst = max([abs(_bucket_sum(r) - r["window_s"]) for r in windows]
+                    + [abs(_bucket_sum(r) - r["elapsed_s"]) for r in finals])
+        check(worst < GOODPUT_TOL, f"{name}: buckets and wall clock differ by {worst} s")
+        ledger = goodput_lib.run_ledger(recs)
+        check(abs(_bucket_sum(ledger) - ledger["elapsed_s"]) < GOODPUT_TOL,
+              f"{name}: the run ledger's buckets do not sum to its elapsed time: {ledger}")
+        buckets = {b: ledger[f"{b}_s"] for b in goodput_lib.ALL_BUCKETS}
+        _p12_say("goodput", f"(a) {name}: {len(windows)} window(s) in {len(finals)} "
+                            f"segment(s), each summing to its wall clock (worst {worst:.2g} s); "
+                            f"run ledger {json.dumps(buckets)}, elapsed {ledger['elapsed_s']} s, "
+                            f"goodput_frac {ledger['goodput_frac']}")
+    recs = _history(GOODPUT_RUNS["supervised"]["log"])
+    ledger = goodput_lib.run_ledger(recs)
+    check(ledger["n_segments"] == 2 and ledger["restart_gap_s"] > 0
+          and ledger["preempt_s"] >= ledger["restart_gap_s"]
+          and ledger["preempt_for_serve_s"] == ledger["recovery_s"] == 0.0,
+          f"the relaunch gap is not charged to preempt_s: {ledger}")
+    # the ledger's gap runs from the first segment's last record to the
+    # relaunched Trainer's construction; phase 11's from round 0's exit to
+    # the relaunched child's first step
+    ids = [r["run_id"] for r in recs]
+    second_id = ids[-1]
+    first_last = max(r["ts"] for r in recs if r["run_id"] != second_id)
+    opening = next(r for r in recs if r["run_id"] == second_id)
+    construct = opening["ts"] - opening["rel_s"]
+    first, second = GOODPUT_RUNS["kids"]
+    sup_gap = second["loss_at"][0] - first["exit"]
+    to_first_step = second["loss_at"][0] - construct
+    exit_tail = first["exit"] - first_last
+    same_span = sup_gap - to_first_step + exit_tail
+    _p12_say("goodput", f"(a) the supervised run's relaunch gap in its ledger (preempt_s "
+                        f"{ledger['preempt_s']} s, of which the gap {ledger['restart_gap_s']} s "
+                        f"and the dying round's shutdown tail the rest) vs [elastic-sup]'s "
+                        f"{sup_gap:.3f} s: they differ by {sup_gap - ledger['restart_gap_s']:.3f} "
+                        f"s, because the ledger's gap ends at the relaunched Trainer's "
+                        f"construction, and its {to_first_step:.3f} s to the first step (the "
+                        "process group, model, data, restore and first step) are the second "
+                        "segment's own buckets, while it begins at round 0's last record, "
+                        f"{exit_tail:.3f} s before that process exited; on the same span the "
+                        f"two read {same_span:.3f} and {ledger['restart_gap_s']} s")
+    check(abs(same_span - ledger["restart_gap_s"]) < GOODPUT_GAP_TOL_S,
+          f"the ledger's gap {ledger['restart_gap_s']} s vs {same_span:.3f} s on the same span")
+    GOODPUT_RUNS["hub_thread"].join(timeout=60)
+    check("hub" in GOODPUT_RUNS, "the hub's pass never saw the relaunched child's goodput")
+    snap, page = GOODPUT_RUNS["hub"]
+    sample = snap["runs"]["trainer"]
+    frac_line = [ln for ln in page.splitlines()
+                 if ln.startswith('tpu_dist_goodput_goodput_frac{run="trainer"}')]
+    check(page.endswith("# EOF\n") and frac_line and 'tpu_dist_hub_run_up{run="trainer"}' in page
+          and snap["rollup"]["runs_aggregated"] == 1,
+          f"the hub's page lacks the trainer's labels or goodput:\n{page[-2000:]}")
+    _p12_say("goodput", f"(a) TelemetryHub pass over the relaunched child's textfile and "
+                        f"heartbeat (alive {sample['alive']}, beat age "
+                        f"{sample['heartbeat_age_s']} s): {len(page.splitlines())} lines, "
+                        f"{frac_line[0]}, pod goodput by kind "
+                        f"{snap['rollup']['goodput_by_kind']}")
+
+
+def _tenancy_drill(root, d: str, args: list) -> list:
+    cmd = [sys.executable, "-m", "tpu_dist_torch.fleet.tenancy_drill", "--workdir", d, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=TENANCY_TIMEOUT)
+    lines = [ln.removeprefix("tenancy-drill: ") for ln in proc.stdout.splitlines()
+             if ln.startswith("tenancy-drill: ")]
+    _p12_say("tenancy", f"{' '.join(args)}: exit {proc.returncode} in "
+                        f"{time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0 and lines and lines[-1] == "PASS: all requested phases",
+          f"the tenancy drill failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    return lines
+
+
+def _tenancy_day(root, d: str) -> int:
+    """(b): the policy replay and the day against a real trainer whose
+    shrunken round runs on the card. Returns that round's fused SGD
+    launches."""
+    lines = _tenancy_drill(root, d, TENANCY_ARGS)
+    for ln in lines:
+        if (ln.startswith(("PASS", "preemption latency", "resume record", "causal chain",
+                           "goodput:", "launches:", "epoch ", "chip-seconds", "tick "))
+                or "round" in ln):
+            _p12_say("tenancy", ln, keep=not (ln.startswith("tick ") or "round" in ln
+                                               and not ln.startswith("launches")))
+    shrink = json.loads(next(ln for ln in lines if ln.startswith("resume record (shrink)"))
+                        .split(": ", 1)[1])
+    card = [re.match(r"launches: round (\d+): 1 rank\(s\) on cuda: fused_sgd (\d+), "
+                     r"flash_attention_fwd (\d+)", ln) for ln in lines]
+    card = [m for m in card if m]
+    check(len(card) == 1, f"the card's round's launches: {card}")
+    steps = TENANCY_STEPS - shrink["examples_offset"] // TENANCY_BATCH
+    launches = int(card[0].group(2))
+    check(launches == steps > 0 and shrink["decision_cause"] == "serve_breach",
+          f"the shrunken round on the card: {launches} fused SGD launches in {steps} steps; "
+          f"{shrink}")
+    _p12_say("tenancy", f"(b) the shrunken round on the card: {steps} steps of epoch "
+                        f"{shrink['epoch']}, {launches} fused SGD launches on ZeRO-1's flat "
+                        "shard, one a step")
+    return launches
+
+
+def _tenancy_replica(root, d: str) -> int:
+    """(c): a supervised ViT-B/16 replica on the card, SIGKILLed, bundled,
+    relaunched with the same digest and drained. Returns the drained
+    incarnation's flash launches."""
+    lib = _build.library_path("flash_attention_fwd")
+    before = lib.stat().st_mtime_ns
+    lines = _tenancy_drill(root, d, REPLICA_DRILL_ARGS)
+    for ln in lines:
+        _p12_say("tenancy", f"(c) {ln}", keep=ln.startswith(("replica launches", "PASS",
+                                                            "relaunch restored",
+                                                            "the relaunched replica")))
+    m = next(filter(None, (re.match(r"replica launches: pid \d+ served (\d+) request\(s\) in "
+                                    r"(\d+) forward\(s\): flash_attention_fwd (\d+) \((\d+) on "
+                                    r"the tensor cores\)", ln) for ln in lines)), None)
+    check(m is not None, "the drained replica reported no launches")
+    served, forwards, flash, mma = (int(g) for g in m.groups())
+    check(served > 0 and flash == REPLICA_BLOCKS * forwards and mma == 0
+          and lib.stat().st_mtime_ns == before,
+          f"replica: {served} requests served, {flash} flash launches ({mma} tensor-core) in "
+          f"{forwards} forwards; the library must be phase 1's, unchanged")
+    return flash
+
+
+def phase_tenancy(work: str) -> dict:
+    """Phase 12 (module docstring). Returns the kernel launches of its
+    children: the fused SGD's on the card in (b), the flash forward's in
+    (c)."""
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "tenancy")
+    os.makedirs(d)
+    _goodput_on_card()
+    sgd = _tenancy_day(root, os.path.join(d, "day"))
+    flash = _tenancy_replica(root, os.path.join(d, "replica"))
+    _p12_say("tenancy", f"phase: {time.perf_counter() - t0:.1f} s, fused_sgd launches {sgd}, "
+                        f"flash_attention_fwd launches {flash}; card: {_smi_line()}")
+    return {name: {"fused_sgd": sgd, "flash_attention_fwd": flash}.get(name, 0)
+            for name in KERNELS}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -3573,16 +3833,20 @@ def _phases(work: str) -> int:
     forensics = phase_forensics(work)
     elastic = phase_elastic(work)
     supervision = phase_supervision(work)
+    tenancy = phase_tenancy(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
-                + supervision[name] for name in KERNELS}
+                + supervision[name] + tenancy[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
     print("[summary] phase 11, elastic supervision, again:")
     for msg in SUP_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 12, goodput, the hub and the tenancy day, again:")
+    for msg in GOODPUT_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

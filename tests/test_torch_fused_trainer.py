@@ -82,8 +82,8 @@ def test_the_history_has_the_fused_record_and_summarize_reads_it(tmp_path, capsy
     run = fit_run(_port(log_file=path))
     with open(path) as f:
         recs = [json.loads(line) for line in f]
-    assert [r["kind"] for r in recs] == ["train_epoch", "eval"] * 2
-    epoch1 = recs[2]
+    assert [r["kind"] for r in recs] == ["train_epoch", "eval", "goodput"] * 2 + ["goodput"] * 2
+    epoch1 = recs[3]
     assert epoch1["epoch"] == 1 and epoch1["loss"] == run["epochs"][1]["loss"]
     assert JAX_FUSED_KEYS <= set(epoch1) and epoch1["data_stall_frac"] == 0.0
     capsys.readouterr()

@@ -53,7 +53,8 @@ def test_the_history_has_the_jax_schema_and_summarize_reads_it(tmp_path, capsys)
     run = fit_run({**RUN, "port": free_port(), "log_file": path})
     recs = _records(path)
     assert history.SCHEMA_VERSION == jax_history.SCHEMA_VERSION == 15
-    assert [r["kind"] for r in recs] == ["train_epoch", "eval"] * 2
+    # an epoch's goodput window closes after its eval; then the tail and the totals
+    assert [r["kind"] for r in recs] == ["train_epoch", "eval", "goodput"] * 2 + ["goodput"] * 2
     for r in recs:
         assert {"ts", "rel_s", "schema_version", "run_id", "kind", "counters"} <= set(r)
         assert r["schema_version"] == 15 and r["run_id"] == recs[0]["run_id"]
@@ -76,7 +77,8 @@ def test_per_host_log_writes_one_file_a_rank(tmp_path):
     assert run_ranks(fit_rank, 2, cfg, timeout=120) == [None, None]
     assert sorted(os.listdir(tmp_path)) == ["run.jsonl", "run.jsonl.h1"]
     for name in ("run.jsonl", "run.jsonl.h1"):
-        assert [r["kind"] for r in _records(str(tmp_path / name))] == ["train_epoch", "eval"]
+        assert [r["kind"] for r in _records(str(tmp_path / name))] == [
+            "train_epoch", "eval", "goodput", "goodput", "goodput"]
     assert history.per_rank_path(path, 0) == path
 
 

@@ -71,7 +71,7 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.obs.drill", "tpu_dist_torch.data.native",
                  "tpu_dist_torch.elastic.drill", "tpu_dist_torch.elastic.supervisor",
                  "tpu_dist_torch.fleet.capacity", "tpu_dist_torch.fleet.drill",
-                 "tpu_dist_torch.obs.hub"):
+                 "tpu_dist_torch.obs.hub", "tpu_dist_torch.fleet.tenancy_drill"):
         assert name in MODULES
 
 

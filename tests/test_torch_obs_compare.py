@@ -95,6 +95,10 @@ def _kitchen_sink(history_cls, path):
 def logs(tmp_path_factory):
     d = tmp_path_factory.mktemp("logs")
     out = {"tpu_run": TPU_RUN}
+    # a history stamps the registry's counters on a record that has none:
+    # start from empty registries, whatever ran in this process before
+    counters.reset()
+    jax_counters.reset()
     for name, cls in (("sink_port", MetricsHistory), ("sink_jax", JaxHistory)):
         out[name] = str(d / f"{name}.jsonl")
         _kitchen_sink(cls, out[name])
@@ -201,7 +205,8 @@ def test_compare_files_equals_jax_and_refuses_bench(logs):
 
 @pytest.mark.parametrize("argv", [
     ["summarize", "x.jsonl"], ["tail", "x.jsonl"], ["export-trace", "x.jsonl"],
-    ["archive", "ingest", "x"], ["trend", "a.jsonl"], ["hub", "--once"], ["pod", "a.jsonl"],
+    ["archive", "ingest", "x"], ["trend", "a.jsonl"],
+    ["hub", "--once", "--run", "a=x.prom", "--archive", "z.jsonl"], ["pod", "a.jsonl"],
     ["xprof", "d"], ["memory", "x.jsonl"], ["compare", "a", "b", "--bench"],
     ["compare", "a", "--against-archive", "z.jsonl"]])
 def test_the_subcommands_the_port_lacks_exit_2_naming_their_item(capsys, argv):

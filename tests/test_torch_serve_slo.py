@@ -500,4 +500,4 @@ def test_report_runs_as_a_module_and_drill_and_replica_run(tmp_path, capsys):
                      str(tmp_path / "replica"), "--status_file", status, "--device", "cpu",
                      "--serve_n", "4"]) == 0
     with open(status) as f:
-        assert [json.loads(line)["event"] for line in f] == ["ready", "serving"]
+        assert [json.loads(line)["event"] for line in f] == ["ready", "serving", "launches"]

@@ -163,15 +163,24 @@ def read_signals(
     primitive** (``obs/hub.py::sample_run`` — the one scrape fan-in; an
     absent or torn exposition degrades to all-None signals, a stale or
     garbage heartbeat fails closed to ``alive=False``, never raises).
-    (A pod-scale arbiter reads one hub snapshot through
-    ``signals_from_hub``, which waits with the hub: the package
-    docstring.)"""
+    A pod-scale arbiter reads one hub snapshot through
+    :func:`signals_from_hub` instead."""
     return signals_from_sample(hub_lib.sample_run(
         run,
         metrics_file=metrics_file,
         heartbeat_file=heartbeat_file,
         now=now,
     ))
+
+
+def signals_from_hub(snapshot: dict) -> Dict[str, RunSignals]:
+    """Every run's :class:`RunSignals` out of one hub aggregation pass
+    (``obs/hub.py::TelemetryHub.collect``): one snapshot feeds the whole
+    ``decide`` call, instead of a scrape a run."""
+    return {
+        run: signals_from_sample(sample)
+        for run, sample in snapshot.get("runs", {}).items()
+    }
 
 
 @dataclasses.dataclass(frozen=True)

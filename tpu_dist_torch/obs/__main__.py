@@ -22,6 +22,17 @@ Subcommands::
         ``--annotate`` appends a ``postmortem`` record to the rank-0
         history found. Exit 1 when the dirs hold no forensic artifacts.
 
+    hub --run name=metrics_path[,hb=...][,port=P][,kind=train|serve] ...
+        [--fleet fleet.prom] [--out FILE] [--port P] [--interval S]
+        [--once] [--stale-after S]
+        The pod telemetry hub (``obs/hub.py``): every run's exposition
+        relabelled ``{run=...}`` on one page, with the hub's drop counts
+        and the pod rollups; ``--once`` prints (or ``--out`` writes) one
+        pass and exits 1 when no run could be read, else it publishes
+        every ``--interval`` to ``--out`` and ``GET /metrics`` on
+        ``--port`` until interrupted. ``--archive`` is not ported: exit 2
+        naming its ROADMAP item.
+
 The other subcommands of ``python -m tpu_dist.obs`` exit 2 naming the
 ROADMAP item they wait for (:data:`UNPORTED`).
 
@@ -36,6 +47,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 
@@ -46,7 +58,6 @@ UNPORTED = {
     "export-trace": f"{_TELEMETRY}, obs/summarize.py's export_trace",
     "archive": f"{_TELEMETRY}, obs/archive.py",
     "trend": f"{_TELEMETRY}, obs/archive.py",
-    "hub": f"{_TELEMETRY}, obs/hub.py",
     "pod": f"{_TELEMETRY}, obs/aggregate.py",
     "xprof": f"{_TELEMETRY}, obs/xprof.py",
     "memory": f"{_TELEMETRY}, obs/memory.py's ledger",
@@ -103,6 +114,30 @@ def main(argv=None) -> int:
     pm.add_argument("--tail", type=int, default=40, metavar="N",
                     help="ring records kept per rank in the bundle")
     pm.add_argument("--format", choices=("text", "json"), default="text")
+    hb = sub.add_parser(
+        "hub",
+        help="pod telemetry hub: federate every run's exposition into one /metrics with "
+             "per-run labels and pod rollups",
+    )
+    hb.add_argument("--run", action="append", default=[], metavar="SPEC", dest="runs",
+                    help="one run source: name=metrics_path[,hb=heartbeat][,port=P]"
+                         "[,kind=train|serve] (or name=port:P for HTTP only); repeatable, "
+                         "at least one")
+    hb.add_argument("--fleet", default=None, metavar="FILE",
+                    help="the fleet scheduler's exposition (write_exposition), which the "
+                         "card and decision rollups come from")
+    hb.add_argument("--out", default=None, metavar="FILE",
+                    help="publish the federated exposition to this textfile (atomically)")
+    hb.add_argument("--port", type=int, default=None, metavar="P",
+                    help="also serve GET /metrics on this port")
+    hb.add_argument("--interval", type=float, default=5.0, metavar="S",
+                    help="scrape and publish interval (default 5 s)")
+    hb.add_argument("--once", action="store_true",
+                    help="one aggregation pass, printed (or --out), then exit")
+    hb.add_argument("--stale-after", type=float, default=None, metavar="S",
+                    help="heartbeat age past which a run reads dead (default: "
+                         "hub.STALE_AFTER_S)")
+    hb.add_argument("--archive", default=None, metavar="PATH", help="not ported")
     for name in UNPORTED:
         sub.add_parser(name, add_help=False, help="not ported")
     args, rest = ap.parse_known_args(argv)
@@ -111,6 +146,9 @@ def main(argv=None) -> int:
         return _not_ported(repr(args.cmd), UNPORTED[args.cmd])
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+
+    if args.cmd == "hub":
+        return _hub(args)
 
     if args.cmd == "postmortem":
         from tpu_dist_torch.obs import postmortem as postmortem_lib  # noqa: PLC0415
@@ -168,6 +206,51 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     return 1 if result["regressions"] else 0
+
+
+def _hub(args) -> int:
+    """The ``hub`` subcommand (``tpu_dist/obs/__main__.py:479-535``)."""
+    if args.archive:
+        return _not_ported("hub --archive", ARCHIVE_QUEUE)
+    from tpu_dist_torch.obs import hub as hub_lib  # noqa: PLC0415
+
+    if not args.runs:
+        print("tpu_dist_torch.obs: hub needs at least one --run "
+              "name=metrics_path[,hb=...,port=...,kind=...]", file=sys.stderr)
+        return 2
+    try:
+        sources = [hub_lib.parse_source(s) for s in args.runs]
+        h = hub_lib.TelemetryHub(
+            sources, fleet_exposition=args.fleet,
+            **({"stale_after_s": args.stale_after} if args.stale_after is not None else {}))
+    except ValueError as e:
+        print(f"tpu_dist_torch.obs: {e}", file=sys.stderr)
+        return 2
+    if args.once:
+        snap = h.collect()
+        if args.out:
+            h.write(args.out, snap)
+            print(f"federated {snap['rollup']['runs_aggregated']} run(s) to {args.out}")
+        else:
+            print(h.federated(snap), end="")
+        return 0 if snap["rollup"]["runs_aggregated"] else 1
+    server = hub_lib.HubServer(args.port) if args.port else None
+    if server is not None:
+        print(f"hub serving /metrics on :{server.port}")
+    try:
+        while True:
+            snap = h.collect()
+            text = h.federated(snap)
+            if args.out:
+                h.write(args.out, snap)
+            if server is not None:
+                server.publish(text)
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        if server is not None:
+            server.close()
 
 
 if __name__ == "__main__":

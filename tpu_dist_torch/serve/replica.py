@@ -24,7 +24,11 @@ work.
 
 :func:`serve` is the body, for any model and payload shape; :func:`main`
 runs it with the drill's narrow ResNet and ``IMAGE_SHAPE``, as the JAX
-entry point does.
+entry point does, or with ``--model vit_b16`` (not in the JAX replica)
+ViT-B/16 on 224x224 images, its attention through the flash forward
+kernel. After a clean exit :func:`main` appends a ``launches`` line: the
+flash forward's launches (and those on the tensor cores) and the
+forwards served, which a chip run reads back.
 """
 
 from __future__ import annotations
@@ -95,6 +99,9 @@ def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "completions, a wedged pump loop")
     ap.add_argument("--device", default="cuda",
                     help="the device to serve on (default cuda)")
+    ap.add_argument("--model", choices=("drill", "vit_b16"), default="drill",
+                    help="the drill's narrow ResNet on 16x16 images (default), or ViT-B/16 "
+                         "on 224x224 images with the flash attention kernel")
     return ap.parse_args(argv)
 
 
@@ -196,10 +203,23 @@ def serve(model, payload_shape: Sequence[int], args: argparse.Namespace) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    from tpu_dist_torch.serve.drill import _drill_model  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters as counters_lib  # noqa: PLC0415
+    from tpu_dist_torch.ops import flash_attention as fa  # noqa: PLC0415
 
     args = parse(argv)
-    return serve(_drill_model(args.device), IMAGE_SHAPE, args)
+    if args.model == "vit_b16":
+        from tpu_dist_torch.nn.vit import vit_b16  # noqa: PLC0415
+
+        model, shape = vit_b16(attn_impl="flash", device=args.device), (224, 224, 3)
+    else:
+        from tpu_dist_torch.serve.drill import _drill_model  # noqa: PLC0415
+
+        model, shape = _drill_model(args.device), IMAGE_SHAPE
+    rc = serve(model, shape, args)
+    _status(args.status_file or os.path.join(args.workdir, "replica_status.jsonl"),
+            event="launches", flash=fa.flash_fwd.launches, flash_mma=fa.flash_fwd.launches_mma,
+            forwards=counters_lib.get("serve.forwards"))
+    return rc
 
 
 if __name__ == "__main__":

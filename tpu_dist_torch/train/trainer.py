@@ -93,8 +93,36 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   textfile and, on rank 0, over HTTP; the alert rules run at the epoch
   grain and at each metrics fetch, and a fired rule writes a warning, an
   ``alert`` history and ring record, and its ``alert_active`` gauge. The
-  JAX exposition's goodput, MFU, memory and compile gauges belong to
-  subsystems the port does not have yet.
+  exposition carries the goodput gauges below; the JAX exposition's MFU,
+  memory and compile gauges belong to subsystems the port does not have
+  yet.
+* The goodput ledger (:mod:`tpu_dist_torch.obs.goodput`,
+  ``tpu_dist/train/trainer.py:143-144``): every second from the Trainer's
+  construction to the end of ``fit`` lands in one bucket. A restore is
+  ``ckpt`` (``recovery`` when it re-lays the state onto another world);
+  a streaming epoch splits into ``data_stall`` (the loader waits),
+  ``compile``, ``ckpt`` (its mid-epoch snapshots) and ``productive`` (the
+  rest); the eval is ``eval``; every save and the writer's drain
+  ``ckpt``; ``auto_recover`` is ``recovery``; the SIGTERM tail (the last
+  beat and the emergency snapshot) is ``preempt``; what no region claims
+  is ``unattributed``. The port compiles no XLA program, so its
+  ``compile`` is the start-up cost of the step: on the streaming path the
+  first step of each process, to its end on the device (the kernels'
+  builds and loads, cuDNN's algorithm choice), as the JAX trainer charges
+  its step 0's compile; on the fused path the CUDA graph's warmup and
+  capture (``train/epoch.py::_GraphLoop``, none on the CPU). A
+  ``goodput`` history record closes each epoch's window (rank 0, with
+  ``log_file``), and the end of ``fit`` logs the ``tail`` window, the
+  ``final`` totals and the ledger line; the exposition carries
+  ``goodput.<bucket>_s`` and ``goodput.goodput_frac``, the totals of the
+  windows closed so far, and the epoch-grain alert rules read
+  ``goodput_frac``. ``obs/summarize.py::run_ledger`` folds the segments of
+  a relaunched run, and charges a relaunch gap whose ``resume`` record
+  carries a ``serve_breach`` fleet decision to ``preempt_for_serve_s``.
+  Unlike the JAX trainer, a best-checkpoint save after an eval counts as
+  ``ckpt`` alone, not inside ``eval`` as well.
+* ``--seed`` makes cuDNN deterministic (:func:`seed_cudnn`), as the
+  reference's ``init_seeds`` does.
 * ``fault_plan`` (and ``$TPU_DIST_FAULT_PLAN``) installs
   :mod:`tpu_dist_torch.resilience.faults` at construction. Its step hook
   runs once a completed step, beside the flight ring's; ``nan_loss``
@@ -148,6 +176,7 @@ from tpu_dist_torch.nn import resnet, vit
 from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import counters, spans
 from tpu_dist_torch.obs import flight as flight_lib
+from tpu_dist_torch.obs import goodput as goodput_lib
 from tpu_dist_torch.obs import memory as memory_lib
 from tpu_dist_torch.obs.export import MetricsExporter
 from tpu_dist_torch.obs.heartbeat import Heartbeat
@@ -310,6 +339,22 @@ def install_fault_plan(cfg: TrainConfig) -> Optional[faults.FaultPlan]:
     return plan
 
 
+def seed_cudnn(seed: Optional[int]) -> None:
+    """The cuDNN half of ``--seed``, as the reference's ``init_seeds``
+    (``distributed_mp.py:29-39``): a seeded run takes cuDNN's deterministic
+    algorithms with its autotuner off, so a rerun, or a relaunch resumed
+    from a checkpoint, repeats the losses of an uninterrupted run bit for
+    bit. Without a seed the flags are left as they are (torch's defaults in
+    a fresh process: both off). The reference's unseeded
+    ``init_seeds(cuda_deterministic=False)`` turns the autotuner on instead;
+    the port does not, because the autotuner times candidate algorithms at
+    the first call of every new shape, which adds to the first steps and
+    lets the timing pick the algorithms, and so the last bits of a loss."""
+    if seed is not None:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+
 def load_live_telemetry(cfg: TrainConfig) -> Optional[list]:
     """Check ``metrics_port`` and parse ``alert_rules`` before any model or
     data work (``tpu_dist/train/trainer.py:249-259``); returns the rules,
@@ -370,6 +415,11 @@ class Trainer:
         self._alert_rule_list = load_live_telemetry(cfg)
         # a run is one Trainer's lifetime: its counters start at 0
         counters.reset()
+        # the goodput ledger's book opens now: construction (the process
+        # group, the model, the data, the restore) is part of the run it
+        # accounts, and its origin is the history's rel_s origin
+        self._goodput = goodput_lib.GoodputLedger()
+        self._t0 = self._goodput.t0
         self.device, self._owns_group = mesh.initialize_distributed(
             cfg.device, world_size=cfg.num_processes, rank=cfg.process_id,
             master_addr=cfg.ip, master_port=cfg.port)
@@ -383,6 +433,7 @@ class Trainer:
         world, rank = mesh.process_count(), mesh.process_index()
         self.n_devices = world
         seed = cfg.seed if cfg.seed is not None else 0
+        seed_cudnn(cfg.seed)
         self.model = build_model(cfg, self.device, seed)
 
         # -- data -----------------------------------------------------------
@@ -496,7 +547,6 @@ class Trainer:
         cfg_hash = hashlib.sha1(json.dumps(dataclasses.asdict(cfg), sort_keys=True,
                                            default=str).encode()).hexdigest()[:8]
         self._run_id = f"{cfg_hash}-{int(time.time())}"
-        self._t0 = time.monotonic()  # the history's rel_s origin
         self.start_epoch = 0
         self._resume_step = 0  # > 0 only after restoring a mid-epoch snapshot
         self._resume_examples = 0  # > 0 only on an elastic mid-epoch resume (the offset)
@@ -521,8 +571,15 @@ class Trainer:
         self._export_rollup: dict = {}
         self._export_t = float("-inf")
         self._resumed = None  # the restore's 'resume' ring record, stamped by fit
+        self._stepped = False  # this process has run a streaming step (goodput's compile)
+        self._last_reshard_s = 0.0  # wall time of the last restore that re-laid the state
         if cfg.resume and cfg.ckpt_dir:
+            # a plain restore is ckpt time; one that re-lays the state onto
+            # another world is the elastic recovery's
+            t_res = time.monotonic()
             epoch = self._restore_latest()
+            self._goodput.add("ckpt", time.monotonic() - t_res - self._last_reshard_s)
+            self._goodput.add("recovery", self._last_reshard_s)
             if epoch is not None:
                 # a mid-epoch snapshot re-enters its own epoch
                 self.start_epoch = (epoch if self._resume_step or self._resume_examples
@@ -721,6 +778,7 @@ class Trainer:
             return None
         template = bridge.restore_template(self.state)
         chosen = None
+        self._last_reshard_s = 0.0
         for path, epoch in candidates:
             try:
                 meta = ckpt_lib.read_meta(path)
@@ -731,6 +789,7 @@ class Trainer:
             # the world-independent leaves load as they are; the flat
             # layouts of another extent are re-laid onto this one
             remapper = remap_lib.make_remapper(self.model, meta, self.n_devices)
+            t_restore = time.monotonic()
             try:
                 with spans.span("ckpt/restore_ladder", file=path):
                     flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify, template=template,
@@ -739,6 +798,8 @@ class Trainer:
                 self._quarantine_ckpt(path, e)
                 continue
             if remapper.used:
+                # this restore was the reshard: goodput's recovery
+                self._last_reshard_s = time.monotonic() - t_restore
                 counters.inc("resume.resharded")
                 rank0_print(f"=> elastic resume: remapped {len(remapper.used)} dp-extent-"
                             f"dependent leaf(s) from dp={(meta.get('elastic') or {}).get('dp')} "
@@ -941,6 +1002,10 @@ class Trainer:
         nb = len(self.train_loader)
         timer = _StepTimer(warmup_steps=1)
         phase = {"data": 0.0, "dispatch": 0.0, "fetch": 0.0}
+        # goodput: the first step's seconds and the mid-epoch checkpoints'
+        # go to their own buckets, out of the epoch's productive remainder
+        compile_d = 0.0
+        ckpt_s0 = self._goodput.window_value("ckpt")
         t0 = time.time()
         self._progress = (epoch, start_step + base, False)
         it = self.train_loader.iter_from(start_step)
@@ -961,6 +1026,14 @@ class Trainer:
                 self._step_metrics = (epoch, step + 1, metrics)
                 self._progress = (epoch, step + 1, False)
                 self._in_step = False
+                if not self._stepped:
+                    # this process's first step, to its end on the device:
+                    # the kernels' builds and loads, cuDNN's algorithm
+                    # choice, the allocator's first blocks
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    compile_d = time.perf_counter() - t_d
+                    self._stepped = True
                 phase["dispatch"] += time.perf_counter() - t_d
                 images_seen += cfg.batch_size
                 steps_run += 1
@@ -989,9 +1062,11 @@ class Trainer:
                     # a periodic exact snapshot never publishes a diverged state
                     self._guard(m["loss"], f"at epoch {epoch} step {step}", lr)
                 if want_save:
-                    self._ckpt_io().save(
-                        cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
-                        extra_meta={**self._ckpt_meta(), **self._mid_epoch_position(step + 1)})
+                    with self._goodput.timed("ckpt"):
+                        self._ckpt_io().save(
+                            cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
+                            extra_meta={**self._ckpt_meta(),
+                                        **self._mid_epoch_position(step + 1)})
                 if want_log:
                     losses.update(m["loss"], cfg.batch_size)
                     rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] step:[{step}/{nb}] "
@@ -1029,6 +1104,12 @@ class Trainer:
                        step_time_p99=round(pct["p99"], 6))
             rank0_print(f"  step p50/p95/p99 {pct['p50'] * 1e3:.1f}/{pct['p95'] * 1e3:.1f}/"
                         f"{pct['p99'] * 1e3:.1f} ms, data stall {stall:.1%}")
+        # the epoch's wall time: the loader waits, the first step, the
+        # mid-epoch checkpoints, and the step loop stepping as the rest
+        ckpt_d = max(self._goodput.window_value("ckpt") - ckpt_s0, 0.0)
+        self._goodput.add("data_stall", phase["data"])
+        self._goodput.add("compile", compile_d)
+        self._goodput.add("productive", dt - phase["data"] - compile_d - ckpt_d)
         counters.inc("train.epochs")
         counters.inc("train.steps", steps_run)
         return out
@@ -1044,9 +1125,11 @@ class Trainer:
         # the replays update the state in place: until the epoch's metrics
         # are on the host, the state may be half trained
         self._in_step = True
+        capture_s0 = self._fused_runner.capture_s
         self.state, metrics = self._fused_runner(self.state, *self._fused_data, lr, epoch)
         m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
         self._in_step = False
+        capture_s = self._fused_runner.capture_s
         spans.add_event("train/fused_epoch", t_pc, time.perf_counter() - t_pc, epoch=epoch)
         steps = len(self._fused_data[0]) // self.local_batch
         counters.inc("train.epochs")
@@ -1064,6 +1147,11 @@ class Trainer:
         rank0_print(f"Epoch {epoch} done in {dt:.2f}s ({ips:.0f} img/s)")
         # the data is on the device: there is no input pipeline to stall on
         m.update(epoch_time=dt, images_per_sec=ips, data_stall_frac=0.0)
+        # goodput: the graph's warmup and capture (a first epoch on the
+        # card) is the compile bucket, the rest of the epoch productive
+        compile_d = capture_s if capture_s is not None and capture_s != capture_s0 else 0.0
+        self._goodput.add("compile", compile_d)
+        self._goodput.add("productive", dt - compile_d)
         if self._stop_agreed():
             # the fused epoch has no step grain: its end is the first point a
             # SIGTERM can be honoured at, and the epoch is complete there
@@ -1113,7 +1201,8 @@ class Trainer:
             while True:
                 try:
                     result = self._fit_loop(epochs, history)
-                    self._ckpt_close()  # the success path: writer errors raise
+                    with self._goodput.timed("ckpt"):
+                        self._ckpt_close()  # the success path: writer errors raise
                     if self._heartbeat is not None:
                         self._heartbeat.sweep()  # a clean exit: the beat's absence says so
                     return result
@@ -1123,7 +1212,8 @@ class Trainer:
                     if attempts <= 0:
                         raise
                     attempts -= 1
-                    self._auto_recover(e)
+                    with self._goodput.timed("recovery"):
+                        self._auto_recover(e)
                     history.log("auto_recover", epoch=self._last_epoch,
                                 lr_scale=self._lr_scale)
                     if self._flight is not None:
@@ -1133,21 +1223,45 @@ class Trainer:
             # PreemptedError to exit 75
             if isinstance(e, PreemptedError):
                 counters.inc("preemption.observed")
+            # goodput's preempt: the shutdown tail from here (the beat and
+            # the snapshot); the seconds from the signal to the boundary
+            # stay in the bucket that spent them (a partial epoch's are
+            # unattributed), and the relaunch gap is the offline half's
+            t_pre = time.monotonic()
             if self._heartbeat is not None:
                 # the last beat marks the position and stays on disk: with
                 # the exit code it tells a watchdog the run was preempted
                 self._heartbeat.beat(epoch=self._last_epoch, phase="preempted", force=True)
             self._emergency_save()
+            self._goodput.add("preempt", time.monotonic() - t_pre)
             raise
         finally:
             preemption.restore(sig_token)
-            self._ckpt_close(suppress=True)
+            with self._goodput.timed("ckpt"):  # the writer's drain
+                self._ckpt_close(suppress=True)
+            self._close_goodput(history)
             self._close_live()
             self._oom_forensics(history)
             self._history = None
             history.close()
             if self._flight is not None:
                 self._close_flight(fault_handle)
+
+    def _close_goodput(self, history: MetricsHistory) -> None:
+        """The ledger's end of ``fit``: the tail window (the last save, the
+        drain, the teardown) as a ``goodput`` record marked ``tail``, the
+        run's ``final`` totals record, and the rank-0 ledger line. A write
+        that fails is reported and never masks the exception ``fit`` may
+        be raising."""
+        try:
+            tail = self._goodput.window_record()
+            totals = self._goodput.run_totals()
+            if history.path:
+                history.log("goodput", epoch=self._last_epoch, tail=True, **tail)
+                history.log("goodput", final=True, **totals)
+                rank0_print("=> " + goodput_lib.ledger_line(totals))
+        except OSError as e:
+            rank0_print(f"WARNING: goodput ledger close failed: {e}")
 
     def _log_segment(self, history: MetricsHistory) -> None:
         """The elastic gauges (``tpu_dist/train/trainer.py:2697-2744``): the
@@ -1218,6 +1332,12 @@ class Trainer:
         self._export_t = now
         values = dict(counters.snapshot())
         values.update(self._export_rollup)
+        # the run's goodput over the windows closed so far: the numbers the
+        # ledger's final record will carry
+        totals = self._goodput.run_totals()
+        for b in goodput_lib.ALL_BUCKETS:
+            values[f"goodput.{b}_s"] = totals[f"{b}_s"]
+        values["goodput.goodput_frac"] = totals["goodput_frac"]
         if self._heartbeat is not None:
             age = self._heartbeat.age()
             if age != float("inf"):
@@ -1241,6 +1361,7 @@ class Trainer:
             rollup["eval.top1"] = last["val_top1"]
         if self._alerts is not None:
             window = {k: v for k, v in last.items() if isinstance(v, (int, float))}
+            window["goodput_frac"] = self._goodput.run_totals()["goodput_frac"]
             window.update(counters.snapshot())
             fired = self._alerts.observe(window)
             if fired:
@@ -1352,30 +1473,42 @@ class Trainer:
             self._progress = (epoch, 0, True)
             history.log("train_epoch", epoch=epoch, **last)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                if self._fused_eval is not None:
-                    t1, t5, vloss = self._validate_fused(epoch)
-                else:
-                    t1, t5, vloss = validate(self.test_loader, self.state, self.eval_step,
-                                             epoch=epoch)
+                with self._goodput.timed("eval"):
+                    if self._fused_eval is not None:
+                        t1, t5, vloss = self._validate_fused(epoch)
+                    else:
+                        t1, t5, vloss = validate(self.test_loader, self.state, self.eval_step,
+                                                 epoch=epoch)
                 last.update(val_top1=t1, val_top5=t5, val_loss=vloss)
                 history.log("eval", epoch=epoch, top1=t1, top5=t5, loss=vloss)
                 if cfg.ckpt_dir and t1 > self._best_top1:
                     self._best_top1 = t1
-                    self._ckpt_io().save_best(cfg.ckpt_dir, self.state, epoch, t1,
-                                              extra_meta=self._ckpt_meta())
+                    # outside the eval's region: no second counts twice
+                    with self._goodput.timed("ckpt"):
+                        self._ckpt_io().save_best(cfg.ckpt_dir, self.state, epoch, t1,
+                                                  extra_meta=self._ckpt_meta())
             # with mid-epoch snapshots on, every epoch end writes the clean
             # checkpoint, or a stale mid-epoch ckpt_e would stay the newest
             if cfg.ckpt_dir and ((epoch + 1) % cfg.save_every == 0
                                  or cfg.mid_epoch_save_every > 0):
-                self._ckpt_io().save(cfg.ckpt_dir, self.state, epoch, cfg.keep_last_ckpts,
-                                     extra_meta=self._ckpt_meta())
-            if self._exporter is not None or self._alerts is not None:
+                with self._goodput.timed("ckpt"):
+                    self._ckpt_io().save(cfg.ckpt_dir, self.state, epoch,
+                                         cfg.keep_last_ckpts, extra_meta=self._ckpt_meta())
+            # the epoch's goodput window closes (train, eval, save): one
+            # record an epoch, and the records chain over the run
+            live = self._exporter is not None or self._alerts is not None
+            if history.path or live:
+                window = self._goodput.window_record()
+                if history.path:
+                    history.log("goodput", epoch=epoch, **window)
+            if live:
                 self._epoch_live_update(epoch, last)
             if self._stop_agreed():
                 # SIGTERM during the eval or the save: the epoch is complete
                 raise PreemptedError(f"SIGTERM observed after epoch {epoch} completed — "
                                      "shutting down at the epoch boundary")
         if cfg.ckpt_dir:
-            self._ckpt_io().save(cfg.ckpt_dir, self.state, epochs - 1, cfg.keep_last_ckpts,
-                                 extra_meta=self._ckpt_meta())
+            with self._goodput.timed("ckpt"):
+                self._ckpt_io().save(cfg.ckpt_dir, self.state, epochs - 1, cfg.keep_last_ckpts,
+                                     extra_meta=self._ckpt_meta())
         return last  # fit() drains the async writer
