@@ -348,7 +348,7 @@ def run_policy_phase(args) -> int:
 # -- phase cycle -------------------------------------------------------------
 
 
-class _DiurnalDriver:
+class _DiurnalDay:
     """The cycle's signal source: the recorded profiles, paced by the real
     trainer. The spike starts once the trainer has logged an epoch and
     holds until the serving run has its cards (the breach must last
@@ -491,7 +491,7 @@ def run_cycle_phase(args) -> int:
                 return True
         return False
 
-    driver = _DiurnalDriver(sched, elastic_log, shrunken_done)
+    day = _DiurnalDay(sched, elastic_log, shrunken_done)
     alloc_path = sched.allocation_path("trainer")
     probe = CapacityProbe(capacity_lib.make_census(alloc_path), original=args.devices,
                           min_procs=args.shrink_to, interval=0.3)
@@ -535,7 +535,7 @@ def run_cycle_phase(args) -> int:
             time.sleep(0.1)
             if time.monotonic() - last_tick >= args.tick_s:
                 last_tick = time.monotonic()
-                driver.step()
+                day.step()
             if resize is None:
                 target = probe.poll(n)
                 if target is not None and target != n:
@@ -547,10 +547,10 @@ def run_cycle_phase(args) -> int:
         rc = proc.returncode
         _say(f"round {round_idx}: exit {rc}")
         if (rc == PREEMPTION_EXIT_CODE and resize is not None and resize < n
-                and not latency and driver.donated_at_s is not None):
+                and not latency and day.donated_at_s is not None):
             now = time.monotonic()
-            latency.update(total=now - driver.donated_at_s,
-                           to_sigterm=sigterm_at - driver.donated_at_s,
+            latency.update(total=now - day.donated_at_s,
+                           to_sigterm=sigterm_at - day.donated_at_s,
                            sigterm_to_exit=now - sigterm_at)
         return RoundResult(rc, {0: rc}, resize)
 
@@ -571,13 +571,13 @@ def run_cycle_phase(args) -> int:
         ("a preempt-shrink resume record", bool(shrinks)),
         ("an off-peak grow resume record", bool(grows)),
         ("the preempt-donate decision fired",
-         driver.donate_tick is not None and driver.spike_tick is not None),
+         day.donate_tick is not None and day.spike_tick is not None),
         ("the serve run got its chips one tick later",
-         driver.grant_tick == (driver.donate_tick or 0) + 1),
+         day.grant_tick == (day.donate_tick or 0) + 1),
         ("SIGTERM within the tick bound",
-         driver.donate_tick is not None
-         and driver.donate_tick - driver.spike_tick + 1 == policy.serve_breach_ticks),
-        ("serving availability recovered", driver.recovered),
+         day.donate_tick is not None
+         and day.donate_tick - day.spike_tick + 1 == policy.serve_breach_ticks),
+        ("serving availability recovered", day.recovered),
         ("trainer back at full size", sched.alloc["trainer"] == args.devices),
         ("preemption wall latency measured", bool(latency) and latency["total"] < 60.0),
     )):
@@ -586,8 +586,8 @@ def run_cycle_phase(args) -> int:
             "examples_offset", "restarts", "decision_id", "decision_cause")
     for tag, rec in (("shrink", shrinks[0]), ("grow", grows[0])):
         _say(f"resume record ({tag}): {json.dumps({k: rec.get(k) for k in keys})}")
-    _say(f"preemption latency: donate at tick {driver.donate_tick} (spike at "
-         f"{driver.spike_tick}, bound serve_breach_ticks={policy.serve_breach_ticks}); "
+    _say(f"preemption latency: donate at tick {day.donate_tick} (spike at "
+         f"{day.spike_tick}, bound serve_breach_ticks={policy.serve_breach_ticks}); "
          f"allocation shrink -> SIGTERM {latency['to_sigterm']:.3f} s, SIGTERM -> exit-75 "
          f"{latency['sigterm_to_exit']:.3f} s, in all {latency['total']:.3f}s of wall clock")
     for tag, got in _round_launches(launches_file).items():
@@ -612,7 +612,7 @@ def run_cycle_phase(args) -> int:
     # the allocation file and the relaunch env to the resume record, the
     # shrunken round's flight ring and the hub's page; the goodput ledger
     # charges the serve-preempt gap to its own bucket, the partition exact
-    donates = [d for d in driver.decisions if d.get("preempt") and d["action"] == "donate"]
+    donates = [d for d in day.decisions if d.get("preempt") and d["action"] == "donate"]
     did = donates[0].get("decision_id") if donates else None
     ledger_ids = {r.get("decision_id") for r in _load(sched.history_path())
                   if r.get("kind") == "fleet"}
@@ -626,8 +626,8 @@ def run_cycle_phase(args) -> int:
     except OSError as e:
         # the ring check below fails on an empty ring_resumes, naming the link
         _say(f"note: donor flight ring unreadable ({e!r})")
-    sched.write_exposition(driver.fleet_prom)
-    rollup = driver.hub.collect()["rollup"]
+    sched.write_exposition(day.fleet_prom)
+    rollup = day.hub.collect()["rollup"]
     gp = goodput_lib.run_ledger(recs) or {}
     bucket_sum = sum(gp.get(f"{b}_s", 0.0) for b in goodput_lib.ALL_BUCKETS)
     if _failed((
