@@ -306,7 +306,40 @@ Phases; any failure exits non-zero and prints no result line:
    the drained incarnation's flash launches, 12 a
    forward, all on the f32 route, through phase 1's library (unchanged).
    The report repeats phase 12's result lines.
-13. report: the card's name and power limit, one JSON line of every ported
+13. health and profiler, after phase 12 (it starts CUDA children, and
+   reuses phase 11 (a)'s golden run). ``compute_device_stats`` on the card
+   against f64 host arithmetic, with a NaN and an inf leaf counted. (a)
+   Phase 11 (a)'s golden command (``resnet18_cifar100``, 20 steps, seeded)
+   with ``--device_metrics --log_every 1 --anomaly_action warn
+   --straggler_threshold 0.5 --profile_dir D --profile_steps 5:8
+   --log_file H``: its 20 losses equal the golden run's bit for bit, 20
+   fused SGD launches, the golden run's ``comm.*`` counts; 20
+   ``device_stats`` records with finite, positive norms and ratio and no
+   non-finite leaf; one ``straggler`` record (skew 1.0, rank 0); the
+   ``profile`` start and stop at global steps 5 and 8; a
+   ``profile_analysis`` record (the capture taken and read back inside
+   the child) with busy seconds whose categories sum to it within 1e-6,
+   and to the card's busy time read from the raw trace apart from xprof
+   (each stream's kernel, memcpy and memset intervals merged) within
+   1e-5 s; no ``profile.errors`` or ``xprof.analyze_errors``. (b) ``python -m
+   tpu_dist_torch.obs xprof D --format json``: exit 0, the
+   ``fused_sgd_kernel`` 3 times (one a captured step), cuDNN convolution
+   kernels in ``matmul_conv``; ``python -m tpu_dist_torch.obs summarize
+   H``: exit 0 with the capture attribution block. (c) Two poisoned runs
+   of 8 steps side by side: ``--fault_plan nan_loss@epoch=0:step=4`` (the
+   fault reports the NaN after step 4, before its fetch: device_stats of
+   steps 0-3, no finding) and ``--lr inf`` (the first update writes inf
+   and NaN into the weights: step 1's ``nonfinite_loss`` and
+   ``nonfinite_grads`` findings are logged before the NaN guard raises);
+   each exits 1 with the JAX trainer's message. ``[health]`` lines: the
+   step p50 with and without ``--device_metrics`` and inside and outside
+   the capture window, the peak memory with and without, the capture's
+   bytes and split, the read-back's seconds. (a') The golden command with
+   ``--device_metrics`` alone: its losses bit for bit, its step laps beside
+   the golden run's (the flag's own cost, apart from the capture's); and
+   the flag's work a step at ResNet-18's 62 leaves (the parameters' copy
+   and the scalars), device ms with a head start and host us.
+14. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -318,6 +351,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gzip
 import json
 import math
 import os
@@ -3336,8 +3370,11 @@ trainer_lib.Trainer._restore_latest, trainer_lib.Trainer.fit = timed_restore, lo
 try:
     train.main()
 finally:
+    import torch
     print(f"[child] fused_sgd launches {fused_sgd.fused_sgd.launches}", flush=True)
     print(f"[child] gauge {counters.snapshot().get('fleet.decision_id')}", flush=True)
+    if torch.cuda.is_available():
+        print(f"[child] peak {torch.cuda.max_memory_allocated()}", flush=True)
     print(f"[child] exit {time.time()!r}", flush=True)
 """
 
@@ -3354,7 +3391,8 @@ def _children(out: str) -> list:
         if word == "start":
             fields = dict(f.split("=", 1) for f in rest[1:])
             kids.append({"start": float(rest[0]), **fields, "losses": [], "loss_at": [],
-                         "restore": None, "launches": None, "gauge": None, "exit": None})
+                         "restore": None, "launches": None, "gauge": None, "peak": None,
+                         "exit": None})
         elif word == "loss":
             kids[-1]["losses"].append(float(rest[0]))
             kids[-1]["loss_at"].append(float(rest[2]))
@@ -3364,6 +3402,8 @@ def _children(out: str) -> list:
             kids[-1]["launches"] = int(rest[1])
         elif word == "gauge":
             kids[-1]["gauge"] = None if rest[0] == "None" else float(rest[0])
+        elif word == "peak":
+            kids[-1]["peak"] = int(rest[0])
         elif word == "exit":
             kids[-1]["exit"] = float(rest[0])
     return kids
@@ -3799,6 +3839,341 @@ def phase_tenancy(work: str) -> dict:
             for name in KERNELS}
 
 
+# -- phase 13: the training-health chain and the triggered profiler --------------
+
+# phase 11 (a)'s command with the health flags: the four device scalars
+# every step (each step logged), the anomaly detector warning, the
+# straggler check at a world of one (its skew, 1.0, is over 0.5, so its
+# record is written) and a manual capture of global steps [5, 8)
+HEALTH_FLAGS = ["--device_metrics", "--log_every", "1", "--anomaly_action", "warn",
+                "--straggler_threshold", "0.5", "--profile_steps", "5:8"]
+HEALTH_WINDOW = (5, 8)
+# (a'): the golden command with the flag alone, the step's cost of it
+HEALTH_FLAG_ONLY = ["--device_metrics"]
+HEALTH_DEVICE_STATS = ("grad_norm", "param_norm", "update_ratio")
+# the capture's category seconds against its busy seconds: each of the 5
+# categories is rounded to 1e-6 s and busy is their sum, so they agree to
+# float addition (1e-6 is the bound asked of them)
+HEALTH_CATEGORY_TOL = 1e-6
+# the same categories against the device's busy time read from the raw
+# trace apart from xprof (the union of each stream's kernel, memcpy and
+# memset intervals, which xprof's exclusive times sum to): the 5
+# roundings of 1e-6 s; a range counted as an op (a gpu_user_annotation
+# over a step) would add the step's idle gaps, milliseconds, and kernels
+# that overlap on a stream (cuDNN's do) counted twice or
+# clipped would show too
+HEALTH_UNION_TOL = 1e-5
+# xprof's top ops by self time: the step's distinct kernels are ~100, so
+# 200 holds the fused SGD kernel's row whatever its rank
+HEALTH_TOP = 200
+# (c): 8 steps, poisoned two ways: the nan_loss fault, which reports a NaN
+# loss after step 4 (before any fetch of it, as the JAX trainer does), and
+# --lr inf, whose first update writes inf and NaN into the weights
+HEALTH_POISON = ["--device_metrics", "--log_every", "1", "--steps_per_epoch", "8"]
+HEALTH_FAULT = "nan_loss@epoch=0:step=4"
+HEALTH_GUARD = "; restore from ckpt_dir to recover"
+# compute_device_stats on the card against f64 arithmetic on the host: f32
+# sums of squares over 10^3-10^4 elements in another order, a few ulps
+HEALTH_STATS_RTOL = 1e-5
+
+#: phase 13's result lines, repeated by the report
+HEALTH_SUMMARY: list = []
+
+
+def _p13_say(msg: str, keep: bool = True) -> None:
+    print(f"[health] {msg}", flush=True)
+    if keep:
+        HEALTH_SUMMARY.append(f"[health] {msg}")
+
+
+def _device_stats_on_card() -> None:
+    """``compute_device_stats`` on CUDA tensors: the norms against f64
+    arithmetic on the host, and a NaN leaf and an inf leaf counted as two
+    non-finite leaves (the inf-norm's NaN propagation on the card)."""
+    from tpu_dist_torch.obs.device_stats import compute_device_stats, snapshot  # noqa: PLC0415
+
+    rng = np.random.default_rng(0)
+    shapes = ((3, 4), (1000,), (64, 9), (5, 5, 3, 3))
+    g, p = ([rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(2))
+    n = [(x - 0.01 * y).astype(np.float32) for x, y in zip(p, g)]
+    cuda = lambda xs: [torch.from_numpy(x).to(DEVICE) for x in xs]  # noqa: E731
+    got = {k: v.item() for k, v in compute_device_stats(cuda(g), snapshot(cuda(p)),
+                                                         cuda(n)).items()}
+    sq = lambda xs: sum(float(np.sum(np.square(x.astype(np.float64)))) for x in xs)  # noqa: E731
+    want = {"grad_norm": math.sqrt(sq(g)), "param_norm": math.sqrt(sq(p)),
+            "update_ratio": math.sqrt(sq([b.astype(np.float64) - a for a, b in zip(p, n)]))
+            / math.sqrt(sq(p))}
+    worst = max(abs(got[k] - want[k]) / want[k] for k in want)
+    g[1][17], g[2][3, 4] = np.nan, -np.inf
+    bad = compute_device_stats(cuda(g), snapshot(cuda(p)), cuda(n))["nonfinite_grads"].item()
+    _p13_say(f"compute_device_stats on the card: norms vs f64 within {worst:.2g} relative, "
+             f"{bad:g} non-finite leaves of 2 poisoned")
+    check(worst <= HEALTH_STATS_RTOL and got["nonfinite_grads"] == 0.0 and bad == 2.0,
+          f"device stats on the card: {got} vs {want}; poisoned count {bad}")
+    # what the flag adds to a step at ResNet-18's 62 leaves: the copy of
+    # the parameters before the update and the scalars after it
+    leaves = [torch.randn(s, device=DEVICE) for s in fused_sgd_bench.leaf_shapes("resnet18")]
+    grads = [torch.randn_like(x) for x in leaves]
+
+    def flag_work():
+        return compute_device_stats(grads, snapshot(leaves), leaves)
+
+    ms, host = cuda_ms(flag_work, iters=10)
+    _p13_say(f"the flag's work a step at ResNet-18's {len(leaves)} leaves "
+             f"({sum(x.numel() for x in leaves)} f32): device {ms:.4f} ms, host {host:.1f} us")
+
+
+def _stream_busy_s(prof: str) -> tuple:
+    """(busy seconds, summed durations) of the device in a capture, read
+    from its trace files with the standard library alone: each stream's
+    kernel, memcpy and memset intervals merged, summed over the streams;
+    and their durations summed, whose excess over busy is the time
+    kernels on one stream overlapped."""
+    busy_us = total_us = 0.0
+    for path in (os.path.join(r, f) for r, _, fs in os.walk(prof) for f in fs
+                 if f.endswith(".trace.json.gz")):
+        with gzip.open(path, "rt") as f:
+            events = json.load(f)["traceEvents"]
+        streams: dict = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                streams.setdefault((e.get("pid"), e.get("tid")), []).append(
+                    (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        for ivs in streams.values():
+            end = float("-inf")
+            for a, b in sorted(ivs):
+                busy_us += max(b - max(a, end), 0.0)
+                total_us += b - a
+                end = max(end, b)
+    return busy_us * 1e-6, total_us * 1e-6
+
+
+def _comm(records: list) -> dict:
+    [last] = [r for r in records if r.get("kind") == "train_epoch"][-1:]
+    return {k: v for k, v in last.get("counters", {}).items() if k.startswith("comm.")}
+
+
+def _laps(kid: dict) -> list:
+    """Each step's seconds, from its loss line to the next (step i's lap
+    ends at its own loss line)."""
+    at = kid["loss_at"]
+    return [None] + [b - a for a, b in zip(at, at[1:])]
+
+
+def _health_run(root, d: str) -> tuple:
+    """(a): phase 11 (a)'s golden command with HEALTH_FLAGS. Returns the
+    child, its history's path and the capture directory."""
+    prof, log = os.path.join(d, "prof"), os.path.join(d, "health.jsonl")
+    rc, out, err, took = _sup_launch(root, d, [], [*HEALTH_FLAGS, "--profile_dir", prof,
+                                                   "--log_file", log])
+    kids = _children(out)
+    check(rc == 0 and len(kids) == 1, f"health run: rc {rc}\n{out[-2000:]}\n{err[-3000:]}")
+    [kid] = kids
+    golden = GOODPUT_RUNS["golden_kid"]
+    recs, golden_recs = _history(log), _history(GOODPUT_RUNS["golden"]["log"])
+    _p13_say(f"(a) {' '.join(HEALTH_FLAGS)} --profile_dir D over phase 11 (a)'s command: rc "
+             f"{rc} in {took:.1f} s; losses equal to the golden run's bit for bit "
+             f"{kid['losses'] == golden['losses']}; fused_sgd launches {kid['launches']}; "
+             f"comm counts {_comm(recs)} (golden {_comm(golden_recs)})")
+    check(kid["losses"] == golden["losses"],
+          f"health losses {kid['losses']} vs golden {golden['losses']}")
+    check(kid["launches"] == SUP_STEPS and _comm(recs) == _comm(golden_recs),
+          f"launches {kid['launches']}, comm {_comm(recs)} vs {_comm(golden_recs)}")
+    stats = [r for r in recs if r["kind"] == "device_stats"]
+    check(len(stats) == SUP_STEPS and [r["step"] for r in stats] == list(range(SUP_STEPS))
+          and all(math.isfinite(r[k]) and r[k] > 0 for r in stats for k in HEALTH_DEVICE_STATS)
+          and all(r["nonfinite_grads"] == 0.0 for r in stats),
+          f"device_stats records: {stats}")
+    straggler = [r for r in recs if r["kind"] == "straggler"]
+    check(len(straggler) == 1 and straggler[0]["skew"] == 1.0
+          and straggler[0]["worst_rank"] == 0, f"straggler records: {straggler}")
+    profs = [(r["event"], r.get("step", r.get("stop_step"))) for r in recs
+             if r["kind"] == "profile"]
+    check(profs == [("start", HEALTH_WINDOW[0]), ("stop", HEALTH_WINDOW[1])],
+          f"profile records: {profs}")
+    [pa] = [r for r in recs if r["kind"] == "profile_analysis"]
+    cat_gap = abs(sum(pa["categories"].values()) - pa["device_busy_s"])
+    stream_busy, summed = _stream_busy_s(prof)
+    union_gap = abs(sum(pa["categories"].values()) - stream_busy)
+    check(pa.get("error") is None and pa["device_busy_s"] > 0
+          and cat_gap <= HEALTH_CATEGORY_TOL and union_gap <= HEALTH_UNION_TOL,
+          f"profile_analysis: {pa}; the trace's merged stream busy {stream_busy:.6f} s")
+    final = recs[-1].get("counters", {})
+    check(not final.get("profile.errors") and not final.get("xprof.analyze_errors")
+          and final.get("xprof.analyses") == 1, f"the run's profiler counters: {final}")
+    anomalies = [r for r in recs if r["kind"] == "anomaly"]
+    first, last = stats[0], stats[-1]
+    _p13_say(f"(a) {len(stats)} device_stats records: grad_norm {first['grad_norm']:.4g} -> "
+             f"{last['grad_norm']:.4g}, param_norm {first['param_norm']:.6g} -> "
+             f"{last['param_norm']:.6g}, update_ratio {first['update_ratio']:.3g} -> "
+             f"{last['update_ratio']:.3g}, nonfinite_grads 0; {len(anomalies)} anomaly "
+             f"finding(s); straggler record skew {straggler[0]['skew']} worst_rank "
+             f"{straggler[0]['worst_rank']}; profile start/stop at global steps {profs}")
+    epoch = lambda rs: [r for r in rs if r["kind"] == "train_epoch"][-1]  # noqa: E731
+    laps = _laps(kid)
+    inside = [laps[i] for i in range(*HEALTH_WINDOW)]
+    outside = [laps[i] for i in range(1, SUP_STEPS)
+               if not HEALTH_WINDOW[0] <= i <= HEALTH_WINDOW[1]]
+    golden_laps = [x for x in _laps(golden)[1:]]
+    p50_out = statistics.median(outside)
+    _p13_say("(a) laps (ms) before the capture "
+             + ", ".join(f"{x * 1e3:.1f}" for x in laps[1:HEALTH_WINDOW[0]]) + "; after it "
+             + ", ".join(f"{x * 1e3:.1f}" for x in laps[HEALTH_WINDOW[1] + 1:])
+             + "; golden " + ", ".join(f"{x * 1e3:.1f}" for x in golden_laps), keep=False)
+    _p13_say(f"(a) step p50 (the trainer's host laps, its first step out): with "
+             f"--device_metrics {epoch(recs)['step_time_p50'] * 1e3:.3f} ms, phase 11 (a)'s "
+             f"golden run without {epoch(golden_recs)['step_time_p50'] * 1e3:.3f} ms; from the "
+             f"children's loss lines (a sync a step in both): with {p50_out * 1e3:.3f} ms "
+             f"outside the capture window, without {statistics.median(golden_laps) * 1e3:.3f} "
+             f"ms; inside the window (steps {HEALTH_WINDOW[0]}-{HEALTH_WINDOW[1] - 1}) "
+             f"{statistics.median(inside) * 1e3:.3f} ms (laps "
+             f"{', '.join(f'{x * 1e3:.3f}' for x in inside)}); step "
+             f"{HEALTH_WINDOW[1]}'s lap {laps[HEALTH_WINDOW[1]] * 1e3:.1f} ms holds the "
+             f"capture's stop, export and read-back")
+    if kid["peak"] is not None and golden["peak"] is not None:
+        _p13_say(f"(a) peak memory allocated on the card: with --device_metrics {kid['peak']} "
+                 f"bytes, golden {golden['peak']} bytes: {kid['peak'] - golden['peak']:+d} "
+                 f"(the flag's two flat buffers after the backward, the copy before the update "
+                 f"and the parameters after it: {RESNET_PARAMS * 4} bytes each)")
+    cats = pa["categories"]
+    _p13_say(f"(a) capture analysis in the child: device busy {pa['device_busy_s']:.6f} s over "
+             f"{pa['steps']} steps, categories {json.dumps(cats)} (sum - busy {cat_gap:.1g} s; sum - the "
+             f"trace's merged stream busy {stream_busy:.6f} s {union_gap:.2g} s; kernels "
+             f"overlapping on one stream {(summed - stream_busy) * 1e6:.3f} us), "
+             f"collective_frac {pa['collective_frac']}, overlap_frac {pa['overlap_frac']}, "
+             f"infeed stall {pa['infeed_stall_s']} s")
+    return kid, log, prof
+
+
+_CONV_TOKENS = ("fprop", "dgrad", "wgrad", "implicit", "winograd", "conv")
+
+
+def _health_flag_cost(root, d: str) -> int:
+    """(a'): the golden command with ``--device_metrics`` alone: its
+    losses bit for bit, and its step laps beside the golden run's. Returns
+    its fused SGD launches."""
+    log = os.path.join(d, "flag.jsonl")
+    rc, out, err, took = _sup_launch(root, d, [], [*HEALTH_FLAG_ONLY, "--log_file", log])
+    kids = _children(out)
+    check(rc == 0 and len(kids) == 1, f"flag-only run: rc {rc}\n{err[-3000:]}")
+    [kid] = kids
+    golden = GOODPUT_RUNS["golden_kid"]
+    check(kid["losses"] == golden["losses"] and kid["launches"] == SUP_STEPS,
+          f"flag-only losses {kid['losses']} vs golden {golden['losses']}, "
+          f"{kid['launches']} launches")
+    ours, theirs = _laps(kid)[1:], _laps(golden)[1:]
+    recs = [r for r in _history(log) if r["kind"] == "device_stats"]
+    _p13_say(f"(a') {' '.join(HEALTH_FLAG_ONLY)} alone over the golden command: rc {rc} in "
+             f"{took:.1f} s, losses bit for bit, {kid['launches']} fused_sgd launches, "
+             f"device_stats at the logged steps {[r['step'] for r in recs]}; step p50 from the "
+             f"loss lines {statistics.median(ours) * 1e3:.3f} ms against the golden run's "
+             f"{statistics.median(theirs) * 1e3:.3f} ms "
+             f"({statistics.median(ours) / statistics.median(theirs) - 1:+.1%}); peak "
+             f"{kid['peak']} bytes against {golden['peak']}")
+    _p13_say("(a') laps (ms) " + ", ".join(f"{x * 1e3:.1f}" for x in ours), keep=False)
+    return kid["launches"]
+
+
+def _health_readback(root, log: str, prof: str) -> None:
+    """(b): ``obs xprof`` over the capture and ``obs summarize`` over the
+    history, each in a fresh process."""
+    [trace] = [os.path.join(r, f) for r, _, fs in os.walk(prof) for f in fs
+               if f.endswith(".trace.json.gz")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs", "xprof", prof,
+                           "--format", "json", "--top", str(HEALTH_TOP)], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    check(proc.returncode == 0, f"obs xprof: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout)
+    sgd = [o for o in rep["top_ops"] if "fused_sgd_kernel" in o["name"]]
+    convs = [o for o in rep["top_ops"] if o["category"] == "matmul_conv"
+             and any(t in o["name"].lower() for t in _CONV_TOKENS)]
+    rank = next((i for i, o in enumerate(rep["top_ops"]) if "fused_sgd_kernel" in o["name"]),
+                None)
+    steps = HEALTH_WINDOW[1] - HEALTH_WINDOW[0]
+    _p13_say(f"(b) obs xprof --top {HEALTH_TOP}: exit 0 in {took:.2f} s over a "
+             f"{os.path.getsize(trace)}-byte capture ({rep['traces'][0]['n_op_events']} device "
+             f"events on {rep['traces'][0]['op_threads']} stream(s)); fused_sgd_kernel x"
+             f"{sgd[0]['count'] if sgd else 0} ({sgd[0]['self_s'] * 1e3 if sgd else 0:.3f} ms, "
+             f"top op #{rank}); {len(convs)} cuDNN conv kernels in matmul_conv, the largest "
+             f"{convs[0]['name'][:60] if convs else None} x{convs[0]['count'] if convs else 0}")
+    check(len(sgd) == 1 and sgd[0]["count"] == steps and sgd[0]["category"] == "fusion_other",
+          f"fused_sgd_kernel in the capture: {sgd} (expected {steps}, one a captured step)")
+    check(convs, f"no cuDNN convolution kernel in matmul_conv: {rep['top_ops'][:20]}")
+    busy = rep["device_busy_s"]
+    _p13_say("(b) the capture's split: " + ", ".join(
+        f"{c} {v:.6f} s ({v / busy:.1%})" for c, v in rep["categories"].items())
+        + f"; busy {busy:.6f} s, {busy / steps * 1e3:.3f} ms a step")
+    proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs", "summarize", log],
+                          cwd=root, capture_output=True, text=True, timeout=120)
+    block = proc.stdout[proc.stdout.find("capture attribution"):].splitlines()[:3]
+    _p13_say(f"(b) obs summarize: exit {proc.returncode}; " + " | ".join(block))
+    check(proc.returncode == 0 and "capture attribution" in proc.stdout
+          and "straggler: epoch 0 process 0" in proc.stdout,
+          f"obs summarize: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+
+
+def _health_poisoned(root, d: str) -> int:
+    """(c): the two poisoned runs, side by side on the card. Returns their
+    fused SGD launches."""
+    runs = {"nan_loss": ["--fault_plan", HEALTH_FAULT], "lr_inf": ["--lr", "inf"]}
+
+    def one(name):
+        log = os.path.join(d, f"{name}.jsonl")
+        return name, log, _sup_launch(root, d, [], [*HEALTH_POISON, *runs[name],
+                                                    "--log_file", log])
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        done = list(pool.map(one, runs))
+    launches = 0
+    for name, log, (rc, out, err, took) in done:
+        [kid] = _children(out)
+        recs = _history(log)
+        stats = [r["step"] for r in recs if r["kind"] == "device_stats"]
+        found = [(r["step"], r["anomaly"]) for r in recs if r["kind"] == "anomaly"]
+        # the traceback's last line (torch prefixes a rank's stderr lines
+        # with "[rank0]: " under a process group)
+        cls = "tpu_dist_torch.train.trainer.TrainingDivergedError: "
+        raised = [ln.split(cls, 1)[1] for ln in err.splitlines() if cls in ln]
+        _p13_say(f"(c) {' '.join(runs[name])}: exit {rc} in {took:.1f} s after "
+                 f"{len(kid['losses'])} step(s); device_stats at steps {stats}; anomaly "
+                 f"findings {found}; raised {raised}")
+        if name == "nan_loss":
+            # the fault reports the NaN after step 4, before its fetch: no
+            # finding (the JAX trainer's order)
+            want_raise = ("non-finite loss nan at epoch 0 step 4 (lr=0.1) [fault-injected]"
+                          + HEALTH_GUARD)
+            ok = stats == [0, 1, 2, 3] and found == [] and len(kid["losses"]) == 5
+        else:
+            want_raise = "non-finite loss nan at epoch 0 step 1 (lr=inf)" + HEALTH_GUARD
+            ok = (stats == [0, 1] and found == [(1, "nonfinite_loss"), (1, "nonfinite_grads")]
+                  and len(kid["losses"]) == 2)
+        check(rc == 1 and raised == [want_raise] and ok,
+              f"{name}: rc {rc}, raised {raised}, stats {stats}, findings {found}\n"
+              f"{err[-3000:]}")
+        check(kid["launches"] == len(kid["losses"]),
+              f"{name}: {kid['launches']} launches in {len(kid['losses'])} steps")
+        launches += kid["launches"]
+    return launches
+
+
+def phase_health(work: str) -> dict:
+    """Phase 13 (module docstring). Returns the fused SGD launches of its
+    trainer children."""
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "health")
+    os.makedirs(d)
+    _device_stats_on_card()
+    kid, log, prof = _health_run(root, d)
+    _health_readback(root, log, prof)
+    launches = kid["launches"] + _health_flag_cost(root, d) + _health_poisoned(root, d)
+    _p13_say(f"phase: {time.perf_counter() - t0:.1f} s, fused_sgd launches {launches}; card: "
+             f"{_smi_line()}")
+    return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -3834,12 +4209,13 @@ def _phases(work: str) -> int:
     elastic = phase_elastic(work)
     supervision = phase_supervision(work)
     tenancy = phase_tenancy(work)
+    health = phase_health(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
-                + supervision[name] + tenancy[name] for name in KERNELS}
+                + supervision[name] + tenancy[name] + health[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
     print("[summary] phase 11, elastic supervision, again:")
@@ -3847,6 +4223,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 12, goodput, the hub and the tenancy day, again:")
     for msg in GOODPUT_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 13, the health chain and the profiler, again:")
+    for msg in HEALTH_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

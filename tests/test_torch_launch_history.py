@@ -162,7 +162,7 @@ PRESETS = ["dataparallel_apex", "distributed_apex", "distributed_gradient_accumu
 PLACEMENT = {"num_processes", "process_id"}  # the port's DP presets pin a world of one
 # telemetry the port has not ported defaults to off in its config
 # (tpu_dist_torch/config/config.py), where the JAX config turns it on
-TELEMETRY_OFF = {"anomaly_action": "off", "straggler_threshold": 0.0, "memory_check": "off"}
+TELEMETRY_OFF = {"memory_check": "off"}
 
 
 def _preset_config(package: str, name: str, parse, argv):

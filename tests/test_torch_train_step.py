@@ -112,7 +112,6 @@ UNPORTED = [
     ("tp_axis", "model", "Queue A 6"),
     ("ep_axis", "expert", "Queue A 6"),
     ("pp_axis", "pipe", "Queue A 6"),
-    ("device_metrics", True, "Queue A 6"),
 ]
 
 # The options ported with ZeRO-1 and the compressed reduce, each stepping

@@ -125,18 +125,19 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # and remat in tests/test_torch_remat.py and
 # tests/test_torch_trainer_optim.py; shard_weight_update, rs_ag_chunks,
 # grad_compression and quant_chunk run below and in
-# tests/test_torch_elastic_trainer.py and test_torch_resume_cross.py.
+# tests/test_torch_elastic_trainer.py and test_torch_resume_cross.py;
+# device_metrics, anomaly_action, straggler_threshold, profile_dir,
+# profile_trigger and profile_steps run in tests/test_torch_device_stats.py,
+# test_torch_straggler.py, test_torch_profile.py and
+# test_torch_trainer_health.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
     ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
     ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
-    ("profile_dir", "prof", "Queue A 6"), ("profile_steps", "1:3", "Queue A 6"),
-    ("profile_trigger", "auto", "Queue A 6"), ("auto_shard", "plan", "Queue A 6"),
-    ("anomaly_action", "warn", "Queue A 6"),
-    ("straggler_threshold", 1.5, "Queue A 6"),
+    ("auto_shard", "plan", "Queue A 6"),
     ("sharded_ckpt", True, "Queue A 6"),
-    ("device_metrics", True, "Queue A 6"), ("pp_microbatches", 4, "Queue A 6"),
+    ("pp_microbatches", 4, "Queue A 6"),
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
     ("trace_file", "trace.json", "Queue A 6"),
     ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),

@@ -588,3 +588,57 @@ def elastic_and_ctrl_c_rank(rank, world, runs, ctrl_c_kw, at):
     """:func:`elastic_fit_rank` of ``runs``, then :func:`ctrl_c_rank`, in
     one start of the ranks."""
     return elastic_fit_rank(rank, world, runs), ctrl_c_rank(rank, world, ctrl_c_kw, at)
+
+
+# -- the training-health chain ------------------------------------------------------
+
+
+def health_step_rank(rank, world, model_kw, params, bn_state, batches):
+    """The port's train step without and with ``device_metrics`` from the
+    same bridged weights, on this rank's half of every global batch.
+    Returns, per flag, the metrics of each step (floats), the collective
+    counts and the kernel wrappers' launch counts of the run."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.nn import resnet  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.ops import flash_attention, fused_sgd  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = {}
+    for flag in (False, True):
+        model = resnet.ResNet(**model_kw, device="cpu")
+        bridge.load_jax_resnet(model, params, bn_state)
+        opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+        st = state.TrainState.create(model, opt)
+        train_step = step.make_train_step(opt, device_metrics=flag)
+        counters.reset()
+        fused_sgd.fused_sgd.launches = flash_attention.flash_fwd.launches = 0
+        metrics = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, m = train_step(st, images[rank * n:(rank + 1) * n],
+                               labels[rank * n:(rank + 1) * n], lr)
+            metrics.append({k: v.item() for k, v in m.items()})
+        out[flag] = {"metrics": metrics,
+                     "counts": {k: v for k, v in counters.snapshot().items()
+                                if k.startswith("comm.")},
+                     "launches": {"fused_sgd": fused_sgd.fused_sgd.launches,
+                                  "flash_attention_fwd": flash_attention.flash_fwd.launches}}
+    return out
+
+
+def history_fit_rank(rank, world, cfg_kw):
+    """``Trainer.fit`` of ``cfg_kw`` on this rank (the narrow ResNet
+    registered); returns the error it raised (its type name), this rank's
+    counters and, where it has one, the records of its history file."""
+    import json  # noqa: PLC0415
+
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+
+    err = fit_run(cfg_kw)["error"]
+    records = []
+    path = cfg_kw.get("log_file")
+    if path and os.path.exists(path):
+        with open(path) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+    return {"error": err, "counters": counters.snapshot(), "records": records}

@@ -9,8 +9,8 @@ What differs:
   (``MASTER_ADDR``/``MASTER_PORT`` win where a launcher sets them).
 * ``--backend`` takes ``nccl`` (CUDA) or ``gloo`` (CPU) and must agree
   with ``--device``; the JAX package's ``xla`` is refused.
-* Telemetry whose subsystem is not ported defaults to off here
-  (``anomaly_action``, ``straggler_threshold``, ``memory_check``).
+* ``memory_check``, whose subsystem (the memory ledger) is not ported,
+  defaults to off here.
 
 A flag whose subsystem is not ported yet still parses; the trainer refuses
 it with ``NotPortedError`` (``tpu_dist_torch/train/trainer.py::UNPORTED``)
@@ -130,19 +130,19 @@ class TrainConfig:
                                    # epoch/step); swept on clean exit —
                                    # external watchdogs distinguish a hung
                                    # step from a slow one
-    straggler_threshold: float = 0.0  # epoch-end max/median skew of the
+    straggler_threshold: float = 1.5  # epoch-end max/median skew of the
                                    # allgathered per-process epoch times
                                    # above which a rank-0 straggler warning
                                    # (+ history record) fires; 0 disables
     device_metrics: bool = False   # in-step health scalars (global grad
                                    # norm, param norm, update ratio,
-                                   # nonfinite-leaf count) fused into the
-                                   # traced step post-pmean — zero extra
-                                   # collectives/fetches (TD107;
-                                   # obs/device_stats.py). Replicated-
+                                   # nonfinite-leaf count) computed in the
+                                   # step after the gradient reduce — no
+                                   # extra collective or fetch
+                                   # (obs/device_stats.py). Replicated-
                                    # param paths only (no zero1/fsdp/
                                    # tp/ep/pp/fused_epoch)
-    anomaly_action: str = "off"    # off | warn | snapshot — response to a
+    anomaly_action: str = "warn"   # off | warn | snapshot — response to a
                                    # rolling-window loss-spike/grad-norm
                                    # anomaly (obs/anomaly.py): warn logs a
                                    # rank-0 warning + 'anomaly' history
@@ -206,9 +206,11 @@ class TrainConfig:
                                    # can merge a cross-host view
     profile_trigger: str = "off"   # off | auto | comma list of
                                    # anomaly,straggler,retrace — arm a
-                                   # bounded jax.profiler capture when
-                                   # the health signal fires
-                                   # (obs/profile.py; needs profile_dir)
+                                   # bounded torch.profiler capture when
+                                   # the health signal fires; retrace
+                                   # parses but never arms (eager torch
+                                   # does not retrace) (obs/profile.py;
+                                   # needs profile_dir)
     profile_steps: Optional[str] = None  # "a:b": manual capture of global
                                    # steps [a, b) (needs profile_dir;
                                    # replaces the epoch-0 blanket trace)
@@ -277,7 +279,7 @@ class TrainConfig:
     # -- bench / smoke / debug ---------------------------------------------
     steps_per_epoch: Optional[int] = None  # cap steps (smoke tests / benches)
     debug_replica_check: bool = False  # assert params replicated each epoch
-    profile_dir: Optional[str] = None  # capture an XLA trace of epoch 0
+    profile_dir: Optional[str] = None  # capture a torch.profiler trace of epoch 0
     nan_guard: bool = True         # raise TrainingDivergedError on NaN loss
     auto_recover: int = 0          # divergence responses: reload last ckpt +
                                    # LR backoff, up to N times (0 = just raise)
@@ -517,10 +519,9 @@ def add_reference_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--device_metrics", action="store_true",
                    help="compute in-step training-health scalars (global "
                         "grad norm, param norm, update ratio, nonfinite-"
-                        "leaf count) inside the traced step, post-pmean — "
-                        "zero extra collectives and zero extra per-step "
-                        "fetches (TD107 contract; docs/observability.md). "
-                        "Replicated-param paths only")
+                        "leaf count) inside the step, after the gradient "
+                        "reduce — no extra collective and no extra "
+                        "per-step fetch. Replicated-param paths only")
     p.add_argument("--anomaly_action", choices=("off", "warn", "snapshot"),
                    default=d.anomaly_action,
                    help="response to a rolling-window loss-spike/grad-norm "
@@ -541,8 +542,8 @@ def add_reference_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="flag a grad norm above X times the rolling median "
                         "(grad norms need --device_metrics)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="XLA profile output dir: alone, captures epoch 0 "
-                        "(TensorBoard profile tab); with --profile_trigger/"
+                   help="torch.profiler output dir: alone, captures epoch 0 "
+                        "(read it with obs xprof); with --profile_trigger/"
                         "--profile_steps, holds their bounded capture "
                         "windows instead")
     p.add_argument("--metrics_file", type=str, default=None,
@@ -614,9 +615,10 @@ def add_reference_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="arm a bounded on-device profiler capture when a "
                         "health signal fires: 'auto' (all), or a comma "
                         "list of anomaly,straggler,retrace; 'off' (the "
-                        "default) disables. Anomaly/retrace captures run "
-                        "on rank 0; straggler captures on the flagged "
-                        "host. Needs --profile_dir; bounded by "
+                        "default) disables. Anomaly captures run on rank "
+                        "0; straggler captures on the flagged rank; "
+                        "retrace never arms in eager torch. Needs "
+                        "--profile_dir; bounded by "
                         "--profile_window/cooldown/max_captures")
     p.add_argument("--profile_steps", type=str, default=None, metavar="A:B",
                    help="manually capture global steps [A, B) to "

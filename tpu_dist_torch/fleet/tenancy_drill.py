@@ -350,18 +350,20 @@ def run_policy_phase(args) -> int:
 
 class _DiurnalDay:
     """The cycle's signal source: the recorded profiles, paced by the real
-    trainer. The spike starts once the trainer has logged an epoch and
-    holds until the serving run has its cards (the breach must last
-    through the donor's vacating); the recovery holds until the shrunken
-    trainer has resumed and reached the end of the preempted epoch
+    trainer. The spike starts once round 0 holds at its step of the
+    preempted epoch (``holding``: on a loaded host, a spike timed by an
+    earlier record can preempt the round before it gets there) and holds
+    until the serving run has its cards (the breach must last through the
+    donor's vacating); the recovery holds until the shrunken trainer has
+    resumed and reached the end of the preempted epoch
     (``shrunken_done``); then the day is off-peak (the reclaim)."""
 
-    def __init__(self, sched: FleetScheduler, elastic_log: str,
+    def __init__(self, sched: FleetScheduler, holding: Callable[[], bool],
                  shrunken_done: Callable[[], bool]):
         from tpu_dist_torch.serve import slo as slo_lib  # noqa: PLC0415
 
         self.sched = sched
-        self.elastic_log = elastic_log
+        self.holding = holding
         self.shrunken_done = shrunken_done
         self.tick = 0
         self.spike_k = 0
@@ -374,14 +376,11 @@ class _DiurnalDay:
         self.slo_engine = slo_lib.make_slo_engine(slo_lib.load_slo_rules("default"))
         self.hub, self.svc_prom, self.fleet_prom = _pod_hub(sched.fleet_dir)
 
-    def _any_epoch_logged(self) -> bool:
-        return any(r.get("kind") == "train_epoch" for r in _load(self.elastic_log))
-
     def profile(self) -> str:
         if self.grant_tick is None:
-            # before the grant: off-peak until the trainer logs an epoch,
-            # then the spike, held until the cards land
-            if self.spike_tick is None and not self._any_epoch_logged():
+            # before the grant: off-peak until round 0 holds, then the
+            # spike, held until the cards land
+            if self.spike_tick is None and not self.holding():
                 return "idle"
             return "spike"
         if self.sched.alloc["svc"] == self.sched.specs["svc"].original:
@@ -480,18 +479,24 @@ def run_cycle_phase(args) -> int:
     crash_base = os.path.join(args.workdir, "crash")
     held = {}  # round index -> the ring of a shrunken round holding at the epoch's end
 
+    def at_step(ring: str, step: int) -> bool:
+        """The rank-0 flight ring's last step record is ``step`` of the
+        preempted epoch."""
+        try:
+            last = flight_lib.last_step(flight_lib.decode(ring))
+        except OSError:  # not armed yet
+            return False
+        return bool(last) and (last.get("epoch"), last.get("step")) == (args.kill_epoch, step)
+
+    def holding() -> bool:
+        """Round 0 holds at step --kill_step of the preempted epoch."""
+        return at_step(os.path.join(crash_base, "round0", flight_lib.RING_NAME), args.kill_step)
+
     def shrunken_done() -> bool:
         """The shrunken round got to the last step of the preempted epoch."""
-        for ring in held.values():
-            try:
-                step = flight_lib.last_step(flight_lib.decode(ring))
-            except OSError:  # not armed yet
-                continue
-            if step and (step.get("epoch"), step.get("step")) == (args.kill_epoch, last_step):
-                return True
-        return False
+        return any(at_step(ring, last_step) for ring in held.values())
 
-    day = _DiurnalDay(sched, elastic_log, shrunken_done)
+    day = _DiurnalDay(sched, holding, shrunken_done)
     alloc_path = sched.allocation_path("trainer")
     probe = CapacityProbe(capacity_lib.make_census(alloc_path), original=args.devices,
                           min_procs=args.shrink_to, interval=0.3)

@@ -3,6 +3,20 @@ the port's counterpart of ``python -m tpu_dist.obs``.
 
 Subcommands::
 
+    summarize <run.jsonl> [--format text|json]
+        The run's report (``obs/summarize.py``): the per-epoch table, the
+        device stats, anomalies, stragglers, profiler captures and their
+        attribution, goodput, serving windows, resumes and fleet
+        decisions, the final counters. Exit 1 when the file holds no
+        record. ``--bench`` is not ported: exit 2 naming its ROADMAP item.
+
+    xprof <capture_dir | trace.json[.gz]> [--top K] [--format text|json]
+        Device-time attribution of a ``torch.profiler`` capture
+        (``obs/xprof.py``): seconds by category, collectives by kind, the
+        comm/compute overlap, infeed stall, the top ops. Exit 1 when the
+        capture has nothing to attribute (a ``CaptureError``), 2 when the
+        path cannot be read.
+
     compare <baseline.jsonl> <candidate.jsonl> [--threshold 0.05]
             [--goodput] [--slo] [--format text|json]
         Regression gate over two history JSONLs (``obs/compare.py``):
@@ -53,13 +67,11 @@ _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 
 #: The subcommands of ``python -m tpu_dist.obs`` that the port lacks.
 UNPORTED = {
-    "summarize": f"{_TELEMETRY}, obs/summarize.py's format_text",
     "tail": f"{_TELEMETRY}, obs/tail.py",
     "export-trace": f"{_TELEMETRY}, obs/summarize.py's export_trace",
     "archive": f"{_TELEMETRY}, obs/archive.py",
     "trend": f"{_TELEMETRY}, obs/archive.py",
     "pod": f"{_TELEMETRY}, obs/aggregate.py",
-    "xprof": f"{_TELEMETRY}, obs/xprof.py",
     "memory": f"{_TELEMETRY}, obs/memory.py's ledger",
 }
 
@@ -79,6 +91,19 @@ def main(argv=None) -> int:
         description="offline run-telemetry reports over history JSONLs and crash dirs",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("summarize", help="per-epoch throughput/latency/counter report")
+    s.add_argument("log", help="JSONL history written by --log_file")
+    s.add_argument("--format", choices=("text", "json"), default="text")
+    s.add_argument("--bench", action="store_true",
+                   help="input is a bench.py JSON (not ported)")
+    xp = sub.add_parser(
+        "xprof",
+        help="device-time attribution of a torch.profiler capture",
+    )
+    xp.add_argument("capture", help="capture directory, or one trace .json[.gz] file")
+    xp.add_argument("--top", type=int, default=10, metavar="K",
+                    help="top-K ops by self time (default 10)")
+    xp.add_argument("--format", choices=("text", "json"), default="text")
     c = sub.add_parser(
         "compare",
         help="regression gate: diff two runs' telemetry, exit 1 on regression",
@@ -149,6 +174,10 @@ def main(argv=None) -> int:
 
     if args.cmd == "hub":
         return _hub(args)
+    if args.cmd == "xprof":
+        return _xprof(args)
+    if args.cmd == "summarize":
+        return _summarize(args)
 
     if args.cmd == "postmortem":
         from tpu_dist_torch.obs import postmortem as postmortem_lib  # noqa: PLC0415
@@ -206,6 +235,56 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     return 1 if result["regressions"] else 0
+
+
+def _xprof(args) -> int:
+    """The ``xprof`` subcommand (``tpu_dist/obs/__main__.py:423-450``)."""
+    from tpu_dist_torch.obs import xprof as xprof_lib  # noqa: PLC0415
+
+    if not os.path.exists(args.capture):
+        print(f"tpu_dist_torch.obs: cannot read {args.capture}: no such file or directory",
+              file=sys.stderr)
+        return 2
+    try:
+        if os.path.isdir(args.capture):
+            report = xprof_lib.analyze_capture(args.capture, top_k=args.top)
+        else:
+            report = xprof_lib.analyze_trace_file(args.capture, top_k=args.top)
+    except xprof_lib.CaptureError as e:
+        # typed: empty capture / all traces malformed / no device track
+        print(f"tpu_dist_torch.obs: {e}", file=sys.stderr)
+        return 1
+    except OSError as e:
+        print(f"tpu_dist_torch.obs: cannot read {args.capture}: {e}", file=sys.stderr)
+        return 2
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(xprof_lib.format_text(report))
+    return 0
+
+
+def _summarize(args) -> int:
+    """The ``summarize`` subcommand (``tpu_dist/obs/__main__.py:704-725``)."""
+    from tpu_dist_torch.obs import compare as compare_lib  # noqa: PLC0415
+    from tpu_dist_torch.obs import summarize as summ  # noqa: PLC0415
+
+    if args.bench:
+        return _not_ported("summarize --bench", compare_lib.BENCH_QUEUE)
+    try:
+        records, bad = summ.load_records(args.log)
+    except OSError as e:
+        print(f"tpu_dist_torch.obs: cannot read {args.log}: {e}", file=sys.stderr)
+        return 2
+    if not records:
+        print(f"tpu_dist_torch.obs: no records in {args.log}", file=sys.stderr)
+        return 1
+    report = summ.stamp_capture(summ.summarize(records, bad), args.log)
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(summ.format_text(report))
+    return 0
 
 
 def _hub(args) -> int:

@@ -14,7 +14,9 @@ postmortem`` turns into the ``oom`` verdict.
 
 The ledger itself (the static per-leaf accounting, the live census and
 its reconciliation with the allocator, the pre-flight check and the
-``obs memory`` report) is not ported: ROADMAP Queue A 6.
+``obs memory`` report) is not ported: ROADMAP Queue A 6. Its text
+rendering (:func:`format_ledger_text`) is, for ``obs summarize`` over a
+history that holds a ledger record.
 """
 
 from __future__ import annotations
@@ -254,6 +256,65 @@ def summary_line(rec: dict) -> str:
             f"{rc.get('source')})"
         )
     return "memory ledger: " + (", ".join(parts) or "(empty)")
+
+
+def format_ledger_text(rec: dict) -> str:
+    """The full ledger rendering (``obs memory``): per-section table,
+    the XLA waterfall, the reconciliation identity, allocator skew."""
+    lines = [summary_line(rec)]
+    static = rec.get("static") or {}
+    sections = static.get("sections") or {}
+    if sections:
+        lines.append(
+            f"  {'section':>10} {'per-device':>12} {'total':>12} "
+            f"{'leaves':>7} {'sharded':>8}"
+        )
+        for name in sorted(
+            sections, key=lambda n: -sections[n]["bytes_per_device"]
+        ):
+            s = sections[name]
+            lines.append(
+                f"  {name:>10} {fmt_bytes(s['bytes_per_device']):>12} "
+                f"{fmt_bytes(s['bytes_total']):>12} {s['n_leaves']:>7} "
+                f"{s['sharded_leaves']:>8}"
+            )
+            for e in s.get("top") or []:
+                lines.append(
+                    f"      {fmt_bytes(e['bytes_per_device']):>10}  "
+                    f"{e['path']} {e['dtype']}{e['shape']}"
+                    + (" [sharded]" if e.get("sharded") else "")
+                )
+    xla = rec.get("xla") or {}
+    if xla:
+        lines.append(
+            "  xla waterfall: args "
+            f"{fmt_bytes(xla.get('argument_bytes'))}, outputs "
+            f"{fmt_bytes(xla.get('output_bytes'))}, temps "
+            f"{fmt_bytes(xla.get('temp_bytes'))}, codegen "
+            f"{fmt_bytes(xla.get('generated_code_bytes'))} -> peak "
+            f"{fmt_bytes(xla.get('peak_bytes'))}"
+        )
+    alloc = rec.get("allocator") or {}
+    if alloc:
+        skew = alloc.get("bytes_in_use_skew")
+        lines.append(
+            "  allocator: in use "
+            f"{fmt_bytes(alloc.get('bytes_in_use'))} (worst chip)"
+            + (
+                f", min {fmt_bytes(alloc.get('bytes_in_use_min'))}, "
+                f"skew {fmt_bytes(skew)}"
+                if skew is not None else ""
+            )
+            + (
+                f", peak {fmt_bytes(alloc.get('peak_bytes_in_use'))}"
+                if alloc.get("peak_bytes_in_use") is not None else ""
+            )
+            + (
+                f", limit {fmt_bytes(alloc.get('bytes_limit'))}"
+                if alloc.get("bytes_limit") is not None else ""
+            )
+        )
+    return "\n".join(lines)
 
 
 def format_oom_text(report: dict) -> str:

@@ -338,6 +338,42 @@ def history_record(report: dict, bundle_path: Optional[str]) -> dict:
     return rec
 
 
+def sorted_ranks(mapping: dict) -> List[str]:
+    """Rank keys of a ``postmortem`` record's per-rank dicts, NUMERICALLY
+    ordered (they are JSON string keys — a lexicographic sort would print
+    0,1,10,11,...,2 on a 16-rank pod). ONE home for the ordering every
+    renderer (summarize/tail/pod) shares."""
+    return sorted(
+        mapping,
+        key=lambda r: (
+            not str(r).isdigit(),
+            int(r) if str(r).isdigit() else 0,
+            str(r),
+        ),
+    )
+
+
+def rank_summary(rec: dict, rank: str) -> str:
+    """One line for one rank of a ``postmortem`` history record —
+    ``'fatal, stuck in get (loader.py:118), flight ring ends at epoch 2
+    step 3'``. ONE formatter shared by ``obs summarize``/``tail``/``pod``
+    so the three renderings can never drift."""
+    verdict = (rec.get("verdicts") or {}).get(rank, "unknown")
+    stuck = (rec.get("stuck_frames") or {}).get(rank)
+    fatal = (rec.get("fatal") or {}).get(rank)
+    oom = (rec.get("oom") or {}).get(rank)
+    ls = (rec.get("last_steps") or {}).get(rank) or {}
+    return (
+        str(verdict)
+        + (f", stuck in {stuck}" if stuck else "")
+        + (f", {oom}" if oom else (f", fatal {fatal}" if fatal else ""))
+        + (
+            f", flight ring ends at epoch {ls.get('epoch')} step "
+            f"{ls.get('step')}" if ls else ""
+        )
+    )
+
+
 def append_history_record(report: dict, bundle_path: Optional[str],
                           history_path: str) -> dict:
     """Append the ``postmortem`` record to the run's JSONL in the

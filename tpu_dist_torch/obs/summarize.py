@@ -1,11 +1,13 @@
-"""Reading a run's JSONL history: the port's copy of the loader and the
-summary of ``tpu_dist/obs/summarize.py`` (``load_records``,
-``summarize``, ``SUPPORTED_SCHEMA``, ``KNOWN_KINDS``). The summary is the
-report the compare gate (``obs/compare.py``) reads; it equals the JAX
-package's on histories of either package. The text rendering
-(``format_text``) and the trace export (``export_trace``) are not ported
-(ROADMAP Queue A 6, telemetry): ``python -m tpu_dist.obs summarize``
-reads the port's files as they are. Host file crunching only.
+"""Reading a run's JSONL history: the port's copy of the loader, the
+summary and its text rendering in ``tpu_dist/obs/summarize.py``
+(``load_records``, ``summarize``, ``format_text``, ``capture_stamp``,
+``SUPPORTED_SCHEMA``, ``KNOWN_KINDS``). The summary is the report the
+compare gate (``obs/compare.py``) reads and ``python -m
+tpu_dist_torch.obs summarize`` renders; both equal the JAX package's on
+histories of either package, and a record kind of a subsystem the port
+does not have yet renders as the JAX package renders its absence. The
+trace export (``export_trace``) is not ported (ROADMAP Queue A 6).
+Host file crunching only.
 """
 
 from __future__ import annotations
@@ -52,6 +54,39 @@ def load_records(path: str) -> Tuple[List[dict], int]:
             else:
                 bad += 1
     return records, bad
+
+
+def capture_stamp(path: str) -> dict:
+    """The history log's capture identity — the history-side analogue of
+    the bench capture fingerprint: a content hash of the log
+    itself, so two ingests of the same physical log dedupe and a
+    re-emitted copy is recognizable as the SAME capture rather than a
+    fresh run. Content-based on purpose: re-summarizing the identical
+    log on another host must produce the identical fingerprint."""
+    import hashlib  # noqa: PLC0415
+    import os  # noqa: PLC0415
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 16), b""):
+            h.update(chunk)
+    return {
+        "fingerprint": h.hexdigest()[:16],
+        "source_log": os.path.abspath(path),
+    }
+
+
+def stamp_capture(report: dict, path: str) -> dict:
+    """Stamp :func:`capture_stamp` into a summarize report's header
+    (``obs summarize --format json`` does this; archive ingest reads
+    it back for dedupe). Returns the report for chaining."""
+    stamp = capture_stamp(path)
+    report["source_log"] = stamp["source_log"]
+    report["capture"] = {
+        "fingerprint": stamp["fingerprint"],
+        "run_id": report.get("run_id"),
+    }
+    return report
 
 
 def _tenancy_audit(snapshots: List[dict]) -> dict:
@@ -436,3 +471,329 @@ def summarize(records: List[dict], bad_lines: int = 0) -> dict:
     return out
 
 
+def _fmt(v, spec: str, width: int) -> str:
+    return (format(v, spec) if v is not None else "-").rjust(width)
+
+
+def format_text(report: dict) -> str:
+    """Human-readable rendering of :func:`summarize`'s report."""
+    lines = []
+    rid = report.get("run_id")
+    lines.append(
+        f"run {rid or '<no run_id>'} — {report['totals']['n_epochs']} epoch(s), "
+        f"{report['n_records']} record(s)"
+        + (f", {report['bad_lines']} unparsable line(s)" if report["bad_lines"] else "")
+    )
+    skipped = report.get("skipped_kinds") or {}
+    if skipped:
+        body = ", ".join(f"{k}×{v}" for k, v in sorted(skipped.items()))
+        lines.append(
+            f"skipped {sum(skipped.values())} record(s) of unknown kind(s): "
+            f"{body}"
+        )
+    if report.get("newer_schema_records"):
+        lines.append(
+            f"NOTE: {report['newer_schema_records']} record(s) carry a "
+            f"schema version newer than this reader supports "
+            f"({SUPPORTED_SCHEMA}) — known kinds are summarized, the rest "
+            "skipped above"
+        )
+    ws = report.get("world_sizes") or []
+    if len(ws) > 1:
+        lines.append(
+            "world size changed mid-run (elastic): dp "
+            + " -> ".join(str(w) for w in ws)
+            + " — epoch rows below span DIFFERENT host/device sets"
+        )
+    for rs in report.get("resumes", []):
+        pos = (
+            f" at step {rs['mid_epoch_step']}" if rs.get("mid_epoch_step")
+            else f" at example offset {rs['examples_offset']}"
+            if rs.get("examples_offset") else ""
+        )
+        # world-size INCREASE (scale-up / fleet receipt) labeled
+        # distinctly from the preemption-shrink reshard — one shared
+        # classifier: goodput.resume_direction
+        direction = goodput_lib.resume_direction(rs)
+        lines.append(
+            f"segment: resumed epoch {rs.get('epoch')}{pos} on "
+            f"{rs.get('world')} process(es), dp={rs.get('dp')}"
+            + (
+                f" ({'GROWN' if direction == 'grown' else 'RESHARDED'}"
+                f" from dp={rs.get('prev_dp')})"
+                if direction else ""
+            )
+            + (
+                f" — elastic restart #{rs['restarts']}"
+                if rs.get("restarts") else ""
+            )
+            + (
+                # causal tracing (schema v15): a fleet-initiated resize
+                # names its arbitration; a chip-loss one carries none
+                f" [decision #{rs['decision_id']}"
+                + (f": {rs['decision_cause']}" if rs.get("decision_cause")
+                   else "")
+                + "]"
+                if rs.get("decision_id") is not None else ""
+            )
+        )
+    for fd in report.get("fleet_decisions", []):
+        lines.append(
+            f"fleet: tick {fd.get('tick')}: "
+            + goodput_lib.fleet_move_phrase(fd)
+            + (f" — {fd['reason']}" if fd.get("reason") else "")
+            + (
+                " [alloc "
+                + ", ".join(
+                    f"{r}:{fd['alloc_before'][r]}->{fd['alloc_after'][r]}"
+                    for r in sorted(fd["alloc_before"])
+                )
+                + "]"
+                if fd.get("alloc_before") and fd.get("alloc_after") else ""
+            )
+        )
+    ten = report.get("tenancy")
+    if ten:
+        lines.append(
+            f"tenancy: {ten['n_ticks']} tick(s) × {ten['total_chips']} "
+            "chip(s) — "
+            + (
+                "chip-seconds conserved exactly"
+                if ten.get("conserved")
+                else "CHIP-SECOND CONSERVATION VIOLATED"
+            )
+            + " ["
+            + ", ".join(
+                f"{r}:{v:g}" for r, v in (ten.get("per_run") or {}).items()
+            )
+            + f", free:{ten.get('free_chip_s', 0):g}"
+            + f", pending:{ten.get('pending_chip_s', 0):g}]"
+        )
+    hdr = (
+        f"{'epoch':>5} {'img/s':>9} {'epoch_s':>8} {'p50_ms':>8} "
+        f"{'p95_ms':>8} {'p99_ms':>8} {'stall%':>7} {'mfu':>6} "
+        f"{'loss':>9} {'val_top1':>9}"
+    )
+    lines.append(hdr)
+    for r in report["epochs"]:
+        ms = lambda v: v * 1e3 if v is not None else None  # noqa: E731
+        lines.append(
+            f"{_fmt(r['epoch'], 'd', 5)} {_fmt(r['images_per_sec'], '.1f', 9)} "
+            f"{_fmt(r['epoch_time_s'], '.2f', 8)} {_fmt(ms(r['step_time_p50_s']), '.1f', 8)} "
+            f"{_fmt(ms(r['step_time_p95_s']), '.1f', 8)} {_fmt(ms(r['step_time_p99_s']), '.1f', 8)} "
+            f"{_fmt(r['data_stall_frac'] * 100 if r['data_stall_frac'] is not None else None, '.1f', 7)} "
+            f"{_fmt(r.get('mfu'), '.3f', 6)} "
+            f"{_fmt(r['loss'], '.4f', 9)} {_fmt(r.get('val_top1'), '.2f', 9)}"
+        )
+        ds = r.get("device_stats")
+        if ds:
+            lines.append(
+                "      device: grad_norm last "
+                f"{_fmt(ds.get('grad_norm_last'), '.4g', 0).strip()} / max "
+                f"{_fmt(ds.get('grad_norm_max'), '.4g', 0).strip()}, "
+                "update_ratio "
+                f"{_fmt(ds.get('update_ratio_last'), '.3g', 0).strip()} "
+                f"({ds['samples']} sample(s))"
+            )
+        if r.get("retraces"):
+            lines.append(
+                f"      WARNING: {r['retraces']:g} mid-run retrace(s) — the "
+                "train step recompiled after step 0 (shape/dtype drift)"
+            )
+        deltas = r.get("counter_deltas") or {}
+        if deltas:
+            body = ", ".join(f"{k}+{v:g}" for k, v in sorted(deltas.items()))
+            lines.append(f"      counters: {body}")
+    for ds in report.get("partial_epoch_device_stats", []):
+        lines.append(
+            f"partial epoch {ds.get('epoch')} (no epoch summary — run died "
+            "mid-epoch): grad_norm last "
+            f"{_fmt(ds.get('grad_norm_last'), '.4g', 0).strip()} / max "
+            f"{_fmt(ds.get('grad_norm_max'), '.4g', 0).strip()}, "
+            "update_ratio "
+            f"{_fmt(ds.get('update_ratio_last'), '.3g', 0).strip()} "
+            f"({ds.get('samples')} sample(s))"
+        )
+    for pm in report.get("postmortems", []):
+        # per-rank lines through the ONE shared formatter (obs/
+        # postmortem.py — jax-free): summarize/tail/pod can never drift
+        from tpu_dist_torch.obs.postmortem import rank_summary, sorted_ranks  # noqa: PLC0415
+
+        lines.append(
+            f"POSTMORTEM: crash bundle over {pm.get('n_ranks')} rank(s)"
+            + (f" — {pm['bundle']}" if pm.get("bundle") else "")
+        )
+        for rank in sorted_ranks(pm.get("verdicts") or {}):
+            lines.append(f"  rank {rank}: {rank_summary(pm, rank)}")
+    for a in report.get("alerts", []):
+        lines.append(
+            f"alert: {a.get('rule')} fired at epoch {a.get('epoch')}"
+            + (f" step {a.get('step')}" if a.get("step") is not None else "")
+            + f" — {a.get('metric')} {a.get('value')} {a.get('op')} "
+            f"threshold {a.get('threshold')} "
+            f"(sustained {a.get('sustained')} window(s))"
+        )
+    for a in report.get("anomalies", []):
+        lines.append(
+            f"anomaly: epoch {a.get('epoch')} step {a.get('step')} "
+            f"{a.get('anomaly')} value {a.get('value')}"
+            + (
+                f" ({a.get('ratio')}x rolling median {a.get('median')})"
+                if a.get("ratio") is not None
+                else ""
+            )
+        )
+    for s in report["stragglers"]:
+        lines.append(
+            f"straggler: epoch {s.get('epoch')} process {s.get('worst_rank')} "
+            f"at {s.get('skew')}x median ({s.get('max_s')}s vs {s.get('median_s')}s)"
+        )
+    for pr in report.get("profiles", []):
+        if pr.get("event") == "stop":
+            lines.append(
+                f"profile: captured {pr.get('steps')} step(s) from global "
+                f"step {pr.get('start_step')} ({pr.get('reason')}) → "
+                f"{pr.get('dir')}"
+            )
+        elif pr.get("event") == "error":
+            lines.append(
+                f"profile: capture FAILED ({pr.get('reason')}): "
+                f"{pr.get('error')}"
+            )
+    pas = report.get("profile_analyses") or []
+    if pas:
+        from tpu_dist_torch.obs import xprof as xprof_lib  # noqa: PLC0415
+
+        lines.append("capture attribution (device seconds, obs/xprof.py):")
+        cats = list(xprof_lib.CATEGORIES)
+        lines.append(
+            f"{'epoch':>5} {'reason':>16} {'busy_s':>9} "
+            + " ".join(f"{c[:10]:>10}" for c in cats)
+            + f" {'overlap':>8} {'infeed_s':>9}"
+        )
+        for pa in pas:
+            if pa.get("error"):
+                lines.append(
+                    f"  epoch {pa.get('epoch')} ({pa.get('reason')}): "
+                    f"analysis FAILED: {pa['error']}"
+                )
+                continue
+            pc = pa.get("categories") or {}
+            lines.append(
+                f"{_fmt(pa.get('epoch'), 'd', 5)} "
+                f"{str(pa.get('reason') or '-')[:16]:>16} "
+                f"{_fmt(pa.get('device_busy_s'), '.4f', 9)} "
+                + " ".join(_fmt(pc.get(c), ".4f", 10) for c in cats)
+                + f" {_fmt(pa.get('overlap_frac'), '.1%', 8)}"
+                + f" {_fmt(pa.get('infeed_stall_s'), '.4f', 9)}"
+            )
+            cal = pa.get("calibration") or {}
+            if cal:
+                body = ", ".join(
+                    f"{k.split('calibration_', 1)[-1]}={v:g}"
+                    if isinstance(v, (int, float)) else f"{k}={v}"
+                    for k, v in sorted(cal.items())
+                )
+                lines.append(f"      calibration: {body}")
+            if pa.get("dropped"):
+                n = sum(pa["dropped"].values())
+                lines.append(
+                    f"      WARNING: {n} trace file(s) dropped during "
+                    f"analysis ({pa['dropped']})"
+                )
+    sw = report.get("serve_windows") or []
+    if sw:
+        # the table through the ONE shared renderer (serve/slo.py —
+        # jax-free): the offline serve report and this view can never
+        # drift column by column
+        from tpu_dist_torch.serve.slo import window_table_lines  # noqa: PLC0415
+
+        lines.append("serving SLO windows (serve/slo.py, schema v10):")
+        lines.extend(window_table_lines(sw))
+    for ev in report.get("serve_events") or []:
+        if ev.get("event") == "retrace":
+            lines.append(
+                f"serve: RETRACE on a bucket-{ev.get('bucket')} batch "
+                f"({ev.get('n_real')} real request(s)) — the compiled "
+                "forward saw a new shape mid-serve"
+            )
+    for mr in report.get("memory_records") or []:
+        # the full ledger through the ONE shared renderer (obs/memory.py
+        # — jax-free): summarize and the `obs memory` CLI cannot drift
+        lines.append(memory_lib.format_ledger_text(mr))
+    for o in report.get("oom_events") or []:
+        lines.append(
+            "OOM"
+            + (f" at epoch {o['epoch']}" if o.get("epoch") is not None else "")
+            + ": "
+            + (
+                memory_lib.oom_summary_line(o["oom"])
+                if isinstance(o.get("oom"), dict) else "RESOURCE_EXHAUSTED"
+            )
+        )
+    mem = report.get("memory")
+    if mem and mem.get("peak_hbm_bytes") is not None:
+        lines.append(
+            f"peak HBM: {memory_lib.fmt_bytes(mem['peak_hbm_bytes'])} "
+            "(worst chip — the compare gate's memory scalar)"
+        )
+    plan = report.get("plan")
+    if plan:
+        bits = [f"plan: {plan.get('family', '?')}"]
+        if plan.get("mode"):
+            bits.append(f"mode={plan['mode']}")
+        if plan.get("predicted_step_s") is not None:
+            bits.append(f"predicted {plan['predicted_step_s'] * 1e3:.3g} ms/step")
+        if plan.get("achieved_step_s") is not None:
+            bits.append(f"achieved {plan['achieved_step_s'] * 1e3:.3g} ms/step")
+        if plan.get("planner_error_frac") is not None:
+            bits.append(
+                f"planner_error_frac={plan['planner_error_frac']:.4f}"
+                " (TD119 — the compare gate's planner scalar)"
+            )
+        lines.append("  ".join(bits))
+    gp_epochs = report.get("goodput_epochs") or []
+    if gp_epochs:
+        lines.append("goodput (seconds per window):")
+        cols = [b for b in goodput_lib.ALL_BUCKETS]
+        lines.append(
+            f"{'epoch':>5} {'window':>8} "
+            + " ".join(f"{c[:10]:>10}" for c in cols)
+        )
+        any_tail = False
+        for g in gp_epochs:
+            ep = g.get("epoch")
+            tail = bool(g.get("tail"))
+            any_tail = any_tail or tail
+            ep_cell = (
+                f"{_fmt(ep, 'd', 4)}*" if isinstance(ep, int) and tail
+                else f"{_fmt(ep, 'd', 5)}" if isinstance(ep, int)
+                else "    -"
+            )
+            lines.append(
+                f"{ep_cell} "
+                f"{_fmt(g.get('window_s'), '.2f', 8)} "
+                + " ".join(_fmt(g.get(f"{c}_s"), ".2f", 10) for c in cols)
+            )
+        if any_tail:
+            lines.append(
+                "  (* run-end tail window: final save / writer drain / "
+                "teardown, not an epoch)"
+            )
+    gp = report.get("goodput")
+    if gp:
+        lines.append(goodput_lib.ledger_line(gp))
+    if report["auto_recoveries"]:
+        lines.append(f"auto-recoveries: {report['auto_recoveries']}")
+    t = report["totals"]
+    lines.append(
+        f"total: {t['total_train_time_s']}s train"
+        + (f", mean {t['images_per_sec_mean']} img/s" if t["images_per_sec_mean"] else "")
+        + (f", mean MFU {t['mfu_mean']}" if t.get("mfu_mean") else "")
+    )
+    cnt = t.get("counters") or {}
+    if cnt:
+        lines.append("final counters:")
+        for k in sorted(cnt):
+            lines.append(f"  {k} = {cnt[k]}")
+    return "\n".join(lines)

@@ -54,6 +54,15 @@ data-parallel (DP) family, one process per device.
   SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) when they built
   the step's metrics, so every rank reads the same stop decision at the
   same step boundary with no collective of its own.
+* ``device_metrics`` computes the training-health scalars
+  (:func:`~tpu_dist_torch.obs.device_stats.compute_device_stats`:
+  ``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite_grads``)
+  from the reduced, clipped gradients and the update, and appends them to
+  the metrics vector after its all-reduce: they are the same on every rank
+  already, so they take no collective (a sum would multiply them by the
+  world) and no fetch of their own. The update is in place, so the step
+  keeps a copy of the parameters from before it, with the flag on only.
+  Scoped to the replicated-parameter paths, as in the JAX step.
 
 The step is :func:`make_step_body` (the work on device tensors, ending in
 the metrics all-reduce, with nothing read back to the host) inside
@@ -88,6 +97,7 @@ from tpu_dist_torch.comm.quantize import (DEFAULT_CHUNK, StreamKey, dequantize_i
                                           padded_len, quantize_int8)
 from tpu_dist_torch.nn import functional as F
 from tpu_dist_torch.nn import layers
+from tpu_dist_torch.obs.device_stats import compute_device_stats, snapshot
 from tpu_dist_torch.resilience import preemption
 from tpu_dist_torch.train.state import FlatLayout, TrainState
 
@@ -95,6 +105,10 @@ GRAD_COMPRESSION_MODES = ("none", "bf16", "int8", "int8_ef")
 # the modes that take the quantized two-stage reduce
 QUANTIZED_MODES = ("int8", "int8_ef")
 _QUANT_KEY_SEED = 0x1D8  # the stochastic-rounding stream's seed, folded per step
+# the JAX step's refusal of device_metrics off the replicated-parameter paths
+DEVICE_METRICS_SCOPE = ("device_metrics is scoped to the replicated-param paths (plain DP/SP, "
+                        "any grad_compression) — it cannot combine with "
+                        "shard_weight_update/tp/ep/pp")
 
 # option -> what it needs and where in ROADMAP.md that is queued
 WAITS_FOR = {
@@ -102,7 +116,6 @@ WAITS_FOR = {
     "tp_axis": "Queue A 6 (tensor parallelism, parallel/tensor.py)",
     "ep_axis": "Queue A 6 (expert parallelism, parallel/expert.py)",
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
-    "device_metrics": "Queue A 6 (training-health telemetry, obs/device_stats.py)",
 }
 
 
@@ -121,8 +134,7 @@ class NotPortedError(NotImplementedError):
 
 
 def _refuse_unported(**options) -> None:
-    defaults = {"seq_axis": None, "tp_axis": None, "ep_axis": None, "pp_axis": None,
-                "device_metrics": False}
+    defaults = {"seq_axis": None, "tp_axis": None, "ep_axis": None, "pp_axis": None}
     for flag, value in options.items():
         if value != defaults[flag]:
             raise NotPortedError(flag, value)
@@ -386,6 +398,7 @@ def make_step_body(
     grad_compression: str = "none",
     quant_chunk: Optional[int] = None,
     rs_ag_chunks: int = 1,
+    device_metrics: bool = False,
 ):
     """Build ``body(state, images, labels, lr, step=None) -> sums``: the
     step on tensors already on the model's device. Forward and backward
@@ -402,7 +415,13 @@ def make_step_body(
     tensor (a float would be frozen into the graph too), and so must
     ``step``, the step count that keys the int8 rounding (default
     ``state.step``). ``remat`` recomputes each chunk's forward in its
-    backward."""
+    backward. ``device_metrics`` appends the four health scalars to the
+    reduced sums (:func:`metrics_from_sums` names them)."""
+    if device_metrics and shard_weight_update:
+        # the health scalars are free only where the reduced gradients and
+        # the parameters are the same on every rank; under ZeRO-1 they
+        # exist as shards, and the global norms would need collectives
+        raise ValueError(DEVICE_METRICS_SCOPE)
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
     validate_grad_compression(grad_compression)
@@ -499,32 +518,49 @@ def make_step_body(
             with torch.no_grad():
                 for b, avg in zip(bufs, _flat_all_reduce_mean(bufs, "bn_state")):
                     b.copy_(avg)
+        stats = None
         if shard_weight_update:
             sharded(state, params).update(state, params, grads, lr, step)
         else:
-            optimizer.update(clip_grads(reduce_grads(grads, state, step)), state.opt_state,
-                             params, lr)
+            applied = clip_grads(reduce_grads(grads, state, step))
+            if device_metrics:
+                before = snapshot(params)  # the parameters before the in-place update
+            optimizer.update(applied, state.opt_state, params, lr)
+            if device_metrics:
+                stats = compute_device_stats(applied, before, params)
 
         c1, c5 = F.topk_correct(torch.cat(logits).float(), labels, (1, 5))
         sums = [loss.float(), c1.float(), c5.float()]
         if preempt_flag:
             # a fill kernel carries the flag: no host-to-device copy
             sums.append(torch.full((), float(preemption.requested()), device=loss.device))
-        return collectives.all_reduce_(torch.stack(sums), kind="metrics")
+        reduced = collectives.all_reduce_(torch.stack(sums), kind="metrics")
+        if stats is None:
+            return reduced
+        # the same on every rank already: after the all-reduce, not in it
+        return torch.cat([reduced, torch.stack([stats[k] for k in DEVICE_STATS])])
 
     return body
 
 
-def metrics_from_sums(sums: torch.Tensor, batch: int) -> dict:
+#: The ``device_metrics`` scalars, in the order ``body`` appends them.
+DEVICE_STATS = ("grad_norm", "param_norm", "update_ratio", "nonfinite_grads")
+
+
+def metrics_from_sums(sums: torch.Tensor, batch: int, device_metrics: bool = False) -> dict:
     """The step's metrics from ``body``'s all-reduced sums and the per-rank
     batch: ``loss`` the mean over the ranks, ``acc1``/``acc5`` in percent
-    of the global batch (0-dim tensors)."""
+    of the global batch (0-dim tensors); with ``device_metrics`` the health
+    scalars ``body`` appended last, as they are."""
     world = collectives.world_size()
-    return {
+    out = {
         "loss": sums[0] / world,
         "acc1": sums[1] / (batch * world) * 100.0,
         "acc5": sums[2] / (batch * world) * 100.0,
     }
+    if device_metrics:
+        out.update(zip(DEVICE_STATS, sums[-len(DEVICE_STATS):]))
+    return out
 
 
 def make_train_step(
@@ -555,21 +591,23 @@ def make_train_step(
     scalar tensor there. With ``shard_weight_update`` ``state.opt_state``
     is this rank's flat shard (:func:`init_sharded_opt_state`); with
     ``grad_compression="int8_ef"`` ``state.ef`` holds this rank's
-    residuals (:func:`init_ef_state`)."""
+    residuals (:func:`init_ef_state`). ``device_metrics`` adds the health
+    scalars (:data:`DEVICE_STATS`) to the metrics."""
     validate_grad_compression(grad_compression)
-    _refuse_unported(seq_axis=seq_axis, tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis,
-                     device_metrics=device_metrics)
+    if device_metrics and any(a is not None for a in (tp_axis, ep_axis, pp_axis)):
+        raise ValueError(DEVICE_METRICS_SCOPE)  # make_step_body refuses ZeRO-1
+    _refuse_unported(seq_axis=seq_axis, tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis)
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
                           grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
                           remat=remat, shard_weight_update=shard_weight_update,
                           grad_compression=grad_compression, quant_chunk=quant_chunk,
-                          rs_ag_chunks=rs_ag_chunks)
+                          rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device
         sums = body(state, _to(images, dev), _to(labels, dev), lr)
-        metrics = metrics_from_sums(sums, len(labels))
+        metrics = metrics_from_sums(sums, len(labels), device_metrics)
         metrics["preempt"] = sums[3]
         return dataclasses.replace(state, step=state.step + 1), metrics
 

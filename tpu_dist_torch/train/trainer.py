@@ -130,6 +130,24 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   every rank at the step where it fired, as in the JAX trainer. The
   fused path refuses the step-grain sites.
 
+* The training-health chain and the triggered profiler
+  (``tpu_dist/train/trainer.py:205-244``, ``:766-808``, ``:1992-2290``,
+  ``:3244-3304``): ``device_metrics`` adds the step's health scalars
+  (:mod:`tpu_dist_torch.obs.device_stats`) to its metrics, which the loop
+  fetches in one copy a logged step; every fetch writes a
+  ``device_stats`` record, feeds the alert rules and the anomaly detector
+  (``anomaly_action``, :mod:`tpu_dist_torch.obs.anomaly`: a warning, an
+  ``anomaly`` record and ring entry, and under ``snapshot`` a save off the
+  ``ckpt_`` namespace), before the NaN guard; ``straggler_threshold``
+  gathers every rank's epoch time after each ``train_epoch`` record
+  (:mod:`tpu_dist_torch.obs.straggler`). ``profile_dir`` alone captures
+  the first epoch; with ``profile_steps`` or ``profile_trigger`` a
+  :class:`~tpu_dist_torch.obs.profile.TriggeredProfiler` on every rank
+  opens bounded ``torch.profiler`` windows (``host<rank>/`` below
+  ``profile_dir`` at world > 1; anomaly findings arm rank 0, a straggler
+  flag the flagged rank), logs ``profile`` and ``profile_analysis``
+  records and closes on every exit of ``fit``.
+
 ``fused_epoch`` runs each epoch through :mod:`tpu_dist_torch.train.epoch`:
 the dataset on the device, one step captured in a CUDA graph and replayed
 (on the CPU, the same step eagerly), and the eval the same way; the
@@ -146,6 +164,7 @@ Every config flag whose subsystem is not ported raises
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -174,10 +193,13 @@ from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
 from tpu_dist_torch.obs import alerts as alerts_lib
-from tpu_dist_torch.obs import counters, spans
+from tpu_dist_torch.obs import counters, spans, straggler as straggler_lib
+from tpu_dist_torch.obs import xprof as xprof_lib
 from tpu_dist_torch.obs import flight as flight_lib
 from tpu_dist_torch.obs import goodput as goodput_lib
 from tpu_dist_torch.obs import memory as memory_lib
+from tpu_dist_torch.obs import profile as profile_lib
+from tpu_dist_torch.obs.anomaly import AnomalyDetector
 from tpu_dist_torch.obs.export import MetricsExporter
 from tpu_dist_torch.obs.heartbeat import Heartbeat
 from tpu_dist_torch.resilience import faults, preemption
@@ -202,7 +224,6 @@ _ANALYSIS = "Queue A 6 (the analysis layer)"
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "device_metrics": (False, WAITS_FOR["device_metrics"]),
     "sp": (1, WAITS_FOR["seq_axis"]),
     "sp_mode": ("ring", WAITS_FOR["seq_axis"]),
     "tp": (1, _PARALLEL),
@@ -214,13 +235,8 @@ UNPORTED = {
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
     "trace_file": (None, _TELEMETRY),
-    "straggler_threshold": (0.0, _TELEMETRY),
-    "anomaly_action": ("off", _TELEMETRY),
     "memory_check": ("off", _TELEMETRY),
     "hbm_budget_bytes": (None, _TELEMETRY),
-    "profile_dir": (None, _TELEMETRY),
-    "profile_trigger": ("off", _TELEMETRY),
-    "profile_steps": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
     "auto_shard": ("off", _ANALYSIS),
     "tune_report": ("", _ANALYSIS),
@@ -339,6 +355,70 @@ def install_fault_plan(cfg: TrainConfig) -> Optional[faults.FaultPlan]:
     return plan
 
 
+def check_health_options(cfg: TrainConfig) -> tuple:
+    """The JAX trainer's refusals of the health and profiler flags, with
+    its messages (``tpu_dist/train/trainer.py:205-231``, ``:766-800``),
+    before any model or data work: the profiler's specs parse, and need
+    ``profile_dir`` and the step grain; ``device_metrics`` needs the
+    replicated-parameter step and the per-step fetch; ``anomaly_action``
+    is ``off|warn|snapshot``, and ``snapshot`` needs ``ckpt_dir``. Returns
+    ``(the profile triggers, the manual window or None)``."""
+    triggers = profile_lib.parse_trigger(cfg.profile_trigger)
+    manual = profile_lib.parse_steps(cfg.profile_steps)
+    if triggers or manual:
+        if not cfg.profile_dir:
+            raise ValueError(
+                "--profile_trigger/--profile_steps capture on-device "
+                "traces and need --profile_dir for the output "
+                "(refusing to silently ignore the flags)"
+            )
+        if cfg.fused_epoch:
+            raise ValueError(
+                "--profile_trigger/--profile_steps need the per-step "
+                "grain; --fused_epoch compiles the epoch into one "
+                "call with no step boundary to open/close a capture "
+                "window at (use --profile_dir alone for the epoch-0 "
+                "blanket trace)"
+            )
+    if cfg.device_metrics:
+        if cfg.fsdp or cfg.shard_weight_update or cfg.tp > 1 or cfg.ep > 1 or cfg.pp > 1:
+            raise ValueError(
+                "--device_metrics is scoped to the replicated-param "
+                "paths (plain DP/SP, any --grad_compression): under "
+                "ZeRO-1/FSDP/TP/EP/PP the reduced gradient exists "
+                "only as shards, and the global norms would need the "
+                "extra collectives the TD107 zero-cost contract "
+                "forbids (docs/observability.md)"
+            )
+        if cfg.fused_epoch:
+            raise ValueError(
+                "--device_metrics needs the per-step metrics fetch; "
+                "--fused_epoch compiles the epoch into one call with "
+                "epoch-mean metrics, so the per-step norms would be "
+                "averaged away (refusing to silently ignore the flag)"
+            )
+    if cfg.anomaly_action not in ("off", "warn", "snapshot"):
+        raise ValueError(
+            f"anomaly_action must be off|warn|snapshot, got "
+            f"{cfg.anomaly_action!r}"
+        )
+    if cfg.anomaly_action == "snapshot" and not cfg.ckpt_dir:
+        raise ValueError(
+            "--anomaly_action snapshot writes an emergency mid-epoch "
+            "checkpoint and needs --ckpt_dir (refusing to silently "
+            "degrade to 'warn')"
+        )
+    return triggers, manual
+
+
+def _fetch(metrics: dict) -> dict:
+    """The metrics dict on the host in one device-to-host copy (one sync),
+    the values those of ``.item()`` on each."""
+    if not metrics:
+        return {}
+    return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+
+
 def seed_cudnn(seed: Optional[int]) -> None:
     """The cuDNN half of ``--seed``, as the reference's ``init_seeds``
     (``distributed_mp.py:29-39``): a seeded run takes cuDNN's deterministic
@@ -409,6 +489,7 @@ class _StepTimer:
 class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
+        self._profile_triggers, self._profile_manual = check_health_options(cfg)
         refuse_unported(cfg)
         refuse_fused_options(cfg)
         install_fault_plan(cfg)
@@ -432,6 +513,22 @@ class Trainer:
     def _init(self, cfg: TrainConfig) -> None:
         world, rank = mesh.process_count(), mesh.process_index()
         self.n_devices = world
+        # the triggered profiler (obs/profile.py), on every rank: anomaly
+        # findings arm it on rank 0, a straggler flag on the flagged rank
+        self._profiler = None
+        self._global_step = 0  # run-global step index (--profile_steps grid)
+        if self._profile_triggers or self._profile_manual:
+            out = (os.path.join(cfg.profile_dir, f"host{rank}") if world > 1
+                   else cfg.profile_dir)
+            self._profiler = profile_lib.TriggeredProfiler(
+                out, window_steps=cfg.profile_window, cooldown_steps=cfg.profile_cooldown,
+                max_captures=cfg.profile_max_captures, manual_range=self._profile_manual,
+                device=self.device, rank=rank)
+        # raises on a degenerate window before training starts
+        self._anomaly = (AnomalyDetector(window=cfg.anomaly_window,
+                                         loss_spike=cfg.anomaly_loss_spike,
+                                         grad_spike=cfg.anomaly_grad_spike)
+                         if cfg.anomaly_action != "off" else None)
         seed = cfg.seed if cfg.seed is not None else 0
         seed_cudnn(cfg.seed)
         self.model = build_model(cfg, self.device, seed)
@@ -514,6 +611,7 @@ class Trainer:
             grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion, remat=cfg.remat,
             shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
             quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
+            device_metrics=cfg.device_metrics,
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
         self._fused_runner = self._fused_eval = None
@@ -584,6 +682,21 @@ class Trainer:
                 # a mid-epoch snapshot re-enters its own epoch
                 self.start_epoch = (epoch if self._resume_step or self._resume_examples
                                     else epoch + 1)
+                self._seed_global_step()
+
+    def _seed_global_step(self) -> None:
+        """Re-anchor the ``--profile_steps`` grid after a restore. The grid
+        is run-global (the flag's contract: "global steps"), so a resumed
+        process must not restart it at 0, or a manual window that already
+        ran before the preemption would fire again at the wrong steps. An
+        epoch's step count is the loader's length capped by
+        ``--steps_per_epoch``, the bound ``train_epoch`` keeps; a window
+        cut short by the preemption resumes mid-range (the profiler
+        captures the rest of it)."""
+        n = len(self.train_loader)
+        if self.cfg.steps_per_epoch is not None:
+            n = min(n, self.cfg.steps_per_epoch)
+        self._global_step = self.start_epoch * n + self._resume_step
 
     def close(self) -> None:
         """Leave the process group if this trainer created it."""
@@ -686,7 +799,7 @@ class Trainer:
         }
         stamped = self._step_metrics
         if stamped is not None and stamped[:2] == (self._progress[0], int(steps_done)):
-            out["mid_epoch_metrics"] = {k: v.item() for k, v in stamped[2].items()}
+            out["mid_epoch_metrics"] = _fetch(stamped[2])
         return out
 
     def _check_ckpt_meta(self, meta: dict, path: str) -> None:
@@ -883,7 +996,8 @@ class Trainer:
             raise err
         # a mid-fit recovery is no new segment: its record is auto_recover
         self._resumed = None
-        self.start_epoch = epoch if self._resume_step else epoch + 1
+        self.start_epoch = epoch if self._resume_step or self._resume_examples else epoch + 1
+        self._seed_global_step()  # the --profile_steps grid follows the restored position
         self._lr_scale *= self.cfg.recover_lr_factor
         rank0_print(f"=> AUTO-RECOVER: {err}; resumed from epoch {epoch}, LR scale now "
                     f"{self._lr_scale:g} (factor {self.cfg.recover_lr_factor})")
@@ -964,9 +1078,11 @@ class Trainer:
              f"=> interrupted mid-epoch {epoch}; state saved to {cfg.ckpt_dir} as epoch "
              f"{prev} — resume re-runs epoch {epoch}")
 
-    def _guard(self, loss: float, where: str, lr: float) -> None:
+    def _guard(self, loss: float, where: str, lr: float,
+               then: str = "; restore from ckpt_dir to recover") -> None:
+        """The NaN guard, with the JAX trainer's messages."""
         if self.cfg.nan_guard and not math.isfinite(loss):
-            raise TrainingDivergedError(f"non-finite loss {loss} {where} (lr={lr})")
+            raise TrainingDivergedError(f"non-finite loss {loss} {where} (lr={lr}){then}")
 
     def train_epoch(self, epoch: int, start_step: int = 0, start_examples: int = 0,
                     old_world: Optional[int] = None) -> dict:
@@ -1018,10 +1134,19 @@ class Trainer:
                     images, labels = next(it)
                 except StopIteration:
                     break
+                phase["data"] += time.perf_counter() - t_w
+                if self._profiler is not None:
+                    # the capture's state machine before the step, so a
+                    # window holds whole steps (host bookkeeping only)
+                    ev = self._profiler.on_step(self._global_step)
+                    if ev is not None:
+                        self._note_profile_event(ev, epoch, step)
+                self._global_step += 1
                 t_d = time.perf_counter()
-                phase["data"] += t_d - t_w
                 self._in_step = True
-                self.state, metrics = self.train_step(self.state, images, labels, lr_t)
+                with (profile_lib.annotate_step(step) if profile_lib.capturing()
+                      else contextlib.nullcontext()):
+                    self.state, metrics = self.train_step(self.state, images, labels, lr_t)
                 votes = metrics.pop("preempt")
                 self._step_metrics = (epoch, step + 1, metrics)
                 self._progress = (epoch, step + 1, False)
@@ -1053,14 +1178,17 @@ class Trainer:
                 want_log = step % cfg.log_every == 0
                 if want_save or want_log:  # one fetch serves the guard, the save and the log
                     t_f = time.perf_counter()
-                    m = {k: v.item() for k, v in metrics.items()}
+                    m = _fetch(metrics)
                     phase["fetch"] += time.perf_counter() - t_f
-                    if self._alerts is not None:  # the step-fetch grain rules
-                        fired = self._alerts.observe(m)
-                        if fired:
-                            self._fire_alerts(fired, epoch, step)
+                    # the health layer on the same host copy: device_stats,
+                    # the alert rules, the anomaly detector (a non-finite
+                    # finding is logged before the guard below raises)
+                    self._observe_health(epoch, step, m)
                     # a periodic exact snapshot never publishes a diverged state
-                    self._guard(m["loss"], f"at epoch {epoch} step {step}", lr)
+                    self._guard(m["loss"], f"at epoch {epoch} step {step}", lr,
+                                " — caught at the mid-epoch snapshot boundary before writing "
+                                "it; restore from ckpt_dir to recover" if want_save else
+                                "; restore from ckpt_dir to recover")
                 if want_save:
                     with self._goodput.timed("ckpt"):
                         self._ckpt_io().save(
@@ -1071,7 +1199,9 @@ class Trainer:
                     losses.update(m["loss"], cfg.batch_size)
                     rank0_print(f"Epoch:[{epoch}/{cfg.epochs}] step:[{step}/{nb}] "
                                 f"lr={lr:.5f} loss={m['loss']:.4f} "
-                                f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}")
+                                f"acc1={m['acc1']:.2f} acc5={m['acc5']:.2f}"
+                                + (f" gnorm={m['grad_norm']:.3e} upd={m['update_ratio']:.2e}"
+                                   if "grad_norm" in m else ""))
                 # The vote in this step's metrics was cast before a sigterm@
                 # clause fired after the step. Every rank runs the same plan,
                 # so all fired here: one more all-reduce of the flags stops
@@ -1082,7 +1212,7 @@ class Trainer:
         finally:
             it.close()  # stop the prefetch thread of an epoch cut short
         if metrics:
-            out = {k: v.item() for k, v in metrics.items()}
+            out = _fetch(metrics)
         elif steps_run == 0 and (start_step or start_examples):
             # the snapshot was taken after the epoch's last step: replay its
             # stamped metrics, so the epoch record matches the uninterrupted run
@@ -1127,7 +1257,7 @@ class Trainer:
         self._in_step = True
         capture_s0 = self._fused_runner.capture_s
         self.state, metrics = self._fused_runner(self.state, *self._fused_data, lr, epoch)
-        m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+        m = _fetch(metrics)
         self._in_step = False
         capture_s = self._fused_runner.capture_s
         spans.add_event("train/fused_epoch", t_pc, time.perf_counter() - t_pc, epoch=epoch)
@@ -1152,6 +1282,9 @@ class Trainer:
         compile_d = capture_s if capture_s is not None and capture_s != capture_s0 else 0.0
         self._goodput.add("compile", compile_d)
         self._goodput.add("productive", dt - compile_d)
+        # the only grain the fused path has: the epoch-mean loss
+        # (device_metrics is refused with fused_epoch)
+        self._observe_health(epoch, None, m)
         if self._stop_agreed():
             # the fused epoch has no step grain: its end is the first point a
             # SIGTERM can be honoured at, and the epoch is complete there
@@ -1165,7 +1298,7 @@ class Trainer:
         loss)`` as :func:`validate` returns them."""
         t_ev = time.perf_counter()
         sums = self._fused_eval(self.state, *self._fused_test_data)
-        sums = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
+        sums = _fetch(sums)
         spans.add_event("eval/fused", t_ev, time.perf_counter() - t_ev, epoch=epoch)
         counters.inc("eval.runs")
         counters.inc("eval.examples", sums["count"])
@@ -1239,6 +1372,11 @@ class Trainer:
             preemption.restore(sig_token)
             with self._goodput.timed("ckpt"):  # the writer's drain
                 self._ckpt_close(suppress=True)
+            if self._profiler is not None:
+                # a capture window in flight must not outlive the run
+                ev = self._profiler.close()
+                if ev is not None:
+                    self._note_profile_event(ev, self._last_epoch, None)
             self._close_goodput(history)
             self._close_live()
             self._oom_forensics(history)
@@ -1382,8 +1520,121 @@ class Trainer:
                 self._flight.record("alert", rule=a["rule"], **where)
             if self._history is not None:
                 self._history.log("alert", **where, **a)
+            if a.get("profile") and self._profiler is not None and mesh.is_primary():
+                # the steps that explain the breach land in a capture
+                self._profiler.arm(f"alert_{a['rule']}")
         if self._exporter is not None:
             self._export_live(force=True)
+
+    def _observe_health(self, epoch: int, step, m: dict) -> None:
+        """The health layer over the metrics the loop already fetched
+        (``tpu_dist/train/trainer.py:1992-2103``), with no device traffic
+        of its own: a ``device_stats`` history record (with
+        ``device_metrics``), the exporter's ``device.*`` rollup, the
+        step-grain alert rules, and the anomaly detector, whose findings
+        become a rank-0 warning, an ``anomaly`` history record and ring
+        entry, the ``anomaly.findings`` counter, an armed capture (rank 0,
+        ``profile_trigger`` anomaly) and, under ``anomaly_action
+        snapshot``, a synchronous plain save off the ``ckpt_`` namespace.
+        The fed values are the same on every rank and the detector is
+        deterministic, so every rank takes the same snapshot branch. The
+        JAX trainer's per-step TensorBoard scalars wait for
+        ``tensorboard_dir`` (ROADMAP Queue A 4)."""
+        cfg, history = self.cfg, self._history
+        if history is not None and "grad_norm" in m:
+            history.log("device_stats", epoch=epoch, step=step,
+                        **{k: m[k] for k in step_lib.DEVICE_STATS if k in m})
+        if self._exporter is not None:
+            for k in ("grad_norm", "param_norm", "update_ratio"):
+                if k in m:
+                    self._export_rollup[f"device.{k}"] = m[k]
+        if self._alerts is not None:  # the step-fetch grain rules
+            fired = self._alerts.observe(m)
+            if fired:
+                self._fire_alerts(fired, epoch, step)
+        if self._anomaly is None:
+            return
+        findings = self._anomaly.observe(epoch=epoch, step=step, loss=m.get("loss"),
+                                         grad_norm=m.get("grad_norm"),
+                                         nonfinite=m.get("nonfinite_grads"))
+        for f in findings:
+            rank0_print(f"WARNING: anomaly {f['anomaly']} at epoch {epoch} step {step}: value "
+                        f"{f.get('value')}"
+                        + (f" = {f['ratio']}x the rolling median {f['median']}"
+                           if f.get("ratio") is not None else ""))
+            if history is not None:
+                history.log("anomaly", **f)
+            if self._flight is not None:
+                self._flight.record("anomaly", anomaly=f["anomaly"], epoch=epoch, step=step)
+            counters.inc("anomaly.findings")
+            if (self._profiler is not None and "anomaly" in self._profile_triggers
+                    and mesh.is_primary()):
+                # the next steps, which tell data from numerics, land in a
+                # bounded capture
+                self._profiler.arm(f"anomaly_{f['anomaly']}")
+            if (cfg.anomaly_action == "snapshot" and cfg.ckpt_dir
+                    and f["anomaly"] in ("loss_spike", "grad_norm_explosion")):
+                # the spike kinds fire on finite values only, so the state
+                # is safe to publish; off the ckpt_ namespace, no resume
+                # picks it and no pruning removes it. Synchronous even
+                # under async_ckpt: a rare forensic event
+                extra = {**self._ckpt_meta(), "anomaly": f["anomaly"]}
+                if step is not None:
+                    extra.update(self._mid_epoch_position(step + 1))
+                stem = f"anomaly_{epoch}" + (f"_s{step + 1}" if step is not None else "")
+                with self._goodput.timed("ckpt"):
+                    ckpt_lib.save(cfg.ckpt_dir, self.state, epoch, extra_meta=extra,
+                                  name=f"{stem}.npz")
+                counters.inc("anomaly.snapshots")
+                rank0_print(f"=> anomaly snapshot written ({stem}, epoch {epoch}"
+                            + (f" step {step + 1}" if step is not None else "")
+                            + ") — pre-divergence state preserved off the resume namespace")
+
+    def _note_profile_event(self, ev: dict, epoch: int, step) -> None:
+        """A capture window opened, closed or failed: a rank-0 line and a
+        ``profile`` history record; a stop's analysis goes on to
+        :meth:`_note_capture_analysis`."""
+        ev = dict(ev)
+        analysis = ev.pop("analysis", None)
+        analysis_error = ev.pop("analysis_error", None)
+        if ev.get("event") == "start":
+            rank0_print(f"=> profiler capture started ({ev.get('reason')}) at epoch {epoch} "
+                        f"step {step} — {ev.get('window_steps')} step window → {ev.get('dir')}")
+        elif ev.get("event") == "stop":
+            rank0_print(f"=> profiler capture done ({ev.get('reason')}, {ev.get('steps')} "
+                        f"step(s)) → {ev.get('dir')}")
+        else:
+            rank0_print(f"WARNING: profiler capture failed ({ev.get('reason')}): "
+                        f"{ev.get('error')} — triggered profiling disabled for this run")
+        if self._history is not None:
+            self._history.log("profile", epoch=epoch, **ev)
+        if ev.get("event") == "stop":
+            self._note_capture_analysis(analysis, analysis_error, epoch=epoch,
+                                        reason=ev.get("reason"), capture_dir=ev.get("dir"),
+                                        steps=ev.get("steps"))
+
+    def _note_capture_analysis(self, analysis, error, *, epoch: int, reason, capture_dir,
+                               steps) -> None:
+        """The read-back of a capture (``obs/xprof.py``): a rank-0
+        attribution line and a ``profile_analysis`` history record; a
+        failed analysis (counted by the hook) a warning and a record with
+        its error, never an exception. The JAX trainer also sets the
+        ``cost.calibration_*`` gauges and the planner's drift here; they
+        wait for the H100 row of the cost model (ROADMAP Queue A 1 (b))."""
+        if analysis is None:
+            if error:
+                rank0_print(f"WARNING: capture analysis failed ({reason}): {error}")
+                if self._history is not None:
+                    self._history.log("profile_analysis", epoch=epoch, reason=reason,
+                                      dir=capture_dir, error=error)
+            return
+        rank0_print(f"=> capture analysis ({reason}): " + xprof_lib.summary_line(analysis))
+        if self._history is not None:
+            rec = dict(analysis)
+            if steps is not None:
+                rec["steps"] = steps
+            self._history.log("profile_analysis", epoch=epoch, reason=reason,
+                              dir=capture_dir, **rec)
 
     def _apply_step_faults(self, epoch: int, step: int, lr: float) -> frozenset:
         """The ``--fault_plan`` actions of a completed step; returns them.
@@ -1468,10 +1719,38 @@ class Trainer:
             # a restored mid-epoch snapshot applies to its own epoch only
             start_step, self._resume_step = self._resume_step, 0
             start_examples, self._resume_examples = self._resume_examples, 0
-            last = self.train_epoch(epoch, start_step=start_step, start_examples=start_examples,
-                                    old_world=self._resume_world)
+            run_epoch = functools.partial(self.train_epoch, epoch, start_step=start_step,
+                                          start_examples=start_examples,
+                                          old_world=self._resume_world)
+            if cfg.profile_dir and epoch == self.start_epoch and self._profiler is None:
+                # profile_dir alone: the first epoch's blanket capture, on
+                # rank 0, read back as a triggered one is
+                rank = mesh.process_index()
+                with profile_lib.trace(cfg.profile_dir, device=self.device, rank=rank):
+                    last = run_epoch()
+                if rank == 0:
+                    analysis, a_err = profile_lib.analyze_capture_quietly(cfg.profile_dir)
+                    self._note_capture_analysis(analysis, a_err, epoch=epoch,
+                                                reason="profile_dir",
+                                                capture_dir=cfg.profile_dir,
+                                                steps=last.get("steps"))
+            else:
+                last = run_epoch()
             self._progress = (epoch, 0, True)
             history.log("train_epoch", epoch=epoch, **last)
+            if cfg.straggler_threshold > 0:
+                # a collective at world > 1 (an all-gather of two floats a
+                # rank): every rank reaches it once an epoch
+                srec = straggler_lib.epoch_skew(
+                    float(last.get("epoch_time", 0.0)), float(last.get("data_stall_frac", 0.0)),
+                    epoch=epoch, threshold=cfg.straggler_threshold)
+                if srec["straggler"]:
+                    history.log("straggler", epoch=epoch, **srec)
+                    if (self._profiler is not None and "straggler" in self._profile_triggers
+                            and mesh.process_index() == srec["worst_rank"]):
+                        # the flagged rank's next steps explain the skew
+                        # (rank 0's would show it waiting in the all-reduce)
+                        self._profiler.arm("straggler")
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                 with self._goodput.timed("eval"):
                     if self._fused_eval is not None:
