@@ -339,7 +339,33 @@ Phases; any failure exits non-zero and prints no result line:
    the golden run's (the flag's own cost, apart from the capture's); and
    the flag's work a step at ResNet-18's 62 leaves (the parameters' copy
    and the scalars), device ms with a head start and host us.
-14. report: the card's name and power limit, one JSON line of every ported
+14. the memory ledger, the cost model and the trace export, after phase 13
+   (CUDA children; it reuses phase 11 (a)'s golden run). (a) The golden
+   command with ``--memory_check warn --log_file H --trace_file T``: its 20
+   losses equal the golden run's bit for bit, 20 fused SGD launches; one
+   ``memory`` record whose reconciliation is the allocator's and exact
+   (``attributed + unattributed == bytes_in_use``), whose static ledger
+   holds at least the parameters' 44,880,528 bytes a device and whose
+   ``xla`` section (the first step measured by the allocator) peaks at or
+   above its entry; ``mem.headroom_frac`` in (0, 1); the epoch's ``mfu``
+   in (0, 1), printed beside its prediction; ``device.flops_per_step``
+   within 1% of 2.888e9 x 256; the chip table's HBM row equal to the
+   card's ``total_memory``; T a Chrome trace with the trainer's host
+   spans; ``python -m tpu_dist_torch.obs memory H`` and ``export-trace H``
+   exit 0. (b) The command with ``--memory_check refuse --hbm_budget_bytes
+   <static - 1>``: exit non-zero with ``InfeasibleMemoryError`` before any
+   step, no fused SGD launch. (c) A child whose allocator the smoke caps
+   (``torch.cuda.set_per_process_memory_fraction``, not a flag of the
+   program) halfway between (a)'s first-step entry and peak: it dies of
+   ``torch.OutOfMemoryError`` in the first step, ``crash_dir`` holds
+   ``oom.json`` with a ledger snapshot and a parsed ``requested_bytes``,
+   and ``obs postmortem`` gives the ``oom`` verdict. (d) One ViT-B/16 step
+   (batch 8, bf16) through ``make_train_step`` with the flash kernels (12
+   launches of each, 1 fused SGD) and one with the plain attention, each
+   counted by ``step_cost``: their FLOPs agree within 0.1%; then the
+   count's own cost, ResNet-18 steps plain and counted in turns.
+   ``[memory]`` lines; the report repeats them.
+15. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``), and the last line
    ``{"ok": true, "device": {...}}``.
@@ -378,8 +404,10 @@ from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.data import native, transforms
 from tpu_dist_torch.nn import resnet as resnet_lib
 from tpu_dist_torch.nn.vit import vit_b16
+from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters as counters_lib
 from tpu_dist_torch.obs import fused_sgd_bench, timing
+from tpu_dist_torch.obs import memory as memory_lib
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
@@ -3409,13 +3437,15 @@ def _children(out: str) -> list:
     return kids
 
 
-def _sup_launch(root, d: str, elastic: list, extra: list, on_line=None) -> tuple:
+def _sup_launch(root, d: str, elastic: list, extra: list, on_line=None,
+                child: str = SUP_CHILD) -> tuple:
     """``python -m tpu_dist_torch.cli.launch --nproc 1 <elastic> --`` over
-    SUP_CHILD with SUP_TRAIN and ``extra``. ``on_line(proc, line)`` sees
-    every line of the children's output as it comes. Returns the exit
-    code, the output, the launcher's stderr and the seconds it took."""
+    ``child`` (SUP_CHILD) with SUP_TRAIN and ``extra``. ``on_line(proc,
+    line)`` sees every line of the children's output as it comes. Returns
+    the exit code, the output, the launcher's stderr and the seconds it
+    took."""
     cmd = [sys.executable, "-m", "tpu_dist_torch.cli.launch", "--nproc", "1", *elastic, "--",
-           sys.executable, "-c", SUP_CHILD, *SUP_TRAIN, "--device", DEVICE, *extra]
+           sys.executable, "-c", child, *SUP_TRAIN, "--device", DEVICE, *extra]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=root, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE)
@@ -4174,6 +4204,256 @@ def phase_health(work: str) -> dict:
     return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
 
 
+# -- phase 14: the memory ledger, the cost model and the trace export ---------------
+
+# the port's FLOPs of one ResNet-18 image (CIFAR stem, 100 classes), forward
+# and backward, convolutions over their valid taps: FlopCounterMode's count
+# on the CPU (tests/test_torch_costmodel.py), 0.6% under XLA's 2.905e9
+MEM_FLOPS_PER_IMAGE = 2.888e9
+MEM_FLOPS_RTOL = 0.01
+MEM_BATCH = 256
+# MFU predicted before the first run: 2.888e9 x 256 FLOPs a step over a
+# 19.0-19.5 ms device step (PERF.md section 5) at 989.4 TFLOP/s; lower when
+# the host's step is longer
+MEM_MFU_PREDICTED = (0.03, 0.04)
+# (c): the child's allocator is capped halfway between what is allocated at
+# the first step's entry (the parameters, the momentum, the batch) and that
+# step's peak in (a): the state fits, the first step's activations do not
+MEM_OOM_AT = 0.5
+# (d): ViT-B/16 one step at batch 8, bf16, flash against the plain chain
+MEM_VIT_BATCH = 8
+MEM_VIT_FLOPS_RTOL = 1e-3
+
+#: phase 14's result lines, repeated by the report
+MEMORY_SUMMARY: list = []
+
+
+def _p14_say(msg: str, keep: bool = True) -> None:
+    print(f"[memory] {msg}", flush=True)
+    if keep:
+        MEMORY_SUMMARY.append(f"[memory] {msg}")
+
+
+def _obs(root, *args) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs", *args], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _memory_run(root, d: str) -> tuple:
+    """(a): phase 11 (a)'s golden command with ``--memory_check warn
+    --log_file H --trace_file T``. Returns the child and its ledger."""
+    log, trace = os.path.join(d, "memory.jsonl"), os.path.join(d, "trace.json")
+    rc, out, err, took = _sup_launch(root, d, [], ["--memory_check", "warn", "--log_file", log,
+                                                   "--trace_file", trace])
+    kids = _children(out)
+    check(rc == 0 and len(kids) == 1, f"memory run: rc {rc}\n{out[-2000:]}\n{err[-3000:]}")
+    [kid] = kids
+    golden = GOODPUT_RUNS["golden_kid"]
+    check(kid["losses"] == golden["losses"] and kid["launches"] == SUP_STEPS,
+          f"memory run: losses {kid['losses']} vs golden {golden['losses']}, "
+          f"{kid['launches']} launches")
+    recs = _history(log)
+    ledgers = [r for r in recs if r["kind"] == "memory" and r.get("event") != "oom"]
+    check(len(ledgers) == 1, f"{len(ledgers)} memory records")
+    [mem] = ledgers
+    rc_, static, xla = mem["reconciliation"], mem["static"], mem.get("xla") or {}
+    identity = rc_["attributed_bytes"] + rc_["unattributed_bytes"] == rc_["bytes_in_use"]
+    [epoch] = [r for r in recs if r["kind"] == "train_epoch"]
+    cnt = epoch["counters"]
+    flops = cnt.get("device.flops_per_step")
+    want = MEM_FLOPS_PER_IMAGE * MEM_BATCH
+    total = torch.cuda.get_device_properties(0).total_memory
+    name = torch.cuda.get_device_name(0)
+    _p14_say(f"(a) --memory_check warn --log_file H --trace_file T over phase 11 (a)'s "
+             f"command: rc {rc} in {took:.1f} s; losses equal to the golden run's bit for bit "
+             f"{kid['losses'] == golden['losses']}; fused_sgd launches {kid['launches']}")
+    _p14_say("(a) " + memory_lib.summary_line(mem))
+    _p14_say("(a) static sections (per device): " + ", ".join(
+        f"{k} {v['bytes_per_device']} B in {v['n_leaves']} leaves"
+        for k, v in static["sections"].items()) + f"; total {static['bytes_per_device']} B")
+    _p14_say(f"(a) reconciliation ({rc_['source']}): attributed {rc_['attributed_bytes']} + "
+             f"unattributed {rc_['unattributed_bytes']} = {rc_['bytes_in_use']} bytes in use "
+             f"({identity}); census {mem['census']['n_arrays']} storages; the first step's "
+             f"waterfall: entry {xla.get('argument_bytes')}, temp {xla.get('temp_bytes')}, "
+             f"left {xla.get('output_bytes')}, peak {xla.get('peak_bytes')} bytes "
+             f"({xla.get('source')})")
+    check(rc_["source"] == "allocator" and identity,
+          f"reconciliation {rc_} (expected the allocator's, exact)")
+    check(static["bytes_per_device"] >= RESNET_PARAMS * 4,
+          f"static {static['bytes_per_device']} bytes < the parameters' {RESNET_PARAMS * 4}")
+    check(xla.get("source") == "allocator" and xla["peak_bytes"] >= xla["argument_bytes"]
+          and "generated_code_bytes" not in xla, f"the xla section {xla}")
+    headroom = cnt.get("mem.headroom_frac")
+    mfu = epoch.get("mfu")
+    _p14_say(f"(a) MFU {mfu} (predicted {MEM_MFU_PREDICTED[0]}-{MEM_MFU_PREDICTED[1]}) from "
+             f"{flops:.6g} FLOPs a step ({flops / MEM_BATCH:.6g} an image; expected "
+             f"{want:.6g} within {MEM_FLOPS_RTOL:.0%}) over the step p50 "
+             f"{epoch['step_time_p50'] * 1e3:.3f} ms; device.bytes_per_step "
+             f"{cnt.get('device.bytes_per_step'):.6g}; mem.headroom_frac {headroom}; "
+             f"mem.peak_bytes_in_use {cnt.get('mem.peak_bytes_in_use')}")
+    check(isinstance(mfu, float) and math.isfinite(mfu) and 0 < mfu < 1, f"mfu {mfu}")
+    check(isinstance(headroom, float) and 0 < headroom < 1, f"mem.headroom_frac {headroom}")
+    check(flops is not None and abs(flops / want - 1) <= MEM_FLOPS_RTOL,
+          f"device.flops_per_step {flops} vs {want}")
+    _p14_say(f"(a) chip table: {name!r} peak {costmodel.CHIP_PEAK_FLOPS.get(name)} FLOP/s, "
+             f"HBM row {costmodel.CHIP_HBM_BYTES.get(name)} bytes against total_memory "
+             f"{total}")
+    check(costmodel.CHIP_HBM_BYTES.get(name) == total,
+          f"CHIP_HBM_BYTES[{name!r}] = {costmodel.CHIP_HBM_BYTES.get(name)}, the card has "
+          f"{total}")
+    first = cnt.get("compile.seconds")
+    golden_recs = _history(GOODPUT_RUNS["golden"]["log"])
+    golden_first = [r for r in golden_recs if r["kind"] == "train_epoch"][0]["counters"].get(
+        "compile.seconds")
+    _p14_say(f"(a) the first step (compile.seconds, the FLOP and byte count and the ledger "
+             f"inside it): {first} s; the golden run's {golden_first} s; compile.events "
+             f"{cnt.get('compile.events')}")
+    with open(trace) as f:
+        tr = json.load(f)
+    names = {e["name"] for e in tr["traceEvents"]}
+    spans_recs = [r for r in recs if r["kind"] == "spans"]
+    _p14_say(f"(a) T: {len(tr['traceEvents'])} host spans, {sorted(names)}; {len(spans_recs)} "
+             f"spans records in H")
+    check({"train/dispatch", "train/compile+dispatch", "train/data_wait",
+           "loader/produce"} <= names, f"trace event names {sorted(names)}")
+    out_trace = os.path.join(d, "export.json")
+    for cmd, args in (("memory", [log]), ("export-trace", [log, "-o", out_trace])):
+        t0 = time.perf_counter()
+        proc = _obs(root, cmd, *args)
+        _p14_say(f"(a) obs {cmd}: exit {proc.returncode} in {time.perf_counter() - t0:.2f} s; "
+                 + " | ".join(proc.stdout.strip().splitlines()[:2]))
+        check(proc.returncode == 0, f"obs {cmd}: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+    return kid, mem
+
+
+def _memory_refuse(root, d: str, static: int) -> None:
+    """(b): the command with ``--memory_check refuse --hbm_budget_bytes
+    <static - 1>`` stops before any step."""
+    rc, out, err, took = _sup_launch(root, d, [], ["--memory_check", "refuse",
+                                                   "--hbm_budget_bytes", str(static - 1)])
+    [kid] = _children(out)
+    raised = [ln.split("InfeasibleMemoryError: ", 1)[1] for ln in err.splitlines()
+              if "InfeasibleMemoryError: " in ln]
+    _p14_say(f"(b) --memory_check refuse --hbm_budget_bytes {static - 1}: exit {rc} in "
+             f"{took:.1f} s after {len(kid['losses'])} steps, {kid['launches']} fused_sgd "
+             f"launches; {raised[-1][:160] if raised else None}")
+    check(rc != 0 and raised and not kid["losses"] and kid["launches"] == 0,
+          f"refuse run: rc {rc}, losses {kid['losses']}, launches {kid['launches']}\n"
+          f"{err[-3000:]}")
+
+
+def _memory_oom(root, d: str, xla: dict) -> None:
+    """(c): the command in a child whose allocator is capped between the
+    first step's entry and its peak: it dies of ``torch.OutOfMemoryError``
+    in that step, leaving ``oom.json`` with a ledger snapshot, and ``obs
+    postmortem`` gives the ``oom`` verdict."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = xla["argument_bytes"] + MEM_OOM_AT * (xla["peak_bytes"] - xla["argument_bytes"])
+    frac = cap / total
+    child = ("import torch\n"
+             f"torch.cuda.set_per_process_memory_fraction({frac!r})\n" + SUP_CHILD)
+    crash = os.path.join(d, "oom_crash")
+    rc, out, err, took = _sup_launch(root, d, [], ["--crash_dir", crash], child=child)
+    [kid] = _children(out)
+    died = any("torch.OutOfMemoryError" in ln or "CUDA out of memory" in ln
+               for ln in err.splitlines())
+    rep = memory_lib.read_oom_report(os.path.join(crash, memory_lib.OOM_NAME))
+    snap = (rep or {}).get("ledger") or {}
+    oom = (rep or {}).get("oom") or {}
+    _p14_say(f"(c) the allocator capped at {cap:.0f} bytes (fraction {frac:.6f}): exit {rc} in "
+             f"{took:.1f} s after {len(kid['losses'])} steps; OutOfMemoryError {died}; "
+             f"oom.json requested {oom.get('requested_bytes')} bytes, used "
+             f"{oom.get('used_bytes')} of {oom.get('limit_bytes')}; the snapshot's sections "
+             f"{sorted(snap)} (static {((snap.get('static') or {}).get('bytes_per_device'))} "
+             f"bytes a device)")
+    check(rc != 0 and died and not kid["losses"], f"oom run: rc {rc}\n{err[-3000:]}")
+    check(isinstance(oom.get("requested_bytes"), int) and oom["requested_bytes"] > 0
+          and (snap.get("static") or {}).get("bytes_per_device"),
+          f"oom.json: {json.dumps(rep)[:2000]}")
+    pm = _postmortem(root, crash, d)
+    _p14_say(f"(c) obs postmortem: verdict {pm.get('verdict')!r}")
+    check(pm.get("verdict") == "oom", f"postmortem verdict {pm.get('verdict')}: {pm}")
+
+
+def _memory_vit_flops() -> dict:
+    """(d): one ViT-B/16 step at MEM_VIT_BATCH through ``make_train_step``
+    with the flash kernels and one with the plain attention chain, each
+    counted by ``step_cost``: their FLOPs agree. Then the count's own cost:
+    ResNet-18 steps at batch 256, plain and counted, in turns. Returns the
+    kernels' launches."""
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.standard_normal((MEM_VIT_BATCH,) + IMAGE,
+                                                  dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, MEM_VIT_BATCH)).to(DEVICE)
+    costs = {}
+    reset_launches()
+    for impl in ("flash", "xla"):
+        model = _bridged_vit_b16(impl)
+        opt = _sgd_for(impl)
+        st = state_lib.TrainState.create(model, opt)
+        train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16)
+        (st, m), costs[impl] = costmodel.step_cost(train_step, st, images, labels, TRAIN_LR)
+        check(math.isfinite(m["loss"].item()), f"ViT-B/16 {impl} loss {m['loss']}")
+        del model, st
+    launches = read_launches()
+    gap = costs["flash"]["flops_per_step"] / costs["xla"]["flops_per_step"] - 1
+    _p14_say(f"(d) ViT-B/16, batch {MEM_VIT_BATCH}, bf16: step_cost FLOPs flash "
+             f"{costs['flash']['flops_per_step']:.6g} vs plain {costs['xla']['flops_per_step']:.6g}"
+             f" ({gap:+.2e}); bytes flash {costs['flash']['bytes_per_step']:.6g} vs plain "
+             f"{costs['xla']['bytes_per_step']:.6g}; launches {launches}")
+    check(abs(gap) <= MEM_VIT_FLOPS_RTOL, f"ViT FLOPs flash {costs['flash']} vs {costs['xla']}")
+    check(all(launches[k] == 12 for k in PER_STEP if k != "fused_sgd")
+          and launches["fused_sgd"] == 1, f"launches of the flash step {launches}")
+    # the count's cost: ResNet-18 steps, plain and counted in turns, each
+    # ended by a sync (the dispatch modes see every op on the host)
+    model = resnet_lib.resnet18(num_classes=100, device=DEVICE, seed=0)
+    opt = optim.SGD(momentum=0.9, weight_decay=5e-4, fused=True)
+    st = state_lib.TrainState.create(model, opt)
+    train_step = step_lib.make_train_step(opt, sync_bn=False, compute_dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((MEM_BATCH, 32, 32, 3),
+                                             dtype=np.float32)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, 100, MEM_BATCH)).to(DEVICE)
+    laps = {"plain": [], "counted": []}
+    reset_launches()
+    for i in range(8):
+        for kind in ("plain", "counted") if i % 2 else ("counted", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                st, _ = train_step(st, x, y, TRAIN_LR)
+            else:
+                (st, _), cost = costmodel.step_cost(train_step, st, x, y, TRAIN_LR)
+            torch.cuda.synchronize()
+            if i >= 2:
+                laps[kind].append(time.perf_counter() - t0)
+    steps = read_launches()["fused_sgd"]
+    plain, counted = statistics.median(laps["plain"]), statistics.median(laps["counted"])
+    _p14_say(f"(d) the count's cost on a ResNet-18 step (batch {MEM_BATCH}, bf16, fused SGD, "
+             f"6 pairs after 2, each ended by a sync): plain {plain * 1e3:.3f} ms, counted "
+             f"{counted * 1e3:.3f} ms (+{(counted - plain) * 1e3:.3f} ms); its count "
+             f"{cost['flops_per_step']:.6g} FLOPs ({cost['flops_per_step'] / MEM_BATCH:.6g} an "
+             f"image), {cost['bytes_per_step']:.6g} bytes")
+    check(steps == 16, f"{steps} fused_sgd launches in 16 ResNet-18 steps")
+    return {k: launches[k] + (steps if k == "fused_sgd" else 0) for k in KERNELS}
+
+
+def phase_memory(work: str) -> dict:
+    """Phase 14 (module docstring). Returns the kernels' launches of its
+    trainer children and of (d)."""
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "memory")
+    os.makedirs(d)
+    kid, mem = _memory_run(root, d)
+    _memory_refuse(root, d, mem["static"]["bytes_per_device"])
+    _memory_oom(root, d, mem["xla"])
+    launches = _memory_vit_flops()
+    launches["fused_sgd"] += kid["launches"]
+    _p14_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: "
+             f"{_smi_line()}")
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -4210,12 +4490,14 @@ def _phases(work: str) -> int:
     supervision = phase_supervision(work)
     tenancy = phase_tenancy(work)
     health = phase_health(work)
+    memory = phase_memory(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
-                + supervision[name] + tenancy[name] + health[name] for name in KERNELS}
+                + supervision[name] + tenancy[name] + health[name] + memory[name]
+                for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
     print("[summary] phase 11, elastic supervision, again:")
@@ -4226,6 +4508,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 13, the health chain and the profiler, again:")
     for msg in HEALTH_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 14, the memory ledger, the cost model and the trace, again:")
+    for msg in MEMORY_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

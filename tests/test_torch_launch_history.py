@@ -53,8 +53,10 @@ def test_the_history_has_the_jax_schema_and_summarize_reads_it(tmp_path, capsys)
     run = fit_run({**RUN, "port": free_port(), "log_file": path})
     recs = _records(path)
     assert history.SCHEMA_VERSION == jax_history.SCHEMA_VERSION == 15
-    # an epoch's goodput window closes after its eval; then the tail and the totals
-    assert [r["kind"] for r in recs] == ["train_epoch", "eval", "goodput"] * 2 + ["goodput"] * 2
+    # the first dispatch's ledger; an epoch's spans after its record, its goodput
+    # window after its eval; then the tail, the totals and the spans' tail
+    assert [r["kind"] for r in recs] == ["memory"] + ["train_epoch", "spans", "eval", "goodput"] * 2 + [
+        "goodput", "goodput", "spans"]
     for r in recs:
         assert {"ts", "rel_s", "schema_version", "run_id", "kind", "counters"} <= set(r)
         assert r["schema_version"] == 15 and r["run_id"] == recs[0]["run_id"]
@@ -76,9 +78,11 @@ def test_per_host_log_writes_one_file_a_rank(tmp_path):
     cfg = {**RUN, "port": free_port(), "log_file": path, "per_host_log": True, "epochs": 1}
     assert run_ranks(fit_rank, 2, cfg, timeout=120) == [None, None]
     assert sorted(os.listdir(tmp_path)) == ["run.jsonl", "run.jsonl.h1"]
-    for name in ("run.jsonl", "run.jsonl.h1"):
+    # host spans are rank 0's alone
+    for name, spanned in (("run.jsonl", True), ("run.jsonl.h1", False)):
         assert [r["kind"] for r in _records(str(tmp_path / name))] == [
-            "train_epoch", "eval", "goodput", "goodput", "goodput"]
+            "memory", "train_epoch"] + ["spans"] * spanned + [
+            "eval", "goodput", "goodput", "goodput"] + ["spans"] * spanned
     assert history.per_rank_path(path, 0) == path
 
 
@@ -160,9 +164,6 @@ def test_distributed_mp_exits_75_when_a_rank_is_preempted(monkeypatch):
 
 PRESETS = ["dataparallel_apex", "distributed_apex", "distributed_gradient_accumulation"]
 PLACEMENT = {"num_processes", "process_id"}  # the port's DP presets pin a world of one
-# telemetry the port has not ported defaults to off in its config
-# (tpu_dist_torch/config/config.py), where the JAX config turns it on
-TELEMETRY_OFF = {"memory_check": "off"}
 
 
 def _preset_config(package: str, name: str, parse, argv):
@@ -196,9 +197,9 @@ def test_the_presets_parse_to_the_jax_presets_configs(name, argv):
     theirs = _preset_config("tpu_dist", name, _jax_parse, argv)
     ours = _preset_config("tpu_dist_torch", name,
                           lambda a, p: port_train.parse(a, **p), argv)
-    common = (set(ours) & set(theirs)) - PLACEMENT - set(TELEMETRY_OFF)
+    common = (set(ours) & set(theirs)) - PLACEMENT
     assert {k: ours[k] for k in common} == {k: theirs[k] for k in common}
-    assert {k: ours[k] for k in TELEMETRY_OFF} == TELEMETRY_OFF
+    assert ours["memory_check"] == theirs["memory_check"] == "warn"
     assert ours["bf16"] == theirs["bf16"] == (name != "distributed_gradient_accumulation")
     if name == "dataparallel_apex":
         assert (ours["num_processes"], ours["process_id"]) == (1, 0)

@@ -204,10 +204,10 @@ def test_compare_files_equals_jax_and_refuses_bench(logs):
 
 
 @pytest.mark.parametrize("argv", [
-    ["summarize", "x.jsonl", "--bench"], ["tail", "x.jsonl"], ["export-trace", "x.jsonl"],
+    ["summarize", "x.jsonl", "--bench"], ["tail", "x.jsonl"],
     ["archive", "ingest", "x"], ["trend", "a.jsonl"],
     ["hub", "--once", "--run", "a=x.prom", "--archive", "z.jsonl"], ["pod", "a.jsonl"],
-    ["memory", "x.jsonl"], ["compare", "a", "b", "--bench"],
+    ["compare", "a", "b", "--bench"],
     ["compare", "a", "--against-archive", "z.jsonl"]])
 def test_the_subcommands_the_port_lacks_exit_2_naming_their_item(capsys, argv):
     assert obs.main(argv) == 2

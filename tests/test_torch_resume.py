@@ -163,7 +163,8 @@ def _history(path):
 
 def _flag_log_file(d, run):
     kinds = [r["kind"] for r in _history(os.path.join(d, "h.jsonl"))]
-    assert kinds == ["train_epoch", "eval", "goodput"] * 2 + ["goodput"] * 2
+    assert kinds == ["memory"] + ["train_epoch", "spans", "eval", "goodput"] * 2 + [
+        "goodput", "goodput", "spans"]
 
 
 def _flag_per_host_log(d, run):

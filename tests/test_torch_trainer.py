@@ -129,7 +129,9 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # device_metrics, anomaly_action, straggler_threshold, profile_dir,
 # profile_trigger and profile_steps run in tests/test_torch_device_stats.py,
 # test_torch_straggler.py, test_torch_profile.py and
-# test_torch_trainer_health.py.
+# test_torch_trainer_health.py; trace_file, memory_check and
+# hbm_budget_bytes in tests/test_torch_memory_ledger.py and
+# test_torch_export_trace.py.
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
@@ -139,8 +141,6 @@ UNPORTED_CASES = (
     ("sharded_ckpt", True, "Queue A 6"),
     ("pp_microbatches", 4, "Queue A 6"),
     ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
-    ("trace_file", "trace.json", "Queue A 6"),
-    ("memory_check", "warn", "Queue A 6"), ("hbm_budget_bytes", 2 ** 30, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),
 )

@@ -169,10 +169,14 @@ def test_an_out_of_memory_error_writes_oom_json_and_reads_as_oom(tmp_path, monke
     crash = os.path.join(d, "crash")
     with open(os.path.join(crash, "oom.json")) as f:
         rep = json.load(f)
-    assert rep["oom"]["requested_bytes"] == 20 * 1024 ** 2 and "ledger" not in rep
+    # beside the report, the first dispatch's ledger snapshot (the history's
+    # memory record before the OOM one)
+    assert rep["oom"]["requested_bytes"] == 20 * 1024 ** 2
     with open(log) as f:
         mem = [json.loads(line) for line in f if '"memory"' in line]
-    assert mem[0]["event"] == "oom" and mem[0]["ledger"] == {} and mem[0]["epoch"] == 0
+    assert [m.get("event") for m in mem] == [None, "oom"]
+    snap = {k: mem[0][k] for k in ("census", "reconciliation", "static")}
+    assert rep["ledger"] == mem[1]["ledger"] == snap and mem[1]["epoch"] == 0
     got, _, last = _shape(os.path.join(crash, flight.RING_NAME))
     assert [g[0] for g in got[-4:]] == ["step", "oom", "fatal", "exit"]
     assert last["clean"] is False

@@ -12,8 +12,8 @@ and a fused run. Held:
   on the fused path) and the heartbeat file's record keys; the file is
   swept on a clean exit and stays, reading ``preempted``, after a SIGTERM;
   on two gloo ranks each rank beats its own ``per_rank_path`` file;
-* the metric names of the last exposition, but for the JAX subsystems the
-  port does not have yet (listed by name below);
+* the metric names of the last exposition, but for the families only one
+  package has (listed by name below, with the reasons);
 * the alert rules of one spec: the same rules load, the same ones fire at
   the same epochs and steps (the ``alert`` history records), and their
   ``alert_active`` gauges;
@@ -61,17 +61,17 @@ RULES = {"rule": [
 ]}
 
 # The metric families of the last exposition of the clean run that only
-# one package has. The JAX trainer's subsystems that the port does not
-# have yet (ROADMAP Queue A): the cost model's per-step FLOPs and bytes,
-# the XLA compile counters, the memory ledger, the compressed all-reduce's
-# wire-bytes gauge, and the loader's wait seconds (counters.add_seconds).
-# The elastic world gauge and the goodput ledger's gauges are in both.
+# one package has. The first step's memory waterfall (mem.xla_*): the port's
+# allocator measures it around the first step on the card, and the CPU has
+# no allocator counters (chip_smoke.py phase 14 (a) checks it there); and
+# mem.xla_code_bytes, the compiled program's code, which the port never
+# has (no XLA program). The cost model's, the ledger's, the compile, wire
+# and loader gauges, the elastic world gauge and the goodput ledger's
+# gauges are in both.
 JAX_ONLY = {
-    "device_bytes_per_step", "device_flops_per_step", "compile_events", "compile_seconds",
-    "mem_attributed_bytes", "mem_static_bytes_per_device", "mem_unattributed_bytes",
-    "mem_xla_argument_bytes", "mem_xla_code_bytes", "mem_xla_output_bytes",
-    "mem_xla_peak_bytes", "mem_xla_temp_bytes",
-    "comm_grad_wire_bytes_per_step", "loader_data_wait_s", "loader_producer_wait_s",
+    "mem_xla_argument_bytes", "mem_xla_output_bytes", "mem_xla_peak_bytes",
+    "mem_xla_temp_bytes",
+    "mem_xla_code_bytes",
 }
 # The port's own counts, which the JAX trainer does not keep: its
 # collectives by kind (comm/collectives.py) and the eval's real examples.

@@ -642,3 +642,25 @@ def history_fit_rank(rank, world, cfg_kw):
         with open(path) as f:
             records = [json.loads(line) for line in f if line.strip()]
     return {"error": err, "counters": counters.snapshot(), "records": records}
+
+
+def ledger_rank(rank, world, cfgs):
+    """For each config, ``Trainer.fit`` on this rank (the narrow ResNet
+    registered); returns, for each, the construction's static ledger, the
+    first dispatch's ledger snapshot and the ``device.flops_per_step``
+    gauge."""
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    trainer.register_model("narrow_resnet", narrow_resnet)
+    out = []
+    for cfg_kw in cfgs:
+        t = trainer.Trainer(TrainConfig(**cfg_kw))
+        try:
+            t.fit()
+        finally:
+            t.close()
+        out.append({"static": t._mem_static, "record": t._mem_record,
+                    "flops": counters.snapshot().get("device.flops_per_step")})
+    return out

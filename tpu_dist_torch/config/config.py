@@ -9,8 +9,6 @@ What differs:
   (``MASTER_ADDR``/``MASTER_PORT`` win where a launcher sets them).
 * ``--backend`` takes ``nccl`` (CUDA) or ``gloo`` (CPU) and must agree
   with ``--device``; the JAX package's ``xla`` is refused.
-* ``memory_check``, whose subsystem (the memory ledger) is not ported,
-  defaults to off here.
 
 A flag whose subsystem is not ported yet still parses; the trainer refuses
 it with ``NotPortedError`` (``tpu_dist_torch/train/trainer.py::UNPORTED``)
@@ -180,7 +178,7 @@ class TrainConfig:
                                    # tracebacks, SIGUSR1 on-demand
                                    # all-threads dumps); read back by
                                    # `python -m tpu_dist.obs postmortem`
-    memory_check: str = "off"      # off | warn | refuse — pre-flight HBM
+    memory_check: str = "warn"     # off | warn | refuse — pre-flight HBM
                                    # feasibility lint (obs/memory.py):
                                    # the static per-leaf ledger (params/
                                    # opt-state/EF/BN/batch at sharded

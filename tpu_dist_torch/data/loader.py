@@ -27,12 +27,17 @@
   ``loader_stall`` clause of ``--fault_plan``
   (:func:`tpu_dist_torch.resilience.faults.on_loader_batch`) kills the
   producer before a given batch, as the JAX loader's does.
+* The JAX loader's counters: ``loader.batches_produced`` and
+  ``loader.batches_consumed``, ``loader.data_wait_s`` (the consumer's
+  waits, its polling ticks included) and ``loader.producer_wait_s`` (the
+  producer blocked on a full queue).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -189,12 +194,16 @@ class DataLoader:
                     counters.inc("loader.batches_produced")
                     # bounded put that notices consumer abandonment (the
                     # trainer's steps_per_epoch early break)
+                    t_put = time.perf_counter()
                     while not stop.is_set():
                         try:
                             q.put(batch, timeout=0.1)
                             break
                         except queue.Full:
                             continue
+                    # the producer blocked on a full queue: the loader
+                    # outrunning the step (the healthy direction)
+                    counters.inc("loader.producer_wait_s", time.perf_counter() - t_put)
                     if stop.is_set():
                         return
             except Exception as e:  # surfaced on the consumer side
@@ -207,9 +216,12 @@ class DataLoader:
         t.start()
         try:
             while True:
+                t_wait = time.perf_counter()
                 try:
                     item = q.get(timeout=self.watchdog_timeout)
                 except queue.Empty:
+                    # the polling ticks are the consumer's wait too
+                    counters.inc("loader.data_wait_s", time.perf_counter() - t_wait)
                     # only a DEAD producer with a drained queue is a failure
                     # (a live-but-slow one just keeps us polling)
                     if not t.is_alive() and q.empty():
@@ -221,6 +233,7 @@ class DataLoader:
                             "of waiting on q.get() forever"
                         )
                     continue
+                counters.inc("loader.data_wait_s", time.perf_counter() - t_wait)
                 if item is None:
                     break
                 counters.inc("loader.batches_consumed")

@@ -36,6 +36,22 @@ Subcommands::
         ``--annotate`` appends a ``postmortem`` record to the rank-0
         history found. Exit 1 when the dirs hold no forensic artifacts.
 
+    memory <run.jsonl> [--format text|json]
+    memory --oom <traceback.txt> [--format text|json]
+        The memory report (``obs/memory.py``): the run's ledger snapshots
+        (the static per-leaf accounting, the first step's waterfall, the
+        census reconciled with the allocator), the per-epoch ``mem.*``
+        gauges, OOM events and the ``peak_hbm_bytes`` scalar the compare
+        gate reads. With ``--oom`` the input is a raw out-of-memory text
+        (XLA's ``RESOURCE_EXHAUSTED`` or PyTorch's CUDA message), parsed
+        into the typed report. Exit 1 when the history holds no memory
+        telemetry (or the text no OOM signature).
+
+    export-trace <run.jsonl> [-o trace.json]
+        Chrome trace-event JSON (Perfetto / chrome://tracing) from the
+        run's drained spans and synthesized epoch and eval bars (default
+        output ``<log>.trace.json``). Exit 1 when the file holds no record.
+
     hub --run name=metrics_path[,hb=...][,port=P][,kind=train|serve] ...
         [--fleet fleet.prom] [--out FILE] [--port P] [--interval S]
         [--once] [--stale-after S]
@@ -68,11 +84,9 @@ _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 #: The subcommands of ``python -m tpu_dist.obs`` that the port lacks.
 UNPORTED = {
     "tail": f"{_TELEMETRY}, obs/tail.py",
-    "export-trace": f"{_TELEMETRY}, obs/summarize.py's export_trace",
     "archive": f"{_TELEMETRY}, obs/archive.py",
     "trend": f"{_TELEMETRY}, obs/archive.py",
     "pod": f"{_TELEMETRY}, obs/aggregate.py",
-    "memory": f"{_TELEMETRY}, obs/memory.py's ledger",
 }
 
 #: Where ``compare --against-archive`` waits.
@@ -163,6 +177,19 @@ def main(argv=None) -> int:
                     help="heartbeat age past which a run reads dead (default: "
                          "hub.STALE_AFTER_S)")
     hb.add_argument("--archive", default=None, metavar="PATH", help="not ported")
+    mm = sub.add_parser(
+        "memory",
+        help="memory report: ledger snapshots, mem.* gauge series, OOM events, peak-HBM gate "
+             "scalar (or --oom: parse a raw out-of-memory text)",
+    )
+    mm.add_argument("input", help="a --log_file JSONL history (default) or, with --oom, a text "
+                                  "file holding an out-of-memory message")
+    mm.add_argument("--oom", action="store_true",
+                    help="INPUT is a raw out-of-memory text, not a history")
+    mm.add_argument("--format", choices=("text", "json"), default="text")
+    t = sub.add_parser("export-trace", help="write Chrome trace-event JSON")
+    t.add_argument("log", help="JSONL history written by --log_file")
+    t.add_argument("-o", "--out", default=None, help="output path (default: <log>.trace.json)")
     for name in UNPORTED:
         sub.add_parser(name, add_help=False, help="not ported")
     args, rest = ap.parse_known_args(argv)
@@ -174,6 +201,10 @@ def main(argv=None) -> int:
 
     if args.cmd == "hub":
         return _hub(args)
+    if args.cmd == "memory":
+        return _memory(args)
+    if args.cmd == "export-trace":
+        return _export_trace(args)
     if args.cmd == "xprof":
         return _xprof(args)
     if args.cmd == "summarize":
@@ -284,6 +315,65 @@ def _summarize(args) -> int:
         print(json.dumps(report, indent=2))
     else:
         print(summ.format_text(report))
+    return 0
+
+
+def _memory(args) -> int:
+    """The ``memory`` subcommand (``tpu_dist/obs/__main__.py:351-393``)."""
+    from tpu_dist_torch.obs import memory as memory_lib  # noqa: PLC0415
+    from tpu_dist_torch.obs import summarize as summ  # noqa: PLC0415
+
+    if args.oom:
+        try:
+            with open(args.input, errors="replace") as f:
+                text = f.read()
+        except OSError as e:
+            print(f"tpu_dist_torch.obs: cannot read {args.input}: {e}", file=sys.stderr)
+            return 2
+        report = memory_lib.parse_resource_exhausted(text)
+        if report is None:
+            print(f"tpu_dist_torch.obs: {args.input} carries no RESOURCE_EXHAUSTED / "
+                  "out-of-memory signature", file=sys.stderr)
+            return 1
+        if args.format == "json":
+            print(json.dumps(report, indent=2))
+        else:
+            print(memory_lib.format_oom_text(report))
+        return 0
+    try:
+        records, _bad = summ.load_records(args.input)
+    except OSError as e:
+        print(f"tpu_dist_torch.obs: cannot read {args.input}: {e}", file=sys.stderr)
+        return 2
+    report = memory_lib.memory_report(records)
+    if not (report["ledgers"] or report["epoch_series"] or report["ooms"]):
+        print(f"tpu_dist_torch.obs: no memory telemetry (memory records or mem.* gauges) in "
+              f"{args.input}", file=sys.stderr)
+        return 1
+    if args.format == "json":
+        print(json.dumps(report, indent=2, default=str))
+    else:
+        print(memory_lib.format_report_text(report))
+    return 0
+
+
+def _export_trace(args) -> int:
+    """The ``export-trace`` subcommand (``tpu_dist/obs/__main__.py:704-733``)."""
+    from tpu_dist_torch.obs import summarize as summ  # noqa: PLC0415
+
+    try:
+        records, _bad = summ.load_records(args.log)
+    except OSError as e:
+        print(f"tpu_dist_torch.obs: cannot read {args.log}: {e}", file=sys.stderr)
+        return 2
+    if not records:
+        print(f"tpu_dist_torch.obs: no records in {args.log}", file=sys.stderr)
+        return 1
+    out_path = args.out or (args.log + ".trace.json")
+    trace = summ.export_trace(records)
+    with open(out_path, "w") as f:
+        json.dump(trace, f)
+    print(f"wrote {len(trace['traceEvents'])} event(s) to {out_path}")
     return 0
 
 

@@ -19,8 +19,8 @@ is the controller's one place to read them:
   hub's own health gauges, and the pod rollups (the cards from the fleet
   scheduler's exposition, the goodput of each class of run, the worst
   stall, the breach count, the last fleet decision). A gauge a run does
-  not publish (the port's trainer has no ``train.mfu`` or memory gauges
-  yet) is left out of the rollups, never read as 0.
+  not publish (a CPU run has no ``train.mfu``: no chip peak to divide by)
+  is left out of the rollups, never read as 0.
 * :class:`HubServer`, the HTTP half, and :func:`parse_source`, the
   ``--run`` grammar of ``python -m tpu_dist_torch.obs hub``.
 

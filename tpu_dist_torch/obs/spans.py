@@ -9,8 +9,9 @@ capture shows the same names on its timeline (this takes the place of
 the JAX package's ``jax.profiler.TraceAnnotation`` bridge). A disabled
 recorder's :func:`span` returns a shared no-op context, unless a span-open
 listener is set (:func:`set_open_listener`, the flight recorder's tap):
-then every span open calls it, on every rank, buffering nothing. The JAX
-package's trace-file export has no user in the port yet and is left out.
+then every span open calls it, on every rank, buffering nothing.
+:func:`export_chrome_trace` writes the buffer (and events drained before)
+as one trace file, the trainer's ``--trace_file``.
 
 Usage::
 
@@ -22,9 +23,10 @@ Usage::
 
 from __future__ import annotations
 
+import json
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -124,13 +126,18 @@ def add_event(name: str, t_start: float, duration: float, **args) -> None:
         _EVENTS.append(evt)
 
 
-def enable() -> None:
-    """Arm the recorder with an empty buffer and the clock re-zeroed."""
+def enable(fresh: bool = True, origin: Optional[float] = None) -> None:
+    """Arm the recorder with an empty buffer and the clock zeroed now, or at
+    ``origin`` (an earlier ``time.perf_counter()`` reading: the trainer's
+    construction, its history's ``rel_s`` origin); ``fresh=False`` re-arms
+    it keeping the buffer and the clock origin (a second ``fit`` continues
+    the timeline of the first)."""
     global _ENABLED, _DROPPED, _T0
-    with _LOCK:
-        _EVENTS.clear()
-        _DROPPED = 0
-    _T0 = time.perf_counter()
+    if fresh:
+        with _LOCK:
+            _EVENTS.clear()
+            _DROPPED = 0
+        _T0 = time.perf_counter() if origin is None else origin
     _ENABLED = True
 
 
@@ -160,3 +167,25 @@ def drain() -> List[dict]:
         out = list(_EVENTS)
         _EVENTS.clear()
         return out
+
+
+def to_chrome_trace(extra_events: Optional[List[dict]] = None) -> dict:
+    """The Perfetto/chrome://tracing JSON object for the buffered (plus any
+    caller-supplied, placed first) events; the count of dropped events
+    rides in ``metadata``."""
+    evts = events()
+    if extra_events:
+        evts = extra_events + evts
+    out = {"traceEvents": evts, "displayTimeUnit": "ms"}
+    d = dropped()
+    if d:
+        out["metadata"] = {"tpu_dist_dropped_events": d}
+    return out
+
+
+def export_chrome_trace(path: str, extra_events: Optional[List[dict]] = None) -> str:
+    """Write :func:`to_chrome_trace`'s JSON to ``path``; returns the path.
+    The caller owns the rank-0 guard (the trainer exports on rank 0)."""
+    with open(path, "w") as f:
+        json.dump(to_chrome_trace(extra_events), f)
+    return path

@@ -5,9 +5,9 @@ summary and its text rendering in ``tpu_dist/obs/summarize.py``
 compare gate (``obs/compare.py``) reads and ``python -m
 tpu_dist_torch.obs summarize`` renders; both equal the JAX package's on
 histories of either package, and a record kind of a subsystem the port
-does not have yet renders as the JAX package renders its absence. The
-trace export (``export_trace``) is not ported (ROADMAP Queue A 6).
-Host file crunching only.
+does not have yet renders as the JAX package renders its absence.
+:func:`export_trace` turns a history into a Chrome trace, ``python -m
+tpu_dist_torch.obs export-trace``. Host file crunching only.
 """
 
 from __future__ import annotations
@@ -797,3 +797,56 @@ def format_text(report: dict) -> str:
         for k in sorted(cnt):
             lines.append(f"  {k} = {cnt[k]}")
     return "\n".join(lines)
+
+
+def export_trace(records: List[dict]) -> dict:
+    """Chrome trace-event JSON from a run's history: the ``spans`` records'
+    drained events, plus synthesized epoch/eval bars (from each record's
+    monotonic ``rel_s``) so even a span-less log yields a loadable
+    timeline.
+
+    Resumed runs append to the same log with a fresh ``run_id`` and a
+    restarted clock (``rel_s`` and the span recorder both re-zero in the
+    new process), so each run segment is shifted to start where the
+    previous one ended: the viewer shows sequential segments, not two runs
+    overlapping at ts≈0."""
+    events: List[dict] = []
+    offset_s = 0.0   # where the current segment's clock-zero sits globally
+    seg_end_s = 0.0  # furthest global timestamp seen so far
+    seen_run = False
+    cur_run = None
+    for rec in records:
+        rid = rec.get("run_id")
+        if not seen_run or rid != cur_run:
+            if seen_run:
+                offset_s = seg_end_s  # resume boundary: new clock origin
+            cur_run, seen_run = rid, True
+        kind = rec.get("kind")
+        rel = rec.get("rel_s")
+        if rel is not None:
+            seg_end_s = max(seg_end_s, offset_s + float(rel))
+        if kind == "spans" and isinstance(rec.get("events"), list):
+            for e in rec["events"]:
+                if not isinstance(e, dict):
+                    continue
+                e = {**e, "ts": round(float(e.get("ts", 0)) + offset_s * 1e6, 1)}
+                events.append(e)
+                seg_end_s = max(
+                    seg_end_s, (e["ts"] + float(e.get("dur", 0))) / 1e6
+                )
+        if kind in ("train_epoch", "eval") and rel is not None:
+            dur = float(rec.get("epoch_time") or 0.0) if kind == "train_epoch" else 0.0
+            # the record is stamped at the END of the region
+            ts = (offset_s + float(rel) - dur) * 1e6
+            events.append(
+                {
+                    "name": f"{kind}/{rec.get('epoch')}",
+                    "ph": "X",
+                    "ts": round(max(ts, offset_s * 1e6), 1),
+                    "dur": round(dur * 1e6, 1),
+                    "pid": 0,
+                    "tid": 0,
+                    "args": {"kind": kind, "epoch": rec.get("epoch")},
+                }
+            )
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.ops import _build
 
 NEG_INF = -1e30  # the TPU kernel's fill: keeps exp() NaN-free
@@ -347,13 +348,29 @@ def flash_bwd(q3, k3, v3, o3, m, l, do3, causal: bool = False, *,
     return dq, dk, dv
 
 
+def attention_flops(q3, k3) -> int:
+    """Model FLOPs of one attention forward on [BH, S_q, D] / [BH, S_k, D]:
+    ``4·BH·S_q·S_k·D``, the two matmuls that ``FlopCounterMode`` counts in
+    the plain chain (``nn/attention.py::full_attention``), causal or not.
+    The backward is twice this; its recompute of P counts nothing, as MFU
+    counts the model's FLOPs."""
+    bh, s_q, d = q3.shape
+    return 4 * bh * s_q * k3.shape[1] * d
+
+
 class _FlashAttention(torch.autograd.Function):
     """``_flash``'s ``custom_vjp``: the forward kernel saves (out, m, l),
-    the two backward kernels recompute P from them."""
+    the two backward kernels recompute P from them. While a step's cost is
+    counted (``obs/costmodel.py::step_cost``), each direction books
+    :func:`attention_flops` (twice in the backward) and its tensors' bytes,
+    and hides the ops inside it, so the kernels and their plain twins count
+    the same, and so does the plain attention chain."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, causal):
-        out, m, l = flash_fwd(q3, k3, v3, causal)
+        with costmodel.hidden():
+            out, m, l = flash_fwd(q3, k3, v3, causal)
+        costmodel.count_kernel(attention_flops(q3, k3), q3, k3, v3, out, m, l)
         ctx.save_for_backward(q3, k3, v3, out, m, l)
         ctx.causal = causal
         return out
@@ -361,7 +378,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do3):
         q3, k3, v3, out, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q3, k3, v3, out, m, l, do3, ctx.causal)
+        with costmodel.hidden():
+            dq, dk, dv = flash_bwd(q3, k3, v3, out, m, l, do3, ctx.causal)
+        costmodel.count_kernel(2 * attention_flops(q3, k3), q3, k3, v3, out, m, l, do3,
+                               dq, dk, dv)
         return dq, dk, dv, None
 
 

@@ -153,19 +153,29 @@ class _GraphLoop:
     counter) ``n`` times. On the CPU: eagerly. On CUDA: the first call
     runs up to ``WARMUP_STEPS`` steps eagerly on a side stream, captures
     one step in a ``CUDAGraph`` and replays it for the rest; later calls
-    replay only. ``capture_s`` is the warmup plus capture time."""
+    replay only. ``capture_s`` is the warmup plus capture time. A
+    ``probe`` set before a call runs the call's first eager step as
+    ``probe(fn)`` (the trainer's cost count), once; never a capture."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device):
         self.fn, self.device = fn, device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s: Optional[float] = None
+        self.probe: Optional[Callable] = None
         self._counts: dict = {}
         self._launches: list = []
+
+    def _eager_step(self) -> None:
+        probe, self.probe = self.probe, None
+        if probe is None:
+            self.fn()
+        else:
+            probe(self.fn)
 
     def run(self, n: int) -> None:
         if self.device.type != "cuda":
             for _ in range(n):
-                self.fn()
+                self._eager_step()
             return
         done = 0
         if self.graph is None:
@@ -174,7 +184,7 @@ class _GraphLoop:
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 while done < min(WARMUP_STEPS, n):
-                    self.fn()
+                    self._eager_step()
                     done += 1
             torch.cuda.current_stream(self.device).wait_stream(side)
             if done == n:
@@ -219,6 +229,8 @@ class _Runner:
         self._mean, self._std = mean, std
         self._key = None
         self._loop: Optional[_GraphLoop] = None
+        # probe(step) runs the next call's first eager step (_GraphLoop.probe)
+        self.probe: Optional[Callable] = None
 
     @property
     def capture_s(self) -> Optional[float]:
@@ -328,6 +340,7 @@ class FusedEpoch(_Runner):
         self._counter.zero_()
         self._step0.fill_(int(state.step))
         self._steps = steps
+        self._loop.probe, self.probe = self.probe, None
         self._loop.run(steps)
         means = self._per_step[:steps].mean(dim=0)
         metrics = dict(zip(("loss", "acc1", "acc5"), means))

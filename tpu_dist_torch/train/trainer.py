@@ -80,9 +80,9 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   on ``stacks.txt`` (hard faults, and SIGUSR1 dumps every thread); and
   on an out-of-memory error (``torch.OutOfMemoryError``) the parsed
   report as a ``memory`` OOM history record, an ``oom`` ring record and
-  ``oom.json``, which ``python -m tpu_dist_torch.obs postmortem`` reads
-  as the ``oom`` verdict. The memory ledger snapshot beside the report
-  is empty: the ledger is not ported.
+  ``oom.json`` with the memory ledger's snapshot (the first dispatch's, or
+  the static ledger before it), which ``python -m tpu_dist_torch.obs
+  postmortem`` reads as the ``oom`` verdict.
 * ``heartbeat_file``, ``metrics_file``, ``metrics_port`` and
   ``alert_rules``, the live telemetry the launcher's watchdog reads
   (``tpu_dist/train/trainer.py:2802-2860``): every rank beats its own
@@ -93,9 +93,8 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   textfile and, on rank 0, over HTTP; the alert rules run at the epoch
   grain and at each metrics fetch, and a fired rule writes a warning, an
   ``alert`` history and ring record, and its ``alert_active`` gauge. The
-  exposition carries the goodput gauges below; the JAX exposition's MFU,
-  memory and compile gauges belong to subsystems the port does not have
-  yet.
+  exposition carries the goodput gauges below, and the cost model's,
+  the memory ledger's and the compile counters.
 * The goodput ledger (:mod:`tpu_dist_torch.obs.goodput`,
   ``tpu_dist/train/trainer.py:143-144``): every second from the Trainer's
   construction to the end of ``fit`` lands in one bucket. A restore is
@@ -148,6 +147,33 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   flag the flagged rank), logs ``profile`` and ``profile_analysis``
   records and closes on every exit of ``fit``.
 
+* The memory ledger, the cost model and the trace export
+  (``tpu_dist/train/trainer.py:937-984``, ``:1803-1815``, ``:1924-1993``,
+  ``:2262-2310``, ``:3189-3235``; :mod:`tpu_dist_torch.obs.memory`,
+  :mod:`tpu_dist_torch.obs.costmodel`). At construction the static
+  ledger of ``params``, ``opt_state``, ``ef``, ``bn_state`` and one
+  per-rank batch sets ``mem.static_bytes_per_device``, and
+  ``memory_check`` prices it against the card's memory
+  (``hbm_budget_bytes`` overrides, ``memory_headroom`` scales): ``warn``
+  prints JAX's warning, ``refuse`` raises
+  :class:`~tpu_dist_torch.obs.memory.InfeasibleMemoryError` before any
+  step. The first dispatch (the first streaming step, or one of the fused
+  graph's eager warmup steps, never the capture) runs under
+  :func:`~tpu_dist_torch.obs.costmodel.step_cost`: the step's FLOPs and
+  bytes across ranks become the ``device.{flops,bytes}_per_step`` gauges;
+  on the card the allocator measures the step's waterfall (the ``xla``
+  section, JAX's keys, ``source: "allocator"``); the ledger's census and
+  reconciliation follow, as the ``mem.*`` gauges and one ``memory``
+  history record. Each epoch's record carries ``mfu`` (the step p50, or
+  the fused epoch's time a step after the capturing epoch, against the
+  card's bf16 peak; none on the CPU) and sets ``mem.headroom_frac``. A
+  capture's read-back publishes ``cost.calibration_*`` and the drift
+  gauge ``plan.planner_error_frac`` with its ``plan`` record.
+  ``compile.events`` and ``compile.seconds`` count the laps goodput books
+  as ``compile``. With ``log_file`` or ``trace_file``, rank 0 records host
+  spans: a ``spans`` history record an epoch (``log_file``) and, with
+  ``trace_file``, one Chrome trace of the run at the end of ``fit``.
+
 ``fused_epoch`` runs each epoch through :mod:`tpu_dist_torch.train.epoch`:
 the dataset on the device, one step captured in a CUDA graph and replayed
 (on the CPU, the same step eagerly), and the eval the same way; the
@@ -193,6 +219,7 @@ from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit
 from tpu_dist_torch.obs import alerts as alerts_lib
+from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters, spans, straggler as straggler_lib
 from tpu_dist_torch.obs import xprof as xprof_lib
 from tpu_dist_torch.obs import flight as flight_lib
@@ -234,9 +261,6 @@ UNPORTED = {
     "moe_top_k": (1, _PARALLEL),
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
-    "trace_file": (None, _TELEMETRY),
-    "memory_check": ("off", _TELEMETRY),
-    "hbm_budget_bytes": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
     "auto_shard": ("off", _ANALYSIS),
     "tune_report": ("", _ANALYSIS),
@@ -501,6 +525,7 @@ class Trainer:
         # accounts, and its origin is the history's rel_s origin
         self._goodput = goodput_lib.GoodputLedger()
         self._t0 = self._goodput.t0
+        self._t0_perf = time.perf_counter()  # the same instant on the span recorder's clock
         self.device, self._owns_group = mesh.initialize_distributed(
             cfg.device, world_size=cfg.num_processes, rank=cfg.process_id,
             master_addr=cfg.ip, master_port=cfg.port)
@@ -633,6 +658,38 @@ class Trainer:
             self._fused_test_data = place(ti, tl)
             self._fused_eval = epoch_lib.make_fused_eval(
                 batch_per_device=self.local_batch, compute_dtype=compute_dtype, **stats)
+
+        # -- the memory ledger and the pre-flight check ---------------------
+        self._chip_kind = costmodel.device_kind(self.device)  # "cpu" on the CPU: no row
+        self._peak = costmodel.chip_peak_flops(self._chip_kind)
+        img, lbl = self.train_data
+        per_dev = max(cfg.batch_size // world, 1)
+        self._mem_static = memory_lib.static_ledger(
+            **memory_lib.state_sections(self.state),
+            batch={"images": memory_lib.Leaf((per_dev,) + tuple(img.shape[1:]), str(img.dtype)),
+                   "labels": memory_lib.Leaf((per_dev,), str(lbl.dtype))})
+        counters.set_gauge("mem.static_bytes_per_device", self._mem_static["bytes_per_device"])
+        self._mem_record = None  # the first dispatch's ledger snapshot
+        self._step_cost = None  # the first dispatch's {flops,bytes}_per_step
+        self._fused_traced = False  # a fused epoch has captured its graph (MFU from the next)
+        # InfeasibleMemoryError under memory_check refuse, before any step
+        self._mem_feasibility = memory_lib.preflight_check(
+            self._mem_static["bytes_per_device"], budget_bytes=cfg.hbm_budget_bytes,
+            headroom=cfg.memory_headroom, action=cfg.memory_check, chip_kind=self._chip_kind)
+        if self._mem_feasibility and not self._mem_feasibility["fits"]:
+            rank0_print(
+                "WARNING: static HBM requirement "
+                f"{memory_lib.fmt_bytes(self._mem_feasibility['required_bytes'])}/device exceeds "
+                f"{cfg.memory_headroom:.0%} of the "
+                f"{memory_lib.fmt_bytes(self._mem_feasibility['budget_bytes'])} per-chip budget "
+                "— expect RESOURCE_EXHAUSTED; shard more or shrink the batch (--memory_check "
+                "refuse stops here)")
+        # host spans on rank 0 (a history record an epoch, the trace file),
+        # armed before the restore so its ladder's spans are in the trace
+        self._telemetry = bool(mesh.is_primary() and (cfg.log_file or cfg.trace_file))
+        self._trace_events: list = []  # drained spans held for trace_file
+        if self._telemetry:
+            spans.enable(origin=self._t0_perf)
 
         # -- checkpoint / resume --------------------------------------------
         ckpt_lib.set_io_retries(cfg.ckpt_io_retries)
@@ -1134,7 +1191,9 @@ class Trainer:
                     images, labels = next(it)
                 except StopIteration:
                     break
-                phase["data"] += time.perf_counter() - t_w
+                d_w = time.perf_counter() - t_w
+                phase["data"] += d_w
+                spans.add_event("train/data_wait", t_w, d_w, epoch=epoch)
                 if self._profiler is not None:
                     # the capture's state machine before the step, so a
                     # window holds whole steps (host bookkeeping only)
@@ -1146,20 +1205,31 @@ class Trainer:
                 self._in_step = True
                 with (profile_lib.annotate_step(step) if profile_lib.capturing()
                       else contextlib.nullcontext()):
-                    self.state, metrics = self.train_step(self.state, images, labels, lr_t)
+                    if self._step_cost is None:
+                        # the first dispatch: counted, and the ledger taken
+                        self.state, metrics = self._first_dispatch(
+                            self.train_step, self.state, images, labels, lr_t)
+                    else:
+                        self.state, metrics = self.train_step(self.state, images, labels, lr_t)
                 votes = metrics.pop("preempt")
                 self._step_metrics = (epoch, step + 1, metrics)
                 self._progress = (epoch, step + 1, False)
                 self._in_step = False
-                if not self._stepped:
+                first = not self._stepped
+                if first:
                     # this process's first step, to its end on the device:
                     # the kernels' builds and loads, cuDNN's algorithm
                     # choice, the allocator's first blocks
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     compile_d = time.perf_counter() - t_d
+                    self._count_compile(compile_d)
                     self._stepped = True
-                phase["dispatch"] += time.perf_counter() - t_d
+                d_d = time.perf_counter() - t_d
+                phase["dispatch"] += d_d
+                # only this Trainer's first dispatch holds the start-up cost
+                spans.add_event("train/compile+dispatch" if first else "train/dispatch", t_d,
+                                d_d, step=step)
                 images_seen += cfg.batch_size
                 steps_run += 1
                 timer.tick()
@@ -1234,6 +1304,16 @@ class Trainer:
                        step_time_p99=round(pct["p99"], 6))
             rank0_print(f"  step p50/p95/p99 {pct['p50'] * 1e3:.1f}/{pct['p95'] * 1e3:.1f}/"
                         f"{pct['p99'] * 1e3:.1f} ms, data stall {stall:.1%}")
+        # MFU from the first dispatch's FLOPs over the steady step time (the
+        # p50 leaves the first step out; else the epoch mean); none on the CPU
+        if self._step_cost and self._peak and steps_run:
+            mfu = costmodel.mfu(self._step_cost.get("flops_per_step"),
+                                pct["p50"] if pct else dt / steps_run, self.n_devices,
+                                peak=self._peak)
+            if mfu is not None:
+                out["mfu"] = mfu
+                rank0_print(f"  MFU {mfu:.1%}")
+        self._publish_memory_gauges()
         # the epoch's wall time: the loader waits, the first step, the
         # mid-epoch checkpoints, and the step loop stepping as the rest
         ckpt_d = max(self._goodput.window_value("ckpt") - ckpt_s0, 0.0)
@@ -1256,6 +1336,9 @@ class Trainer:
         # are on the host, the state may be half trained
         self._in_step = True
         capture_s0 = self._fused_runner.capture_s
+        if self._step_cost is None:
+            # the first dispatch is one of the graph's eager warmup steps
+            self._fused_runner.probe = self._first_dispatch
         self.state, metrics = self._fused_runner(self.state, *self._fused_data, lr, epoch)
         m = _fetch(metrics)
         self._in_step = False
@@ -1280,8 +1363,20 @@ class Trainer:
         # goodput: the graph's warmup and capture (a first epoch on the
         # card) is the compile bucket, the rest of the epoch productive
         compile_d = capture_s if capture_s is not None and capture_s != capture_s0 else 0.0
+        if compile_d:
+            self._count_compile(compile_d)
         self._goodput.add("compile", compile_d)
         self._goodput.add("productive", dt - compile_d)
+        # MFU only from epochs after the first: the first one's time holds
+        # the warmup and the capture
+        if self._step_cost and self._peak and self._fused_traced and steps:
+            mfu = costmodel.mfu(self._step_cost.get("flops_per_step"), dt / steps,
+                                self.n_devices, peak=self._peak)
+            if mfu is not None:
+                m["mfu"] = mfu
+                rank0_print(f"  MFU {mfu:.1%}")
+        self._fused_traced = True
+        self._publish_memory_gauges()
         # the only grain the fused path has: the epoch-mean loss
         # (device_metrics is refused with fused_epoch)
         self._observe_health(epoch, None, m)
@@ -1292,6 +1387,70 @@ class Trainer:
             raise PreemptedError(f"SIGTERM observed during fused epoch {epoch} — shutting "
                                  "down at the epoch boundary")
         return m
+
+    def _first_dispatch(self, fn, *args):
+        """``fn(*args)``, this Trainer's first step, counted
+        (``obs/costmodel.py::step_cost``: the step's FLOPs and bytes across
+        the ranks, the ``device.*`` gauges and the MFU's numerator). On the
+        card the allocator measures the step around it: what is allocated
+        at its entry (``argument_bytes``), its peak less that
+        (``temp_bytes``), what it left allocated less the entry
+        (``output_bytes``, floored at 0) and the peak; then the ledger
+        (:meth:`_capture_memory_ledger`)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            entry = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        out, cost = costmodel.step_cost(fn, *args, world=self.n_devices)
+        xla = None
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            xla = {"argument_bytes": entry,
+                   "output_bytes": max(torch.cuda.memory_allocated(self.device) - entry, 0),
+                   "temp_bytes": peak - entry, "peak_bytes": peak, "source": "allocator"}
+        self._step_cost = cost
+        costmodel.publish(cost)
+        self._capture_memory_ledger(xla)
+        return out
+
+    def _capture_memory_ledger(self, xla) -> None:
+        """The ledger snapshot of the first dispatch (``obs/memory.py``):
+        the live census reconciled against the allocator (``attributed +
+        unattributed == bytes_in_use``, exact), the static ledger of the
+        construction, the pre-flight's verdict and the step's waterfall;
+        published as ``mem.*`` gauges and one ``memory`` history record."""
+        rec = memory_lib.ledger(self.device, static=self._mem_static, xla=xla)
+        if self._mem_feasibility:
+            rec["feasibility"] = self._mem_feasibility
+        memory_lib.publish_ledger(rec)
+        self._mem_record = rec
+        if self._history is not None:
+            self._history.log("memory", **rec)
+        rank0_print("=> " + memory_lib.summary_line(rec))
+
+    def _publish_memory_gauges(self) -> None:
+        """The epoch's allocator gauges (``mem.bytes_in_use``,
+        ``mem.peak_bytes_in_use``, ``mem.bytes_limit``,
+        ``mem.mem_devices_reporting``) and ``mem.headroom_frac``, the free
+        fraction of the card, which the built-in ``memory_headroom_low``
+        alert reads; nothing on the CPU."""
+        mem = costmodel.device_memory_stats(self.device)
+        if mem:
+            for key, value in mem.items():
+                counters.set_gauge(f"mem.{key}", value)
+            lim, use = mem.get("bytes_limit"), mem.get("bytes_in_use")
+            if lim and isinstance(use, (int, float)):
+                counters.set_gauge("mem.headroom_frac", round(1.0 - use / lim, 4))
+
+    @staticmethod
+    def _count_compile(seconds: float) -> None:
+        """A lap goodput books as ``compile`` (the first streaming step of
+        the process, a fused graph's warmup and capture): one
+        ``compile.events`` and its ``compile.seconds``."""
+        counters.inc("compile.events")
+        counters.inc("compile.seconds", round(seconds, 3))
 
     def _validate_fused(self, epoch: int):
         """The fused eval over the test set on the device; ``(top1, top5,
@@ -1324,6 +1483,16 @@ class Trainer:
         self._last_epoch = self.start_epoch
         self._best_top1 = -1.0
         attempts = cfg.auto_recover
+        if self._telemetry:
+            # construction armed the recorder; a second fit re-arms it,
+            # keeping the buffer and the clock origin
+            spans.enable(fresh=False)
+            # the gradient reduce's wire bytes a step: the ring's two legs
+            # (reduce-scatter + all-gather) of every parameter in the
+            # wire's format
+            n_params = sum(p.numel() for p in self.model.parameters())
+            bpe = {"none": 4, "bf16": 2, "int8": 1, "int8_ef": 1}[cfg.grad_compression]
+            counters.set_gauge("comm.grad_wire_bytes_per_step", 2 * bpe * n_params)
         fault_handle = self._arm_flight() if cfg.crash_dir else None
         self._log_segment(history)
         self._history = history
@@ -1379,6 +1548,8 @@ class Trainer:
                     self._note_profile_event(ev, self._last_epoch, None)
             self._close_goodput(history)
             self._close_live()
+            if self._telemetry:
+                self._export_telemetry(history)
             self._oom_forensics(history)
             self._history = None
             history.close()
@@ -1397,6 +1568,7 @@ class Trainer:
             if history.path:
                 history.log("goodput", epoch=self._last_epoch, tail=True, **tail)
                 history.log("goodput", final=True, **totals)
+            if history.path or self.cfg.trace_file:
                 rank0_print("=> " + goodput_lib.ledger_line(totals))
         except OSError as e:
             rank0_print(f"WARNING: goodput ledger close failed: {e}")
@@ -1489,7 +1661,7 @@ class Trainer:
         counters, and a forced exposition."""
         rollup = self._export_rollup
         rollup["train.epoch"] = epoch
-        for key in ("images_per_sec", "loss", "data_stall_frac", "epoch_time"):
+        for key in ("images_per_sec", "loss", "mfu", "data_stall_frac", "epoch_time"):
             if isinstance(last.get(key), (int, float)):
                 rollup[f"train.{key}"] = last[key]
         for key in ("step_time_p50", "step_time_p95", "step_time_p99"):
@@ -1615,12 +1787,13 @@ class Trainer:
 
     def _note_capture_analysis(self, analysis, error, *, epoch: int, reason, capture_dir,
                                steps) -> None:
-        """The read-back of a capture (``obs/xprof.py``): a rank-0
-        attribution line and a ``profile_analysis`` history record; a
-        failed analysis (counted by the hook) a warning and a record with
-        its error, never an exception. The JAX trainer also sets the
-        ``cost.calibration_*`` gauges and the planner's drift here; they
-        wait for the H100 row of the cost model (ROADMAP Queue A 1 (b))."""
+        """The read-back of a capture (``obs/xprof.py``): the cost model's
+        ``cost.calibration_*`` gauges, a rank-0 attribution line and a
+        ``profile_analysis`` history record, then the drift of the step's
+        priced time from its measured one (``plan.planner_error_frac`` and a
+        ``plan`` record, priced from this run's ``step_cost``: the port has
+        no planner); a failed analysis (counted by the hook) a warning and a
+        record with its error, never an exception."""
         if analysis is None:
             if error:
                 rank0_print(f"WARNING: capture analysis failed ({reason}): {error}")
@@ -1628,13 +1801,78 @@ class Trainer:
                     self._history.log("profile_analysis", epoch=epoch, reason=reason,
                                       dir=capture_dir, error=error)
             return
+        # the capture is this process's card: price the card's share of the
+        # step (the count is the step's total across ranks); peak 0.0 is
+        # the CPU's none
+        card = {k: v / self.n_devices if v else v for k, v in (self._step_cost or {}).items()}
+        cal = costmodel.calibration(card, analysis, steps=steps, n_devices=1,
+                                    peak=self._peak or 0.0)
+        if cal:
+            costmodel.publish_calibration(cal)
         rank0_print(f"=> capture analysis ({reason}): " + xprof_lib.summary_line(analysis))
         if self._history is not None:
             rec = dict(analysis)
+            if cal:
+                rec["calibration"] = cal
             if steps is not None:
                 rec["steps"] = steps
             self._history.log("profile_analysis", epoch=epoch, reason=reason,
                               dir=capture_dir, **rec)
+        busy = analysis.get("device_busy_s")
+        if not (steps and isinstance(busy, (int, float)) and busy > 0 and self._step_cost):
+            return
+        achieved = busy / steps
+        pred = costmodel.predicted_step_time(card, n_devices=1, peak=self._peak or 0.0)
+        predicted = pred.get("predicted_step_s") if pred else None
+        err = costmodel.planner_error_frac(predicted, achieved)
+        if err is None:
+            return
+        counters.set_gauge("plan.planner_error_frac", err)
+        rank0_print(f"=> planner drift (TD119): predicted {predicted:g}s vs achieved "
+                    f"{achieved:g}s per step — planner_error_frac={err:.4f} [step_cost]")
+        if self._history is not None:
+            self._history.log("plan", epoch=epoch, family=None, mode=None,
+                              predicted_step_s=predicted,
+                              achieved_step_s=float(f"{achieved:.4g}"),
+                              planner_error_frac=err, prediction_source="step_cost")
+
+    def _drain_spans(self, history: MetricsHistory, epoch: int) -> None:
+        """Move the epoch's host spans out of the recorder: into a ``spans``
+        history record (``log_file``) and the ``trace_file`` accumulator,
+        capped at the recorder's ``MAX_EVENTS``: a long run keeps its
+        earliest events and counts the rest in
+        ``spans.trace_export_dropped``."""
+        if not spans.enabled():
+            return
+        ev = spans.drain()
+        if not ev:
+            return
+        if self.cfg.log_file:
+            history.log("spans", epoch=epoch, events=ev)
+        if self.cfg.trace_file:
+            room = spans.MAX_EVENTS - len(self._trace_events)
+            if room > 0:
+                self._trace_events.extend(ev[:room])
+            if len(ev) > max(room, 0):
+                counters.inc("spans.trace_export_dropped", len(ev) - max(room, 0))
+
+    def _export_telemetry(self, history: MetricsHistory) -> None:
+        """The end of ``fit`` for the spans (rank 0): the tail drained into
+        the history, ``trace_file`` written, the recorder disarmed. A write
+        that fails is reported and never masks the exception ``fit`` may be
+        raising."""
+        cfg = self.cfg
+        try:
+            self._drain_spans(history, self._last_epoch)
+            if cfg.trace_file:
+                spans.export_chrome_trace(cfg.trace_file, extra_events=self._trace_events)
+                rank0_print(f"=> wrote host-span Chrome trace to {cfg.trace_file} "
+                            f"({len(self._trace_events)} events; load in Perfetto)")
+        except OSError as e:
+            rank0_print(f"WARNING: telemetry export failed: {e}")
+        finally:
+            spans.disable()
+            self._trace_events = []
 
     def _apply_step_faults(self, epoch: int, step: int, lr: float) -> frozenset:
         """The ``--fault_plan`` actions of a completed step; returns them.
@@ -1692,14 +1930,15 @@ class Trainer:
     def _oom_forensics(self, history: MetricsHistory) -> None:
         """An out-of-memory error on its way out of ``fit``, parsed into the
         typed report: a ``memory`` OOM history record, an ``oom`` ring
-        record and ``crash_dir``'s per-rank ``oom.json``, beside an empty
-        ledger snapshot."""
+        record and ``crash_dir``'s per-rank ``oom.json``, beside the ledger
+        snapshot that was live (the first dispatch's, or the static ledger
+        when the first step itself ran out)."""
         _, err, _ = sys.exc_info()
         oom = memory_lib.parse_resource_exhausted(str(err)) if err is not None else None
         if oom is None:
             return
         counters.inc("mem.oom_events")
-        snap: dict = {}
+        snap = self._mem_record or {"static": self._mem_static}
         rank0_print("FATAL: device " + memory_lib.oom_summary_line(oom) + " — "
                     + memory_lib.summary_line(snap))
         history.log("memory", event="oom", epoch=self._last_epoch, oom=oom, ledger=snap)
@@ -1738,6 +1977,7 @@ class Trainer:
                 last = run_epoch()
             self._progress = (epoch, 0, True)
             history.log("train_epoch", epoch=epoch, **last)
+            self._drain_spans(history, epoch)
             if cfg.straggler_threshold > 0:
                 # a collective at world > 1 (an all-gather of two floats a
                 # rank): every rank reaches it once an epoch
