@@ -365,10 +365,37 @@ Phases; any failure exits non-zero and prints no result line:
    counted by ``step_cost``: their FLOPs agree within 0.1%; then the
    count's own cost, ResNet-18 steps plain and counted in turns.
    ``[memory]`` lines; the report repeats them.
-15. report: the card's name and power limit, one JSON line of every ported
+15. sequence parallelism, in this process after phase 14. (a) The ring
+   flash composition (``ops/flash_attention.py``, kernels #1-#3 around a
+   K/V ring) at full width in a one-process lockstep ring of 4 virtual
+   ranks: ViT-B/16 at 1,024 px's attention, batch 8 x 12 heads, S = 4,096
+   (1,024 tokens a rank), D 64, in bf16 and f32, causal and not.
+   ``ring_flash_lockstep`` drives the port's own rotation bodies for every
+   rank, round by round, handing each rank's K/V (and dK/dV) blocks to the
+   next in place of the P2P; launch counts are set to 0 just before and
+   read just after: 16 of each of #1-#3 non-causal, 10 causal (a masked
+   rotation launches nothing), on the tensor cores for bf16. The outputs
+   and gradients against the same loop over the plain versions and against
+   ``flash_fwd``/``flash_bwd`` on the gathered 4,096-token sequence (max
+   error over max value, 2e-2 bf16, 1e-4 f32), and a pass's device ms. (b)
+   The SP train step at full width with a seq group of one
+   (``comm/mesh.py::seq_axis(1)``): ViT-B/16 at 1,024 px, batch 8, bf16,
+   flash, fused SGD, through ``make_train_step`` without a seq group, with
+   ``sp_mode`` ring and with ulysses, from the same weights and batches:
+   3 steps whose losses are held (the ring's within 2e-3 relative of the
+   plain step's, Ulysses' equal) and 8 steps at lr 0 timed by host laps:
+   132 launches of each of #1-#3, all on the tensor cores, and 11 of #4
+   each; peak memory. Then, in a fresh process, one step of each variant
+   under ``torch.profiler``, whose device busy and flash kernels' time
+   ``obs/xprof.py`` reads (every one of the step's 36 flash launches in
+   the trace; not counted on the main path). (c), run before (b):
+   #1-#3 and ``F.scaled_dot_product_attention`` (forward; the whole
+   backward) at [96, 4096, 64] bf16, device ms with a head start and their
+   bounds. ``[seq]`` lines; the report repeats them.
+16. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
-   call as ``library_ms`` and ``library_host_us``), and the last line
-   ``{"ok": true, "device": {...}}``.
+   call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
+   as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -4454,6 +4481,355 @@ def phase_memory(work: str) -> dict:
     return launches
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+SEQ_RING = 4                 # the lockstep ring's virtual ranks
+SEQ_IMAGE_SIZE = 1024        # vit_b16_1024px_flash (bench.py): 64 x 64 patches
+SEQ_BATCH = 8                # its global batch
+SEQ_SHAPE = (SEQ_BATCH * 12, (SEQ_IMAGE_SIZE // 16) ** 2, 64)  # [BH, S, D] = [96, 4096, 64]
+SEQ_STEPS = 3
+SEQ_LR = 0.1
+# (b) after the checked steps: steps at lr 0 (the weights hold, the work is
+# the same) timed by host laps, each ended by a sync
+SEQ_TIMED = 8
+# the capture's ops by self time: one step's distinct kernels are well under
+# this, so every flash kernel is in the list (checked by their count)
+SEQ_TOP = 1000
+# the flash kernels' functions (csrc/flash_attention_*.cu), by xprof.kernel_base
+SEQ_FLASH_FUNCTIONS = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "dkdv_kernel",
+                       "dkdv_mma_kernel", "dq_kernel", "dq_mma_kernel")
+SEQ_CAPTURE_TIMEOUT_S = 300
+# (b)'s captures, in a fresh process: once a few CUDA processes have come
+# and gone on the card, this process's profiler sessions drop kernels at
+# random (phase 8's docstring; a capture here once held 34 of a step's 36
+# flash launches). For each variant: one step at lr 0 (the first call's
+# one-off work), then one under torch.profiler, read by obs/xprof.py; prints
+# one JSON line of each capture's device busy, flash kernels' time and count,
+# distinct ops, and the captured step's launches by the wrappers' counts.
+# The library is phase 1's: the child loads it, never builds.
+SEQ_CAPTURE_CHILD = """
+import json, os, sys
+import numpy as np
+import torch
+from tpu_dist_torch.comm import mesh
+from tpu_dist_torch.nn.vit import vit_b16
+from tpu_dist_torch.obs import profile, xprof
+from tpu_dist_torch.ops import flash_attention as fa
+from tpu_dist_torch.train import optim, state, step
+
+work, port, size, batch, top = sys.argv[1], *map(int, sys.argv[2:6])
+functions = sys.argv[6].split(",")
+wrappers = {"flash_attention_fwd": fa.flash_fwd, "flash_attention_bwd_dkdv": fa.flash_bwd_dkdv,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq}
+mesh.initialize_distributed("cuda", world_size=1, rank=0, master_addr="127.0.0.1",
+                            master_port=port)
+rng = np.random.default_rng(15)
+images = torch.from_numpy(rng.standard_normal((batch, size, size, 3), dtype=np.float32)).cuda()
+labels = torch.from_numpy(rng.integers(0, 1000, batch)).cuda()
+seq = mesh.seq_axis(1)
+out = {}
+for mode in ("none", "ring", "ulysses"):
+    model = vit_b16(num_classes=1000, image_size=size, attn_impl="flash", device="cuda", seed=0)
+    opt = optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+    st = state.TrainState.create(model, opt)
+    kw = {} if mode == "none" else dict(seq_axis=seq, sp_mode=mode)
+    train_step = step.make_train_step(opt, compute_dtype=torch.bfloat16, **kw)
+    st, m = train_step(st, images, labels, 0.0)
+    m["loss"].item()
+    before = {k: w.launches for k, w in wrappers.items()}
+    capture = os.path.join(work, mode)
+    with profile.trace(capture, device="cuda"):
+        st, m = train_step(st, images, labels, 0.0)
+        m["loss"].item()
+    rep = xprof.analyze_capture(capture, top_k=top)
+    flash = [o for o in rep["top_ops"] if xprof.kernel_base(o["name"]) in functions]
+    out[mode] = {"busy_ms": rep["device_busy_s"] * 1e3,
+                 "flash_ms": sum(o["self_s"] for o in flash) * 1e3,
+                 "flash_count": sum(o["count"] for o in flash), "n_ops": len(rep["top_ops"]),
+                 "launches": {k: w.launches - before[k] for k, w in wrappers.items()}}
+    del model, st, opt, train_step
+    torch.cuda.empty_cache()
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+# the rotations a lockstep pass computes, of each kernel (non-causal: all
+# n * n; causal: rank p its p + 1, the rest masked and launching nothing)
+SEQ_LAUNCHES = {False: SEQ_RING * SEQ_RING, True: SEQ_RING * (SEQ_RING + 1) // 2}
+# (a) max |got - want| over max |want|, a tensor at a time. f32: the
+# kernels' f32-accurate routes against the plain versions' f32 products
+# (TF32 off), summed in another order over 4 merged partials of 1,024 keys
+# each: a few ulps of the largest value. bf16: P and dS enter the kernels'
+# products rounded against each 64-key tile's running max, in the plain
+# versions against the block's final max, and q, k, v, out and the
+# gradients are bf16 (2^-8 relative a value): a few bf16 steps of the
+# largest value. The same bounds hold against flash_attention on the
+# gathered sequence, which rounds P over the whole row at once.
+SEQ_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (b) with a seq group of one the ring's merge multiplies the f32 partial
+# by l and divides by it again, and its gradients come back through f32
+# before their bf16 cast, where the plain step rounds once: bf16 rounding
+# placement, the limit of the bf16 parity of phase 5 (PARITY_BF16_LOSS_RTOL)
+# for each of the 3 losses. Ulysses over one rank is the plain step.
+SEQ_STEP_LOSS_RTOL = 2e-3
+
+#: phase 15's result lines, repeated by the report
+SEQ_SUMMARY: list = []
+
+
+def _p15_say(msg: str, keep: bool = True) -> None:
+    print(f"[seq] {msg}", flush=True)
+    if keep:
+        SEQ_SUMMARY.append(f"[seq] {msg}")
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| (f32)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _seq_composition(dt, causal: bool, gen) -> tuple:
+    """(a) one dtype and mask: the lockstep ring over the kernels, counted;
+    then against its plain version and against the flash kernels on the
+    gathered sequence (neither counted). Returns (launches of each kernel,
+    the largest error, the pass's device ms)."""
+    bh, s, d = SEQ_SHAPE
+    whole = [torch.randn(SEQ_SHAPE, device=DEVICE, generator=gen).to(dt) for _ in range(4)]
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(SEQ_RING, dim=1)] for t in whole)
+    reset_launches()
+    got = fa.ring_flash_lockstep(qs, ks, vs, dos, causal)
+    torch.cuda.synchronize()
+    launches, mma = read_launches(), read_mma_launches()
+    want = SEQ_LAUNCHES[causal]
+    tag = f"{str(dt).removeprefix('torch.')} {'causal' if causal else 'full'}"
+    check(all(launches[k] == want for k in MMA_KERNELS) and launches["fused_sgd"] == 0,
+          f"(a) {tag}: launches {launches}, want {want} of each flash kernel")
+    check(all(mma[k] == (want if dt == torch.bfloat16 else 0) for k in MMA_KERNELS),
+          f"(a) {tag}: tensor-core launches {mma}")
+    plain = fa.ring_flash_lockstep(qs, ks, vs, dos, causal, fa.PLAIN_OPS)
+    out, m, l = fa.flash_fwd(*whole[:3], causal)
+    dq, dk, dv = fa.flash_bwd(*whole[:3], out, m, l, whole[3], causal)
+    gathered = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    errs = {}
+    for key in ("out", "dq", "dk", "dv"):
+        ring = torch.cat(got[key], dim=1)
+        errs[f"{key} vs plain"] = _rel_err(ring, torch.cat(plain[key], dim=1))
+        errs[f"{key} vs gathered"] = _rel_err(ring, gathered[key])
+    worst = max(errs.values())
+    pass_ms, _ = cuda_ms(lambda: fa.ring_flash_lockstep(qs, ks, vs, dos, causal), iters=3,
+                         warmup=1, head_start=False)
+    _p15_say(f"(a) lockstep ring of {SEQ_RING} over [BH, S, D] = {list(SEQ_SHAPE)} {tag}: "
+             f"{want} launches of each of #1-#3 (mma {mma['flash_attention_fwd']}); a pass "
+             f"(forward + backward of the {SEQ_RING} ranks) every {pass_ms:.3f} ms back to back; "
+             f"max error / max "
+             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(worst <= SEQ_TOL[dt], f"(a) {tag}: errors {errs} over {SEQ_TOL[dt]}")
+    del got, plain, gathered, whole
+    return launches, mma, worst, pass_ms
+
+
+def _seq_steps(seq, sp_mode, images, labels, init) -> dict:
+    """(b) SEQ_STEPS bf16 steps of ViT-B/16 at 1,024 px from ``init``, with
+    the seq axis ``seq`` of one rank (``sp_mode``) or without (None); then
+    SEQ_TIMED steps at lr 0, each a host lap ended by a sync. Returns the
+    losses, the laps (ms), the peak bytes, the launches and the tensor-core
+    launches."""
+    model = vit_b16(num_classes=1000, image_size=SEQ_IMAGE_SIZE, attn_impl="flash",
+                    device=DEVICE)
+    model.load_state_dict(init)
+    opt = _sgd_for("flash")
+    st = state_lib.TrainState.create(model, opt)
+    kw = dict(seq_axis=seq, sp_mode=sp_mode) if sp_mode else {}
+    train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, laps = [], []
+    for i in range(SEQ_STEPS):
+        st, metrics = train_step(st, images[i], labels[i], SEQ_LR)
+        losses.append(metrics["loss"].item())
+    for i in range(SEQ_TIMED):
+        t0 = time.perf_counter()
+        st, metrics = train_step(st, images[i % SEQ_STEPS], labels[i % SEQ_STEPS], 0.0)
+        metrics["loss"].item()  # ends in a sync
+        laps.append((time.perf_counter() - t0) * 1e3)
+    launches, mma = read_launches(), read_mma_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del model, st, opt, train_step
+    return {"losses": losses, "laps": laps, "peak": peak, "launches": launches, "mma": mma}
+
+
+def _seq_captures(work: str) -> dict:
+    """(b)'s captures in a fresh process (:data:`SEQ_CAPTURE_CHILD`), each
+    checked: every flash launch of the step in its trace. Not counted on
+    the main path: they measure it."""
+    root = pathlib.Path(__file__).resolve().parent
+    d = os.path.join(work, "seq_capture")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SEQ_CAPTURE_CHILD, d, str(_free_port()), str(SEQ_IMAGE_SIZE),
+         str(SEQ_BATCH), str(SEQ_TOP), ",".join(SEQ_FLASH_FUNCTIONS)],
+        cwd=root, capture_output=True, text=True, timeout=SEQ_CAPTURE_TIMEOUT_S)
+    check(proc.returncode == 0, f"(b) the capture child: exit {proc.returncode}\n"
+                                f"{proc.stderr[-3000:]}")
+    caps = json.loads(proc.stdout.strip().splitlines()[-1])
+    flash_per_step = sum(PER_STEP[k] for k in MMA_KERNELS)
+    for mode, c in caps.items():
+        check(c["launches"] == {k: PER_STEP[k] for k in MMA_KERNELS}
+              and c["flash_count"] == flash_per_step and c["n_ops"] < SEQ_TOP,
+              f"(b) {mode}: the capture holds {c['flash_count']} flash launches of "
+              f"{flash_per_step} (the wrappers counted {c['launches']}), {c['n_ops']} ops")
+    _p15_say(f"(b) captures in a fresh process: {time.perf_counter() - t0:.1f} s")
+    return {None if m == "none" else m: c for m, c in caps.items()}
+
+
+def _seq_times() -> dict:
+    """(c) #1-#3 and ``F.scaled_dot_product_attention`` at [96, 4096, 64]
+    bf16, each call's device ms with a head start (not counted: these
+    compare, they are not the main path)."""
+    bh, s, d = SEQ_SHAPE
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    q, k, v, do = (torch.randn(SEQ_SHAPE, device=DEVICE, generator=gen).to(bf16)
+                   for _ in range(4))
+    out, m, l = fa.flash_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, m, l, delta)
+    q4, k4, v4, do4 = (t.view(SEQ_BATCH, 12, s, d) for t in (q, k, v, do))
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=10, warmup=2)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters=10, warmup=2)
+        dkdv = cuda_ms(lambda: fa.flash_bwd_dkdv(*args), iters=10, warmup=2)
+        dq = cuda_ms(lambda: fa.flash_bwd_dq(*args), iters=10, warmup=2)
+    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                  retain_graph=True), iters=10, warmup=2)
+    bounds = {"flash_attention_fwd": flash_bound(bh, s, d, bf16),
+              **flash_bwd_bounds(bh, s, d, bf16)}
+    times = {"flash_attention_fwd": (fwd, lib_fwd), "flash_attention_bwd_dkdv": (dkdv, lib_bwd),
+             "flash_attention_bwd_dq": (dq, lib_bwd)}
+    out = {}
+    for name, ((ms, us), (lib_ms, lib_us)) in times.items():
+        bound_ms, bound_by = bounds[name]
+        out[name] = {"ms_s4096": ms, "host_us_s4096": us, "library_ms_s4096": lib_ms,
+                     "library_host_us_s4096": lib_us, "bound_ms_s4096": bound_ms,
+                     "bound_by_s4096": bound_by}
+        _p15_say(f"(c) {name} at [BH, S, D] = {list(SEQ_SHAPE)} bf16: kernel {ms:.4f} ms "
+                 f"(host {us:.1f} us), bound {bound_ms:.4f} ms ({bound_by}), "
+                 + ("scaled_dot_product_attention" if name == "flash_attention_fwd"
+                    else "the whole scaled_dot_product_attention backward")
+                 + f" {lib_ms:.4f} ms (host {lib_us:.1f} us)")
+    _p15_say(f"(c) #2 + #3 {dkdv[0] + dq[0]:.4f} ms against the SDPA backward's "
+             f"{lib_bwd[0]:.4f} ms; #1 {fwd[0] / lib_fwd[0]:.2f}x SDPA's forward")
+    return out
+
+
+def phase_seq(work: str) -> tuple:
+    """Phase 15 (module docstring). Returns (the kernels' launches of (a) and
+    (b), their tensor-core launches, the numbers for the kernels line)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    launches = dict.fromkeys(KERNELS, 0)
+    mma = dict.fromkeys(MMA_KERNELS, 0)
+    composition = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for causal in (False, True):
+            got, got_mma, worst, pass_ms = _seq_composition(dt, causal, gen)
+            for k in KERNELS:
+                launches[k] += got[k]
+            for k in MMA_KERNELS:
+                mma[k] += got_mma[k]
+            composition[f"ring_{str(dt).removeprefix('torch.')}_"
+                        f"{'causal' if causal else 'full'}"] = (worst, pass_ms)
+
+    numbers = _seq_times()
+    torch.cuda.empty_cache()
+
+    # a 1-rank NCCL group: the seq group is a real NCCL group of one, so the
+    # step's reduces, the pooled sum and Ulysses' exchanges run
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        steps, step_launches, step_mma = _seq_step_runs(mesh_lib.seq_axis(1), work)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    for k in KERNELS:
+        launches[k] += step_launches[k]
+    for k in MMA_KERNELS:
+        mma[k] += step_mma[k]
+    gaps = [abs(a / b - 1) for a, b in zip(steps["ring"], steps[None])]
+    _p15_say(f"(b) ring vs no seq group: loss gaps {[f'{g:.2e}' for g in gaps]} (limit "
+             f"{SEQ_STEP_LOSS_RTOL}); ulysses "
+             f"{'equal' if steps['ulysses'] == steps[None] else 'NOT equal'}")
+    check(max(gaps) <= SEQ_STEP_LOSS_RTOL, f"(b) ring losses {steps['ring']} vs {steps[None]}")
+    check(steps["ulysses"] == steps[None],
+          f"(b) ulysses losses {steps['ulysses']} vs {steps[None]}")
+    torch.cuda.empty_cache()
+
+    for name in MMA_KERNELS:
+        worst = max(w for w, _ in composition.values())
+        numbers[name]["max_abs_err_ring"] = worst
+    numbers["flash_attention_fwd"].update(
+        {f"{k}_pass_ms": ms for k, (_, ms) in composition.items()})
+    _p15_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: "
+             f"{_smi_line()}")
+    return launches, mma, numbers
+
+
+def _seq_step_runs(seq, work: str) -> tuple:
+    """(b): the three step runs from the same weights and batches, then the
+    captures; returns ({sp_mode: losses}, their launches together, their
+    tensor-core launches together)."""
+    rng = np.random.default_rng(15)
+    images = torch.from_numpy(rng.standard_normal(
+        (SEQ_STEPS, SEQ_BATCH, SEQ_IMAGE_SIZE, SEQ_IMAGE_SIZE, 3), dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, (SEQ_STEPS, SEQ_BATCH))).to(DEVICE)
+    init = {k: v.detach().clone() for k, v in vit_b16(
+        num_classes=1000, image_size=SEQ_IMAGE_SIZE, device=DEVICE, seed=TRAIN_SEED
+    ).state_dict().items()}
+    runs, launches = {}, dict.fromkeys(KERNELS, 0)
+    mma = dict.fromkeys(MMA_KERNELS, 0)
+    want = {k: (SEQ_STEPS + SEQ_TIMED) * PER_STEP[k] for k in KERNELS}
+    for sp_mode in (None, "ring", "ulysses"):
+        tag = sp_mode or "no seq group"
+        r = runs[sp_mode] = _seq_steps(seq, sp_mode, images, labels, init)
+        laps = r["laps"]
+        _p15_say(f"(b) ViT-B/16 at {SEQ_IMAGE_SIZE} px (S = {SEQ_SHAPE[1]}), batch {SEQ_BATCH}, "
+                 f"bf16, flash, {tag}: losses {r['losses']}; {SEQ_TIMED} host laps at lr 0 "
+                 f"median {statistics.median(laps):.2f} ms (min {min(laps):.2f}, max "
+                 f"{max(laps):.2f}); peak {r['peak'] / 2**30:.2f} GiB; launches "
+                 f"{r['launches']} (mma {r['mma']})")
+        check(r["launches"] == want, f"(b) {tag}: launches {r['launches']}, want {want}")
+        # bf16 compute: every flash launch on the tensor cores, as phase 7
+        check(all(r["mma"][k] == r["launches"][k] for k in MMA_KERNELS),
+              f"(b) {tag}: tensor-core launches {r['mma']} of {r['launches']}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"(b) {tag}: losses {r['losses']}")
+        for k in KERNELS:
+            launches[k] += r["launches"][k]
+        for k in MMA_KERNELS:
+            mma[k] += r["mma"][k]
+    torch.cuda.empty_cache()
+    caps = _seq_captures(work)
+    for sp_mode, c in caps.items():
+        _p15_say(f"(b) the traced step, {sp_mode or 'no seq group'}: device busy "
+                 f"{c['busy_ms']:.2f} ms, of which the flash kernels {c['flash_ms']:.2f} ms "
+                 f"({c['flash_ms'] / c['busy_ms']:.1%}, {c['flash_count']} launches, "
+                 f"{c['n_ops']} distinct ops)")
+    base, cap0 = runs[None], caps[None]
+    for sp_mode in ("ring", "ulysses"):
+        r, c = runs[sp_mode], caps[sp_mode]
+        _p15_say(f"(b) {sp_mode} against no seq group: median lap "
+                 f"{statistics.median(r['laps']) / statistics.median(base['laps']) - 1:+.2%}, "
+                 f"device busy {c['busy_ms'] / cap0['busy_ms'] - 1:+.2%}, flash kernels "
+                 f"{c['flash_ms'] / cap0['flash_ms'] - 1:+.2%}, the rest "
+                 f"{(c['busy_ms'] - c['flash_ms']) - (cap0['busy_ms'] - cap0['flash_ms']):+.2f} ms")
+    return {m: r["losses"] for m, r in runs.items()}, launches, mma
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -4491,15 +4867,19 @@ def _phases(work: str) -> int:
     tenancy = phase_tenancy(work)
     health = phase_health(work)
     memory = phase_memory(work)
+    seq, seq_mma, seq_numbers = phase_seq(work)
+    for name, numbers in seq_numbers.items():
+        measured[name].update(numbers)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
-                + supervision[name] + tenancy[name] + health[name] + memory[name]
+                + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
                 for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
-        measured[name]["launches_tensor_core"] = trained_mma[name] + optim_launches[name]
+        measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
+                                                  + seq_mma[name])
     print("[summary] phase 11, elastic supervision, again:")
     for msg in SUP_SUMMARY:
         print(f"[summary] {msg}")
@@ -4511,6 +4891,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 14, the memory ledger, the cost model and the trace, again:")
     for msg in MEMORY_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 15, sequence parallelism, again:")
+    for msg in SEQ_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

@@ -25,6 +25,7 @@ from tpu_dist.train import optim as jax_optim
 from tpu_dist.train import state as jax_state
 from tpu_dist.train import step as jax_step
 from tpu_dist_torch import bridge
+from tpu_dist_torch.comm.mesh import AxisGroup
 from tpu_dist_torch.nn import functional as F
 from tpu_dist_torch.nn import vit
 from tpu_dist_torch.serve.engine import ServingEngine
@@ -108,7 +109,6 @@ def test_eval_step_with_mask_matches_jax():
 
 
 UNPORTED = [
-    ("seq_axis", "seq", "Queue A 3"),
     ("tp_axis", "model", "Queue A 6"),
     ("ep_axis", "expert", "Queue A 6"),
     ("pp_axis", "pipe", "Queue A 6"),
@@ -157,6 +157,35 @@ def test_ported_flags_step_at_one_device(name, kw):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
     if st.ef:
         assert st.ef["r1"].abs().max() > 0 and st.ef["r2"].shape == (lay.chunk,)
+
+
+@pytest.mark.parametrize("sp_mode", ["ring", "ulysses"])
+def test_seq_axis_steps_at_one_device(sp_mode):
+    """``seq_axis`` (ported with sequence parallelism; it raised
+    ``NotPortedError`` before) over a seq group of one and no process
+    group: nothing is exchanged, so Ulysses runs the plain attention on the
+    whole sequence, bit for bit the plain step; the ring's one rotation
+    scales its f32 scores by 1/sqrt(D) where the plain chain divides by
+    sqrt(D) and merges one block, a few ulps of the loss and the weights
+    (multi-rank parity: tests/test_torch_seq_parallel_*.py)."""
+    models = [vit.vit_tiny(device="cpu") for _ in range(2)]
+    for m in models:
+        bridge.load_jax_vit(m, bridge.numpy_vit_params(m, seed=0))
+    opt = optim.SGD()
+    one = dict(seq_axis=AxisGroup("seq", 1, 0), sp_mode=sp_mode)
+    losses = []
+    for model, kw in zip(models, ({}, one)):
+        st = state.TrainState.create(model, opt)
+        st, m = step.make_train_step(opt, **kw)(st, *batch(0), LRS[0])
+        assert st.step == 1
+        losses.append(m["loss"].item())
+    pairs = list(zip(models[1].parameters(), models[0].parameters()))
+    if sp_mode == "ulysses":
+        assert losses[0] == losses[1] and all(torch.equal(a, b) for a, b in pairs)
+        return
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("flag,value,queue", UNPORTED,

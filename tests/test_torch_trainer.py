@@ -9,7 +9,7 @@ against the JAX package's ``Trainer``.
   the numpy path (the C++ pipeline both take by default is held apart, in
   ``tests/test_torch_native_pipeline.py``).
 * Every flag of ``UNPORTED`` raises ``NotPortedError`` naming its ROADMAP
-  item.
+  item; ``sp`` and ``sp_mode`` train.
 * ``python -m tpu_dist_torch.cli.distributed_mp --device cpu`` with 2 ranks.
 """
 
@@ -20,7 +20,7 @@ import sys
 import jax
 import numpy as np
 import pytest
-from torch_ranks import child_env, free_port, narrow_resnet
+from torch_ranks import child_env, free_port, narrow_resnet, run_ranks, seq_fit_rank
 
 import tpu_dist.data.native as jax_native
 import tpu_dist_torch.data.native as port_native
@@ -135,7 +135,7 @@ def test_epoch_dict_has_the_jax_keys(runs):
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
-    ("sp", 2, "Queue A 3"), ("sp_mode", "ulysses", "Queue A 3"), ("tp", 2, "Queue A 6"),
+    ("tp", 2, "Queue A 6"),
     ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
     ("auto_shard", "plan", "Queue A 6"),
     ("sharded_ckpt", True, "Queue A 6"),
@@ -151,6 +151,42 @@ def test_unported_flags_raise_a_typed_error(flag, value, queue):
     with pytest.raises(step.NotPortedError, match=flag) as info:
         trainer.Trainer(TrainConfig(**{**RUN, flag: value}, device="cpu", port=free_port()))
     assert info.value.flag == flag and queue in str(info.value)
+
+
+# sp and sp_mode, ported with sequence parallelism (they raised
+# NotPortedError before): vit_tiny trains with each on 4 gloo ranks, a
+# [2, 2] mesh, with the loaders' own crops (parity with the JAX trainer on
+# a [2, 2] mesh: tests/test_torch_seq_parallel_trainer.py and _fit.py)
+SP_CASES = (("sp", dict(sp=2)), ("sp_mode", dict(sp=2, sp_mode="ulysses")))
+
+
+@pytest.fixture(scope="module")
+def sp_fits():
+    run = dict(model="vit_tiny", num_classes=10, dataset="synthetic", synthetic_n=160,
+               batch_size=16, epochs=1, steps_per_epoch=2, log_every=1, eval_every=1,
+               device="cpu")
+    return run_ranks(seq_fit_rank, 4, [dict(run, **kw) for _, kw in SP_CASES], None, True,
+                     timeout=120)
+
+
+@pytest.mark.parametrize("i", range(len(SP_CASES)), ids=[f for f, _ in SP_CASES])
+def test_the_sp_flags_train(sp_fits, i):
+    for fits in sp_fits:
+        fit = fits[i]
+        assert fit["n_data"] == 2 and fit["batches"] == (8, 4)
+        (epoch,) = fit["epochs"]
+        assert epoch["steps"] == 2 and np.isfinite(epoch["loss"]) and "val_top1" in epoch
+
+
+def test_a_seq_group_draws_one_batch_and_its_crops(sp_fits):
+    """The train stream is keyed by the data index: the two ranks of a seq
+    group draw the same examples with the same crops (else each would
+    differentiate another loss and the seq mean would be wrong), the two
+    data rows different ones."""
+    (x0, y0), (x1, y1), (x2, y2), (x3, y3) = (f[0]["first_batch"] for f in sp_fits)
+    assert np.array_equal(x0, x1) and np.array_equal(y0, y1)
+    assert np.array_equal(x2, x3) and np.array_equal(y2, y3)
+    assert not np.array_equal(x0, x2)
 
 
 # the flags ported with ZeRO-1 and the compressed reduce, one case each

@@ -664,3 +664,150 @@ def ledger_rank(rank, world, cfgs):
         out.append({"static": t._mem_static, "record": t._mem_record,
                     "flops": counters.snapshot().get("device.flops_per_step")})
     return out
+
+
+# -- sequence parallelism -------------------------------------------------------
+
+
+def _seq_shard(a, rank, world, dtype=None):
+    """This rank's contiguous chunk of a global [B, S, H, D] array along S."""
+    s = a.shape[1] // world
+    t = torch.from_numpy(np.ascontiguousarray(a[:, rank * s:(rank + 1) * s]))
+    return t.to(getattr(torch, dtype)) if dtype else t
+
+
+def seq_attention_rank(rank, world, cases, q, k, v, ct):
+    """Each case ``(fn, causal, dtype)``: this rank's output of
+    ``ring_attention``, ``ulysses_attention`` or ``ring_flash_attention``
+    over a seq group of the whole world, on its chunk of the global
+    [B, S, H, D] ``q, k, v``, and the gradients of ``sum(out * ct)`` by its
+    chunks, all as f32 numpy, and the collective counts of the case."""
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import attention  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.ops import flash_attention  # noqa: PLC0415
+
+    seq = mesh.seq_mesh(world).seq
+    fns = {"ring": attention.ring_attention, "ulysses": attention.ulysses_attention,
+           "ring_flash": flash_attention.ring_flash_attention}
+    out = []
+    for fn, causal, dtype in cases:
+        counters.reset()
+        ts = [_seq_shard(a, rank, world, dtype).requires_grad_() for a in (q, k, v)]
+        o = fns[fn](*ts, seq, causal=causal)
+        grads = torch.autograd.grad((o.float() * _seq_shard(ct, rank, world)).sum(), ts)
+        out.append({"out": o.detach().float().numpy(),
+                    "grads": [g.float().numpy() for g in grads],
+                    "counts": {k: v for k, v in counters.snapshot().items()
+                               if k.startswith("comm.")}})
+    return out
+
+
+def seq_step_rank(rank, world, cases, model_kw, params, batches):
+    """Each case ``(sp_mode, attn_impl, zero1)``: the port's DP x SP step on
+    a ``[world/2, 2]`` mesh from the bridged ``params``, this data row's
+    share of every global batch ``(images, labels, lr)``. Returns per case
+    the losses, the final parameters in the JAX tree (numpy) and the
+    collective counts."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    m = mesh.seq_mesh(2)
+    out = []
+    for sp_mode, impl, zero1 in cases:
+        model = vit.ViT(**model_kw, attn_impl=impl, device="cpu")
+        bridge.load_jax_vit(model, params)
+        opt = optim.SGD()
+        st = state.TrainState.create(model, opt)
+        if zero1:
+            st.layout = step.axis_layout(model, m.data)
+            st.opt_state = step.init_sharded_opt_state(model, opt, layout=st.layout)
+        # the data axis is ZeRO-1's alone: the replicated step reduces over every rank
+        zero_kw = {"shard_weight_update": True, "axis": m.data} if zero1 else {}
+        train_step = step.make_train_step(opt, sync_bn=False, seq_axis=m.seq, sp_mode=sp_mode,
+                                          **zero_kw)
+        counters.reset()
+        losses = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // m.data.size
+            lo = m.data.index * n
+            st, metrics = train_step(st, images[lo:lo + n], labels[lo:lo + n], lr)
+            losses.append(metrics["loss"].item())
+        out.append({"losses": losses, "params": bridge.vit_params_to_jax(model),
+                    "counts": {k: v for k, v in counters.snapshot().items()
+                               if k.startswith("comm.")}})
+    return out
+
+
+def seq_fit_rank(rank, world, cfgs, params, augment=False):
+    """For each config, ``Trainer.fit`` on this rank from the bridged ViT
+    ``params`` (None: the trainer's own seeded weights), the augmentation
+    held to the numpy path without crops unless ``augment``; returns per
+    config the epoch dicts, the first dispatch's step cost, the data
+    extent, the (train, eval) batch a rank and the first train batch's
+    images and labels."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.data import native  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    if not augment:
+        unaugmented(native)
+    out = []
+    for cfg_kw in cfgs:
+        t = trainer.Trainer(TrainConfig(**cfg_kw))
+        it = iter(t.train_loader)
+        first = tuple(x.numpy() for x in next(it))
+        it.close()
+        epochs, inner = [], t.train_epoch
+
+        def train_epoch(epoch, *a, _inner=inner, _epochs=epochs, **k):
+            _epochs.append(_inner(epoch, *a, **k))
+            return _epochs[-1]
+
+        t.train_epoch = train_epoch
+        try:
+            if params is not None:
+                bridge.load_jax_vit(t.model, params)
+            t.fit()
+        finally:
+            t.close()
+        out.append({"epochs": epochs, "cost": t._step_cost, "n_data": t.n_data,
+                    "batches": (t.local_batch, t.eval_batch), "first_batch": first})
+    return out
+
+
+def unaugmented(native_module):
+    """Make ``native_module.gather_augment`` (of either package) gather and
+    normalise without the random crop and flip, and on the numpy path: the
+    JAX trainer keys a batch's crops by its loader's shard, the port's by
+    the data index, so only inputs without them are the same on both."""
+    import functools  # noqa: PLC0415
+
+    inner = native_module.gather_augment
+    native_module._load = lambda: None
+
+    @functools.wraps(inner)
+    def gather(images, sel, *, train=False, **kw):
+        return inner(images, sel, train=False, **kw)
+
+    native_module.gather_augment = gather
+
+
+def trainer_errors_rank(rank, world, cfgs):
+    """For each config, the ``Trainer``'s construction on this rank: the
+    error it raised as ``"TypeName: message"``, or None."""
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    out = []
+    for cfg_kw in cfgs:
+        try:
+            trainer.Trainer(TrainConfig(**cfg_kw)).close()
+            out.append(None)
+        except Exception as e:  # the refusal under test
+            out.append(f"{type(e).__name__}: {e}")
+    return out

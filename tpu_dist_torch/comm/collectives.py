@@ -17,12 +17,21 @@ way: :func:`reduce_scatter` under ``comm.reduce_scatter.<kind>``,
 one a call. They run over the group even at a world of one (where they
 are copies).
 
+Sequence parallelism adds two differentiable exchanges over a seq group:
+:func:`ring_rotate` (``lax.ppermute`` with the perm ``i -> i+1``: one
+``batch_isend_irecv`` to the next rank and from the previous one, counted
+under ``comm.ppermute.<kind>``; its backward rotates the cotangent the
+other way) and :func:`all_to_all_tiled` (``lax.all_to_all(...,
+tiled=True)`` along any two axes, counted under ``comm.all_to_all.<kind>``;
+its backward is the inverse exchange).
+
 Without an initialised process group every function is the identity of a
 world of one process and counts nothing.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -216,3 +225,84 @@ def sync_group(sync: bool) -> Optional[object]:
     """The group SyncBN averages over: the world when ``sync`` and a
     process group exists, else None (per-rank statistics)."""
     return dist.group.WORLD if sync and active() else None
+
+
+# -- sequence parallelism: the ring and the tiled all-to-all ----------------------
+
+
+def rotate(tensors, *, group=None, shift: int = 1, kind: str = "ring") -> list:
+    """Each tensor of this rank sent to the rank ``shift`` places on in the
+    group (mod its size), and the one of the rank ``shift`` places back
+    received in its place: one ``batch_isend_irecv`` of every tensor.
+    At a group size of 1 the tensors come back as they are (``ppermute``
+    with the perm ``0 -> 0``). Counted under ``comm.ppermute.<kind>``."""
+    n = world_size(group)
+    if n == 1:
+        return list(tensors)
+    me = rank(group)
+    peer = functools.partial(dist.get_global_rank, group) if group is not None else int
+    dst, src = peer((me + shift) % n), peer((me - shift) % n)
+    sends = [t.contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
+           + [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
+    counters.inc(f"comm.ppermute.{kind}")
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recvs
+
+
+class _RingRotate(torch.autograd.Function):
+    """:func:`rotate` by +1, whose backward rotates the cotangents by -1:
+    the transpose of ``lax.ppermute`` with the perm ``i -> i+1``."""
+
+    @staticmethod
+    def forward(ctx, group, kind, *tensors):
+        ctx.group, ctx.kind = group, kind
+        return tuple(rotate(tensors, group=group, kind=kind))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = rotate(grads, group=ctx.group, shift=-1, kind=ctx.kind + "_grad")
+        return (None, None, *back)
+
+
+def ring_rotate(*tensors, group=None, kind: str = "ring") -> tuple:
+    """``tensors`` rotated one place around the ring of ``group``: this
+    rank's go to the next rank, the previous rank's arrive here
+    (``lax.ppermute(x, axis, [(i, (i + 1) % n)])``). Differentiable."""
+    if world_size(group) == 1:
+        return tuple(tensors)
+    return _RingRotate.apply(group, kind, *tensors)
+
+
+def _a2a_tiled(x, split_axis: int, concat_axis: int, group, kind: str):
+    n = world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all of {x.shape[split_axis]} along axis {split_axis} "
+                         f"over {n} ranks")
+    rows = torch.stack(x.chunk(n, dim=split_axis))  # row j goes to rank j
+    got = all_to_all(rows, group=group, kind=kind)  # row i came from rank i
+    return torch.cat(got.unbind(0), dim=concat_axis)
+
+
+class _AllToAllTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group, kind):
+        ctx.args = (split_axis, concat_axis, group, kind)
+        return _a2a_tiled(x, split_axis, concat_axis, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, group, kind = ctx.args
+        return _a2a_tiled(g, concat_axis, split_axis, group, kind + "_grad"), None, None, None, None
+
+
+def all_to_all_tiled(x: torch.Tensor, split_axis: int, concat_axis: int, *, group=None,
+                     kind: str = "other") -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``: ``x``
+    cut into ``n`` equal blocks along ``split_axis``, block ``j`` sent to
+    rank ``j``, and the blocks received joined in rank order along
+    ``concat_axis``. Differentiable: the backward is the inverse exchange
+    (``split_axis`` and ``concat_axis`` swapped), as JAX transposes it."""
+    return _AllToAllTiled.apply(x, split_axis, concat_axis, group, kind)

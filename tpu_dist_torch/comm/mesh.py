@@ -10,10 +10,19 @@ CPU. The rendezvous reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
 ``MASTER_ADDR``/``MASTER_PORT`` as ``torchrun`` sets them, falling back to
 the caller's values. A world of one process still builds a real group, so
 the card runs real NCCL collectives.
+
+Sequence parallelism lays the world out as a ``[data, seq]`` mesh
+(:func:`seq_mesh`), as the JAX trainer's ``device_mesh([n/sp, sp], ["data",
+"seq"])`` does: ranks host-major and row-major, so a seq group is ``sp``
+consecutive ranks, and each axis has a ``torch.distributed`` group per row
+(:class:`AxisGroup`): :func:`seq_axis` builds the seq groups alone, which
+is all the replicated step needs, :func:`data_axis` the data groups of
+ZeRO-1's shards. :func:`axis_intra_host` is ``model_axes_intra_host``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -93,3 +102,118 @@ def local_device_count(device="cuda") -> int:
 def is_primary() -> bool:
     """True on the process allowed to print (rank-0 discipline)."""
     return process_index() == 0
+
+
+# -- the DP x SP layout ---------------------------------------------------------
+
+DATA_AXIS = "data"
+SEQ_AXIS = "seq"
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One mesh axis as this rank sees it: the axis ``name``, its ``size``,
+    this rank's ``index`` along it and the process ``group`` of the ranks
+    that share every other coordinate (None: the default group, which is
+    the whole axis only when the mesh is 1-D). What a JAX axis name selects
+    inside a ``shard_map``, as a value."""
+
+    name: str
+    size: int
+    index: int
+    group: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ``[data, seq]`` mesh of the world, as this rank sees it: its
+    coordinates and its group along each axis."""
+
+    data: AxisGroup
+    seq: AxisGroup
+
+
+def mesh_coords(rank: int, sp: int) -> tuple:
+    """``(data, seq)`` coordinates of ``rank`` on a ``[world/sp, sp]`` mesh
+    laid out host-major and row-major, as ``tpu_dist/comm/mesh.py::
+    device_mesh`` lays devices: a seq group is ``sp`` consecutive ranks."""
+    return divmod(rank, sp)
+
+
+def seq_groups(world: int, sp: int) -> list:
+    """The ranks of each seq group of a ``[world/sp, sp]`` mesh, by data
+    index: ``sp`` consecutive ranks each."""
+    return [tuple(range(d * sp, (d + 1) * sp)) for d in range(world // sp)]
+
+
+def data_groups(world: int, sp: int) -> list:
+    """The ranks of each data group of a ``[world/sp, sp]`` mesh, by seq
+    index: every ``sp``-th rank."""
+    return [tuple(range(j, world, sp)) for j in range(sp)]
+
+
+def _checked(sp: int, world: Optional[int], rank: Optional[int]) -> tuple:
+    world = process_count() if world is None else int(world)
+    rank = process_index() if rank is None else int(rank)
+    if sp < 1 or world % sp:
+        raise ValueError(f"{world} ranks do not divide over sp={sp}")
+    return world, rank
+
+
+def _new_groups(ranks_of: list, mine: int):
+    """One ``dist.new_group`` per rank tuple of ``ranks_of``, created on
+    every rank in the same order, its own or not, as ``new_group``
+    requires; returns the group of entry ``mine`` (None without a process
+    group)."""
+    group = None
+    if dist.is_available() and dist.is_initialized():
+        for i, ranks in enumerate(ranks_of):
+            g = dist.new_group(list(ranks))
+            group = g if i == mine else group
+    return group
+
+
+def seq_axis(sp: int, world: Optional[int] = None, rank: Optional[int] = None) -> AxisGroup:
+    """The seq axis of the ``[world/sp, sp]`` mesh over the default process
+    group: one group per data index (``sp`` consecutive ranks). All the
+    sequence-parallel model and the replicated step need."""
+    world, rank = _checked(sp, world, rank)
+    d, s = mesh_coords(rank, sp)
+    return AxisGroup(SEQ_AXIS, sp, s, _new_groups(seq_groups(world, sp), d))
+
+
+def data_axis(sp: int, world: Optional[int] = None, rank: Optional[int] = None) -> AxisGroup:
+    """The data axis of the ``[world/sp, sp]`` mesh: one group per seq
+    index (every ``sp``-th rank), over which ZeRO-1 shards its flat state."""
+    world, rank = _checked(sp, world, rank)
+    d, s = mesh_coords(rank, sp)
+    return AxisGroup(DATA_AXIS, world // sp, d, _new_groups(data_groups(world, sp), s))
+
+
+def seq_mesh(sp: int, world: Optional[int] = None, rank: Optional[int] = None) -> Mesh:
+    """The ``[world/sp, sp]`` mesh, both axes with their groups (the seq
+    groups created first). Without a process group (a world of one) both
+    axes have size 1 and no group."""
+    seq = seq_axis(sp, world, rank)
+    return Mesh(data_axis(sp, world, rank), seq)
+
+
+def axis_intra_host(groups, ranks_per_host: int) -> bool:
+    """True iff each rank group of ``groups`` lies on one host, the hosts
+    holding ``ranks_per_host`` consecutive ranks each (``torchrun``'s
+    ``LOCAL_WORLD_SIZE``): the counterpart of ``model_axes_intra_host``,
+    whose collectives then never leave a host's links."""
+    per = max(int(ranks_per_host), 1)
+    return all(len({r // per for r in ranks}) <= 1 for ranks in groups)
+
+
+def ranks_per_host(device="cuda") -> int:
+    """Ranks on one host: ``LOCAL_WORLD_SIZE`` as ``torchrun`` sets it, else
+    the cards visible here (one rank a card), else the whole world (the
+    CPU ranks of one host)."""
+    local = _env_int("LOCAL_WORLD_SIZE", None)
+    if local:
+        return local
+    if torch.device(device).type == "cuda":
+        return max(torch.cuda.device_count(), 1)
+    return process_count()

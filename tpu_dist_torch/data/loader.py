@@ -5,7 +5,9 @@
   the sampler's indices in batches of ``batch_size`` (the per-rank
   batch), a last partial batch padded with wrap-around samples from the
   start of the rank's epoch stream, and each batch's augmentation seeded
-  by ``np.random.default_rng((seed, epoch, shard_id, batch))``.
+  by ``np.random.default_rng((seed, epoch, shard_id, batch))``, the
+  sampler's shard: the rank, or under sequence parallelism the data
+  index, so every rank of a seq group draws the same examples and crops.
 * :meth:`DataLoader.iter_from` starts the epoch at a given batch (the
   exact mid-epoch resume); ``iter(loader)`` is ``iter_from(0)``.
 * :meth:`DataLoader.replay_world` (the port's own): for the rest of an

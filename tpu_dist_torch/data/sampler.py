@@ -13,7 +13,8 @@ as the reference uses it (``distributed.py:70,74,81``):
   ``distributed_gradient_accumulation.py:71``).
 
 In the port one process drives one card, so a shard is a rank of the
-process group.
+process group; under sequence parallelism it is a data index, the ranks
+of one seq group sharing it (``train/trainer.py``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Vision Transformer: the port's counterpart of ``tpu_dist/nn/vit.py``
-(``ViTDef`` on its single-device path, ``tp_block_forward`` with no
-tensor or sequence parallelism).
+(``ViTDef`` on its single-device and sequence-parallel paths,
+``tp_block_forward`` with no tensor parallelism).
 
 Layout and numerics follow the JAX model exactly, so weights carried by
 :mod:`tpu_dist_torch.bridge` give the same logits:
@@ -16,6 +16,17 @@ Layout and numerics follow the JAX model exactly, so weights carried by
   error.
 
 Input is NHWC ``[B, H, W, 3]`` float images; the output is the logits.
+
+With a seq group (``seq=``, :class:`tpu_dist_torch.comm.mesh.AxisGroup`)
+the forward is the JAX ``apply``'s ``seq_axis`` branch: the images arrive
+the same on every rank of the group, each rank keeps its contiguous chunk
+of the patch tokens (or takes ``tokens=`` already cut, with ``pos_offset``
+the global index of its first token) and the matching rows of the
+position table, every block's attention runs sequence-parallel
+(``sp_mode``), and the pooled tokens are averaged over the group. That
+average is a differentiable sum (its backward sums the cotangent, the
+transpose of JAX's ``pmean``), so each rank's gradients are those of a full
+replica of the loss and the step means them over the group.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_dist_torch import resolve_device
+from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn import attention as attn_lib
 
 
@@ -73,12 +85,12 @@ class Block(nn.Module):
         self.mlp1 = nn.Linear(dim, mlp_ratio * dim)
         self.mlp2 = nn.Linear(mlp_ratio * dim, dim)
 
-    def forward(self, t, attn_impl: str):
+    def forward(self, t, attn_impl: str, seq=None, sp_mode: str = "ring"):
         b, s, dim = t.shape
         h_dim = dim // self.heads
         qkv = _dense(self.qkv, _ln(self.ln1, t)).reshape(b, s, self.heads, 3, h_dim)
         q, k, v = (qkv[:, :, :, i, :] for i in range(3))
-        o = attn_lib.attention(q, k, v, impl=attn_impl)
+        o = attn_lib.attention(q, k, v, impl=attn_impl, seq=seq, sp_mode=sp_mode)
         t = t + _dense(self.proj, o.reshape(b, s, dim), bias=False) + self.proj.bias.to(t.dtype)
         y = F.gelu(_dense(self.mlp1, _ln(self.ln2, t)), approximate="tanh")
         return t + _dense(self.mlp2, y, bias=False) + self.mlp2.bias.to(t.dtype)
@@ -133,13 +145,39 @@ class ViT(nn.Module):
                 mod.bias.zero_()
         self.pos.copy_(torch.randn(self.pos.shape, generator=gen) * 0.02)
 
-    def forward(self, x):
-        t = _dense(self.patch, patchify(x, self.patch_size))
-        check_pos_capacity(t.shape[1], self.pos, self.image_size, self.patch_size)
-        t = t + self.pos[: t.shape[1]].to(t.dtype)[None]
+    def forward(self, x=None, *, seq=None, sp_mode: str = "ring", tokens=None,
+                pos_offset: int = 0):
+        """Logits of images ``x`` [B, H, W, 3], or of patch ``tokens`` [B,
+        S_local, patch_dim] already cut for this rank of ``seq`` (module
+        docstring)."""
+        if tokens is None:
+            tokens = patchify(x, self.patch_size)
+            if seq is not None:
+                # the images arrived the same on every rank of the group:
+                # each keeps its contiguous token chunk
+                if tokens.shape[1] % seq.size:
+                    raise ValueError(
+                        f"sequence of {tokens.shape[1]} patch tokens does not "
+                        f"divide over {seq.size} sequence-parallel devices — "
+                        f"tokens would be silently dropped"
+                    )
+                s_loc = tokens.shape[1] // seq.size
+                tokens = tokens[:, seq.index * s_loc:(seq.index + 1) * s_loc]
+        t = _dense(self.patch, tokens)
+        if seq is not None:
+            start = seq.index * t.shape[1] + pos_offset
+            pos = self.pos[start:start + t.shape[1]]
+        else:
+            check_pos_capacity(t.shape[1], self.pos, self.image_size, self.patch_size)
+            pos = self.pos[: t.shape[1]]  # smaller inputs use the leading rows
+        t = t + pos.to(t.dtype)[None]
         for blk in self.blocks:
-            t = blk(t, self.attn_impl)
+            t = blk(t, self.attn_impl, seq, sp_mode)
         pooled = _ln(self.ln_f, t).mean(dim=1)
+        if seq is not None:
+            # the token mean over the whole (sharded) sequence
+            pooled = collectives.sum_across_ranks(pooled, group=seq.group,
+                                                  kind="seq_pool") / seq.size
         return _dense(self.head, pooled)
 
 

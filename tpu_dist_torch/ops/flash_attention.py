@@ -30,16 +30,22 @@ inputs keep f32-accurate kernels, and their plain versions round nothing.
 The kernel wrappers are not differentiable themselves: with grad enabled
 they refuse a tensor that requires grad, and :func:`flash_attention` is
 the differentiable entry point.
+
+:func:`ring_flash_attention` is ``_ring_flash`` (``ring_flash_attention``
+of the JAX package): the three kernels composed around a K/V ring over a
+seq group, for sequence parallelism (the section at the end of this
+module). It has no kernel of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.ops import _build
 
@@ -397,4 +403,236 @@ def flash_attention(q, k, v, *, causal: bool = False):
         return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
     out3 = _FlashAttention.apply(to3(q), to3(k), to3(v), causal)
+    return out3.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+# -- the ring composition (sequence parallelism) ---------------------------------
+#
+# ``_ring_flash`` of the JAX package (``_ring_flash_fwd_impl``,
+# ``_ring_flash_bwd``): kernels #1-#3 around a K/V ring, so the ring tiles
+# the sequence across ranks and the kernels tile each rank's block. Under
+# the ring, causal masking is block-structured: at a rotation the
+# ``(my, kv_idx)`` pair is fully unmasked (``kv_idx < my``), the diagonal
+# (``kv_idx == my``: the global offsets cancel and the kernels' relative
+# causal mask is exactly right) or fully masked (``kv_idx > my``: nothing
+# is launched). The forward's partials are f32 (``out_dtype=f32``) and merge
+# by their ``(m, l)`` in f32, from JAX's finite ``NEG_INF`` (a literal -inf
+# would give ``exp(-inf - -inf)`` = NaN). The backward computes ``delta``
+# once from the global ``o`` and ``do``; each rotation runs the dK/dV and dQ
+# kernels with it, the global ``(m, l)`` and f32 gradients; dQ accumulates
+# at home, and the f32 dK/dV accumulators ride the ring with their K/V
+# block and arrive home after ``n`` rotations.
+#
+# The bodies of one rotation (:func:`ring_fwd_rotation`,
+# :func:`ring_bwd_rotation`) are plain functions of their tensors. One
+# schedule (``_ring_fwd``, ``_ring_bwd``) loops them over a list of local
+# ranks and a pluggable rotation: the P2P ring (:func:`ring_flash_fwd`,
+# :func:`ring_flash_bwd`) is one local rank and ``collectives.rotate``, the
+# one-process lockstep ring (:func:`ring_flash_lockstep`) all ``n`` ranks
+# and a shift of the list. Both take ``ops``: the kernels
+# (:data:`KERNEL_OPS`, whose wrappers take the plain versions for CPU
+# tensors) or the plain versions everywhere (:data:`PLAIN_OPS`, the
+# composition's plain version).
+
+
+class RingOps(NamedTuple):
+    """The three passes a rotation calls: forward, dK/dV, dQ."""
+
+    fwd: Callable
+    dkdv: Callable
+    dq: Callable
+
+
+KERNEL_OPS = RingOps(flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+PLAIN_OPS = RingOps(flash_fwd_reference, flash_bwd_dkdv_reference, flash_bwd_dq_reference)
+
+
+def ring_case(my: int, kv_idx: int, causal: bool) -> str:
+    """What rank ``my`` computes against the K/V block of rank ``kv_idx``:
+    ``"full"`` (no mask), ``"diag"`` (the kernels' causal mask) or
+    ``"masked"`` (nothing: every key lies after every query)."""
+    if not causal or kv_idx < my:
+        return "full"
+    return "diag" if kv_idx == my else "masked"
+
+
+def ring_fwd_init(q3) -> tuple:
+    """The merge's start ``(m, l, acc)``: ``NEG_INF``, 0, 0, all f32."""
+    bh, s, d = q3.shape
+    return (torch.full((bh, s), NEG_INF, dtype=torch.float32, device=q3.device),
+            torch.zeros((bh, s), dtype=torch.float32, device=q3.device),
+            torch.zeros((bh, s, d), dtype=torch.float32, device=q3.device))
+
+
+def ring_fwd_rotation(q3, kk, vv, case: str, m, l, acc, ops: RingOps = KERNEL_OPS) -> tuple:
+    """One rotation's forward: the f32 partial ``(out_j, m_j, l_j)`` of
+    ``q3`` against the block ``(kk, vv)`` as ``case`` says, merged into the
+    running ``(m, l, acc)``; returns the new ones. A ``"masked"`` rotation
+    launches nothing (its merge would leave the running stats as they
+    are)."""
+    if case == "masked":
+        return m, l, acc
+    out_j, m_j, l_j = ops.fwd(q3, kk, vv, case == "diag", out_dtype=torch.float32)
+    m_new = torch.maximum(m, m_j)
+    corr = torch.exp(m - m_new)
+    corr_j = torch.exp(m_j - m_new)
+    acc = acc * corr[..., None] + out_j * (l_j * corr_j)[..., None]
+    return m_new, l * corr + l_j * corr_j, acc
+
+
+def ring_fwd_finish(q3, m, l, acc) -> tuple:
+    """``(out, m, l)`` after the last rotation: ``acc / max(l, 1e-30)`` in
+    q's dtype, and the global ``(m, l)`` the backward takes."""
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q3.dtype), m, l
+
+
+def ring_bwd_init(q3, k3) -> tuple:
+    """The f32 accumulators ``(dk, dv, dq)`` at 0."""
+    return (torch.zeros(k3.shape, dtype=torch.float32, device=k3.device),
+            torch.zeros(k3.shape, dtype=torch.float32, device=k3.device),
+            torch.zeros(q3.shape, dtype=torch.float32, device=q3.device))
+
+
+def ring_bwd_rotation(q3, kk, vv, do3, m, l, delta, case: str, dka, dva, dq,
+                      ops: RingOps = KERNEL_OPS) -> tuple:
+    """One rotation's backward: the dK/dV and dQ passes of ``q3`` against
+    ``(kk, vv)`` with the global ``(m, l)`` and ``delta``, in f32, added to
+    the block's ``(dka, dva)`` and the home ``dq``, which it returns. A
+    ``"masked"`` rotation launches nothing."""
+    if case == "masked":
+        return dka, dva, dq
+    causal = case == "diag"
+    dk_j, dv_j = ops.dkdv(q3, kk, vv, do3, m, l, delta, causal, torch.float32)
+    dq_j = ops.dq(q3, kk, vv, do3, m, l, delta, causal, torch.float32)
+    return dka + dk_j, dva + dv_j, dq + dq_j
+
+
+def ring_bwd_finish(q3, k3, v3, dka, dva, dq) -> tuple:
+    """``(dq, dk, dv)`` in the inputs' dtypes."""
+    return dq.to(q3.dtype), dka.to(k3.dtype), dva.to(v3.dtype)
+
+
+def _ring_fwd(qs, ks, vs, mys, n: int, rotate, causal: bool, ops: RingOps) -> list:
+    """The ring forward of the local ranks ``mys`` (their ``[BH, S/n, D]``
+    blocks ``qs, ks, vs``) on a ring of ``n``: ``(out, m, l)`` per local
+    rank. ``rotate(blocks, kind)`` hands each local rank the tuple of the
+    rank before it on the ring. The K/V blocks rotate ``n - 1`` times (the
+    last block needs no further trip)."""
+    stats = [ring_fwd_init(q) for q in qs]
+    kv = list(zip(ks, vs))
+    for j in range(n):
+        stats = [ring_fwd_rotation(q, kk, vv, ring_case(my, (my - j) % n, causal), *st, ops)
+                 for q, (kk, vv), my, st in zip(qs, kv, mys, stats)]
+        if j < n - 1:
+            kv = rotate(kv, "ring_kv")
+    return [ring_fwd_finish(q, *st) for q, st in zip(qs, stats)]
+
+
+def _ring_bwd(qs, ks, vs, outs, ms, ls, dos, mys, n: int, rotate, causal: bool,
+              ops: RingOps) -> list:
+    """The ring backward of the local ranks ``mys``: ``(dq, dk, dv)`` per
+    local rank. The f32 dK/dV accumulators ride the ring with their K/V
+    block, ``n`` trips (the last one home, alone)."""
+    dos = [t.contiguous() for t in dos]
+    deltas = [_delta(do, o) for do, o in zip(dos, outs)]
+    acc = [ring_bwd_init(q, k) for q, k in zip(qs, ks)]
+    kv = list(zip(ks, vs))
+    for j in range(n):
+        acc = [ring_bwd_rotation(q, kk, vv, do, m, l, delta, ring_case(my, (my - j) % n, causal),
+                                 *a, ops)
+               for q, (kk, vv), do, m, l, delta, my, a in zip(qs, kv, dos, ms, ls, deltas, mys,
+                                                              acc)]
+        if j < n - 1:
+            moved = rotate([(kk, vv, dka, dva) for (kk, vv), (dka, dva, _) in zip(kv, acc)],
+                           "ring_kv_grad")
+            kv = [t[:2] for t in moved]
+        else:
+            moved = rotate([a[:2] for a in acc], "ring_kv_grad")
+        acc = [(*t[-2:], a[2]) for t, a in zip(moved, acc)]
+    return [ring_bwd_finish(q, k, v, *a) for q, k, v, a in zip(qs, ks, vs, acc)]
+
+
+def _p2p_rotate(seq):
+    """The ring of ``seq``'s ranks, one local rank: its tuple goes to the
+    next rank in one ``batch_isend_irecv`` (:func:`collectives.rotate`)."""
+    def rotate(blocks, kind):
+        return [tuple(collectives.rotate(list(blocks[0]), group=seq.group, kind=kind))]
+    return rotate
+
+
+def ring_flash_fwd(q3, k3, v3, seq, causal: bool = False, ops: RingOps = KERNEL_OPS) -> tuple:
+    """The ring forward on this rank's ``[BH, S/n, D]`` block, ``seq`` its
+    seq group (``.size``, ``.index``, ``.group``): ``(out, m, l)``."""
+    return _ring_fwd([q3], [k3], [v3], [seq.index], seq.size, _p2p_rotate(seq), causal, ops)[0]
+
+
+def ring_flash_bwd(q3, k3, v3, o3, m, l, do3, seq, causal: bool = False,
+                   ops: RingOps = KERNEL_OPS) -> tuple:
+    """The ring backward: ``(dq, dk, dv)`` of this rank's block."""
+    return _ring_bwd([q3], [k3], [v3], [o3], [m], [l], [do3], [seq.index], seq.size,
+                     _p2p_rotate(seq), causal, ops)[0]
+
+
+def ring_flash_lockstep(qs, ks, vs, dos, causal: bool = False,
+                        ops: RingOps = KERNEL_OPS) -> dict:
+    """The composition for all ``n`` ranks of a ring in one process, round
+    by round: each round runs every rank's rotation body, then hands each
+    rank's K/V (and dK/dV) block to the next rank in place of the P2P, on
+    the schedule of :func:`ring_flash_fwd` and :func:`ring_flash_bwd`.
+    ``qs, ks, vs, dos`` are the ranks' ``[BH, S/n, D]`` blocks in ring
+    order. Returns per rank ``out``, ``m``, ``l``, ``dq``, ``dk``, ``dv``:
+    what the P2P ring of ``n`` ranks gives, bit for bit."""
+    n = len(qs)
+
+    def shift(blocks, kind):  # rank p receives rank p-1's blocks
+        return [blocks[(p - 1) % n] for p in range(n)]
+
+    fwd = _ring_fwd(qs, ks, vs, range(n), n, shift, causal, ops)
+    outs, ms, ls = zip(*fwd)
+    bwd = _ring_bwd(qs, ks, vs, outs, ms, ls, dos, range(n), n, shift, causal, ops)
+    out = {"out": list(outs), "m": list(ms), "l": list(ls)}
+    out.update(zip(("dq", "dk", "dv"), map(list, zip(*bwd))))
+    return out
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """``_ring_flash``'s ``custom_vjp``. While a step's cost is counted,
+    each direction books what the plain ring chain
+    (``nn/attention.py::ring_attention``) counts, :func:`attention_flops`
+    of every one of the ``n`` rotations (twice in the backward), masked
+    ones included, so ``flops_per_step`` does not depend on ``attn_impl``
+    under sequence parallelism either."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, seq, causal):
+        with costmodel.hidden():
+            out, m, l = ring_flash_fwd(q3, k3, v3, seq, causal)
+        costmodel.count_kernel(seq.size * attention_flops(q3, k3), q3, k3, v3, out, m, l)
+        ctx.save_for_backward(q3, k3, v3, out, m, l)
+        ctx.seq, ctx.causal = seq, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, out, m, l = ctx.saved_tensors
+        with costmodel.hidden():
+            dq, dk, dv = ring_flash_bwd(q3, k3, v3, out, m, l, do3, ctx.seq, ctx.causal)
+        costmodel.count_kernel(2 * ctx.seq.size * attention_flops(q3, k3), q3, k3, v3, out, m,
+                               l, do3, dq, dk, dv)
+        return dq, dk, dv, None, None
+
+
+def ring_flash_attention(q, k, v, seq, *, causal: bool = False):
+    """Sequence-parallel flash attention on this rank's ``[B, S/n, H, D]``
+    shard of a sequence laid over ``seq`` (the seq group: ``.size``,
+    ``.index``, ``.group``; rank ``i`` holds positions ``[i·S/n,
+    (i+1)·S/n)``), drop-in for
+    :func:`tpu_dist_torch.nn.attention.ring_attention` with each rotation's
+    tile computed by the kernels. Differentiable."""
+    b, s, h, d = q.shape
+
+    def to3(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+    out3 = _RingFlashAttention.apply(to3(q), to3(k), to3(v), seq, causal)
     return out3.reshape(b, h, s, d).permute(0, 2, 1, 3)

@@ -54,6 +54,17 @@ data-parallel (DP) family, one process per device.
   SIGTERM (:mod:`tpu_dist_torch.resilience.preemption`) when they built
   the step's metrics, so every rank reads the same stop decision at the
   same step boundary with no collective of its own.
+* ``seq_axis`` (the seq axis of a ``[world/sp, sp]`` mesh,
+  :func:`tpu_dist_torch.comm.mesh.seq_axis`) makes it the DP x SP step of
+  the JAX ``make_train_step(seq_axis=...)``: the batch is sharded over the
+  data axis and the same on every rank of a seq group, and the model runs
+  sequence-parallel attention (``sp_mode`` ring or ulysses). Each seq
+  rank's gradients are a full-loss replica's, so the mean over the data
+  axis and then the seq axis that JAX takes is the one mean over every
+  rank the step already takes. Under ZeRO-1 (``axis``, the data axis,
+  whose ranks hold the flat shards) they are meant over the seq axis
+  first, then reduce-scattered over the data axis. The quantized wires
+  refuse a seq axis, as in JAX.
 * ``device_metrics`` computes the training-health scalars
   (:func:`~tpu_dist_torch.obs.device_stats.compute_device_stats`:
   ``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite_grads``)
@@ -75,8 +86,9 @@ Without a process group every collective is the identity (a world of one
 process). The step updates the model, its BN statistics, its optimizer
 state and its residuals in place (the JAX step's ``donate=True``) and
 returns a state with ``step + 1``. The JAX step's walls stand: int8 with
-``pmean_fusion="per_leaf"``, and ``rs_ag_chunks > 1`` off the
-non-quantized ZeRO-1 path, raise ``ValueError``. Options whose subsystem
+``pmean_fusion="per_leaf"`` or a seq axis, ``rs_ag_chunks > 1`` off the
+non-quantized ZeRO-1 path, and a seq axis with an expert or pipeline axis,
+raise ``ValueError``. Options whose subsystem
 is not ported raise :class:`NotPortedError`, which names the flag and the
 ROADMAP queue that owns it.
 """
@@ -112,7 +124,6 @@ DEVICE_METRICS_SCOPE = ("device_metrics is scoped to the replicated-param paths 
 
 # option -> what it needs and where in ROADMAP.md that is queued
 WAITS_FOR = {
-    "seq_axis": "Queue A 3 (sequence parallelism)",
     "tp_axis": "Queue A 6 (tensor parallelism, parallel/tensor.py)",
     "ep_axis": "Queue A 6 (expert parallelism, parallel/expert.py)",
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
@@ -134,22 +145,42 @@ class NotPortedError(NotImplementedError):
 
 
 def _refuse_unported(**options) -> None:
-    defaults = {"seq_axis": None, "tp_axis": None, "ep_axis": None, "pp_axis": None}
     for flag, value in options.items():
-        if value != defaults[flag]:
+        if value is not None:
             raise NotPortedError(flag, value)
+
+
+def check_seq_axis(seq_axis, axis, sp_mode: str, grad_compression: str,
+                   shard_weight_update: bool) -> None:
+    """The JAX step's walls around ``seq_axis``: the quantized wires do not
+    combine with it (``tpu_dist/train/step.py:413-422``), ``sp_mode`` is
+    ring or ulysses, and ZeRO-1 needs the data axis of the same mesh."""
+    if seq_axis is None:
+        return
+    if sp_mode not in ("ring", "ulysses"):
+        raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {sp_mode!r}")
+    if shard_weight_update and axis is None:
+        raise ValueError("shard_weight_update with seq_axis needs axis=, the data axis of the "
+                         "same mesh (tpu_dist_torch.comm.mesh.data_axis)")
+    if grad_compression in QUANTIZED_MODES:
+        # the flat two-stage reduce assumes one reduce axis
+        raise ValueError(
+            f"grad_compression={grad_compression!r} is scoped to the plain data-parallel and "
+            "ZeRO-1 paths; it cannot combine with sp/tp/ep/pp (use grad_compression='bf16' "
+            "there)"
+        )
 
 
 def _to(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, device=device, dtype=dtype)
 
 
-def _flat_all_reduce_mean(tensors, kind: str) -> list:
-    """One all-reduce over the concatenation of ``tensors``, divided by the
-    world size; returns contiguous views of the reduced buffer in their
-    shapes."""
+def _flat_all_reduce_mean(tensors, kind: str, group=None) -> list:
+    """One all-reduce over the concatenation of ``tensors`` in ``group``
+    (every rank by default), divided by its size; returns contiguous views
+    of the reduced buffer in their shapes."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    collectives.all_reduce_(flat, kind=kind).div_(collectives.world_size())
+    collectives.all_reduce_(flat, group=group, kind=kind).div_(collectives.world_size(group))
     return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
@@ -179,6 +210,14 @@ def flat_layout(params, world: Optional[int] = None, rank: Optional[int] = None)
     return FlatLayout(sum(p.numel() for p in _params_of(params)),
                       collectives.world_size() if world is None else int(world),
                       collectives.rank() if rank is None else int(rank))
+
+
+def axis_layout(params, axis=None) -> FlatLayout:
+    """:func:`flat_layout` over the data axis ``axis`` (an
+    :class:`~tpu_dist_torch.comm.mesh.AxisGroup`; None: every rank)."""
+    if axis is None:
+        return flat_layout(params)
+    return flat_layout(params, axis.size, axis.index)
 
 
 def ef_state_host_zeros(params, n: int, *, zero1: bool = False) -> dict:
@@ -246,14 +285,14 @@ def _unravel(flat: torch.Tensor, like) -> list:
     return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
-def _quantized_reduce_scatter_rows(rows: torch.Tensor, key, chunk: int):
-    """The quantized reduce-scatter of ``rows`` ``(n, m)``: quantize, an
-    int8 all-to-all (and one of the f32 scales), a local dequantize-sum.
-    Returns ``(this rank's reduced shard (m,), its dequantized
-    transmission (n, m))``, the second for the error feedback."""
+def _quantized_reduce_scatter_rows(rows: torch.Tensor, key, chunk: int, group=None):
+    """The quantized reduce-scatter of ``rows`` ``(n, m)`` over ``group``:
+    quantize, an int8 all-to-all (and one of the f32 scales), a local
+    dequantize-sum. Returns ``(this rank's reduced shard (m,), its
+    dequantized transmission (n, m))``, the second for the error feedback."""
     q, s = quantize_int8(rows, chunk, key)
-    qt = collectives.all_to_all(q, kind="grad")
-    st = collectives.all_to_all(s, kind="grad_scale")
+    qt = collectives.all_to_all(q, group=group, kind="grad")
+    st = collectives.all_to_all(s, group=group, kind="grad_scale")
     reduced = torch.sum(dequantize_int8(qt, st, chunk), dim=0)
     return reduced, dequantize_int8(q, s, chunk)
 
@@ -316,14 +355,19 @@ class _ZeroOne:
     """ZeRO-1 weight-update sharding for one model, the JAX step's
     ``_sharded_update``: the persistent buffers of this rank's shard (the
     parameters and the reduced gradients, ``layout.chunk`` each, so the
-    fused SGD kernel's launch plan holds between steps) and the update."""
+    fused SGD kernel's launch plan holds between steps) and the update,
+    over the data axis ``axis`` (None: every rank). With a ``seq_group``
+    the gradients are first meant over it (on the wire), as the JAX step
+    does before its reduce-scatter."""
 
     def __init__(self, optimizer, model, *, mode: str, q_chunk: int, rs_ag_chunks: int,
-                 clip: float):
+                 clip: float, axis=None, seq_group=None):
         self.model, self.optimizer, self.mode, self.q_chunk = model, optimizer, mode, q_chunk
         self.rs_ag_chunks, self.clip = rs_ag_chunks, clip
+        self.group = axis.group if axis is not None else None
+        self.seq_group = seq_group
         params = list(model.parameters())
-        self.layout = lay = flat_layout(params)
+        self.layout = lay = axis_layout(params, axis)
         dev = params[0].device
         self.p_shard = torch.zeros(lay.chunk, dtype=torch.float32, device=dev)
         self.g_shard = torch.zeros(lay.chunk, dtype=torch.float32, device=dev)
@@ -337,14 +381,19 @@ class _ZeroOne:
             self.wd = wd[lay.lo:lay.lo + lay.chunk].to(dev)
 
     def update(self, state: TrainState, params: list, grads: list, lr, step) -> None:
-        lay, mode = self.layout, self.mode
+        lay, mode, group = self.layout, self.mode, self.group
         n, L, chunk = lay.world, lay.L, lay.chunk
+        if self.seq_group is not None:
+            # each seq rank holds a full-loss replica's gradients: their
+            # mean over the group is the gradient
+            grads = [grad_unwire(r, g, mode) for r, g in zip(_flat_all_reduce_mean(
+                [grad_wire(g, mode) for g in grads], "grad_seq", self.seq_group), grads)]
         x = torch.nn.functional.pad(_ravel(grads) / n, (0, lay.padded - L))
         if mode in QUANTIZED_MODES:
             if mode == "int8_ef":
                 x = x + state.ef["r1"]
             g, sent = _quantized_reduce_scatter_rows(x.view(n, chunk), quant_key(step, lay.rank),
-                                                     self.q_chunk)
+                                                     self.q_chunk, group)
             if mode == "int8_ef":
                 state.ef["r1"].copy_(x - sent.reshape(-1))
             self.g_shard.copy_(g)
@@ -353,14 +402,16 @@ class _ZeroOne:
             # is rows[p, c0:c1], so the pieces concatenate to this rank's shard
             rows = grad_wire(x, mode).view(n, chunk)
             self.g_shard.copy_(torch.cat([
-                collectives.reduce_scatter(rows[:, c0:c1].reshape(-1), kind="grad")
+                collectives.reduce_scatter(rows[:, c0:c1].reshape(-1), group=group, kind="grad")
                 for c0, c1 in self.bounds]))
         elif mode == "bf16":
-            self.g_shard.copy_(collectives.reduce_scatter(grad_wire(x, mode), kind="grad"))
+            self.g_shard.copy_(collectives.reduce_scatter(grad_wire(x, mode), group=group,
+                                                          kind="grad"))
         else:
-            collectives.reduce_scatter(x, kind="grad", out=self.g_shard)
+            collectives.reduce_scatter(x, group=group, kind="grad", out=self.g_shard)
         if self.clip > 0.0:  # the global norm from the shards' norms
-            sq = collectives.all_reduce_(torch.sum(torch.square(self.g_shard)), kind="clip")
+            sq = collectives.all_reduce_(torch.sum(torch.square(self.g_shard)), group=group,
+                                         kind="clip")
             self.g_shard.mul_(torch.clamp(self.clip / torch.clamp(torch.sqrt(sq), min=1e-12),
                                           max=1.0))
         with torch.no_grad():
@@ -374,10 +425,11 @@ class _ZeroOne:
         self.optimizer.update([self.g_shard], view, [self.p_shard], lr, **kw)
         if self.rs_ag_chunks > 1:
             full = torch.cat([
-                collectives.all_gather_flat(self.p_shard[c0:c1], kind="params").view(n, c1 - c0)
+                collectives.all_gather_flat(self.p_shard[c0:c1], group=group,
+                                            kind="params").view(n, c1 - c0)
                 for c0, c1 in self.bounds], dim=1).reshape(-1)
         else:
-            full = collectives.all_gather_flat(self.p_shard, kind="params")
+            full = collectives.all_gather_flat(self.p_shard, group=group, kind="params")
         with torch.no_grad():
             for p, v in zip(params, _unravel(full[:L], params)):
                 p.copy_(v)
@@ -399,6 +451,9 @@ def make_step_body(
     quant_chunk: Optional[int] = None,
     rs_ag_chunks: int = 1,
     device_metrics: bool = False,
+    axis=None,
+    seq_axis=None,
+    sp_mode: str = "ring",
 ):
     """Build ``body(state, images, labels, lr, step=None) -> sums``: the
     step on tensors already on the model's device. Forward and backward
@@ -416,7 +471,18 @@ def make_step_body(
     ``step``, the step count that keys the int8 rounding (default
     ``state.step``). ``remat`` recomputes each chunk's forward in its
     backward. ``device_metrics`` appends the four health scalars to the
-    reduced sums (:func:`metrics_from_sums` names them)."""
+    reduced sums (:func:`metrics_from_sums` names them).
+
+    ``seq_axis`` (an :class:`~tpu_dist_torch.comm.mesh.AxisGroup`) runs
+    the model sequence-parallel (``sp_mode``) on the batch, which is the
+    same on every rank of the seq group; the gradient and metric reduces
+    stay over every rank, whose seq replicas hold the same loss, hits and
+    gradients. ``axis`` is the data axis ZeRO-1 shards over (None: every
+    rank); under a seq axis ZeRO-1 means the gradients over the seq group
+    before its reduce-scatter over ``axis``."""
+    validate_grad_compression(grad_compression)
+    quantized = grad_compression in QUANTIZED_MODES
+    check_seq_axis(seq_axis, axis, sp_mode, grad_compression, shard_weight_update)
     if device_metrics and shard_weight_update:
         # the health scalars are free only where the reduced gradients and
         # the parameters are the same on every rank; under ZeRO-1 they
@@ -424,8 +490,6 @@ def make_step_body(
         raise ValueError(DEVICE_METRICS_SCOPE)
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
-    validate_grad_compression(grad_compression)
-    quantized = grad_compression in QUANTIZED_MODES
     if pmean_fusion == "per_leaf" and (quantized or shard_weight_update):
         raise ValueError("pmean_fusion='per_leaf' is scoped to the non-quantized data-parallel "
                          "reduce; it cannot combine with grad_compression int8/ep/"
@@ -441,6 +505,8 @@ def make_step_body(
     if K < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     zero = {}  # the _ZeroOne of the model the body last saw
+    seq_group = seq_axis.group if seq_axis is not None else None
+    model_kw = {"seq": seq_axis, "sp_mode": sp_mode} if seq_axis is not None else {}
 
     def reduce_grads(grads, state, step):
         """The DDP gradient reduce on the ``grad_compression`` wire: the
@@ -467,13 +533,13 @@ def make_step_body(
         if z is None or z.model is not state.params:
             opt = state.opt_state
             mom = opt["mu"] if isinstance(opt, dict) else opt
-            lay = flat_layout(params)
+            lay = axis_layout(params, axis)
             if not isinstance(mom, torch.Tensor) or tuple(mom.shape) != (lay.chunk,):
                 raise ValueError("shard_weight_update needs this rank's flat optimizer state "
                                  f"({lay.chunk} elements: init_sharded_opt_state)")
             z = zero["z"] = _ZeroOne(optimizer, state.params, mode=grad_compression,
                                      q_chunk=q_chunk, rs_ag_chunks=rs_ag_chunks,
-                                     clip=grad_clip_norm)
+                                     clip=grad_clip_norm, axis=axis, seq_group=seq_group)
         return z
 
     def body(state: TrainState, images, labels, lr, step=None) -> torch.Tensor:
@@ -484,7 +550,7 @@ def make_step_body(
             raise ValueError(f"batch {images.shape[0]} does not split into {K} chunks")
         n = images.shape[0] // K
         # BatchNorm models take the SyncBN group; the ViT has none
-        fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else {}
+        fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else dict(model_kw)
         model.train()
 
         def forward_loss(x, y):
@@ -572,7 +638,7 @@ def make_train_step(
     label_smoothing: float = 0.0,
     grad_clip_norm: float = 0.0,
     shard_weight_update: bool = False,
-    seq_axis: Optional[str] = None,
+    seq_axis=None,
     tp_axis: Optional[str] = None,
     ep_axis: Optional[str] = None,
     pp_axis: Optional[str] = None,
@@ -582,6 +648,8 @@ def make_train_step(
     pmean_fusion: str = "fused",
     rs_ag_chunks: int = 1,
     device_metrics: bool = False,
+    axis=None,
+    sp_mode: str = "ring",
 ):
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
@@ -592,17 +660,34 @@ def make_train_step(
     is this rank's flat shard (:func:`init_sharded_opt_state`); with
     ``grad_compression="int8_ef"`` ``state.ef`` holds this rank's
     residuals (:func:`init_ef_state`). ``device_metrics`` adds the health
-    scalars (:data:`DEVICE_STATS`) to the metrics."""
+    scalars (:data:`DEVICE_STATS`) to the metrics.
+
+    ``seq_axis`` is the seq axis of a DP x SP mesh
+    (:func:`tpu_dist_torch.comm.mesh.seq_axis`), ``sp_mode`` the
+    sequence-parallel attention (:func:`make_step_body`); ``images`` and
+    ``labels`` are then this data row's batch, the same on every rank of
+    the seq group. With ZeRO-1, ``axis`` is the mesh's data axis
+    (:func:`tpu_dist_torch.comm.mesh.data_axis`), over which the flat state
+    is sharded (``axis_layout``)."""
     validate_grad_compression(grad_compression)
     if device_metrics and any(a is not None for a in (tp_axis, ep_axis, pp_axis)):
         raise ValueError(DEVICE_METRICS_SCOPE)  # make_step_body refuses ZeRO-1
-    _refuse_unported(seq_axis=seq_axis, tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis)
+    if seq_axis is not None and ep_axis is not None:
+        # the MoE dispatch and the ring would thread one token dimension
+        # through two layouts (tpu_dist/train/step.py:501-514)
+        raise ValueError("ep_axis is incompatible with shard_weight_update / seq_axis / "
+                         "tp_axis (structural; see docstring)")
+    if seq_axis is not None and pp_axis is not None:
+        raise ValueError("pp_axis is incompatible with shard_weight_update / seq_axis / "
+                         "ep_axis (structural; see docstring)")
+    _refuse_unported(tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis)
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
                           grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
                           remat=remat, shard_weight_update=shard_weight_update,
                           grad_compression=grad_compression, quant_chunk=quant_chunk,
-                          rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics)
+                          rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics,
+                          axis=axis, seq_axis=seq_axis, sp_mode=sp_mode)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device

@@ -26,6 +26,19 @@ loaders augment through the native C++ pipeline
 the reason). Only rank 0 prints. The per-epoch dict has the JAX trainer's
 keys.
 
+``sp > 1`` lays the world out as a ``[world/sp, sp]`` mesh and trains the
+ViT sequence-parallel over its seq groups
+(:func:`~tpu_dist_torch.comm.mesh.seq_axis`; ``sp_mode`` ring or
+ulysses), as the JAX trainer does:
+the train batch is sharded over the data axis only (``batch_size //
+(world/sp)`` a rank), and its stream, examples and crops, is keyed by the
+data index, so every rank of a seq group draws the same batch; evaluation
+is sharded over data x seq with no sequence parallelism. The JAX
+trainer's refusals stand (:func:`check_sp_config`, :func:`check_sp_model`);
+ZeRO-1 under ``sp`` waits for its checkpoint gather
+(:data:`SP_ZERO1_QUEUE`). A checkpoint's ``dp`` and a mid-epoch snapshot's
+process count are the data extent, the sampler's shard count.
+
 Checkpoint / resume, preemption and the history are the JAX trainer's:
 
 * ``ckpt_dir`` takes a plain-format checkpoint (:mod:`tpu_dist_torch.ckpt`,
@@ -194,6 +207,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -236,7 +250,7 @@ from tpu_dist_torch.train import step as step_lib
 from tpu_dist_torch.train.optim import (LAMB, LARS, SGD, AdamW, cosine_lr, linear_scaled_lr,
                                         multistep_lr)
 from tpu_dist_torch.train.state import TrainState
-from tpu_dist_torch.train.step import WAITS_FOR, NotPortedError, make_eval_step, make_train_step
+from tpu_dist_torch.train.step import NotPortedError, make_eval_step, make_train_step
 
 _MODELS = {
     "resnet18": resnet.resnet18, "resnet34": resnet.resnet34, "resnet50": resnet.resnet50,
@@ -251,8 +265,6 @@ _ANALYSIS = "Queue A 6 (the analysis layer)"
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "sp": (1, WAITS_FOR["seq_axis"]),
-    "sp_mode": ("ring", WAITS_FOR["seq_axis"]),
     "tp": (1, _PARALLEL),
     "ep": (1, _PARALLEL),
     "pp": (1, _PARALLEL),
@@ -313,6 +325,72 @@ def refuse_unported(cfg: TrainConfig) -> None:
         value = getattr(cfg, flag)
         if value != default:
             raise NotPortedError(flag, value, queue)
+
+
+# what ZeRO-1 under sp > 1 waits for in the trainer (the step runs it)
+SP_ZERO1_QUEUE = ("Queue A 3 (ZeRO-1 under --sp: the checkpoint's gather of the flat state "
+                  "over the data axis)")
+
+
+def check_sp_config(cfg: TrainConfig) -> None:
+    """The JAX trainer's refusals of ``sp``/``sp_mode`` that need no model
+    (``tpu_dist/train/trainer.py:326-380``): ``sp_mode`` is ring or
+    ulysses; with ``sp > 1`` the fused epoch and fsdp are refused, and
+    ZeRO-1 raises :class:`NotPortedError` (:data:`SP_ZERO1_QUEUE`)."""
+    if cfg.sp_mode not in ("ring", "ulysses"):
+        raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {cfg.sp_mode!r}")
+    if cfg.sp < 1:
+        raise ValueError(f"sp must be >= 1, got {cfg.sp}")
+    if cfg.sp == 1:
+        return
+    if cfg.fused_epoch:
+        raise ValueError("sp > 1 is not supported with fused_epoch")
+    if cfg.fsdp:
+        raise ValueError(
+            "fsdp composes with --tp (GSPMD spec overlay) but not "
+            "with sp/ep/pp: the ring/all_to_all/pipeline engines "
+            "are shard_map programs, and a leaf cannot be owned by "
+            "both a hand-written collective schedule and the "
+            "GSPMD partitioner"
+        )
+    if cfg.shard_weight_update:
+        raise NotPortedError("shard_weight_update", True, SP_ZERO1_QUEUE)
+
+
+def check_sp_model(cfg: TrainConfig, model, world: int) -> None:
+    """The JAX trainer's refusals of ``sp > 1`` that read the model and the
+    world (``tpu_dist/train/trainer.py:326-370``, and its mesh's ``n %
+    ways``): a model with no seq branch, ulysses with heads that do not
+    divide over ``sp``, patch tokens that do not divide over ``sp``, a world
+    or a batch that does not divide over data x seq. The model's come
+    first, so a world of one rank shows them."""
+    if cfg.sp == 1:
+        return
+    if "seq" not in inspect.signature(model.forward).parameters:
+        raise ValueError(
+            f"model {cfg.model!r} does not support sequence parallelism "
+            f"(no seq in forward); use a ViT model or sp=1"
+        )
+    heads = getattr(model, "heads", None)
+    if cfg.sp_mode == "ulysses" and heads is not None and heads % cfg.sp:
+        raise ValueError(
+            f"sp_mode='ulysses' needs per-shard heads ({heads}) divisible by sp "
+            f"({cfg.sp}); use sp_mode='ring'"
+        )
+    n_tokens = getattr(model, "n_patches", None)
+    if n_tokens is not None and n_tokens % cfg.sp:
+        raise ValueError(
+            f"model has {n_tokens} patch tokens, not divisible by "
+            f"sp={cfg.sp} — tokens would be dropped"
+        )
+    if world % cfg.sp:
+        raise ValueError(f"{world} devices not divisible by sp/tp/ep/pp={cfg.sp}")
+    if cfg.batch_size % world:
+        raise ValueError(
+            f"with sp>1, batch_size {cfg.batch_size} must also divide "
+            f"over the {world} data x seq devices for "
+            f"evaluation sharding"
+        )
 
 
 def refuse_fused_options(cfg: TrainConfig) -> None:
@@ -514,6 +592,7 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self._profile_triggers, self._profile_manual = check_health_options(cfg)
+        check_sp_config(cfg)
         refuse_unported(cfg)
         refuse_fused_options(cfg)
         install_fault_plan(cfg)
@@ -557,6 +636,19 @@ class Trainer:
         seed = cfg.seed if cfg.seed is not None else 0
         seed_cudnn(cfg.seed)
         self.model = build_model(cfg, self.device, seed)
+        check_sp_model(cfg, self.model, world)
+        # the [world/sp, sp] mesh: the train batch is sharded over its data
+        # axis and the same on each seq group's ranks, which the model's
+        # attention joins (the seq axis; no group at sp = 1)
+        self.seq = mesh.seq_axis(cfg.sp) if cfg.sp > 1 else None
+        self.n_data = world // cfg.sp
+        data_index = mesh.mesh_coords(rank, cfg.sp)[0]
+        if self.seq and not mesh.axis_intra_host(
+                mesh.seq_groups(world, cfg.sp), mesh.ranks_per_host(self.device)):
+            # the ring still works across hosts, just slower: warn only
+            rank0_print("WARNING: sequence-parallel axis spans hosts; ring attention "
+                        "will run over the network between hosts instead of the links "
+                        "inside one")
 
         # -- data -----------------------------------------------------------
         self.train_data, self.test_data = _load_data(cfg, world)
@@ -568,15 +660,20 @@ class Trainer:
             )
         if cfg.batch_size % world:
             raise ValueError(f"batch_size {cfg.batch_size} must divide over {world} ranks")
-        # the reference's per-worker batch = global / nprocs (distributed.py:67)
-        self.local_batch = cfg.batch_size // world
+        # the reference's per-worker batch = global / nprocs (distributed.py:67);
+        # under sp the train batch is a data row's, evaluation a rank's
+        self.local_batch = cfg.batch_size // self.n_data
+        self.eval_batch = cfg.batch_size // world
         if self.local_batch % cfg.grad_accu_steps:
             raise ValueError(
                 f"per-rank batch {self.local_batch} must divide by grad_accu_steps="
                 f"{cfg.grad_accu_steps}"
             )
+        # the train stream (its examples and its crops) is keyed by the
+        # data index, so every rank of a seq group draws the same batch;
+        # evaluation shards over data x seq, with no sequence parallelism
         self.train_sampler = DistributedSampler(
-            len(self.train_data[0]), world, rank, shuffle=True, seed=seed,
+            len(self.train_data[0]), self.n_data, data_index, shuffle=True, seed=seed,
             drop_last=cfg.drop_last or cfg.grad_accu_steps > 1,
         )
         self.test_sampler = DistributedSampler(
@@ -596,7 +693,7 @@ class Trainer:
             seed=seed, prefetch=cfg.num_workers,
         )
         self.test_loader = DataLoader(
-            *self.test_data, self.local_batch, self.test_sampler, device=self.device,
+            *self.test_data, self.eval_batch, self.test_sampler, device=self.device,
             gather_transform=functools.partial(native.gather_augment, train=False, **stats),
             seed=seed, prefetch=cfg.num_workers, with_mask=True,
         )
@@ -636,7 +733,7 @@ class Trainer:
             grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion, remat=cfg.remat,
             shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
             quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
-            device_metrics=cfg.device_metrics,
+            device_metrics=cfg.device_metrics, seq_axis=self.seq, sp_mode=cfg.sp_mode,
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype)
         self._fused_runner = self._fused_eval = None
@@ -663,7 +760,7 @@ class Trainer:
         self._chip_kind = costmodel.device_kind(self.device)  # "cpu" on the CPU: no row
         self._peak = costmodel.chip_peak_flops(self._chip_kind)
         img, lbl = self.train_data
-        per_dev = max(cfg.batch_size // world, 1)
+        per_dev = max(self.local_batch, 1)
         self._mem_static = memory_lib.static_ledger(
             **memory_lib.state_sections(self.state),
             batch={"images": memory_lib.Leaf((per_dev,) + tuple(img.shape[1:]), str(img.dtype)),
@@ -832,8 +929,7 @@ class Trainer:
             meta["adamw_decay_mask"] = cfg.adamw_decay_mask
         if self._lr_scale != 1.0:
             meta["lr_scale"] = self._lr_scale
-        meta["elastic"] = ckpt_lib.elastic_stamp(self.n_devices, self.n_devices,
-                                                 self._params_len)
+        meta["elastic"] = ckpt_lib.elastic_stamp(self.n_data, self.n_data, self._params_len)
         return meta
 
     def _mid_epoch_position(self, steps_done: int) -> dict:
@@ -847,7 +943,7 @@ class Trainer:
             "mid_epoch_step": int(steps_done),
             "mid_epoch_batch_size": cfg.batch_size,
             "mid_epoch_seed": cfg.seed or 0,
-            "mid_epoch_procs": self.n_devices,
+            "mid_epoch_procs": self.n_data,
             # the entry offset plus the steps since; the last batch of a
             # drop_last=False epoch is padded: clamp to N
             "mid_epoch_examples": min(
@@ -958,7 +1054,7 @@ class Trainer:
             self._check_ckpt_meta(meta, path)
             # the world-independent leaves load as they are; the flat
             # layouts of another extent are re-laid onto this one
-            remapper = remap_lib.make_remapper(self.model, meta, self.n_devices)
+            remapper = remap_lib.make_remapper(self.model, meta, self.n_data)
             t_restore = time.monotonic()
             try:
                 with spans.span("ckpt/restore_ladder", file=path):
@@ -973,7 +1069,7 @@ class Trainer:
                 counters.inc("resume.resharded")
                 rank0_print(f"=> elastic resume: remapped {len(remapper.used)} dp-extent-"
                             f"dependent leaf(s) from dp={(meta.get('elastic') or {}).get('dp')} "
-                            f"onto dp={self.n_devices} (ZeRO-1/EF flat layouts re-laid)")
+                            f"onto dp={self.n_data} (ZeRO-1/EF flat layouts re-laid)")
             chosen = (path, epoch, meta, flat, bool(remapper.used))
             break
         self._check_ladder_agreement(chosen[1] if chosen is not None else -1)
@@ -983,7 +1079,7 @@ class Trainer:
             return None
         path, epoch, meta, flat, resharded = chosen
         stamp = meta.get("elastic") or {}
-        if isinstance(stamp.get("dp"), int) and stamp["dp"] < self.n_devices:
+        if isinstance(stamp.get("dp"), int) and stamp["dp"] < self.n_data:
             counters.inc("elastic.grows")  # a resume onto a larger world
         resume_step = int(meta.get("mid_epoch_step", 0))
         resume_examples = self._check_mid_epoch(meta, path, resume_step) if resume_step else 0
@@ -999,7 +1095,7 @@ class Trainer:
         self._resume_metrics = meta.get("mid_epoch_metrics") if resume_step else None
         self._state_poisoned = False
         self._progress = (epoch, self._resume_step, not resume_step)
-        self._resumed = {"epoch": epoch, "world": mesh.process_count(), "dp": self.n_devices,
+        self._resumed = {"epoch": epoch, "world": mesh.process_count(), "dp": self.n_data,
                          "resharded": resharded, "prev_dp": stamp.get("dp"),
                          "prev_procs": stamp.get("procs"),
                          "mid_epoch_step": self._resume_step,
@@ -1009,9 +1105,10 @@ class Trainer:
             rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, continuing at step "
                         f"{self._resume_step})")
         elif resume_examples:
+            shards = "data shard(s)" if self.seq else "process(es)"
             rank0_print(f"=> resumed from {path} (mid-epoch {epoch}, elastic: continuing at "
                         f"example offset {resume_examples}, remainder re-partitioned over "
-                        f"{self.n_devices} process(es))")
+                        f"{self.n_data} {shards})")
         else:
             rank0_print(f"=> resumed from {path} (epoch {epoch})")
         return epoch
@@ -1034,7 +1131,7 @@ class Trainer:
                     "the step offset would re-enter the epoch at the wrong data position. "
                     "Resume with the matching value, or from the last clean epoch checkpoint.")
         procs, examples = meta.get("mid_epoch_procs"), meta.get("mid_epoch_examples")
-        same_world = procs is None or int(procs) == self.n_devices
+        same_world = procs is None or int(procs) == self.n_data
         offset_free = examples is None or int(examples) == resume_step * cfg.batch_size
         if same_world and offset_free:
             return 0
