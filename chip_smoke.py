@@ -30,7 +30,8 @@ Phases; any failure exits non-zero and prints no result line:
    kernels against their plain versions at ViT-B/16's [BH, S, D] =
    [768, 196, 64] (batch 64 x 12 heads) in bf16 and f32, and at edge cases
    (causal, S = 5, 77, 196 and 300 with D = 16 to 128, bf16 in with f32
-   gradients, a strided ``do``, each in both dtypes); the forward at the
+   gradients, a strided ``do``, each in both dtypes; phase 16 (c)'s f32
+   [128, 64, 16], causal and not, in both phases); the forward at the
    training shape in bf16; times of each kernel, its plain version and a
    library call (the backward of ``F.scaled_dot_product_attention``), and
    of the forward kernel at the training shape. The fused SGD over
@@ -177,9 +178,11 @@ Phases; any failure exits non-zero and prints no result line:
    (d) The real entry point: ``python -m tpu_dist_torch.cli.train
    --optimizer lars --lr_base_batch 256 --warmup_epochs 1`` at
    ``bench.py:240``'s ResNet-18 shapes (bf16, batch 256, SyncBN), one epoch
-   of 20 steps, without and with ``--remat``: each exits 0, its rank-0
-   start line says ``input=native``, and its history's
-   ``data_stall_frac`` is printed.
+   of 20 steps with ``--remat``: it exits 0, its rank-0 start line says
+   ``input=native``, and its history's ``data_stall_frac`` is printed. (A
+   second child without ``--remat`` was cut to keep the run inside its
+   bound; (a) and (b) run the step with and without remat in this
+   process.)
 8. supervise: the supervised replica, from phase 4's checkpoint
    directory, after every phase that reads torch.profiler (once a few
    CUDA processes of their own have come and gone on the card, this
@@ -334,11 +337,12 @@ Phases; any failure exits non-zero and prints no result line:
    each exits 1 with the JAX trainer's message. ``[health]`` lines: the
    step p50 with and without ``--device_metrics`` and inside and outside
    the capture window, the peak memory with and without, the capture's
-   bytes and split, the read-back's seconds. (a') The golden command with
-   ``--device_metrics`` alone: its losses bit for bit, its step laps beside
-   the golden run's (the flag's own cost, apart from the capture's); and
-   the flag's work a step at ResNet-18's 62 leaves (the parameters' copy
-   and the scalars), device ms with a head start and host us.
+   bytes and split, the read-back's seconds. (a') The flag's work a step
+   at ResNet-18's 62 leaves (the parameters' copy and the scalars), device
+   ms with a head start and host us. (The golden command with
+   ``--device_metrics`` alone, a CUDA child, was cut to keep the run inside
+   its bound: (a) holds the flag's losses to the golden run's, and
+   ``obs/health_cost.py`` measures its cost a step.)
 14. the memory ledger, the cost model and the trace export, after phase 13
    (CUDA children; it reuses phase 11 (a)'s golden run). (a) The golden
    command with ``--memory_check warn --log_file H --trace_file T``: its 20
@@ -352,9 +356,10 @@ Phases; any failure exits non-zero and prints no result line:
    within 1% of 2.888e9 x 256; the chip table's HBM row equal to the
    card's ``total_memory``; T a Chrome trace with the trainer's host
    spans; ``python -m tpu_dist_torch.obs memory H`` and ``export-trace H``
-   exit 0. (b) The command with ``--memory_check refuse --hbm_budget_bytes
-   <static - 1>``: exit non-zero with ``InfeasibleMemoryError`` before any
-   step, no fused SGD launch. (c) A child whose allocator the smoke caps
+   exit 0. (b) ``Trainer`` over the golden command with ``--memory_check
+   refuse --hbm_budget_bytes <static - 1>`` (a's ledger), built in this
+   process, raises ``InfeasibleMemoryError`` at construction with no
+   kernel launched. (c) A child whose allocator the smoke caps
    (``torch.cuda.set_per_process_memory_fraction``, not a flag of the
    program) halfway between (a)'s first-step entry and peak: it dies of
    ``torch.OutOfMemoryError`` in the first step, ``crash_dir`` holds
@@ -392,7 +397,30 @@ Phases; any failure exits non-zero and prints no result line:
    #1-#3 and ``F.scaled_dot_product_attention`` (forward; the whole
    backward) at [96, 4096, 64] bf16, device ms with a head start and their
    bounds. ``[seq]`` lines; the report repeats them.
-16. report: the card's name and power limit, one JSON line of every ported
+16. tensor and expert parallelism, in this process after phase 15. (b),
+   run first: a lockstep TP group of 4 virtual ranks at ViT-B/16's full
+   width (``nn/vit.py::tp_lockstep_forward``: 3 local heads a rank, each
+   block running every shard and summing their partial outputs where
+   ``reduce_from_tp`` would), batch 8, bf16 and f32 (TF32 off): one
+   forward and backward and each rank's fused SGD update, counted: 48 of
+   each of #1-#3 (at BH = 24, on the tensor cores for bf16) and 4 of #4;
+   the gathered gradients against the unsharded model's (max error over
+   max value a leaf: 5e-2 bf16, 1e-4 f32) and the loss (2e-3 bf16, 1e-5
+   f32); each rank's updated shards and buffers against the plain SGD
+   update of the same leaves and gradients, bit for bit; a pass's ms.
+   Over a 1-rank NCCL group: (a) 3 bf16 steps of
+   ViT-B/16 (flash, fused SGD) through ``make_train_step(tp_axis=)`` over
+   a model group of one (``comm/mesh.py::tp_mesh(1)``) against the plain
+   step, losses bit for bit; 36 of each of #1-#3 and 3 of #4. (c)
+   ``vit_moe_tiny``, f32, flash at D = 16, fused SGD, at ``moe_top_k`` 1
+   and 2: 3 steps of the EP step over an expert group of one against the
+   dense step (losses within 1e-5 relative), 6 of each of #1-#3 and 3 of
+   #4 each; then a lockstep expert group of 4 (``MoE.apply_ep_lockstep``,
+   the exchange a permutation of the slot blocks) against ``apply_dense``
+   on each rank's tokens (1e-5). (d) one TP step and the plain step, in
+   turns, and one MoE step, device ms back to back, with the card's name
+   and power limit. ``[mp]`` lines; the report repeats them.
+17. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
    as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
@@ -430,6 +458,7 @@ from tpu_dist_torch.comm import mesh as mesh_lib
 from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.data import native, transforms
 from tpu_dist_torch.nn import resnet as resnet_lib
+from tpu_dist_torch.nn import vit, vit_moe
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters as counters_lib
@@ -450,6 +479,7 @@ from tpu_dist_torch.serve.engine import ServingEngine, batch_buckets, load_servi
 from tpu_dist_torch.train import epoch as epoch_lib
 from tpu_dist_torch.train import optim, state as state_lib, step as step_lib
 from tpu_dist_torch.train import trainer as trainer_lib
+from tpu_dist_torch.cli import train as train_cli
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit.
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 (the kernel's products)
@@ -812,6 +842,9 @@ def phase_kernels() -> dict:
         ("bf16 S=5 D=16 (one partial tile)", (4, 5, 16), False, bf16, None),
         ("bf16 S=5 D=64 causal", (4, 5, 64), True, bf16, None),
         ("bf16 S=300 D=64 causal (5 tiles)", (8, 300, 64), True, bf16, None),
+        # the f32 route at phase 16 (c)'s shape (vit_moe_tiny)
+        ("vit_moe_tiny f32 S=64 D=16", MP_MOE_SHAPE, False, f32, None),
+        ("vit_moe_tiny f32 S=64 D=16 causal", MP_MOE_SHAPE, True, f32, None),
     ]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     main_err = None
@@ -1143,6 +1176,9 @@ def phase_kernels_train() -> dict:
         ("bf16 S=196 D=128", (24, 196, 128), False, bf16, None, False),
         ("bf16 S=5 D=64", (4, 5, 64), False, bf16, None, False),
         ("bf16 S=300 D=64 causal (5 tiles)", (8, 300, 64), True, bf16, None, False),
+        # the f32 route at phase 16 (c)'s shape (vit_moe_tiny)
+        ("vit_moe_tiny f32 S=64 D=16", MP_MOE_SHAPE, False, f32, None, False),
+        ("vit_moe_tiny f32 S=64 D=16 causal", MP_MOE_SHAPE, True, f32, None, False),
     ]
     errs = [_bwd_case(*case, gen=gen) for case in cases]
     main_err = errs[0]  # the main path's case: training shape, bf16
@@ -2871,10 +2907,13 @@ def _gather_ms() -> None:
 
 
 def _optim_cli(d: str) -> None:
-    """(d): ResNet-18 with LARS through ``python -m tpu_dist_torch.cli.train``,
-    without and with ``--remat``: exit 0, the native pipeline on the rank-0
-    start line, ``data_stall_frac`` from the history."""
-    for remat in (False, True):
+    """(d): ResNet-18 with LARS and ``--remat`` through ``python -m
+    tpu_dist_torch.cli.train``: exit 0, the native pipeline on the rank-0
+    start line, ``data_stall_frac`` from the history. (One child: the run
+    without ``--remat``, a second CUDA child, was cut to keep the smoke
+    inside its bound; (a) and (b) run the step with and without remat in
+    this process.)"""
+    for remat in (True,):
         log = os.path.join(d, f"lars_remat{int(remat)}.jsonl")
         cmd = [sys.executable, "-m", "tpu_dist_torch.cli.train", *OPTIM_CLI_ARGS,
                "--log_file", log, "--device", DEVICE, "--port", str(_free_port())]
@@ -3905,8 +3944,6 @@ def phase_tenancy(work: str) -> dict:
 HEALTH_FLAGS = ["--device_metrics", "--log_every", "1", "--anomaly_action", "warn",
                 "--straggler_threshold", "0.5", "--profile_steps", "5:8"]
 HEALTH_WINDOW = (5, 8)
-# (a'): the golden command with the flag alone, the step's cost of it
-HEALTH_FLAG_ONLY = ["--device_metrics"]
 HEALTH_DEVICE_STATS = ("grad_norm", "param_norm", "update_ratio")
 # the capture's category seconds against its busy seconds: each of the 5
 # categories is rounded to 1e-6 s and busy is their sum, so they agree to
@@ -4105,32 +4142,6 @@ def _health_run(root, d: str) -> tuple:
 _CONV_TOKENS = ("fprop", "dgrad", "wgrad", "implicit", "winograd", "conv")
 
 
-def _health_flag_cost(root, d: str) -> int:
-    """(a'): the golden command with ``--device_metrics`` alone: its
-    losses bit for bit, and its step laps beside the golden run's. Returns
-    its fused SGD launches."""
-    log = os.path.join(d, "flag.jsonl")
-    rc, out, err, took = _sup_launch(root, d, [], [*HEALTH_FLAG_ONLY, "--log_file", log])
-    kids = _children(out)
-    check(rc == 0 and len(kids) == 1, f"flag-only run: rc {rc}\n{err[-3000:]}")
-    [kid] = kids
-    golden = GOODPUT_RUNS["golden_kid"]
-    check(kid["losses"] == golden["losses"] and kid["launches"] == SUP_STEPS,
-          f"flag-only losses {kid['losses']} vs golden {golden['losses']}, "
-          f"{kid['launches']} launches")
-    ours, theirs = _laps(kid)[1:], _laps(golden)[1:]
-    recs = [r for r in _history(log) if r["kind"] == "device_stats"]
-    _p13_say(f"(a') {' '.join(HEALTH_FLAG_ONLY)} alone over the golden command: rc {rc} in "
-             f"{took:.1f} s, losses bit for bit, {kid['launches']} fused_sgd launches, "
-             f"device_stats at the logged steps {[r['step'] for r in recs]}; step p50 from the "
-             f"loss lines {statistics.median(ours) * 1e3:.3f} ms against the golden run's "
-             f"{statistics.median(theirs) * 1e3:.3f} ms "
-             f"({statistics.median(ours) / statistics.median(theirs) - 1:+.1%}); peak "
-             f"{kid['peak']} bytes against {golden['peak']}")
-    _p13_say("(a') laps (ms) " + ", ".join(f"{x * 1e3:.1f}" for x in ours), keep=False)
-    return kid["launches"]
-
-
 def _health_readback(root, log: str, prof: str) -> None:
     """(b): ``obs xprof`` over the capture and ``obs summarize`` over the
     history, each in a fresh process."""
@@ -4225,7 +4236,7 @@ def phase_health(work: str) -> dict:
     _device_stats_on_card()
     kid, log, prof = _health_run(root, d)
     _health_readback(root, log, prof)
-    launches = kid["launches"] + _health_flag_cost(root, d) + _health_poisoned(root, d)
+    launches = kid["launches"] + _health_poisoned(root, d)
     _p13_say(f"phase: {time.perf_counter() - t0:.1f} s, fused_sgd launches {launches}; card: "
              f"{_smi_line()}")
     return {name: launches if name == "fused_sgd" else 0 for name in KERNELS}
@@ -4353,20 +4364,25 @@ def _memory_run(root, d: str) -> tuple:
     return kid, mem
 
 
-def _memory_refuse(root, d: str, static: int) -> None:
-    """(b): the command with ``--memory_check refuse --hbm_budget_bytes
-    <static - 1>`` stops before any step."""
-    rc, out, err, took = _sup_launch(root, d, [], ["--memory_check", "refuse",
-                                                   "--hbm_budget_bytes", str(static - 1)])
-    [kid] = _children(out)
-    raised = [ln.split("InfeasibleMemoryError: ", 1)[1] for ln in err.splitlines()
-              if "InfeasibleMemoryError: " in ln]
-    _p14_say(f"(b) --memory_check refuse --hbm_budget_bytes {static - 1}: exit {rc} in "
-             f"{took:.1f} s after {len(kid['losses'])} steps, {kid['launches']} fused_sgd "
-             f"launches; {raised[-1][:160] if raised else None}")
-    check(rc != 0 and raised and not kid["losses"] and kid["launches"] == 0,
-          f"refuse run: rc {rc}, losses {kid['losses']}, launches {kid['launches']}\n"
-          f"{err[-3000:]}")
+def _memory_refuse(static: int) -> None:
+    """(b): ``Trainer`` over (a)'s command with ``--memory_check refuse
+    --hbm_budget_bytes <static - 1>``, built in this process (no child):
+    its pre-flight at construction raises ``InfeasibleMemoryError``, with
+    the JAX package's message, before any step, so no kernel launches."""
+    cfg = train_cli.parse([*SUP_TRAIN, "--device", DEVICE, "--memory_check", "refuse",
+                           "--hbm_budget_bytes", str(static - 1)])
+    reset_launches()
+    try:
+        trainer_lib.Trainer(cfg).close()
+        raised = None
+    except memory_lib.InfeasibleMemoryError as e:
+        raised = str(e)
+    launches = read_launches()
+    _p14_say(f"(b) Trainer(--memory_check refuse --hbm_budget_bytes {static - 1}) in this "
+             f"process: {raised[:160] if raised else None}; launches {launches}")
+    check(raised is not None and raised.startswith("static HBM requirement"),
+          f"refuse: {raised}")
+    check(not any(launches.values()), f"refuse: launches {launches} before the refusal")
 
 
 def _memory_oom(root, d: str, xla: dict) -> None:
@@ -4472,7 +4488,7 @@ def phase_memory(work: str) -> dict:
     d = os.path.join(work, "memory")
     os.makedirs(d)
     kid, mem = _memory_run(root, d)
-    _memory_refuse(root, d, mem["static"]["bytes_per_device"])
+    _memory_refuse(mem["static"]["bytes_per_device"])
     _memory_oom(root, d, mem["xla"])
     launches = _memory_vit_flops()
     launches["fused_sgd"] += kid["launches"]
@@ -4830,6 +4846,317 @@ def _seq_step_runs(seq, work: str) -> tuple:
     return {m: r["losses"] for m, r in runs.items()}, launches, mma
 
 
+# -- phase 16: tensor and expert parallelism --------------------------------------
+
+MP_TP = 4          # the lockstep TP group's virtual ranks: 3 of ViT-B/16's 12 heads each
+MP_BATCH = 8       # ViT-B/16 at 224 px
+MP_STEPS = 3
+MP_LR = 0.1
+MP_TIMED = 5       # (d): step calls timed back to back
+# (b) the lockstep group against the unsharded forward and backward, max
+# |got - want| over max |want| a leaf. f32 (TF32 off): the four shards'
+# partial products summed in rank order where the full matmul sums them in
+# one, a few ulps of the largest value through 12 blocks. bf16: each
+# shard's proj and mlp2 partial output is rounded to bf16 before the sum
+# where the full matmul rounds once, and the 12 blocks compound it: a few
+# bf16 steps (2^-8 relative) of the largest value; the loss within the
+# bf16 parity's 2e-3 (PARITY_BF16_LOSS_RTOL).
+MP_LOCKSTEP_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+MP_LOCKSTEP_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: PARITY_BF16_LOSS_RTOL}
+MP_MOE_BATCH = 32  # vit_moe_tiny at 32 px: 64 tokens an image, 2,048 a step
+MP_MOE_SHAPE = (4 * MP_MOE_BATCH, 64, 16)  # its [BH, S, D]: 4 heads of 16
+# (c) the EP step over an expert group of one against the dense step, f32
+# (TF32 off): the expert einsums run with an extra group dimension (another
+# cuBLAS batching, another summation order), a few f32 ulps a step carried
+# through 3 steps
+MP_MOE_LOSS_RTOL = 1e-5
+# (c) the lockstep expert group of 4 against apply_dense on each rank's
+# tokens, f32: the same products, batched otherwise
+MP_MOE_TOL = 1e-5
+
+#: phase 16's result lines, repeated by the report
+MP_SUMMARY: list = []
+
+
+def _p16_say(msg: str, keep: bool = True) -> None:
+    print(f"[mp] {msg}", flush=True)
+    if keep:
+        MP_SUMMARY.append(f"[mp] {msg}")
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _mp_tp_steps(tmesh, images, labels) -> tuple:
+    """(a) MP_STEPS bf16 steps of ViT-B/16 (flash, fused SGD) through the TP
+    step over a model group of one, and the plain step from the same
+    weights (not counted). Returns (the TP step's launches and tensor-core
+    launches, {"tp", "plain": (step, state)} for (d))."""
+    runs = {}
+    for tag in ("plain", "tp"):
+        shard = {"tp": tmesh[mesh_lib.MODEL_AXIS]} if tag == "tp" else {}
+        model = vit_b16(attn_impl="flash", device=DEVICE, seed=TRAIN_SEED, **shard)
+        opt = _sgd_for("flash")
+        st = state_lib.TrainState.create(model, opt)
+        kw = (dict(tp_axis=tmesh[mesh_lib.MODEL_AXIS], axis=tmesh[mesh_lib.DATA_AXIS])
+              if tag == "tp" else {})
+        train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        losses = []
+        for i in range(MP_STEPS):
+            st, m = train_step(st, images[i], labels[i], MP_LR)
+            losses.append(m["loss"].item())
+        runs[tag] = (losses, read_launches(), read_mma_launches(), train_step, st)
+    (plain, _, _, plain_step, plain_st), (tp, launches, mma, tp_step, tp_st) = (runs["plain"],
+                                                                             runs["tp"])
+    gaps = [abs(a / b - 1) for a, b in zip(tp, plain)]
+    _p16_say(f"(a) ViT-B/16 224 px, batch {MP_BATCH}, bf16, flash, fused SGD: TP step over a "
+             f"model group of one, losses {tp}; the plain step's {plain}: "
+             f"{'equal bit for bit' if tp == plain else 'NOT equal'} (gaps "
+             f"{[f'{g:.1e}' for g in gaps]}); launches {launches} (mma {mma})")
+    want = {k: MP_STEPS * PER_STEP[k] for k in KERNELS}
+    check(tp == plain, f"(a) the TP step's losses {tp} vs the plain step's {plain}")
+    check(launches == want and all(mma[k] == launches[k] for k in MMA_KERNELS),
+          f"(a) launches {launches} (mma {mma}), want {want}")
+    return launches, mma, {"tp": (tp_step, tp_st), "plain": (plain_step, plain_st)}
+
+
+def _gathered_grads(shards) -> dict:
+    """The lockstep group's gradients at full width: the sharded leaves
+    joined along their dimension in rank order, the replicated leaves the
+    first shard's (the others take none: their copies are not used)."""
+    specs = shards[0].param_specs()
+    named = [dict(s.named_parameters()) for s in shards]
+    out = {}
+    for name, p in named[0].items():
+        if name in specs:
+            out[name] = torch.cat([n[name].grad for n in named], dim=specs[name][1])
+        else:
+            out[name] = p.grad
+    return out
+
+
+def _mp_models() -> tuple:
+    """(b)'s unsharded ViT-B/16 and its MP_TP shards, each drawn from
+    TRAIN_SEED, with copies of their initial weights (each dtype's pass
+    starts from them)."""
+    full = vit_b16(attn_impl="flash", device=DEVICE, seed=TRAIN_SEED)
+    shards = [vit_b16(attn_impl="flash", device=DEVICE, seed=TRAIN_SEED,
+                      tp=mesh_lib.AxisGroup(mesh_lib.MODEL_AXIS, MP_TP, r))
+              for r in range(MP_TP)]
+    init = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+            for m in [full, *shards]]
+    return full, shards, init
+
+
+def _mp_lockstep(dt, images, labels, models) -> tuple:
+    """(b) one dtype: the lockstep TP group of MP_TP virtual ranks at full
+    width, forward and backward (counted), then each rank's fused SGD
+    update over its own leaves (counted); against the unsharded model's
+    forward and backward from the same weights (not counted). Returns
+    (launches, tensor-core launches, the worst error, the pass's ms)."""
+    full, shards, init = models
+    for m, sd in zip([full, *shards], init):
+        m.load_state_dict(sd)
+        m.zero_grad(set_to_none=True)
+    heads = shards[0].blocks[0].qkv.out_features // (3 * 64)
+    check(heads == 12 // MP_TP, f"(b) {heads} local heads")
+    opts = [_sgd_for("flash") for _ in shards]
+    states = [state_lib.TrainState.create(s, o) for s, o in zip(shards, opts)]
+    x, y = images.to(dt), labels
+
+    def lockstep_pass(lr=MP_LR, plain=None):
+        for s in shards:
+            s.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(vit.tp_lockstep_forward(shards, x).float(), y)
+        loss.backward()
+        lead = dict(shards[0].named_parameters())
+        for s, o, st in zip(shards, opts, states):
+            named = list(s.named_parameters())
+            grads = [p.grad if p.grad is not None else lead[n].grad for n, p in named]
+            params = [p for _, p in named]
+            if plain is not None:
+                # the plain update from the same leaves, gradients and buffers
+                ref = [t.detach().clone() for t in params + list(st.opt_state)]
+                fs.fused_sgd_reference(ref[:len(params)], grads, ref[len(params):], lr,
+                                       momentum=o.momentum, weight_decay=o.weight_decay)
+            o.update(grads, st.opt_state, params, lr)
+            if plain is not None:
+                plain.append(max(float((a.detach() - b).abs().max())
+                                 for a, b in zip(params + list(st.opt_state), ref)))
+        return loss
+
+    torch.cuda.synchronize()
+    reset_launches()
+    update_errs: list = []
+    loss = lockstep_pass(plain=update_errs)
+    torch.cuda.synchronize()
+    launches, mma = read_launches(), read_mma_launches()
+    update_err = max(update_errs)
+    grads = _gathered_grads(shards)
+    ref = F.cross_entropy(full(x).float(), y)
+    ref.backward()
+    errs = {n: _rel_err(grads[n], p.grad) for n, p in full.named_parameters()}
+    worst = max(errs.values())
+    tag = str(dt).removeprefix("torch.")
+    want = {**{k: 12 * MP_TP for k in MMA_KERNELS}, "fused_sgd": MP_TP}
+    pass_ms, _ = cuda_ms(lambda: lockstep_pass(0.0), iters=3, warmup=1, head_start=False)
+    worst_name = max(errs, key=errs.get)
+    _p16_say(f"(b) lockstep TP group of {MP_TP} at ViT-B/16's full width, {tag}, batch "
+             f"{MP_BATCH}: {heads} local heads a rank ([BH, S, D] = [{heads * MP_BATCH}, 196, 64] "
+             f"a launch), loss {loss.item()!r} vs the unsharded {ref.item()!r}; gathered "
+             f"gradients max error / max {worst:.2e} ({worst_name}; limit {MP_LOCKSTEP_TOL[dt]}); "
+             f"launches {launches} (mma {mma}); each rank's fused SGD update of its shards "
+             f"against the plain update of the same leaves and gradients: max |diff| "
+             f"{update_err!r} over the {MP_TP} ranks (bit for bit wanted); a pass (forward, "
+             f"backward, {MP_TP} updates) {pass_ms:.3f} ms back to back")
+    check(launches == want, f"(b) {tag}: launches {launches}, want {want}")
+    check(len(update_errs) == MP_TP and update_err == 0.0,
+          f"(b) {tag}: the shards' fused SGD updates differ from the plain ones by {update_errs}")
+    check(all(mma[k] == (launches[k] if dt == torch.bfloat16 else 0) for k in MMA_KERNELS),
+          f"(b) {tag}: tensor-core launches {mma}")
+    check(abs(loss.item() / ref.item() - 1) <= MP_LOCKSTEP_LOSS_RTOL[dt],
+          f"(b) {tag}: loss {loss.item()} vs {ref.item()}")
+    check(worst <= MP_LOCKSTEP_TOL[dt], f"(b) {tag}: gradient errors {errs}")
+    del states, opts, grads
+    return launches, mma, worst, update_err, pass_ms
+
+
+def _mp_moe(emesh) -> tuple:
+    """(c) vit_moe_tiny, f32 (TF32 off), flash at D = 16, fused SGD, at
+    ``moe_top_k`` 1 and 2: MP_STEPS steps of the EP step over an expert group
+    of one (counted) against the dense step (not counted); then the
+    lockstep expert group of 4 against apply_dense on each rank's tokens.
+    Returns (launches, tensor-core launches, the EP step and its state for
+    (d), the worst lockstep error)."""
+    rng = np.random.default_rng(16)
+    images = torch.from_numpy(rng.standard_normal((MP_STEPS, MP_MOE_BATCH, 32, 32, 3),
+                                                  dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 10, (MP_STEPS, MP_MOE_BATCH))).to(DEVICE)
+    launches, mma, worst_lock = dict.fromkeys(KERNELS, 0), dict.fromkeys(MMA_KERNELS, 0), 0.0
+    ep_step = ep_st = None
+    for k in (1, 2):
+        runs = {}
+        for tag in ("dense", "ep"):
+            shard = {"ep": emesh[mesh_lib.EXPERT_AXIS]} if tag == "ep" else {}
+            model = vit_moe.vit_moe_tiny(attn_impl="flash", device=DEVICE, seed=TRAIN_SEED,
+                                         top_k=k, **shard)
+            opt = _sgd_for("flash")
+            st = state_lib.TrainState.create(model, opt)
+            kw = (dict(ep_axis=emesh[mesh_lib.EXPERT_AXIS], axis=emesh[mesh_lib.DATA_AXIS])
+                  if tag == "ep" else {})
+            train_step = step_lib.make_train_step(opt, **kw)
+            torch.cuda.synchronize()
+            reset_launches()
+            losses = []
+            for i in range(MP_STEPS):
+                st, m = train_step(st, images[i], labels[i], MP_LR)
+                losses.append(m["loss"].item())
+            runs[tag] = (losses, read_launches(), read_mma_launches())
+            if tag == "ep" and k == 2:
+                ep_step, ep_st = train_step, st
+        (dense, _, _), (ep, got, got_mma) = runs["dense"], runs["ep"]
+        want = {"flash_attention_fwd": 2 * MP_STEPS, "flash_attention_bwd_dkdv": 2 * MP_STEPS,
+                "flash_attention_bwd_dq": 2 * MP_STEPS, "fused_sgd": MP_STEPS}
+        gaps = [abs(a / b - 1) for a, b in zip(ep, dense)]
+        _p16_say(f"(c) vit_moe_tiny, moe_top_k {k}, f32, flash at [BH, S, D] = "
+                 f"[{4 * MP_MOE_BATCH}, 64, 16]: EP step over an expert group of one, losses "
+                 f"{ep}; the dense step's {dense}: gaps {[f'{g:.1e}' for g in gaps]} (limit "
+                 f"{MP_MOE_LOSS_RTOL}); launches {got}")
+        check(max(gaps) <= MP_MOE_LOSS_RTOL, f"(c) k={k}: losses {ep} vs {dense}")
+        check(got == want and all(v == 0 for v in got_mma.values()),
+              f"(c) k={k}: launches {got} (mma {got_mma}), want {want}")
+        _add(launches, got)
+        _add(mma, got_mma)
+        # the lockstep expert group: 4 ranks' tokens through the exchange
+        moe_model = vit_moe.vit_moe_tiny(device=DEVICE, seed=TRAIN_SEED, top_k=k)
+        p = moe_model.blocks[0].moe.params()
+        moe = moe_model.moe
+        xs = [torch.randn(16 * 64, 64, device=DEVICE) for _ in range(4)]
+        with torch.no_grad():
+            ys = moe.apply_ep_lockstep(p["router"], p["w_in"], p["w_out"], xs)
+            err = max(_rel_err(yl, moe.apply_dense(p, xi)) for yl, xi in zip(ys, xs))
+        worst_lock = max(worst_lock, err)
+        _p16_say(f"(c) lockstep expert group of 4 (2 experts a rank, 1,024 tokens a rank, "
+                 f"capacity {moe._capacity(16 * 64)}), moe_top_k {k}: max error / max against "
+                 f"apply_dense on each rank's tokens {err:.2e} (limit {MP_MOE_TOL})")
+        check(err <= MP_MOE_TOL, f"(c) lockstep k={k}: error {err}")
+    return launches, mma, ep_step, ep_st, images, labels, worst_lock
+
+
+def phase_mp(work: str) -> tuple:
+    """Phase 16 (module docstring). Returns (the kernels' launches on its
+    main paths, their tensor-core launches, the numbers for the kernels
+    line)."""
+    del work
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(16)
+    images = torch.from_numpy(rng.standard_normal(
+        (MP_STEPS, MP_BATCH) + IMAGE, dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, (MP_STEPS, MP_BATCH))).to(DEVICE)
+    launches, mma = dict.fromkeys(KERNELS, 0), dict.fromkeys(MMA_KERNELS, 0)
+    lockstep = {}
+    models = _mp_models()
+    for dt in (torch.bfloat16, torch.float32):
+        got, got_mma, worst, update_err, pass_ms = _mp_lockstep(dt, images[0], labels[0],
+                                                                models)
+        _add(launches, got)
+        _add(mma, got_mma)
+        lockstep[str(dt).removeprefix("torch.")] = (worst, update_err, pass_ms)
+    del models
+    torch.cuda.empty_cache()
+    # a 1-rank NCCL group: the model and expert groups are real NCCL groups
+    # of one, so the conjugate pair's all-reduces and the MoE exchange run
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        got, got_mma, steps = _mp_tp_steps(mesh_lib.tp_mesh(1), images, labels)
+        _add(launches, got)
+        _add(mma, got_mma)
+        # in turns, plain first: the same step but for the conjugate pair
+        times = {tag: [] for tag in ("plain", "tp")}
+        for _ in range(2):
+            for tag, (fn, st) in steps.items():
+                times[tag].append(cuda_ms(lambda: fn(st, images[0], labels[0], 0.0),
+                                          iters=MP_TIMED, warmup=1, head_start=False))
+        (tp_ms, tp_us), (plain_ms, plain_us) = (min(times[t]) for t in ("tp", "plain"))
+        del steps
+        torch.cuda.empty_cache()
+        got, got_mma, ep_step, ep_st, moe_images, moe_labels, worst_moe = _mp_moe(
+            mesh_lib.ep_mesh(1))
+        _add(launches, got)
+        _add(mma, got_mma)
+        ep_ms, ep_us = cuda_ms(lambda: ep_step(ep_st, moe_images[0], moe_labels[0], 0.0),
+                               iters=MP_TIMED, warmup=1, head_start=False)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    smi = _smi_line()
+    _p16_say(f"(d) one TP step (ViT-B/16, batch {MP_BATCH}, bf16, model group of one) "
+             f"{tp_ms:.3f} ms back to back (host {tp_us:.0f} us a call), the plain step "
+             f"{plain_ms:.3f} ms (host {plain_us:.0f} us; the better of 2 turns each); one MoE step "
+             f"(vit_moe_tiny, moe_top_k 2, batch {MP_MOE_BATCH}, f32, expert group of one) "
+             f"{ep_ms:.3f} ms (host {ep_us:.0f} us); card: {smi}")
+    # the lockstep gradients' error (max |diff| over max |want| of the worst
+    # leaf) reads the attention kernels; the update's (max |diff|) fused_sgd
+    numbers = {name: {f"tp_lockstep_grad_err_over_max_{t}": w
+                      for t, (w, _, _) in lockstep.items()} for name in MMA_KERNELS}
+    numbers["fused_sgd"] = {f"max_abs_err_tp_lockstep_update_{t}": u
+                            for t, (_, u, _) in lockstep.items()}
+    numbers["flash_attention_fwd"].update({f"tp_lockstep_{t}_pass_ms": ms
+                                           for t, (_, _, ms) in lockstep.items()})
+    numbers["flash_attention_fwd"].update({"tp_step_ms": tp_ms, "tp_plain_step_ms": plain_ms,
+                                           "moe_step_ms": ep_ms,
+                                           "moe_lockstep_err_over_max": worst_moe})
+    _p16_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: {smi}")
+    return launches, mma, numbers
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -4870,16 +5197,19 @@ def _phases(work: str) -> int:
     seq, seq_mma, seq_numbers = phase_seq(work)
     for name, numbers in seq_numbers.items():
         measured[name].update(numbers)
+    mp, mp_mma, mp_numbers = phase_mp(work)
+    for name, numbers in mp_numbers.items():
+        measured[name].update(numbers)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
                 + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
-                for name in KERNELS}
+                + mp[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
-                                                  + seq_mma[name])
+                                                  + seq_mma[name] + mp_mma[name])
     print("[summary] phase 11, elastic supervision, again:")
     for msg in SUP_SUMMARY:
         print(f"[summary] {msg}")
@@ -4894,6 +5224,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 15, sequence parallelism, again:")
     for msg in SEQ_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 16, tensor and expert parallelism, again:")
+    for msg in MP_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

@@ -49,5 +49,7 @@ def test_the_refusals_that_need_ranks():
     assert batch.startswith("ValueError: with sp>1, batch_size 15 must also divide over the 2 "
                             "data x seq devices")
     assert world == "ValueError: 2 devices not divisible by sp/tp/ep/pp=4"
+    # the JAX trainer's own wall (tpu_dist/train/trainer.py:443-455), ahead of
+    # the step's since the trainer checks tp/ep/sp together
     assert int8.startswith("ValueError: grad_compression='int8' is scoped to the plain "
-                           "data-parallel and ZeRO-1 paths")
+                           "data-parallel, fused-epoch, and ZeRO-1 paths")

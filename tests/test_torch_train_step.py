@@ -109,10 +109,14 @@ def test_eval_step_with_mask_matches_jax():
 
 
 UNPORTED = [
-    ("tp_axis", "model", "Queue A 6"),
-    ("ep_axis", "expert", "Queue A 6"),
     ("pp_axis", "pipe", "Queue A 6"),
 ]
+
+# tp_axis and ep_axis, ported with tensor and expert parallelism (they
+# raised NotPortedError before): a model group of one with no process group
+# (the multi-rank parity is tests/test_torch_tensor_parallel*.py and
+# test_torch_expert_parallel.py)
+MODEL_AXES = [("tp_axis", "model"), ("ep_axis", "expert")]
 
 # The options ported with ZeRO-1 and the compressed reduce, each stepping
 # at one device (no process group): there ZeRO-1 is the plain step bit for
@@ -186,6 +190,37 @@ def test_seq_axis_steps_at_one_device(sp_mode):
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
     for a, b in pairs:
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag,value", MODEL_AXES, ids=[f"{f}={v}" for f, v in MODEL_AXES])
+def test_model_axes_step_at_one_device(flag, value):
+    """A TP ViT or an EP ViT-MoE over a group of one steps as the unsharded
+    model does: the conjugate pair and the exchange are identities
+    without a process group, so the loss is the same and the weights agree
+    to the einsum's summation order (exactly, for TP); a model built
+    without the group is refused, as JAX refuses an axis without
+    ``param_specs``."""
+    from tpu_dist_torch.nn import vit_moe  # noqa: PLC0415
+
+    axis = AxisGroup(value, 1, 0)
+    make = ((lambda **k: vit.vit_tiny(device="cpu", **k)) if flag == "tp_axis"
+            else (lambda **k: vit_moe.vit_moe_tiny(device="cpu", **k)))
+    shard = {"tp" if flag == "tp_axis" else "ep": axis}
+    models = [make(), make(**shard)]
+    opt = optim.SGD()
+    losses = []
+    for model, kw in zip(models, ({}, {flag: axis})):
+        st = state.TrainState.create(model, opt)
+        st, m = step.make_train_step(opt, **kw)(st, *batch(0), LRS[0])
+        assert st.step == 1
+        losses.append(m["loss"].item())
+    assert losses[0] == losses[1]
+    for a, b in zip(models[1].parameters(), models[0].parameters()):
+        torch.testing.assert_close(a, b, rtol=0 if flag == "tp_axis" else 1e-6, atol=0 if
+                                   flag == "tp_axis" else 1e-7)
+    with pytest.raises(ValueError, match=f"{flag} requires param_specs"):
+        step.make_train_step(opt, **{flag: axis})(state.TrainState.create(make(), opt),
+                                                  *batch(0), LRS[0])
 
 
 @pytest.mark.parametrize("flag,value,queue", UNPORTED,

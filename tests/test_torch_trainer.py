@@ -135,12 +135,11 @@ def test_epoch_dict_has_the_jax_keys(runs):
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
-    ("tp", 2, "Queue A 6"),
-    ("ep", 2, "Queue A 6"), ("pp", 2, "Queue A 6"),
+    ("pp", 2, "Queue A 6"),
     ("auto_shard", "plan", "Queue A 6"),
     ("sharded_ckpt", True, "Queue A 6"),
     ("pp_microbatches", 4, "Queue A 6"),
-    ("pp_interleave", 2, "Queue A 6"), ("moe_top_k", 2, "Queue A 6"),
+    ("pp_interleave", 2, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),
 )
@@ -151,6 +150,33 @@ def test_unported_flags_raise_a_typed_error(flag, value, queue):
     with pytest.raises(step.NotPortedError, match=flag) as info:
         trainer.Trainer(TrainConfig(**{**RUN, flag: value}, device="cpu", port=free_port()))
     assert info.value.flag == flag and queue in str(info.value)
+
+
+# tp, ep and moe_top_k, ported with tensor and expert parallelism (they
+# raised NotPortedError before): each trains on 2 gloo ranks (parity with the
+# JAX trainer: tests/test_torch_model_parallel_trainer.py,
+# test_torch_model_parallel_fit.py and test_torch_expert_parallel_trainer.py)
+MP_CASES = (("tp", dict(model="vit_tiny", tp=2)), ("ep", dict(model="vit_moe_tiny", ep=2)),
+            ("moe_top_k", dict(model="vit_moe_tiny", moe_top_k=2)))
+
+
+@pytest.fixture(scope="module")
+def mp_fits():
+    from torch_ranks import mp_fit_rank  # noqa: PLC0415
+
+    run = dict(num_classes=10, dataset="synthetic", synthetic_n=160, batch_size=16, epochs=1,
+               steps_per_epoch=2, log_every=1, eval_every=1, device="cpu")
+    return run_ranks(mp_fit_rank, 2, [dict(run, **kw) for _, kw in MP_CASES], None,
+                     timeout=120)
+
+
+@pytest.mark.parametrize("i", range(len(MP_CASES)), ids=[f for f, _ in MP_CASES])
+def test_the_tp_ep_and_moe_top_k_flags_train(mp_fits, i):
+    flag = MP_CASES[i][0]
+    for fits in mp_fits:
+        (epoch,) = fits[i]["epochs"]
+        assert epoch["steps"] == 2 and np.isfinite(epoch["loss"]) and "val_top1" in epoch
+        assert fits[i]["n_data"] == (2 if flag == "moe_top_k" else 1)
 
 
 # sp and sp_mode, ported with sequence parallelism (they raised

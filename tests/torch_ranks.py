@@ -46,11 +46,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, world, port, out_dir, fn, args):
+def _entry(rank, world, port, out_dir, fn):
     import torch.distributed as dist  # noqa: PLC0415
 
     from tpu_dist_torch.comm import mesh  # noqa: PLC0415
 
+    with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     torch.set_num_threads(1)
     mesh.initialize_distributed("cpu", world_size=world, rank=rank, master_port=port)
     try:
@@ -63,9 +65,13 @@ def _entry(rank, world, port, out_dir, fn, args):
 
 def run_ranks(fn, world: int, *args, timeout: float = 120.0) -> list:
     """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each run
-    on its own rank of a ``world``-rank gloo group."""
+    on its own rank of a ``world``-rank gloo group. The arguments reach the
+    ranks through a pickle file: handed to the spawn itself, numpy arrays
+    made each rank's start-up take ~20 s longer."""
     with tempfile.TemporaryDirectory() as out_dir:
-        ctx = mp.start_processes(_entry, args=(world, free_port(), out_dir, fn, args),
+        with open(os.path.join(out_dir, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
+        ctx = mp.start_processes(_entry, args=(world, free_port(), out_dir, fn),
                                  nprocs=world, join=False, start_method="spawn")
         try:
             deadline = time.monotonic() + timeout
@@ -810,4 +816,220 @@ def trainer_errors_rank(rank, world, cfgs):
             out.append(None)
         except Exception as e:  # the refusal under test
             out.append(f"{type(e).__name__}: {e}")
+    return out
+
+
+# -- tensor and expert parallelism ----------------------------------------------
+
+
+def _grads_to_jax(model):
+    """The parameters' gradients at full width (a sharded model's gathered
+    over its group) as the JAX tree, numpy."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+
+    named = {n: p.grad for n, p in model.named_parameters()}
+    full = bridge.gather_shards(model, named)
+    return bridge.state_dict_to_jax(model, {n: t.float().numpy() for n, t in full.items()})[0]
+
+
+def tp_ops_rank(rank, world, x, ct, ct_mlp, w1, b1, w2, b2):
+    """The conjugate pair and the column/row-parallel dense over a model
+    group of the whole world: for ``copy_to_tp`` and ``reduce_from_tp``
+    this rank's forward of ``x[rank]`` and the gradient of ``<out,
+    ct[rank]>``; for the MLP ``row(gelu(column(copy(x))))`` on the
+    replicated ``x[0]`` (``w1`` ``[din, dh]`` and ``w2`` ``[dh, dout]`` in
+    JAX's layout, sharded here) the output and the gradients of ``<y,
+    ct_mlp>`` for ``x`` and this rank's shards. Returns numpy and the
+    collective counts."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    from tpu_dist_torch.comm import collectives, mesh  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.parallel import tensor  # noqa: PLC0415
+
+    tp = mesh.tp_mesh(world)[mesh.MODEL_AXIS]
+    counters.reset()
+    out = {}
+    for name, fn in (("copy", collectives.copy_to_tp), ("reduce", collectives.reduce_from_tp)):
+        xi = torch.tensor(x[rank], requires_grad=True)
+        y = fn(xi, group=tp.group)
+        (g,) = torch.autograd.grad((y * torch.tensor(ct[rank])).sum(), xi)
+        out[name] = (y.detach().numpy(), g.numpy())
+    xr = torch.tensor(x[0], requires_grad=True)
+    w1l = torch.tensor(tensor.shard_columns(np.ascontiguousarray(w1.T), world, rank),
+                       requires_grad=True)
+    b1l = torch.tensor(tensor.shard_columns(b1, world, rank), requires_grad=True)
+    w2l = torch.tensor(tensor.shard_rows(np.ascontiguousarray(w2.T), world, rank),
+                       requires_grad=True)
+    b2t = torch.tensor(b2, requires_grad=True)
+    h = F.gelu(tensor.column_parallel_dense(collectives.copy_to_tp(xr, group=tp.group), w1l,
+                                            b1l), approximate="tanh")
+    y = tensor.row_parallel_dense(h, w2l, tp, b2t)
+    grads = torch.autograd.grad((y * torch.tensor(ct_mlp)).sum(), (xr, w1l, b1l, w2l, b2t))
+    out["mlp"] = (y.detach().numpy(), [g.numpy() for g in grads])
+    out["counts"] = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
+    return out
+
+
+def tp_forward_rank(rank, world, tps, model_kw, params, images, labels):
+    """For each model-group size ``tp``, the TP ViT on a ``[world/tp, tp]``
+    mesh from the bridged ``params``: the logits, the loss and the full
+    gradients (JAX tree) of the cross-entropy on the whole batch."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import functional as F  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+
+    out = []
+    for tp in tps:
+        m = mesh.tp_mesh(tp)
+        model = vit.ViT(**model_kw, device="cpu", tp=m[mesh.MODEL_AXIS])
+        bridge.load_jax_vit(model, params)
+        logits = model(torch.from_numpy(images))
+        loss = F.cross_entropy(logits, torch.from_numpy(labels))
+        loss.backward()
+        out.append({"logits": logits.detach().numpy(), "loss": loss.item(),
+                    "grads": _grads_to_jax(model),
+                    "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}})
+    return out
+
+
+def tp_step_rank(rank, world, cases, model_kw, params, batches):
+    """Each case ``(tp, sp, sp_mode[, step kwargs])``: the port's DP x TP (x
+    SP) step on ``tpu_dist_torch.comm.mesh.tp_mesh(tp, sp)`` from the
+    bridged ``params``, this data row's share of every global batch
+    ``(images, labels, lr)``. Returns per case the losses, the final
+    parameters (JAX tree, gathered), the collective counts, and the final
+    state as a checkpoint writes it (``train_state_to_flat(dst=0)``: None
+    off rank 0) beside the one every rank gathers."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = []
+    for tp, sp, sp_mode, *extra in cases:
+        m = mesh.tp_mesh(tp, sp)
+        seq = m.axes.get(mesh.SEQ_AXIS)
+        reps = m["data,seq" if sp > 1 else mesh.DATA_AXIS]
+        model = vit.ViT(**model_kw, device="cpu", tp=m[mesh.MODEL_AXIS])
+        bridge.load_jax_vit(model, params)
+        opt = optim.SGD()
+        st = state.TrainState.create(model, opt)
+        kw = dict(seq_axis=seq, sp_mode=sp_mode) if sp > 1 else {}
+        train_step = step.make_train_step(opt, sync_bn=False, tp_axis=m[mesh.MODEL_AXIS],
+                                          axis=reps, **kw, **(extra[0] if extra else {}))
+        counters.reset()
+        losses = []
+        n_data, d = m.sizes[0], m.coords[0]
+        for images, labels, lr in batches:
+            n = images.shape[0] // n_data
+            st, metrics = train_step(st, images[d * n:(d + 1) * n], labels[d * n:(d + 1) * n], lr)
+            losses.append(metrics["loss"].item())
+        counts = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
+        out.append({"losses": losses, "params": bridge.vit_params_to_jax(model),
+                    "counts": counts, "saved": bridge.train_state_to_flat(st, dst=0),
+                    "gathered": bridge.train_state_to_flat(st)})
+    return out
+
+
+def ep_step_rank(rank, world, cases, model_kw, params, batches):
+    """Each case ``(ep, top_k, clip)``: the port's DP x EP step of the
+    ViT-MoE on ``ep_mesh(ep)`` from the bridged ``params``; rank ``r`` takes
+    rows ``[r·b, (r+1)·b)`` of every global batch (JAX's sharding over
+    ``(data, expert)``). Returns per case the losses, the final parameters
+    (JAX tree, gathered) and the collective counts."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit_moe  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = []
+    for ep, top_k, clip in cases:
+        m = mesh.ep_mesh(ep)
+        model = vit_moe.ViTMoE(**model_kw, top_k=top_k, device="cpu", ep=m[mesh.EXPERT_AXIS])
+        bridge.load_jax_vit(model, params)
+        opt = optim.SGD()
+        st = state.TrainState.create(model, opt)
+        train_step = step.make_train_step(opt, sync_bn=False, ep_axis=m[mesh.EXPERT_AXIS],
+                                          axis=m[mesh.DATA_AXIS], grad_clip_norm=clip)
+        counters.reset()
+        losses = []
+        for images, labels, lr in batches:
+            n = images.shape[0] // world
+            st, metrics = train_step(st, images[rank * n:(rank + 1) * n],
+                                     labels[rank * n:(rank + 1) * n], lr)
+            losses.append(metrics["loss"].item())
+        out.append({"losses": losses, "params": bridge.vit_params_to_jax(model),
+                    "counts": {k: v for k, v in counters.snapshot().items()
+                               if k.startswith("comm.")}})
+    return out
+
+
+def moe_ep_rank(rank, world, cases, params, x, ct):
+    """Each case ``top_k``: ``MoE.apply_ep`` over an expert group of the
+    whole world on this rank's rows of ``x`` ([T, d], ``params`` the JAX
+    MoE tree, full): the output, the auxiliary loss, and the gradients of
+    ``<y, ct> + aux`` for the rank's tokens, the router and its slabs."""
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.parallel.expert import MoE  # noqa: PLC0415
+
+    ep = mesh.ep_mesh(world)[mesh.EXPERT_AXIS]
+    n_exp = params["w_in"].shape[0]
+    e_loc, t_loc = n_exp // world, x.shape[0] // world
+    out = []
+    for k in cases:
+        moe = MoE(n_exp, 1.25, k)
+        xs = torch.tensor(x[rank * t_loc:(rank + 1) * t_loc], requires_grad=True)
+        router = torch.tensor(np.ascontiguousarray(params["router"].T), requires_grad=True)
+        w_in = torch.tensor(params["w_in"][rank * e_loc:(rank + 1) * e_loc], requires_grad=True)
+        w_out = torch.tensor(params["w_out"][rank * e_loc:(rank + 1) * e_loc],
+                             requires_grad=True)
+        y, aux = moe.apply_ep(router, w_in, w_out, xs, ep, with_aux=True)
+        obj = (y * torch.tensor(ct[rank * t_loc:(rank + 1) * t_loc])).sum() + aux
+        grads = torch.autograd.grad(obj, (xs, router, w_in, w_out))
+        out.append({"y": y.detach().numpy(), "aux": aux.item(),
+                    "grads": [g.numpy() for g in grads]})
+    return out
+
+
+def mp_fit_rank(rank, world, cfgs, params, root=None):
+    """For each config, ``Trainer.fit`` on this rank from the bridged
+    ``params`` (None: the trainer's own weights), unaugmented; with
+    ``root``, ``ckpt_dir`` is ``root/<cfg's ckpt_dir>``. Returns per config
+    the epoch dicts, the data extent, the (train, eval) batch, the first
+    parameter's shape, the static ledger's params section and the resume
+    line's epoch."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
+    from tpu_dist_torch.data import native  # noqa: PLC0415
+    from tpu_dist_torch.train import trainer  # noqa: PLC0415
+
+    unaugmented(native)
+    out = []
+    for cfg_kw in cfgs:
+        if root is not None and cfg_kw.get("ckpt_dir"):
+            cfg_kw = dict(cfg_kw, ckpt_dir=os.path.join(root, cfg_kw["ckpt_dir"]))
+        t = trainer.Trainer(TrainConfig(**cfg_kw))
+        epochs, inner = [], t.train_epoch
+
+        def train_epoch(epoch, *a, _inner=inner, _epochs=epochs, **k):
+            _epochs.append(_inner(epoch, *a, **k))
+            return _epochs[-1]
+
+        t.train_epoch = train_epoch
+        try:
+            if params is not None:
+                bridge.load_jax_vit(t.model, params)
+            start = t.start_epoch
+            t.fit()
+            final = bridge.vit_params_to_jax(t.model)
+        finally:
+            t.close()
+        out.append({"epochs": epochs, "n_data": t.n_data,
+                    "batches": (t.local_batch, t.eval_batch), "start_epoch": start,
+                    "ledger": t._mem_static["sections"]["params"], "final": final,
+                    "local_numel": sum(p.numel() for p in t.model.parameters())})
     return out

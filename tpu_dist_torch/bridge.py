@@ -7,7 +7,9 @@ buffers, in the model's parameter order.
 
 * Dense ``{"w": [in, out], "b"}`` <-> Linear ``weight [out, in]``, ``bias``;
 * LayerNorm ``{"scale", "bias"}`` <-> ``weight``, ``bias``;
-* ViT: ``pos`` and ``blocks[i]`` map by name;
+* ViT: ``pos`` and ``blocks[i]`` map by name; the ViT-MoE's router
+  ``[d, E]`` <-> ``moe.router.weight`` ``[E, d]``, its expert slabs as they
+  are;
 * ResNet: conv ``{"w": HWIO}`` <-> ``weight`` OIHW; BatchNorm
   ``{"scale", "bias"}`` and its state ``{"mean", "var"}`` <-> ``weight``,
   ``bias``, ``running_mean``, ``running_var``; ``stageK[i]`` <->
@@ -36,6 +38,13 @@ them and builds the dict), and :func:`load_train_state` takes
 this rank's part of each. :func:`restore_template` gives the global
 shapes a restore (and its elastic remapper) lays a checkpoint onto.
 
+A tensor- or expert-parallel module (``ViT(tp=)``, ``ViTMoE(ep=)``) holds
+this rank's shards: it loads its slices of JAX's full arrays
+(:func:`shard_state_dict` by the module's ``param_specs()``), and its
+shards, with the optimizer state that mirrors them, are gathered back to
+the full layout over its group (:func:`gather_shards`) wherever a JAX
+layout is written: every rank of the group must call those functions then.
+
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
 """
@@ -52,6 +61,8 @@ import torch
 from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn.resnet import ResNet
 from tpu_dist_torch.nn.vit import ViT
+from tpu_dist_torch.nn.vit_moe import ViTMoE
+from tpu_dist_torch.parallel import tensor
 
 _DENSE = ("w", "b")
 _LN = ("scale", "bias")
@@ -99,6 +110,12 @@ def vit_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
     return out
 
 
+def _jax_leaf(sd, prefix: str, kind):
+    """The JAX dense or LayerNorm leaf of a state dict's ``prefix``."""
+    w, b = np.asarray(sd[f"{prefix}.weight"]), np.asarray(sd[f"{prefix}.bias"])
+    return {"w": w.T, "b": b} if kind is _DENSE else {"scale": w, "bias": b}
+
+
 def _jax_names(depth: int):
     names = {"pos"} | {f"{n}.{leaf}" for n in _TOP for leaf in ("weight", "bias")}
     return names | {f"blocks.{i}.{n}.{leaf}" for i in range(depth) for n in _BLOCK
@@ -118,15 +135,160 @@ def vit_state_dict_to_jax(sd: Dict[str, np.ndarray]):
             f"{sorted(set(sd) - want)}, missing {sorted(want - set(sd))}"
         )
 
-    def leaf(prefix, kind):
-        w, b = np.asarray(sd[f"{prefix}.weight"]), np.asarray(sd[f"{prefix}.bias"])
-        return {"w": w.T, "b": b} if kind is _DENSE else {"scale": w, "bias": b}
-
-    out = {name: leaf(name, kind) for name, kind in _TOP.items()}
+    out = {name: _jax_leaf(sd, name, kind) for name, kind in _TOP.items()}
     out["pos"] = np.asarray(sd["pos"])
-    out["blocks"] = [{name: leaf(f"blocks.{i}.{name}", kind) for name, kind in _BLOCK.items()}
-                     for i in range(depth)]
+    out["blocks"] = [{name: _jax_leaf(sd, f"blocks.{i}.{name}", kind)
+                      for name, kind in _BLOCK.items()} for i in range(depth)]
     return out
+
+
+_MOE_BLOCK = ("ln1", "qkv", "proj", "ln2", "moe")
+_EXPERTS = ("router", "w_in", "w_out")
+
+
+def vit_moe_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
+    """JAX ``ViTMoEDef`` pytree -> ``{state-dict name: numpy array}``: the
+    router ``[d, E]`` becomes the ``[E, d]`` Linear weight, the expert
+    slabs cross as they are. Raises ``KeyError`` on an unknown or missing
+    key."""
+    params = _leaves("params", params, ("patch", "pos", "blocks", "ln_f", "head"))
+    out: Dict[str, np.ndarray] = {"pos": np.asarray(params["pos"])}
+    for name, kind in _TOP.items():
+        _convert(name, kind, params[name], out)
+    blocks = params["blocks"]
+    if not isinstance(blocks, (list, tuple)):
+        raise KeyError(f"params['blocks'] must be a list, got {type(blocks).__name__}")
+    for i, blk in enumerate(blocks):
+        blk = _leaves(f"blocks[{i}]", blk, _MOE_BLOCK)
+        for name in _MOE_BLOCK[:-1]:
+            _convert(f"blocks.{i}.{name}", _BLOCK[name], blk[name], out)
+        moe = _leaves(f"blocks[{i}]['moe']", blk["moe"], _EXPERTS)
+        out[f"blocks.{i}.moe.router.weight"] = np.asarray(moe["router"]).T
+        out[f"blocks.{i}.moe.w_in"] = np.asarray(moe["w_in"])
+        out[f"blocks.{i}.moe.w_out"] = np.asarray(moe["w_out"])
+    return out
+
+
+def vit_moe_state_dict_to_jax(sd: Dict[str, np.ndarray]):
+    """The inverse of :func:`vit_moe_state_dict_from_jax`."""
+    depth = 1 + max((int(n.split(".")[1]) for n in sd
+                     if n.startswith("blocks.") and n.split(".")[1].isdigit()), default=-1)
+    blocks = [{f"blocks.{i}.moe.router.weight", f"blocks.{i}.moe.w_in",
+               f"blocks.{i}.moe.w_out"} | {f"blocks.{i}.{n}.{leaf}" for n in _MOE_BLOCK[:-1]
+                                           for leaf in ("weight", "bias")}
+              for i in range(depth)]
+    want = ({"pos"} | {f"{n}.{leaf}" for n in _TOP for leaf in ("weight", "bias")}
+            ).union(*blocks)
+    if set(sd) != want:
+        raise KeyError(
+            f"state dict names differ from a depth-{depth} ViT-MoE's: unknown "
+            f"{sorted(set(sd) - want)}, missing {sorted(want - set(sd))}"
+        )
+
+    out = {name: _jax_leaf(sd, name, kind) for name, kind in _TOP.items()}
+    out["pos"] = np.asarray(sd["pos"])
+    out["blocks"] = [
+        {**{name: _jax_leaf(sd, f"blocks.{i}.{name}", _BLOCK[name]) for name in _MOE_BLOCK[:-1]},
+         "moe": {"router": np.asarray(sd[f"blocks.{i}.moe.router.weight"]).T,
+                 "w_in": np.asarray(sd[f"blocks.{i}.moe.w_in"]),
+                 "w_out": np.asarray(sd[f"blocks.{i}.moe.w_out"])}}
+        for i in range(depth)]
+    return out
+
+
+# -- sharded models: TP shards and EP slabs <-> the full JAX layout -----------
+
+
+def shard_state_dict(sd: Dict[str, np.ndarray], specs: dict, axis_size: int,
+                     index: int) -> Dict[str, np.ndarray]:
+    """One rank's shard of a full ``{state-dict name: array}`` (torch
+    layout: what :func:`vit_state_dict_from_jax` gives of JAX's full
+    parameters, or of an optimizer state that mirrors them): every name of
+    ``specs`` (``{name: (axis, dim)}``, a model's ``param_specs()``) cut to
+    its ``index``-th of ``axis_size`` blocks along ``dim``, the rest as it
+    is."""
+    out = dict(sd)
+    for name, (_, dim) in specs.items():
+        try:
+            out[name] = np.array(tensor.shard(np.asarray(sd[name]), dim, axis_size, index))
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+    return out
+
+
+def _sharding(module) -> tuple:
+    """``(axis group, {name: (axis, dim)})`` of a sharded module, else
+    ``(None, {})``."""
+    axis = getattr(module, "shard_axis", None)
+    return (axis, module.param_specs()) if axis is not None else (None, {})
+
+
+def _local(module, sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The full ``sd`` cut to this rank's shards of ``module``."""
+    axis, specs = _sharding(module)
+    if axis is None:
+        return sd
+    return shard_state_dict(sd, {n: v for n, v in specs.items() if n in sd}, axis.size,
+                            axis.index)
+
+
+def gather_shards(module, named: Dict[str, torch.Tensor],
+                  dst: Optional[int] = None) -> Optional[Dict[str, torch.Tensor]]:
+    """``named`` (parameter names -> this rank's tensors) with every sharded
+    name gathered over the module's group along its dimension: the full
+    tensors, on every rank of the group (every rank must call this). With
+    ``dst`` (a rank of the default group) only ``dst`` receives them and
+    returns the dict; the other members of its group send their shards,
+    the ranks of the other groups send nothing, and all return None."""
+    axis, specs = _sharding(module)
+    if axis is None:
+        return named if dst is None or collectives.rank() == dst else None
+    if dst is not None and dst not in {collectives.global_rank(axis.group, i)
+                                       for i in range(axis.size)}:
+        return None
+    out = dict(named)
+    for name, (_, dim) in specs.items():
+        if name in named:
+            t = named[name].detach()
+            out[name] = (collectives.all_gather(t, group=axis.group, axis=dim) if dst is None
+                         else collectives.gather(t, dst, group=axis.group, axis=dim))
+    return out if dst is None or collectives.rank() == dst else None
+
+
+def full_shapes(module) -> Dict[str, tuple]:
+    """Each state-dict entry's shape at full width (a shard's times the
+    group's size along its dimension)."""
+    axis, specs = _sharding(module)
+    out = {}
+    for name, t in module.state_dict().items():
+        shape = list(t.shape)
+        if name in specs:
+            shape[specs[name][1]] *= axis.size
+        out[name] = tuple(shape)
+    return out
+
+
+def state_dict_to_jax(module, sd: Dict[str, np.ndarray]) -> tuple:
+    """``(params, bn_state)`` JAX pytrees of a state dict of ``module``'s
+    kind."""
+    if isinstance(module, ResNet):
+        return resnet_state_dict_to_jax(sd)
+    if isinstance(module, ViTMoE):
+        return vit_moe_state_dict_to_jax(sd), {}
+    if isinstance(module, ViT):
+        return vit_state_dict_to_jax(sd), {}
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT or a ViT-MoE")
+
+
+def _from_jax_fn(module):
+    """The ``params -> state dict`` converter of ``module``'s kind."""
+    if isinstance(module, ResNet):
+        return resnet_state_dict_from_jax
+    if isinstance(module, ViTMoE):
+        return vit_moe_state_dict_from_jax
+    if isinstance(module, ViT):
+        return vit_state_dict_from_jax
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT or a ViT-MoE")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -138,8 +300,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def vit_params_to_jax(module: torch.nn.Module):
-    """The module's weights as a JAX-layout ViT pytree of numpy f32 arrays."""
-    return vit_state_dict_to_jax({n: _numpy(t) for n, t in module.state_dict().items()})
+    """The module's weights as a JAX-layout ViT (or ViT-MoE) pytree of numpy
+    f32 arrays, at full width: a sharded module's shards are gathered over
+    its group, so every rank of the group must call this then."""
+    full = gather_shards(module, dict(module.state_dict()))
+    return state_dict_to_jax(module, {n: _numpy(t) for n, t in full.items()})[0]
 
 
 def sgd_state_to_jax(module: torch.nn.Module, opt_state) -> dict:
@@ -198,10 +363,10 @@ def _copy_pairs(pairs) -> None:
 
 
 def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> torch.nn.Module:
-    """Copy ``{state-dict name: array}`` into ``module`` in place (on its
-    device, in its dtype). Raises on any unknown, missing or misshapen
-    entry."""
-    _copy_pairs(_checked_pairs(module.state_dict(), sd))
+    """Copy ``{state-dict name: array}`` (full width) into ``module`` in
+    place (on its device, in its dtype; a sharded module takes its
+    shards). Raises on any unknown, missing or misshapen entry."""
+    _copy_pairs(_checked_pairs(module.state_dict(), _local(module, sd)))
     return module
 
 
@@ -213,9 +378,11 @@ def sgd_state_from_jax(module: torch.nn.Module, momentum) -> list:
 
 
 def load_jax_vit(module: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy a JAX ViT pytree into ``module`` in place (on its device, in
-    its dtype). Raises on any unknown, missing or misshapen entry."""
-    return _load(module, vit_state_dict_from_jax(params))
+    """Copy a JAX ViT (or ViT-MoE) pytree into ``module`` in place (on its
+    device, in its dtype; a tensor- or expert-parallel module takes this
+    rank's shards of the full arrays). Raises on any unknown, missing or
+    misshapen entry."""
+    return _load(module, _from_jax_fn(module)(params))
 
 
 def numpy_vit_params(model, seed: int = 0):
@@ -379,24 +546,23 @@ def load_jax_params(module: torch.nn.Module, params, bn_state=None) -> torch.nn.
     place (a ViT has no BN state: ``bn_state`` must be empty)."""
     if isinstance(module, ResNet):
         return load_jax_resnet(module, params, bn_state)
-    if isinstance(module, ViT):
+    if isinstance(module, (ViT, ViTMoE)):
         if bn_state:
             raise KeyError(f"a ViT has no BN state; got {sorted(bn_state)}")
         return load_jax_vit(module, params)
-    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet or a ViT")
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT or a ViT-MoE")
 
 
-def jax_layout_template(module: torch.nn.Module):
+def jax_layout_template(module: torch.nn.Module, local: bool = False):
     """``(params, bn_state)`` pytrees of ``module`` in JAX layout whose
     leaves are zero-stride f32 numpy views: every leaf's shape and dtype,
-    and no copy of the weights (a restore template)."""
-    sd = {n: np.broadcast_to(np.float32(0), tuple(t.shape))
-          for n, t in module.state_dict().items()}
-    if isinstance(module, ResNet):
-        return resnet_state_dict_to_jax(sd)
-    if isinstance(module, ViT):
-        return vit_state_dict_to_jax(sd), {}
-    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet or a ViT")
+    and no copy of the weights (a restore template). The shapes are the
+    full width of a sharded module's leaves (the checkpoint's layout), or
+    with ``local`` this rank's shards."""
+    shapes = ({n: tuple(t.shape) for n, t in module.state_dict().items()} if local
+              else full_shapes(module))
+    return state_dict_to_jax(module, {n: np.broadcast_to(np.float32(0), s)
+                               for n, s in shapes.items()})
 
 
 # -- TrainState <-> the flat JAX-keyed dict of a checkpoint --------------------
@@ -479,16 +645,18 @@ def _host_in_jax_order(t: torch.Tensor) -> np.ndarray:
     return _numpy(t)
 
 
-def _param_tree(model, buffers, what: str):
+def _param_tree(model, buffers, what: str, dst: Optional[int] = None):
     """Per-parameter buffers (parameter order) as a JAX pytree mirroring
-    the parameters: host copies in the JAX layout."""
+    the parameters: host copies in the JAX layout, at full width (a sharded
+    model's are gathered over its group: with ``dst``, to that rank alone,
+    and the other ranks return None)."""
     names = [n for n, _ in model.named_parameters()]
     if len(buffers) != len(names):
         raise KeyError(f"{len(buffers)} {what} buffers for {len(names)} parameters")
-    sd = {n: _host_in_jax_order(b) for n, b in zip(names, buffers)}
-    if isinstance(model, ResNet):
-        return resnet_state_dict_to_jax(sd)[0]
-    return vit_state_dict_to_jax(sd)
+    full = gather_shards(model, dict(zip(names, buffers)), dst)
+    if full is None:
+        return None
+    return state_dict_to_jax(model, {n: _host_in_jax_order(b) for n, b in full.items()})[0]
 
 
 def _is_adam(opt_state) -> bool:
@@ -517,8 +685,7 @@ def jax_ravel_order(model: torch.nn.Module) -> np.ndarray:
             k = int(np.prod(shape))
             sd[name] = np.arange(off, off + k, dtype=np.int64).reshape(shape)
             off += k
-        tree = (resnet_state_dict_to_jax(sd)[0] if isinstance(model, ResNet)
-                else vit_state_dict_to_jax(sd))
+        tree = state_dict_to_jax(model, sd)[0]
         _ORDERS[key] = np.concatenate([np.asarray(a).reshape(-1)
                                        for a in keystr_leaves(tree).values()])
     return _ORDERS[key]
@@ -576,8 +743,8 @@ def _gathered_flat_parts(state, dst: Optional[int] = None) -> Optional[Dict[str,
 
 
 def train_state_to_flat(state, dst: Optional[int] = None) -> Optional[Dict[str, np.ndarray]]:
-    """A port ``TrainState`` (a ResNet's or a ViT's) as the ``{keystr:
-    array}`` dict of a JAX ``TrainState``: HWIO conv kernels, ``mean``/
+    """A port ``TrainState`` (a ResNet's, a ViT's or a ViT-MoE's) as the
+    ``{keystr: array}`` dict of a JAX ``TrainState``: HWIO conv kernels, ``mean``/
     ``var`` BN statistics, the optimizer state, ``step`` as an int32
     scalar and the ``ef`` residuals; the ViT's ``bn_state`` is ``{}``, as
     ``ef`` is without int8_ef, so neither has an entry. The optimizer
@@ -589,32 +756,41 @@ def train_state_to_flat(state, dst: Optional[int] = None) -> Optional[Dict[str, 
     ``dst`` builds the dict; the others send their flat parts, if any,
     and return None. One 1-D tensor without a
     layout is written as it is, as the single entry ``['opt_state']`` (a
-    global flat momentum already in the JAX order). Host copies: the dict
-    does not follow the live tensors."""
+    global flat momentum already in the JAX order). A tensor- or
+    expert-parallel model's shards, and their optimizer state, are
+    gathered into JAX's full layout over its group (every rank must call
+    this then; with ``dst``, to that rank alone), as the JAX ``save``
+    gathers its sharded leaves to process 0. Host
+    copies: the dict does not follow the live tensors."""
     model = state.params
-    if not isinstance(model, (ResNet, ViT)):
-        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+    _from_jax_fn(model)  # a TypeError for a model with no JAX layout
     flat_parts = _gathered_flat_parts(state, dst)
-    if flat_parts is None:
+    if flat_parts is None and getattr(model, "shard_axis", None) is None:
         return None
-    sd = {n: _host_in_jax_order(t) for n, t in model.state_dict().items()}
-    if isinstance(model, ResNet):
-        params, bn_state = resnet_state_dict_to_jax(sd)
+    # a sharded model's leaves and their optimizer state are gathered over
+    # its group (before any rank leaves): with dst, to that rank alone
+    opt, opt_tree = state.opt_state, None
+    if isinstance(opt, torch.Tensor):
+        pass
+    elif _is_adam(opt):
+        if not isinstance(opt["mu"], torch.Tensor):
+            opt_tree = {"mu": _param_tree(model, opt["mu"], "mu", dst),
+                        "nu": _param_tree(model, opt["nu"], "nu", dst)}
     else:
-        params, bn_state = vit_state_dict_to_jax(sd), {}
-    opt = state.opt_state
+        opt_tree = _param_tree(model, opt, "momentum", dst)
+    full = gather_shards(model, dict(model.state_dict()), dst)
+    if flat_parts is None or full is None:
+        return None
+    params, bn_state = state_dict_to_jax(model, {n: _host_in_jax_order(t) for n, t in full.items()})
     if "['opt_state']" in flat_parts:
         opt_tree = flat_parts["['opt_state']"]
     elif isinstance(opt, torch.Tensor):
         opt_tree = _numpy(opt)
     elif _is_adam(opt):
         if "['opt_state']['mu']" in flat_parts:
-            mu, nu = flat_parts["['opt_state']['mu']"], flat_parts["['opt_state']['nu']"]
-        else:
-            mu, nu = _param_tree(model, opt["mu"], "mu"), _param_tree(model, opt["nu"], "nu")
-        opt_tree = {"mu": mu, "nu": nu, "count": np.asarray(opt["count"].item(), np.int32)}
-    else:
-        opt_tree = _param_tree(model, opt, "momentum")
+            opt_tree = {"mu": flat_parts["['opt_state']['mu']"],
+                        "nu": flat_parts["['opt_state']['nu']"]}
+        opt_tree["count"] = np.asarray(opt["count"].item(), np.int32)
     ef = {k: flat_parts[f"['ef'][{k!r}]"] for k in (state.ef or {})}
     return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": opt_tree,
                            "step": np.asarray(state.step, np.int32), "ef": ef})
@@ -674,16 +850,18 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
         raise KeyError(f"checkpoint entries: unknown {unknown}, missing {missing}")
     model = state.params
     names = [n for n, _ in model.named_parameters()]
+    to_sd = _from_jax_fn(model)
     if isinstance(model, ResNet):
         sd = resnet_state_dict_from_jax(tree["params"], tree.get("bn_state", {}))
-        from_jax = resnet_state_dict_from_jax
-    elif isinstance(model, ViT):
+    else:
         if tree.get("bn_state"):
             raise KeyError(f"a ViT has no BN state; the checkpoint has {sorted(tree['bn_state'])}")
-        sd = vit_state_dict_from_jax(tree["params"])
-        from_jax = vit_state_dict_from_jax
-    else:
-        raise TypeError(f"no JAX layout for a {type(model).__name__}: a ResNet or a ViT")
+        sd = to_sd(tree["params"])
+    sd = _local(model, sd)
+
+    def from_jax(saved):  # an optimizer tree mirroring the parameters, this rank's part
+        return _local(model, to_sd(saved))
+
     step = np.asarray(tree["step"])
     if step.shape != () or step.dtype.kind not in "iu":
         raise ValueError(f"['step'] must be an integer scalar, got {step.dtype} {step.shape}")

@@ -25,6 +25,14 @@ other way) and :func:`all_to_all_tiled` (``lax.all_to_all(...,
 tiled=True)`` along any two axes, counted under ``comm.all_to_all.<kind>``;
 its backward is the inverse exchange).
 
+Tensor parallelism adds the Megatron conjugate pair over a model group,
+:func:`copy_to_tp` (identity forward, all-reduce backward, counted
+``comm.all_reduce.tp_grad``) and :func:`reduce_from_tp` (all-reduce
+forward, counted ``comm.all_reduce.tp``, identity backward). The MoE's slot
+exchange over an expert group is :func:`all_to_all_tiled` along dim 0 of
+the ``[n, e_loc, C, d]`` blocks (``lax.all_to_all(..., tiled=False)``),
+counted ``comm.all_to_all.moe`` and ``moe_grad``.
+
 Without an initialised process group every function is the identity of a
 world of one process and counts nothing.
 """
@@ -55,6 +63,14 @@ def world_size(group=None) -> int:
 
 def rank(group=None) -> int:
     return dist.get_rank(group) if active() else 0
+
+
+def global_rank(group, index: int) -> int:
+    """The default group's rank of member ``index`` of ``group`` (None: the
+    default group itself)."""
+    if group is None or not active():
+        return index
+    return dist.get_global_rank(group, index)
 
 
 def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
@@ -178,6 +194,21 @@ def all_gather(x: torch.Tensor, *, group=None, axis: int = 0) -> torch.Tensor:
         return x.clone()
     parts = [torch.empty_like(x) for _ in range(world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
+
+
+def gather(x: torch.Tensor, dst: int = 0, *, group=None, axis: int = 0) -> Optional[torch.Tensor]:
+    """:func:`all_gather` received by rank ``dst`` alone (a rank of the
+    default group, and a member of ``group``): every member's ``x`` joined
+    along ``axis`` in rank order there, None on the other members."""
+    if not active():
+        return x.clone()
+    x = x.contiguous()
+    if rank() != dst:
+        dist.gather(x, dst=dst, group=group)
+        return None
+    parts = [torch.empty_like(x) for _ in range(world_size(group))]
+    dist.gather(x, gather_list=parts, dst=dst, group=group)
     return torch.cat(parts, dim=axis)
 
 
@@ -306,3 +337,50 @@ def all_to_all_tiled(x: torch.Tensor, split_axis: int, concat_axis: int, *, grou
     ``concat_axis``. Differentiable: the backward is the inverse exchange
     (``split_axis`` and ``concat_axis`` swapped), as JAX transposes it."""
     return _AllToAllTiled.apply(x, split_axis, concat_axis, group, kind)
+
+
+# -- tensor parallelism: the Megatron conjugate pair ------------------------------
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward, all-reduce sum backward (counted ``<kind>_grad``):
+    the "f" operator of ``tpu_dist/parallel/tensor.py::tp_ops``, which feeds
+    a replicated activation into column-parallel layers and sums each
+    shard's partial cotangent on the way back."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce_(out, group=ctx.group, kind=ctx.kind + "_grad"), None, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """All-reduce sum forward (counted ``<kind>``), identity backward: the
+    "g" operator, which merges row-parallel partial outputs; their
+    cotangent is already the same on every shard."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), group=group,
+                           kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_tp(x: torch.Tensor, *, group=None, kind: str = "tp") -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``group`` (the model
+    group); the identity without a process group or at a group of one."""
+    return _CopyToTP.apply(x, group, kind) if active() and world_size(group) > 1 else x
+
+
+def reduce_from_tp(x: torch.Tensor, *, group=None, kind: str = "tp") -> torch.Tensor:
+    """``x`` summed over ``group`` (the model group), whose gradient passes
+    as it is; the identity without a process group or at a group of one."""
+    return _ReduceFromTP.apply(x, group, kind) if active() and world_size(group) > 1 else x

@@ -17,12 +17,19 @@ Sequence parallelism lays the world out as a ``[data, seq]`` mesh
 consecutive ranks, and each axis has a ``torch.distributed`` group per row
 (:class:`AxisGroup`): :func:`seq_axis` builds the seq groups alone, which
 is all the replicated step needs, :func:`data_axis` the data groups of
-ZeRO-1's shards. :func:`axis_intra_host` is ``model_axes_intra_host``.
+ZeRO-1's shards. Tensor and expert parallelism name more axes
+(:func:`named_mesh`, the JAX names ``model`` and ``expert``):
+:func:`tp_mesh` is ``[data, model]`` or ``[data, model, seq]`` with the
+joined ``data,seq`` group, :func:`ep_mesh` ``[data, expert]``; every rank
+creates every group in one order. :func:`axis_intra_host` is
+``model_axes_intra_host``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import os
 from typing import Optional
 
@@ -104,10 +111,12 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-# -- the DP x SP layout ---------------------------------------------------------
+# -- named mesh axes: [data, seq], [data, model], [data, expert], [data, model, seq] --
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +125,9 @@ class AxisGroup:
     this rank's ``index`` along it and the process ``group`` of the ranks
     that share every other coordinate (None: the default group, which is
     the whole axis only when the mesh is 1-D). What a JAX axis name selects
-    inside a ``shard_map``, as a value."""
+    inside a ``shard_map``, as a value. A group over several axes (the
+    ranks that share the remaining coordinates) names them joined by a
+    comma, and its index is this rank's row-major position over them."""
 
     name: str
     size: int
@@ -133,23 +144,54 @@ class Mesh:
     seq: AxisGroup
 
 
-def mesh_coords(rank: int, sp: int) -> tuple:
-    """``(data, seq)`` coordinates of ``rank`` on a ``[world/sp, sp]`` mesh
-    laid out host-major and row-major, as ``tpu_dist/comm/mesh.py::
-    device_mesh`` lays devices: a seq group is ``sp`` consecutive ranks."""
-    return divmod(rank, sp)
+def mesh_coords(rank: int, *inner: int) -> tuple:
+    """Coordinates of ``rank`` on a ``[world/prod(inner), *inner]`` mesh laid
+    out host-major and row-major (the last axis fastest), as
+    ``tpu_dist/comm/mesh.py::device_mesh`` lays devices: an inner axis of
+    size ``k`` is ``k`` ranks a stride apart, the last one consecutive
+    ranks. ``mesh_coords(rank, sp)`` is ``(data, seq)``."""
+    coords = []
+    for size in reversed(inner):
+        rank, c = divmod(rank, size)
+        coords.append(c)
+    return (rank, *reversed(coords))
+
+
+def axis_groups(world: int, inner: tuple, axes: tuple) -> list:
+    """The ranks of each group along the axes ``axes`` (indices into the
+    mesh ``[world/prod(inner), *inner]``) of that mesh: every group holds
+    the ranks that share the other coordinates, in row-major order over
+    ``axes``, and the groups come in row-major order of those other
+    coordinates."""
+    sizes = (world // math.prod(inner), *inner)
+    fixed = [a for a in range(len(sizes)) if a not in axes]
+    groups = []
+    for other in itertools.product(*(range(sizes[a]) for a in fixed)):
+        ranks = []
+        for mine in itertools.product(*(range(sizes[a]) for a in axes)):
+            c = [0] * len(sizes)
+            for a, v in zip(fixed, other):
+                c[a] = v
+            for a, v in zip(axes, mine):
+                c[a] = v
+            r = 0
+            for size, v in zip(sizes, c):
+                r = r * size + v
+            ranks.append(r)
+        groups.append(tuple(ranks))
+    return groups
 
 
 def seq_groups(world: int, sp: int) -> list:
     """The ranks of each seq group of a ``[world/sp, sp]`` mesh, by data
     index: ``sp`` consecutive ranks each."""
-    return [tuple(range(d * sp, (d + 1) * sp)) for d in range(world // sp)]
+    return axis_groups(world, (sp,), (1,))
 
 
 def data_groups(world: int, sp: int) -> list:
     """The ranks of each data group of a ``[world/sp, sp]`` mesh, by seq
     index: every ``sp``-th rank."""
-    return [tuple(range(j, world, sp)) for j in range(sp)]
+    return axis_groups(world, (sp,), (0,))
 
 
 def _checked(sp: int, world: Optional[int], rank: Optional[int]) -> tuple:
@@ -196,6 +238,74 @@ def seq_mesh(sp: int, world: Optional[int] = None, rank: Optional[int] = None) -
     axes have size 1 and no group."""
     seq = seq_axis(sp, world, rank)
     return Mesh(data_axis(sp, world, rank), seq)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A mesh ``[data, *inner]`` of named axes as this rank sees it:
+    ``axes[name]`` is the :class:`AxisGroup` along one axis, or along
+    several joined by a comma (``"data,seq"``: the ranks that share the
+    other coordinates)."""
+
+    names: tuple
+    sizes: tuple
+    coords: tuple
+    axes: dict
+
+    def __getitem__(self, name: str) -> AxisGroup:
+        return self.axes[name]
+
+
+def named_mesh(inner: list, joined: tuple = (), world: Optional[int] = None,
+               rank: Optional[int] = None) -> NamedMesh:
+    """The mesh ``[data = world / prod(sizes), *sizes]`` of the axes
+    ``inner`` (``[(name, size), ...]``, the last the fastest: consecutive
+    ranks), as the JAX trainer lays its meshes out
+    (``tpu_dist/train/trainer.py:278-309``). Every rank creates the groups
+    of every axis, in the mesh's order (data first), then of each tuple of
+    axis names in ``joined``, in that order. Without a process group every
+    axis has no group."""
+    world = process_count() if world is None else int(world)
+    rank = process_index() if rank is None else int(rank)
+    sizes = tuple(int(s) for _, s in inner)
+    if any(s < 1 for s in sizes) or world % math.prod(sizes):
+        raise ValueError(f"{world} ranks do not divide over "
+                         + " x ".join(f"{n}={s}" for n, s in inner))
+    names = (DATA_AXIS, *(n for n, _ in inner))
+    full = (world // math.prod(sizes), *sizes)
+    coords = mesh_coords(rank, *sizes)
+    axes = {}
+    for spec in [(n,) for n in names] + [tuple(j) for j in joined]:
+        idx = tuple(names.index(n) for n in spec)
+        fixed = [a for a in range(len(names)) if a not in idx]
+        mine = 0
+        for a in fixed:
+            mine = mine * full[a] + coords[a]
+        index = 0
+        for a in idx:
+            index = index * full[a] + coords[a]
+        axes[",".join(spec)] = AxisGroup(
+            ",".join(spec), math.prod(full[a] for a in idx), index,
+            _new_groups(axis_groups(world, sizes, idx), mine))
+    return NamedMesh(names, full, coords, axes)
+
+
+def tp_mesh(tp: int, sp: int = 1, world: Optional[int] = None,
+            rank: Optional[int] = None) -> NamedMesh:
+    """``[world/tp, tp]`` as ``[data, model]``, or with ``sp > 1``
+    ``[world/(tp·sp), tp, sp]`` as ``[data, model, seq]`` with the joined
+    ``data,seq`` group (the ranks that share a model index: the gradient
+    reduce and the evaluation's)."""
+    if sp > 1:
+        return named_mesh([(MODEL_AXIS, tp), (SEQ_AXIS, sp)], ((DATA_AXIS, SEQ_AXIS),),
+                          world, rank)
+    return named_mesh([(MODEL_AXIS, tp)], (), world, rank)
+
+
+def ep_mesh(ep: int, world: Optional[int] = None, rank: Optional[int] = None) -> NamedMesh:
+    """``[world/ep, ep]`` as ``[data, expert]``: the expert groups are
+    ``ep`` consecutive ranks."""
+    return named_mesh([(EXPERT_AXIS, ep)], (), world, rank)
 
 
 def axis_intra_host(groups, ranks_per_host: int) -> bool:

@@ -127,13 +127,21 @@ def _leaf_entry(path: str, leaf) -> Optional[dict]:
 def _module_params(module) -> dict:
     """A module's parameters as the JAX parameter tree (``bridge.py``'s
     names and layout) for the ResNets and ViTs, else by their dotted
-    names."""
+    names. A tensor- or expert-parallel module's sharded leaves are
+    :class:`Leaf` s of their full shape and this rank's shard shape, as the
+    JAX ledger reads a leaf's sharding (``tpu_dist/obs/memory.py:112-156``)."""
     from tpu_dist_torch import bridge  # noqa: PLC0415
 
     try:
-        return bridge.jax_layout_template(module)[0]
+        full = bridge.jax_layout_template(module)[0]
     except TypeError:
         return dict(module.named_parameters())
+    if getattr(module, "shard_axis", None) is None:
+        return full
+    local = bridge.keystr_leaves(bridge.jax_layout_template(module, local=True)[0])
+    return bridge.keystr_unflatten({
+        k: (Leaf(v.shape, str(v.dtype), local[k].shape) if v.shape != local[k].shape else v)
+        for k, v in bridge.keystr_leaves(full).items()})
 
 
 def _walk(tree, prefix: str, out: list) -> None:
@@ -193,16 +201,19 @@ def state_sections(state) -> dict:
     parameter tree; under ZeRO-1 the flat state is one leaf of
     ``layout.padded`` elements, ``layout.chunk`` a device; the ``int8_ef``
     residuals are ``r1`` (``world·padded``, a row a device) and ``r2``
-    (``padded``, a chunk a device)."""
+    (``padded``, a chunk a device). A tensor- or expert-parallel model's
+    shards, and the optimizer state that mirrors them, are ``sharded``:
+    their bytes a device are the shard's."""
     import torch  # noqa: PLC0415
 
     from tpu_dist_torch import bridge  # noqa: PLC0415
 
     model, lay = state.params, state.layout
     try:
-        params, bn_state = bridge.jax_layout_template(model)
+        bn_state = bridge.jax_layout_template(model)[1]
     except TypeError:
-        params, bn_state = dict(model.named_parameters()), dict(state.bn_state or {})
+        bn_state = dict(state.bn_state or {})
+    params = _module_params(model)
 
     n_params = len(list(model.parameters()))
 

@@ -65,6 +65,14 @@ data-parallel (DP) family, one process per device.
   whose ranks hold the flat shards) they are meant over the seq axis
   first, then reduce-scattered over the data axis. The quantized wires
   refuse a seq axis, as in JAX.
+* ``tp_axis`` is Megatron tensor parallelism (the model holds its shards
+  and joins its model group: ``ViT(tp=)``), ``ep_axis`` expert parallelism
+  (``ViTMoE(ep=)``); ``axis`` is then the group of the ranks that share
+  this rank's model index, over which the gradients are meant (under EP
+  the expert slabs divided by the group's size, the other leaves meant
+  over every rank), and the clip sums each sharded group's squares over its
+  model group (:func:`make_step_body`). A model that returns ``(logits,
+  aux)`` in training has ``moe_aux_coef`` times ``aux`` added to its loss.
 * ``device_metrics`` computes the training-health scalars
   (:func:`~tpu_dist_torch.obs.device_stats.compute_device_stats`:
   ``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite_grads``)
@@ -86,9 +94,9 @@ Without a process group every collective is the identity (a world of one
 process). The step updates the model, its BN statistics, its optimizer
 state and its residuals in place (the JAX step's ``donate=True``) and
 returns a state with ``step + 1``. The JAX step's walls stand: int8 with
-``pmean_fusion="per_leaf"`` or a seq axis, ``rs_ag_chunks > 1`` off the
-non-quantized ZeRO-1 path, and a seq axis with an expert or pipeline axis,
-raise ``ValueError``. Options whose subsystem
+``pmean_fusion="per_leaf"`` or a seq, model or expert axis, ``rs_ag_chunks >
+1`` off the non-quantized ZeRO-1 path, ZeRO-1 with a model or expert axis,
+and an expert axis with a seq or model axis, raise ``ValueError``. Options whose subsystem
 is not ported raise :class:`NotPortedError`, which names the flag and the
 ROADMAP queue that owns it.
 """
@@ -124,8 +132,6 @@ DEVICE_METRICS_SCOPE = ("device_metrics is scoped to the replicated-param paths 
 
 # option -> what it needs and where in ROADMAP.md that is queued
 WAITS_FOR = {
-    "tp_axis": "Queue A 6 (tensor parallelism, parallel/tensor.py)",
-    "ep_axis": "Queue A 6 (expert parallelism, parallel/expert.py)",
     "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
 }
 
@@ -151,15 +157,17 @@ def _refuse_unported(**options) -> None:
 
 
 def check_seq_axis(seq_axis, axis, sp_mode: str, grad_compression: str,
-                   shard_weight_update: bool) -> None:
-    """The JAX step's walls around ``seq_axis``: the quantized wires do not
-    combine with it (``tpu_dist/train/step.py:413-422``), ``sp_mode`` is
-    ring or ulysses, and ZeRO-1 needs the data axis of the same mesh."""
-    if seq_axis is None:
+                   shard_weight_update: bool, model_axes: tuple = ()) -> None:
+    """The JAX step's walls around ``seq_axis`` and the model axes
+    (``model_axes``: the tp and ep axes given): the quantized wires combine
+    with none of them (``tpu_dist/train/step.py:413-422``), ``sp_mode`` is
+    ring or ulysses, and ZeRO-1 under a seq axis needs the data axis of
+    the same mesh."""
+    if seq_axis is None and not any(a is not None for a in model_axes):
         return
-    if sp_mode not in ("ring", "ulysses"):
+    if seq_axis is not None and sp_mode not in ("ring", "ulysses"):
         raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {sp_mode!r}")
-    if shard_weight_update and axis is None:
+    if seq_axis is not None and shard_weight_update and axis is None:
         raise ValueError("shard_weight_update with seq_axis needs axis=, the data axis of the "
                          "same mesh (tpu_dist_torch.comm.mesh.data_axis)")
     if grad_compression in QUANTIZED_MODES:
@@ -454,6 +462,9 @@ def make_step_body(
     axis=None,
     seq_axis=None,
     sp_mode: str = "ring",
+    tp_axis=None,
+    ep_axis=None,
+    moe_aux_coef: float = 0.01,
 ):
     """Build ``body(state, images, labels, lr, step=None) -> sums``: the
     step on tensors already on the model's device. Forward and backward
@@ -479,10 +490,43 @@ def make_step_body(
     stay over every rank, whose seq replicas hold the same loss, hits and
     gradients. ``axis`` is the data axis ZeRO-1 shards over (None: every
     rank); under a seq axis ZeRO-1 means the gradients over the seq group
-    before its reduce-scatter over ``axis``."""
+    before its reduce-scatter over ``axis``.
+
+    ``tp_axis`` (the model axis of a ``[data, model]`` mesh,
+    :func:`tpu_dist_torch.comm.mesh.tp_mesh`) is Megatron tensor
+    parallelism: the model holds this rank's shards and joins the model
+    group itself (``ViT(tp=...)``); the batch is the data row's on every
+    rank of the group. The gradients are meant over ``axis``, the ranks
+    that share this rank's model index (the data axis, or under TP x SP the
+    joined ``data,seq`` group): the replicated leaves' gradients are the
+    same on every model rank already (``copy_to_tp``'s backward), the
+    shards' are this rank's. ``ep_axis`` (the expert axis of a ``[data,
+    expert]`` mesh) is expert parallelism: each rank its own batch, the
+    expert slabs sharded; the slabs' gradients take the mean over ``axis``
+    (the data axis) divided by the expert group's size (each rank's slabs
+    gather the whole group's tokens through the exchange's backward, the
+    sum of every rank's loss gradient), every other leaf the mean over
+    every rank (``tpu_dist/train/step.py::_ep_grad_reduce``). The global-
+    norm clip sums each sharded group's squares over its model group. A
+    model that returns ``(logits, aux)`` in training (the MoE ViT) has
+    ``moe_aux_coef`` times ``aux`` added to each chunk's loss."""
     validate_grad_compression(grad_compression)
     quantized = grad_compression in QUANTIZED_MODES
-    check_seq_axis(seq_axis, axis, sp_mode, grad_compression, shard_weight_update)
+    check_seq_axis(seq_axis, axis, sp_mode, grad_compression, shard_weight_update,
+                   (tp_axis, ep_axis))
+    model_axis = tp_axis if tp_axis is not None else ep_axis
+    if model_axis is not None:
+        if shard_weight_update:
+            raise ValueError(
+                ("tp_axis + shard_weight_update is out of ZeRO-1's scope (DP-only fast path by "
+                 "design) — use --fsdp for sharded weight updates beyond plain DP")
+                if tp_axis is not None else
+                "ep_axis is incompatible with shard_weight_update / seq_axis / tp_axis "
+                "(structural; see docstring)")
+        if axis is None and collectives.world_size() != model_axis.size:
+            raise ValueError(f"{'tp_axis' if tp_axis is not None else 'ep_axis'} needs axis=, "
+                             "the ranks that share this rank's model index (the data axis of "
+                             "the same mesh, tpu_dist_torch.comm.mesh.tp_mesh / ep_mesh)")
     if device_metrics and shard_weight_update:
         # the health scalars are free only where the reduced gradients and
         # the parameters are the same on every rank; under ZeRO-1 they
@@ -490,7 +534,7 @@ def make_step_body(
         raise ValueError(DEVICE_METRICS_SCOPE)
     if pmean_fusion not in ("fused", "per_leaf"):
         raise ValueError(f"pmean_fusion={pmean_fusion!r}: expected 'fused' or 'per_leaf'")
-    if pmean_fusion == "per_leaf" and (quantized or shard_weight_update):
+    if pmean_fusion == "per_leaf" and (quantized or shard_weight_update or ep_axis is not None):
         raise ValueError("pmean_fusion='per_leaf' is scoped to the non-quantized data-parallel "
                          "reduce; it cannot combine with grad_compression int8/ep/"
                          "shard_weight_update")
@@ -507,11 +551,34 @@ def make_step_body(
     zero = {}  # the _ZeroOne of the model the body last saw
     seq_group = seq_axis.group if seq_axis is not None else None
     model_kw = {"seq": seq_axis, "sp_mode": sp_mode} if seq_axis is not None else {}
+    data_group = axis.group if axis is not None else None
 
-    def reduce_grads(grads, state, step):
-        """The DDP gradient reduce on the ``grad_compression`` wire: the
-        mean over the ranks, once a step (:func:`compressed_pmean`), whose
-        ``int8_ef`` residuals go back into ``state.ef`` in place."""
+    def wired_mean(grads, kind, group, div=1):
+        """The mean over ``group`` on the wire, divided by ``div``."""
+        red = _flat_all_reduce_mean([grad_wire(g, grad_compression) for g in grads], kind, group)
+        out = [grad_unwire(r, g, grad_compression) for r, g in zip(red, grads)]
+        return [o.div_(div) for o in out] if div != 1 else out
+
+    def reduce_grads(grads, state, step, sharded_ix):
+        """The gradient reduce on the ``grad_compression`` wire, once a step:
+        under TP the mean over the data axis, under EP the mean over the
+        data axis divided by the group's size for the expert slabs
+        (``sharded_ix``) and over every rank for the rest, else the mean
+        over every rank (:func:`compressed_pmean`), whose ``int8_ef``
+        residuals go back into ``state.ef`` in place."""
+        if tp_axis is not None:
+            return wired_mean(grads, "grad", data_group) if collectives.active() else grads
+        if ep_axis is not None:
+            if not collectives.active():
+                return grads
+            out = list(grads)
+            slabs = [grads[i] for i in sharded_ix]
+            rest = [i for i in range(len(grads)) if i not in sharded_ix]
+            for i, r in zip(rest, wired_mean([grads[i] for i in rest], "grad", None)):
+                out[i] = r
+            for i, r in zip(sharded_ix, wired_mean(slabs, "grad_ep", data_group, ep_axis.size)):
+                out[i] = r
+            return out
         ef = state.ef if grad_compression == "int8_ef" else ()
         red, new_ef = compressed_pmean(
             grads, grad_compression, key=quant_key(step) if quantized else None, ef=ef,
@@ -520,11 +587,18 @@ def make_step_body(
             state.ef[k].copy_(v)
         return red
 
-    def clip_grads(grads):
-        """Global-norm clip: scale = min(1, clip / max(norm, 1e-12))."""
+    def clip_grads(grads, sharded_ix=()):
+        """Global-norm clip: scale = min(1, clip / max(norm, 1e-12)). The
+        squares of the sharded leaves (``sharded_ix``) are summed over the
+        model group first: each rank holds a slice of their norm, and the
+        replicated leaves the whole of theirs (``tpu_dist/train/step.py::
+        clip_grads``)."""
         if grad_clip_norm <= 0.0:
             return grads
-        sq = sum(torch.sum(torch.square(g)) for g in grads)
+        sq = sum(torch.sum(torch.square(g)) for i, g in enumerate(grads) if i not in sharded_ix)
+        if sharded_ix:
+            part = sum(torch.sum(torch.square(grads[i])) for i in sharded_ix)
+            sq = sq + collectives.all_reduce_(part, group=model_axis.group, kind="clip")
         scale = torch.clamp(grad_clip_norm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
         return [g * scale for g in grads]
 
@@ -551,11 +625,18 @@ def make_step_body(
         n = images.shape[0] // K
         # BatchNorm models take the SyncBN group; the ViT has none
         fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else dict(model_kw)
+        sharded_ix = _sharded_indices(model, model_axis)
         model.train()
 
         def forward_loss(x, y):
             out = model(x.to(compute_dtype), **fwd_kw)
-            return F.cross_entropy(out, y, label_smoothing=label_smoothing), out
+            aux = None
+            if isinstance(out, tuple):  # the MoE ViT's load-balancing loss
+                out, aux = out
+            loss = F.cross_entropy(out, y, label_smoothing=label_smoothing)
+            if aux is not None:
+                loss = loss + moe_aux_coef * aux.to(loss.dtype)
+            return loss, out
 
         grads, losses, logits = None, [], []
         for c in range(K):
@@ -588,7 +669,7 @@ def make_step_body(
         if shard_weight_update:
             sharded(state, params).update(state, params, grads, lr, step)
         else:
-            applied = clip_grads(reduce_grads(grads, state, step))
+            applied = clip_grads(reduce_grads(grads, state, step, sharded_ix), sharded_ix)
             if device_metrics:
                 before = snapshot(params)  # the parameters before the in-place update
             optimizer.update(applied, state.opt_state, params, lr)
@@ -607,6 +688,25 @@ def make_step_body(
         return torch.cat([reduced, torch.stack([stats[k] for k in DEVICE_STATS])])
 
     return body
+
+
+def _sharded_indices(model, model_axis) -> tuple:
+    """The indices, in ``model.parameters()`` order, of the leaves sharded
+    over ``model_axis`` (the model's ``param_specs``); raises unless the
+    model is sharded over an axis of that name and size."""
+    if model_axis is None:
+        return ()
+    flag = "tp" if model_axis.name == "model" else "ep"
+    own = getattr(model, "shard_axis", None)
+    if own is None or not hasattr(model, "param_specs"):
+        raise ValueError(f"{flag}_axis requires param_specs (per-leaf shardings): a "
+                         f"{type(model).__name__} built with {flag}= its group")
+    if (own.name, own.size, own.index) != (model_axis.name, model_axis.size, model_axis.index):
+        raise ValueError(f"the model is sharded over {own.name}={own.size} (index {own.index}), "
+                         f"the step over {model_axis.name}={model_axis.size} "
+                         f"(index {model_axis.index})")
+    specs = model.param_specs()
+    return tuple(i for i, (n, _) in enumerate(model.named_parameters()) if n in specs)
 
 
 #: The ``device_metrics`` scalars, in the order ``body`` appends them.
@@ -639,8 +739,8 @@ def make_train_step(
     grad_clip_norm: float = 0.0,
     shard_weight_update: bool = False,
     seq_axis=None,
-    tp_axis: Optional[str] = None,
-    ep_axis: Optional[str] = None,
+    tp_axis=None,
+    ep_axis=None,
     pp_axis: Optional[str] = None,
     remat: bool = False,
     grad_compression: str = "none",
@@ -650,6 +750,7 @@ def make_train_step(
     device_metrics: bool = False,
     axis=None,
     sp_mode: str = "ring",
+    moe_aux_coef: float = 0.01,
 ):
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
@@ -668,26 +769,34 @@ def make_train_step(
     ``labels`` are then this data row's batch, the same on every rank of
     the seq group. With ZeRO-1, ``axis`` is the mesh's data axis
     (:func:`tpu_dist_torch.comm.mesh.data_axis`), over which the flat state
-    is sharded (``axis_layout``)."""
+    is sharded (``axis_layout``).
+
+    ``tp_axis`` / ``ep_axis`` (:func:`~tpu_dist_torch.comm.mesh.tp_mesh`,
+    :func:`~tpu_dist_torch.comm.mesh.ep_mesh`) run tensor or expert
+    parallelism (:func:`make_step_body`), with ``axis`` the ranks that
+    share this rank's model index; ``images`` and ``labels`` are then the
+    data row's batch under TP, this rank's own under EP.
+    ``moe_aux_coef`` weighs a MoE model's load-balancing loss."""
     validate_grad_compression(grad_compression)
     if device_metrics and any(a is not None for a in (tp_axis, ep_axis, pp_axis)):
         raise ValueError(DEVICE_METRICS_SCOPE)  # make_step_body refuses ZeRO-1
-    if seq_axis is not None and ep_axis is not None:
-        # the MoE dispatch and the ring would thread one token dimension
-        # through two layouts (tpu_dist/train/step.py:501-514)
+    if ep_axis is not None and (seq_axis is not None or tp_axis is not None):
+        # the MoE dispatch and the ring or the Megatron shards would thread
+        # one token dimension through two layouts (tpu_dist/train/step.py:501-514)
         raise ValueError("ep_axis is incompatible with shard_weight_update / seq_axis / "
                          "tp_axis (structural; see docstring)")
     if seq_axis is not None and pp_axis is not None:
         raise ValueError("pp_axis is incompatible with shard_weight_update / seq_axis / "
                          "ep_axis (structural; see docstring)")
-    _refuse_unported(tp_axis=tp_axis, ep_axis=ep_axis, pp_axis=pp_axis)
+    _refuse_unported(pp_axis=pp_axis)
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
                           grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
                           remat=remat, shard_weight_update=shard_weight_update,
                           grad_compression=grad_compression, quant_chunk=quant_chunk,
                           rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics,
-                          axis=axis, seq_axis=seq_axis, sp_mode=sp_mode)
+                          axis=axis, seq_axis=seq_axis, sp_mode=sp_mode, tp_axis=tp_axis,
+                          ep_axis=ep_axis, moe_aux_coef=moe_aux_coef)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device
@@ -712,12 +821,20 @@ def eval_sums(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) ->
                         torch.sum(hits[:, :maxk]), torch.sum(mask)])
 
 
-def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
+def make_eval_step(*, compute_dtype: torch.dtype = torch.float32, tp_axis=None, ep_axis=None,
+                   axis=None):
     """Build ``eval_step(state, images, labels, mask) -> sums``: the
     masked sums ``loss`` (of the per-example cross-entropy), ``top1``,
     ``top5`` and ``count`` over every rank's batch (one all-reduce), as
     0-dim f32 tensors, so the caller divides once at the end. ``mask`` is
-    1.0 for real examples, 0.0 for padding."""
+    1.0 for real examples, 0.0 for padding.
+
+    Under ``tp_axis`` the ranks of a model group share a batch, so the sums
+    are taken over ``axis`` (the ranks that share this rank's model index,
+    as ``tpu_dist/train/step.py::make_eval_step``'s ``axis``); under
+    ``ep_axis`` every rank holds its own examples and the sums go over
+    every rank. The sharded model joins its groups itself."""
+    group = axis.group if tp_axis is not None and axis is not None else None
 
     def eval_step(state: TrainState, images, labels, mask):
         model = state.params
@@ -729,7 +846,8 @@ def make_eval_step(*, compute_dtype: torch.dtype = torch.float32):
         try:
             with torch.no_grad():
                 logits = model(images.to(compute_dtype))
-                sums = collectives.all_reduce_(eval_sums(logits, labels, mask), kind="eval")
+                sums = collectives.all_reduce_(eval_sums(logits, labels, mask), group=group,
+                                               kind="eval")
                 return dict(zip(("loss", "top1", "top5", "count"), sums))
         finally:
             model.train(was_training)

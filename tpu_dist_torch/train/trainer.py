@@ -39,6 +39,23 @@ ZeRO-1 under ``sp`` waits for its checkpoint gather
 (:data:`SP_ZERO1_QUEUE`). A checkpoint's ``dp`` and a mid-epoch snapshot's
 process count are the data extent, the sampler's shard count.
 
+``tp > 1`` (a ViT) lays the world out as ``[world/tp, tp]`` = ``[data,
+model]``, or with ``sp`` as ``[world/(tp·sp), tp, sp]``
+(:func:`~tpu_dist_torch.comm.mesh.tp_mesh`): each rank's model holds its
+Megatron shards (``ViT(tp=)``), the ranks of a data row train its batch,
+and the gradients, the evaluation's sums and the initial broadcast go over
+the ranks that share a model index (``replicas``). ``ep > 1`` (a MoE ViT)
+lays it out as ``[world/ep, ep]`` = ``[data, expert]``
+(:func:`~tpu_dist_torch.comm.mesh.ep_mesh`): each rank holds its experts'
+slabs (``ViTMoE(ep=)``) and trains and evaluates its contiguous slice of
+the data row's batch, as the JAX trainer shards a batch over ``(data,
+expert)``. ``moe_top_k`` sets the router's k; ``moe_aux_coef`` weighs its
+load-balancing loss. The JAX trainer's refusals stand, with its messages
+(:func:`check_parallel_config`, :func:`build_model`). A sharded model's
+checkpoint is the plain format in JAX's full layout (gathered at save,
+sliced by the rank's coordinates at restore), so it resumes at another
+``tp`` or ``ep``.
+
 Checkpoint / resume, preemption and the history are the JAX trainer's:
 
 * ``ckpt_dir`` takes a plain-format checkpoint (:mod:`tpu_dist_torch.ckpt`,
@@ -231,7 +248,7 @@ from tpu_dist_torch.evaluation.validate import validate
 from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
-from tpu_dist_torch.nn import resnet, vit
+from tpu_dist_torch.nn import resnet, vit, vit_moe
 from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters, spans, straggler as straggler_lib
@@ -256,6 +273,7 @@ _MODELS = {
     "resnet18": resnet.resnet18, "resnet34": resnet.resnet34, "resnet50": resnet.resnet50,
     "resnet50_imagenet": resnet.resnet50_imagenet,
     "vit_b16": vit.vit_b16, "vit_s16": vit.vit_s16, "vit_tiny": vit.vit_tiny,
+    "vit_moe_tiny": vit_moe.vit_moe_tiny,
 }
 
 _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
@@ -265,12 +283,9 @@ _ANALYSIS = "Queue A 6 (the analysis layer)"
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "tp": (1, _PARALLEL),
-    "ep": (1, _PARALLEL),
     "pp": (1, _PARALLEL),
     "pp_microbatches": (0, _PARALLEL),
     "pp_interleave": (1, _PARALLEL),
-    "moe_top_k": (1, _PARALLEL),
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
@@ -305,17 +320,44 @@ class TrainingDivergedError(RuntimeError):
 def register_model(name: str, factory) -> None:
     """Extend the model zoo: ``factory(num_classes=, device=, seed=)``
     returns an ``nn.Module`` taking NHWC images (and ``group=`` if it has
-    BatchNorm)."""
+    BatchNorm); a model that takes ``tp=`` or ``ep=`` (a model or expert
+    group) shards itself over it."""
     _MODELS[name] = factory
 
 
-def build_model(cfg: TrainConfig, device, seed: int = 0) -> torch.nn.Module:
+def build_model(cfg: TrainConfig, device, seed: int = 0, **shard) -> torch.nn.Module:
+    """The zoo's ``cfg.model``, with ``shard`` (``tp=`` or ``ep=``, the
+    group) when given, and ``moe_top_k`` on a MoE model; the JAX trainer's
+    refusals of a model without a tp or ep branch, heads or experts that
+    do not divide over the group, and a ``moe_top_k`` the model cannot take
+    (``tpu_dist/train/trainer.py:422-493``)."""
     if cfg.model not in _MODELS:
         raise ValueError(f"unknown model {cfg.model!r}; have {sorted(_MODELS)}")
-    model = _MODELS[cfg.model](num_classes=cfg.num_classes, device=device, seed=seed)
+    try:
+        model = _MODELS[cfg.model](num_classes=cfg.num_classes, device=device, seed=seed,
+                                   **shard)
+    except TypeError as e:
+        if "tp" in shard and "'tp'" in str(e):
+            raise ValueError(f"model {cfg.model!r} does not support tensor parallelism "
+                             f"(no tp_axis in apply); use a ViT model or tp=1") from None
+        if "ep" in shard and "'ep'" in str(e):
+            raise ValueError(f"model {cfg.model!r} does not support expert parallelism "
+                             f"(no ep_axis in apply); use a MoE model or ep=1") from None
+        raise
     if hasattr(model, "attn_impl"):
         model.attn_impl = "flash" if cfg.flash_attention else "xla"
+    if cfg.moe_top_k < 1:
+        raise ValueError(f"moe_top_k must be >= 1, got {cfg.moe_top_k}")
+    if cfg.moe_top_k > 1:
+        if not hasattr(model, "top_k"):
+            raise ValueError(f"model {cfg.model!r} has no MoE router (no top_k field) — "
+                             f"--moe_top_k applies to vit_moe_* models")
+        if cfg.moe_top_k > model.n_experts:
+            raise ValueError(f"moe_top_k={cfg.moe_top_k} exceeds the model's "
+                             f"{model.n_experts} experts")
+        model.top_k = cfg.moe_top_k
     return model
+
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -357,6 +399,42 @@ def check_sp_config(cfg: TrainConfig) -> None:
         raise NotPortedError("shard_weight_update", True, SP_ZERO1_QUEUE)
 
 
+def check_parallel_config(cfg: TrainConfig) -> None:
+    """The JAX trainer's refusals of ``tp``, ``ep`` and their combinations
+    that need no model (``tpu_dist/train/trainer.py:267-276``, ``:422-455``,
+    ``:472-490``): only sp+tp and pp+tp combine (and ``pp`` waits in
+    :data:`UNPORTED`), TP and EP refuse the fused epoch and ZeRO-1, and the
+    quantized wires refuse every model-parallel axis."""
+    for flag in ("tp", "ep"):
+        if getattr(cfg, flag) < 1:
+            raise ValueError(f"{flag} must be >= 1, got {getattr(cfg, flag)}")
+    combined = sum(w > 1 for w in (cfg.sp, cfg.tp, cfg.ep, cfg.pp))
+    if combined > 1 and not (combined == 2 and cfg.tp > 1 and (cfg.sp > 1 or cfg.pp > 1)):
+        raise ValueError(
+            "only sp+tp (3-D DPxTPxSP) and pp+tp (Megatron DPxPPxTP) "
+            "may be combined; other sp/tp/ep/pp combinations are not "
+            "supported yet"
+        )
+    if cfg.tp > 1 and (cfg.fused_epoch or cfg.shard_weight_update):
+        raise ValueError(
+            "tp > 1 is incompatible with fused_epoch / zero1 "
+            "(grad_clip_norm composes — shard-aware norm in step.py)"
+        )
+    if (cfg.grad_compression in step_lib.QUANTIZED_MODES and not cfg.fsdp
+            and (cfg.sp > 1 or cfg.tp > 1 or cfg.ep > 1 or cfg.pp > 1)):
+        raise ValueError(
+            f"grad_compression={cfg.grad_compression!r} is scoped to "
+            "the plain data-parallel, fused-epoch, and ZeRO-1 paths — "
+            "it cannot combine with sp/tp/ep/pp (use "
+            "--grad_compression bf16 there)"
+        )
+    if cfg.ep > 1 and (cfg.fused_epoch or cfg.shard_weight_update):
+        raise ValueError(
+            "ep > 1 is incompatible with fused_epoch / zero1 "
+            "(grad_clip_norm composes — shard-aware norm in step.py)"
+        )
+
+
 def check_sp_model(cfg: TrainConfig, model, world: int) -> None:
     """The JAX trainer's refusals of ``sp > 1`` that read the model and the
     world (``tpu_dist/train/trainer.py:326-370``, and its mesh's ``n %
@@ -372,9 +450,12 @@ def check_sp_model(cfg: TrainConfig, model, world: int) -> None:
             f"(no seq in forward); use a ViT model or sp=1"
         )
     heads = getattr(model, "heads", None)
-    if cfg.sp_mode == "ulysses" and heads is not None and heads % cfg.sp:
+    # under sp x tp the attention sees heads/tp local heads
+    local = heads // cfg.tp if heads is not None and cfg.tp > 1 else heads
+    if cfg.sp_mode == "ulysses" and local is not None and local % cfg.sp:
         raise ValueError(
-            f"sp_mode='ulysses' needs per-shard heads ({heads}) divisible by sp "
+            f"sp_mode='ulysses' needs per-shard heads "
+            f"({local}{f' = {heads}/tp' if cfg.tp > 1 else ''}) divisible by sp "
             f"({cfg.sp}); use sp_mode='ring'"
         )
     n_tokens = getattr(model, "n_patches", None)
@@ -391,6 +472,21 @@ def check_sp_model(cfg: TrainConfig, model, world: int) -> None:
             f"over the {world} data x seq devices for "
             f"evaluation sharding"
         )
+
+
+def _expert_slice(fn, ep):
+    """``fn(state, images, labels, *rest)`` on this expert rank's rows of a
+    data row's batch: the ``ep.index``-th of ``ep.size`` contiguous slices
+    of every batch argument (not of a scalar such as the learning rate), as
+    the JAX trainer shards a batch over the ``(data, expert)`` axes."""
+
+    @functools.wraps(fn)
+    def sliced(state, *batch):
+        n = len(batch[0]) // ep.size
+        return fn(state, *(b[ep.index * n:(ep.index + 1) * n] if np.ndim(b) else b
+                           for b in batch))
+
+    return sliced
 
 
 def refuse_fused_options(cfg: TrainConfig) -> None:
@@ -592,6 +688,7 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self._profile_triggers, self._profile_manual = check_health_options(cfg)
+        check_parallel_config(cfg)
         check_sp_config(cfg)
         refuse_unported(cfg)
         refuse_fused_options(cfg)
@@ -635,16 +732,46 @@ class Trainer:
                          if cfg.anomaly_action != "off" else None)
         seed = cfg.seed if cfg.seed is not None else 0
         seed_cudnn(cfg.seed)
-        self.model = build_model(cfg, self.device, seed)
-        check_sp_model(cfg, self.model, world)
-        # the [world/sp, sp] mesh: the train batch is sharded over its data
-        # axis and the same on each seq group's ranks, which the model's
-        # attention joins (the seq axis; no group at sp = 1)
-        self.seq = mesh.seq_axis(cfg.sp) if cfg.sp > 1 else None
-        self.n_data = world // cfg.sp
-        data_index = mesh.mesh_coords(rank, cfg.sp)[0]
+        # the mesh, laid out as the JAX trainer's (tpu_dist/train/trainer.py:
+        # 278-309): [world/sp, sp] as [data, seq], [world/tp, tp] as [data,
+        # model], [world/ep, ep] as [data, expert], [world/(tp·sp), tp, sp]
+        # as [data, model, seq]; the inner axes are consecutive ranks
+        ways = cfg.sp * cfg.tp * cfg.ep
+        if world % ways and (cfg.tp > 1 or cfg.ep > 1):
+            # (under sp alone the model's refusals come first: check_sp_model)
+            if cfg.sp > 1 and cfg.tp > 1:
+                raise ValueError(f"{world} devices not divisible by tp*sp={ways}")
+            raise ValueError(f"{world} devices not divisible by sp/tp/ep/pp={ways}")
+        self.tp = self.ep = self.replicas = None
+        self.seq = None
+        shard = {}
+        if cfg.tp > 1:
+            tmesh = mesh.tp_mesh(cfg.tp, cfg.sp)
+            self.tp, self.seq = tmesh[mesh.MODEL_AXIS], tmesh.axes.get(mesh.SEQ_AXIS)
+            # the ranks that share this rank's model index: the gradient
+            # reduce's, the evaluation's and the initial broadcast's group
+            self.replicas = tmesh["data,seq" if cfg.sp > 1 else mesh.DATA_AXIS]
+            shard = {"tp": self.tp}
+        elif cfg.ep > 1:
+            emesh = mesh.ep_mesh(cfg.ep)
+            self.ep, self.replicas = emesh[mesh.EXPERT_AXIS], emesh[mesh.DATA_AXIS]
+            shard = {"ep": self.ep}
+        self.model = build_model(cfg, self.device, seed, **shard)
+        check_sp_model(cfg, self.model, world // cfg.tp)  # the data x seq devices
+        if cfg.sp > 1 and cfg.tp == 1:
+            self.seq = mesh.seq_axis(cfg.sp)
+        if cfg.ep > 1 and cfg.batch_size % world:
+            raise ValueError(f"with ep>1, batch_size {cfg.batch_size} must divide over all "
+                             f"{world} devices (the expert axis carries data)")
+        # the train batch is sharded over the data axis and the same on the
+        # ranks of a data row (its seq and model ranks), whose stream is
+        # keyed by the data index; under EP the expert axis carries data too,
+        # each rank its slice of the data row's batch
+        self.n_data = world // ways
+        data_index = mesh.mesh_coords(rank, ways)[0]
         if self.seq and not mesh.axis_intra_host(
-                mesh.seq_groups(world, cfg.sp), mesh.ranks_per_host(self.device)):
+                mesh.axis_groups(world, (cfg.tp, cfg.sp), (2,)),
+                mesh.ranks_per_host(self.device)):
             # the ring still works across hosts, just slower: warn only
             rank0_print("WARNING: sequence-parallel axis spans hosts; ring attention "
                         "will run over the network between hosts instead of the links "
@@ -658,15 +785,24 @@ class Trainer:
                 f"dataset {cfg.dataset!r} has {expected} classes but "
                 f"num_classes={cfg.num_classes}; pass --num_classes {expected}"
             )
-        if cfg.batch_size % world:
-            raise ValueError(f"batch_size {cfg.batch_size} must divide over {world} ranks")
+        if cfg.batch_size % self.n_data:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide over {self.n_data} "
+                             f"data-parallel devices")
         # the reference's per-worker batch = global / nprocs (distributed.py:67);
-        # under sp the train batch is a data row's, evaluation a rank's
+        # under sp and tp the train batch is a data row's, evaluation sharded
+        # over every axis but the model's (tpu_dist/train/trainer.py:643-654);
+        # under ep both are a data row's, cut over its expert ranks
         self.local_batch = cfg.batch_size // self.n_data
-        self.eval_batch = cfg.batch_size // world
-        if self.local_batch % cfg.grad_accu_steps:
+        eval_ways = world // cfg.tp
+        eval_index = rank // cfg.tp if cfg.sp == 1 else (
+            data_index * cfg.sp + mesh.mesh_coords(rank, cfg.tp, cfg.sp)[2])
+        if cfg.ep > 1:
+            eval_ways, eval_index = self.n_data, data_index
+        self.eval_batch = cfg.batch_size // eval_ways
+        per_device = cfg.batch_size // (world if cfg.ep > 1 else self.n_data)
+        if per_device % cfg.grad_accu_steps:
             raise ValueError(
-                f"per-rank batch {self.local_batch} must divide by grad_accu_steps="
+                f"per-rank batch {per_device} must divide by grad_accu_steps="
                 f"{cfg.grad_accu_steps}"
             )
         # the train stream (its examples and its crops) is keyed by the
@@ -677,7 +813,7 @@ class Trainer:
             drop_last=cfg.drop_last or cfg.grad_accu_steps > 1,
         )
         self.test_sampler = DistributedSampler(
-            len(self.test_data[0]), world, rank, shuffle=False, seed=seed)
+            len(self.test_data[0]), eval_ways, eval_index, shuffle=False, seed=seed)
         if cfg.dataset == "cifar10":
             stats = dict(mean=transforms.CIFAR10_MEAN, std=transforms.CIFAR10_STD)
         else:
@@ -705,7 +841,9 @@ class Trainer:
                              "design — the fused-epoch scan keeps params replicated; use --fsdp "
                              "for sharded state")
         # DDP's init-time broadcast: every rank starts from rank 0's weights
-        collectives.broadcast_module(self.model)
+        # (under tp/ep from the first rank of the ranks that hold its shards)
+        group = self.replicas.group if self.replicas is not None else None
+        collectives.broadcast_module(self.model, collectives.global_rank(group, 0), group=group)
         self.state = TrainState.create(self.model, self.optimizer)
         if cfg.shard_weight_update or cfg.grad_compression == "int8_ef":
             # this rank's part of the flat state: ZeRO-1's optimizer shard,
@@ -734,8 +872,14 @@ class Trainer:
             shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
             quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
             device_metrics=cfg.device_metrics, seq_axis=self.seq, sp_mode=cfg.sp_mode,
+            tp_axis=self.tp, ep_axis=self.ep, axis=self.replicas, moe_aux_coef=cfg.moe_aux_coef,
         )
-        self.eval_step = make_eval_step(compute_dtype=compute_dtype)
+        self.eval_step = make_eval_step(compute_dtype=compute_dtype, tp_axis=self.tp,
+                                        ep_axis=self.ep, axis=self.replicas)
+        if self.ep is not None:
+            # each expert rank takes its slice of the data row's batch
+            self.train_step = _expert_slice(self.train_step, self.ep)
+            self.eval_step = _expert_slice(self.eval_step, self.ep)
         self._fused_runner = self._fused_eval = None
         if cfg.fused_epoch:
             place = functools.partial(epoch_lib.put_dataset_on_device, world=world, rank=rank,
@@ -760,7 +904,7 @@ class Trainer:
         self._chip_kind = costmodel.device_kind(self.device)  # "cpu" on the CPU: no row
         self._peak = costmodel.chip_peak_flops(self._chip_kind)
         img, lbl = self.train_data
-        per_dev = max(self.local_batch, 1)
+        per_dev = max(per_device, 1)
         self._mem_static = memory_lib.static_ledger(
             **memory_lib.state_sections(self.state),
             batch={"images": memory_lib.Leaf((per_dev,) + tuple(img.shape[1:]), str(img.dtype)),
@@ -794,7 +938,8 @@ class Trainer:
         self._lr_scale = 1.0  # the auto-recovery backoff, carried in the meta
         self._state_poisoned = False  # the live state holds a diverged step
         self._best_top1 = -1.0
-        self._params_len = ckpt_lib.params_len(self.model)
+        # the full model's (a sharded model's checkpoint is written whole)
+        self._params_len = ckpt_lib.params_len(bridge.jax_layout_template(self.model)[0])
         # one id a run (config hash + construction second), in every record
         cfg_hash = hashlib.sha1(json.dumps(dataclasses.asdict(cfg), sort_keys=True,
                                            default=str).encode()).hexdigest()[:8]
@@ -1043,6 +1188,7 @@ class Trainer:
             self._check_ladder_agreement(-1)
             return None
         template = bridge.restore_template(self.state)
+        template_params = bridge.jax_layout_template(self.model)[0]  # at full width
         chosen = None
         self._last_reshard_s = 0.0
         for path, epoch in candidates:
@@ -1054,7 +1200,7 @@ class Trainer:
             self._check_ckpt_meta(meta, path)
             # the world-independent leaves load as they are; the flat
             # layouts of another extent are re-laid onto this one
-            remapper = remap_lib.make_remapper(self.model, meta, self.n_data)
+            remapper = remap_lib.make_remapper(template_params, meta, self.n_data)
             t_restore = time.monotonic()
             try:
                 with spans.span("ckpt/restore_ladder", file=path):
@@ -1168,13 +1314,16 @@ class Trainer:
 
         Skipped while the live state holds a diverged step, or when Ctrl-C
         landed inside a step (the in-place update may be half done). Under
-        a flat layout at a world > 1 the save gathers over the ranks, so
-        they first agree: all skip when any rank must."""
+        a flat layout, or with a tensor- or expert-parallel model, at a world
+        > 1 the save gathers over the ranks, so they first agree: all skip
+        when any rank must."""
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return
         poisoned, in_step = self._state_poisoned, self._in_step
-        if self.state.layout is not None and self.n_devices > 1:
+        gathers = (self.state.layout is not None or self.replicas is not None) and \
+            self.n_devices > 1
+        if gathers:
             flags = torch.tensor([float(poisoned), float(in_step)],
                                  device=collectives.group_device())
             poisoned, in_step = (v > 0 for v in
@@ -1194,10 +1343,10 @@ class Trainer:
 
         def clean_exists(e: int) -> bool:
             here = os.path.exists(os.path.join(cfg.ckpt_dir, f"ckpt_{e}.npz"))
-            if self.state.layout is None or self.n_devices == 1:
+            if not gathers:
                 return here
-            # a save gathers the flat state over the ranks: all must take
-            # the same branch, rank 0's (which writes)
+            # a save gathers the flat state or the shards over the ranks:
+            # all must take the same branch, rank 0's (which writes)
             flag = torch.full((1,), float(here), device=collectives.group_device())
             return bool(collectives.broadcast_from(flag).item())
 
