@@ -420,7 +420,27 @@ Phases; any failure exits non-zero and prints no result line:
    on each rank's tokens (1e-5). (d) one TP step and the plain step, in
    turns, and one MoE step, device ms back to back, with the card's name
    and power limit. ``[mp]`` lines; the report repeats them.
-17. report: the card's name and power limit, one JSON line of every ported
+17. pipeline parallelism, in this process after phase 16. (a) A lockstep
+   pipe group of 4 virtual stages at ViT-B/16's full width
+   (``nn/vit_pp.py::pipeline_lockstep_forward``: every stage in this
+   process, the schedule handing each output to the next stage where the
+   P2P would), batch 32, bf16 and f32 (TF32 off), GPipe with 3 blocks a
+   stage and M = 8, and the interleaved schedule 4 x 3 (12 chunks of one
+   block) with M = 4: one forward and backward and each stage's fused SGD
+   update, counted: 12 x M of each of #1-#3 (no bubble tick launches; on
+   the tensor cores for bf16) and 4 of #4; the gathered gradients and the
+   updated weights against the unsharded model's (max error over max
+   value a leaf: 5e-2 bf16, 1e-4 f32), the loss (2e-3 bf16, 1e-5 f32), each
+   stage's update against the plain SGD update bit for bit, the bubble
+   fraction and each stage's parameter bytes, a pass's ms. Over a 1-rank
+   NCCL group: (b) 3 bf16 steps of ViT-B/16 (flash, fused SGD, batch 32)
+   through ``make_train_step(pp_axis=)`` over a pipe group of one
+   (``comm/mesh.py::pp_mesh(1)``) at M = 1 (losses the plain step's bit for
+   bit; 36 of each of #1-#3) and M = 4 (within 2e-3; 144 each), 3 of #4
+   each; then the plain step and both, in turns, device ms back to back
+   and peak memory, with the card's name and power limit. ``[pp]`` lines;
+   the report repeats them.
+18. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
    as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
@@ -458,7 +478,7 @@ from tpu_dist_torch.comm import mesh as mesh_lib
 from tpu_dist_torch.config.config import TrainConfig
 from tpu_dist_torch.data import native, transforms
 from tpu_dist_torch.nn import resnet as resnet_lib
-from tpu_dist_torch.nn import vit, vit_moe
+from tpu_dist_torch.nn import vit, vit_moe, vit_pp
 from tpu_dist_torch.nn.vit import vit_b16
 from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters as counters_lib
@@ -467,6 +487,7 @@ from tpu_dist_torch.obs import memory as memory_lib
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused_sgd as fs
+from tpu_dist_torch.parallel import pipeline
 from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE, PreemptedError
 from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.comm.quantize import padded_len
@@ -1973,9 +1994,11 @@ RESNET_RUN = dict(  # bench.py's resnet18_cifar100, cut to 2 x 20 steps
 RESNET_WARMUP = 2  # first steps of the run, left out of the step times
 RESNET_PARITY_BATCH, RESNET_PARITY_STEPS = 32, 3
 # f32 parity, TF32 off, fused SGD vs plain SGD from the same weights: the
-# two updates are bit-identical (the kernel phase checks that), so what
-# differs is cuDNN's backward, which may sum in another order from one call
-# to the next: ~1e-6 relative in the loss after 3 steps. Limit 1e-4.
+# two updates are bit-identical (the kernel phase checks that). cuDNN's
+# default backward algorithms may sum in another order from one call to the
+# next, which lr 0.1 carried to 1.4e-5-1.08e-4 relative in the third loss on
+# an H100 (the largest over this limit), so the parity runs cuDNN's
+# deterministic algorithms: the runs differ in the update alone. Limit 1e-4.
 RESNET_PARITY_LOSS_RTOL = 1e-4
 
 
@@ -1989,9 +2012,19 @@ def _free_port() -> int:
 
 def _resnet_parity() -> None:
     """f32, TF32 off: fused SGD against plain SGD from the same bridged
-    weights, through the data-parallel step over the 1-rank NCCL group."""
+    weights, through the data-parallel step over the 1-rank NCCL group, on
+    cuDNN's deterministic algorithms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _resnet_parity_runs()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _resnet_parity_runs() -> None:
     params, bn_state = bridge.resnet_params_to_jax(resnet_lib.resnet18(device="cpu", seed=0))
     rng = np.random.default_rng(2)
     images = torch.from_numpy(rng.standard_normal(
@@ -5157,6 +5190,270 @@ def phase_mp(work: str) -> tuple:
     return launches, mma, numbers
 
 
+# -- phase 17: pipeline parallelism -------------------------------------------
+
+PP_STAGES = 4      # the lockstep pipe group's virtual stages: 3 of ViT-B/16's 12 blocks each
+PP_BATCH = 32      # ViT-B/16 at 224 px
+# (a): schedule -> (chunks a stage, microbatches): GPipe with M = 8 (4 examples
+# a microbatch); the interleaved 4 x 3 (12 chunks of one block) with M = 4
+PP_SCHEDULES = {"gpipe": (1, 8), "interleaved": (3, 4)}
+PP_STEPS = 3
+PP_LR = 0.1
+PP_TIMED = 5       # (b): step calls timed back to back, a turn
+# (a) the lockstep pipeline against the unsharded model from the same
+# weights: the same products on the microbatches' rows as on the whole
+# batch's, which cuBLAS may tile otherwise (another summation order), and
+# the weight gradients summed over M microbatches in another order; in bf16
+# each microbatch's product rounds once where the whole batch's does, and 12
+# blocks compound it: a few bf16 steps (2^-8 relative) of the largest value,
+# as phase 16's TP group (MP_LOCKSTEP_TOL); the loss as MP_LOCKSTEP_LOSS_RTOL
+PP_LOCKSTEP_TOL = MP_LOCKSTEP_TOL
+PP_LOCKSTEP_LOSS_RTOL = MP_LOCKSTEP_LOSS_RTOL
+# (b) the step at M = 4 against the plain step, bf16: the microbatches'
+# products and weight-gradient sums rounded otherwise, as the bf16 parity's
+PP_STEP_LOSS_RTOL = PARITY_BF16_LOSS_RTOL
+
+#: phase 17's result lines, repeated by the report
+PP_SUMMARY: list = []
+
+
+def _p17_say(msg: str, keep: bool = True) -> None:
+    print(f"[pp] {msg}", flush=True)
+    if keep:
+        PP_SUMMARY.append(f"[pp] {msg}")
+
+
+def _pp_vit(**kw):
+    """ViT-B/16's widths as a pipelined ViT drawn from TRAIN_SEED (flash)."""
+    return vit_pp.ViTPipeline(224, 16, 768, 12, 12, num_classes=1000, attn_impl="flash",
+                              device=DEVICE, seed=TRAIN_SEED, **kw)
+
+
+def _pp_logical(stages, v: int, value) -> dict:
+    """A lockstep pipe group's leaves by the unsharded model's names (blocks
+    in logical order): ``value(parameter)`` of each stage's block rows, and
+    of the first stage's replicated leaves (the others take no gradient)."""
+    perm = vit_pp.storage_perm(12, v, PP_STAGES if v > 1 else 0)
+    per = 12 // PP_STAGES
+    out = {n: value(p) for n, p in stages[0].named_parameters() if not n.startswith("blocks.")}
+    for d, s in enumerate(stages):
+        for i, blk in enumerate(s.blocks):
+            j = d * per + i if perm is None else int(perm[d * per + i])
+            for leaf, p in blk.named_parameters():
+                out[f"blocks.{j}.{leaf}"] = value(p)
+    return out
+
+
+def _pp_lockstep(dt, schedule: str, images, labels, full, stages, inits) -> tuple:
+    """(a) one schedule and dtype: the lockstep pipe group of PP_STAGES
+    virtual stages at full width, forward and backward through
+    ``vit_pp.pipeline_lockstep_forward`` (counted), then each stage's fused
+    SGD update over its own leaves (counted); against the unsharded model's
+    forward, backward and fused SGD update from the same weights (not
+    counted). Returns (launches, tensor-core launches, the worst gradient
+    and weight errors, the update's worst |diff| against the plain update,
+    the pass's ms)."""
+    v, m = PP_SCHEDULES[schedule]
+    for mod, sd in zip([full, *stages], inits):
+        mod.load_state_dict(sd)
+        mod.zero_grad(set_to_none=True)
+    opts = [_sgd_for("flash") for _ in stages]
+    states = [state_lib.TrainState.create(s, o) for s, o in zip(stages, opts)]
+    x, y = images.to(dt), labels
+
+    def lockstep_pass(lr=PP_LR, plain=None):
+        for s in stages:
+            s.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(vit_pp.pipeline_lockstep_forward(stages, x, m).float(), y)
+        loss.backward()
+        lead = dict(stages[0].named_parameters())
+        for s, o, st in zip(stages, opts, states):
+            named = list(s.named_parameters())
+            grads = [p.grad if p.grad is not None else lead[n].grad for n, p in named]
+            params = [p for _, p in named]
+            if plain is not None:
+                ref = [t.detach().clone() for t in params + list(st.opt_state)]
+                fs.fused_sgd_reference(ref[:len(params)], grads, ref[len(params):], lr,
+                                       momentum=o.momentum, weight_decay=o.weight_decay)
+            o.update(grads, st.opt_state, params, lr)
+            if plain is not None:
+                plain.append(max(float((a.detach() - b).abs().max())
+                                 for a, b in zip(params + list(st.opt_state), ref)))
+        return loss
+
+    torch.cuda.synchronize()
+    reset_launches()
+    update_errs: list = []
+    loss = lockstep_pass(plain=update_errs)
+    torch.cuda.synchronize()
+    launches, mma = read_launches(), read_mma_launches()
+    grads = _pp_logical(stages, v, lambda p: p.grad)
+    weights = _pp_logical(stages, v, lambda p: p.detach())
+    ref = F.cross_entropy(full(x).float(), y)
+    ref.backward()
+    full_opt = _sgd_for("flash")
+    full_st = state_lib.TrainState.create(full, full_opt)
+    named = list(full.named_parameters())
+    full_opt.update([p.grad for _, p in named], full_st.opt_state, [p for _, p in named], PP_LR)
+    errs = {n: _rel_err(grads[n], p.grad) for n, p in named}
+    w_errs = {n: _rel_err(weights[n], p.detach()) for n, p in named}
+    worst, w_worst = max(errs.values()), max(w_errs.values())
+    tag = str(dt).removeprefix("torch.")
+    want = {**{k: 12 * m for k in MMA_KERNELS}, "fused_sgd": PP_STAGES}
+    pass_ms, _ = cuda_ms(lambda: lockstep_pass(0.0), iters=3, warmup=1, head_start=False)
+    _p17_say(f"(a) lockstep {schedule} of {PP_STAGES} stages x {v} chunk(s) at ViT-B/16's full "
+             f"width, {tag}, batch {PP_BATCH} in {m} microbatches ([BH, S, D] = "
+             f"[{12 * PP_BATCH // m}, 197, 64] a launch), bubble fraction "
+             f"{pipeline.bubble_fraction(PP_STAGES, m, v):.3f}: loss {loss.item()!r} vs the "
+             f"unsharded {ref.item()!r}; gathered gradients max error / max {worst:.2e} "
+             f"({max(errs, key=errs.get)}), updated weights {w_worst:.2e} "
+             f"({max(w_errs, key=w_errs.get)}; limit {PP_LOCKSTEP_TOL[dt]}); launches "
+             f"{launches} (mma {mma}); each stage's fused SGD update against the plain update "
+             f"of the same leaves and gradients: max |diff| {max(update_errs)!r} (bit for bit "
+             f"wanted); a pass (forward, backward, {PP_STAGES} updates) {pass_ms:.3f} ms "
+             f"back to back")
+    check(launches == want, f"(a) {schedule} {tag}: launches {launches}, want {want}")
+    check(len(update_errs) == PP_STAGES and max(update_errs) == 0.0,
+          f"(a) {schedule} {tag}: the stages' fused SGD updates differ by {update_errs}")
+    check(all(mma[k] == (launches[k] if dt == torch.bfloat16 else 0) for k in MMA_KERNELS),
+          f"(a) {schedule} {tag}: tensor-core launches {mma}")
+    check(abs(loss.item() / ref.item() - 1) <= PP_LOCKSTEP_LOSS_RTOL[dt],
+          f"(a) {schedule} {tag}: loss {loss.item()} vs {ref.item()}")
+    check(worst <= PP_LOCKSTEP_TOL[dt], f"(a) {schedule} {tag}: gradient errors {errs}")
+    check(w_worst <= PP_LOCKSTEP_TOL[dt], f"(a) {schedule} {tag}: weight errors {w_errs}")
+    return launches, mma, worst, w_worst, max(update_errs), pass_ms
+
+
+def _pp_steps(pm, images, labels) -> tuple:
+    """(b) PP_STEPS bf16 steps of ViT-B/16 (flash, fused SGD) through the
+    step over a pipe group of one at M = 1 and M = 4, and the plain step
+    from the same weights (not counted). Returns (the pipelined steps'
+    launches and tensor-core launches, {tag: (step, state)} for the
+    timing)."""
+    plain_model = vit_b16(attn_impl="flash", device=DEVICE, seed=TRAIN_SEED)
+    pp_model = _pp_vit(pipe=pm[mesh_lib.PIPE_AXIS])
+    init = {k: v.detach().clone() for k, v in pp_model.state_dict().items()}
+    runs, launches, mma = {}, dict.fromkeys(KERNELS, 0), dict.fromkeys(MMA_KERNELS, 0)
+    for tag, model, m in (("plain", plain_model, None), ("pp_m1", pp_model, 1),
+                          ("pp_m4", pp_model, 4)):
+        if m is not None:
+            model.load_state_dict(init)
+        opt = _sgd_for("flash")
+        st = state_lib.TrainState.create(model, opt)
+        kw = (dict(pp_axis=pm[mesh_lib.PIPE_AXIS], axis=pm[mesh_lib.DATA_AXIS],
+                   model_kwargs={"n_microbatches": m}) if m is not None else {})
+        train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        losses = []
+        for i in range(PP_STEPS):
+            st, out = train_step(st, images[i], labels[i], PP_LR)
+            losses.append(out["loss"].item())
+        got, got_mma = read_launches(), read_mma_launches()
+        runs[tag] = (losses, train_step, st)
+        if m is not None:
+            want = {**{k: PP_STEPS * 12 * m for k in MMA_KERNELS}, "fused_sgd": PP_STEPS}
+            check(got == want and all(got_mma[k] == got[k] for k in MMA_KERNELS),
+                  f"(b) M={m}: launches {got} (mma {got_mma}), want {want}")
+            _add(launches, got)
+            _add(mma, got_mma)
+    plain, m1, m4 = (runs[t][0] for t in ("plain", "pp_m1", "pp_m4"))
+    gaps = [abs(a / b - 1) for a, b in zip(m4, plain)]
+    _p17_say(f"(b) ViT-B/16 224 px, batch {PP_BATCH}, bf16, flash, fused SGD, pipe group of "
+             f"one: M = 1 losses {m1}, the plain step's {plain}: "
+             f"{'equal bit for bit' if m1 == plain else 'NOT equal'}; M = 4 losses {m4}: gaps "
+             f"{[f'{g:.1e}' for g in gaps]} (limit {PP_STEP_LOSS_RTOL}); launches {launches} "
+             f"(mma {mma})")
+    check(m1 == plain, f"(b) M=1 losses {m1} vs the plain step's {plain}")
+    check(max(gaps) <= PP_STEP_LOSS_RTOL, f"(b) M=4 losses {m4} vs {plain}")
+    return launches, mma, {t: (fn, st) for t, (_, fn, st) in runs.items()}
+
+
+def phase_pp(work: str) -> tuple:
+    """Phase 17 (module docstring). Returns (the kernels' launches on its
+    main paths, their tensor-core launches, the numbers for the kernels
+    line)."""
+    del work
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    images = torch.from_numpy(rng.standard_normal(
+        (PP_STEPS, PP_BATCH) + IMAGE, dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, (PP_STEPS, PP_BATCH))).to(DEVICE)
+    launches, mma = dict.fromkeys(KERNELS, 0), dict.fromkeys(MMA_KERNELS, 0)
+    lockstep = {}
+    full = _pp_vit()
+    full_init = {k: t.detach().clone() for k, t in full.state_dict().items()}
+    for schedule, (v, m) in PP_SCHEDULES.items():
+        stages = [_pp_vit(interleave=v, pp_stages=PP_STAGES if v > 1 else 0,
+                          pipe=mesh_lib.AxisGroup(mesh_lib.PIPE_AXIS, PP_STAGES, d))
+                  for d in range(PP_STAGES)]
+        # each pass starts from the seed's weights (the unsharded model's
+        # reference update changes them)
+        inits = [full_init] + [{k: t.detach().clone() for k, t in mod.state_dict().items()}
+                               for mod in stages]
+        stage_bytes = [sum(p.numel() * p.element_size() for p in s.parameters()) for s in stages]
+        _p17_say(f"(a) {schedule}: {PP_STAGES} stages x {v} chunk(s) of {12 // (PP_STAGES * v)} "
+                 f"block(s), M = {m}, bubble fraction "
+                 f"{pipeline.bubble_fraction(PP_STAGES, m, v):.3f}; each stage's parameter bytes "
+                 f"(its blocks and the replicated embedding and head) {stage_bytes}, the whole "
+                 f"model's {sum(p.numel() * p.element_size() for p in full.parameters())}")
+        for dt in (torch.bfloat16, torch.float32):
+            got, got_mma, worst, w_worst, update_err, pass_ms = _pp_lockstep(
+                dt, schedule, images[0], labels[0], full, stages, inits)
+            _add(launches, got)
+            _add(mma, got_mma)
+            lockstep[f"{schedule}_{str(dt).removeprefix('torch.')}"] = (worst, w_worst,
+                                                                        update_err, pass_ms)
+        del stages, inits
+        torch.cuda.empty_cache()
+    del full, full_init
+    torch.cuda.empty_cache()
+    # a 1-rank NCCL group: the pipe and data groups are real NCCL groups of
+    # one (the step's reduces run; a pipe of one stage exchanges nothing)
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        got, got_mma, steps = _pp_steps(mesh_lib.pp_mesh(1), images, labels)
+        _add(launches, got)
+        _add(mma, got_mma)
+        # in turns, plain first; each turn's peak memory over its timed calls
+        times = {tag: [] for tag in steps}
+        peaks = {tag: 0 for tag in steps}
+        for _ in range(2):
+            for tag, (fn, st) in steps.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times[tag].append(cuda_ms(lambda: fn(st, images[0], labels[0], 0.0),
+                                          iters=PP_TIMED, warmup=1, head_start=False))
+                peaks[tag] = max(peaks[tag], torch.cuda.max_memory_allocated())
+        best = {tag: min(t) for tag, t in times.items()}
+        del steps
+        torch.cuda.empty_cache()
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    smi = _smi_line()
+    _p17_say("(b) one step (ViT-B/16, batch " + str(PP_BATCH) + ", bf16, pipe group of one), "
+             "back to back, 2 turns (plain, M = 1, M = 4 in each): " + ", ".join(
+                 f"{tag} " + " / ".join(f"{ms:.3f}" for ms, _ in times[tag]) + " ms (host "
+                 + " / ".join(f"{us:.0f}" for _, us in times[tag]) + " us a call), peak "
+                 f"{peaks[tag] / 2**30:.3f} GiB" for tag in times) + f"; card: {smi}")
+    numbers = {name: {f"pp_lockstep_grad_err_over_max_{t}": w
+                      for t, (w, _, _, _) in lockstep.items()} for name in MMA_KERNELS}
+    numbers["fused_sgd"] = {f"max_abs_err_pp_lockstep_update_{t}": u
+                            for t, (_, _, u, _) in lockstep.items()}
+    numbers["fused_sgd"].update({f"pp_lockstep_weight_err_over_max_{t}": w
+                                 for t, (_, w, _, _) in lockstep.items()})
+    numbers["flash_attention_fwd"].update({f"pp_lockstep_{t}_pass_ms": ms
+                                           for t, (_, _, _, ms) in lockstep.items()})
+    numbers["flash_attention_fwd"].update({f"pp_step_{t}_ms": best[t][0] for t in best})
+    numbers["flash_attention_fwd"].update({f"pp_step_{t}_peak_bytes": peaks[t] for t in peaks})
+    _p17_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: {smi}")
+    return launches, mma, numbers
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -5200,16 +5497,19 @@ def _phases(work: str) -> int:
     mp, mp_mma, mp_numbers = phase_mp(work)
     for name, numbers in mp_numbers.items():
         measured[name].update(numbers)
+    pp, pp_mma, pp_numbers = phase_pp(work)
+    for name, numbers in pp_numbers.items():
+        measured[name].update(numbers)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
                 + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
-                + mp[name] for name in KERNELS}
+                + mp[name] + pp[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
-                                                  + seq_mma[name] + mp_mma[name])
+                                                  + seq_mma[name] + mp_mma[name] + pp_mma[name])
     print("[summary] phase 11, elastic supervision, again:")
     for msg in SUP_SUMMARY:
         print(f"[summary] {msg}")
@@ -5227,6 +5527,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 16, tensor and expert parallelism, again:")
     for msg in MP_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 17, pipeline parallelism, again:")
+    for msg in PP_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

@@ -5,9 +5,9 @@ combinations other than sp+tp and pp+tp, a model without a tp or ep
 branch, heads or experts that do not divide over the group, the fused
 epoch, ZeRO-1 and the quantized wires, a ``moe_top_k`` the model cannot
 take, an EP batch that does not divide over every device and
-``--device_metrics``. ``pp`` (with ``tp`` too), ``fsdp`` and
-``sharded_ckpt`` still raise ``NotPortedError`` with their ROADMAP
-labels."""
+``--device_metrics``. ``fsdp`` and ``sharded_ckpt`` still raise
+``NotPortedError`` with their ROADMAP labels (``pp``'s refusals:
+``test_torch_pipeline_refusals.py``)."""
 
 import jax
 import pytest
@@ -82,9 +82,8 @@ def test_the_refusal_is_the_jax_trainers(port_errors, name):
 
 
 @pytest.mark.parametrize("kw,flag", [
-    (dict(TINY, pp=2, tp=2), "pp"), (dict(TINY, pp=2), "pp"),
     (dict(TINY, fsdp=True), "fsdp"), (dict(TINY, sharded_ckpt=True), "sharded_ckpt"),
-], ids=["pp+tp", "pp", "fsdp", "sharded_ckpt"])
+], ids=["fsdp", "sharded_ckpt"])
 def test_pp_fsdp_and_the_sharded_format_still_wait(kw, flag):
     with pytest.raises(NotPortedError, match=flag) as info:
         trainer.Trainer(TrainConfig(**kw, device="cpu", port=free_port()))

@@ -74,7 +74,8 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.obs.hub", "tpu_dist_torch.fleet.tenancy_drill",
                  "tpu_dist_torch.obs.costmodel", "tpu_dist_torch.parallel",
                  "tpu_dist_torch.parallel.tensor", "tpu_dist_torch.parallel.expert",
-                 "tpu_dist_torch.nn.vit_moe"):
+                 "tpu_dist_torch.nn.vit_moe", "tpu_dist_torch.parallel.pipeline",
+                 "tpu_dist_torch.nn.vit_pp"):
         assert name in MODULES
 
 

@@ -108,15 +108,12 @@ def test_eval_step_with_mask_matches_jax():
     assert model.training  # the eval step leaves the model's mode as it was
 
 
-UNPORTED = [
-    ("pp_axis", "pipe", "Queue A 6"),
-]
-
-# tp_axis and ep_axis, ported with tensor and expert parallelism (they
-# raised NotPortedError before): a model group of one with no process group
-# (the multi-rank parity is tests/test_torch_tensor_parallel*.py and
-# test_torch_expert_parallel.py)
-MODEL_AXES = [("tp_axis", "model"), ("ep_axis", "expert")]
+# tp_axis, ep_axis and pp_axis, ported with tensor, expert and pipeline
+# parallelism (they raised NotPortedError before): a model group of one
+# with no process group (the multi-rank parity is
+# tests/test_torch_tensor_parallel*.py, test_torch_expert_parallel.py and
+# test_torch_pipeline*.py)
+MODEL_AXES = [("tp_axis", "model"), ("ep_axis", "expert"), ("pp_axis", "pipe")]
 
 # The options ported with ZeRO-1 and the compressed reduce, each stepping
 # at one device (no process group): there ZeRO-1 is the plain step bit for
@@ -194,18 +191,19 @@ def test_seq_axis_steps_at_one_device(sp_mode):
 
 @pytest.mark.parametrize("flag,value", MODEL_AXES, ids=[f"{f}={v}" for f, v in MODEL_AXES])
 def test_model_axes_step_at_one_device(flag, value):
-    """A TP ViT or an EP ViT-MoE over a group of one steps as the unsharded
-    model does: the conjugate pair and the exchange are identities
-    without a process group, so the loss is the same and the weights agree
-    to the einsum's summation order (exactly, for TP); a model built
-    without the group is refused, as JAX refuses an axis without
-    ``param_specs``."""
-    from tpu_dist_torch.nn import vit_moe  # noqa: PLC0415
+    """A TP ViT, an EP ViT-MoE or a pipelined ViT over a group of one steps
+    as the unsharded model does: the conjugate pair, the exchange and the
+    one-stage schedule are identities without a process group, so the loss
+    is the same and the weights agree to the einsum's summation order
+    (exactly, for TP and PP); a model built without the group is refused,
+    as JAX refuses an axis without ``param_specs``."""
+    from tpu_dist_torch.nn import vit_moe, vit_pp  # noqa: PLC0415
 
     axis = AxisGroup(value, 1, 0)
-    make = ((lambda **k: vit.vit_tiny(device="cpu", **k)) if flag == "tp_axis"
-            else (lambda **k: vit_moe.vit_moe_tiny(device="cpu", **k)))
-    shard = {"tp" if flag == "tp_axis" else "ep": axis}
+    make = {"tp_axis": lambda **k: vit.vit_tiny(device="cpu", **k),
+            "ep_axis": lambda **k: vit_moe.vit_moe_tiny(device="cpu", **k),
+            "pp_axis": lambda **k: vit_pp.vit_pp_tiny(device="cpu", **k)}[flag]
+    shard = {"tp_axis": {"tp": axis}, "ep_axis": {"ep": axis}, "pp_axis": {"pipe": axis}}[flag]
     models = [make(), make(**shard)]
     opt = optim.SGD()
     losses = []
@@ -216,20 +214,11 @@ def test_model_axes_step_at_one_device(flag, value):
         losses.append(m["loss"].item())
     assert losses[0] == losses[1]
     for a, b in zip(models[1].parameters(), models[0].parameters()):
-        torch.testing.assert_close(a, b, rtol=0 if flag == "tp_axis" else 1e-6, atol=0 if
-                                   flag == "tp_axis" else 1e-7)
+        exact = flag != "ep_axis"
+        torch.testing.assert_close(a, b, rtol=0 if exact else 1e-6, atol=0 if exact else 1e-7)
     with pytest.raises(ValueError, match=f"{flag} requires param_specs"):
         step.make_train_step(opt, **{flag: axis})(state.TrainState.create(make(), opt),
                                                   *batch(0), LRS[0])
-
-
-@pytest.mark.parametrize("flag,value,queue", UNPORTED,
-                         ids=[f"{f}={v}" for f, v, _ in UNPORTED])
-def test_unported_flags_raise_a_typed_error(flag, value, queue):
-    with pytest.raises(step.NotPortedError, match=flag) as info:
-        step.make_train_step(optim.SGD(), **{flag: value})
-    assert info.value.flag == flag and queue in str(info.value)
-    assert isinstance(info.value, NotImplementedError)
 
 
 def test_per_leaf_gradient_reduce_is_ported():

@@ -135,11 +135,8 @@ def test_epoch_dict_has_the_jax_keys(runs):
 UNPORTED_CASES = (
     ("tensorboard_dir", "tb", "Queue A 6"),
     ("fsdp", True, "Queue A 6"),
-    ("pp", 2, "Queue A 6"),
     ("auto_shard", "plan", "Queue A 6"),
     ("sharded_ckpt", True, "Queue A 6"),
-    ("pp_microbatches", 4, "Queue A 6"),
-    ("pp_interleave", 2, "Queue A 6"),
     ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),
 )

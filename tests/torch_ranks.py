@@ -997,11 +997,12 @@ def moe_ep_rank(rank, world, cases, params, x, ct):
 
 def mp_fit_rank(rank, world, cfgs, params, root=None):
     """For each config, ``Trainer.fit`` on this rank from the bridged
-    ``params`` (None: the trainer's own weights), unaugmented; with
+    ``params`` (None: the trainer's own weights; a list: one such a
+    config), unaugmented; with
     ``root``, ``ckpt_dir`` is ``root/<cfg's ckpt_dir>``. Returns per config
     the epoch dicts, the data extent, the (train, eval) batch, the first
-    parameter's shape, the static ledger's params section and the resume
-    line's epoch."""
+    parameter's shape, the static ledger's params section, the resume
+    line's epoch and the first step's cost count."""
     from tpu_dist_torch import bridge  # noqa: PLC0415
     from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
     from tpu_dist_torch.data import native  # noqa: PLC0415
@@ -1009,7 +1010,7 @@ def mp_fit_rank(rank, world, cfgs, params, root=None):
 
     unaugmented(native)
     out = []
-    for cfg_kw in cfgs:
+    for cfg_kw, weights in zip(cfgs, params if isinstance(params, list) else [params] * len(cfgs)):
         if root is not None and cfg_kw.get("ckpt_dir"):
             cfg_kw = dict(cfg_kw, ckpt_dir=os.path.join(root, cfg_kw["ckpt_dir"]))
         t = trainer.Trainer(TrainConfig(**cfg_kw))
@@ -1021,8 +1022,8 @@ def mp_fit_rank(rank, world, cfgs, params, root=None):
 
         t.train_epoch = train_epoch
         try:
-            if params is not None:
-                bridge.load_jax_vit(t.model, params)
+            if weights is not None:
+                bridge.load_jax_vit(t.model, weights)
             start = t.start_epoch
             t.fit()
             final = bridge.vit_params_to_jax(t.model)
@@ -1031,5 +1032,98 @@ def mp_fit_rank(rank, world, cfgs, params, root=None):
         out.append({"epochs": epochs, "n_data": t.n_data,
                     "batches": (t.local_batch, t.eval_batch), "start_epoch": start,
                     "ledger": t._mem_static["sections"]["params"], "final": final,
-                    "local_numel": sum(p.numel() for p in t.model.parameters())})
+                    "local_numel": sum(p.numel() for p in t.model.parameters()),
+                    "cost": t._step_cost})
+    return out
+
+
+# -- pipeline parallelism ------------------------------------------------------
+
+
+def pp_toy_rank(rank, world, cases, ws, x, ct):
+    """Each case ``v``: the toy stage ``tanh(h @ w)`` of the JAX package's
+    pipeline tests through the schedule over a pipe group of the whole
+    world, on the microbatches ``x`` ``[M, b, d]``: GPipe
+    (``pipeline_apply``) at ``v == 1``, else the interleaved schedule, whose
+    chunk ``k`` here is virtual stage ``k·world + rank`` (weights ``ws[k ·
+    world + rank]``). Returns per case the output, the gradient of ``<out,
+    ct>`` for this rank's weights ``[v, d, d]`` and the collective
+    counts."""
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.parallel import pipeline  # noqa: PLC0415
+
+    pipe = mesh.pp_mesh(world)[mesh.PIPE_AXIS]
+    out = []
+    for v in cases:
+        w = torch.tensor(np.stack([ws[k * world + rank] for k in range(v)]), requires_grad=True)
+        counters.reset()
+        if v == 1:
+            y = pipeline.pipeline_apply(lambda h: torch.tanh(h @ w[0]), torch.tensor(x), pipe,
+                                        params=(w,))
+        else:
+            y = pipeline.pipeline_apply_interleaved(lambda k, h: torch.tanh(h @ w[k]),
+                                                    torch.tensor(x), pipe, v, params=(w,))
+        (g,) = torch.autograd.grad((y * torch.tensor(ct)).sum(), w)
+        out.append({"y": y.detach().numpy(), "g": g.numpy(),
+                    "counts": {k: n for k, n in counters.snapshot().items()
+                               if k.startswith("comm.")}})
+    return out
+
+
+def _pp_model(model_kw, pp, tp, v, device="cpu"):
+    """The pipelined ViT of ``model_kw`` on ``comm/mesh.py::pp_mesh(pp,
+    tp)`` with ``v`` chunks a stage: (mesh, model)."""
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit_pp  # noqa: PLC0415
+
+    m = mesh.pp_mesh(pp, tp)
+    model = vit_pp.ViTPipeline(**model_kw, interleave=v, pp_stages=pp if v > 1 else 0,
+                               device=device, pipe=m[mesh.PIPE_AXIS],
+                               tp=m.axes.get(mesh.MODEL_AXIS),
+                               stage=m.axes.get(f"{mesh.PIPE_AXIS},{mesh.MODEL_AXIS}"))
+    return m, model
+
+
+def pp_step_rank(rank, world, cases, model_kw, params, batches):
+    """Each case ``(pp, tp, v, M, step kwargs)``: the port's DP x PP (x TP)
+    step of the pipelined ViT on ``pp_mesh(pp, tp)`` with ``v`` chunks a
+    stage and ``M`` microbatches (0: the stage count), from the bridged JAX
+    ``params`` (in that layout's storage order), this data row's share of
+    every global batch ``(images, labels, lr)``. Returns per case the
+    losses, the final parameters (JAX tree, gathered), this rank's own
+    replicated leaves and their last gradients, the collective counts, and
+    the final state as a checkpoint writes it (``train_state_to_flat(dst=
+    0)``: None off rank 0) beside the one every rank gathers."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.obs import counters  # noqa: PLC0415
+    from tpu_dist_torch.train import optim, state, step  # noqa: PLC0415
+
+    out = []
+    for pp, tp, v, M, kw in cases:
+        m, model = _pp_model(model_kw, pp, tp, v)
+        bridge.load_jax_vit(model, params)
+        opt = optim.SGD()
+        st = state.TrainState.create(model, opt)
+        train_step = step.make_train_step(opt, sync_bn=False, pp_axis=m[mesh.PIPE_AXIS],
+                                          tp_axis=m.axes.get(mesh.MODEL_AXIS),
+                                          axis=m[mesh.DATA_AXIS],
+                                          model_kwargs={"n_microbatches": M} if M else None,
+                                          **kw)
+        counters.reset()
+        losses = []
+        n_data, d = m.sizes[0], m.coords[0]
+        for images, labels, lr in batches:
+            n = images.shape[0] // n_data
+            st, metrics = train_step(st, images[d * n:(d + 1) * n], labels[d * n:(d + 1) * n], lr)
+            losses.append(metrics["loss"].item())
+        counts = {k: v for k, v in counters.snapshot().items() if k.startswith("comm.")}
+        shared = {n: (p.detach().numpy().copy(), st.opt_state[i].numpy().copy())
+                  for i, (n, p) in enumerate(model.named_parameters())
+                  if not n.startswith("blocks.")}
+        out.append({"losses": losses, "params": bridge.vit_params_to_jax(model),
+                    "shared": shared, "counts": counts,
+                    "saved": bridge.train_state_to_flat(st, dst=0),
+                    "gathered": bridge.train_state_to_flat(st)})
     return out

@@ -45,6 +45,17 @@ shards, with the optimizer state that mirrors them, are gathered back to
 the full layout over its group (:func:`gather_shards`) wherever a JAX
 layout is written: every rank of the group must call those functions then.
 
+The pipelined ViT (:class:`~tpu_dist_torch.nn.vit_pp.ViTPipeline`) crosses
+as JAX's ``ViTPipelineDef`` tree: ``params["blocks"]`` one dict of stacked
+leaves whose leading dimension is the depth in storage order
+(:func:`vit_pp_state_dict_from_jax`, :func:`vit_pp_state_dict_to_jax`);
+the port's state dict names storage row ``g`` ``blocks.{g}``. A stage holds
+``depth / pp`` consecutive rows (``blocks.{i}`` locally, row ``index ·
+depth/pp + i``) and, under PP×TP, their Megatron shards: it loads its rows'
+slices, and its rows are gathered over its stage group (the joined
+``pipe,model`` group under PP×TP), so a checkpoint holds JAX's full stacked
+layout.
+
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
 """
@@ -62,6 +73,7 @@ from tpu_dist_torch.comm import collectives
 from tpu_dist_torch.nn.resnet import ResNet
 from tpu_dist_torch.nn.vit import ViT
 from tpu_dist_torch.nn.vit_moe import ViTMoE
+from tpu_dist_torch.nn.vit_pp import ViTPipeline
 from tpu_dist_torch.parallel import tensor
 
 _DENSE = ("w", "b")
@@ -196,6 +208,34 @@ def vit_moe_state_dict_to_jax(sd: Dict[str, np.ndarray]):
     return out
 
 
+def vit_pp_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
+    """JAX ``ViTPipelineDef`` pytree (every ``params["blocks"]`` leaf
+    stacked over the depth, in storage order) -> ``{state-dict name: numpy
+    array}`` with storage row ``g`` as ``blocks.{g}``. Raises ``KeyError``
+    on an unknown or missing key."""
+    params = _leaves("params", params, ("patch", "pos", "blocks", "ln_f", "head"))
+    out: Dict[str, np.ndarray] = {"pos": np.asarray(params["pos"])}
+    for name, kind in _TOP.items():
+        _convert(name, kind, params[name], out)
+    blocks = _leaves("params['blocks']", params["blocks"], tuple(_BLOCK))
+    for name, kind in _BLOCK.items():
+        node = {k: np.asarray(v) for k, v in
+                _leaves(f"params['blocks'][{name!r}]", blocks[name], kind).items()}
+        for g in range(node[kind[0]].shape[0]):
+            _convert(f"blocks.{g}.{name}", kind, {k: v[g] for k, v in node.items()}, out)
+    return out
+
+
+def vit_pp_state_dict_to_jax(sd: Dict[str, np.ndarray]):
+    """The inverse of :func:`vit_pp_state_dict_from_jax`: the blocks'
+    leaves stacked in row order."""
+    tree = vit_state_dict_to_jax(sd)
+    rows = tree.pop("blocks")
+    tree["blocks"] = {name: {leaf: np.stack([r[name][leaf] for r in rows]) for leaf in kind}
+                      for name, kind in _BLOCK.items()}
+    return tree
+
+
 # -- sharded models: TP shards and EP slabs <-> the full JAX layout -----------
 
 
@@ -217,19 +257,81 @@ def shard_state_dict(sd: Dict[str, np.ndarray], specs: dict, axis_size: int,
 
 
 def _sharding(module) -> tuple:
-    """``(axis group, {name: (axis, dim)})`` of a sharded module, else
-    ``(None, {})``."""
-    axis = getattr(module, "shard_axis", None)
+    """``(axis group, {name: (axis, dim)})`` of the leaves a module cuts
+    along a dimension (TP shards, EP slabs), else ``(None, {})``."""
+    axis = module.tp if isinstance(module, ViTPipeline) else getattr(module, "shard_axis", None)
     return (axis, module.param_specs()) if axis is not None else (None, {})
 
 
+def _block_row(name: str) -> tuple:
+    """``"blocks.{i}.rest"`` -> ``(i, "rest")``; ``(None, name)`` for any
+    other name."""
+    head, _, rest = name.partition(".")
+    if head != "blocks":
+        return None, name
+    i, _, leaf = rest.partition(".")
+    return int(i), leaf
+
+
+def _stage_rows(module) -> Optional[tuple]:
+    """``(first storage row, rows a stage)`` of a pipelined module, else
+    None."""
+    if not isinstance(module, ViTPipeline) or module.pipe is None:
+        return None
+    per = module.depth // module.pipe.size
+    return module.pipe.index * per, per
+
+
 def _local(module, sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The full ``sd`` cut to this rank's shards of ``module``."""
+    """The full ``sd`` cut to this rank's part of ``module``: a stage's
+    storage rows (renamed from 0), then its shards."""
+    rows = _stage_rows(module)
+    if rows is not None:
+        lo, per = rows
+        out = {}
+        for name, arr in sd.items():
+            i, leaf = _block_row(name)
+            if i is None:
+                out[name] = arr
+            elif lo <= i < lo + per:
+                out[f"blocks.{i - lo}.{leaf}"] = arr
+        sd = out
     axis, specs = _sharding(module)
     if axis is None:
         return sd
     return shard_state_dict(sd, {n: v for n, v in specs.items() if n in sd}, axis.size,
                             axis.index)
+
+
+def _gather_stages(module, named: Dict[str, torch.Tensor],
+                   dst: Optional[int]) -> Optional[Dict[str, torch.Tensor]]:
+    """:func:`gather_shards` of a pipelined module: every block leaf
+    gathered over the stage group (stage-major, the model index fastest),
+    each stage's shards joined along their dimension and its rows renamed
+    to their storage rows; the replicated leaves as they are."""
+    stage, pp = module.stage, module.pipe.size
+    tp = module.tp.size if module.tp is not None else 1
+    if dst is not None and dst not in {collectives.global_rank(stage.group, i)
+                                       for i in range(stage.size)}:
+        return None
+    mine = dst is None or collectives.rank() == dst
+    specs, per = module.param_specs(), len(module.blocks)
+    out = {}
+    for name, t in named.items():
+        i, leaf = _block_row(name)
+        if i is None:
+            out[name] = t
+            continue
+        t = t.detach()[None]
+        parts = (collectives.all_gather(t, group=stage.group) if dst is None
+                 else collectives.gather(t, dst, group=stage.group))
+        if not mine:
+            continue
+        parts = parts.reshape(pp, tp, *t.shape[1:])
+        for p in range(pp):
+            out[f"blocks.{p * per + i}.{leaf}"] = (
+                torch.cat(list(parts[p]), dim=specs[name][1]) if name in specs else parts[p, 0])
+    return out if mine else None
 
 
 def gather_shards(module, named: Dict[str, torch.Tensor],
@@ -239,7 +341,11 @@ def gather_shards(module, named: Dict[str, torch.Tensor],
     tensors, on every rank of the group (every rank must call this). With
     ``dst`` (a rank of the default group) only ``dst`` receives them and
     returns the dict; the other members of its group send their shards,
-    the ranks of the other groups send nothing, and all return None."""
+    the ranks of the other groups send nothing, and all return None. A
+    pipelined module's stages are gathered into the full depth
+    (:func:`_gather_stages`)."""
+    if _stage_rows(module) is not None:
+        return _gather_stages(module, named, dst)
     axis, specs = _sharding(module)
     if axis is None:
         return named if dst is None or collectives.rank() == dst else None
@@ -257,14 +363,21 @@ def gather_shards(module, named: Dict[str, torch.Tensor],
 
 def full_shapes(module) -> Dict[str, tuple]:
     """Each state-dict entry's shape at full width (a shard's times the
-    group's size along its dimension)."""
+    group's size along its dimension), a pipelined module's rows at every
+    storage row."""
     axis, specs = _sharding(module)
+    rows = _stage_rows(module)
     out = {}
     for name, t in module.state_dict().items():
         shape = list(t.shape)
         if name in specs:
             shape[specs[name][1]] *= axis.size
-        out[name] = tuple(shape)
+        i, leaf = _block_row(name)
+        if rows is None or i is None:
+            out[name] = tuple(shape)
+            continue
+        for p in range(module.pipe.size):
+            out[f"blocks.{p * rows[1] + i}.{leaf}"] = tuple(shape)
     return out
 
 
@@ -275,9 +388,12 @@ def state_dict_to_jax(module, sd: Dict[str, np.ndarray]) -> tuple:
         return resnet_state_dict_to_jax(sd)
     if isinstance(module, ViTMoE):
         return vit_moe_state_dict_to_jax(sd), {}
+    if isinstance(module, ViTPipeline):
+        return vit_pp_state_dict_to_jax(sd), {}
     if isinstance(module, ViT):
         return vit_state_dict_to_jax(sd), {}
-    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT or a ViT-MoE")
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT, a ViT-MoE "
+                    "or a pipelined ViT")
 
 
 def _from_jax_fn(module):
@@ -286,9 +402,12 @@ def _from_jax_fn(module):
         return resnet_state_dict_from_jax
     if isinstance(module, ViTMoE):
         return vit_moe_state_dict_from_jax
+    if isinstance(module, ViTPipeline):
+        return vit_pp_state_dict_from_jax
     if isinstance(module, ViT):
         return vit_state_dict_from_jax
-    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT or a ViT-MoE")
+    raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT, a ViT-MoE "
+                    "or a pipelined ViT")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -546,7 +665,7 @@ def load_jax_params(module: torch.nn.Module, params, bn_state=None) -> torch.nn.
     place (a ViT has no BN state: ``bn_state`` must be empty)."""
     if isinstance(module, ResNet):
         return load_jax_resnet(module, params, bn_state)
-    if isinstance(module, (ViT, ViTMoE)):
+    if isinstance(module, (ViT, ViTMoE, ViTPipeline)):
         if bn_state:
             raise KeyError(f"a ViT has no BN state; got {sorted(bn_state)}")
         return load_jax_vit(module, params)

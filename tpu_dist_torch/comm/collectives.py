@@ -25,6 +25,13 @@ other way) and :func:`all_to_all_tiled` (``lax.all_to_all(...,
 tiled=True)`` along any two axes, counted under ``comm.all_to_all.<kind>``;
 its backward is the inverse exchange).
 
+Pipeline parallelism adds the stage handoff over a pipe group,
+:func:`stage_handoff` (one ``batch_isend_irecv`` a tick: the output to the
+next stage, the previous stage's received; counted ``comm.ppermute.pipe``
+and ``pipe_grad``), and the conjugate pair under the kind ``pipe``:
+:func:`copy_to_pipe` and :func:`reduce_from_pipe` (``comm.all_reduce.pipe``
+and ``pipe_grad``).
+
 Tensor parallelism adds the Megatron conjugate pair over a model group,
 :func:`copy_to_tp` (identity forward, all-reduce backward, counted
 ``comm.all_reduce.tp_grad``) and :func:`reduce_from_tp` (all-reduce
@@ -261,6 +268,20 @@ def sync_group(sync: bool) -> Optional[object]:
 # -- sequence parallelism: the ring and the tiled all-to-all ----------------------
 
 
+def _exchange(sends: list, dst, recvs: list, src, group, kind: str) -> None:
+    """One ``batch_isend_irecv``: ``sends`` to the default group's rank
+    ``dst`` and ``recvs`` filled in place from ``src`` (either list may be
+    empty). Counted once under ``comm.ppermute.<kind>`` when anything
+    moves."""
+    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
+           + [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
+    if not ops:
+        return
+    counters.inc(f"comm.ppermute.{kind}")
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
 def rotate(tensors, *, group=None, shift: int = 1, kind: str = "ring") -> list:
     """Each tensor of this rank sent to the rank ``shift`` places on in the
     group (mod its size), and the one of the rank ``shift`` places back
@@ -272,14 +293,9 @@ def rotate(tensors, *, group=None, shift: int = 1, kind: str = "ring") -> list:
         return list(tensors)
     me = rank(group)
     peer = functools.partial(dist.get_global_rank, group) if group is not None else int
-    dst, src = peer((me + shift) % n), peer((me - shift) % n)
     sends = [t.contiguous() for t in tensors]
     recvs = [torch.empty_like(t) for t in sends]
-    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
-           + [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
-    counters.inc(f"comm.ppermute.{kind}")
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    _exchange(sends, peer((me + shift) % n), recvs, peer((me - shift) % n), group, kind)
     return recvs
 
 
@@ -384,3 +400,67 @@ def reduce_from_tp(x: torch.Tensor, *, group=None, kind: str = "tp") -> torch.Te
     """``x`` summed over ``group`` (the model group), whose gradient passes
     as it is; the identity without a process group or at a group of one."""
     return _ReduceFromTP.apply(x, group, kind) if active() and world_size(group) > 1 else x
+
+
+# -- pipeline parallelism: the stage handoff and the conjugate pair over a pipe group --
+
+
+class _StageHandoff(torch.autograd.Function):
+    """One pipeline tick's exchange over a pipe group: ``y`` (None: nothing)
+    to the default group's rank ``nxt``, and a tensor of ``recv_like``'s
+    shape, dtype and device from ``prv`` (None: nothing), in one
+    ``batch_isend_irecv``; the backward sends the received tensor's
+    cotangent back to ``prv`` and receives ``y``'s from ``nxt``, the
+    transpose of ``lax.ppermute``. ``ticket`` (a 0-dim tensor) passes
+    through, so every tick's exchange hangs on the one before it and a
+    rank's backward runs its exchanges in reverse tick order, as its
+    neighbours do."""
+
+    @staticmethod
+    def forward(ctx, ticket, y, recv_like, peers, group, kind):
+        nxt, prv = peers
+        sends = [y.contiguous()] if nxt is not None else []
+        recvs = ([torch.empty(recv_like[0], dtype=recv_like[1], device=recv_like[2])]
+                 if prv is not None else [])
+        _exchange(sends, nxt, recvs, prv, group, kind)
+        ctx.sent = (y.shape, y.dtype, y.device) if sends else None
+        ctx.received = bool(recvs)
+        ctx.peers, ctx.group, ctx.kind = peers, group, kind
+        return ticket.clone(), (recvs[0] if recvs else None)
+
+    @staticmethod
+    def backward(ctx, g_ticket, g_h):
+        nxt, prv = ctx.peers
+        sends = [g_h.contiguous()] if ctx.received else []
+        recvs = [torch.empty(ctx.sent[0], dtype=ctx.sent[1], device=ctx.sent[2])] if ctx.sent else []
+        _exchange(sends, prv, recvs, nxt, ctx.group, ctx.kind + "_grad")
+        return g_ticket, (recvs[0] if recvs else None), None, None, None, None
+
+
+def stage_handoff(ticket: torch.Tensor, y: Optional[torch.Tensor], recv_like: torch.Tensor, *,
+                  group=None, nxt=None, prv=None, kind: str = "pipe") -> tuple:
+    """A pipeline tick's handoff: ``y`` to the next stage (the default
+    group's rank ``nxt``; None sends nothing) and the previous stage's
+    output received from rank ``prv`` (None receives nothing), shaped as
+    ``recv_like``. Returns ``(ticket, received or None)``; ``ticket``
+    threads the ticks' exchanges into one chain (:class:`_StageHandoff`).
+    Differentiable; counted ``comm.ppermute.<kind>`` forward and
+    ``<kind>_grad`` backward, once a tick that moves anything."""
+    if nxt is None and prv is None:
+        return ticket, None
+    like = (tuple(recv_like.shape), recv_like.dtype, recv_like.device)
+    return _StageHandoff.apply(ticket, y, like, (nxt, prv), group, kind)
+
+
+def copy_to_pipe(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    """:func:`copy_to_tp` over a pipe group, counted ``comm.all_reduce.
+    pipe_grad``: the microbatches fed to the first stage, whose cotangent
+    (the first stage's) every stage then holds."""
+    return copy_to_tp(x, group=group, kind="pipe")
+
+
+def reduce_from_pipe(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    """:func:`reduce_from_tp` over a pipe group, counted ``comm.all_reduce.
+    pipe``: the last stage's outputs (zeros on the others) summed, so every
+    stage holds them."""
+    return reduce_from_tp(x, group=group, kind="pipe")

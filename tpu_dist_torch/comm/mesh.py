@@ -20,9 +20,12 @@ is all the replicated step needs, :func:`data_axis` the data groups of
 ZeRO-1's shards. Tensor and expert parallelism name more axes
 (:func:`named_mesh`, the JAX names ``model`` and ``expert``):
 :func:`tp_mesh` is ``[data, model]`` or ``[data, model, seq]`` with the
-joined ``data,seq`` group, :func:`ep_mesh` ``[data, expert]``; every rank
-creates every group in one order. :func:`axis_intra_host` is
-``model_axes_intra_host``.
+joined ``data,seq`` group, :func:`ep_mesh` ``[data, expert]``, and
+pipeline parallelism :func:`pp_mesh` ``[data, pipe]`` or ``[data, pipe,
+model]`` with the joined ``pipe,model`` group; every rank creates every
+group in one order. :func:`axis_intra_host` is ``model_axes_intra_host``,
+and :func:`check_model_axes_intra_host` the JAX trainer's refusal of model
+axes that cross hosts.
 """
 
 from __future__ import annotations
@@ -111,12 +114,14 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-# -- named mesh axes: [data, seq], [data, model], [data, expert], [data, model, seq] --
+# -- named mesh axes: [data, seq], [data, model], [data, expert], [data, model, seq],
+# [data, pipe], [data, pipe, model] --
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +313,20 @@ def ep_mesh(ep: int, world: Optional[int] = None, rank: Optional[int] = None) ->
     return named_mesh([(EXPERT_AXIS, ep)], (), world, rank)
 
 
+def pp_mesh(pp: int, tp: int = 1, world: Optional[int] = None,
+            rank: Optional[int] = None) -> NamedMesh:
+    """``[world/pp, pp]`` as ``[data, pipe]``, or with ``tp > 1``
+    ``[world/(pp·tp), pp, tp]`` as ``[data, pipe, model]`` with the joined
+    ``pipe,model`` group (the ranks of one data row: a stage's shards), as
+    the JAX trainer lays out Megatron PP×TP: the model axis innermost
+    (consecutive ranks), the pipe next, the data outermost
+    (``tpu_dist/train/trainer.py:287-298``)."""
+    if tp > 1:
+        return named_mesh([(PIPE_AXIS, pp), (MODEL_AXIS, tp)], ((PIPE_AXIS, MODEL_AXIS),),
+                          world, rank)
+    return named_mesh([(PIPE_AXIS, pp)], (), world, rank)
+
+
 def axis_intra_host(groups, ranks_per_host: int) -> bool:
     """True iff each rank group of ``groups`` lies on one host, the hosts
     holding ``ranks_per_host`` consecutive ranks each (``torchrun``'s
@@ -327,3 +346,24 @@ def ranks_per_host(device="cuda") -> int:
     if torch.device(device).type == "cuda":
         return max(torch.cuda.device_count(), 1)
     return process_count()
+
+
+def check_model_axes_intra_host(m: NamedMesh, ways: dict, ranks_per_host: int) -> None:
+    """The JAX trainer's ``_check_mesh_host_layout``: refuse a mesh whose
+    model axes (``ways``: ``{axis name: its size}``, the model, expert and
+    pipe axes the run asked for) put one group of theirs on more than one
+    host, whose collectives would then leave the host's links. A world on
+    one host passes."""
+    world = math.prod(m.sizes)
+    if world <= ranks_per_host:
+        return
+    hard = [a for a, w in ways.items() if w > 1 and a in m.names]
+    if not hard:
+        return
+    idx = tuple(m.names.index(a) for a in hard)
+    if not axis_intra_host(axis_groups(world, m.sizes[1:], idx), ranks_per_host):
+        raise ValueError(
+            f"mesh lays model axes {hard} across hosts (DCN): with "
+            f"{ranks_per_host} devices/host, keep "
+            f"tp*ep*pp ways a divisor of the local device count"
+        )

@@ -33,7 +33,12 @@ of the compiled step:
 The count is the step's total across ranks, the JAX convention (the SPMD
 step's cost analysis is global, and :func:`mfu` divides by ``peak ×
 n_devices``): the caller passes its world and the local count is
-multiplied by it.
+multiplied by it. Under pipeline parallelism (``pp`` stages) the work a
+rank does inside a pipeline stage's schedule (:func:`stage_region`: the
+active ticks only) is its own, and is multiplied by the world; the rest
+(the embedding, the head, the loss and the update, the same on every stage
+of a pipe group) is multiplied by ``world / pp``, counted once a group. The
+count is then the unsharded step's.
 
 Ported as they are: :func:`mfu`, :func:`calibration`,
 :func:`publish_calibration`, :func:`predicted_step_time`,
@@ -211,17 +216,20 @@ def _count_mode():
         def __init__(self):
             super().__init__()
             self.formulas = _formulas()
-            self.flops = 0
-            self.nbytes = 0
+            self.in_stage = False
+            # [outside, inside] a pipeline stage's schedule
+            self.flops = [0, 0]
+            self.nbytes = [0, 0]
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
             formula = self.formulas.get(func._overloadpacket)
             if formula is not None:
-                self.flops += formula(*args, **kwargs, out_val=out)
+                self.flops[self.in_stage] += formula(*args, **kwargs, out_val=out)
             if not getattr(func, "is_view", False):
-                self.nbytes += _tensor_bytes(args) + _tensor_bytes(kwargs) + _tensor_bytes(out)
+                self.nbytes[self.in_stage] += (_tensor_bytes(args) + _tensor_bytes(kwargs)
+                                               + _tensor_bytes(out))
             return out
 
     return Count()
@@ -235,8 +243,18 @@ def count_kernel(flops: int, *tensors) -> None:
     outputs) to the step being counted; nothing when none is."""
     count = _ACTIVE
     if count is not None:
-        count.flops += int(flops)
-        count.nbytes += _tensor_bytes(tensors)
+        count.flops[count.in_stage] += int(flops)
+        count.nbytes[count.in_stage] += _tensor_bytes(tensors)
+
+
+def stage_region(inside: bool) -> None:
+    """Mark where a pipeline stage's schedule starts (``inside``) and ends,
+    in the forward and again in the backward (``parallel/pipeline.py``
+    calls it): the work counted in between is the stage's own, the rest is
+    the same on every stage of the pipe group (:func:`step_cost`). Nothing
+    when no step is counted."""
+    if _ACTIVE is not None:
+        _ACTIVE.in_stage = bool(inside)
 
 
 @contextlib.contextmanager
@@ -253,12 +271,14 @@ def hidden():
         yield
 
 
-def step_cost(fn, *args, world: int = 1, **kwargs):
+def step_cost(fn, *args, world: int = 1, pp: int = 1, **kwargs):
     """Run ``fn(*args, **kwargs)`` once while counting its work; returns
     ``(what fn returned, {"flops_per_step", "bytes_per_step"})``, the
-    counts multiplied by ``world`` (the step's total across ranks). A
-    count that comes to 0 is None, as the JAX function reports a missing
-    one."""
+    counts multiplied by ``world`` (the step's total across ranks), but
+    for the work outside a pipeline stage's schedule, which the ``pp``
+    stages of a pipe group share and which is multiplied by ``world /
+    pp``. A count that comes to 0 is None, as the JAX function reports a
+    missing one."""
     global _ACTIVE
     if _ACTIVE is not None:
         raise RuntimeError("step_cost: a step is already being counted")
@@ -269,7 +289,11 @@ def step_cost(fn, *args, world: int = 1, **kwargs):
             out = fn(*args, **kwargs)
     finally:
         _ACTIVE = None
-    flops, nbytes = mode.flops * int(world), mode.nbytes * int(world)
+    if int(world) % int(pp):
+        raise ValueError(f"a world of {world} ranks does not divide over pp={pp}")
+    share = int(world) // int(pp)
+    flops = mode.flops[0] * share + mode.flops[1] * int(world)
+    nbytes = mode.nbytes[0] * share + mode.nbytes[1] * int(world)
     return out, {"flops_per_step": float(flops) if flops > 0 else None,
                  "bytes_per_step": float(nbytes) if nbytes > 0 else None}
 

@@ -127,7 +127,8 @@ def _leaf_entry(path: str, leaf) -> Optional[dict]:
 def _module_params(module) -> dict:
     """A module's parameters as the JAX parameter tree (``bridge.py``'s
     names and layout) for the ResNets and ViTs, else by their dotted
-    names. A tensor- or expert-parallel module's sharded leaves are
+    names. A tensor-, expert- or pipeline-parallel module's sharded leaves
+    (a stage's stacked block rows, with their TP shards under PP×TP) are
     :class:`Leaf` s of their full shape and this rank's shard shape, as the
     JAX ledger reads a leaf's sharding (``tpu_dist/obs/memory.py:112-156``)."""
     from tpu_dist_torch import bridge  # noqa: PLC0415

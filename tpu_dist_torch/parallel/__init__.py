@@ -1,6 +1,6 @@
 """Model parallelism: the port's counterpart of ``tpu_dist/parallel/``
-(tensor and expert parallelism; the pipeline and FSDP wait for ROADMAP
-Queue A 3)."""
+(tensor, expert and pipeline parallelism; FSDP waits for ROADMAP Queue A
+3)."""
 
 from tpu_dist_torch.parallel.tensor import (  # noqa: F401
     column_parallel_dense,

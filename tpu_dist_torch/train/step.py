@@ -73,6 +73,17 @@ data-parallel (DP) family, one process per device.
   over every rank), and the clip sums each sharded group's squares over its
   model group (:func:`make_step_body`). A model that returns ``(logits,
   aux)`` in training has ``moe_aux_coef`` times ``aux`` added to its loss.
+* ``pp_axis`` is pipeline parallelism (the pipe axis of a ``[data, pipe]``
+  or ``[data, pipe, model]`` mesh, :func:`tpu_dist_torch.comm.mesh.pp_mesh`):
+  the model holds this rank's stage and streams the batch through the pipe
+  group itself (``ViTPipeline(pipe=)``, ``n_microbatches`` in
+  ``model_kwargs``), every rank of a data row on the same batch; it
+  composes with ``tp_axis`` (Megatron PP×TP). Each rank differentiates its
+  own replica of the loss: the stage leaves take their stage's gradients,
+  the replicated leaves the same gradients on every rank of the group (the
+  conjugate pair around the pipeline), so the gradients are meant over
+  ``axis``, the data axis, alone; the clip sums each stage's squares over
+  the pipe group (over the joined ``pipe,model`` group for the TP shards).
 * ``device_metrics`` computes the training-health scalars
   (:func:`~tpu_dist_torch.obs.device_stats.compute_device_stats`:
   ``grad_norm``, ``param_norm``, ``update_ratio``, ``nonfinite_grads``)
@@ -94,10 +105,11 @@ Without a process group every collective is the identity (a world of one
 process). The step updates the model, its BN statistics, its optimizer
 state and its residuals in place (the JAX step's ``donate=True``) and
 returns a state with ``step + 1``. The JAX step's walls stand: int8 with
-``pmean_fusion="per_leaf"`` or a seq, model or expert axis, ``rs_ag_chunks >
-1`` off the non-quantized ZeRO-1 path, ZeRO-1 with a model or expert axis,
-and an expert axis with a seq or model axis, raise ``ValueError``. Options whose subsystem
-is not ported raise :class:`NotPortedError`, which names the flag and the
+``pmean_fusion="per_leaf"`` or a seq, model, expert or pipe axis,
+``rs_ag_chunks > 1`` off the non-quantized ZeRO-1 path, ZeRO-1 with a
+model, expert or pipe axis, an expert axis with a seq or model axis, and a
+pipe axis with a seq or expert axis, raise ``ValueError``.
+:class:`NotPortedError` names a flag whose subsystem is not ported and the
 ROADMAP queue that owns it.
 """
 
@@ -105,6 +117,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -112,7 +125,7 @@ import torch.utils.checkpoint
 
 import numpy as np
 
-from tpu_dist_torch.comm import collectives
+from tpu_dist_torch.comm import collectives, mesh
 from tpu_dist_torch.comm.quantize import (DEFAULT_CHUNK, StreamKey, dequantize_int8,
                                           padded_len, quantize_int8)
 from tpu_dist_torch.nn import functional as F
@@ -130,36 +143,29 @@ DEVICE_METRICS_SCOPE = ("device_metrics is scoped to the replicated-param paths 
                         "any grad_compression) — it cannot combine with "
                         "shard_weight_update/tp/ep/pp")
 
-# option -> what it needs and where in ROADMAP.md that is queued
-WAITS_FOR = {
-    "pp_axis": "Queue A 6 (pipeline parallelism, parallel/pipeline.py)",
-}
+# the JAX step's refusal of a pipe axis beside ZeRO-1, a seq or an expert axis
+PP_SCOPE = ("pp_axis is incompatible with shard_weight_update / seq_axis / ep_axis "
+            "(structural; see docstring)")
 
 
 class NotPortedError(NotImplementedError):
     """An option whose subsystem is not ported yet: names the flag and the
-    ROADMAP item it waits for (``WAITS_FOR[flag]`` unless ``queue`` is
-    given), instead of being a silent no-op."""
+    ROADMAP item it waits for (``queue``), instead of being a silent
+    no-op."""
 
-    def __init__(self, flag: str, value, queue: Optional[str] = None):
+    def __init__(self, flag: str, value, queue: str):
         self.flag = flag
-        self.queue = queue or WAITS_FOR[flag]
+        self.queue = queue
         super().__init__(
             f"{flag}={value!r} is not ported to tpu_dist_torch yet; it waits for "
             f"ROADMAP.md {self.queue}"
         )
 
 
-def _refuse_unported(**options) -> None:
-    for flag, value in options.items():
-        if value is not None:
-            raise NotPortedError(flag, value)
-
-
 def check_seq_axis(seq_axis, axis, sp_mode: str, grad_compression: str,
                    shard_weight_update: bool, model_axes: tuple = ()) -> None:
     """The JAX step's walls around ``seq_axis`` and the model axes
-    (``model_axes``: the tp and ep axes given): the quantized wires combine
+    (``model_axes``: the tp, ep and pp axes given): the quantized wires combine
     with none of them (``tpu_dist/train/step.py:413-422``), ``sp_mode`` is
     ring or ulysses, and ZeRO-1 under a seq axis needs the data axis of
     the same mesh."""
@@ -464,7 +470,9 @@ def make_step_body(
     sp_mode: str = "ring",
     tp_axis=None,
     ep_axis=None,
+    pp_axis=None,
     moe_aux_coef: float = 0.01,
+    model_kwargs: Optional[dict] = None,
 ):
     """Build ``body(state, images, labels, lr, step=None) -> sums``: the
     step on tensors already on the model's device. Forward and backward
@@ -506,27 +514,39 @@ def make_step_body(
     (the data axis) divided by the expert group's size (each rank's slabs
     gather the whole group's tokens through the exchange's backward, the
     sum of every rank's loss gradient), every other leaf the mean over
-    every rank (``tpu_dist/train/step.py::_ep_grad_reduce``). The global-
-    norm clip sums each sharded group's squares over its model group. A
-    model that returns ``(logits, aux)`` in training (the MoE ViT) has
+    every rank (``tpu_dist/train/step.py::_ep_grad_reduce``). ``pp_axis``
+    (the pipe axis of :func:`tpu_dist_torch.comm.mesh.pp_mesh`, with or
+    without ``tp_axis``) is pipeline parallelism: the model holds this rank's
+    stage and its replicated leaves; every rank of a data row takes its
+    batch, and the gradients are meant over ``axis`` (the data axis). The
+    global-norm clip sums each sharded group's squares over its group: the
+    model group, the pipe group, or for PP×TP's shards the joined
+    ``pipe,model`` group (:func:`_leaf_groups`). ``model_kwargs`` go to
+    the model's forward (the pipeline's ``n_microbatches``). A model that
+    returns ``(logits, aux)`` in training (the MoE ViT) has
     ``moe_aux_coef`` times ``aux`` added to each chunk's loss."""
     validate_grad_compression(grad_compression)
     quantized = grad_compression in QUANTIZED_MODES
     check_seq_axis(seq_axis, axis, sp_mode, grad_compression, shard_weight_update,
-                   (tp_axis, ep_axis))
+                   (tp_axis, ep_axis, pp_axis))
+    if pp_axis is not None and (shard_weight_update or seq_axis is not None
+                                or ep_axis is not None):
+        raise ValueError(PP_SCOPE)
     model_axis = tp_axis if tp_axis is not None else ep_axis
-    if model_axis is not None:
-        if shard_weight_update:
-            raise ValueError(
-                ("tp_axis + shard_weight_update is out of ZeRO-1's scope (DP-only fast path by "
-                 "design) — use --fsdp for sharded weight updates beyond plain DP")
-                if tp_axis is not None else
-                "ep_axis is incompatible with shard_weight_update / seq_axis / tp_axis "
-                "(structural; see docstring)")
-        if axis is None and collectives.world_size() != model_axis.size:
-            raise ValueError(f"{'tp_axis' if tp_axis is not None else 'ep_axis'} needs axis=, "
-                             "the ranks that share this rank's model index (the data axis of "
-                             "the same mesh, tpu_dist_torch.comm.mesh.tp_mesh / ep_mesh)")
+    if model_axis is not None and shard_weight_update:
+        raise ValueError(
+            ("tp_axis + shard_weight_update is out of ZeRO-1's scope (DP-only fast path by "
+             "design) — use --fsdp for sharded weight updates beyond plain DP")
+            if tp_axis is not None else
+            "ep_axis is incompatible with shard_weight_update / seq_axis / tp_axis "
+            "(structural; see docstring)")
+    model_axes = [a for a in (tp_axis, ep_axis, pp_axis) if a is not None]
+    if (model_axes and axis is None
+            and collectives.world_size() != math.prod(a.size for a in model_axes)):
+        flag = "pp_axis" if pp_axis is not None else "tp_axis" if tp_axis is not None else "ep_axis"
+        raise ValueError(f"{flag} needs axis=, the ranks that share this rank's model index (the "
+                         "data axis of the same mesh, tpu_dist_torch.comm.mesh.tp_mesh / "
+                         "ep_mesh / pp_mesh)")
     if device_metrics and shard_weight_update:
         # the health scalars are free only where the reduced gradients and
         # the parameters are the same on every rank; under ZeRO-1 they
@@ -549,8 +569,10 @@ def make_step_body(
     if K < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     zero = {}  # the _ZeroOne of the model the body last saw
+    leaf_groups = {}  # the sharded leaves' groups of the model the body last saw
     seq_group = seq_axis.group if seq_axis is not None else None
     model_kw = {"seq": seq_axis, "sp_mode": sp_mode} if seq_axis is not None else {}
+    model_kw.update(model_kwargs or {})
     data_group = axis.group if axis is not None else None
 
     def wired_mean(grads, kind, group, div=1):
@@ -561,13 +583,16 @@ def make_step_body(
 
     def reduce_grads(grads, state, step, sharded_ix):
         """The gradient reduce on the ``grad_compression`` wire, once a step:
-        under TP the mean over the data axis, under EP the mean over the
-        data axis divided by the group's size for the expert slabs
-        (``sharded_ix``) and over every rank for the rest, else the mean
-        over every rank (:func:`compressed_pmean`), whose ``int8_ef``
+        under TP and PP the mean over the data axis (none without ``axis``:
+        the model's ranks are then the world, one data row), under EP the
+        mean over the data axis divided by the group's size for the expert
+        slabs (``sharded_ix``) and over every rank for the rest, else the
+        mean over every rank (:func:`compressed_pmean`), whose ``int8_ef``
         residuals go back into ``state.ef`` in place."""
-        if tp_axis is not None:
-            return wired_mean(grads, "grad", data_group) if collectives.active() else grads
+        if tp_axis is not None or pp_axis is not None:
+            if not collectives.active() or axis is None:
+                return grads
+            return wired_mean(grads, "grad", data_group)
         if ep_axis is not None:
             if not collectives.active():
                 return grads
@@ -587,18 +612,19 @@ def make_step_body(
             state.ef[k].copy_(v)
         return red
 
-    def clip_grads(grads, sharded_ix=()):
+    def clip_grads(grads, groups=()):
         """Global-norm clip: scale = min(1, clip / max(norm, 1e-12)). The
-        squares of the sharded leaves (``sharded_ix``) are summed over the
-        model group first: each rank holds a slice of their norm, and the
-        replicated leaves the whole of theirs (``tpu_dist/train/step.py::
-        clip_grads``)."""
+        squares of each group's sharded leaves (``groups``: ``[(process
+        group, indices)]``) are summed over that group first: each rank
+        holds a slice of their norm, and the replicated leaves the whole of
+        theirs (``tpu_dist/train/step.py::clip_grads``)."""
         if grad_clip_norm <= 0.0:
             return grads
-        sq = sum(torch.sum(torch.square(g)) for i, g in enumerate(grads) if i not in sharded_ix)
-        if sharded_ix:
-            part = sum(torch.sum(torch.square(grads[i])) for i in sharded_ix)
-            sq = sq + collectives.all_reduce_(part, group=model_axis.group, kind="clip")
+        grouped = {i for _, ix in groups for i in ix}
+        sq = sum(torch.sum(torch.square(g)) for i, g in enumerate(grads) if i not in grouped)
+        for group, ix in groups:
+            part = sum(torch.sum(torch.square(grads[i])) for i in ix)
+            sq = sq + collectives.all_reduce_(part, group=group, kind="clip")
         scale = torch.clamp(grad_clip_norm / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
         return [g * scale for g in grads]
 
@@ -625,7 +651,10 @@ def make_step_body(
         n = images.shape[0] // K
         # BatchNorm models take the SyncBN group; the ViT has none
         fwd_kw = {"group": collectives.sync_group(sync_bn)} if state.bn_state else dict(model_kw)
-        sharded_ix = _sharded_indices(model, model_axis)
+        if leaf_groups.get("model") is not model:  # once a model: a walk of its leaves
+            leaf_groups.update(model=model, groups=_leaf_groups(model, tp_axis, ep_axis, pp_axis))
+        groups = leaf_groups["groups"]
+        sharded_ix = [i for _, ix in groups for i in ix]
         model.train()
 
         def forward_loss(x, y):
@@ -669,7 +698,7 @@ def make_step_body(
         if shard_weight_update:
             sharded(state, params).update(state, params, grads, lr, step)
         else:
-            applied = clip_grads(reduce_grads(grads, state, step, sharded_ix), sharded_ix)
+            applied = clip_grads(reduce_grads(grads, state, step, sharded_ix), groups)
             if device_metrics:
                 before = snapshot(params)  # the parameters before the in-place update
             optimizer.update(applied, state.opt_state, params, lr)
@@ -690,23 +719,45 @@ def make_step_body(
     return body
 
 
-def _sharded_indices(model, model_axis) -> tuple:
-    """The indices, in ``model.parameters()`` order, of the leaves sharded
-    over ``model_axis`` (the model's ``param_specs``); raises unless the
-    model is sharded over an axis of that name and size."""
-    if model_axis is None:
-        return ()
-    flag = "tp" if model_axis.name == "model" else "ep"
-    own = getattr(model, "shard_axis", None)
+def _check_axis(own, axis, flag: str, model) -> None:
+    """Raise unless the model is sharded over ``own``, an axis of
+    ``axis``'s name, size and index."""
     if own is None or not hasattr(model, "param_specs"):
         raise ValueError(f"{flag}_axis requires param_specs (per-leaf shardings): a "
-                         f"{type(model).__name__} built with {flag}= its group")
-    if (own.name, own.size, own.index) != (model_axis.name, model_axis.size, model_axis.index):
+                         f"{type(model).__name__} built with "
+                         f"{'pipe' if flag == 'pp' else flag}= its group")
+    if (own.name, own.size, own.index) != (axis.name, axis.size, axis.index):
         raise ValueError(f"the model is sharded over {own.name}={own.size} (index {own.index}), "
-                         f"the step over {model_axis.name}={model_axis.size} "
-                         f"(index {model_axis.index})")
+                         f"the step over {axis.name}={axis.size} (index {axis.index})")
+
+
+def _leaf_groups(model, tp_axis, ep_axis, pp_axis) -> list:
+    """``[(process group, parameter indices)]``, in ``model.parameters()``
+    order, of the leaves sharded over a group: under ``pp_axis`` a stage's
+    TP shards over the stage group (the joined ``pipe,model`` group) and its
+    other leaves over the pipe group; under ``tp_axis`` or ``ep_axis`` the
+    model's ``param_specs`` over the model group. Raises unless the model is
+    sharded over axes of those names and sizes."""
+    names = [n for n, _ in model.named_parameters()]
+    if pp_axis is not None:
+        _check_axis(getattr(model, "pipe", None), pp_axis, "pp", model)
+        if tp_axis is not None:
+            _check_axis(getattr(model, "tp", None), tp_axis, "tp", model)
+        specs = model.pp_tp_param_specs() if tp_axis is not None else model.pp_param_specs()
+        # leaves grouped by the model axes of their spec, as JAX's clip does
+        by_axes: dict = {}
+        for i, n in enumerate(names):
+            if n in specs:
+                by_axes.setdefault(specs[n][0], []).append(i)
+        group_of = {mesh.PIPE_AXIS: model.pipe, (mesh.PIPE_AXIS, mesh.MODEL_AXIS): model.stage}
+        return [(group_of[axes].group, ix) for axes, ix in by_axes.items()]
+    model_axis = tp_axis if tp_axis is not None else ep_axis
+    if model_axis is None:
+        return []
+    _check_axis(getattr(model, "shard_axis", None), model_axis,
+                "tp" if model_axis.name == "model" else "ep", model)
     specs = model.param_specs()
-    return tuple(i for i, (n, _) in enumerate(model.named_parameters()) if n in specs)
+    return [(model_axis.group, [i for i, n in enumerate(names) if n in specs])]
 
 
 #: The ``device_metrics`` scalars, in the order ``body`` appends them.
@@ -741,7 +792,7 @@ def make_train_step(
     seq_axis=None,
     tp_axis=None,
     ep_axis=None,
-    pp_axis: Optional[str] = None,
+    pp_axis=None,
     remat: bool = False,
     grad_compression: str = "none",
     quant_chunk: Optional[int] = None,
@@ -751,6 +802,7 @@ def make_train_step(
     axis=None,
     sp_mode: str = "ring",
     moe_aux_coef: float = 0.01,
+    model_kwargs: Optional[dict] = None,
 ):
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
@@ -775,7 +827,11 @@ def make_train_step(
     :func:`~tpu_dist_torch.comm.mesh.ep_mesh`) run tensor or expert
     parallelism (:func:`make_step_body`), with ``axis`` the ranks that
     share this rank's model index; ``images`` and ``labels`` are then the
-    data row's batch under TP, this rank's own under EP.
+    data row's batch under TP, this rank's own under EP. ``pp_axis``
+    (:func:`~tpu_dist_torch.comm.mesh.pp_mesh`'s ``pipe``, with or without
+    ``tp_axis``) runs pipeline parallelism, the data row's batch on every
+    rank, ``axis`` the mesh's data axis and the microbatch count
+    ``model_kwargs={"n_microbatches": M}`` (default: the stage count).
     ``moe_aux_coef`` weighs a MoE model's load-balancing loss."""
     validate_grad_compression(grad_compression)
     if device_metrics and any(a is not None for a in (tp_axis, ep_axis, pp_axis)):
@@ -785,10 +841,6 @@ def make_train_step(
         # one token dimension through two layouts (tpu_dist/train/step.py:501-514)
         raise ValueError("ep_axis is incompatible with shard_weight_update / seq_axis / "
                          "tp_axis (structural; see docstring)")
-    if seq_axis is not None and pp_axis is not None:
-        raise ValueError("pp_axis is incompatible with shard_weight_update / seq_axis / "
-                         "ep_axis (structural; see docstring)")
-    _refuse_unported(pp_axis=pp_axis)
     body = make_step_body(optimizer, grad_accum_steps=grad_accum_steps, sync_bn=sync_bn,
                           compute_dtype=compute_dtype, label_smoothing=label_smoothing,
                           grad_clip_norm=grad_clip_norm, pmean_fusion=pmean_fusion,
@@ -796,7 +848,8 @@ def make_train_step(
                           grad_compression=grad_compression, quant_chunk=quant_chunk,
                           rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics,
                           axis=axis, seq_axis=seq_axis, sp_mode=sp_mode, tp_axis=tp_axis,
-                          ep_axis=ep_axis, moe_aux_coef=moe_aux_coef)
+                          ep_axis=ep_axis, pp_axis=pp_axis, moe_aux_coef=moe_aux_coef,
+                          model_kwargs=model_kwargs)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device
@@ -822,19 +875,22 @@ def eval_sums(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) ->
 
 
 def make_eval_step(*, compute_dtype: torch.dtype = torch.float32, tp_axis=None, ep_axis=None,
-                   axis=None):
+                   pp_axis=None, axis=None):
     """Build ``eval_step(state, images, labels, mask) -> sums``: the
     masked sums ``loss`` (of the per-example cross-entropy), ``top1``,
     ``top5`` and ``count`` over every rank's batch (one all-reduce), as
     0-dim f32 tensors, so the caller divides once at the end. ``mask`` is
     1.0 for real examples, 0.0 for padding.
 
-    Under ``tp_axis`` the ranks of a model group share a batch, so the sums
-    are taken over ``axis`` (the ranks that share this rank's model index,
-    as ``tpu_dist/train/step.py::make_eval_step``'s ``axis``); under
-    ``ep_axis`` every rank holds its own examples and the sums go over
-    every rank. The sharded model joins its groups itself."""
-    group = axis.group if tp_axis is not None and axis is not None else None
+    Under ``tp_axis`` or ``pp_axis`` the ranks of a model group (of a pipe
+    group) share a batch, so the sums are taken over ``axis`` (the ranks
+    that share this rank's model index, as ``tpu_dist/train/step.py::
+    make_eval_step``'s ``axis``; without it the model's ranks are the
+    world, one data row, and nothing is summed); under ``ep_axis`` every
+    rank holds its own examples and the sums go over every rank. The
+    sharded model joins its groups itself; a pipelined one streams the
+    batch in as many microbatches as it has stages."""
+    shared = tp_axis is not None or pp_axis is not None
 
     def eval_step(state: TrainState, images, labels, mask):
         model = state.params
@@ -846,8 +902,10 @@ def make_eval_step(*, compute_dtype: torch.dtype = torch.float32, tp_axis=None, 
         try:
             with torch.no_grad():
                 logits = model(images.to(compute_dtype))
-                sums = collectives.all_reduce_(eval_sums(logits, labels, mask), group=group,
-                                               kind="eval")
+                sums = eval_sums(logits, labels, mask)
+                if not (shared and axis is None):
+                    sums = collectives.all_reduce_(
+                        sums, group=axis.group if shared else None, kind="eval")
                 return dict(zip(("loss", "top1", "top5", "count"), sums))
         finally:
             model.train(was_training)

@@ -56,6 +56,19 @@ checkpoint is the plain format in JAX's full layout (gathered at save,
 sliced by the rank's coordinates at restore), so it resumes at another
 ``tp`` or ``ep``.
 
+``pp > 1`` (a pipelined ViT, ``vit_pp_*``) lays the world out as
+``[world/pp, pp]`` = ``[data, pipe]``, or with ``tp`` as ``[world/(pp·tp),
+pp, tp]`` = ``[data, pipe, model]`` (:func:`~tpu_dist_torch.comm.mesh.
+pp_mesh`): each rank's model holds its stage's blocks (and, under PP×TP,
+their Megatron shards), the ranks of a data row train and evaluate its
+batch in ``pp_microbatches`` microbatches (default: the stage count;
+evaluation always the stage count), GPipe or, with ``pp_interleave``, the
+interleaved schedule, whose storage order the model takes from the config
+as JAX relays it. The gradients, the evaluation's sums and the initial
+broadcast go over the data axis. A pipelined checkpoint is JAX's full
+stacked layout in storage order, stamped ``{pp, pp_interleave}``: a resume
+under another layout is refused (:meth:`Trainer._check_ckpt_meta`).
+
 Checkpoint / resume, preemption and the history are the JAX trainer's:
 
 * ``ckpt_dir`` takes a plain-format checkpoint (:mod:`tpu_dist_torch.ckpt`,
@@ -248,7 +261,8 @@ from tpu_dist_torch.evaluation.validate import validate
 from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
-from tpu_dist_torch.nn import resnet, vit, vit_moe
+from tpu_dist_torch.nn import resnet, vit, vit_moe, vit_pp
+from tpu_dist_torch.parallel.pipeline import bubble_fraction
 from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import costmodel
 from tpu_dist_torch.obs import counters, spans, straggler as straggler_lib
@@ -273,19 +287,15 @@ _MODELS = {
     "resnet18": resnet.resnet18, "resnet34": resnet.resnet34, "resnet50": resnet.resnet50,
     "resnet50_imagenet": resnet.resnet50_imagenet,
     "vit_b16": vit.vit_b16, "vit_s16": vit.vit_s16, "vit_tiny": vit.vit_tiny,
-    "vit_moe_tiny": vit_moe.vit_moe_tiny,
+    "vit_moe_tiny": vit_moe.vit_moe_tiny, "vit_pp_tiny": vit_pp.vit_pp_tiny,
 }
 
 _TELEMETRY = "Queue A 6 (telemetry: obs/*)"
-_PARALLEL = "Queue A 6 (model parallelism, parallel/*)"
 _ANALYSIS = "Queue A 6 (the analysis layer)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
     "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "pp": (1, _PARALLEL),
-    "pp_microbatches": (0, _PARALLEL),
-    "pp_interleave": (1, _PARALLEL),
     "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
@@ -321,22 +331,31 @@ def register_model(name: str, factory) -> None:
     """Extend the model zoo: ``factory(num_classes=, device=, seed=)``
     returns an ``nn.Module`` taking NHWC images (and ``group=`` if it has
     BatchNorm); a model that takes ``tp=`` or ``ep=`` (a model or expert
-    group) shards itself over it."""
+    group) shards itself over it, and one that takes ``pipe=`` (with
+    ``stage=``, ``interleave=`` and ``pp_stages=``) keeps its stage."""
     _MODELS[name] = factory
 
 
 def build_model(cfg: TrainConfig, device, seed: int = 0, **shard) -> torch.nn.Module:
-    """The zoo's ``cfg.model``, with ``shard`` (``tp=`` or ``ep=``, the
-    group) when given, and ``moe_top_k`` on a MoE model; the JAX trainer's
-    refusals of a model without a tp or ep branch, heads or experts that
-    do not divide over the group, and a ``moe_top_k`` the model cannot take
-    (``tpu_dist/train/trainer.py:422-493``)."""
+    """The zoo's ``cfg.model``, with ``shard`` (``tp=``, ``ep=`` or
+    ``pipe=``, the groups, and the pipeline's layout) when given, and
+    ``moe_top_k`` on a MoE model; the JAX trainer's refusals of a model
+    without a tp, ep or pp branch or the interleaved layout, heads or
+    experts that do not divide over the group, and a ``moe_top_k`` the model
+    cannot take (``tpu_dist/train/trainer.py:422-527``)."""
     if cfg.model not in _MODELS:
         raise ValueError(f"unknown model {cfg.model!r}; have {sorted(_MODELS)}")
     try:
         model = _MODELS[cfg.model](num_classes=cfg.num_classes, device=device, seed=seed,
                                    **shard)
     except TypeError as e:
+        if "pipe" in shard and "'pipe'" in str(e):
+            raise ValueError(f"model {cfg.model!r} does not support pipeline parallelism "
+                             f"(no pp_axis in apply); use vit_pp_* or pp=1") from None
+        if "interleave" in shard and ("'interleave'" in str(e) or "'pp_stages'" in str(e)):
+            raise ValueError(f"model {cfg.model!r} does not support the interleaved schedule "
+                             f"(no interleave/pp_stages fields); use vit_pp_* or "
+                             f"pp_interleave=1") from None
         if "tp" in shard and "'tp'" in str(e):
             raise ValueError(f"model {cfg.model!r} does not support tensor parallelism "
                              f"(no tp_axis in apply); use a ViT model or tp=1") from None
@@ -400,14 +419,22 @@ def check_sp_config(cfg: TrainConfig) -> None:
 
 
 def check_parallel_config(cfg: TrainConfig) -> None:
-    """The JAX trainer's refusals of ``tp``, ``ep`` and their combinations
-    that need no model (``tpu_dist/train/trainer.py:267-276``, ``:422-455``,
-    ``:472-490``): only sp+tp and pp+tp combine (and ``pp`` waits in
-    :data:`UNPORTED`), TP and EP refuse the fused epoch and ZeRO-1, and the
-    quantized wires refuse every model-parallel axis."""
-    for flag in ("tp", "ep"):
+    """The JAX trainer's refusals of ``tp``, ``ep``, ``pp`` and their
+    combinations that need no model (``tpu_dist/train/trainer.py:260-276``,
+    ``:422-455``, ``:472-490``): ``pp_interleave`` at least 1 and only with
+    ``pp > 1``, only sp+tp and pp+tp combine, TP and EP refuse the fused
+    epoch and ZeRO-1, and the quantized wires refuse every model-parallel
+    axis."""
+    for flag in ("tp", "ep", "pp"):
         if getattr(cfg, flag) < 1:
             raise ValueError(f"{flag} must be >= 1, got {getattr(cfg, flag)}")
+    if cfg.pp_interleave < 1:
+        raise ValueError(f"pp_interleave must be >= 1, got {cfg.pp_interleave}")
+    if cfg.pp_interleave > 1 and cfg.pp <= 1:
+        raise ValueError(
+            "pp_interleave > 1 has no effect without pp > 1 — set --pp "
+            "to the stage count (refusing to silently ignore the flag)"
+        )
     combined = sum(w > 1 for w in (cfg.sp, cfg.tp, cfg.ep, cfg.pp))
     if combined > 1 and not (combined == 2 and cfg.tp > 1 and (cfg.sp > 1 or cfg.pp > 1)):
         raise ValueError(
@@ -433,6 +460,51 @@ def check_parallel_config(cfg: TrainConfig) -> None:
             "ep > 1 is incompatible with fused_epoch / zero1 "
             "(grad_clip_norm composes — shard-aware norm in step.py)"
         )
+
+
+def pipeline_shard(cfg: TrainConfig, pm) -> dict:
+    """The pipelined model's arguments on the mesh ``pm``
+    (:func:`~tpu_dist_torch.comm.mesh.pp_mesh`): its groups, and the
+    interleaved layout relayed from the config as the JAX trainer relays it
+    into the model definition (``tpu_dist/train/trainer.py:502-525``)."""
+    shard = {"pipe": pm[mesh.PIPE_AXIS]}
+    if cfg.tp > 1:
+        shard.update(tp=pm[mesh.MODEL_AXIS], stage=pm[f"{mesh.PIPE_AXIS},{mesh.MODEL_AXIS}"])
+    if cfg.pp_interleave > 1:
+        shard.update(interleave=cfg.pp_interleave, pp_stages=cfg.pp)
+    return shard
+
+
+def check_pp_model(cfg: TrainConfig, n_data: int) -> None:
+    """The JAX trainer's refusals of ``pp > 1`` after the model (its depth
+    over the chunks is the model's own refusal): fewer microbatches than
+    stages under the interleaved schedule, the fused epoch and ZeRO-1, and
+    a data shard's batch that does not divide into the microbatches
+    (``tpu_dist/train/trainer.py:502-543``); then the rank-0 ``pipeline:``
+    line with the bubble fraction."""
+    if cfg.pp_interleave > 1 and (cfg.pp_microbatches or cfg.pp) < cfg.pp:
+        raise ValueError(
+            "pp_interleave > 1 requires pp_microbatches >= pp "
+            "(fewer microbatches than stages starves the "
+            "interleaved schedule's warmup ramp)"
+        )
+    if cfg.fused_epoch or cfg.shard_weight_update:
+        raise ValueError(
+            "pp > 1 is incompatible with fused_epoch / zero1 "
+            "(grad_clip_norm composes — shard-aware norm in step.py)"
+        )
+    m = cfg.pp_microbatches or cfg.pp
+    per_dev_batch = cfg.batch_size // max(1, n_data)
+    if per_dev_batch % m:
+        raise ValueError(
+            f"per-data-shard batch {per_dev_batch} must divide into "
+            f"{m} microbatches"
+        )
+    rank0_print(
+        f"pipeline: {cfg.pp} stages x {cfg.pp_interleave} virtual, "
+        f"{m} microbatches, bubble fraction "
+        f"{bubble_fraction(cfg.pp, m, cfg.pp_interleave):.3f}"
+    )
 
 
 def check_sp_model(cfg: TrainConfig, model, world: int) -> None:
@@ -735,18 +807,33 @@ class Trainer:
         # the mesh, laid out as the JAX trainer's (tpu_dist/train/trainer.py:
         # 278-309): [world/sp, sp] as [data, seq], [world/tp, tp] as [data,
         # model], [world/ep, ep] as [data, expert], [world/(tp·sp), tp, sp]
-        # as [data, model, seq]; the inner axes are consecutive ranks
-        ways = cfg.sp * cfg.tp * cfg.ep
-        if world % ways and (cfg.tp > 1 or cfg.ep > 1):
+        # as [data, model, seq], [world/pp, pp] as [data, pipe],
+        # [world/(pp·tp), pp, tp] as [data, pipe, model]; the inner axes are
+        # consecutive ranks
+        ways = cfg.sp * cfg.tp * cfg.ep * cfg.pp
+        if world % ways and (cfg.tp > 1 or cfg.ep > 1 or cfg.pp > 1):
             # (under sp alone the model's refusals come first: check_sp_model)
             if cfg.sp > 1 and cfg.tp > 1:
                 raise ValueError(f"{world} devices not divisible by tp*sp={ways}")
+            if cfg.pp > 1 and cfg.tp > 1:
+                raise ValueError(f"{world} devices not divisible by pp*tp={ways}")
             raise ValueError(f"{world} devices not divisible by sp/tp/ep/pp={ways}")
-        self.tp = self.ep = self.replicas = None
+        self.tp = self.ep = self.pipe = self.replicas = None
         self.seq = None
         shard = {}
-        if cfg.tp > 1:
+        if cfg.pp > 1:
+            pm = mesh.pp_mesh(cfg.pp, cfg.tp)
+            mesh.check_model_axes_intra_host(
+                pm, {mesh.PIPE_AXIS: cfg.pp, mesh.MODEL_AXIS: cfg.tp},
+                mesh.ranks_per_host(self.device))
+            shard = pipeline_shard(cfg, pm)
+            self.pipe, self.tp = shard["pipe"], shard.get("tp")
+            # the ranks that share this rank's stage (and model index)
+            self.replicas = pm[mesh.DATA_AXIS]
+        elif cfg.tp > 1:
             tmesh = mesh.tp_mesh(cfg.tp, cfg.sp)
+            mesh.check_model_axes_intra_host(tmesh, {mesh.MODEL_AXIS: cfg.tp},
+                                             mesh.ranks_per_host(self.device))
             self.tp, self.seq = tmesh[mesh.MODEL_AXIS], tmesh.axes.get(mesh.SEQ_AXIS)
             # the ranks that share this rank's model index: the gradient
             # reduce's, the evaluation's and the initial broadcast's group
@@ -754,9 +841,13 @@ class Trainer:
             shard = {"tp": self.tp}
         elif cfg.ep > 1:
             emesh = mesh.ep_mesh(cfg.ep)
+            mesh.check_model_axes_intra_host(emesh, {mesh.EXPERT_AXIS: cfg.ep},
+                                             mesh.ranks_per_host(self.device))
             self.ep, self.replicas = emesh[mesh.EXPERT_AXIS], emesh[mesh.DATA_AXIS]
             shard = {"ep": self.ep}
         self.model = build_model(cfg, self.device, seed, **shard)
+        if cfg.pp > 1:
+            check_pp_model(cfg, world // ways)
         check_sp_model(cfg, self.model, world // cfg.tp)  # the data x seq devices
         if cfg.sp > 1 and cfg.tp == 1:
             self.seq = mesh.seq_axis(cfg.sp)
@@ -789,12 +880,13 @@ class Trainer:
             raise ValueError(f"batch_size {cfg.batch_size} must divide over {self.n_data} "
                              f"data-parallel devices")
         # the reference's per-worker batch = global / nprocs (distributed.py:67);
-        # under sp and tp the train batch is a data row's, evaluation sharded
-        # over every axis but the model's (tpu_dist/train/trainer.py:643-654);
-        # under ep both are a data row's, cut over its expert ranks
+        # under sp, tp and pp the train batch is a data row's, evaluation
+        # sharded over every axis but the model's and the pipe's
+        # (tpu_dist/train/trainer.py:643-654); under ep both are a data
+        # row's, cut over its expert ranks
         self.local_batch = cfg.batch_size // self.n_data
-        eval_ways = world // cfg.tp
-        eval_index = rank // cfg.tp if cfg.sp == 1 else (
+        eval_ways = world // (cfg.tp * cfg.pp)
+        eval_index = rank // (cfg.tp * cfg.pp) if cfg.sp == 1 else (
             data_index * cfg.sp + mesh.mesh_coords(rank, cfg.tp, cfg.sp)[2])
         if cfg.ep > 1:
             eval_ways, eval_index = self.n_data, data_index
@@ -872,10 +964,13 @@ class Trainer:
             shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
             quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
             device_metrics=cfg.device_metrics, seq_axis=self.seq, sp_mode=cfg.sp_mode,
-            tp_axis=self.tp, ep_axis=self.ep, axis=self.replicas, moe_aux_coef=cfg.moe_aux_coef,
+            tp_axis=self.tp, ep_axis=self.ep, pp_axis=self.pipe, axis=self.replicas,
+            moe_aux_coef=cfg.moe_aux_coef,
+            model_kwargs=({"n_microbatches": cfg.pp_microbatches}
+                          if cfg.pp > 1 and cfg.pp_microbatches else None),
         )
         self.eval_step = make_eval_step(compute_dtype=compute_dtype, tp_axis=self.tp,
-                                        ep_axis=self.ep, axis=self.replicas)
+                                        ep_axis=self.ep, pp_axis=self.pipe, axis=self.replicas)
         if self.ep is not None:
             # each expert rank takes its slice of the data row's batch
             self.train_step = _expert_slice(self.train_step, self.ep)
@@ -1103,17 +1198,27 @@ class Trainer:
     def _check_ckpt_meta(self, meta: dict, path: str) -> None:
         """Refuse a readable checkpoint of another configuration (raises
         :class:`~tpu_dist_torch.ckpt.ConfigMismatchError`, never
-        quarantines): another pipeline layout, another model's parameter
+        quarantines) with the JAX trainer's messages: another pipeline
+        layout (or none stamped, under an interleaved run: such a
+        checkpoint is in logical block order), another model's parameter
         count, or another AdamW decay mask (a checkpoint without the stamp
         warns: which mask trained it is unknown)."""
         cfg = self.cfg
         ck_v, ck_pp = meta.get("pp_interleave"), meta.get("pp")
+        if ck_v is None and cfg.pp_interleave > 1:
+            raise ckpt_lib.ConfigMismatchError(
+                f"checkpoint {path} has no pipeline-layout tag (written "
+                f"before interleaving existed, logical block order) — it "
+                f"cannot be resumed with pp_interleave={cfg.pp_interleave}"
+            )
         if ck_v is not None and (ck_v != cfg.pp_interleave or (
                 (ck_v > 1 or cfg.pp_interleave > 1) and ck_pp != cfg.pp)):
             raise ckpt_lib.ConfigMismatchError(
-                f"checkpoint {path} was written with pp={ck_pp}, pp_interleave={ck_v}; its "
-                f"block storage order is layout-specific (this run: pp={cfg.pp}, "
-                f"pp_interleave={cfg.pp_interleave})")
+                f"checkpoint {path} was written with pp={ck_pp}, "
+                f"pp_interleave={ck_v} — its block storage order is "
+                f"layout-specific; resume with the same flags (got "
+                f"pp={cfg.pp}, pp_interleave={cfg.pp_interleave})"
+            )
         stamped = (meta.get("elastic") or {}).get("params_len")
         if stamped is not None and int(stamped) != self._params_len:
             raise ckpt_lib.ConfigMismatchError(
@@ -1648,7 +1753,7 @@ class Trainer:
             torch.cuda.synchronize(self.device)
             entry = torch.cuda.memory_allocated(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
-        out, cost = costmodel.step_cost(fn, *args, world=self.n_devices)
+        out, cost = costmodel.step_cost(fn, *args, world=self.n_devices, pp=self.cfg.pp)
         xla = None
         if cuda:
             torch.cuda.synchronize(self.device)
