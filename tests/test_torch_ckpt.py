@@ -305,11 +305,19 @@ def test_resume_refuses_a_checkpoint_of_another_configuration(tmp_path):
     assert sorted(os.listdir(d)) == ["ckpt_0.npz", "ckpt_1.npz"]  # nothing quarantined
 
 
-def test_resume_of_a_sharded_checkpoint_dir_is_not_ported(tmp_path):
+def test_resume_of_a_sharded_checkpoint_dir_raises_the_format_mismatch(tmp_path):
+    """A directory that holds only the other format raises the JAX
+    trainer's loud ``ValueError`` both ways (the formats do not convert)."""
     (tmp_path / "ckpt_0.manifest.json").write_text(json.dumps({"epoch": 0}))
-    with pytest.raises(step_lib.NotPortedError, match="sharded_ckpt"):
+    with pytest.raises(ValueError, match="holds checkpoints in the sharded format") as info:
         trainer.Trainer(TrainConfig(**NARROW_RUN, port=free_port(), ckpt_dir=str(tmp_path),
                                     resume=True))
+    assert "flip --sharded_ckpt to match" in str(info.value)
+    plain = tmp_path / "plain"
+    ckpt.save(str(plain), _port_state("resnet", 0), 0)
+    with pytest.raises(ValueError, match="holds checkpoints in the plain format"):
+        trainer.Trainer(TrainConfig(**NARROW_RUN, port=free_port(), ckpt_dir=str(plain),
+                                    resume=True, sharded_ckpt=True))
 
 
 def test_the_file_is_an_npz_with_a_crc_per_entry(tmp_path):

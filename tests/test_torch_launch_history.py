@@ -146,7 +146,7 @@ def test_launch_refuses_each_option_it_does_not_port(flag):
     value = "somewhere" if default is None else str(default + 1)
     with pytest.raises(step_lib.NotPortedError, match=flag) as info:
         launch.main(["--nproc", "1", f"--{flag}", value, "--", "true"])
-    assert info.value.queue.startswith("Queue A 6")
+    assert info.value.queue.startswith('Queue A "No port owed"')
 
 
 def test_distributed_mp_exits_75_when_a_rank_is_preempted(monkeypatch):

@@ -5,20 +5,20 @@ combinations other than sp+tp and pp+tp, a model without a tp or ep
 branch, heads or experts that do not divide over the group, the fused
 epoch, ZeRO-1 and the quantized wires, a ``moe_top_k`` the model cannot
 take, an EP batch that does not divide over every device and
-``--device_metrics``. ``fsdp`` and ``sharded_ckpt`` still raise
-``NotPortedError`` with their ROADMAP labels (``pp``'s refusals:
-``test_torch_pipeline_refusals.py``)."""
+``--device_metrics``; ``--pp`` with ``--fsdp`` is refused as JAX refuses
+it, and the sharded format runs under ``--pp`` (``pp``'s other refusals:
+``test_torch_pipeline_refusals.py``; FSDP's: ``test_torch_fsdp_trainer.py``)."""
+
+import json
 
 import jax
+import numpy as np
 import pytest
-from torch_ranks import free_port, run_ranks, trainer_errors_rank
+from torch_ranks import free_port, fsdp_fit_rank, run_ranks, trainer_errors_rank
 
 from tpu_dist.comm import mesh as mesh_lib
 from tpu_dist.config import TrainConfig as JaxConfig
 from tpu_dist.train import trainer as jax_trainer
-from tpu_dist_torch.config.config import TrainConfig
-from tpu_dist_torch.train import trainer
-from tpu_dist_torch.train.step import NotPortedError
 
 BASE = dict(dataset="synthetic", synthetic_n=160, batch_size=16, num_classes=10, epochs=1)
 TINY, MOE = dict(BASE, model="vit_tiny"), dict(BASE, model="vit_moe_tiny")
@@ -81,10 +81,26 @@ def test_the_refusal_is_the_jax_trainers(port_errors, name):
     assert port_errors[name] == want
 
 
-@pytest.mark.parametrize("kw,flag", [
-    (dict(TINY, fsdp=True), "fsdp"), (dict(TINY, sharded_ckpt=True), "sharded_ckpt"),
-], ids=["fsdp", "sharded_ckpt"])
-def test_pp_fsdp_and_the_sharded_format_still_wait(kw, flag):
-    with pytest.raises(NotPortedError, match=flag) as info:
-        trainer.Trainer(TrainConfig(**kw, device="cpu", port=free_port()))
-    assert info.value.flag == flag and info.value.queue == trainer.UNPORTED[flag][1]
+@pytest.mark.parametrize("flag", ["fsdp", "sharded_ckpt"])
+def test_pp_with_fsdp_or_the_sharded_format(flag, tmp_path):
+    """``--pp`` with ``--fsdp`` is the JAX trainer's ``ValueError``; with
+    ``--sharded_ckpt`` a pipelined run saves each stage's stacked rows as
+    JAX's pieces (the manifest's global shapes are the full depth's) and
+    resumes bit for bit."""
+    pp = dict(BASE, model="vit_pp_tiny", pp=2)
+    if flag == "fsdp":
+        want = _jax_error(dict(pp, fsdp=True), 1, None)
+        assert want is not None and want.startswith("ValueError: fsdp composes with --tp")
+        got = trainer_errors_rank(0, 1, [dict(pp, fsdp=True, device="cpu", port=free_port())])
+        assert got == [want]
+        return
+    cfg = dict(pp, steps_per_epoch=2, save_every=1, eval_every=1, sharded_ckpt=True,
+               ckpt_dir=str(tmp_path), device="cpu", port=free_port())
+    r = run_ranks(fsdp_fit_rank, 2, [cfg], timeout=120)[0][0]
+    assert r["error"] is None and r["start"] == 1
+    for k, v in r["state"].items():
+        np.testing.assert_array_equal(r["resumed"][k], v, err_msg=k)
+    with open(tmp_path / "ckpt_0.manifest.json") as f:
+        shapes = json.load(f)["shapes"]
+    assert shapes == {k: list(np.shape(v)) for k, v in r["state"].items()}
+    assert shapes["['params']['blocks']['qkv']['w']"][0] == 4  # vit_pp_tiny's depth, stacked

@@ -75,7 +75,7 @@ def test_package_has_the_slice_modules():
                  "tpu_dist_torch.obs.costmodel", "tpu_dist_torch.parallel",
                  "tpu_dist_torch.parallel.tensor", "tpu_dist_torch.parallel.expert",
                  "tpu_dist_torch.nn.vit_moe", "tpu_dist_torch.parallel.pipeline",
-                 "tpu_dist_torch.nn.vit_pp"):
+                 "tpu_dist_torch.nn.vit_pp", "tpu_dist_torch.parallel.fsdp"):
         assert name in MODULES
 
 

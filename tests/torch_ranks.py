@@ -231,7 +231,8 @@ def fit_run(cfg_kw, *, epochs=None, interrupt_at=None, kill_at=None, nan_at=None
     emergency snapshot), and the call ``nan_at`` reports a NaN loss. Returns
     a dict: per-call losses and learning rates, the epoch dicts, the final
     state as the flat checkpoint dict, the start epoch, the LR scale and the
-    exception ``fit`` raised (its type name), if any."""
+    exception ``fit`` raised (its type name), if any, the static ledger's
+    params section and the first step's cost count."""
     import signal  # noqa: PLC0415
 
     from tpu_dist_torch import bridge  # noqa: PLC0415
@@ -273,6 +274,8 @@ def fit_run(cfg_kw, *, epochs=None, interrupt_at=None, kill_at=None, nan_at=None
         t.close()
     out["state"] = bridge.train_state_to_flat(t.state)
     out["lr_scale"] = t._lr_scale
+    out["ledger"] = t._mem_static["sections"]["params"]
+    out["cost"] = t._step_cost
     return out
 
 
@@ -1126,4 +1129,127 @@ def pp_step_rank(rank, world, cases, model_kw, params, batches):
                     "shared": shared, "counts": counts,
                     "saved": bridge.train_state_to_flat(st, dst=0),
                     "gathered": bridge.train_state_to_flat(st)})
+    return out
+
+
+# -- the sharded checkpoint format and FSDP --------------------------------------
+
+# tests/fsdp_jax.py's ViT of the TP layout
+FSDP_TP_KW = dict(image_size=32, patch_size=4, dim=32, depth=2, heads=4, num_classes=5)
+
+
+def layout_state(kind, seed=5, opt=None, min_size=1024):
+    """This rank's fresh state of a layout of ``tests/fsdp_jax.py``: ``dp``,
+    ``fsdp`` (over every rank), ``zero1`` (the flat momentum over every
+    rank) or ``tp`` (the ViT at tp 2 over ``[world/2, 2]``); ``vit`` is that
+    ViT whole."""
+    import dataclasses  # noqa: PLC0415
+
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+    from tpu_dist_torch.parallel import fsdp  # noqa: PLC0415
+    from tpu_dist_torch.train import step as step_lib  # noqa: PLC0415
+    from tpu_dist_torch.train.optim import SGD  # noqa: PLC0415
+    from tpu_dist_torch.train.state import TrainState  # noqa: PLC0415
+
+    opt = opt or SGD()
+    if kind == "vit":
+        return TrainState.create(vit.ViT(**FSDP_TP_KW, device="cpu", seed=seed), opt)
+    if kind == "tp":
+        tm = mesh.tp_mesh(2)
+        model = vit.ViT(**FSDP_TP_KW, device="cpu", seed=seed, tp=tm["model"])
+        return dataclasses.replace(TrainState.create(model, opt), replicas=tm["data"])
+    model = narrow_resnet(10, "cpu", seed)
+    st = TrainState.create(model, opt)
+    if kind == "fsdp":
+        return fsdp.shard_state(st, axis=mesh.data_axis(1), optimizer=opt, min_size=min_size)
+    if kind == "zero1":
+        lay = step_lib.flat_layout(model)
+        return dataclasses.replace(
+            st, opt_state=step_lib.init_sharded_opt_state(model, opt, layout=lay), layout=lay)
+    return st
+
+
+def _n_data(kind, world):
+    return world // 2 if kind == "tp" else world
+
+
+def sharded_cross_rank(rank, world, jax_mpaths, port_root, flats):
+    """For each layout of ``jax_mpaths``: a fresh state of it restored from
+    the JAX package's sharded save there (through the elastic remapper),
+    as the flat dict (rank 0's is compared); and with ``port_root``, the
+    state of ``flats[kind]`` (laid out for this world) saved sharded to
+    ``port_root/<kind>``, stamped with its extent."""
+    from tpu_dist_torch import bridge, ckpt  # noqa: PLC0415
+    from tpu_dist_torch.elastic import remap as remap_lib  # noqa: PLC0415
+
+    out = {}
+    for kind, mpath in jax_mpaths.items():
+        st = layout_state(kind)
+        remap = remap_lib.make_remapper(bridge.jax_layout_template(st.params)[0],
+                                        ckpt.read_sharded_meta(mpath), _n_data(kind, world))
+        st = ckpt.restore_sharded(mpath, st, remap=remap)
+        out[kind] = bridge.train_state_to_flat(st)
+        if port_root is not None:
+            st = bridge.load_train_state(layout_state(kind, seed=6), flats[kind])
+            L = ckpt.params_len(bridge.jax_layout_template(st.params)[0])
+            ckpt.save_sharded(os.path.join(port_root, kind), st, 0, extra_meta={
+                "elastic": ckpt.elastic_stamp(_n_data(kind, world), world, L)})
+    return out
+
+
+def fsdp_step_rank(rank, world, cases, flats, batches):
+    """For each case ``{model: "dp" | "vit" | "tp", opt, flat, kw,
+    min_size, lr}``: the port's plain step and its FSDP step (over the data
+    axis, and under ``tp`` the model axis too) from the state
+    ``flats[flat]``, on this rank's data rows of each global batch of
+    ``batches`` (``(images, labels, lr)``). Returns per case the two
+    steps' losses and final states (flat dicts)."""
+    from tpu_dist_torch import bridge  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.parallel import fsdp  # noqa: PLC0415
+    from tpu_dist_torch.train import optim  # noqa: PLC0415
+    from tpu_dist_torch.train import step as step_lib  # noqa: PLC0415
+
+    out = []
+    for case in cases:
+        opt = getattr(optim, case["opt"])()
+        kw = case.get("kw", {})
+        plain = bridge.load_train_state(layout_state(case["model"], opt=opt), flats[case["flat"]])
+        base = layout_state(case["model"], opt=opt)
+        axis = base.replicas if base.replicas is not None else mesh.data_axis(1)
+        sharded = bridge.load_train_state(
+            fsdp.shard_state(base, axis=axis, optimizer=opt, min_size=case.get("min_size", 1024)),
+            flats[case["flat"]])
+        tp = getattr(plain.params, "tp", None)
+        plain_step = step_lib.make_train_step(
+            opt, **kw, **({"tp_axis": tp, "axis": plain.replicas} if tp is not None else {}))
+        fsdp_step = fsdp.make_fsdp_train_step(opt, **kw)
+        n = len(batches[0][1]) // axis.size
+        rows = slice(axis.index * n, (axis.index + 1) * n)
+        losses = ([], [])
+        for images, labels, lr in batches:
+            lr = case.get("lr", lr)
+            plain, m = plain_step(plain, images[rows], labels[rows], lr)
+            losses[0].append(m["loss"].item())
+            sharded, m = fsdp_step(sharded, images[rows], labels[rows], lr)
+            losses[1].append(m["loss"].item())
+        out.append((losses, bridge.train_state_to_flat(plain), bridge.train_state_to_flat(sharded)))
+    return out
+
+
+def fsdp_fit_rank(rank, world, cfgs):
+    """For each config: ``Trainer.fit`` (:func:`fit_run`), then a
+    ``Trainer(resume=True)`` of one more epoch built on the same directory
+    (:func:`ladder_rank`); returns per config the fit's losses, error,
+    final state (flat), ledger and cost, and the resumed start epoch and
+    state."""
+    out = []
+    for cfg in cfgs:
+        first = fit_run(cfg)
+        start, _, state = ladder_rank(rank, world, {**cfg, "resume": True,
+                                                    "epochs": cfg["epochs"] + 1})
+        out.append({"losses": first["losses"], "error": first["error"],
+                    "state": first["state"], "start": start, "resumed": state,
+                    "ledger": first["ledger"], "cost": first["cost"]})
     return out

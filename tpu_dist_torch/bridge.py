@@ -56,6 +56,17 @@ slices, and its rows are gathered over its stage group (the joined
 ``pipe,model`` group under PP×TP), so a checkpoint holds JAX's full stacked
 layout.
 
+Under FSDP (``state.fsdp``) the plain format's flatten all-gathers the
+shards first, and a load cuts the full leaves into this rank's shards.
+
+The sharded format writes a rank's pieces of the global JAX-layout leaves
+(:func:`shard_windows`, :func:`shard_pieces`): for every state-dict entry
+the window this rank holds (its TP/EP shard, its stage's stacked rows,
+its FSDP shard), permuted into JAX layout by :func:`leaf_layout` (found by
+sending index arrays through the converters), with one writer a distinct
+piece, as JAX's ``replica_id == 0``; a restore copies each assembled window
+back into its live tensor.
+
 An unknown or missing key raises. The pytree is plain nested dicts and
 lists of arrays, so this module needs neither JAX nor the JAX package.
 """
@@ -684,6 +695,95 @@ def jax_layout_template(module: torch.nn.Module, local: bool = False):
                                for n, s in shapes.items()})
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """Where one state-dict entry of a module lies in the JAX pytree: its
+    ``section`` (``"params"`` or ``"bn_state"``), the ``key`` (keystr path)
+    of its leaf there, the permutation ``perm`` (JAX dimension ``j`` holds
+    torch dimension ``perm[j]``) and, for a stacked leaf (a pipelined ViT's
+    blocks), the ``row`` of the stack it is (the module's local row);
+    None otherwise."""
+
+    section: str
+    key: str
+    perm: tuple
+    row: Optional[int] = None
+
+
+def _perm_of(jax_arr: np.ndarray, shape: tuple) -> tuple:
+    """The permutation that lays an index array of torch ``shape`` out as
+    ``jax_arr`` (its JAX layout): JAX dimension ``j`` steps by the C stride
+    of torch dimension ``perm[j]``; dimensions of size 1 take the unused
+    ones in order."""
+    strides = [int(np.prod(shape[d + 1:])) for d in range(len(shape))]
+    perm, used = [None] * jax_arr.ndim, set()
+    base = int(jax_arr.reshape(-1)[0]) if jax_arr.size else 0
+    for j, size in enumerate(jax_arr.shape):
+        if size < 2:
+            continue
+        idx = [0] * jax_arr.ndim
+        idx[j] = 1
+        step = int(jax_arr[tuple(idx)]) - base
+        d = next(d for d in range(len(shape))
+                 if d not in used and strides[d] == step and shape[d] == size)
+        perm[j] = d
+        used.add(d)
+    rest = iter(d for d in range(len(shape)) if d not in used)
+    return tuple(p if p is not None else next(rest) for p in perm)
+
+
+_LAYOUTS: dict = {}
+
+
+def leaf_layout(module: torch.nn.Module) -> Dict[str, LeafLayout]:
+    """``{state-dict name: LeafLayout}`` of every parameter and buffer of
+    ``module`` (a ResNet, a ViT, a ViT-MoE or a pipelined ViT), found by
+    sending small index arrays through the converters (each dimension cut
+    to at most 2, which keeps every C stride distinct): the value of each
+    element names its entry and its position. Cached by the names and
+    shapes."""
+    full = tuple((n, tuple(t.shape)) for n, t in module.state_dict().items())
+    cache_key = (type(module).__name__, full)
+    if cache_key in _LAYOUTS:
+        return _LAYOUTS[cache_key]
+    shapes = tuple((n, tuple(min(int(d), 2) for d in s)) for n, s in full)
+    sd, starts, off = {}, [], 0
+    for name, shape in shapes:
+        k = int(np.prod(shape))
+        sd[name] = np.arange(off, off + k, dtype=np.int64).reshape(shape)
+        starts.append((off, name))
+        off += k
+    lo = [s for s, _ in starts]
+    params, bn = state_dict_to_jax(module, sd)
+    stacked = isinstance(module, ViTPipeline)
+    out = {}
+    for section, tree in (("params", params), ("bn_state", bn or {})):
+        for key, arr in keystr_leaves(tree).items():
+            arr = np.asarray(arr)
+            rows = list(arr) if stacked and key.startswith("['blocks']") else [arr]
+            for r, a in enumerate(rows):
+                name = starts[int(np.searchsorted(lo, int(a.reshape(-1)[0]), "right")) - 1][1]
+                out[name] = LeafLayout(section, key, _perm_of(a, dict(shapes)[name]),
+                                       r if len(rows) > 1 or a is not arr else None)
+    _LAYOUTS[cache_key] = out
+    return out
+
+
+def jax_model_specs(model: torch.nn.Module) -> dict:
+    """The model's TP/EP specs in JAX layout, ``{params keystr: spec}``: the
+    model axis name at the JAX dimension its ``param_specs`` shards (a
+    tuple of one entry a dimension), None for a replicated leaf; what
+    ``compose_fsdp_specs`` takes as ``model_specs``."""
+    layout, specs = leaf_layout(model), model.param_specs()
+    out = {lay.key: None for lay in layout.values() if lay.section == "params"}
+    for name, (axis, dim) in specs.items():
+        lay = layout[name]
+        entries = [None] * len(lay.perm)
+        entries[lay.perm.index(dim)] = axis
+        out[lay.key] = tuple(entries)
+    return out
+
+
 # -- TrainState <-> the flat JAX-keyed dict of a checkpoint --------------------
 
 _KEY_PART = re.compile(r"\[(?:'([^'\\]*)'|(\d+))\]")
@@ -880,7 +980,13 @@ def train_state_to_flat(state, dst: Optional[int] = None) -> Optional[Dict[str, 
     gathered into JAX's full layout over its group (every rank must call
     this then; with ``dst``, to that rank alone), as the JAX ``save``
     gathers its sharded leaves to process 0. Host
-    copies: the dict does not follow the live tensors."""
+    copies: the dict does not follow the live tensors. Under FSDP the
+    shards are all-gathered first (every rank must call this then)."""
+    if state.fsdp is not None:
+        fs = state.fsdp
+        with fs.gathered():
+            return train_state_to_flat(dataclasses.replace(
+                state, fsdp=None, opt_state=_fsdp_opt(state, fs.full_leaves)), dst)
     model = state.params
     _from_jax_fn(model)  # a TypeError for a model with no JAX layout
     flat_parts = _gathered_flat_parts(state, dst)
@@ -913,6 +1019,240 @@ def train_state_to_flat(state, dst: Optional[int] = None) -> Optional[Dict[str, 
     ef = {k: flat_parts[f"['ef'][{k!r}]"] for k in (state.ef or {})}
     return keystr_flatten({"params": params, "bn_state": bn_state, "opt_state": opt_tree,
                            "step": np.asarray(state.step, np.int32), "ef": ef})
+
+
+# -- a rank's pieces of the global JAX-layout leaves (the sharded format) ------
+
+
+@dataclasses.dataclass
+class Window:
+    """One window of a global JAX-layout leaf that this rank holds: the
+    leaf's ``key``, the window's ``origin`` and ``extent`` in the global
+    array, its numpy ``dtype``, whether this rank is the one that writes it
+    to a sharded checkpoint (``writer``: JAX's ``replica_id == 0``), and
+    ``read()`` (a host copy in JAX layout) and ``write(array)`` (the
+    window, in JAX layout, copied into the live tensors). A flat part
+    (ZeRO-1's optimizer state, the int8_ef residuals) is the whole global
+    vector: its ``read`` is None (the save gathers it) and its ``write``
+    takes this rank's part of the vector."""
+
+    key: str
+    origin: tuple
+    extent: tuple
+    dtype: np.dtype
+    writer: bool
+    read: Optional[object]
+    write: object
+
+
+def _host_jax(t: torch.Tensor, perm: tuple) -> np.ndarray:
+    """A host copy of ``t`` laid out in JAX layout (``perm``), permuted on
+    ``t``'s device: one device-to-host copy, never a view of ``t``."""
+    x = t.detach().permute(*perm).contiguous()
+    if x.device.type == "cpu":
+        return (x.clone() if x.data_ptr() == t.data_ptr() else x).numpy()
+    return x.cpu().numpy()
+
+
+def _tensor_window(key, origin, extent, writer, tensors, perm, stacked) -> Window:
+    inv = tuple(int(i) for i in np.argsort(perm))
+
+    def read():
+        arrs = [_host_jax(t, perm) for t in tensors]
+        return np.stack(arrs) if stacked else arrs[0]
+
+    def write(arr):
+        parts = list(arr) if stacked else [arr]
+        with torch.no_grad():
+            for t, a in zip(tensors, parts):
+                a = np.ascontiguousarray(a, dtype=np.float32)
+                t.copy_(torch.from_numpy(a).to(t.device).permute(*inv))
+
+    return Window(key, tuple(origin), tuple(extent), np.dtype(np.float32), writer, read, write)
+
+
+def _mesh_coords(state) -> dict:
+    """This rank's index on each axis of its mesh: ``model`` (TP, EP) and
+    ``pipe`` from the model's groups, ``data`` from the FSDP axis, else
+    ``state.replicas`` (the ranks that share this rank's model index),
+    else the rank itself over the model axes' extent (one data row a
+    ``prod(model axes)`` consecutive ranks, as every mesh without a seq
+    axis lays them)."""
+    model, fs = state.params, state.fsdp
+    out = {}
+    tp = model.tp if isinstance(model, ViTPipeline) else getattr(model, "shard_axis", None)
+    if tp is not None:
+        out["model"] = tp.index
+    ways = tp.size if tp is not None else 1
+    if isinstance(model, ViTPipeline) and model.pipe is not None:
+        out["pipe"] = model.pipe.index
+        ways *= model.pipe.size
+    if fs is not None and fs.axis is not None:
+        out["data"] = fs.axis.index
+    elif state.replicas is not None:
+        out["data"] = state.replicas.index
+    else:
+        out["data"] = collectives.rank() // ways
+    return out
+
+
+def _param_mirrors(state) -> list:
+    """``[(key prefix, buffers)]`` of the optimizer state that mirrors the
+    parameters (laid as the parameters, or as ``state.fsdp.entries``):
+    ``['opt_state']`` (SGD, LARS) or ``['opt_state']['mu']``/``['nu']``
+    (AdamW, LAMB); none for a flat (ZeRO-1) state."""
+    opt = state.opt_state
+    if isinstance(opt, torch.Tensor):
+        return []
+    if _is_adam(opt):
+        if isinstance(opt["mu"], torch.Tensor):
+            return []
+        return [("['opt_state']['mu']", opt["mu"]), ("['opt_state']['nu']", opt["nu"])]
+    return [("['opt_state']", opt)]
+
+
+def shard_windows(state) -> tuple:
+    """``(windows, shapes)``: the :class:`Window` s of every global
+    JAX-layout leaf of ``state`` that this rank holds, and ``{key: global
+    shape}`` of every leaf, the counterpart of a JAX ``TrainState``'s
+    ``addressable_shards``. Which rank writes what:
+
+    * a replicated leaf and ``['step']``: rank 0 (every coordinate 0);
+    * a TP or EP shard: the data rank 0 of each model index (a column
+      shard is a row block of ``nn.Linear.weight``); a pipelined model's
+      stage: its rows ``blocks.{g}`` in storage order, stacked as JAX
+      stacks them, from the data rank 0 of each pipe (and model) index;
+    * an FSDP shard: every data rank its own window (each virtual rank of
+      a lockstep group, all in this process); a leaf FSDP leaves whole under
+      FSDP×TP, the model's shards of it as a TP shard;
+    * ZeRO-1's flat optimizer state and the int8_ef residuals: the whole
+      JAX-order vector from rank 0 (:func:`shard_pieces` gathers it), where
+      JAX writes each device's slice: either assembles in either package's
+      ``restore_sharded``.
+
+    The optimizer state that mirrors the parameters has the parameters'
+    windows."""
+    model, fs = state.params, state.fsdp
+    _from_jax_fn(model)
+    coords = _mesh_coords(state)
+    layout = leaf_layout(model)
+    axis, specs = _sharding(model)
+    rows = _stage_rows(model)
+    depth = model.depth if rows is not None else None
+    full = {}
+    for gname, shape in full_shapes(model).items():
+        i, leaf = _block_row(gname)
+        full[gname if rows is None or i is None else f"blocks.{i - rows[0]}.{leaf}"] = shape
+    pnames = [n for n, _ in model.named_parameters()]
+    pindex = {n: i for i, n in enumerate(pnames)}
+    mirrors = _param_mirrors(state)
+    shapes, per_key = {}, {}
+
+    def writes(sharded: set) -> bool:
+        return all(v == 0 for k, v in coords.items() if k not in sharded)
+
+    def add(key, jax_origin, jax_extent, writer, tensor, perm, row):
+        per_key.setdefault(key, []).append((row, jax_origin, jax_extent, writer, tensor, perm))
+
+    for name, t in model.state_dict().items():
+        lay = layout[name]
+        key = f"['{lay.section}']{lay.key}"
+        gshape = tuple(full[name][p] for p in lay.perm)
+        if lay.row is not None:
+            gshape = (depth,) + gshape
+        i = pindex.get(name)
+        own = mirrors if i is not None else []
+        shapes[key] = gshape
+        for prefix, _ in own:
+            shapes[prefix + lay.key] = gshape
+        sharded, base = set(), [0] * len(lay.perm)  # the origin in torch (full) coordinates
+        if name in specs:
+            dim = specs[name][1]
+            base[dim] = axis.index * t.shape[dim]
+            sharded.add("model")
+        if lay.row is not None:
+            sharded.add("pipe")
+        if fs is None or i is None:
+            held = [(t, i, None)]  # (live tensor, optimizer entry, held FSDP rank)
+        else:
+            start = sum(len(s) for s in fs.shards[:i])
+            held = [(sh, start + k, k) for k, sh in enumerate(fs.shards[i])]
+            if fs.sharded(i):
+                sharded.add("data")
+        for live, entry, k in held:
+            origin, ext = list(base), list(t.shape)
+            if "data" in sharded:
+                d, lo, size = fs.block(i, k)
+                origin[d] += lo
+                ext[d] = size
+            jo = tuple(origin[p] for p in lay.perm)
+            je = tuple(ext[p] for p in lay.perm)
+            add(key, jo, je, writes(sharded), live, lay.perm, lay.row)
+            for prefix, bufs in own:
+                add(prefix + lay.key, jo, je, writes(sharded), bufs[entry], lay.perm, lay.row)
+
+    windows = []
+    for key, parts in per_key.items():
+        if parts[0][0] is None:  # one window a part
+            for _, jo, je, writer, tensor, perm in parts:
+                windows.append(_tensor_window(key, jo, je, writer, [tensor], perm, False))
+            continue
+        # a stage's rows, stacked along JAX's leading (depth) axis
+        parts.sort(key=lambda p: p[0])
+        _, jo, je, writer, _, perm = parts[0]
+        windows.append(_tensor_window(key, (rows[0] + parts[0][0],) + jo, (len(parts),) + je,
+                                      writer, [p[4] for p in parts], perm, True))
+    rank0 = writes(set())
+    opt = state.opt_state
+    if isinstance(opt, torch.Tensor) and state.layout is None:
+        # a global flat momentum already in the JAX order, whole on every rank
+        windows.append(_tensor_window("['opt_state']", (0,), tuple(opt.shape), rank0, [opt],
+                                      (0,), False))
+        shapes["['opt_state']"] = tuple(opt.shape)
+    if _is_adam(opt):
+        count = opt["count"]
+        windows.append(Window("['opt_state']['count']", (), (), np.dtype(np.int32), rank0,
+                              lambda: np.asarray(count.item(), np.int32),
+                              lambda a: count.fill_(int(np.asarray(a)))))
+        shapes["['opt_state']['count']"] = ()
+    for key, (t, kind) in _flat_parts(state).items():
+        lay_ = state.layout
+        n = lay_.world * lay_.padded if kind == "row" else lay_.padded
+
+        def write(a, key=key, t=t, kind=kind):
+            _copy_pairs(_local_flat_pairs(state, {key: (t, kind)}, {key: a}))
+
+        windows.append(Window(key, (0,), (n,), np.dtype(np.float32), rank0, None, write))
+        shapes[key] = (n,)
+    windows.append(Window("['step']", (), (), np.dtype(np.int32), rank0,
+                          lambda: np.asarray(state.step, np.int32), lambda a: None))
+    shapes["['step']"] = ()
+    return windows, shapes
+
+
+def shard_pieces(state) -> tuple:
+    """``(pieces, shapes)``: ``{(key, origin): host array}`` of the windows
+    this rank writes to a sharded checkpoint, and every leaf's global
+    shape (:func:`shard_windows`). The flat parts are gathered to rank 0
+    over the group, so every rank must call this when the state has
+    any."""
+    flat = _gathered_flat_parts(state, dst=0)
+    windows, shapes = shard_windows(state)
+    pieces = {}
+    for w in windows:
+        if not w.writer:
+            continue
+        pieces[(w.key, w.origin)] = flat[w.key] if w.read is None else w.read()
+    return pieces, shapes
+
+
+def _fsdp_opt(state, fn):
+    """The optimizer state of an FSDP ``state`` with ``fn`` applied to its
+    per-entry lists (``mu``/``nu``, or the momentum); the count as it is."""
+    opt = state.opt_state
+    if _is_adam(opt):
+        return {"mu": fn(opt["mu"]), "nu": fn(opt["nu"]), "count": opt["count"]}
+    return fn(opt)
 
 
 def _zeros_like_leaf(shape, dtype=np.float32) -> np.ndarray:
@@ -960,7 +1300,25 @@ def load_train_state(state, flat: Dict[str, np.ndarray]):
     without, the entries are ignored, as the JAX restore ignores entries
     its template lacks. Everything is checked before anything is copied:
     an unknown, missing or misshapen entry raises and leaves the state as
-    it was."""
+    it was. Under FSDP the full leaves are cut into this rank's shards
+    (the parameters are gathered for the copy: every rank must call this
+    then)."""
+    if state.fsdp is not None:
+        fs = state.fsdp
+        full = _fsdp_opt(state, lambda entries: [
+            torch.zeros_like(p, memory_format=torch.contiguous_format) for p in fs.params])
+        with fs.gathered():
+            out = load_train_state(dataclasses.replace(state, fsdp=None, opt_state=full), flat)
+            with torch.no_grad():
+                for dst, src in zip(fs.entries, fs.local_entries(fs.params)):
+                    if dst is not src:
+                        dst.copy_(src)
+                kinds = ([("mu", "mu"), ("nu", "nu")] if _is_adam(full) else [(None, None)])
+                for k, _ in kinds:
+                    live = state.opt_state[k] if k else state.opt_state
+                    for dst, src in zip(live, fs.local_entries(full[k] if k else full)):
+                        dst.copy_(src)
+        return dataclasses.replace(state, step=out.step)
     ef_saved = {k: v for k, v in flat.items() if k.startswith("['ef']")}
     tree = keystr_unflatten({k: v for k, v in flat.items() if not k.startswith("['ef']")})
     unknown = sorted(set(tree) - {"params", "bn_state", "opt_state", "step"})

@@ -91,8 +91,10 @@ read once a round and stamped into every child's environment
 (``TPU_DIST_FLEET_DECISION_ID``/``_CAUSE``), so the trainer's ``resume``
 record names the fleet decision that moved the run.
 
-``--devices_per_proc`` other than 1 is not ported (one card a process):
-it raises ``NotPortedError`` naming its ROADMAP item.
+``--devices_per_proc`` other than 1 raises ``NotPortedError`` citing
+ROADMAP's "No port owed": in JAX it only sets the emulated CPU devices a
+process (``tpu_dist/cli/launch.py:439-445``), and the port runs one card
+a process.
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ from tpu_dist_torch.resilience.preemption import PREEMPTION_EXIT_CODE
 
 # option -> (its default, the ROADMAP item it waits for)
 UNPORTED = {
-    "devices_per_proc": (1, "Queue A 6 (more than one card a process: the port runs one)"),
+    "devices_per_proc": (1, 'Queue A "No port owed" (it sets JAX\'s emulated CPU devices a '
+                            "process; the port runs one card a process)"),
 }
 
 # placement variables of an outer launcher, which would win over the flags

@@ -40,8 +40,16 @@ exchange over an expert group is :func:`all_to_all_tiled` along dim 0 of
 the ``[n, e_loc, C, d]`` blocks (``lax.all_to_all(..., tiled=False)``),
 counted ``comm.all_to_all.moe`` and ``moe_grad``.
 
+FSDP adds the gather of a leaf's shards along one dimension before use,
+:func:`all_gather_dim` (``comm.all_gather.fsdp_params``), and the
+reduce-scatter of its gradient into the shards, :func:`reduce_scatter_dim`
+(``comm.reduce_scatter.fsdp_grad``), with their lockstep forms for a group
+of virtual ranks in one process (:func:`lockstep_all_gather_dim`,
+:func:`lockstep_reduce_scatter_dim`), counted as the collectives they
+stand for.
+
 Without an initialised process group every function is the identity of a
-world of one process and counts nothing.
+world of one process and counts nothing (the lockstep forms count).
 """
 
 from __future__ import annotations
@@ -157,6 +165,62 @@ def gather_flat(x: torch.Tensor, dst: int = 0, *, group=None,
     out = torch.empty(world_size(group) * x.numel(), dtype=x.dtype, device=x.device)
     dist.gather(x, gather_list=list(out.chunk(world_size(group))), dst=dst, group=group)
     return out
+
+
+def _dim_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` moved to the front, contiguous: its blocks along
+    ``dim`` are then contiguous runs of the flat buffer."""
+    return x.movedim(dim, 0).contiguous()
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, *, group=None, kind: str = "other") -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order, by one
+    all-gather of the flat buffer: FSDP's gather of a leaf's shards before
+    use (``comm.all_gather.<kind>``, ``fsdp_params``). A contiguous tensor
+    of the full shape."""
+    n = world_size(group)
+    flat = all_gather_flat(_dim_first(x, dim), group=group, kind=kind)
+    lead = x.movedim(dim, 0).shape
+    return flat.view(n * lead[0], *lead[1:]).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, *, group=None, kind: str = "other",
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sum over the ranks of ``x``, this rank's block along ``dim`` (its
+    size over the world size ``n`` must divide): FSDP's reduce-scatter of a
+    leaf's gradient into its shards (``comm.reduce_scatter.<kind>``,
+    ``fsdp_grad``). In ``out`` when given, else a new contiguous tensor."""
+    n = world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter of {x.shape[dim]} along dim {dim} over {n} ranks")
+    lead = x.movedim(dim, 0).shape
+    part = reduce_scatter(_dim_first(x, dim), group=group, kind=kind)
+    part = part.view(lead[0] // n, *lead[1:]).movedim(0, dim)
+    return part.contiguous() if out is None else out.copy_(part)
+
+
+def lockstep_all_gather_dim(shards: list, dim: int, *, kind: str = "other") -> torch.Tensor:
+    """:func:`all_gather_dim` of a lockstep group, whose ranks are virtual
+    ranks of one process: ``shards[r]`` is rank ``r``'s, and their join
+    along ``dim`` is what the all-gather would give every rank. Counted
+    once, as the collective it stands for."""
+    counters.inc(f"comm.all_gather.{kind}")
+    return torch.cat(list(shards), dim=dim)
+
+
+def lockstep_reduce_scatter_dim(parts: list, dim: int, n: int, *,
+                                kind: str = "other") -> list:
+    """:func:`reduce_scatter_dim` of a lockstep group of ``n`` virtual ranks:
+    the sum of ``parts`` (the contributions this process holds, summed in
+    order) cut into ``n`` blocks along ``dim``, block ``r`` rank ``r``'s
+    shard (contiguous copies). Counted once."""
+    counters.inc(f"comm.reduce_scatter.{kind}")
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    if total.shape[dim] % n:
+        raise ValueError(f"reduce_scatter of {total.shape[dim]} along dim {dim} over {n} ranks")
+    return [b.contiguous() for b in total.chunk(n, dim=dim)]
 
 
 class _SumAcrossRanks(torch.autograd.Function):

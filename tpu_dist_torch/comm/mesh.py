@@ -25,7 +25,9 @@ pipeline parallelism :func:`pp_mesh` ``[data, pipe]`` or ``[data, pipe,
 model]`` with the joined ``pipe,model`` group; every rank creates every
 group in one order. :func:`axis_intra_host` is ``model_axes_intra_host``,
 and :func:`check_model_axes_intra_host` the JAX trainer's refusal of model
-axes that cross hosts.
+axes that cross hosts. FSDP shards over the data axis: :func:`data_axis`
+``(1)`` (every rank), or the ``data`` axis of :func:`tp_mesh` under
+FSDP×TP.
 """
 
 from __future__ import annotations

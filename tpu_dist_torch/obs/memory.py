@@ -124,11 +124,13 @@ def _leaf_entry(path: str, leaf) -> Optional[dict]:
     }
 
 
-def _module_params(module) -> dict:
+def _module_params(module, fsdp=None) -> dict:
     """A module's parameters as the JAX parameter tree (``bridge.py``'s
     names and layout) for the ResNets and ViTs, else by their dotted
     names. A tensor-, expert- or pipeline-parallel module's sharded leaves
-    (a stage's stacked block rows, with their TP shards under PP×TP) are
+    (a stage's stacked block rows, with their TP shards under PP×TP), and
+    under FSDP (``fsdp``, the state's :class:`~tpu_dist_torch.parallel.
+    fsdp.FSDPShards`) the leaves it shards over the data axis, are
     :class:`Leaf` s of their full shape and this rank's shard shape, as the
     JAX ledger reads a leaf's sharding (``tpu_dist/obs/memory.py:112-156``)."""
     from tpu_dist_torch import bridge  # noqa: PLC0415
@@ -137,11 +139,20 @@ def _module_params(module) -> dict:
         full = bridge.jax_layout_template(module)[0]
     except TypeError:
         return dict(module.named_parameters())
-    if getattr(module, "shard_axis", None) is None:
+    if getattr(module, "shard_axis", None) is None and fsdp is None:
         return full
-    local = bridge.keystr_leaves(bridge.jax_layout_template(module, local=True)[0])
+    local = {k: tuple(v.shape) for k, v in bridge.keystr_leaves(
+        bridge.jax_layout_template(module, local=True)[0]).items()}
+    if fsdp is not None:
+        layout = bridge.leaf_layout(module)
+        for name, d in zip(fsdp.names, fsdp.dims):
+            if d is not None:
+                lay = layout[name]
+                shape = list(local[lay.key])
+                shape[lay.perm.index(d)] //= fsdp.n
+                local[lay.key] = tuple(shape)
     return bridge.keystr_unflatten({
-        k: (Leaf(v.shape, str(v.dtype), local[k].shape) if v.shape != local[k].shape else v)
+        k: (Leaf(v.shape, str(v.dtype), local[k]) if tuple(v.shape) != local[k] else v)
         for k, v in bridge.keystr_leaves(full).items()})
 
 
@@ -204,7 +215,8 @@ def state_sections(state) -> dict:
     residuals are ``r1`` (``world·padded``, a row a device) and ``r2``
     (``padded``, a chunk a device). A tensor- or expert-parallel model's
     shards, and the optimizer state that mirrors them, are ``sharded``:
-    their bytes a device are the shard's."""
+    their bytes a device are the shard's; so are FSDP's shards
+    (``state.fsdp``) and the optimizer state over them."""
     import torch  # noqa: PLC0415
 
     from tpu_dist_torch import bridge  # noqa: PLC0415
@@ -214,7 +226,7 @@ def state_sections(state) -> dict:
         bn_state = bridge.jax_layout_template(model)[1]
     except TypeError:
         bn_state = dict(state.bn_state or {})
-    params = _module_params(model)
+    params = _module_params(model, state.fsdp)
 
     n_params = len(list(model.parameters()))
 

@@ -230,7 +230,6 @@ class Int8Weights:
 # -- checkpoint -> serving weights ---------------------------------------------
 
 _KEY_SEG = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
-_SHARDED_RE = re.compile(r"ckpt_(\d+)\.manifest\.json$")
 _OPT = "['opt_state']"
 
 
@@ -318,7 +317,7 @@ def load_serving_state(ckpt: str, model: nn.Module, *, verify: bool = True) -> d
     if os.path.isdir(ckpt):
         candidates = ckpt_lib.all_checkpoints(ckpt)
         if not candidates:
-            if any(_SHARDED_RE.search(n) for n in os.listdir(ckpt)):
+            if ckpt_lib.latest_sharded_checkpoint(ckpt):  # JAX's engine refuses it too
                 raise ValueError(
                     f"{ckpt} holds sharded-format checkpoints; serving "
                     "loads the plain format — write one with the plain "

@@ -31,7 +31,10 @@ as one leaf (through the fused kernel with ``fused=True``, as the JAX
 its flat state (:meth:`AdamW.init_flat_state`) with the decay mask as a
 per-element vector built from :meth:`AdamW.leaf_wd_intervals`
 (``update(wd_tree=)``). LARS and LAMB need per-layer norms, which the flat
-layout loses: the trainer refuses them there.
+layout loses: the trainer refuses them there. Under FSDP
+(:mod:`tpu_dist_torch.parallel.fsdp`) every optimizer updates the shards,
+LARS and LAMB with each leaf's norm summed over its shards
+(``update(leaf_norms=)``).
 """
 
 from __future__ import annotations
@@ -183,12 +186,20 @@ class AdamW:
         return params, opt_state
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor, eps: float) -> torch.Tensor:
-    """``‖p‖/(‖u‖ + eps)``, shared by LARS and LAMB; 1.0 when either norm
-    is 0 (fresh zero leaves, dead gradients). A device tensor."""
-    pn = torch.linalg.vector_norm(p)
-    un = torch.linalg.vector_norm(u)
+def _trust_ratio(pn: torch.Tensor, un: torch.Tensor, eps: float) -> torch.Tensor:
+    """``‖p‖/(‖u‖ + eps)`` from the two norms, shared by LARS and LAMB; 1.0
+    when either is 0 (fresh zero leaves, dead gradients). A device
+    tensor."""
     return torch.where((pn > 0.0) & (un > 0.0), pn / (un + eps), torch.ones_like(pn))
+
+
+def _norms(tensors, leaf_norms) -> list:
+    """The norm of each tensor's whole leaf: ``leaf_norms(tensors)`` when
+    the leaves are sharded (FSDP's hook sums each leaf's squares over its
+    group), else each rank > 1 tensor's own (None for the others)."""
+    if leaf_norms is not None:
+        return leaf_norms(list(tensors))
+    return [torch.linalg.vector_norm(t) if t.dim() > 1 else None for t in tensors]
 
 
 class LARS:
@@ -208,14 +219,14 @@ class LARS:
     def init(self, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return [torch.zeros_like(p, requires_grad=False) for p in params]
 
-    def update(self, grads, opt_state, params, lr):
-        """Apply one step in place; returns ``(params, opt_state)``."""
+    def update(self, grads, opt_state, params, lr, leaf_norms=None):
+        """Apply one step in place; returns ``(params, opt_state)``.
+        ``leaf_norms`` gives each leaf's norm from its shards (FSDP)."""
         mu, wd, eta, eps = self.momentum, self.weight_decay, self.trust_coefficient, self.eps
         with torch.no_grad():
-            for p, g, b in zip(params, grads, opt_state):
+            pns, gns = _norms(params, leaf_norms), _norms(grads, leaf_norms)
+            for p, g, b, pn, gn in zip(params, grads, opt_state, pns, gns):
                 if p.dim() > 1:
-                    pn = torch.linalg.vector_norm(p)
-                    gn = torch.linalg.vector_norm(g)
                     local = torch.where((pn > 0.0) & (gn > 0.0),
                                         eta * pn / (gn + wd * pn + eps), torch.ones_like(pn))
                     b.copy_(b * mu + local * (g + wd * p))
@@ -239,15 +250,17 @@ class LAMB:
     def init(self, params: Sequence[torch.Tensor]) -> Dict[str, object]:
         return _adam_init(params)
 
-    def update(self, grads, opt_state, params, lr):
-        """Apply one step in place; returns ``(params, opt_state)``."""
+    def update(self, grads, opt_state, params, lr, leaf_norms=None):
+        """Apply one step in place; returns ``(params, opt_state)``.
+        ``leaf_norms`` gives each leaf's norm from its shards (FSDP)."""
         with torch.no_grad():
             bc1, bc2 = _moments(grads, opt_state, self.b1, self.b2)
             u = _adam_direction(opt_state, bc1, bc2, self.eps)
-            for p, ui in zip(params, u):
+            u = [ui + self.weight_decay * p if p.dim() > 1 else ui for p, ui in zip(params, u)]
+            pns, uns = _norms(params, leaf_norms), _norms(u, leaf_norms)
+            for p, ui, pn, un in zip(params, u, pns, uns):
                 if p.dim() > 1:
-                    ui = ui + self.weight_decay * p
-                    p.sub_(lr * _trust_ratio(p, ui, self.eps) * ui)
+                    p.sub_(lr * _trust_ratio(pn, un, self.eps) * ui)
                 else:
                     p.sub_(lr * ui)
         return params, opt_state

@@ -26,6 +26,16 @@ them over the data axis; ``layout`` (a :class:`FlatLayout`) then says how:
 
 The flat coordinates follow the model's parameter order and layout; the
 checkpoint writes them in the JAX ravel order (``bridge.py``).
+
+Under FSDP (:mod:`tpu_dist_torch.parallel.fsdp`) ``fsdp`` holds this
+rank's shards of the parameters (an :class:`~tpu_dist_torch.parallel.fsdp.
+FSDPShards`): the model's sharded parameters keep their full shapes with
+their storage released between steps, and ``opt_state`` is the
+optimizer's state over the shards (``fsdp.entries``), in their order.
+``replicas`` is the group of the ranks that hold the same shards of a
+tensor-, expert- or pipeline-parallel model (the data axis; ``data,seq``
+under TP×SP): the sharded checkpoint's writer of each piece is its first
+rank.
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ class TrainState:
     step: int = 0            # global step counter
     ef: Any = ()             # this rank's error-feedback residuals (int8_ef), else ()
     layout: Optional[FlatLayout] = None  # how the flat parts lie over the ranks
+    fsdp: Any = None         # this rank's FSDP parameter shards (FSDPShards), else None
+    replicas: Any = None     # the ranks that share this rank's model index (an AxisGroup), if any
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer) -> "TrainState":

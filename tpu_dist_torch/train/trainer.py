@@ -69,6 +69,15 @@ broadcast go over the data axis. A pipelined checkpoint is JAX's full
 stacked layout in storage order, stamped ``{pp, pp_interleave}``: a resume
 under another layout is refused (:meth:`Trainer._check_ckpt_meta`).
 
+``fsdp`` shards the parameters and the optimizer state over the data
+axis (:mod:`tpu_dist_torch.parallel.fsdp`; with ``tp`` over the data axis
+of ``[world/tp, tp]``, the TP shards again): the leaves and dimensions
+JAX's ``fsdp_specs`` (``compose_fsdp_specs``) choose, the FSDP step and
+eval (SyncBN over the group, the dense attention, the plain optimizer
+update on the shards), and the JAX trainer's refusals and warnings
+(:func:`check_fsdp_config`, :func:`fsdp_warnings`). The plain format
+gathers the shards to rank 0; ``sharded_ckpt`` writes each rank's own.
+
 Checkpoint / resume, preemption and the history are the JAX trainer's:
 
 * ``ckpt_dir`` takes a plain-format checkpoint (:mod:`tpu_dist_torch.ckpt`,
@@ -77,6 +86,10 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   ``mid_epoch_save_every`` steps, and ``ckpt_best.npz`` on a better eval
   top-1; ``async_ckpt`` writes them on a worker thread after a
   synchronous device-to-host snapshot; ``keep_last_ckpts`` prunes.
+  ``sharded_ckpt`` writes JAX's sharded format instead (every rank its
+  pieces, rank 0 the manifest; with ``async_ckpt`` the snapshot blocks
+  and the rest runs on the worker thread), for every layout the trainer
+  runs.
 * ``resume`` walks the checkpoints newest first (the restore ladder): a
   corrupt or unreadable file is quarantined to ``*.corrupt`` and the next
   older one is tried; a checkpoint of another configuration raises. The
@@ -262,6 +275,7 @@ from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
 from tpu_dist_torch.nn import resnet, vit, vit_moe, vit_pp
+from tpu_dist_torch.parallel import fsdp as fsdp_lib
 from tpu_dist_torch.parallel.pipeline import bubble_fraction
 from tpu_dist_torch.obs import alerts as alerts_lib
 from tpu_dist_torch.obs import costmodel
@@ -295,8 +309,6 @@ _ANALYSIS = "Queue A 6 (the analysis layer)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
-    "fsdp": (False, "Queue A 6 (parallel/fsdp.py)"),
-    "sharded_ckpt": (False, "Queue A 6 (the sharded checkpoint format)"),
     "tensorboard_dir": (None, _TELEMETRY),
     "debug_replica_check": (False, _TELEMETRY),
     "auto_shard": ("off", _ANALYSIS),
@@ -416,6 +428,69 @@ def check_sp_config(cfg: TrainConfig) -> None:
         )
     if cfg.shard_weight_update:
         raise NotPortedError("shard_weight_update", True, SP_ZERO1_QUEUE)
+
+
+def check_fsdp_config(cfg: TrainConfig) -> None:
+    """The JAX trainer's refusals of ``fsdp`` (``tpu_dist/train/trainer.py:
+    373-421``), with its messages: sp, ep and pp, the fused epoch and
+    ZeRO-1, ``fused_optimizer``, ``debug_replica_check`` and
+    ``flash_attention`` (the FSDP step runs the dense attention). Its two
+    warnings are :func:`fsdp_warnings`'."""
+    if not cfg.fsdp:
+        return
+    if cfg.sp > 1 or cfg.ep > 1 or cfg.pp > 1:
+        raise ValueError(
+            "fsdp composes with --tp (GSPMD spec overlay) but not "
+            "with sp/ep/pp: the ring/all_to_all/pipeline engines "
+            "are shard_map programs, and a leaf cannot be owned by "
+            "both a hand-written collective schedule and the "
+            "GSPMD partitioner"
+        )
+    if cfg.fused_epoch or cfg.shard_weight_update:
+        raise ValueError(
+            "fsdp is incompatible with fused_epoch / zero1 (fsdp "
+            "supersedes ZeRO-1: momentum AND params are sharded)"
+        )
+    if cfg.fused_optimizer:
+        raise ValueError(
+            "fsdp uses the plain SGD update (XLA fuses it into the "
+            "sharded program); fused_optimizer is shard_map-path only"
+        )
+    if cfg.debug_replica_check:
+        raise ValueError(
+            "debug_replica_check asserts replicated params; under "
+            "fsdp params are sharded by design"
+        )
+    if cfg.flash_attention:
+        raise ValueError(
+            "--fsdp with --flash_attention is not supported: the "
+            "Pallas kernel runs inside the GSPMD-partitioned jit "
+            "(no shard_map), where it has no SPMD partitioning "
+            "rule — XLA would replicate or fail to compile. Use "
+            "the default XLA attention under fsdp"
+        )
+
+
+def fsdp_warnings(cfg: TrainConfig) -> None:
+    """The JAX trainer's rank-0 warnings under ``fsdp``: ``--no_sync_bn``
+    and ``--grad_compression`` have no effect (the FSDP step's BatchNorm is
+    the global batch's, and its reduce-scatters take no wire format)."""
+    if not cfg.fsdp:
+        return
+    if not cfg.sync_bn:
+        rank0_print(
+            "WARNING: --no_sync_bn has no effect under --fsdp — "
+            "BatchNorm statistics are global-batch (SyncBN) by "
+            "construction in the GSPMD engine"
+        )
+    if cfg.grad_compression != "none":
+        rank0_print(
+            "WARNING: --grad_compression has no effect under --fsdp "
+            "— the engine's collectives (including the gradient "
+            "reduce-scatters the bf16/int8 wire formats would "
+            "compress) are GSPMD-inserted from sharding specs, not "
+            "hookable per-tensor (docs/compression.md)"
+        )
 
 
 def check_parallel_config(cfg: TrainConfig) -> None:
@@ -762,6 +837,7 @@ class Trainer:
         self._profile_triggers, self._profile_manual = check_health_options(cfg)
         check_parallel_config(cfg)
         check_sp_config(cfg)
+        check_fsdp_config(cfg)
         refuse_unported(cfg)
         refuse_fused_options(cfg)
         install_fault_plan(cfg)
@@ -786,6 +862,7 @@ class Trainer:
     def _init(self, cfg: TrainConfig) -> None:
         world, rank = mesh.process_count(), mesh.process_index()
         self.n_devices = world
+        fsdp_warnings(cfg)
         # the triggered profiler (obs/profile.py), on every rank: anomaly
         # findings arm it on rank 0, a straggler flag on the flagged rank
         self._profiler = None
@@ -937,6 +1014,12 @@ class Trainer:
         group = self.replicas.group if self.replicas is not None else None
         collectives.broadcast_module(self.model, collectives.global_rank(group, 0), group=group)
         self.state = TrainState.create(self.model, self.optimizer)
+        self.state = dataclasses.replace(self.state, replicas=self.replicas)
+        if cfg.fsdp:
+            # params and optimizer state sharded over the data axis, laid as
+            # JAX's fsdp_specs (compose_fsdp_specs under --tp) lay them
+            axis = self.replicas if self.replicas is not None else mesh.data_axis(1)
+            self.state = fsdp_lib.shard_state(self.state, axis=axis, optimizer=self.optimizer)
         if cfg.shard_weight_update or cfg.grad_compression == "int8_ef":
             # this rank's part of the flat state: ZeRO-1's optimizer shard,
             # the int8_ef residuals (zeros, the cold start)
@@ -957,20 +1040,32 @@ class Trainer:
             self.lr_schedule = multistep_lr(base_lr, cfg.lr_milestones, cfg.lr_gamma,
                                             warmup_epochs=cfg.warmup_epochs)
         compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-        self.train_step = make_train_step(
-            self.optimizer, grad_accum_steps=cfg.grad_accu_steps, sync_bn=cfg.sync_bn,
-            compute_dtype=compute_dtype, label_smoothing=cfg.label_smoothing,
-            grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion, remat=cfg.remat,
-            shard_weight_update=cfg.shard_weight_update, grad_compression=cfg.grad_compression,
-            quant_chunk=cfg.quant_chunk or None, rs_ag_chunks=cfg.rs_ag_chunks,
-            device_metrics=cfg.device_metrics, seq_axis=self.seq, sp_mode=cfg.sp_mode,
-            tp_axis=self.tp, ep_axis=self.ep, pp_axis=self.pipe, axis=self.replicas,
-            moe_aux_coef=cfg.moe_aux_coef,
-            model_kwargs=({"n_microbatches": cfg.pp_microbatches}
-                          if cfg.pp > 1 and cfg.pp_microbatches else None),
-        )
-        self.eval_step = make_eval_step(compute_dtype=compute_dtype, tp_axis=self.tp,
-                                        ep_axis=self.ep, pp_axis=self.pipe, axis=self.replicas)
+        if cfg.fsdp:
+            # the arguments the JAX trainer hands make_fsdp_train_step
+            # (tpu_dist/train/trainer.py:838-860)
+            self.train_step = fsdp_lib.make_fsdp_train_step(
+                self.optimizer, grad_accum_steps=cfg.grad_accu_steps,
+                compute_dtype=compute_dtype, label_smoothing=cfg.label_smoothing,
+                grad_clip_norm=cfg.grad_clip_norm, moe_aux_coef=cfg.moe_aux_coef,
+                remat=cfg.remat)
+            self.eval_step = fsdp_lib.make_fsdp_eval_step(
+                compute_dtype=compute_dtype, tp_axis=self.tp, axis=self.replicas)
+        else:
+            self.train_step = make_train_step(
+                self.optimizer, grad_accum_steps=cfg.grad_accu_steps, sync_bn=cfg.sync_bn,
+                compute_dtype=compute_dtype, label_smoothing=cfg.label_smoothing,
+                grad_clip_norm=cfg.grad_clip_norm, pmean_fusion=cfg.pmean_fusion,
+                remat=cfg.remat, shard_weight_update=cfg.shard_weight_update,
+                grad_compression=cfg.grad_compression, quant_chunk=cfg.quant_chunk or None,
+                rs_ag_chunks=cfg.rs_ag_chunks, device_metrics=cfg.device_metrics,
+                seq_axis=self.seq, sp_mode=cfg.sp_mode, tp_axis=self.tp, ep_axis=self.ep,
+                pp_axis=self.pipe, axis=self.replicas, moe_aux_coef=cfg.moe_aux_coef,
+                model_kwargs=({"n_microbatches": cfg.pp_microbatches}
+                              if cfg.pp > 1 and cfg.pp_microbatches else None),
+            )
+            self.eval_step = make_eval_step(compute_dtype=compute_dtype, tp_axis=self.tp,
+                                            ep_axis=self.ep, pp_axis=self.pipe,
+                                            axis=self.replicas)
         if self.ep is not None:
             # each expert rank takes its slice of the data row's batch
             self.train_step = _expert_slice(self.train_step, self.ep)
@@ -1119,12 +1214,15 @@ class Trainer:
     # -- checkpoint I/O ------------------------------------------------------
 
     def _ckpt_io(self):
-        """The module's synchronous functions, or with ``async_ckpt`` the
-        async writer (made anew after ``_ckpt_close`` released one)."""
+        """The module's synchronous functions, the sharded writer
+        (``sharded_ckpt``), or with ``async_ckpt`` the async writer, plain
+        or snapshot-then-write sharded (made anew after ``_ckpt_close``
+        released one)."""
         if not self.cfg.async_ckpt:
-            return ckpt_lib
+            return ckpt_lib.ShardedCheckpointer if self.cfg.sharded_ckpt else ckpt_lib
         if self._async_ckpt is None:
-            self._async_ckpt = ckpt_lib.AsyncCheckpointer()
+            self._async_ckpt = (ckpt_lib.AsyncShardedCheckpointer() if self.cfg.sharded_ckpt
+                                else ckpt_lib.AsyncCheckpointer())
         return self._async_ckpt
 
     def _ckpt_close(self, suppress: bool = False) -> None:
@@ -1279,27 +1377,50 @@ class Trainer:
         is quarantined and the next older one is tried. A checkpoint of
         another configuration, or one the port cannot lay out, raises.
         Each candidate is laid onto this run's world through the elastic
-        remapper (``tpu_dist/train/trainer.py:2442-2506``)."""
+        remapper (``tpu_dist/train/trainer.py:2442-2506``).
+
+        With ``sharded_ckpt`` the ladder walks the committed manifests
+        (``tpu_dist/train/trainer.py:2385-2445``): a candidate is verified
+        first (deeply only at one process: every rank would otherwise
+        decompress the whole checkpoint; the overlap reads of the restore
+        surface piece-level corruption), then restored in place. A
+        directory that holds only the other format raises ``ValueError``:
+        the formats do not convert, and starting from scratch would be
+        silent."""
         cfg = self.cfg
+        sharded = cfg.sharded_ckpt
+        if sharded:
+            list_, read_meta_ = ckpt_lib.all_sharded_checkpoints, ckpt_lib.read_sharded_meta
+            other = ckpt_lib.latest_checkpoint
+        else:
+            list_, read_meta_ = ckpt_lib.all_checkpoints, ckpt_lib.read_meta
+            other = ckpt_lib.latest_sharded_checkpoint
         if mesh.process_index() == 0:
             # no write is in flight at start-up: sweep what a crash leaked
             ckpt_lib.sweep_stale_tmp(cfg.ckpt_dir)
-        candidates = ckpt_lib.all_checkpoints(cfg.ckpt_dir)
+        candidates = list_(cfg.ckpt_dir)
         if not candidates:
-            if os.path.isdir(cfg.ckpt_dir) and any(
-                    n.endswith(".manifest.json") for n in os.listdir(cfg.ckpt_dir)):
-                raise NotPortedError("sharded_ckpt", f"checkpoints in {cfg.ckpt_dir}",
-                                     UNPORTED["sharded_ckpt"][1])
+            if other(cfg.ckpt_dir):
+                raise ValueError(
+                    f"ckpt_dir {cfg.ckpt_dir} holds checkpoints in the "
+                    f"{'plain' if sharded else 'sharded'} format "
+                    f"but this run asked for the "
+                    f"{'sharded' if sharded else 'plain'} one — "
+                    "flip --sharded_ckpt to match (the formats do not "
+                    "auto-convert)"
+                )
             self._check_ladder_agreement(-1)
             return None
-        template = bridge.restore_template(self.state)
+        template = None if sharded else bridge.restore_template(self.state)
         template_params = bridge.jax_layout_template(self.model)[0]  # at full width
         chosen = None
         self._last_reshard_s = 0.0
         for path, epoch in candidates:
             try:
-                meta = ckpt_lib.read_meta(path)
-            except ckpt_lib.CKPT_READ_ERRORS as e:
+                if sharded and cfg.ckpt_verify:
+                    ckpt_lib.verify_sharded(path, deep=self.n_devices == 1)
+                meta = read_meta_(path)
+            except (ckpt_lib.CheckpointCorruptError,) + ckpt_lib.CKPT_READ_ERRORS as e:
                 self._quarantine_ckpt(path, e)
                 continue
             self._check_ckpt_meta(meta, path)
@@ -1309,8 +1430,12 @@ class Trainer:
             t_restore = time.monotonic()
             try:
                 with spans.span("ckpt/restore_ladder", file=path):
-                    flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify, template=template,
-                                            remap=remapper)
+                    if sharded:
+                        # in place: the shards of this rank's windows only
+                        flat = ckpt_lib.restore_sharded(path, self.state, remap=remapper)
+                    else:
+                        flat = ckpt_lib.restore(path, verify=cfg.ckpt_verify, template=template,
+                                                remap=remapper)
             except (ckpt_lib.CheckpointCorruptError,) + ckpt_lib.CKPT_READ_ERRORS as e:
                 self._quarantine_ckpt(path, e)
                 continue
@@ -1336,7 +1461,8 @@ class Trainer:
         resume_examples = self._check_mid_epoch(meta, path, resume_step) if resume_step else 0
         # copy_ into the live tensors: the step's module, its momentum list
         # and the fused SGD's plan cache keep pointing at the same storage
-        self.state = bridge.load_train_state(self.state, flat)
+        # (the sharded restore copied them already)
+        self.state = flat if sharded else bridge.load_train_state(self.state, flat)
         self._lr_scale = float(meta.get("lr_scale", 1.0))
         self._resume_step = 0 if resume_examples else resume_step
         self._resume_examples = resume_examples
@@ -1419,15 +1545,16 @@ class Trainer:
 
         Skipped while the live state holds a diverged step, or when Ctrl-C
         landed inside a step (the in-place update may be half done). Under
-        a flat layout, or with a tensor- or expert-parallel model, at a world
-        > 1 the save gathers over the ranks, so they first agree: all skip
-        when any rank must."""
+        a flat layout, FSDP, or with a tensor- or expert-parallel model, at
+        a world > 1 the save gathers over the ranks, so they first agree: all
+        skip when any rank must. With ``sharded_ckpt`` at a world > 1 it is
+        skipped, as in JAX: the manifest's commit waits on a barrier."""
         cfg = self.cfg
         if not cfg.ckpt_dir:
             return
         poisoned, in_step = self._state_poisoned, self._in_step
-        gathers = (self.state.layout is not None or self.replicas is not None) and \
-            self.n_devices > 1
+        gathers = (self.state.layout is not None or self.replicas is not None
+                   or self.state.fsdp is not None) and self.n_devices > 1
         if gathers:
             flags = torch.tensor([float(poisoned), float(in_step)],
                                  device=collectives.group_device())
@@ -1445,9 +1572,17 @@ class Trainer:
         # the emergency snapshot must be the last file published
         self._ckpt_close(suppress=True)
         epoch, steps_done, complete = self._progress
+        if cfg.sharded_ckpt and self.n_devices > 1:
+            # the manifest's commit waits on a barrier across the ranks
+            rank0_print("=> interrupted; state (or the sharded-ckpt commit barrier) is "
+                        "cross-process — emergency snapshot skipped (collectives cannot run "
+                        "from a signal handler); resume from the last periodic checkpoint")
+            return
+        io = ckpt_lib.ShardedCheckpointer if cfg.sharded_ckpt else ckpt_lib
+        marker = "ckpt_{}.manifest.json" if cfg.sharded_ckpt else "ckpt_{}.npz"
 
         def clean_exists(e: int) -> bool:
-            here = os.path.exists(os.path.join(cfg.ckpt_dir, f"ckpt_{e}.npz"))
+            here = os.path.exists(os.path.join(cfg.ckpt_dir, marker.format(e)))
             if not gathers:
                 return here
             # a save gathers the flat state or the shards over the ranks:
@@ -1456,8 +1591,8 @@ class Trainer:
             return bool(collectives.broadcast_from(flag).item())
 
         def save(ckpt_epoch: int, extra_meta: dict, msg: str) -> None:
-            ckpt_lib.save(cfg.ckpt_dir, self.state, ckpt_epoch, cfg.keep_last_ckpts,
-                          extra_meta=extra_meta)
+            io.save(cfg.ckpt_dir, self.state, ckpt_epoch, cfg.keep_last_ckpts,
+                    extra_meta=extra_meta)
             rank0_print(msg)
 
         if complete:
@@ -2106,8 +2241,12 @@ class Trainer:
                     extra.update(self._mid_epoch_position(step + 1))
                 stem = f"anomaly_{epoch}" + (f"_s{step + 1}" if step is not None else "")
                 with self._goodput.timed("ckpt"):
-                    ckpt_lib.save(cfg.ckpt_dir, self.state, epoch, extra_meta=extra,
-                                  name=f"{stem}.npz")
+                    if cfg.sharded_ckpt:
+                        ckpt_lib.save_sharded(cfg.ckpt_dir, self.state, epoch, extra_meta=extra,
+                                              stem=stem)
+                    else:
+                        ckpt_lib.save(cfg.ckpt_dir, self.state, epoch, extra_meta=extra,
+                                      name=f"{stem}.npz")
                 counters.inc("anomaly.snapshots")
                 rank0_print(f"=> anomaly snapshot written ({stem}, epoch {epoch}"
                             + (f" step {step + 1}" if step is not None else "")
