@@ -128,13 +128,13 @@ Phases; any failure exits non-zero and prints no result line:
    ``python -m tpu_dist_torch.cli.launch --nproc 1 -- python -m
    tpu_dist_torch.cli.train ... --ckpt_dir D --log_file D/h.jsonl``,
    sent SIGTERM after its first epoch line, must exit 75 with a checkpoint
-   on disk; rerun with ``--resume`` it must exit 0 and print its
-   ``=> resumed from`` line, and the history must be JSONL with
-   ``train_epoch`` and ``eval`` records. Both runs have ``--crash_dir``:
-   after the SIGTERM ``python -m tpu_dist_torch.obs postmortem`` must give
-   rank 0 ``preempted`` with the flight ring's last ``step`` record where
-   the run stopped, after the resume ``clean``; and the host us of one
-   ``FlightRecorder.step`` (median of 1,000 calls).
+   on disk, and the history must be JSONL with ``train_epoch`` records. It
+   has ``--crash_dir``: ``python -m tpu_dist_torch.obs postmortem`` must
+   give rank 0 ``preempted`` with the flight ring's last ``step`` record
+   where the run stopped; and the host us of one ``FlightRecorder.step``
+   (median of 1,000 calls). (Its rerun with ``--resume`` was cut to make
+   room for phase 19: phase 11 (a) relaunches with ``--resume`` through the
+   launcher, and phase 19 (b) reads a clean exit's ``clean`` verdict.)
    (f) The fused epoch (``bench.py:243``'s ``resnet18_cifar100_fused``),
    over the same NCCL group: ``Trainer(cfg with fused_epoch=True).fit()``,
    2 epochs of all 195 steps with a fused eval of the 10,000 test images
@@ -460,7 +460,32 @@ Phases; any failure exits non-zero and prints no result line:
    4 steps, a save, then ``Trainer(resume=True)``: finite losses, a
    manifest and one shard file, the resumed state the saved one bit for
    bit. ``[fsdp]`` lines; the report repeats them.
-19. report: the card's name and power limit, one JSON line of every ported
+19. ZeRO-1 under the seq axis and the rest of the telemetry, in this
+   process after phase 18, with no CUDA child. Over a 1-rank NCCL group:
+   (a) ``vit_b16_1024px_flash``'s shapes (ViT-B/16 at 1,024 px, batch 8,
+   bf16, flash, ring) through ``make_train_step(seq_axis=seq_axis(1),
+   axis=data_axis(1), shard_weight_update=True)`` with the fused SGD, 3
+   steps, against the same step without ZeRO-1 from the same weights and
+   batches: losses bit for bit (one rank: the flat update is the per-leaf
+   update of the same gradients); 12 of each of #1-#3 a step, all on the
+   tensor cores, and 1 of #4 a step on the flat shard; the gradients
+   meaned over the seq axis, reduce-scattered and the parameters
+   all-gathered over the data axis once a step. The state through
+   ``train_state_to_flat(dst=0)``, a plain save and restore, and a sync and
+   an async ``save_sharded`` with ``restore_sharded``, each gathered over
+   the data axis and restored into a fresh ZeRO-1 state bit for bit; ms
+   and bytes of each. (b) ``Trainer.fit`` at ResNet-18's bench shapes
+   with ``--shard_weight_update --fused_optimizer --debug_replica_check
+   --tensorboard_dir --log_file --heartbeat_file --crash_dir``, 2 epochs of
+   3 steps: the replica check passes at every epoch's end, ``obs
+   postmortem`` gives rank 0 ``clean``, the event file decodes
+   to the trainer's tags at their steps, ``obs tail --once`` and ``obs
+   pod`` over the log and a second per-host copy exit 0, ``obs archive
+   ingest`` appends nothing on a second ingest, ``obs trend
+   --inject-regression`` and ``compare --against-archive`` of the log
+   against its own band exit 0. ``[zero1-sp]`` lines; the report repeats
+   them.
+20. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
    as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
@@ -2435,8 +2460,10 @@ def _flight_step_us() -> float:
 
 
 def _resnet_launch() -> None:
-    """(e): the launcher's SIGTERM contract (exit 75) and ``--resume``, with
-    the crash forensics of ``--crash_dir`` read after each."""
+    """(e): the launcher's SIGTERM contract (exit 75), with the crash
+    forensics of ``--crash_dir`` read after it. (The launcher's ``--resume``
+    runs in phase 11 (a)'s relaunch, and a clean exit's postmortem verdict
+    in phase 19 (b).)"""
     root = pathlib.Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
         log = os.path.join(d, "h.jsonl")
@@ -2484,23 +2511,10 @@ def _resnet_launch() -> None:
         print(f"[flight] obs postmortem after SIGTERM: rank 0 {pm['verdict']}, "
               f"{pm['flight']['n_records']} ring records, last step record epoch "
               f"{last['epoch']} step {last['step']} (the run stopped there)")
-        t0 = time.perf_counter()
-        again = subprocess.run(launch + train + ["--epochs", str(epoch + 2), "--resume"],
-                               cwd=root, text=True, capture_output=True, timeout=300)
-        resumed = [ln for ln in again.stdout.splitlines() if ln.startswith("=> resumed from")]
-        print(f"[launch] rerun with --resume --epochs {epoch + 2}: rc {again.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s; " + (resumed[0] if resumed else "no resume line"))
-        check(again.returncode == 0 and resumed and path in resumed[0],
-              f"resumed launch: rc {again.returncode}\n{again.stdout[-3000:]}\n"
-              f"{again.stderr[-3000:]}")
         with open(log) as f:
             kinds = [json.loads(line)["kind"] for line in f]
         print(f"[launch] history {log}: {len(kinds)} records, kinds {sorted(set(kinds))}")
-        check("train_epoch" in kinds and "eval" in kinds, f"history kinds {kinds}")
-        pm = _postmortem(root, crash, d)
-        check(pm["verdict"] == "clean", f"postmortem after --resume: {pm['verdict']}")
-        print(f"[flight] obs postmortem after --resume: rank 0 {pm['verdict']}, "
-              f"{pm['flight']['n_records']} ring records")
+        check("train_epoch" in kinds, f"history kinds {kinds}")
     print(f"[flight] FlightRecorder.step: {_flight_step_us():.2f} us of host a call "
           f"(median of 1,000); card: {_smi_line()}")
 
@@ -5706,6 +5720,286 @@ def phase_fsdp(work: str) -> tuple:
     return launches
 
 
+# -- phase 19: ZeRO-1 under the seq axis and the rest of the telemetry ---------
+
+ZSP_STEPS = 3
+# (a): the ZeRO-1 x SP step's losses against the same step without ZeRO-1:
+# at one rank the flat update is the per-leaf fused SGD over the same
+# gradients (the seq mean and the data reduce-scatter of one rank are the
+# identity), element for element the same arithmetic: bit for bit
+ZSP_RESNET_RUN = dict(  # bench.py:240's resnet18_cifar100 shapes, 2 epochs of 3 steps
+    model="resnet18", num_classes=100, dataset="synthetic", synthetic_n=1_280,
+    batch_size=256, bf16=True, sync_bn=True, lr=0.1, epochs=2, steps_per_epoch=3,
+    eval_every=1, log_every=1, seed=1, shard_weight_update=True, fused_optimizer=True,
+    debug_replica_check=True,
+)
+
+#: phase 19's result lines, repeated by the report
+ZSP_SUMMARY: list = []
+
+
+def _p19_say(msg: str, keep: bool = True) -> None:
+    print(f"[zero1-sp] {msg}", flush=True)
+    if keep:
+        ZSP_SUMMARY.append(f"[zero1-sp] {msg}")
+
+
+def _zsp_state(init: dict, opt, data=None):
+    """ViT-B/16 at 1,024 px (flash) from ``init``; with the data axis
+    ``data``, ZeRO-1's flat optimizer state laid over it."""
+    model = vit_b16(num_classes=1000, image_size=SEQ_IMAGE_SIZE, attn_impl="flash",
+                    device=DEVICE)
+    model.load_state_dict(init)
+    st = state_lib.TrainState.create(model, opt)
+    if data is not None:
+        lay = step_lib.axis_layout(model, data)
+        st = dataclasses.replace(st, layout=lay,
+                                 opt_state=step_lib.init_sharded_opt_state(model, opt, layout=lay))
+    return st
+
+
+def _zsp_steps(init, images, labels, seq, data) -> dict:
+    """(a) ZSP_STEPS bf16 steps through ``make_train_step`` with the seq
+    axis (ring) and, with ``data``, ZeRO-1 over it; counted. Returns the
+    losses, the launches, the tensor-core launches, the collectives, the
+    final state and the step's ms (host laps ended by a sync)."""
+    opt = _sgd_for("flash")
+    st = _zsp_state(init, opt, data)
+    kw = {"shard_weight_update": True, "axis": data} if data is not None else {}
+    train_step = step_lib.make_train_step(opt, compute_dtype=torch.bfloat16, seq_axis=seq,
+                                          sp_mode="ring", **kw)
+    torch.cuda.synchronize()
+    counters_lib.reset()
+    reset_launches()
+    losses, laps = [], []
+    for i in range(ZSP_STEPS):
+        t0 = time.perf_counter()
+        st, metrics = train_step(st, images[i], labels[i], SEQ_LR)
+        losses.append(metrics["loss"].item())  # ends in a sync
+        laps.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "launches": read_launches(), "mma": read_mma_launches(),
+            "comm": {k: v for k, v in counters_lib.snapshot().items() if k.startswith("comm.")},
+            "state": st, "laps": laps}
+
+
+def _zsp_formats(st, data, init, d: str) -> dict:
+    """(a) the ZeRO-1 x SP state through both formats, gathered over the
+    data axis; each restored into a fresh ZeRO-1 state bit for bit."""
+    nums = {}
+    # the first flatten of this model builds its JAX ravel order (cached)
+    _, nums["flatten_first_ms"] = _timed(lambda: bridge.train_state_to_flat(st, dst=0))
+    live, nums["flatten_ms"] = _timed(lambda: bridge.train_state_to_flat(st, dst=0))
+    L = sum(p.numel() for p in st.params.parameters())
+    flat_mom = live["['opt_state']"]
+    check(flat_mom.shape == (padded_len(L, data.size),) and not flat_mom[L:].any(),
+          f"(a) the gathered flat momentum has shape {flat_mom.shape}")
+    meta = {"elastic": elastic_stamp(data.size, data.size, L)}
+    plain_dir, sync_dir, async_dir = (os.path.join(d, x) for x in ("plain", "sync", "async"))
+    _, nums["plain_save_ms"] = _timed(lambda: ckpt_lib.save(plain_dir, st, 0, extra_meta=meta))
+    _, nums["sharded_save_ms"] = _timed(
+        lambda: ckpt_lib.save_sharded(sync_dir, st, 0, extra_meta=meta))
+    writer = ckpt_lib.AsyncShardedCheckpointer()
+    try:
+        _, nums["async_blocking_ms"] = _timed(
+            lambda: writer.save(async_dir, st, 0, extra_meta=meta))
+        _, nums["async_drain_ms"] = _timed(writer.wait)
+    finally:
+        writer.close()
+    nums["plain_bytes"] = _dir_bytes(plain_dir, lambda x: x.endswith(".npz"))
+    nums["sharded_bytes"] = _dir_bytes(sync_dir, lambda x: ".shard" in x or "manifest" in x)
+    # one fresh ZeRO-1 state (the initial weights, zero momentum, step 0),
+    # wiped again before each restore; built outside the timings
+    target = _zsp_state(init, _sgd_for("flash"), data)
+
+    def wipe():
+        with torch.no_grad():
+            for p in target.params.parameters():
+                p.zero_()
+            target.opt_state.zero_()
+        return dataclasses.replace(target, step=0)
+
+    def restore_plain(t):
+        flat = ckpt_lib.restore(os.path.join(plain_dir, "ckpt_0.npz"), verify=True,
+                                template=bridge.restore_template(t))
+        return bridge.load_train_state(t, flat)
+
+    for name, fn in (
+            ("plain", restore_plain),
+            ("sharded", lambda t: ckpt_lib.restore_sharded(
+                os.path.join(sync_dir, "ckpt_0.manifest.json"), t)),
+            ("async", lambda t: ckpt_lib.restore_sharded(
+                os.path.join(async_dir, "ckpt_0.manifest.json"), t))):
+        t = wipe()
+        back, nums[f"{name}_restore_ms"] = _timed(lambda: fn(t))
+        got = bridge.train_state_to_flat(back, dst=0)
+        check(got.keys() == live.keys() and all(np.array_equal(got[k], live[k]) for k in live),
+              f"(a) the {name} restore differs from the live ZeRO-1 x SP state")
+        check(back.step == st.step, f"(a) {name}: restored step {back.step}")
+        del back, got
+    del target
+    torch.cuda.empty_cache()
+    return nums
+
+
+def _zsp_step(work: str) -> tuple:
+    """(a), over a 1-rank NCCL group; returns (launches, mma, numbers)."""
+    rng = np.random.default_rng(19)
+    images = torch.from_numpy(rng.standard_normal(
+        (ZSP_STEPS, SEQ_BATCH, SEQ_IMAGE_SIZE, SEQ_IMAGE_SIZE, 3), dtype=np.float32)).to(DEVICE)
+    labels = torch.from_numpy(rng.integers(0, 1000, (ZSP_STEPS, SEQ_BATCH))).to(DEVICE)
+    init = {k: v.detach().clone() for k, v in vit_b16(
+        num_classes=1000, image_size=SEQ_IMAGE_SIZE, device=DEVICE, seed=TRAIN_SEED
+    ).state_dict().items()}
+    seq, data = mesh_lib.seq_axis(1), mesh_lib.data_axis(1)
+    base = _zsp_steps(init, images, labels, seq, None)
+    del base["state"]
+    torch.cuda.empty_cache()
+    z = _zsp_steps(init, images, labels, seq, data)
+    want = {k: ZSP_STEPS * PER_STEP[k] for k in KERNELS}
+    check(z["launches"] == want, f"(a) launches {z['launches']}, want {want}")
+    check(all(z["mma"][k] == z["launches"][k] for k in MMA_KERNELS),
+          f"(a) tensor-core launches {z['mma']} of {z['launches']}")
+    st = z["state"]
+    lay = st.layout
+    check(isinstance(st.opt_state, torch.Tensor) and st.opt_state.shape == (lay.chunk,)
+          and (lay.world, lay.rank) == (data.size, data.index),
+          f"(a) the flat shard: {tuple(st.opt_state.shape)} over {lay}")
+    comm = z["comm"]
+    check(comm.get("comm.all_reduce.grad_seq") == ZSP_STEPS
+          and comm.get("comm.reduce_scatter.grad") == ZSP_STEPS
+          and comm.get("comm.all_gather.params") == ZSP_STEPS
+          and "comm.all_reduce.grad" not in comm,
+          f"(a) collectives {comm}")
+    check(all(math.isfinite(x) for x in z["losses"]), f"(a) losses {z['losses']}")
+    check(z["losses"] == base["losses"],
+          f"(a) ZeRO-1 x SP losses {z['losses']} vs {base['losses']} without ZeRO-1")
+    smi = _smi_line()
+    _p19_say(f"(a) ViT-B/16 at {SEQ_IMAGE_SIZE} px (S = {SEQ_SHAPE[1]}), batch {SEQ_BATCH}, bf16, "
+             f"flash, ring over seq_axis(1), ZeRO-1 over data_axis(1), fused SGD: losses "
+             f"{z['losses']}, bit for bit the same step's without ZeRO-1; launches "
+             f"{z['launches']} (mma {z['mma']}); the flat shard {lay.chunk:,} f32 (L "
+             f"{lay.L:,}); collectives {comm}; step host laps (sync) "
+             f"{[round(x, 2) for x in z['laps']]} ms, without ZeRO-1 "
+             f"{[round(x, 2) for x in base['laps']]} ms; card: {smi}")
+    d = tempfile.mkdtemp(prefix="zsp_", dir=work)
+    nums = _zsp_formats(st, data, init, d)
+    shutil.rmtree(d, ignore_errors=True)
+    _p19_say(f"(a) its state ({lay.L:,} parameters + the flat momentum) gathered over the data "
+             f"axis: flatten {nums['flatten_first_ms']:.1f} ms (the first, with the ravel "
+             f"order), then {nums['flatten_ms']:.1f} ms; plain save {nums['plain_save_ms']:.1f} "
+             f"ms, {nums['plain_bytes']:,} bytes, restore {nums['plain_restore_ms']:.1f} ms; "
+             f"sharded save {nums['sharded_save_ms']:.1f} ms, {nums['sharded_bytes']:,} bytes, "
+             f"restore {nums['sharded_restore_ms']:.1f} ms; async sharded save blocks "
+             f"{nums['async_blocking_ms']:.1f} ms, drains {nums['async_drain_ms']:.1f} ms, "
+             f"restore {nums['async_restore_ms']:.1f} ms; every restore bit for bit (warm page "
+             f"cache); card: {smi}")
+    numbers = {"fused_sgd": {"zero1_sp_flat_shard": lay.chunk,
+                             "zero1_sp_step_ms": statistics.median(z["laps"])}}
+    launches, mma = z["launches"], z["mma"]
+    del z, st
+    torch.cuda.empty_cache()
+    return launches, mma, numbers
+
+
+def _zsp_obs(argv: list) -> tuple:
+    """``python -m tpu_dist_torch.obs`` in this process: (exit code, stdout)."""
+    import contextlib  # noqa: PLC0415
+    import io  # noqa: PLC0415
+
+    from tpu_dist_torch.obs.__main__ import main as obs_main  # noqa: PLC0415
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = obs_main(argv)
+    return rc, out.getvalue() + err.getvalue()
+
+
+def _zsp_telemetry(d: str) -> dict:
+    """(b): one telemetry-armed ``Trainer.fit`` and the offline tools over
+    its files; returns the kernels' launches."""
+    from tpu_dist_torch.metrics import tensorboard  # noqa: PLC0415
+
+    os.makedirs(d, exist_ok=True)
+    log, hb, tb, crash = (os.path.join(d, x) for x in ("run.jsonl", "hb.json", "tb", "crash"))
+    cfg = TrainConfig(**ZSP_RESNET_RUN, log_file=log, heartbeat_file=hb, tensorboard_dir=tb,
+                      crash_dir=crash, device=DEVICE, port=_free_port())
+    counters_lib.reset()
+    reset_launches()
+    t = trainer_lib.Trainer(cfg)
+    try:
+        (_, fit_ms) = _timed(t.fit)
+        nb = len(t.train_loader)
+    finally:
+        t.close()
+    got = read_launches()
+    steps = ZSP_RESNET_RUN["epochs"] * ZSP_RESNET_RUN["steps_per_epoch"]
+    check(got["fused_sgd"] == steps and all(got[k] == 0 for k in MMA_KERNELS),
+          f"(b) launches {got}: want {steps} of #4 (the flat shard), none of #1-#3")
+    (events,) = os.listdir(tb)
+    scalars = tensorboard.read_scalars(os.path.join(tb, events))
+    tags = [(tag, s) for tag, s, _ in scalars]
+    want_steps = [e * nb + s for e in range(ZSP_RESNET_RUN["epochs"])
+                  for s in range(ZSP_RESNET_RUN["steps_per_epoch"])]
+    check([s for tag, s in tags if tag == "step/loss"] == want_steps
+          and all((f"train/{k}", e) in tags for k in ("loss", "acc1", "lr") for e in range(2))
+          and all((f"eval/{k}", e) in tags for k in ("top1", "top5", "loss") for e in range(2))
+          and all(math.isfinite(v) for _, _, v in scalars),
+          f"(b) the event file holds {tags}")
+    shutil.copy(log, log + ".h1")
+    checks = {}
+    for name, argv in (
+            ("postmortem", ["postmortem", crash, d]),
+            ("tail", ["tail", log, "--once", "--heartbeat", hb]),
+            ("pod", ["pod", log, log + ".h1", "--trace-out", os.path.join(d, "pod.json")]),
+            ("ingest", ["archive", "ingest", log, "--archive", os.path.join(d, "a.jsonl")]),
+            ("ingest again", ["archive", "ingest", log, "--archive", os.path.join(d, "a.jsonl")]),
+            ("trend", ["trend", os.path.join(d, "a.jsonl"), "--inject-regression"]),
+            ("gate", ["compare", log, "--against-archive", os.path.join(d, "a.jsonl")])):
+        rc, text = _zsp_obs(argv)
+        checks[name] = (rc, text)
+        check(rc == 0, f"(b) obs {name}: exit {rc}\n{text[-2000:]}")
+    with open(os.path.join(crash, "postmortem.json")) as f:
+        pm = {r["rank"]: r["verdict"] for r in json.load(f)["ranks"]}
+    check(pm == {0: "clean"}, f"(b) obs postmortem after a clean exit: {pm}")
+    check("run: clean exit" in checks["tail"][1], "(b) obs tail: the run did not end clean")
+    check("pod report — 2 host(s)" in checks["pod"][1], "(b) obs pod: no 2-host report")
+    check(" 1 appended" in checks["ingest"][1] and " 0 appended" in checks["ingest again"][1],
+          f"(b) ingest: {checks['ingest'][1]!r}, then {checks['ingest again'][1]!r}")
+    with open(log) as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    _p19_say(f"(b) Trainer.fit --shard_weight_update --fused_optimizer --debug_replica_check "
+             f"--tensorboard_dir --log_file --heartbeat_file --crash_dir, ResNet-18 (bench "
+             f"shapes: batch "
+             f"256, bf16), 1-rank NCCL group, 2 epochs of 3 steps: fit {fit_ms:.0f} ms, the "
+             f"replica check passed at both epoch ends (one rank: one copy); launches {got}; "
+             f"postmortem rank 0 clean; {len(scalars)} scalars in the event file ({len({t for t, _ in tags})} tags, "
+             f"step/loss at {want_steps}); history kinds {sorted(set(kinds))}; obs tail "
+             f"--once, pod (2 hosts), archive ingest (1 then 0 appended), trend "
+             f"--inject-regression and compare --against-archive all exit 0; card: "
+             f"{_smi_line()}")
+    return got
+
+
+def phase_zero1_sp(work: str) -> tuple:
+    """Phase 19 (module docstring). Returns (the kernels' launches of (a)
+    and (b), their tensor-core launches, the numbers for the kernels
+    line)."""
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="zero1_sp_", dir=work)
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        launches, mma, numbers = _zsp_step(d)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    got = _zsp_telemetry(os.path.join(d, "b"))
+    launches = {k: launches.get(k, 0) + got[k] for k in KERNELS}
+    shutil.rmtree(d, ignore_errors=True)
+    _p19_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: {_smi_line()}")
+    return launches, mma, numbers
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -5753,16 +6047,20 @@ def _phases(work: str) -> int:
     for name, numbers in pp_numbers.items():
         measured[name].update(numbers)
     fsdp = phase_fsdp(work)
+    zsp, zsp_mma, zsp_numbers = phase_zero1_sp(work)
+    for name, numbers in zsp_numbers.items():
+        measured[name].update(numbers)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
                 + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
-                + mp[name] + pp[name] + fsdp[name] for name in KERNELS}
+                + mp[name] + pp[name] + fsdp[name] + zsp[name] for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
-                                                  + seq_mma[name] + mp_mma[name] + pp_mma[name])
+                                                  + seq_mma[name] + mp_mma[name] + pp_mma[name]
+                                                  + zsp_mma[name])
     print("[summary] phase 11, elastic supervision, again:")
     for msg in SUP_SUMMARY:
         print(f"[summary] {msg}")
@@ -5786,6 +6084,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 18, the sharded checkpoint format and FSDP, again:")
     for msg in FSDP_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 19, ZeRO-1 under the seq axis and the telemetry, again:")
+    for msg in ZSP_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

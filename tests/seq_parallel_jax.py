@@ -194,11 +194,11 @@ FIT_RUN = dict(model="vit_tiny", num_classes=10, dataset="synthetic", synthetic_
 FIT_LOSS_TOL = dict(rtol=1e-4)
 
 
-def jax_fit(mode):
-    """The JAX ``Trainer`` of :data:`FIT_RUN` with ``sp_mode=mode`` on a
-    [2, 2] data x seq mesh, its augmentation held to the numpy path without
-    crops (``torch_ranks.unaugmented``): its initial weights (numpy) and
-    its epoch dicts."""
+def jax_fit(mode, **extra):
+    """The JAX ``Trainer`` of :data:`FIT_RUN` with ``sp_mode=mode`` (and
+    ``extra``) on a [2, 2] data x seq mesh, its augmentation held to the
+    numpy path without crops (``torch_ranks.unaugmented``): its initial
+    weights (numpy) and its epoch dicts."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_native, "_load", lambda: None)
     mp.setattr(jax_native, "gather_augment", jax_native.gather_augment)
@@ -206,7 +206,7 @@ def jax_fit(mode):
     try:
         mesh = mesh_lib.device_mesh([2, 2], [mesh_lib.DATA_AXIS, mesh_lib.SEQ_AXIS],
                                     jax.devices()[:4])
-        jt = jax_trainer.Trainer(JaxConfig(**FIT_RUN, sp_mode=mode), mesh=mesh)
+        jt = jax_trainer.Trainer(JaxConfig(**{**FIT_RUN, **extra}, sp_mode=mode), mesh=mesh)
         params = jax.tree_util.tree_map(np.asarray, jax.device_get(jt.state.params))
         epochs, inner = [], jt.train_epoch
 

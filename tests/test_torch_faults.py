@@ -270,8 +270,12 @@ def test_a_corrupted_newest_checkpoint_is_quarantined_by_the_ladder(tmp_path, mo
 def test_nan_loss_raises_divergence_without_auto_recover(tmp_path):
     _, err = _fit(_port_cfg(str(tmp_path), fault_plan="nan_loss@epoch=0:step=1"))
     assert err == "TrainingDivergedError"
-    with pytest.raises(trainer.TrainingDivergedError, match="fault-injected"):
-        trainer.Trainer(_port_cfg(str(tmp_path / "b"), fault_plan="nan_loss@step=0")).fit()
+    t = trainer.Trainer(_port_cfg(str(tmp_path / "b"), fault_plan="nan_loss@step=0"))
+    try:
+        with pytest.raises(trainer.TrainingDivergedError, match="fault-injected"):
+            t.fit()
+    finally:
+        t.close()  # its process group: a later test of this worker must not inherit it
 
 
 def test_nan_loss_fires_auto_recover_and_the_run_completes(tmp_path):

@@ -13,8 +13,8 @@ the JAX package's on the same files:
 * ``parse_source`` and its refusals equal JAX's;
 * ``signals_from_hub`` types a snapshot as JAX's does;
 * ``python -m tpu_dist_torch.obs hub --once`` prints JAX's page byte for
-  byte and exits as JAX's does; ``--out`` writes the same file; ``--archive``
-  exits 2 naming the ROADMAP item it waits for;
+  byte and exits as JAX's does; ``--out`` writes the same file (``--archive``
+  is ``test_torch_obs_archive.py``'s);
 * ``HubServer`` serves the last published page over HTTP.
 
 Every comparison is exact (the same floats parsed from the same text).
@@ -183,15 +183,6 @@ def test_obs_hub_out_and_refusals_exit_as_jax(tmp_path, capsys):
                  ["hub", "--once", "--run", "a=x", "--run", "a=y"]):
         assert obs.main(argv) == jax_obs.main(argv) == 2
     capsys.readouterr()
-
-
-def test_obs_hub_archive_exits_2_naming_its_item(tmp_path, capsys):
-    pod = _pod(str(tmp_path))
-    assert obs.main(["hub", "--once", "--run", f"tr={pod['files']['tr']}",
-                     "--archive", str(tmp_path / "a.jsonl")]) == 2
-    err = capsys.readouterr().err
-    assert "hub --archive is not ported" in err and "obs/archive.py" in err
-    assert not (tmp_path / "a.jsonl").exists()
 
 
 def test_hub_server_serves_the_last_published_page(tmp_path):

@@ -132,11 +132,11 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # test_torch_trainer_health.py; trace_file, memory_check and
 # hbm_budget_bytes in tests/test_torch_memory_ledger.py and
 # test_torch_export_trace.py; fsdp and sharded_ckpt in
-# tests/test_torch_fsdp*.py and test_torch_*sharded_ckpt.py.
+# tests/test_torch_fsdp*.py and test_torch_*sharded_ckpt.py; tensorboard_dir
+# and debug_replica_check in tests/test_torch_tensorboard.py and
+# test_torch_consistency.py.
 UNPORTED_CASES = (
-    ("tensorboard_dir", "tb", "Queue A 6"),
-    ("auto_shard", "plan", "Queue A 6"),
-    ("debug_replica_check", True, "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
+    ("auto_shard", "plan", "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),
 )
 

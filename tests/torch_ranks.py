@@ -308,6 +308,11 @@ def ladder_rank(rank, world, cfg_kw):
         t.close()
 
 
+def ladders_rank(rank, world, cfgs):
+    """:func:`ladder_rank` of each config in turn."""
+    return [ladder_rank(rank, world, cfg) for cfg in cfgs]
+
+
 def fit_rank(rank, world, cfg_kw):
     """:func:`fit_run` on one rank; returns the error it raised (None)."""
     return fit_run(cfg_kw)["error"]
@@ -757,7 +762,7 @@ def seq_fit_rank(rank, world, cfgs, params, augment=False):
     held to the numpy path without crops unless ``augment``; returns per
     config the epoch dicts, the first dispatch's step cost, the data
     extent, the (train, eval) batch a rank and the first train batch's
-    images and labels."""
+    images and labels, and the final state (flat, on every rank)."""
     from tpu_dist_torch import bridge  # noqa: PLC0415
     from tpu_dist_torch.config.config import TrainConfig  # noqa: PLC0415
     from tpu_dist_torch.data import native  # noqa: PLC0415
@@ -785,7 +790,8 @@ def seq_fit_rank(rank, world, cfgs, params, augment=False):
         finally:
             t.close()
         out.append({"epochs": epochs, "cost": t._step_cost, "n_data": t.n_data,
-                    "batches": (t.local_batch, t.eval_batch), "first_batch": first})
+                    "batches": (t.local_batch, t.eval_batch), "first_batch": first,
+                    "state": bridge.train_state_to_flat(t.state)})
     return out
 
 
@@ -1252,4 +1258,131 @@ def fsdp_fit_rank(rank, world, cfgs):
         out.append({"losses": first["losses"], "error": first["error"],
                     "state": first["state"], "start": start, "resumed": state,
                     "ledger": first["ledger"], "cost": first["cost"]})
+    return out
+
+
+# -- ZeRO-1 under the seq axis --------------------------------------------------
+
+
+def zero1_sp_state(opt_name, data, seed=5):
+    """A fresh ``vit_tiny`` state with ZeRO-1's flat optimizer state of
+    ``opt_name`` laid over the data axis ``data`` (an ``AxisGroup``)."""
+    import dataclasses  # noqa: PLC0415
+
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+    from tpu_dist_torch.train import optim  # noqa: PLC0415
+    from tpu_dist_torch.train import step as step_lib  # noqa: PLC0415
+    from tpu_dist_torch.train.state import TrainState  # noqa: PLC0415
+
+    opt = getattr(optim, opt_name)()
+    model = vit.vit_tiny(device="cpu", seed=seed)
+    lay = step_lib.axis_layout(model, data)
+    return dataclasses.replace(
+        TrainState.create(model, opt), layout=lay,
+        opt_state=step_lib.init_sharded_opt_state(model, opt, layout=lay))
+
+
+def zero1_sp_ckpt_rank(rank, world, cases, root):
+    """For each case ``{opt, flat, jax}`` on a ``[world/2, 2]`` data x seq
+    mesh: the state of ``flat`` (ZeRO-1 over the data axis) flattened to
+    rank 0 and to every rank; its plain, sync-sharded and async-sharded
+    saves under ``root/<opt>``, each restored into a fresh state; and the
+    JAX saves ``jax`` (``{"plain", "sharded"}``) restored through the
+    elastic remapper. Returns per case the flat dicts (None off rank 0
+    for the ones gathered to it), this rank's layout and its data group's
+    members."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from tpu_dist_torch import bridge, ckpt  # noqa: PLC0415
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.elastic import remap as remap_lib  # noqa: PLC0415
+
+    mesh.seq_axis(2)
+    data = mesh.data_axis(2)
+    out = []
+    for case in cases:
+        st = bridge.load_train_state(zero1_sp_state(case["opt"], data), case["flat"])
+        L = ckpt.params_len(bridge.jax_layout_template(st.params)[0])
+        meta = {"elastic": ckpt.elastic_stamp(data.size, data.size, L)}
+        d = os.path.join(root, case["opt"])
+        res = {"dst0": bridge.train_state_to_flat(st, dst=0),
+               "all": bridge.train_state_to_flat(st),
+               "layout": (st.layout.world, st.layout.rank, st.layout.lo),
+               "group": dist.get_process_group_ranks(st.layout.group)}
+        paths = {"plain": ckpt.save(os.path.join(d, "plain"), st, 0, extra_meta=meta),
+                 "sharded": ckpt.save_sharded(os.path.join(d, "sharded"), st, 0,
+                                              extra_meta=meta)}
+        w = ckpt.AsyncShardedCheckpointer()
+        paths["async"] = w.save(os.path.join(d, "async"), st, 0, extra_meta=meta)
+        assert w.close(timeout=60.0)
+        # every rank reads the paths rank 0 published
+        paths = {k: os.path.join(d, k, "ckpt_0.npz" if k == "plain" else "ckpt_0.manifest.json")
+                 for k in paths}
+        res["paths"] = paths
+        for src, path in list(paths.items()) + [("jax_" + k, p) for k, p in case["jax"].items()]:
+            fresh = zero1_sp_state(case["opt"], data, seed=9)
+            if path.endswith(".manifest.json"):
+                remap = remap_lib.make_remapper(bridge.jax_layout_template(fresh.params)[0],
+                                                ckpt.read_sharded_meta(path), data.size)
+                fresh = ckpt.restore_sharded(path, fresh, remap=remap)
+            else:
+                remap = remap_lib.make_remapper(bridge.jax_layout_template(fresh.params)[0],
+                                                ckpt.read_meta(path), data.size)
+                fresh = bridge.load_train_state(fresh, ckpt.restore(
+                    path, verify=True, template=bridge.restore_template(fresh), remap=remap))
+            res[src] = bridge.train_state_to_flat(fresh, dst=0)
+        out.append(res)
+    return out
+
+
+# -- the replica check ------------------------------------------------------------
+
+
+def replica_check_rank(rank, world, delta):
+    """``metrics/consistency.py::check_replicated`` on 4 ranks: ``vit_tiny``
+    equal everywhere; its ``head.weight[0, 0]`` moved by ``delta`` on rank
+    1; a narrow ResNet's BN statistics (``check_state``) with one running
+    variance moved on rank 3; a TP ViT at tp 2 (``[data 2, model 2]``)
+    checked over its replicas, over the world, and with a shard moved on
+    rank 3. Returns each check's ``AssertionError`` message, or None."""
+    import torch  # noqa: PLC0415
+
+    from tpu_dist_torch.comm import mesh  # noqa: PLC0415
+    from tpu_dist_torch.metrics import consistency  # noqa: PLC0415
+    from tpu_dist_torch.nn import vit  # noqa: PLC0415
+    from tpu_dist_torch.train.state import TrainState  # noqa: PLC0415
+    from tpu_dist_torch.train.optim import SGD  # noqa: PLC0415
+
+    def outcome(fn):
+        try:
+            fn()
+        except AssertionError as e:
+            return str(e)
+        return None
+
+    out = {}
+    model = vit.vit_tiny(device="cpu", seed=0)
+    out["equal"] = outcome(lambda: consistency.check_replicated(model, "params"))
+    if rank == 1:
+        with torch.no_grad():
+            model.head.weight[0, 0] += delta
+    out["perturbed"] = outcome(lambda: consistency.check_replicated(model, "params"))
+    out["within_atol"] = outcome(lambda: consistency.check_replicated(
+        model, "params", atol=2 * delta))
+    st = TrainState.create(narrow_resnet(10, "cpu", 0), SGD())
+    if rank == 3:
+        next(v for k, v in st.bn_state.items() if k.endswith("running_var")).add_(0.5)
+    out["bn"] = outcome(lambda: consistency.check_state(st))
+    tm = mesh.tp_mesh(2)
+    tp_model = vit.ViT(image_size=32, patch_size=4, dim=32, depth=1, heads=4, num_classes=5,
+                       device="cpu", seed=0, tp=tm["model"])
+    group = tm["data"].group
+    out["tp_replicas"] = outcome(lambda: consistency.check_replicated(tp_model, "params",
+                                                                      group=group))
+    out["tp_world"] = outcome(lambda: consistency.check_replicated(tp_model, "params"))
+    if rank == 3:
+        with torch.no_grad():
+            next(tp_model.parameters()).view(-1)[0] += delta
+    out["tp_perturbed"] = outcome(lambda: consistency.check_replicated(tp_model, "params",
+                                                                       group=group))
     return out

@@ -32,7 +32,8 @@ state, the int8_ef residuals) cross as the JAX package's GLOBAL arrays:
 ``['ef']['r2']`` of one padded vector, each in the JAX ravel order (the
 sorted pytree leaves, each in its JAX layout: :func:`jax_ravel_order`),
 where the port keeps the model's parameter order. Each rank holds only
-its own shard or row, so writing gathers them (every rank must call
+its own shard or row (under ``--sp`` over the data axis, every seq index
+of a data row the same), so writing gathers them (every rank must call
 :func:`train_state_to_flat` then; with ``dst`` only that rank receives
 them and builds the dict), and :func:`load_train_state` takes
 this rank's part of each. :func:`restore_template` gives the global
@@ -941,15 +942,22 @@ def _from_jax_order(vec: np.ndarray, order: np.ndarray) -> np.ndarray:
 
 def _gathered_flat_parts(state, dst: Optional[int] = None) -> Optional[Dict[str, np.ndarray]]:
     """The flat parts as the JAX package's global arrays, in its ravel
-    order. Gathers over the process group: every rank must call it. With
-    ``dst``, only rank ``dst`` receives the vectors and returns them; the
-    other ranks send their parts and return None."""
-    parts, mine = _flat_parts(state), dst is None or collectives.rank() == dst
+    order. Gathers over the layout's group (the data axis under ``--sp``,
+    else every rank): every rank must call it. With ``dst``, only rank
+    ``dst`` receives the vectors and returns them; the other members of its
+    group send their parts, the ranks of the other groups (the other seq
+    indices, whose parts are the same) send nothing, and all return None.
+    Without ``dst`` each group gathers its own copy."""
+    parts = _flat_parts(state)
+    group = state.layout.group if parts else None
+    if dst is not None and not collectives.holds(group, dst):
+        return None
+    mine = dst is None or collectives.rank() == dst
     out = {}
     for key, (t, kind) in parts.items():
         x = t.detach().float()
-        full = (collectives.all_gather_flat(x, kind="ckpt") if dst is None
-                else collectives.gather_flat(x, dst, kind="ckpt"))
+        full = (collectives.all_gather_flat(x, group=group, kind="ckpt") if dst is None
+                else collectives.gather_flat(x, dst, group=group, kind="ckpt"))
         if not mine:
             continue
         full, order = full.cpu().numpy(), jax_ravel_order(state.params)
@@ -1234,8 +1242,8 @@ def shard_pieces(state) -> tuple:
     """``(pieces, shapes)``: ``{(key, origin): host array}`` of the windows
     this rank writes to a sharded checkpoint, and every leaf's global
     shape (:func:`shard_windows`). The flat parts are gathered to rank 0
-    over the group, so every rank must call this when the state has
-    any."""
+    over the layout's group (the data axis of seq index 0 under ``--sp``),
+    so every rank must call this when the state has any."""
     flat = _gathered_flat_parts(state, dst=0)
     windows, shapes = shard_windows(state)
     pieces = {}

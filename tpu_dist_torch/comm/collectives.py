@@ -88,6 +88,14 @@ def global_rank(group, index: int) -> int:
     return dist.get_global_rank(group, index)
 
 
+def holds(group, member: int) -> bool:
+    """Whether the default group's rank ``member`` is a member of ``group``
+    (None: the default group, which holds every rank)."""
+    if group is None or not active():
+        return True
+    return member in dist.get_process_group_ranks(group)
+
+
 def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
                 kind: str = "other") -> torch.Tensor:
     """In-place all-reduce of ``x`` (``op`` in sum/max/min); counted under
@@ -152,14 +160,15 @@ def all_gather_flat(x: torch.Tensor, *, group=None, kind: str = "other") -> torc
 
 def gather_flat(x: torch.Tensor, dst: int = 0, *, group=None,
                 kind: str = "other") -> Optional[torch.Tensor]:
-    """:func:`all_gather_flat` received by rank ``dst`` alone: every rank's
-    flat ``x`` concatenated in rank order there, None on the other ranks.
-    Counted under ``comm.gather.<kind>``."""
+    """:func:`all_gather_flat` received by rank ``dst`` alone (a rank of the
+    default group, and a member of ``group``): every member's flat ``x``
+    concatenated in rank order there, None on the other members. Counted
+    under ``comm.gather.<kind>``."""
     x = x.reshape(-1).contiguous()
     if not active():
         return x.clone()
     counters.inc(f"comm.gather.{kind}")
-    if rank(group) != dst:
+    if rank() != dst:
         dist.gather(x, dst=dst, group=group)
         return None
     out = torch.empty(world_size(group) * x.numel(), dtype=x.dtype, device=x.device)

@@ -17,16 +17,52 @@ Subcommands::
         capture has nothing to attribute (a ``CaptureError``), 2 when the
         path cannot be read.
 
+    tail <run.jsonl> [--heartbeat hb.json] [--interval S] [--once] [--rows N]
+        Follow a live run (``obs/tail.py``): a rolling per-epoch table
+        (throughput, p50, stall, MFU, goodput), the latest alert, anomaly,
+        straggler, resume, fleet, serving, memory and postmortem lines and
+        a heartbeat liveness row; torn tails tolerated. Exits 0 when the
+        run's closing record lands; ``--once`` renders once (exit 1 when
+        the log holds no record).
+
     compare <baseline.jsonl> <candidate.jsonl> [--threshold 0.05]
             [--goodput] [--slo] [--format text|json]
+    compare <candidate> --against-archive <archive.jsonl> [--bench]
+            [--band-k 3.0] [--band-window 20] [--format text|json]
         Regression gate over two history JSONLs (``obs/compare.py``):
         throughput, step-time percentiles, stall fraction, MFU, final
         metrics and goodput; ``--goodput`` restricts it to the
         time-to-useful-work metrics, ``--slo`` to the serving SLO metrics
         of the ``serve`` records (lower latency is never flagged). Exit 1
         on a regression beyond the threshold, 2 when nothing compared.
-        ``--bench`` and ``--against-archive`` are not ported: exit 2
-        naming their ROADMAP item.
+        With ``--against-archive`` the one input (a history, or with
+        ``--bench`` a bench output) gates against the archive's rolling
+        median ± k·MAD bands (``obs/archive.py``); a band of STALE records
+        only, or no band at all, is exit 2. ``--bench`` between two bench
+        outputs is not ported: exit 2 naming its ROADMAP item.
+
+    archive ingest <artifact> [<artifact> ...] [--archive archive.jsonl]
+        Fold run artifacts (bench JSONLs, ``BENCH_*.json`` /
+        ``MULTICHIP_*.json`` wrappers, ``--log_file`` histories, shard /
+        plan / tune reports) into one append-only archive of
+        ``archive_record_v1`` lines (``obs/archive.py``), idempotent by
+        fingerprint, stale re-emissions flagged. Exit 1 when the inputs
+        held nothing archivable, 2 when one cannot be read or classified.
+
+    trend <archive.jsonl> [--metric NAME] [--window N] [--blame]
+          [--inject-regression] [--format text|json]
+        Per-metric series over the archive with a CUSUM changepoint
+        detector; ``--blame`` names the first archived record after each
+        shift. ``--inject-regression`` probes the gate and the detector:
+        exit 2 when either is dead.
+
+    pod <host0.jsonl> <host1.jsonl> ... [--heartbeat hb.json ...]
+        [--trace-out pod_trace.json] [--format text|json]
+        Cross-host aggregation (``obs/aggregate.py``): per-host goodput
+        ledgers side by side, per-epoch skew with its attribution, the
+        decision chains, heartbeat liveness, captures and serving rollups;
+        ``--trace-out`` writes one merged Perfetto trace, a track per host
+        and the chip-ownership track.
 
     postmortem <dir> [<dir> ...] [--out bundle.json] [--annotate]
         [--tail N] [--format text|json]
@@ -60,11 +96,8 @@ Subcommands::
         and the pod rollups; ``--once`` prints (or ``--out`` writes) one
         pass and exits 1 when no run could be read, else it publishes
         every ``--interval`` to ``--out`` and ``GET /metrics`` on
-        ``--port`` until interrupted. ``--archive`` is not ported: exit 2
-        naming its ROADMAP item.
-
-The other subcommands of ``python -m tpu_dist.obs`` exit 2 naming the
-ROADMAP item they wait for (:data:`UNPORTED`).
+        ``--port`` until interrupted. ``--archive PATH`` appends one
+        pod-rollup archive record a pass.
 
 Exit codes: 0 ok, 1 empty/unusable input (or, for ``compare``, a
 regression), 2 bad invocation, I/O error or not ported. File crunching
@@ -78,20 +111,6 @@ import json
 import os
 import sys
 import time
-
-_TELEMETRY = "Queue A 6 (telemetry: obs/*)"
-
-#: The subcommands of ``python -m tpu_dist.obs`` that the port lacks.
-UNPORTED = {
-    "tail": f"{_TELEMETRY}, obs/tail.py",
-    "archive": f"{_TELEMETRY}, obs/archive.py",
-    "trend": f"{_TELEMETRY}, obs/archive.py",
-    "pod": f"{_TELEMETRY}, obs/aggregate.py",
-}
-
-#: Where ``compare --against-archive`` waits.
-ARCHIVE_QUEUE = f"{_TELEMETRY}, obs/archive.py"
-
 
 def _not_ported(what: str, queue: str) -> int:
     print(f"tpu_dist_torch.obs: {what} is not ported to tpu_dist_torch yet; "
@@ -118,28 +137,81 @@ def main(argv=None) -> int:
     xp.add_argument("--top", type=int, default=10, metavar="K",
                     help="top-K ops by self time (default 10)")
     xp.add_argument("--format", choices=("text", "json"), default="text")
+    tl = sub.add_parser("tail", help="follow a live run: rolling epoch table + alerts")
+    tl.add_argument("log", help="the run's --log_file JSONL (may still be growing)")
+    tl.add_argument("--heartbeat", default=None, metavar="FILE",
+                    help="the run's --heartbeat_file for a liveness row")
+    tl.add_argument("--interval", type=float, default=2.0, metavar="S",
+                    help="poll and redraw interval (default 2 s)")
+    tl.add_argument("--once", action="store_true",
+                    help="render the current state once and exit")
+    tl.add_argument("--rows", type=int, default=None, metavar="N",
+                    help="epochs kept in the rolling table")
     c = sub.add_parser(
         "compare",
         help="regression gate: diff two runs' telemetry, exit 1 on regression",
     )
-    c.add_argument("baseline", help="baseline history JSONL")
-    c.add_argument("candidate", nargs="?", default=None, help="candidate history JSONL")
+    c.add_argument("baseline", help="baseline history JSONL; with --against-archive the one "
+                                    "candidate input")
+    c.add_argument("candidate", nargs="?", default=None,
+                   help="candidate history JSONL (omitted with --against-archive)")
     c.add_argument(
         "--threshold", type=float, default=0.05, metavar="FRAC",
         help="relative regression tolerance (default 0.05 = 5%%); each "
              "metric adds its own absolute noise slack on top",
     )
     c.add_argument("--bench", action="store_true",
-                   help="inputs are bench.py outputs (not ported)")
+                   help="inputs are bench.py outputs (with --against-archive; not ported "
+                        "between two inputs)")
     c.add_argument("--goodput", action="store_true",
                    help="gate on the time-to-useful-work metrics only")
     c.add_argument("--slo", action="store_true",
                    help="gate on the serving SLO metrics only (serve records)")
     c.add_argument("--against-archive", default=None, metavar="ARCHIVE",
-                   dest="against_archive", help="not ported")
-    c.add_argument("--band-k", type=float, default=None, metavar="K", help="not ported")
-    c.add_argument("--band-window", type=int, default=None, metavar="N", help="not ported")
+                   dest="against_archive",
+                   help="gate the one candidate against this archive's rolling median ± "
+                        "k·MAD bands instead of one baseline")
+    c.add_argument("--band-k", type=float, default=None, metavar="K",
+                   help="band half-width in MADs (--against-archive; default 3.0)")
+    c.add_argument("--band-window", type=int, default=None, metavar="N",
+                   help="band over the last N non-stale records (--against-archive; "
+                        "default 20)")
     c.add_argument("--format", choices=("text", "json"), default="text")
+    ar = sub.add_parser(
+        "archive",
+        help="longitudinal run archive: fold run artifacts into one append-only "
+             "fingerprinted archive.jsonl",
+    )
+    ar.add_argument("action", choices=("ingest",),
+                    help="'ingest' folds the given artifacts in (idempotent by fingerprint)")
+    ar.add_argument("inputs", nargs="+",
+                    help="artifacts: bench JSONLs, BENCH_*.json / MULTICHIP_*.json wrappers, "
+                         "--log_file histories, shard/plan/tune reports")
+    ar.add_argument("--archive", "-a", default="archive.jsonl", metavar="PATH",
+                    help="the archive JSONL to append to (default archive.jsonl)")
+    ar.add_argument("--format", choices=("text", "json"), default="text")
+    tr = sub.add_parser(
+        "trend",
+        help="per-metric series over the archive, CUSUM changepoints, --blame, "
+             "--inject-regression",
+    )
+    tr.add_argument("archive", help="the archive JSONL (archive ingest)")
+    tr.add_argument("--metric", default=None, help="render only this metric's series")
+    tr.add_argument("--window", type=int, default=None, metavar="N",
+                    help="keep only the trailing N points a series")
+    tr.add_argument("--blame", action="store_true",
+                    help="name the first archived record after each detected shift")
+    tr.add_argument("--inject-regression", action="store_true", dest="inject_regression",
+                    help="probe: injected past-band candidates must be caught, improvements "
+                         "clean, an injected changepoint localized; a dead detector exits 2")
+    tr.add_argument("--format", choices=("text", "json"), default="text")
+    pd = sub.add_parser("pod", help="merge per-host logs into one cross-host report / timeline")
+    pd.add_argument("logs", nargs="+", help="per-host JSONL histories")
+    pd.add_argument("--heartbeat", action="append", default=[], metavar="FILE",
+                    help="per-host heartbeat file(s) for liveness rows")
+    pd.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="also write one merged Perfetto trace (a track per host)")
+    pd.add_argument("--format", choices=("text", "json"), default="text")
     pm = sub.add_parser(
         "postmortem",
         help="assemble per-rank crash-forensics bundles from a run's leftover files",
@@ -176,7 +248,8 @@ def main(argv=None) -> int:
     hb.add_argument("--stale-after", type=float, default=None, metavar="S",
                     help="heartbeat age past which a run reads dead (default: "
                          "hub.STALE_AFTER_S)")
-    hb.add_argument("--archive", default=None, metavar="PATH", help="not ported")
+    hb.add_argument("--archive", default=None, metavar="PATH",
+                    help="append one pod-rollup archive record a pass to this archive")
     mm = sub.add_parser(
         "memory",
         help="memory report: ledger snapshots, mem.* gauge series, OOM events, peak-HBM gate "
@@ -190,15 +263,19 @@ def main(argv=None) -> int:
     t = sub.add_parser("export-trace", help="write Chrome trace-event JSON")
     t.add_argument("log", help="JSONL history written by --log_file")
     t.add_argument("-o", "--out", default=None, help="output path (default: <log>.trace.json)")
-    for name in UNPORTED:
-        sub.add_parser(name, add_help=False, help="not ported")
-    args, rest = ap.parse_known_args(argv)
+    args = ap.parse_args(argv)
 
-    if args.cmd in UNPORTED:
-        return _not_ported(repr(args.cmd), UNPORTED[args.cmd])
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.cmd == "tail":
+        from tpu_dist_torch.obs import tail as tail_lib  # noqa: PLC0415
 
+        return tail_lib.run_tail(args.log, heartbeat=args.heartbeat, interval=args.interval,
+                                 once=args.once, **({"rows": args.rows} if args.rows else {}))
+    if args.cmd == "pod":
+        return _pod(args)
+    if args.cmd == "archive":
+        return _archive(args)
+    if args.cmd == "trend":
+        return _trend(args)
     if args.cmd == "hub":
         return _hub(args)
     if args.cmd == "memory":
@@ -240,14 +317,18 @@ def main(argv=None) -> int:
 
     from tpu_dist_torch.obs import compare as compare_lib  # noqa: PLC0415
 
-    if args.against_archive or args.band_k is not None or args.band_window is not None:
-        return _not_ported("compare --against-archive", ARCHIVE_QUEUE)
-    if args.bench:
-        return _not_ported("compare --bench", compare_lib.BENCH_QUEUE)
+    if args.against_archive:
+        return _against_archive(args)
     if args.candidate is None:
-        print("tpu_dist_torch.obs: compare needs a baseline and a candidate",
+        print("tpu_dist_torch.obs: compare needs a baseline and a candidate "
+              "(or --against-archive)", file=sys.stderr)
+        return 2
+    if args.band_k is not None or args.band_window is not None:
+        print("tpu_dist_torch.obs: --band-k/--band-window only apply with --against-archive",
               file=sys.stderr)
         return 2
+    if args.bench:
+        return _not_ported("compare --bench", compare_lib.BENCH_QUEUE)
     try:
         result = compare_lib.compare_files(
             args.baseline, args.candidate, threshold=args.threshold,
@@ -377,10 +458,123 @@ def _export_trace(args) -> int:
     return 0
 
 
+def _pod(args) -> int:
+    """The ``pod`` subcommand (``tpu_dist/obs/__main__.py:538-563``)."""
+    from tpu_dist_torch.obs import aggregate as aggregate_lib  # noqa: PLC0415
+    from tpu_dist_torch.obs import summarize as summ  # noqa: PLC0415
+
+    hosts = []
+    for path in args.logs:
+        try:
+            records, _bad = summ.load_records(path)
+        except OSError as e:
+            print(f"tpu_dist_torch.obs: cannot read {path}: {e}", file=sys.stderr)
+            return 2
+        if not records:
+            print(f"tpu_dist_torch.obs: no records in {path}", file=sys.stderr)
+            return 1
+        hosts.append((path, records))
+    report = aggregate_lib.pod_report(hosts, heartbeats=args.heartbeat)
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(aggregate_lib.format_text(report))
+    if args.trace_out:
+        trace = aggregate_lib.pod_trace(hosts)
+        with open(args.trace_out, "w") as f:
+            json.dump(trace, f)
+        print(f"wrote {len(trace['traceEvents'])} event(s) across {len(hosts)} host track(s) "
+              f"to {args.trace_out}")
+    return 0
+
+
+def _archive(args) -> int:
+    """The ``archive ingest`` subcommand (``tpu_dist/obs/__main__.py:567-584``)."""
+    from tpu_dist_torch.obs import archive as archive_lib  # noqa: PLC0415
+
+    try:
+        report = archive_lib.ingest_paths(args.inputs, args.archive)
+    except (OSError, ValueError) as e:
+        print(f"tpu_dist_torch.obs: archive ingest failed: {e}", file=sys.stderr)
+        return 2
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(archive_lib.format_ingest_text(report))
+    if report["records_seen"] == 0:
+        print("tpu_dist_torch.obs: the inputs held no archivable records", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _trend(args) -> int:
+    """The ``trend`` subcommand (``tpu_dist/obs/__main__.py:586-626``)."""
+    from tpu_dist_torch.obs import archive as archive_lib  # noqa: PLC0415
+
+    try:
+        records, _counts = archive_lib.load_archive(args.archive)
+    except OSError as e:
+        print(f"tpu_dist_torch.obs: cannot read {args.archive}: {e}", file=sys.stderr)
+        return 2
+    if not records:
+        print(f"tpu_dist_torch.obs: no archive records in {args.archive}", file=sys.stderr)
+        return 1
+    if args.inject_regression:
+        probe = archive_lib.inject_probe(records)
+        if args.format == "json":
+            print(json.dumps(probe, indent=2))
+        else:
+            print(archive_lib.format_probe_text(probe))
+        if archive_lib.probe_is_dead(probe):
+            # an injected regression unflagged, an improvement flagged, or a
+            # changepoint not localized: every real pass would be vacuous
+            print("tpu_dist_torch.obs: the injected-regression probe came back CLEAN — the "
+                  "archive gate / changepoint detector is dead", file=sys.stderr)
+            return 2
+        return 0
+    report = archive_lib.trend_report(records, metric=args.metric, window=args.window)
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(archive_lib.format_trend_text(report, blame=args.blame))
+    return 0
+
+
+def _against_archive(args) -> int:
+    """``compare --against-archive`` (``tpu_dist/obs/__main__.py:629-675``)."""
+    from tpu_dist_torch.obs import archive as archive_lib  # noqa: PLC0415
+
+    if args.candidate is not None:
+        print("tpu_dist_torch.obs: --against-archive takes ONE candidate positional (the "
+              "archive IS the baseline)", file=sys.stderr)
+        return 2
+    if args.goodput or args.slo:
+        print("tpu_dist_torch.obs: --goodput/--slo gate two history logs; the archive gate "
+              "bands every registered metric", file=sys.stderr)
+        return 2
+    try:
+        result = archive_lib.gate_files(
+            args.against_archive, args.baseline, bench=args.bench,
+            **({"k": args.band_k} if args.band_k is not None else {}),
+            **({"window": args.band_window} if args.band_window is not None else {}))
+    except (OSError, ValueError) as e:
+        print(f"tpu_dist_torch.obs: archive gate failed: {e}", file=sys.stderr)
+        return 2
+    if args.format == "json":
+        print(json.dumps(result, indent=2))
+    else:
+        print(archive_lib.format_gate_text(result))
+    if result["compared"] == 0:
+        # all-stale bands or no overlap: a gate that compared nothing
+        print("tpu_dist_torch.obs: the archive band compared nothing"
+              + (" — every relevant record is STALE" if result.get("stale") else ""),
+              file=sys.stderr)
+        return 2
+    return 1 if result["regressions"] else 0
+
+
 def _hub(args) -> int:
     """The ``hub`` subcommand (``tpu_dist/obs/__main__.py:479-535``)."""
-    if args.archive:
-        return _not_ported("hub --archive", ARCHIVE_QUEUE)
     from tpu_dist_torch.obs import hub as hub_lib  # noqa: PLC0415
 
     if not args.runs:
@@ -395,6 +589,8 @@ def _hub(args) -> int:
     except ValueError as e:
         print(f"tpu_dist_torch.obs: {e}", file=sys.stderr)
         return 2
+    if args.archive:
+        from tpu_dist_torch.obs import archive as archive_lib  # noqa: PLC0415
     if args.once:
         snap = h.collect()
         if args.out:
@@ -402,6 +598,8 @@ def _hub(args) -> int:
             print(f"federated {snap['rollup']['runs_aggregated']} run(s) to {args.out}")
         else:
             print(h.federated(snap), end="")
+        if args.archive:
+            archive_lib.append_hub_snapshot(args.archive, snap)
         return 0 if snap["rollup"]["runs_aggregated"] else 1
     server = hub_lib.HubServer(args.port) if args.port else None
     if server is not None:
@@ -414,6 +612,9 @@ def _hub(args) -> int:
                 h.write(args.out, snap)
             if server is not None:
                 server.publish(text)
+            if args.archive:
+                # one pod-rollup record a pass: the fleet's series grows
+                archive_lib.append_hub_snapshot(args.archive, snap)
             time.sleep(args.interval)
     except KeyboardInterrupt:
         return 0

@@ -13,10 +13,14 @@ text and the exit codes are the JAX package's.
 
 The bench mode (``bench.py`` outputs, matched by metric name, with
 capture fingerprints) waits for the port's H100 benchmark: ROADMAP
-Queue A 2e. Host file crunching only.
+Queue A 2e. The bench files' readers (:func:`load_bench_records`,
+:func:`capture_fingerprint`) serve the archive's ingest and its gate
+(``obs/archive.py``). Host file crunching only.
 """
 
 from __future__ import annotations
+
+import json
 
 from typing import List, Optional, Tuple
 
@@ -307,6 +311,18 @@ def _result(rows: List[dict], threshold: float) -> dict:
 
 
 
+def capture_fingerprint(rec: dict) -> Optional[tuple]:
+    """A bench record's capture identity (``bench.py`` stamps the host, a
+    per-invocation id and a monotonic capture time into every record): two
+    records with one fingerprint are one capture, so a candidate that
+    re-emits the baseline's is a stale copy. None on a record without the
+    stamp."""
+    cap = rec.get("capture")
+    if isinstance(cap, dict) and cap.get("bench_run_id"):
+        return (cap.get("host"), cap.get("bench_run_id"), cap.get("mono_s"))
+    return None
+
+
 # -- input loading -----------------------------------------------------------
 
 
@@ -400,3 +416,28 @@ def format_text(result: dict) -> str:
     )
     return "\n".join(lines)
 
+
+def load_bench_records(path: str) -> dict:
+    """A bench output (a JSON object a line) as ``{metric name: record}``;
+    a torn line is skipped, and nothing parsed is a ``ValueError``."""
+    return {rec["metric"]: rec for rec in _load_bench_list(path)}
+
+
+def _load_bench_list(path: str) -> List[dict]:
+    """The bench records of ``path`` in order, duplicates kept (the
+    archive must see a re-emitted record)."""
+    out: List[dict] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(rec, dict) and rec.get("metric"):
+                out.append(rec)
+    if not out:
+        raise ValueError(f"no bench records in {path}")
+    return out

@@ -24,6 +24,9 @@ them over the data axis; ``layout`` (a :class:`FlatLayout`) then says how:
   gradient's residual; ZeRO-1 keeps ``r1`` only. Otherwise ``ef`` is
   ``()``.
 
+Under ``--sp`` the flat state lies over the data axis alone: ``layout.rank``
+is the data index, and every seq index of a data row holds the same part.
+
 The flat coordinates follow the model's parameter order and layout; the
 checkpoint writes them in the JAX ravel order (``bridge.py``).
 
@@ -50,11 +53,15 @@ import torch
 class FlatLayout:
     """The flat state's lay-out over the ranks: ``L`` raveled parameters,
     padded to ``padded = chunk·world`` (``chunk = ceil(L/world)``) with a
-    zero tail, rank ``rank`` holding ``[rank·chunk, (rank+1)·chunk)``."""
+    zero tail, rank ``rank`` holding ``[rank·chunk, (rank+1)·chunk)``.
+    ``group`` is the process group of the ``world`` ranks (the data axis's
+    under ``--sp``; None: the default group), over which a checkpoint
+    gathers the flat parts."""
 
     L: int
     world: int
     rank: int
+    group: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def chunk(self) -> int:

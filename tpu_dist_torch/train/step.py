@@ -228,10 +228,11 @@ def flat_layout(params, world: Optional[int] = None, rank: Optional[int] = None)
 
 def axis_layout(params, axis=None) -> FlatLayout:
     """:func:`flat_layout` over the data axis ``axis`` (an
-    :class:`~tpu_dist_torch.comm.mesh.AxisGroup`; None: every rank)."""
+    :class:`~tpu_dist_torch.comm.mesh.AxisGroup`; None: every rank), its
+    group kept in the layout."""
     if axis is None:
         return flat_layout(params)
-    return flat_layout(params, axis.size, axis.index)
+    return dataclasses.replace(flat_layout(params, axis.size, axis.index), group=axis.group)
 
 
 def ef_state_host_zeros(params, n: int, *, zero1: bool = False) -> dict:

@@ -34,10 +34,13 @@ the train batch is sharded over the data axis only (``batch_size //
 (world/sp)`` a rank), and its stream, examples and crops, is keyed by the
 data index, so every rank of a seq group draws the same batch; evaluation
 is sharded over data x seq with no sequence parallelism. The JAX
-trainer's refusals stand (:func:`check_sp_config`, :func:`check_sp_model`);
-ZeRO-1 under ``sp`` waits for its checkpoint gather
-(:data:`SP_ZERO1_QUEUE`). A checkpoint's ``dp`` and a mid-epoch snapshot's
-process count are the data extent, the sampler's shard count.
+trainer's refusals stand (:func:`check_sp_config`, :func:`check_sp_model`).
+ZeRO-1 under ``sp`` lays its flat state over the data axis
+(:func:`~tpu_dist_torch.comm.mesh.data_axis`), as JAX lays it over
+``n_data``: every seq index of a data row holds the same shard, and a
+checkpoint gathers it over the data axis of seq index 0. A checkpoint's
+``dp`` and a mid-epoch snapshot's process count are the data extent, the
+sampler's shard count.
 
 ``tp > 1`` (a ViT) lays the world out as ``[world/tp, tp]`` = ``[data,
 model]``, or with ``sp`` as ``[world/(tp·sp), tp, sp]``
@@ -151,6 +154,14 @@ Checkpoint / resume, preemption and the history are the JAX trainer's:
   ``alert`` history and ring record, and its ``alert_active`` gauge. The
   exposition carries the goodput gauges below, and the cost model's,
   the memory ledger's and the compile counters.
+* ``tensorboard_dir`` (rank 0, :mod:`tpu_dist_torch.metrics.tensorboard`,
+  opened and closed around ``fit``) writes ``step/loss``, ``step/grad_norm``
+  and ``step/update_ratio`` at every metrics fetch, ``train/<k>`` and
+  ``train/lr`` an epoch and ``eval/top1``, ``eval/top5`` and ``eval/loss``,
+  as the JAX trainer does; ``debug_replica_check`` holds every rank's
+  parameters and BN statistics against its replicas' first rank's at the
+  end of each streaming epoch
+  (:func:`~tpu_dist_torch.metrics.consistency.check_replicated`).
 * The goodput ledger (:mod:`tpu_dist_torch.obs.goodput`,
   ``tpu_dist/train/trainer.py:143-144``): every second from the Trainer's
   construction to the end of ``fit`` lands in one bucket. A restore is
@@ -271,6 +282,7 @@ from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.elastic import remap as remap_lib
 from tpu_dist_torch.elastic.supervisor import decision_from_env
 from tpu_dist_torch.evaluation.validate import validate
+from tpu_dist_torch.metrics import consistency, tensorboard
 from tpu_dist_torch.metrics.history import MetricsHistory, per_rank_path
 from tpu_dist_torch.metrics.logging import rank0_print
 from tpu_dist_torch.metrics.meters import AverageMeter
@@ -304,13 +316,10 @@ _MODELS = {
     "vit_moe_tiny": vit_moe.vit_moe_tiny, "vit_pp_tiny": vit_pp.vit_pp_tiny,
 }
 
-_TELEMETRY = "Queue A 6 (telemetry: obs/*)"
 _ANALYSIS = "Queue A 6 (the analysis layer)"
 
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
-    "tensorboard_dir": (None, _TELEMETRY),
-    "debug_replica_check": (False, _TELEMETRY),
     "auto_shard": ("off", _ANALYSIS),
     "tune_report": ("", _ANALYSIS),
     "compile_cache_dir": (None, 'Queue A "No port owed" (the port compiles no XLA '
@@ -400,16 +409,10 @@ def refuse_unported(cfg: TrainConfig) -> None:
             raise NotPortedError(flag, value, queue)
 
 
-# what ZeRO-1 under sp > 1 waits for in the trainer (the step runs it)
-SP_ZERO1_QUEUE = ("Queue A 3 (ZeRO-1 under --sp: the checkpoint's gather of the flat state "
-                  "over the data axis)")
-
-
 def check_sp_config(cfg: TrainConfig) -> None:
     """The JAX trainer's refusals of ``sp``/``sp_mode`` that need no model
     (``tpu_dist/train/trainer.py:326-380``): ``sp_mode`` is ring or
-    ulysses; with ``sp > 1`` the fused epoch and fsdp are refused, and
-    ZeRO-1 raises :class:`NotPortedError` (:data:`SP_ZERO1_QUEUE`)."""
+    ulysses; with ``sp > 1`` the fused epoch and fsdp are refused."""
     if cfg.sp_mode not in ("ring", "ulysses"):
         raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {cfg.sp_mode!r}")
     if cfg.sp < 1:
@@ -426,8 +429,6 @@ def check_sp_config(cfg: TrainConfig) -> None:
             "both a hand-written collective schedule and the "
             "GSPMD partitioner"
         )
-    if cfg.shard_weight_update:
-        raise NotPortedError("shard_weight_update", True, SP_ZERO1_QUEUE)
 
 
 def check_fsdp_config(cfg: TrainConfig) -> None:
@@ -926,8 +927,13 @@ class Trainer:
         if cfg.pp > 1:
             check_pp_model(cfg, world // ways)
         check_sp_model(cfg, self.model, world // cfg.tp)  # the data x seq devices
+        # ZeRO-1's flat state lies over the data axis: under sp its groups
+        # are every sp-th rank (the default group without sp)
+        self.zero1_axis = None
         if cfg.sp > 1 and cfg.tp == 1:
             self.seq = mesh.seq_axis(cfg.sp)
+            if cfg.shard_weight_update:
+                self.zero1_axis = mesh.data_axis(cfg.sp)
         if cfg.ep > 1 and cfg.batch_size % world:
             raise ValueError(f"with ep>1, batch_size {cfg.batch_size} must divide over all "
                              f"{world} devices (the expert axis carries data)")
@@ -1023,7 +1029,7 @@ class Trainer:
         if cfg.shard_weight_update or cfg.grad_compression == "int8_ef":
             # this rank's part of the flat state: ZeRO-1's optimizer shard,
             # the int8_ef residuals (zeros, the cold start)
-            lay = step_lib.flat_layout(self.model)
+            lay = step_lib.axis_layout(self.model, self.zero1_axis)
             opt = (step_lib.init_sharded_opt_state(self.model, self.optimizer, layout=lay)
                    if cfg.shard_weight_update else self.state.opt_state)
             ef = (step_lib.init_ef_state(self.model, zero1=cfg.shard_weight_update, layout=lay)
@@ -1059,7 +1065,8 @@ class Trainer:
                 grad_compression=cfg.grad_compression, quant_chunk=cfg.quant_chunk or None,
                 rs_ag_chunks=cfg.rs_ag_chunks, device_metrics=cfg.device_metrics,
                 seq_axis=self.seq, sp_mode=cfg.sp_mode, tp_axis=self.tp, ep_axis=self.ep,
-                pp_axis=self.pipe, axis=self.replicas, moe_aux_coef=cfg.moe_aux_coef,
+                pp_axis=self.pipe, moe_aux_coef=cfg.moe_aux_coef,
+                axis=self.zero1_axis if self.zero1_axis is not None else self.replicas,
                 model_kwargs=({"n_microbatches": cfg.pp_microbatches}
                               if cfg.pp > 1 and cfg.pp_microbatches else None),
             )
@@ -1155,6 +1162,7 @@ class Trainer:
         self._exporter = None
         self._alerts = None
         self._history = None  # fit's history, for the alert records
+        self._tb = None  # fit's SummaryWriter on rank 0 (tensorboard_dir)
         self._export_rollup: dict = {}
         self._export_t = float("-inf")
         self._resumed = None  # the restore's 'resume' ring record, stamped by fit
@@ -1192,6 +1200,12 @@ class Trainer:
         if self._owns_group and collectives.active():
             torch.distributed.destroy_process_group()
         self._owns_group = False
+
+    def _replica_group(self):
+        """The process group of the ranks that hold this rank's copies (the
+        ``replicas`` under ``--tp``, ``--ep`` and ``--pp``; None: the
+        world, data x seq under ``--sp``): ``--debug_replica_check``'s."""
+        return self.replicas.group if self.replicas is not None else None
 
     def _lr(self, epoch: int) -> float:
         """The scheduled learning rate times the auto-recovery scale."""
@@ -1739,7 +1753,7 @@ class Trainer:
                     # the health layer on the same host copy: device_stats,
                     # the alert rules, the anomaly detector (a non-finite
                     # finding is logged before the guard below raises)
-                    self._observe_health(epoch, step, m)
+                    self._observe_health(epoch, step, nb, m)
                     # a periodic exact snapshot never publishes a diverged state
                     self._guard(m["loss"], f"at epoch {epoch} step {step}", lr,
                                 " — caught at the mid-epoch snapshot boundary before writing "
@@ -1777,6 +1791,10 @@ class Trainer:
             out = {}
         if out:
             self._guard(out["loss"], f"at end of epoch {epoch}", lr)
+        if cfg.debug_replica_check:
+            # every rank's parameters and BN statistics against its
+            # replicas' first rank's, bit for bit
+            consistency.check_state(self.state, group=self._replica_group())
         dt = time.time() - t0
         ips = images_seen / dt if dt > 0 else 0.0
         rank0_print(f"Epoch {epoch} done in {dt:.2f}s ({ips:.0f} img/s, avg loss {losses.avg:.4f})")
@@ -1865,7 +1883,7 @@ class Trainer:
         self._publish_memory_gauges()
         # the only grain the fused path has: the epoch-mean loss
         # (device_metrics is refused with fused_epoch)
-        self._observe_health(epoch, None, m)
+        self._observe_health(epoch, None, 0, m)
         if self._stop_agreed():
             # the fused epoch has no step grain: its end is the first point a
             # SIGTERM can be honoured at, and the epoch is complete there
@@ -1968,6 +1986,8 @@ class Trainer:
                                  all_processes=cfg.per_host_log)
         self._last_epoch = self.start_epoch
         self._best_top1 = -1.0
+        self._tb = (tensorboard.SummaryWriter(cfg.tensorboard_dir)
+                    if cfg.tensorboard_dir and mesh.process_index() == 0 else None)
         attempts = cfg.auto_recover
         if self._telemetry:
             # construction armed the recorder; a second fit re-arms it,
@@ -2032,6 +2052,9 @@ class Trainer:
                 ev = self._profiler.close()
                 if ev is not None:
                     self._note_profile_event(ev, self._last_epoch, None)
+            if self._tb is not None:
+                self._tb.close()
+                self._tb = None
             self._close_goodput(history)
             self._close_live()
             if self._telemetry:
@@ -2184,7 +2207,7 @@ class Trainer:
         if self._exporter is not None:
             self._export_live(force=True)
 
-    def _observe_health(self, epoch: int, step, m: dict) -> None:
+    def _observe_health(self, epoch: int, step, nb: int, m: dict) -> None:
         """The health layer over the metrics the loop already fetched
         (``tpu_dist/train/trainer.py:1992-2103``), with no device traffic
         of its own: a ``device_stats`` history record (with
@@ -2195,13 +2218,20 @@ class Trainer:
         ``profile_trigger`` anomaly) and, under ``anomaly_action
         snapshot``, a synchronous plain save off the ``ckpt_`` namespace.
         The fed values are the same on every rank and the detector is
-        deterministic, so every rank takes the same snapshot branch. The
-        JAX trainer's per-step TensorBoard scalars wait for
-        ``tensorboard_dir`` (ROADMAP Queue A 4)."""
+        deterministic, so every rank takes the same snapshot branch. With
+        ``tensorboard_dir``, rank 0's per-step scalars (``step/loss``,
+        ``step/grad_norm``, ``step/update_ratio``) at the global step
+        ``epoch·nb + step``."""
         cfg, history = self.cfg, self._history
         if history is not None and "grad_norm" in m:
             history.log("device_stats", epoch=epoch, step=step,
                         **{k: m[k] for k in step_lib.DEVICE_STATS if k in m})
+        if self._tb is not None and step is not None:
+            gs = epoch * nb + step
+            self._tb.add_scalar("step/loss", m["loss"], gs)
+            for k in ("grad_norm", "update_ratio"):
+                if k in m:
+                    self._tb.add_scalar(f"step/{k}", m[k], gs)
         if self._exporter is not None:
             for k in ("grad_norm", "param_norm", "update_ratio"):
                 if k in m:
@@ -2481,6 +2511,11 @@ class Trainer:
                         # the flagged rank's next steps explain the skew
                         # (rank 0's would show it waiting in the all-reduce)
                         self._profiler.arm("straggler")
+            if self._tb is not None:
+                for k in ("loss", "acc1", "acc5", "images_per_sec", "mfu"):
+                    if k in last:
+                        self._tb.add_scalar(f"train/{k}", last[k], epoch)
+                self._tb.add_scalar("train/lr", self._lr(epoch), epoch)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                 with self._goodput.timed("eval"):
                     if self._fused_eval is not None:
@@ -2490,6 +2525,10 @@ class Trainer:
                                                  epoch=epoch)
                 last.update(val_top1=t1, val_top5=t5, val_loss=vloss)
                 history.log("eval", epoch=epoch, top1=t1, top5=t5, loss=vloss)
+                if self._tb is not None:
+                    self._tb.add_scalar("eval/top1", t1, epoch)
+                    self._tb.add_scalar("eval/top5", t5, epoch)
+                    self._tb.add_scalar("eval/loss", vloss, epoch)
                 if cfg.ckpt_dir and t1 > self._best_top1:
                     self._best_top1 = t1
                     # outside the eval's region: no second counts twice
