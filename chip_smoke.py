@@ -485,7 +485,26 @@ Phases; any failure exits non-zero and prints no result line:
    --inject-regression`` and ``compare --against-archive`` of the log
    against its own band exit 0. ``[zero1-sp]`` lines; the report repeats
    them.
-20. report: the card's name and power limit, one JSON line of every ported
+20. analysis, in this process after phase 19, with no CUDA child, over a
+   1-rank NCCL group (the CLI runs on the group it finds): (a) ``python -m
+   tpu_dist_torch.analysis shard --inject-reshard`` over every family that
+   fits one card (the 8 data-parallel ones, fsdp, serve_eval): exit 0,
+   TD116/TD117 clean, each family's executed inventory by kind the one the
+   CPU tests pin at one rank (``tests/test_torch_shardlint.py::WORLD1``),
+   and the injected raw all-gather caught (TD117). (b) ``tune-overlap
+   --inject-payload`` and ``plan --from-report --tune-report
+   --inject-miscost`` from it: exit 0, every knob TD121-clean, the plan
+   TD118-verified against a fresh run of its family, both probes caught.
+   (c) ``Trainer.fit`` at ResNet-18's bench shapes, 3 steps under
+   ``--seed``, with ``--auto_shard apply --tune_report`` (b)'s report (no
+   ``--fused_optimizer``: a chosen ``fsdp`` refuses it, as a hand-written
+   config would be refused), then
+   the same fit with the chosen family's flags and the applied knobs set by
+   hand: losses and final state bit for bit. Each part's seconds, the
+   chosen family and its ``predicted_step_s``; the fused SGD's launches
+   (one a proxy step of each SGD family on the card, and the fits') count
+   into the kernels line. ``[analysis]`` lines; the report repeats them.
+21. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
    as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
@@ -6000,6 +6019,169 @@ def phase_zero1_sp(work: str) -> tuple:
     return launches, mma, numbers
 
 
+# -- phase 20: the analysis layer ---------------------------------------------------
+
+# (a): the families one card runs, and their executed inventory at one rank:
+# (ops, elements, ring-model bytes) by kind and the payload bytes, the
+# numbers tests/test_torch_shardlint.py::WORLD1 pins on the CPU's group of
+# one (the data-parallel wrappers issue at a group of one; FSDP shards
+# nothing at one rank, so only its metrics all-reduce is left)
+ANALYSIS_WORLD1 = {
+    "dp_sgd": ({"all-reduce": (2, 483, 3864)}, 3840),
+    "dp_sgd_accum4": ({"all-reduce": (2, 483, 3864)}, 3840),
+    "dp_bf16": ({"all-reduce": (2, 483, 3864)}, 3840),
+    "dp_wire_bf16": ({"all-reduce": (2, 483, 1944)}, 1920),
+    "dp_int8": ({"all-to-all": (2, 482, 488), "all-gather": (2, 482, 488),
+                 "all-reduce": (1, 3, 24)}, 960),
+    "dp_int8_ef": ({"all-to-all": (2, 482, 488), "all-gather": (2, 482, 488),
+                    "all-reduce": (1, 3, 24)}, 960),
+    "zero1_sgd": ({"reduce-scatter": (1, 480, 1920), "all-gather": (1, 480, 1920),
+                   "all-reduce": (1, 3, 24)}, 3840),
+    "zero1_int8": ({"all-to-all": (2, 482, 488), "all-gather": (1, 480, 1920),
+                    "all-reduce": (1, 3, 24)}, 2400),
+    "fsdp": ({"all-reduce": (1, 4, 32)}, 0),
+    "serve_eval": ({"all-reduce": (1, 4, 32)}, 0),
+}
+ANALYSIS_RESNET_RUN = dict(  # bench.py:240's resnet18_cifar100 shapes, 1 epoch of 3 steps
+    model="resnet18", num_classes=100, dataset="synthetic", synthetic_n=1_280,
+    batch_size=256, bf16=True, sync_bn=True, lr=0.1, epochs=1, steps_per_epoch=3,
+    eval_every=1, log_every=1, seed=1,
+)
+
+#: phase 20's result lines, repeated by the report
+ANALYSIS_SUMMARY: list = []
+
+
+def _p20_say(msg: str, keep: bool = True) -> None:
+    print(f"[analysis] {msg}", flush=True)
+    if keep:
+        ANALYSIS_SUMMARY.append(f"[analysis] {msg}")
+
+
+def _analysis_cli(argv: list) -> int:
+    from tpu_dist_torch.analysis import __main__ as analysis_cli  # noqa: PLC0415
+
+    return analysis_cli.main([*argv, "--device", DEVICE, "--nprocs", "1"])
+
+
+def _analysis_reports(d: str) -> tuple:
+    """(a) and (b) over the process group of one; returns the tune report's
+    path and the plan."""
+    from tpu_dist_torch.analysis import overlap, planner, shardlint  # noqa: PLC0415
+
+    shard, tune, plan_path = (os.path.join(d, f"{n}.json") for n in ("shard", "tune", "plan"))
+    t0 = time.perf_counter()
+    rc = _analysis_cli(["shard", *(a for f in sorted(ANALYSIS_WORLD1) for a in ("--family", f)),
+                        "--inject-reshard", "--out", shard])
+    shard_s = time.perf_counter() - t0
+    check(rc == 0, f"(a) shard exited {rc}")
+    report = shardlint.load_shard_report(shard)
+    got = {name: ({k: (v["ops"], v["elems"], v["bytes"]) for k, v in e["hlo"]["by_kind"].items()},
+                  e["hlo"]["wire"]["payload_bytes"]) for name, e in report["families"].items()}
+    check(got == ANALYSIS_WORLD1, f"(a) the executed inventory at one rank: {got}")
+    check(all(e["verdict"]["agree"] and not e["violations"]
+              for e in report["families"].values()), "(a) TD116/TD117 fired")
+    check(report["injected_reshard_probe"]["caught"]
+          and any(v["rule"] == "TD117" for v in report["injected_reshard_probe"]["violations"]),
+          "(a) the injected raw all-gather was not caught")
+    _p20_say(f"(a) shard over {len(got)} families on the card's 1-rank NCCL group "
+             f"({report['device_kind']}): exit 0, TD116/TD117 clean, every inventory the CPU "
+             f"tests' one-rank pin, the injected raw all-gather caught "
+             f"({len(report['injected_reshard_probe']['violations'])} violation(s)); "
+             f"{shard_s:.1f} s")
+    t0 = time.perf_counter()
+    rc = _analysis_cli(["tune-overlap", "--inject-payload", "--out", tune])
+    check(rc == 0, f"(b) tune-overlap exited {rc}")
+    rc = _analysis_cli(["plan", "--from-report", shard, "--tune-report", tune,
+                        "--inject-miscost", "--out", plan_path])
+    check(rc == 0, f"(b) plan exited {rc}")
+    plan_s = time.perf_counter() - t0
+    tuned, plan = overlap.load_tune_report(tune), planner.load_plan_report(plan_path)
+    check(tuned["counts"]["violations"] == 0 and tuned["injected_payload_probe"]["caught"],
+          f"(b) tune: {tuned['counts']}")
+    check(plan["verification"]["verified"] and plan["injected_miscost_probe"]["caught"],
+          "(b) TD118: the plan did not verify, or the miscost was not caught")
+    chosen = plan["chosen"]
+    _p20_say(f"(b) tune-overlap ({tuned['objective']}): "
+             + ", ".join(f"{f} {json.dumps(e['chosen']['knobs'], sort_keys=True)}"
+                         for f, e in sorted(tuned["families"].items()))
+             + f", the payload probe caught; plan: {plan['counts']['candidates']} candidates "
+             f"[{plan['gauge_source']}], chosen {chosen['family']} predicted_step_s "
+             f"{chosen['predicted_step_s']}, TD118 verified, the miscost probe caught; "
+             f"{plan_s:.1f} s")
+    return tune, plan
+
+
+def _analysis_fit(cfg: TrainConfig) -> tuple:
+    """``Trainer.fit`` of ``cfg``; returns (losses, the final state as a
+    checkpoint holds it, the trainer's plan and tune records, the config
+    trained, seconds)."""
+    counters_lib.reset()
+    t0 = time.perf_counter()
+    t = trainer_lib.Trainer(cfg)
+    try:
+        losses = []
+        inner = t.train_step
+
+        def step(st, images, labels, lr):
+            st, m = inner(st, images, labels, lr)
+            losses.append(m["loss"])
+            return st, m
+
+        t.train_step = step
+        t.fit()
+        saved = bridge.train_state_to_flat(t.state)
+    finally:
+        t.close()
+    return ([float(x) for x in losses], saved, t._plan, t._tune, t.cfg,
+            time.perf_counter() - t0)
+
+
+def phase_analysis(work: str) -> dict:
+    """Phase 20 (module docstring). Returns the kernels' launches on its
+    main paths (#4 in the SGD families' proxy steps and in the fits)."""
+    from tpu_dist_torch.analysis import planner  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="analysis_", dir=work)
+    reset_launches()
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        tune, _ = _analysis_reports(d)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    auto = TrainConfig(**ANALYSIS_RESNET_RUN, auto_shard="apply", tune_report=tune,
+                       device=DEVICE, port=_free_port())
+    losses, saved, plan, tuned, cfg, auto_s = _analysis_fit(auto)
+    family = plan["family"]
+    flags = {**planner.family_train_overrides(family), **tuned["applied"]}
+    check(plan["applied"] and all(getattr(cfg, k) == v for k, v in flags.items()),
+          f"(c) the applied config {plan} {flags}")
+    by_hand = TrainConfig(**ANALYSIS_RESNET_RUN, **flags, device=DEVICE, port=_free_port())
+    losses2, saved2, _, _, _, hand_s = _analysis_fit(by_hand)
+    check(len(losses) == ANALYSIS_RESNET_RUN["steps_per_epoch"]
+          and all(map(math.isfinite, losses)), f"(c) losses {losses}")
+    check(losses == losses2, f"(c) --auto_shard apply {losses} vs by hand {losses2}")
+    check(saved.keys() == saved2.keys()
+          and all(np.array_equal(saved[k], saved2[k]) for k in saved),
+          "(c) the final states differ")
+    launches = read_launches()
+    check(launches["fused_sgd"] > 0 and all(launches[k] == 0 for k in MMA_KERNELS),
+          f"(c) launches {launches}: want #4's, none of #1-#3")
+    _p20_say(f"(c) Trainer.fit --auto_shard apply --tune_report, ResNet-18 (bench shapes: "
+             f"batch 256, bf16, --seed 1), 1-rank NCCL group: plan "
+             f"{family} (predicted_step_s {plan['predicted_step_s']}, {plan['gauge_source']}, "
+             f"{plan['n_candidates']} candidates), flags {flags}, knobs applied "
+             f"{tuned['applied']} ({tuned['family']}); losses "
+             f"{[round(x, 4) for x in losses]} bit for bit with the flags set by hand, the "
+             f"final state too; {auto_s:.1f} s with the plan, {hand_s:.1f} s by hand")
+    shutil.rmtree(d, ignore_errors=True)
+    _p20_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: {_smi_line()}")
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -6050,13 +6232,15 @@ def _phases(work: str) -> int:
     zsp, zsp_mma, zsp_numbers = phase_zero1_sp(work)
     for name, numbers in zsp_numbers.items():
         measured[name].update(numbers)
+    analysis = phase_analysis(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
                 + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
-                + mp[name] + pp[name] + fsdp[name] + zsp[name] for name in KERNELS}
+                + mp[name] + pp[name] + fsdp[name] + zsp[name] + analysis[name]
+                for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
                                                   + seq_mma[name] + mp_mma[name] + pp_mma[name]
@@ -6087,6 +6271,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 19, ZeRO-1 under the seq axis and the telemetry, again:")
     for msg in ZSP_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 20, the analysis layer, again:")
+    for msg in ANALYSIS_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

@@ -134,9 +134,9 @@ def test_epoch_dict_has_the_jax_keys(runs):
 # test_torch_export_trace.py; fsdp and sharded_ckpt in
 # tests/test_torch_fsdp*.py and test_torch_*sharded_ckpt.py; tensorboard_dir
 # and debug_replica_check in tests/test_torch_tensorboard.py and
-# test_torch_consistency.py.
+# test_torch_consistency.py; auto_shard and tune_report in
+# tests/test_torch_auto_shard.py.
 UNPORTED_CASES = (
-    ("auto_shard", "plan", "Queue A 6"), ("tune_report", "t.json", "Queue A 6"),
     ("compile_cache_dir", "cache", "No port owed"),
 )
 

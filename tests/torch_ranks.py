@@ -21,6 +21,7 @@ program itself keeps torch's defaults.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import socket
@@ -231,8 +232,9 @@ def fit_run(cfg_kw, *, epochs=None, interrupt_at=None, kill_at=None, nan_at=None
     emergency snapshot), and the call ``nan_at`` reports a NaN loss. Returns
     a dict: per-call losses and learning rates, the epoch dicts, the final
     state as the flat checkpoint dict, the start epoch, the LR scale and the
-    exception ``fit`` raised (its type name), if any, the static ledger's
-    params section and the first step's cost count."""
+    exception ``fit`` raised (its type name), if any, the ``--auto_shard``
+    plan and ``--tune_report`` record, the config trained (as a dict), the
+    static ledger's params section and the first step's cost count."""
     import signal  # noqa: PLC0415
 
     from tpu_dist_torch import bridge  # noqa: PLC0415
@@ -273,6 +275,8 @@ def fit_run(cfg_kw, *, epochs=None, interrupt_at=None, kill_at=None, nan_at=None
     finally:
         t.close()
     out["state"] = bridge.train_state_to_flat(t.state)
+    out["plan"], out["tune"] = t._plan, t._tune
+    out["cfg"] = dataclasses.asdict(t.cfg)
     out["lr_scale"] = t._lr_scale
     out["ledger"] = t._mem_static["sections"]["params"]
     out["cost"] = t._step_cost
@@ -1386,3 +1390,72 @@ def replica_check_rank(rank, world, delta):
     out["tp_perturbed"] = outcome(lambda: consistency.check_replicated(tp_model, "params",
                                                                        group=group))
     return out
+
+
+# -- the analysis layer ---------------------------------------------------------
+
+
+def shard_audit_rank(rank, world, params, families):
+    """The analysis layer over this group: for each data-parallel family of
+    ``families``, its step from the JAX proxy's weights ``params`` run once,
+    traced (its executed inventory by kind, the executed wire buckets, the
+    predicted inventory by kind, the count of collective calls and the
+    dtypes of its all-reduces); then the whole shard report, its
+    violations, and the violations of the injected ZeRO-1 probe."""
+    from tpu_dist_torch.analysis import shardlint, step_audit  # noqa: PLC0415
+    from tpu_dist_torch.train.step import family_step_kwargs  # noqa: PLC0415
+
+    dp = {}
+    for fam in families:
+        step, args = step_audit._dp_setup("cpu", params=params, **family_step_kwargs(fam))
+        _, trace = step_audit.traced(step, *args)
+        dp[fam] = {"executed": shardlint.hlo_totals(trace.ops)["by_kind"],
+                   "wire": shardlint.hlo_wire_buckets(trace.ops),
+                   "predicted": trace.predicted()["by_kind"], "calls": len(trace.calls),
+                   "reduce_dtypes": sorted({op.dtype for op in trace.ops
+                                            if op.kind == "all-reduce"})}
+    report, vs = shardlint.build_shard_report("cpu")
+    _, inj = shardlint.shard_case("zero1_sgd", "cpu",
+                                  step_override=shardlint.injected_bad_zero1("cpu"))
+    return dp, report, [v.to_json() for v in vs], [v.to_json() for v in inj]
+
+
+def tune_rank(rank, world):
+    """The overlap tuner over this group: its report and violations, and
+    the TD121 violations of the payload-perturbed copy."""
+    from tpu_dist_torch.analysis import overlap  # noqa: PLC0415
+
+    report, vs = overlap.tune("cpu")
+    return report, [v.to_json() for v in vs], [
+        v.to_json() for v in overlap.recheck_report(overlap.inject_payload(report))]
+
+
+def auto_shard_rank(rank, world, cfg_kw, tune_path):
+    """The trainer's analysis flags on this group, each a ``fit_run``:
+    ``--auto_shard apply``, then the chosen family's flags set by hand;
+    ``--auto_shard plan``; ``--tune_report`` (a ZeRO-1 run, and the same
+    with ``rs_ag_chunks`` set by the user). Returns the runs."""
+    from tpu_dist_torch.analysis import planner  # noqa: PLC0415
+
+    out = {"apply": fit_run({**cfg_kw, "auto_shard": "apply"})}
+    family = out["apply"]["plan"]["family"]
+    out["by_hand"] = fit_run({**cfg_kw, **planner.family_train_overrides(family)})
+    out["plan"] = fit_run({**cfg_kw, "auto_shard": "plan"})
+    zero1 = {**cfg_kw, "shard_weight_update": True, "tune_report": tune_path, "log_file": None}
+    out["tuned"] = fit_run(zero1)
+    out["user_knob"] = fit_run({**zero1, "rs_ag_chunks": 4})
+    return out
+
+
+def plan_rank(rank, world, gauges):
+    """The shard report of every family over this group, the plan priced
+    from it (``gauges``, no memory budget), the plan's TD118 probe and
+    violations, and the violations of its ``inject_miscost`` copy."""
+    from tpu_dist_torch.analysis import planner, shardlint  # noqa: PLC0415
+
+    report, _ = shardlint.build_shard_report("cpu")
+    plan = planner.build_plan(device="cpu", shard_report=report, gauges=gauges,
+                              hbm_budget_bytes=10**12)
+    probe, vs = planner.verify_plan(plan, "cpu")
+    _, inj = planner.verify_plan(planner.inject_miscost(plan), "cpu")
+    return report, plan, probe, [v.to_json() for v in vs], [v.to_json() for v in inj]

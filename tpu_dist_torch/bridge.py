@@ -404,6 +404,8 @@ def state_dict_to_jax(module, sd: Dict[str, np.ndarray]) -> tuple:
         return vit_pp_state_dict_to_jax(sd), {}
     if isinstance(module, ViT):
         return vit_state_dict_to_jax(sd), {}
+    if _is_audit_mlp(module):
+        return audit_mlp_state_dict_to_jax(sd), {}
     raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT, a ViT-MoE "
                     "or a pipelined ViT")
 
@@ -418,6 +420,8 @@ def _from_jax_fn(module):
         return vit_pp_state_dict_from_jax
     if isinstance(module, ViT):
         return vit_state_dict_from_jax
+    if _is_audit_mlp(module):
+        return audit_mlp_state_dict_from_jax
     raise TypeError(f"no JAX layout for a {type(module).__name__}: a ResNet, a ViT, a ViT-MoE "
                     "or a pipelined ViT")
 
@@ -514,6 +518,37 @@ def load_jax_vit(module: torch.nn.Module, params) -> torch.nn.Module:
     rank's shards of the full arrays). Raises on any unknown, missing or
     misshapen entry."""
     return _load(module, _from_jax_fn(module)(params))
+
+
+# -- the analysis layer's proxy MLP ---------------------------------------------
+
+
+def _is_audit_mlp(module) -> bool:
+    from tpu_dist_torch.analysis.step_audit import _AuditMLP  # noqa: PLC0415
+
+    return isinstance(module, _AuditMLP)
+
+
+def audit_mlp_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
+    """The JAX analysis proxy's MLP (``{"w1": [12, 16], "b1", "w2": [16,
+    16], "b2"}``, ``tpu_dist/analysis/jaxpr_audit.py::_AuditMLP``) as the
+    port's state dict (``analysis/step_audit.py::_AuditMLP``: ``fc1`` and
+    ``fc2`` in the Linear layout)."""
+    return {"fc1.weight": np.asarray(params["w1"]).T, "fc1.bias": np.asarray(params["b1"]),
+            "fc2.weight": np.asarray(params["w2"]).T, "fc2.bias": np.asarray(params["b2"])}
+
+
+def audit_mlp_state_dict_to_jax(sd: Dict[str, np.ndarray]) -> dict:
+    """:func:`audit_mlp_state_dict_from_jax` the other way."""
+    return {"w1": np.asarray(sd["fc1.weight"]).T, "b1": np.asarray(sd["fc1.bias"]),
+            "w2": np.asarray(sd["fc2.weight"]).T, "b2": np.asarray(sd["fc2.bias"])}
+
+
+def load_jax_audit_mlp(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy JAX's proxy MLP weights (``jaxpr_audit._AuditMLP().init(
+    PRNGKey(0))``'s, as numpy) into the port's in place. Raises on any
+    unknown, missing or misshapen entry."""
+    return _load(module, audit_mlp_state_dict_from_jax(params))
 
 
 def numpy_vit_params(model, seed: int = 0):

@@ -19,7 +19,10 @@ Usage::
 
 The rank-0 start line names the optimizer, ``remat`` and the input
 pipeline that feeds the run: ``input=native (...)``, or ``input=numpy
-(<why the C++ library is not there>)``.
+(<why the C++ library is not there>)``. With ``--auto_shard plan|apply`` a
+second line names the planner's choice, as JAX's does: ``auto_shard=apply
+plan=zero1_sgd (applied) predicted_step=...s [rates: ...]``; the
+config printed is the one the run trains (``apply`` rewrites it).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ def main(argv: Optional[Sequence[str]] = None, **preset) -> None:
     from tpu_dist_torch.train.trainer import Trainer  # noqa: PLC0415
 
     trainer = Trainer(cfg)
+    cfg = trainer.cfg  # --auto_shard apply may have rewritten the config
     try:
         rank0_print(
             f"tpu_dist_torch: model={cfg.model} ranks={trainer.n_devices} "
@@ -51,6 +55,15 @@ def main(argv: Optional[Sequence[str]] = None, **preset) -> None:
             f"fused_optimizer={cfg.fused_optimizer} optimizer={cfg.optimizer} "
             f"remat={cfg.remat} input={trainer.input_pipeline}"
         )
+        plan = trainer._plan
+        if plan is not None:
+            pred = plan.get("predicted_step_s")
+            rank0_print(
+                f"tpu_dist_torch: auto_shard={plan['mode']} plan={plan['family']}"
+                + (" (applied)" if plan.get("applied") else " (advisory)")
+                + (f" predicted_step={pred:g}s" if pred is not None else "")
+                + f" [rates: {plan.get('gauge_source')}]"
+            )
         trainer.fit()
     except PreemptedError as e:
         # fit() wrote the emergency snapshot; exit with the requeue-me code

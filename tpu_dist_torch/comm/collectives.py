@@ -50,6 +50,14 @@ stand for.
 
 Without an initialised process group every function is the identity of a
 world of one process and counts nothing (the lockstep forms count).
+
+While the analysis layer audits a step (``tpu_dist_torch.analysis.
+step_audit``), a recorder sits in :data:`_RECORDER`: each collective this
+module issues (:func:`all_reduce_`, :func:`reduce_scatter`,
+:func:`all_to_all`, :func:`all_gather_flat`, :func:`all_gather` and the
+sends of a ``batch_isend_irecv``) then goes through it with its kind, its
+counter label, the tensors it moves and its group. That costs one ``is
+None`` test a call when no analysis runs.
 """
 
 from __future__ import annotations
@@ -64,6 +72,13 @@ import torch.distributed as dist
 from tpu_dist_torch.obs import counters
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+#: The analysis's recorder of the collectives a step asks for (None when no
+#: analysis runs): ``_RECORDER.issue(kind, label, tensors, group, fn, *args,
+#: **kwargs)`` books the call (``kind`` the collective's, ``label`` its
+#: counter's, ``tensors`` those its wire carries) and makes it, ``fn(*args,
+#: **kwargs)``.
+_RECORDER = None
 
 
 def active() -> bool:
@@ -102,7 +117,11 @@ def all_reduce_(x: torch.Tensor, op: str = "sum", *, group=None,
     ``comm.all_reduce.<kind>``. Returns ``x``."""
     if active():
         counters.inc(f"comm.all_reduce.{kind}")
-        dist.all_reduce(x, op=_OPS[op], group=group)
+        if _RECORDER is None:
+            dist.all_reduce(x, op=_OPS[op], group=group)
+        else:
+            _RECORDER.issue("all-reduce", f"all_reduce.{kind}", (x,), group, dist.all_reduce,
+                            x, op=_OPS[op], group=group)
     return x
 
 
@@ -126,7 +145,12 @@ def reduce_scatter(x: torch.Tensor, *, group=None, kind: str = "other",
     if not active():
         return out.copy_(x.reshape(-1))
     counters.inc(f"comm.reduce_scatter.{kind}")
-    _REDUCE_SCATTER(out, x.reshape(-1).contiguous(), group=group)
+    x = x.reshape(-1).contiguous()
+    if _RECORDER is None:
+        _REDUCE_SCATTER(out, x, group=group)
+    else:
+        _RECORDER.issue("reduce-scatter", f"reduce_scatter.{kind}", (x,), group, _REDUCE_SCATTER,
+                        out, x, group=group)
     return out
 
 
@@ -142,7 +166,12 @@ def all_to_all(x: torch.Tensor, *, group=None, kind: str = "other") -> torch.Ten
     if not active():
         return out.copy_(x)
     counters.inc(f"comm.all_to_all.{kind}")
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    x = x.contiguous()
+    if _RECORDER is None:
+        dist.all_to_all_single(out, x, group=group)
+    else:
+        _RECORDER.issue("all-to-all", f"all_to_all.{kind}", (x,), group, dist.all_to_all_single,
+                        out, x, group=group)
     return out
 
 
@@ -154,7 +183,12 @@ def all_gather_flat(x: torch.Tensor, *, group=None, kind: str = "other") -> torc
     if not active():
         return out.copy_(x.reshape(-1))
     counters.inc(f"comm.all_gather.{kind}")
-    _ALL_GATHER(out, x.reshape(-1).contiguous(), group=group)
+    x = x.reshape(-1).contiguous()
+    if _RECORDER is None:
+        _ALL_GATHER(out, x, group=group)
+    else:  # costed on the gathered output, as an all-gather is
+        _RECORDER.issue("all-gather", f"all_gather.{kind}", (out,), group, _ALL_GATHER,
+                        out, x, group=group)
     return out
 
 
@@ -273,7 +307,11 @@ def all_gather(x: torch.Tensor, *, group=None, axis: int = 0) -> torch.Tensor:
     if not active():
         return x.clone()
     parts = [torch.empty_like(x) for _ in range(world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    if _RECORDER is None:
+        dist.all_gather(parts, x.contiguous(), group=group)
+    else:
+        _RECORDER.issue("all-gather", "all_gather", parts, group, dist.all_gather,
+                        parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=axis)
 
 
@@ -351,7 +389,12 @@ def _exchange(sends: list, dst, recvs: list, src, group, kind: str) -> None:
     if not ops:
         return
     counters.inc(f"comm.ppermute.{kind}")
-    for req in dist.batch_isend_irecv(ops):
+    if _RECORDER is None:
+        reqs = dist.batch_isend_irecv(ops)
+    else:  # costed on what this rank sends, as lax.ppermute is
+        reqs = _RECORDER.issue("collective-permute", f"ppermute.{kind}", sends, group,
+                               dist.batch_isend_irecv, ops)
+    for req in reqs:
         req.wait()
 
 

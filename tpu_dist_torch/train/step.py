@@ -143,6 +143,40 @@ DEVICE_METRICS_SCOPE = ("device_metrics is scoped to the replicated-param paths 
                         "any grad_compression) — it cannot combine with "
                         "shard_weight_update/tp/ep/pp")
 
+# The config families: the one registry of data-parallel flag combinations
+# that the analysis layer (tpu_dist_torch/analysis) audits, prices and
+# tunes, JAX's ``SHARD_CONFIG_FAMILIES`` (``tpu_dist/train/step.py:77-100``)
+# with its names and dtypes by name. Families that need a model or a mesh
+# beyond the flags (tp's sharded model, sp's ring attention, fsdp's shards)
+# carry the axis flags here and get their builders in
+# ``analysis/shardlint.py``; ``planner.FAMILY_TRAIN_OVERRIDES`` holds the
+# trainer flags that select each applyable one.
+SHARD_CONFIG_FAMILIES: dict = {
+    "dp_sgd": {},
+    "dp_sgd_accum4": {"grad_accum_steps": 4},
+    "dp_bf16": {"compute_dtype": "bfloat16"},  # compute policy, f32 wire
+    "dp_wire_bf16": {"grad_compression": "bf16"},
+    "dp_int8": {"grad_compression": "int8"},
+    "dp_int8_ef": {"grad_compression": "int8_ef"},
+    "zero1_sgd": {"shard_weight_update": True},
+    "zero1_int8": {"shard_weight_update": True, "grad_compression": "int8"},
+    "dp_device_metrics": {"device_metrics": True},
+    "tp": {"tp_axis": "model"},    # + a sharded model
+    "sp": {"seq_axis": "seq"},     # + a ring-attention model
+    "fsdp": {},                    # parallel/fsdp.py
+}
+
+
+def family_step_kwargs(name: str) -> dict:
+    """A :data:`SHARD_CONFIG_FAMILIES` entry as :func:`make_train_step`
+    keyword arguments (the registry names dtypes, so it stays plain data
+    that a report can hold)."""
+    kw = dict(SHARD_CONFIG_FAMILIES[name])
+    if isinstance(kw.get("compute_dtype"), str):
+        kw["compute_dtype"] = getattr(torch, kw["compute_dtype"])
+    return kw
+
+
 # the JAX step's refusal of a pipe axis beside ZeRO-1, a seq or an expert axis
 PP_SCOPE = ("pp_axis is incompatible with shard_weight_update / seq_axis / ep_axis "
             "(structural; see docstring)")
@@ -804,6 +838,7 @@ def make_train_step(
     sp_mode: str = "ring",
     moe_aux_coef: float = 0.01,
     model_kwargs: Optional[dict] = None,
+    preempt_flag: bool = True,
 ):
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
@@ -833,7 +868,9 @@ def make_train_step(
     ``tp_axis``) runs pipeline parallelism, the data row's batch on every
     rank, ``axis`` the mesh's data axis and the microbatch count
     ``model_kwargs={"n_microbatches": M}`` (default: the stage count).
-    ``moe_aux_coef`` weighs a MoE model's load-balancing loss."""
+    ``moe_aux_coef`` weighs a MoE model's load-balancing loss. Without
+    ``preempt_flag`` the metrics carry no ``preempt`` and their all-reduce
+    the three sums of the JAX step (the analysis layer's proxy steps)."""
     validate_grad_compression(grad_compression)
     if device_metrics and any(a is not None for a in (tp_axis, ep_axis, pp_axis)):
         raise ValueError(DEVICE_METRICS_SCOPE)  # make_step_body refuses ZeRO-1
@@ -850,13 +887,14 @@ def make_train_step(
                           rs_ag_chunks=rs_ag_chunks, device_metrics=device_metrics,
                           axis=axis, seq_axis=seq_axis, sp_mode=sp_mode, tp_axis=tp_axis,
                           ep_axis=ep_axis, pp_axis=pp_axis, moe_aux_coef=moe_aux_coef,
-                          model_kwargs=model_kwargs)
+                          model_kwargs=model_kwargs, preempt_flag=preempt_flag)
 
     def step(state: TrainState, images, labels, lr):
         dev = next(state.params.parameters()).device
         sums = body(state, _to(images, dev), _to(labels, dev), lr)
         metrics = metrics_from_sums(sums, len(labels), device_metrics)
-        metrics["preempt"] = sums[3]
+        if preempt_flag:
+            metrics["preempt"] = sums[3]
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step

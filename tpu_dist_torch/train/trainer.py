@@ -250,6 +250,16 @@ inside a step for the emergency snapshot (the replays update the state in
 place). Options that JAX's fused runner never receives are refused
 (:data:`FUSED_REFUSED`), as are mid-epoch snapshots and their resume.
 
+``auto_shard`` (``plan`` or ``apply``) runs the analysis layer's planner
+(``tpu_dist_torch/analysis/planner.py``) over this run's process group
+before the config is consumed, prints its ranked table and TD118-verifies
+its choice; ``apply`` rewrites the config to the chosen family's flags
+(refused under sp/tp/ep/pp), which then passes every check a hand-written
+config does. ``tune_report`` applies the overlap tuner's knobs for the
+run's family, a knob set by the user winning. Both log a record (``plan``,
+``tune``) at the start of ``fit``; a profiled run's drift record holds the
+plan to the step time it promised (``prediction_source: "plan"``).
+
 Every config flag whose subsystem is not ported raises
 :class:`~tpu_dist_torch.train.step.NotPortedError` naming its ROADMAP item
 (:data:`UNPORTED`); none is ignored.
@@ -316,12 +326,8 @@ _MODELS = {
     "vit_moe_tiny": vit_moe.vit_moe_tiny, "vit_pp_tiny": vit_pp.vit_pp_tiny,
 }
 
-_ANALYSIS = "Queue A 6 (the analysis layer)"
-
 # flag -> (its default, the ROADMAP item its subsystem waits for)
 UNPORTED = {
-    "auto_shard": ("off", _ANALYSIS),
-    "tune_report": ("", _ANALYSIS),
     "compile_cache_dir": (None, 'Queue A "No port owed" (the port compiles no XLA '
                                 "program to cache)"),
 }
@@ -398,6 +404,18 @@ def build_model(cfg: TrainConfig, device, seed: int = 0, **shard) -> torch.nn.Mo
         model.top_k = cfg.moe_top_k
     return model
 
+
+
+def check_config(cfg: TrainConfig) -> None:
+    """The checks of a config that need no model and no process group:
+    the layouts, the unported flags and the fused runner's refusals."""
+    if cfg.auto_shard not in ("off", "plan", "apply"):
+        raise ValueError(f"auto_shard must be off|plan|apply, got {cfg.auto_shard!r}")
+    check_parallel_config(cfg)
+    check_sp_config(cfg)
+    check_fsdp_config(cfg)
+    refuse_unported(cfg)
+    refuse_fused_options(cfg)
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -836,11 +854,7 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self._profile_triggers, self._profile_manual = check_health_options(cfg)
-        check_parallel_config(cfg)
-        check_sp_config(cfg)
-        check_fsdp_config(cfg)
-        refuse_unported(cfg)
-        refuse_fused_options(cfg)
+        check_config(cfg)
         install_fault_plan(cfg)
         self._alert_rule_list = load_live_telemetry(cfg)
         # a run is one Trainer's lifetime: its counters start at 0
@@ -863,6 +877,19 @@ class Trainer:
     def _init(self, cfg: TrainConfig) -> None:
         world, rank = mesh.process_count(), mesh.process_index()
         self.n_devices = world
+        # --auto_shard: the planner runs before this config is consumed;
+        # 'apply' rewrites it to the chosen family's flags, and
+        # --tune_report then applies the tuner's knobs for the family
+        # actually trained; a rewritten config passes every check a
+        # hand-written one does
+        self._plan = self._tune = None
+        given = cfg
+        if cfg.auto_shard != "off":
+            cfg = self.cfg = self._run_auto_shard(cfg)
+        if cfg.tune_report:
+            cfg = self.cfg = self._apply_tune_report(cfg)
+        if cfg is not given:
+            check_config(cfg)
         fsdp_warnings(cfg)
         # the triggered profiler (obs/profile.py), on every rank: anomaly
         # findings arm it on rank 0, a straggler flag on the flagged rank
@@ -1970,6 +1997,104 @@ class Trainer:
         rank0_print(f" * Acc@1 {t1:.3f} Acc@5 {t5:.3f} (epoch {epoch}, fused)")
         return t1, t5, vloss
 
+    def _run_auto_shard(self, cfg: TrainConfig) -> TrainConfig:
+        """``--auto_shard``: run the planner (``analysis/planner.py``) over
+        the family matrix on this run's process group and device (every
+        rank does) and print the ranked plan; ``apply`` returns the config
+        rewritten to the chosen family's flags. The chosen plan is
+        TD118-verified (a fresh run of its family must dispatch the priced
+        inventory): a failure refuses ``apply`` and warns under ``plan``.
+        The families' steps count nothing into this run's counters."""
+        from tpu_dist_torch.analysis import planner  # noqa: PLC0415
+
+        apply = cfg.auto_shard == "apply"
+        if apply and (cfg.sp > 1 or cfg.tp > 1 or cfg.ep > 1 or cfg.pp > 1):
+            raise ValueError(
+                "--auto_shard apply plans over the flat data-parallel "
+                "family matrix and would clobber an explicit sp/tp/ep/pp "
+                "layout — use --auto_shard plan for an advisory table"
+            )
+        with counters.deferred():
+            plan = planner.build_plan(device=self.device, hbm_budget_bytes=cfg.hbm_budget_bytes,
+                                      memory_headroom=cfg.memory_headroom,
+                                      applyable_only=apply)
+            chosen = plan.get("chosen")
+            if chosen is not None:
+                probe, violations = planner.verify_plan(plan, self.device)
+                plan["verification"] = probe
+        if chosen is None:
+            rank0_print(planner.format_text(plan))
+            if plan["counts"]["refused"]:
+                raise memory_lib.InfeasibleMemoryError(
+                    f"--auto_shard: all {plan['counts']['refused']} candidate(s) exceed the "
+                    "per-chip HBM budget — shrink the batch, raise --memory_headroom, or widen "
+                    "the mesh")
+            raise ValueError(f"--auto_shard: no candidate could be planned (skipped: "
+                             f"{plan.get('skips')})")
+        rank0_print(planner.format_text(plan))
+        if violations:
+            for v in violations:
+                rank0_print(f"=> {v}")
+            if apply:
+                raise ValueError(
+                    "--auto_shard apply: the chosen plan failed TD118 plan-must-verify "
+                    "(executed collective inventory != priced inventory) — refusing to train "
+                    "on a mispriced ranking")
+        self._plan = {
+            "family": chosen["family"],
+            "mode": cfg.auto_shard,
+            "applied": apply,
+            "predicted_step_s": chosen.get("predicted_step_s"),
+            "gauge_source": plan.get("gauge_source"),
+            "n_candidates": plan["counts"]["candidates"],
+            "n_refused": plan["counts"]["refused"],
+        }
+        if not apply:
+            return cfg
+        overrides = planner.family_train_overrides(chosen["family"])
+        rank0_print(f"=> auto_shard apply: {chosen['family']} -> "
+                    + (", ".join(f"{k}={v}" for k, v in sorted(overrides.items()))
+                       or "reference flags"))
+        return dataclasses.replace(cfg, **overrides)
+
+    def _apply_tune_report(self, cfg: TrainConfig) -> TrainConfig:
+        """``--tune_report``: load the overlap tuner's report
+        (``analysis/overlap.py``) and apply its chosen knobs for this
+        config's planner family. A knob the user set (off its default) wins
+        over the report; the applied and kept knobs are printed and become
+        ``tune.*`` gauges and a ``tune`` record at the start of ``fit``. A
+        malformed report raises ``TuneReportError``."""
+        from tpu_dist_torch.analysis import overlap, planner  # noqa: PLC0415
+
+        report = overlap.load_tune_report(cfg.tune_report)
+        family = planner.family_of(grad_compression=cfg.grad_compression, bf16=cfg.bf16,
+                                   grad_accu_steps=cfg.grad_accu_steps,
+                                   shard_weight_update=cfg.shard_weight_update, fsdp=cfg.fsdp)
+        self._tune = {"report": cfg.tune_report, "objective": report.get("objective"),
+                      "family": family, "applied": {}, "user_overrides": {}}
+        if family is None:
+            rank0_print("=> tune_report: this flag combination maps to no planner family — no "
+                        "tuned knobs to apply")
+            return cfg
+        knobs = overlap.chosen_knobs(report, family)
+        if not knobs:
+            rank0_print(f"=> tune_report: family {family} — baseline wins, no knob overrides")
+            return cfg
+        defaults = TrainConfig()
+        applied: dict = {}
+        for knob, value in sorted(knobs.items()):
+            if getattr(cfg, knob) != getattr(defaults, knob):
+                # the user set this knob: the report yields
+                self._tune["user_overrides"][knob] = getattr(cfg, knob)
+                continue
+            applied[knob] = value
+        self._tune["applied"] = applied
+        msg = ", ".join(f"{k}={v}" for k, v in sorted(applied.items()))
+        kept = ", ".join(f"{k}={v} (user)" for k, v in sorted(self._tune["user_overrides"].items()))
+        rank0_print(f"=> tune_report apply [{family}]: {msg or 'nothing'}"
+                    + (f"; kept {kept}" if kept else ""))
+        return dataclasses.replace(cfg, **applied) if applied else cfg
+
     def fit(self, epochs: Optional[int] = None) -> dict:
         """Train from ``start_epoch`` to ``epochs`` (default ``cfg.epochs``),
         validating every ``eval_every`` epochs and checkpointing into
@@ -1999,6 +2124,23 @@ class Trainer:
             n_params = sum(p.numel() for p in self.model.parameters())
             bpe = {"none": 4, "bf16": 2, "int8": 1, "int8_ef": 1}[cfg.grad_compression]
             counters.set_gauge("comm.grad_wire_bytes_per_step", 2 * bpe * n_params)
+        if self._plan is not None:
+            # the --auto_shard announcement: what the planner chose and the
+            # step time it promised (the drift record comes from a profiled
+            # run, _note_capture_analysis)
+            if self._telemetry:
+                counters.set_gauge("plan.family", self._plan["family"])
+                if self._plan.get("predicted_step_s") is not None:
+                    counters.set_gauge("plan.predicted_step_s", self._plan["predicted_step_s"])
+            history.log("plan", epoch=self.start_epoch, **self._plan)
+        if self._tune is not None:
+            # the --tune_report announcement: the schedule knobs this run
+            # trains with, as gauges and one 'tune' record
+            if self._telemetry:
+                counters.set_gauge("tune.family", self._tune.get("family") or "none")
+                for knob, value in sorted((self._tune.get("applied") or {}).items()):
+                    counters.set_gauge(f"tune.{knob}", value)
+            history.log("tune", epoch=self.start_epoch, **self._tune)
         fault_handle = self._arm_flight() if cfg.crash_dir else None
         self._log_segment(history)
         self._history = history
@@ -2311,9 +2453,11 @@ class Trainer:
         ``cost.calibration_*`` gauges, a rank-0 attribution line and a
         ``profile_analysis`` history record, then the drift of the step's
         priced time from its measured one (``plan.planner_error_frac`` and a
-        ``plan`` record, priced from this run's ``step_cost``: the port has
-        no planner); a failed analysis (counted by the hook) a warning and a
-        record with its error, never an exception."""
+        ``plan`` record): an ``--auto_shard`` plan is held to the step time
+        it promised (``prediction_source: "plan"``), a run without one to
+        its own ``step_cost`` priced with the calibration just published;
+        a failed analysis (counted by the hook) a warning and a record with
+        its error, never an exception."""
         if analysis is None:
             if error:
                 rank0_print(f"WARNING: capture analysis failed ({reason}): {error}")
@@ -2339,22 +2483,26 @@ class Trainer:
             self._history.log("profile_analysis", epoch=epoch, reason=reason,
                               dir=capture_dir, **rec)
         busy = analysis.get("device_busy_s")
-        if not (steps and isinstance(busy, (int, float)) and busy > 0 and self._step_cost):
+        if not (steps and isinstance(busy, (int, float)) and busy > 0):
             return
         achieved = busy / steps
-        pred = costmodel.predicted_step_time(card, n_devices=1, peak=self._peak or 0.0)
-        predicted = pred.get("predicted_step_s") if pred else None
+        plan = self._plan or {}
+        predicted, src = plan.get("predicted_step_s"), "plan"
+        if predicted is None and self._step_cost:
+            pred = costmodel.predicted_step_time(card, n_devices=1, peak=self._peak or 0.0)
+            predicted = pred.get("predicted_step_s") if pred else None
+            src = "step_cost"
         err = costmodel.planner_error_frac(predicted, achieved)
         if err is None:
             return
         counters.set_gauge("plan.planner_error_frac", err)
         rank0_print(f"=> planner drift (TD119): predicted {predicted:g}s vs achieved "
-                    f"{achieved:g}s per step — planner_error_frac={err:.4f} [step_cost]")
+                    f"{achieved:g}s per step — planner_error_frac={err:.4f} [{src}]")
         if self._history is not None:
-            self._history.log("plan", epoch=epoch, family=None, mode=None,
-                              predicted_step_s=predicted,
+            self._history.log("plan", epoch=epoch, family=plan.get("family"),
+                              mode=plan.get("mode"), predicted_step_s=predicted,
                               achieved_step_s=float(f"{achieved:.4g}"),
-                              planner_error_frac=err, prediction_source="step_cost")
+                              planner_error_frac=err, prediction_source=src)
 
     def _drain_spans(self, history: MetricsHistory, epoch: int) -> None:
         """Move the epoch's host spans out of the recorder: into a ``spans``
