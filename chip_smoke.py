@@ -106,7 +106,8 @@ Phases; any failure exits non-zero and prints no result line:
    the eval top-1, and a profile of 2 more steps. (c) The real entry point
    as a subprocess: ``python -m tpu_dist_torch.cli.distributed_mp
    --dataset synthetic --synthetic_n 2560 --epochs 1 --steps_per_epoch 3
-   --batch_size 256`` must exit 0 with one rank-0 epoch line.
+   --batch_size 256`` must exit 0 with one rank-0 epoch line; it runs
+   beside (e), the two children on the card at once, after (d) and (f).
    (d) Checkpoint/resume of the main path, over the same NCCL group: the
    run of (b) with ``ckpt_dir`` (a temporary directory), ``save_every=1``
    and ``mid_epoch_save_every=10``, whose 30th step (epoch 1, its 10th)
@@ -231,8 +232,7 @@ Phases; any failure exits non-zero and prints no result line:
    wedge line), the dump's wait (SIGUSR1 -> the dump settled), SIGTERM ->
    exit, the bundle's verdict and stuck frame, and the phase's seconds.
 10. elastic: ZeRO-1, the compressed gradient reduce and the elastic
-   resume, last because (d) starts CUDA children; (a)-(c) over a 1-rank
-   NCCL group, with deterministic cuDNN in (a) and (b). (a)
+   resume; (a)-(c) over a 1-rank NCCL group, with deterministic cuDNN in (a) and (b). (a)
    ``resnet18_cifar100`` at full width (bf16, batch 256, SyncBN, fused
    SGD; 20 steps on 5,120 synthetic images, no eval) through
    ``Trainer.fit``, plain and with ``shard_weight_update``, from the same
@@ -250,11 +250,11 @@ Phases; any failure exits non-zero and prints no result line:
    (c) ``resnet18_cifar100_fused`` on the ``int8_ef`` wire: one epoch of
    195 steps (``state.step`` 195), 195 fused SGD launches, non-zero
    residuals; then graph replay against the eager step, f32, as phase 6
-   (f). (d) ``python -m tpu_dist_torch.elastic.drill --device cpu
-   --shrink_device cuda``: the golden and preempted ``vit_tiny`` runs as 4
-   gloo ranks on the CPU, the shrink-resume at one rank on the card; it
-   must exit 0 with ``PASS``, its resume record and each epoch's loss gap
-   printed. The fused SGD kernel at the flat shard's shape is timed in
+   (f). ((d), ``python -m tpu_dist_torch.elastic.drill --shrink_device
+   cuda``, was cut to keep the run inside its bound with phase 21: phase
+   11 (d)'s fleet drill shrinks onto the card and grows back through the
+   same remap, and ``tests/test_torch_elastic_drill.py`` runs the drill on
+   the CPU.) The fused SGD kernel at the flat shard's shape is timed in
    phase 6, before any CUDA child: 3 steps bit for bit, device ms in turns
    with ``torch.optim.SGD(fused=True)`` on the one leaf, the plain
    version's period and the bound (``*_zero1_flat`` in the kernels line).
@@ -278,9 +278,10 @@ Phases; any failure exits non-zero and prints no result line:
    heartbeat, which phase 12 (a) reads;
    ``[elastic-sup]`` lines split the seconds from round 0's exit to the
    relaunched child's first step into the backoff, the process start and
-   the restore. (b) ``rank_kill@step=5:rank=0`` leaves no survivor: the
-   launcher gives up with the child's own code (-9), no relaunch. (c) A
-   SIGTERM to the launcher after the first step: exit 75 after one round.
+   the restore. ((b), a lost rank the launcher gives up on, and (c), the
+   launcher's own SIGTERM, were cut to keep the run inside its bound with
+   phase 21: each was a CUDA child of its own, and
+   ``tests/test_torch_launch_elastic.py`` runs both on stub children.)
    (d) ``python -m tpu_dist_torch.fleet.drill --phase grow --device cpu
    --shrink_device cuda --devices 3``: golden and full-size rounds as 3
    gloo ranks, the shrunken round on the card, held at its epoch's last
@@ -298,18 +299,19 @@ Phases; any failure exits non-zero and prints no result line:
    has closed, renders a page with ``run="trainer"`` labels and its
    ``goodput_frac``. ``[goodput]`` lines. (b) ``python -m
    tpu_dist_torch.fleet.tenancy_drill --phase hub --device cpu
-   --shrink_device cuda --devices 2 --shrink_to 1 --fused_optimizer``: the
-   recorded day's policy replay, then the day against the trainer
-   (``vit_tiny``, 4 epochs of 8 steps, ZeRO-1) with 2 gloo ranks at full
-   size and the shrunken round on the card; it must exit 0 with its PASS
-   lines, the shrunken round's fused SGD launches (ZeRO-1's flat shard) one
-   a step it ran, the preemption's latency (the allocation's shrink, the
-   SIGTERM, exit 75) and the decision chain on ``[tenancy]`` lines. (Its
-   ``--phase replica`` on the card, a supervised ViT-B/16 replica
-   SIGKILLed and relaunched with the same digest, was cut to keep the smoke
-   inside its bound with phase 18: phase 8 drives the same crash, bundle
-   and relaunch of the supervised replica on the card.) The report repeats
-   phase 12's result lines.
+   --shrink_device cuda --devices 2 --shrink_to 1 --fused_optimizer
+   --epochs 3 --steps_per_epoch 3 --kill_step 0``: the recorded day's
+   policy replay, then the day against the trainer (``vit_tiny``, ZeRO-1,
+   cut from the drill's 4 epochs of 8 steps to its CPU test's depth) with
+   2 gloo ranks at full size and the shrunken round on the card; it must
+   exit 0 with its PASS lines, the shrunken round's fused SGD launches
+   (ZeRO-1's flat shard) one a step it ran, the preemption's latency (the
+   allocation's shrink, the SIGTERM, exit 75) and the decision chain on
+   ``[tenancy]`` lines. (Its ``--phase replica`` on the card, a supervised
+   ViT-B/16 replica SIGKILLed and relaunched with the same digest, was cut
+   to keep the smoke inside its bound with phase 18: phase 8 drives the
+   same crash, bundle and relaunch of the supervised replica on the card.)
+   The report repeats phase 12's result lines.
 13. health and profiler, after phase 12 (it starts CUDA children, and
    reuses phase 11 (a)'s golden run). ``compute_device_stats`` on the card
    against f64 host arithmetic, with a NaN and an inf leaf counted. (a)
@@ -504,7 +506,25 @@ Phases; any failure exits non-zero and prints no result line:
    chosen family and its ``predicted_step_s``; the fused SGD's launches
    (one a proxy step of each SGD family on the card, and the fits') count
    into the kernels line. ``[analysis]`` lines; the report repeats them.
-21. report: the card's name and power limit, one JSON line of every ported
+21. audit, in this process after phase 20, with no CUDA child, over a
+   1-rank NCCL group: (a) the AST lint of ``tpu_dist_torch`` (TD001-TD008):
+   0 new findings with the shipped (empty) baseline; its seconds and the
+   findings its inline suppressions hold, by rule. (b) every audit case
+   (``analysis/step_audit.py``: the 9 data-parallel steps and the 4 fused
+   epochs of 2 steps) TD101-TD103 clean on the card and TD104 over them,
+   with the fused SGD's launches of each traced call read off its trace:
+   one a step (two in a fused epoch), and one NCCL c10d op a call (the
+   executed side, as the CPU tests pin it on gloo); a fused epoch of 5 steps (3 eager, a
+   capture, 2 replays) under a trace books 5 steps' collectives and 5
+   launches, with no host read; a ``.cpu()`` planted in a step is caught
+   (TD102). (c) every no-op probe (TD105-TD115, TD120, TD122-TD124) clean
+   on the card, each timed; a planted leak (a fault plan that launches one
+   extra fused SGD kernel inside the step) caught by TD105. (d) the
+   default command (``python -m tpu_dist_torch.analysis``, lint and audit,
+   in process on the group) exits 0. The fused SGD's launches of the
+   phase count into the kernels line. ``[audit]`` lines; the report
+   repeats them.
+22. report: the card's name and power limit, one JSON line of every ported
    kernel (device ``ms`` and ``host_us`` of the kernel, and of the library
    call as ``library_ms`` and ``library_host_us``; phase 15's at S = 4,096
    as ``*_s4096``), and the last line ``{"ok": true, "device": {...}}``.
@@ -514,6 +534,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ast
 import concurrent.futures
 import dataclasses
 import gzip
@@ -1118,7 +1139,8 @@ def _sgd_kernel(model: str, seed: int) -> dict:
            "host_us": statistics.fmean(m["host_us"]), "plain_ms": plain_ms,
            "library_ms": statistics.fmean(m["library_ms"]),
            "library_host_us": statistics.fmean(m["library_host_us"]),
-           "profiler_ms": m["profiler_ms"], "miss_us": m["miss_us"]}
+           "profiler_ms": m["profiler_ms"], "profiler_sessions": m["profiler_sessions"],
+           "miss_us": m["miss_us"]}
     out["bound_ms"], out["bound_by"] = sgd_bound(n_params)
     print(f"[kernels] fused_sgd at {model}'s {len(shapes)} leaves, {n_params} parameters: 3 "
           f"steps bit for bit with its plain version; in turns (kernel, library, library, "
@@ -1128,10 +1150,12 @@ def _sgd_kernel(model: str, seed: int) -> dict:
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {20 * n_params / 1e6:.1f} MB); "
           f"{out['bound_ms'] / out['ms']:.1%} of it")
     print(f"[kernels] fused_sgd at {model}'s leaves under torch.profiler, 10 calls on unchanged "
-          f"leaves: {m['profiler_kernels']} {m['profiler_ms']} ms a call; host-to-device copies: "
+          f"leaves ({m['profiler_sessions']} session(s)): {m['profiler_kernels']} "
+          f"{m['profiler_ms']} ms a call; host-to-device copies: "
           f"{m['htod_copies']}; a plan cache miss (make_plan) {m['miss_us']:.1f} us of host "
           f"time")
-    check(m["profiler_ms"] is not None, "torch.profiler recorded no fused_sgd kernel")
+    check(m["profiler_ms"] is not None, f"torch.profiler recorded no fused_sgd kernel in "
+          f"{m['profiler_sessions']} sessions")
     tol_rel, tol_ms = SGD_PROFILER_TOL
     check(abs(m["profiler_ms"] - out["ms"]) <= tol_rel * out["ms"] + tol_ms,
           f"fused_sgd: profiler {m['profiler_ms']} ms vs head-start {out['ms']} ms")
@@ -2534,8 +2558,6 @@ def _resnet_launch() -> None:
             kinds = [json.loads(line)["kind"] for line in f]
         print(f"[launch] history {log}: {len(kinds)} records, kinds {sorted(set(kinds))}")
         check("train_epoch" in kinds, f"history kinds {kinds}")
-    print(f"[flight] FlightRecorder.step: {_flight_step_us():.2f} us of host a call "
-          f"(median of 1,000); card: {_smi_line()}")
 
 
 def phase_train_resnet() -> tuple:
@@ -2561,10 +2583,14 @@ def phase_train_resnet() -> tuple:
     finally:
         if created:
             torch.distributed.destroy_process_group()
-    _resnet_cli()
     t1 = time.perf_counter()
-    _resnet_launch()
-    print(f"[launch] part (e): {time.perf_counter() - t1:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(_resnet_cli)  # (c) beside (e): neither is timed
+        _resnet_launch()
+        cli.result()
+    print(f"[launch] parts (c) and (e), side by side: {time.perf_counter() - t1:.1f} s")
+    print(f"[flight] FlightRecorder.step: {_flight_step_us():.2f} us of host a call "
+          f"(median of 1,000); card: {_smi_line()}")
     print(f"[resnet] phase: {time.perf_counter() - t0:.1f} s")
     return launches, sgd
 
@@ -3276,8 +3302,6 @@ ELASTIC_STOP = "sigterm@epoch=0:step=9"  # the int8_ef run stopped after its 10t
 # 2.7% under int8).
 COMPRESSED_LOSS_RTOL = {"bf16": 5e-2, "int8": 5e-2, "int8_ef": 5e-2}
 REDUCE_ITERS = 5  # the quantized reduce is ~30 launches a call: 5 calls fit the head start
-ELASTIC_DRILL_ARGS = ["--device", "cpu", "--shrink_device", "cuda"]
-ELASTIC_DRILL_TIMEOUT = 420
 
 
 def _elastic_fit(tag: str, ckpt_dir=None, **kw) -> dict:
@@ -3444,26 +3468,6 @@ def _fused_int8_ef() -> int:
         trainer.close()
 
 
-def _elastic_drill(d: str) -> None:
-    """(d) ``python -m tpu_dist_torch.elastic.drill``: golden and preempted
-    runs as 4 gloo ranks on the CPU, asked for explicitly, and the
-    shrink-resume at one rank on the card. It must exit 0 with ``PASS``."""
-    cmd = [sys.executable, "-m", "tpu_dist_torch.elastic.drill", "--workdir", d,
-           *ELASTIC_DRILL_ARGS]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=ELASTIC_DRILL_TIMEOUT,
-                          cwd=str(pathlib.Path(__file__).resolve().parent))
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("elastic-drill:")]
-    for ln in lines:
-        if "resume record" in ln or ln.startswith("elastic-drill: epoch") or "PASS" in ln \
-                or "FAIL" in ln or "exit" in ln:
-            print(f"[elastic] (d) {ln}")
-    print(f"[elastic] (d) drill: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
-    check(proc.returncode == 0 and any("PASS" in ln for ln in lines),
-          f"the elastic drill failed (exit {proc.returncode}):\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
-
-
 def phase_elastic(work: str) -> dict:
     """Phase 10 (module docstring). Returns the fused SGD launches of its
     main paths: the ZeRO-1 run's on the flat shard, and the fused epoch's."""
@@ -3481,9 +3485,6 @@ def phase_elastic(work: str) -> dict:
         torch.backends.cudnn.deterministic = False
         if created:
             torch.distributed.destroy_process_group()
-    d = os.path.join(work, "elastic")
-    os.makedirs(d)
-    _elastic_drill(d)
     print(f"[elastic] phase: {time.perf_counter() - t0:.1f} s; card: {_smi_line()}")
     return {name: runs["zero1"]["launches"][name] + (fused if name == "fused_sgd" else 0)
             for name in KERNELS}
@@ -3499,7 +3500,6 @@ SUP_TRAIN = ["--model", "resnet18", "--num_classes", "100", "--dataset", "synthe
              "--log_every", "10", "--seed", "1"]
 SUP_STEPS = 20
 SUP_STOP = "sigterm@epoch=0:step=9"   # round 0 stops after its 10th step
-SUP_KILL = "rank_kill@step=5:rank=0"  # (b): the only rank is lost at step 5
 SUP_DECISION = (7, "goodput")         # the allocation file's tokens in (a)
 SUP_BACKOFF = 0.5                     # --elastic_backoff: the first relaunch waits this
 SUP_TIMEOUT = 240
@@ -3739,45 +3739,6 @@ def _sup_relaunch(root, d: str) -> int:
     return golden["launches"] + first["launches"] + second["launches"]
 
 
-def _sup_gives_up(root, d: str) -> None:
-    """(b): SUP_KILL leaves no survivor: no relaunch, the child's own code."""
-    rc, out, err, took = _sup_launch(root, d, ["--elastic_min_procs", "1"],
-                                     ["--fault_plan", SUP_KILL])
-    kids = _children(out)
-    said = [ln for ln in err.splitlines() if "elastic:" in ln]
-    _sup_say(f"(b) {SUP_KILL}: launcher rc {rc} in {took:.1f} s, {len(kids)} round(s); "
-             + " | ".join(said))
-    # sys.exit(-9) leaves the status -9 & 0xff
-    check(rc == (-signal.SIGKILL) & 0xFF and len(kids) == 1 and kids[0]["exit"] is None
-          and any("giving up with exit -9" in ln for ln in said),
-          f"a lost rank: rc {rc}, rounds {len(kids)}\n{err[-2000:]}")
-
-
-def _sup_stands_down(root, d: str) -> int:
-    """(c): the launcher's own SIGTERM mid-round: 75, one round. Returns the
-    child's fused SGD launches."""
-    sent = []
-
-    def on_line(proc, line):
-        if not sent and line.startswith("[child] loss"):
-            proc.send_signal(signal.SIGTERM)  # after the first step
-            sent.append(time.perf_counter())
-
-    rc, out, err, took = _sup_launch(root, d, ["--elastic_min_procs", "1"],
-                                     ["--ckpt_dir", os.path.join(d, "stand_down")], on_line)
-    kids = _children(out)
-    said = [ln for ln in err.splitlines() if "elastic:" in ln]
-    _sup_say(f"(c) SIGTERM to the launcher after the first step: rc {rc} in "
-             f"{took:.1f} s, {len(kids)} round(s), {len(kids[0]['losses']) if kids else 0} steps, "
-             f"fused_sgd launches {kids[0]['launches'] if kids else None}; " + " | ".join(said))
-    check(rc == PREEMPTION_EXIT_CODE and len(kids) == 1 and sent
-          and any("asked to stop" in ln for ln in said),
-          f"the stand-down: rc {rc}, rounds {len(kids)}\n{err[-2000:]}")
-    check(kids[0]["launches"] == len(kids[0]["losses"]) > 0,
-          f"(c)'s child: {kids[0]['launches']} launches in {len(kids[0]['losses'])} steps")
-    return kids[0]["launches"]
-
-
 def _fleet_drill(root, d: str) -> None:
     """(d) ``python -m tpu_dist_torch.fleet.drill --phase grow --device cpu
     --shrink_device cuda``: golden and full-size rounds as 3 gloo ranks, the
@@ -3811,8 +3772,6 @@ def phase_supervision(work: str) -> dict:
     d = os.path.join(work, "supervision")
     os.makedirs(d)
     launches = _sup_relaunch(root, d)
-    _sup_gives_up(root, d)
-    launches += _sup_stands_down(root, d)
     drill = os.path.join(d, "fleet_drill")
     os.makedirs(drill)
     _fleet_drill(root, drill)
@@ -3829,12 +3788,15 @@ GOODPUT_TOL = 1e-3
 # the ledger's relaunch gap against phase 11 (a)'s, once each is reduced to
 # the same span (two processes' clocks, the history's ts to the millisecond)
 GOODPUT_GAP_TOL_S = 0.5
-# the recorded diurnal day with JAX's trainer (vit_tiny, 4 epochs x 8 steps,
-# batch 32, ZeRO-1), the fused SGD on, 2 CPU ranks at full size and the
-# shrunken round, 1 rank, on the card (one card holds one rank)
+# the recorded diurnal day with JAX's trainer (vit_tiny, batch 32, ZeRO-1),
+# the fused SGD on, 2 CPU ranks at full size and the shrunken round, 1 rank,
+# on the card (one card holds one rank); cut to the CPU test's depth, 3
+# epochs of 3 steps with the stop at step 0 of epoch 1
+# (tests/test_torch_tenancy_drill.py), from the drill's 4 x 8
+TENANCY_STEPS = 3  # the drill's --steps_per_epoch
 TENANCY_ARGS = ["--phase", "hub", "--device", "cpu", "--shrink_device", "cuda",
-                "--devices", "2", "--shrink_to", "1", "--fused_optimizer"]
-TENANCY_STEPS = 8  # the drill's --steps_per_epoch
+                "--devices", "2", "--shrink_to", "1", "--fused_optimizer", "--epochs", "3",
+                "--steps_per_epoch", str(TENANCY_STEPS), "--kill_step", "0"]
 TENANCY_BATCH = 32
 TENANCY_TIMEOUT = 300
 
@@ -6182,6 +6144,170 @@ def phase_analysis(work: str) -> dict:
     return launches
 
 
+# -- phase 21: the lint, the audit cases and the no-op probes ---------------------------
+
+#: phase 21's result lines, repeated by the report
+AUDIT_SUMMARY: list = []
+AUDIT_FUSED_STEPS = 5  # > train/epoch.py's WARMUP_STEPS: 3 eager steps, a capture, 2 replays
+
+
+def _p21_say(msg: str) -> None:
+    print(f"[audit] {msg}", flush=True)
+    AUDIT_SUMMARY.append(f"[audit] {msg}")
+
+
+def _audit_lint() -> None:
+    """(a) The lint of the package, its suppressed findings by rule."""
+    import collections  # noqa: PLC0415
+
+    from tpu_dist_torch.analysis import baseline as baseline_lib  # noqa: PLC0415
+    from tpu_dist_torch.analysis import lint as lint_lib  # noqa: PLC0415
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    found = lint_lib.lint_paths([os.path.join(root, "tpu_dist_torch")], root=root)
+    new, stale = baseline_lib.apply(found, baseline_lib.load(baseline_lib.DEFAULT_BASELINE))
+    lint_s = time.perf_counter() - t0
+    check(not new and not stale, f"(a) lint: {[v.format_text() for v in new]}, stale {stale}")
+    held: collections.Counter = collections.Counter()
+    files = 0
+    for path in pathlib.Path(root, "tpu_dist_torch").rglob("*.py"):
+        files += 1
+        src = path.read_text()
+        one = lint_lib._FileLint(ast.parse(src), src.splitlines(), os.path.relpath(path, root))
+        held.update(v.rule for v in one.run() if one.suppressed(v))
+    _p21_say(f"(a) lint of tpu_dist_torch ({files} files): 0 new findings, 0 baseline entries, "
+             f"{lint_s:.2f} s; inline suppressions hold {sum(held.values())} findings: "
+             f"{dict(sorted(held.items()))}")
+
+
+def _audit_cases() -> None:
+    """(b) Every case on the card, the captured epoch, the planted host read."""
+    from tpu_dist_torch.analysis import step_audit  # noqa: PLC0415
+    from tpu_dist_torch.train.epoch import make_fused_epoch  # noqa: PLC0415
+    from tpu_dist_torch.train.optim import SGD  # noqa: PLC0415
+    from tpu_dist_torch.train.state import TrainState  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    report, vs = {}, []
+    for name in step_audit.registered_cases():
+        counts, case_vs = step_audit.audit_case(name, DEVICE)
+        report[name] = counts
+        vs.extend(case_vs)
+        want = 2 if name.startswith("fused_") else 1  # a step's one, 2 steps an epoch
+        check(counts["launches"] == {"fused_sgd.launches": want},
+              f"(b) {name}: launches {counts['launches']}, want {want} of #4")
+        # the executed side on NCCL: one c10d op a call, as on gloo (the tests' pin)
+        check(sum(counts["executed"].values()) == sum(counts["collectives"].values()),
+              f"(b) {name}: executed {counts['executed']} for calls {counts['collectives']}")
+    vs.extend(step_audit.wire_ratio_violations(report))
+    check(not vs, f"(b) {[v.format_text() for v in vs]}")
+    cases_s = time.perf_counter() - t0
+    pay = {n: report[n]["wire"]["payload_bytes"] for n in ("dp_sgd", "dp_wire_bf16", "dp_int8")}
+
+    # a fused epoch long enough to capture: its replays are booked per replay
+    model = step_audit._AuditMLP(DEVICE)
+    opt = SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+    state = TrainState.create(model, opt)
+    epoch = make_fused_epoch(opt, batch_per_device=4, sync_bn=False, compute_dtype=torch.float32,
+                             grad_compression="none")
+    n = 4 * AUDIT_FUSED_STEPS
+    images = torch.randint(0, 256, (n, 2, 2, 3), dtype=torch.uint8, device=DEVICE)
+    labels = torch.randint(0, 16, (n,), device=DEVICE)
+    epoch.prepare(state, images, labels)  # the static buffers, as the cases' setup
+    _, trace = step_audit.traced(epoch, state, images, labels, 0.1, 0)
+    counts = step_audit._counts(trace)
+    check(epoch._loop.graph is not None, "(b) the 5-step fused epoch captured no graph")
+    check(counts["collectives"] == {"psum": 2 * AUDIT_FUSED_STEPS}
+          and counts["launches"] == {"fused_sgd.launches": AUDIT_FUSED_STEPS}
+          and counts["transfers"] == 0,
+          f"(b) the captured epoch under a trace: {counts}")
+
+    fn, args, budget = step_audit.case_budget("dp_sgd", DEVICE)
+
+    def host_read(*a):
+        out = fn(*a)
+        out[1]["loss"].cpu()  # a planted device-to-host copy inside the step
+        return out
+
+    _, trace = step_audit.traced(host_read, *args)
+    planted = step_audit._compare("dp_sgd", step_audit._counts(trace), budget)
+    check([v.rule for v in planted] == ["TD102"], f"(b) the planted .cpu(): {planted}")
+    _p21_say(f"(b) {len(report)} audit cases on the card: TD101-TD104 clean, #4 launched once a "
+             f"step (twice a fused epoch) in every case, one NCCL c10d op a call (dp_int8: "
+             f"{report['dp_int8']['executed']}); payload bytes a step dp_sgd "
+             f"{pay['dp_sgd']}, dp_wire_bf16 {pay['dp_wire_bf16']}, dp_int8 {pay['dp_int8']}; "
+             f"{cases_s:.2f} s; a {AUDIT_FUSED_STEPS}-step fused epoch (3 eager, capture, 2 "
+             f"replays) booked {counts['collectives']} and {counts['launches']}, 0 host reads; "
+             f"a planted .cpu() caught ({planted[0].rule})")
+
+
+def _audit_probes() -> None:
+    """(c) Every probe on the card, and a planted leak caught."""
+    from tpu_dist_torch.analysis import noop_probes, step_audit  # noqa: PLC0415
+    from tpu_dist_torch.resilience import faults  # noqa: PLC0415
+
+    times = {}
+    for name, probe in noop_probes.PROBES:
+        t0 = time.perf_counter()
+        vs = probe(DEVICE)
+        times[name] = round(time.perf_counter() - t0, 2)
+        check(not vs, f"(c) {name}: {[v.format_text() for v in vs]}")
+
+    real_setup = step_audit._dp_setup
+
+    def leaky_setup(device=None, **kw):
+        fn, args = real_setup(device, **kw)
+        leaf = [torch.zeros(8, device=DEVICE) for _ in range(3)]
+
+        def step(*a):
+            out = fn(*a)
+            if faults.active() is not None:  # an injection point inside the step
+                fs.fused_sgd([leaf[0]], [leaf[1]], [leaf[2]], 0.1)
+            return out
+
+        return step, args
+
+    noop_probes._dp_setup = leaky_setup
+    try:
+        leak = noop_probes.fault_noop_violations(DEVICE)
+    finally:
+        noop_probes._dp_setup = real_setup
+    check([v.rule for v in leak] == ["TD105"], f"(c) the planted leak: {leak}")
+    _p21_say(f"(c) {len(times)} no-op probes on the card, clean; seconds {times}; a fault plan "
+             f"that launches one extra fused SGD kernel inside the step caught "
+             f"({leak[0].rule}, through the kernel's launch count)")
+
+
+def phase_audit(work: str) -> dict:
+    """Phase 21 (module docstring). Returns the kernels' launches on its
+    main paths (#4 in every traced step)."""
+    from tpu_dist_torch.analysis import __main__ as analysis_cli  # noqa: PLC0415
+
+    del work
+    t0 = time.perf_counter()
+    reset_launches()
+    _, created = mesh_lib.initialize_distributed(
+        DEVICE, world_size=1, rank=0, master_addr="127.0.0.1", master_port=_free_port())
+    try:
+        _audit_lint()
+        _audit_cases()
+        _audit_probes()
+        t1 = time.perf_counter()
+        rc = analysis_cli.main(["--device", DEVICE, "--nprocs", "1"])
+        check(rc == 0, f"(d) python -m tpu_dist_torch.analysis exited {rc}")
+        _p21_say(f"(d) python -m tpu_dist_torch.analysis (lint and audit, in process on the "
+                 f"group): exit 0, {time.perf_counter() - t1:.1f} s")
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    launches = read_launches()
+    check(launches["fused_sgd"] > 0 and all(launches[k] == 0 for k in MMA_KERNELS),
+          f"launches {launches}: want #4's, none of #1-#3")
+    _p21_say(f"phase: {time.perf_counter() - t0:.1f} s, launches {launches}; card: {_smi_line()}")
+    return launches
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -6233,13 +6359,14 @@ def _phases(work: str) -> int:
     for name, numbers in zsp_numbers.items():
         measured[name].update(numbers)
     analysis = phase_analysis(work)
+    audit = phase_audit(work)
     measured["fused_sgd"].update(resnet_sgd)
     for model, (hits, misses) in PLAN_COUNTS.items():
         measured["fused_sgd"].update({f"plan_hits_{model}": hits, f"plan_misses_{model}": misses})
     launches = {name: served[name] + trained[name] + resnet_launches[name]
                 + optim_launches[name] + replicas[name] + forensics[name] + elastic[name]
                 + supervision[name] + tenancy[name] + health[name] + memory[name] + seq[name]
-                + mp[name] + pp[name] + fsdp[name] + zsp[name] + analysis[name]
+                + mp[name] + pp[name] + fsdp[name] + zsp[name] + analysis[name] + audit[name]
                 for name in KERNELS}
     for name in MMA_KERNELS:  # serving's are all f32 (checked there); phase 7's bf16
         measured[name]["launches_tensor_core"] = (trained_mma[name] + optim_launches[name]
@@ -6274,6 +6401,9 @@ def _phases(work: str) -> int:
         print(f"[summary] {msg}")
     print("[summary] phase 20, the analysis layer, again:")
     for msg in ANALYSIS_SUMMARY:
+        print(f"[summary] {msg}")
+    print("[summary] phase 21, the lint, the audit cases and the no-op probes, again:")
+    for msg in AUDIT_SUMMARY:
         print(f"[summary] {msg}")
     print(_smi_line())
     kernels = [

@@ -1,8 +1,9 @@
 """``python -m tpu_dist_torch.analysis``: the exit codes of ``shard``,
 ``plan`` and ``tune-overlap`` (0 clean, 1 violations, 2 an error or a dead
 detector), over the group of one it starts in this process, over 2 gloo
-ranks it spawns, and without a subcommand (JAX's lint and audit: not
-ported, exit 2)."""
+ranks it spawns, and of the default command (JAX's lint and audit): 0 on
+the tree, 1 on a planted violation, 2 on an unknown case or a partial
+``--write-baseline``; ``--list-rules`` gives JAX's IDs and names."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import pytest
 from torch_ranks import child_env
 
 from tpu_dist.analysis import planner as jax_planner
+from tpu_dist.analysis.rules import RULES as JAX_RULES
 from tpu_dist.analysis import shardlint as jax_shardlint
 from tpu_dist_torch.analysis import __main__ as cli
 from tpu_dist_torch.analysis import overlap, planner, shardlint
@@ -102,6 +104,39 @@ def test_two_spawned_ranks_and_no_subcommand():
     report = json.loads(proc.stdout)
     assert report["n_devices"] == 2 and report["families"]["tp_vit"]["mesh"] == {
         "data": 1, "model": 2}
-    lint = _run("--format", "json")
-    assert lint.returncode == 2
-    assert "NotPortedError" not in lint.stdout and "Queue A 6 (the analysis layer)" in lint.stderr
+    # no subcommand: the lint of the port and the whole audit over 2 ranks
+    lint = _run("--format", "json", "--device", "cpu", "--nprocs", "2")
+    assert lint.returncode == 0, lint.stderr
+    out = json.loads(lint.stdout)
+    assert out["counts"] == {"new": 0, "stale_baseline": 0}
+    assert out["audit_report"]["dp_elastic_grow_noop"] == {"identical": True}
+
+
+def test_default_command_exit_codes(tmp_path, capsys):
+    assert cli.main(["--no-audit"]) == 0
+    assert cli.main([*ONE, "--no-lint", "--case", "dp_sgd", "--case", "dp_int8"]) == 0
+    planted = tmp_path / "planted.py"
+    planted.write_text("def f(x):\n    print(x)\n")
+    assert cli.main([str(planted), "--no-audit"]) == 1
+    assert "TD007" in capsys.readouterr().out
+    assert cli.main([*ONE, "--case", "nope"]) == 2
+    assert cli.main([*ONE, "--write-baseline", "--case", "dp_sgd"]) == 2
+    assert cli.main([str(tmp_path / "missing"), "--no-audit"]) == 2
+    assert "refusing --write-baseline" in capsys.readouterr().err
+
+
+def test_a_baseline_accepts_a_finding(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text("def f(x):\n    print(x)\n")
+    accepted = tmp_path / "baseline.json"
+    from tpu_dist_torch.analysis import baseline, lint  # noqa: PLC0415
+
+    baseline.write(lint.lint_paths([str(planted)]), str(accepted))
+    assert cli.main([str(planted), "--no-audit", "--baseline", str(accepted)]) == 0
+
+
+def test_list_rules_gives_jaxs_ids_and_names(capsys):
+    assert cli.main(["--list-rules"]) == 0
+    lines = [ln.split() for ln in capsys.readouterr().out.splitlines() if ln.startswith("TD")]
+    assert {(i, n) for i, n in lines} == {(r.id, r.name) for r in JAX_RULES.values()}
+    assert len(lines) == 32

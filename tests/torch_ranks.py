@@ -1459,3 +1459,58 @@ def plan_rank(rank, world, gauges):
     probe, vs = planner.verify_plan(plan, "cpu")
     _, inj = planner.verify_plan(planner.inject_miscost(plan), "cpu")
     return report, plan, probe, [v.to_json() for v in vs], [v.to_json() for v in inj]
+
+
+def audit_rank(rank, world):
+    """Every audit case of ``analysis/step_audit.py`` over this group: the
+    report and violations of ``audit_all`` (cases only), each case's
+    budget, and three planted faults: ``dp_sgd`` under a budget one psum
+    too high (TD101), ``dp_sgd`` reading its loss with ``.item()`` inside
+    the call (TD102), and ``dp_int8``'s report with its all-gather leg
+    decompressed to f32 (TD104)."""
+    from tpu_dist_torch.analysis import noop_probes, step_audit  # noqa: PLC0415
+
+    names = step_audit.registered_cases()
+    report, vs = noop_probes.audit_all("cpu", names=names)
+    budgets = {}
+    for name in names:
+        budget = step_audit.case_budget(name, "cpu")[2]
+        budgets[name] = (budget.collectives, budget.transfers, budget.bf16_to_f32)
+
+    fn, args, budget = step_audit.case_budget("dp_sgd", "cpu")
+    budget.collectives["psum"] += 1
+    _, trace = step_audit.traced(fn, *args)
+    mutated = step_audit._compare("dp_sgd", step_audit._counts(trace), budget)
+
+    fn, args, budget = step_audit.case_budget("dp_sgd", "cpu")
+
+    def item_step(*a):
+        out = fn(*a)
+        out[1]["loss"].item()  # a planted host read inside the step
+        return out
+
+    _, trace = step_audit.traced(item_step, *args)
+    item = step_audit._compare("dp_sgd", step_audit._counts(trace), budget)
+
+    fn, args, _ = step_audit.case_budget("dp_int8", "cpu")
+    _, trace = step_audit.traced(fn, *args)
+    for call in trace.calls:
+        if call["kind"] == "all-gather":
+            call["tensors"] = [(torch.float32, n) for _, n in call["tensors"]]
+    decompressed = {**report, "dp_int8": {**report["dp_int8"],
+                                          "wire": step_audit.wire_buckets(trace.call_records())}}
+    leg = step_audit.wire_ratio_violations(decompressed)
+    return (report, [v.to_json() for v in vs], budgets,
+            [[v.to_json() for v in x] for x in (mutated, item, leg)])
+
+
+def elastic_probe_rank(rank, world):
+    """TD111's and TD112's machinery over this group: ``(layouts_differ,
+    remapper_fired, identical)`` of the shrink and the grow, and the two
+    probes' violations."""
+    from tpu_dist_torch.analysis import noop_probes  # noqa: PLC0415
+
+    return (noop_probes._elastic_noop_probe("cpu", grow=False),
+            noop_probes._elastic_noop_probe("cpu", grow=True),
+            [v.to_json() for v in noop_probes.elastic_resume_noop_violations("cpu")
+             + noop_probes.elastic_grow_noop_violations("cpu")])

@@ -1,11 +1,16 @@
-"""The analysis layer the trainer reads: the port's counterpart of
-``tpu_dist/analysis`` (``docs/analysis.md``), its half that ``--auto_shard``
-and ``--tune_report`` run through.
+"""The analysis layer: the port's counterpart of ``tpu_dist/analysis``
+(``docs/analysis.md``).
 
-* :mod:`~tpu_dist_torch.analysis.step_audit` (JAX's Layer 2 core): one
-  step's two collective accountings, the calls it makes through
+* :mod:`~tpu_dist_torch.analysis.lint` (Layer 1, TD001-TD008): the AST
+  lint of the package, with inline suppressions and
+  :mod:`~tpu_dist_torch.analysis.baseline`.
+* :mod:`~tpu_dist_torch.analysis.step_audit` (Layer 2): one step's two
+  collective accountings, the calls it makes through
   ``comm/collectives.py`` (predicted) and the ``c10d`` ops that reach the
-  dispatcher (executed), on one ring model.
+  dispatcher (executed), on one ring model; the step fingerprint; the audit
+  cases and their budgets (TD101-TD104).
+* :mod:`~tpu_dist_torch.analysis.noop_probes` (Layer 2): the no-op probes
+  (TD105-TD115, TD120, TD122-TD124) and ``audit_all``.
 * :mod:`~tpu_dist_torch.analysis.shardlint` (Layer 3): every config family
   run once over the process group; TD116 holds the executed inventory to
   the predicted one, TD117 flags an unpredicted collective; the
@@ -16,10 +21,9 @@ and ``--tune_report`` run through.
   collective-schedule knob tuner, its ``tune_report.json`` read by
   ``--tune_report``.
 
-CLI: ``python -m tpu_dist_torch.analysis shard|plan|tune-overlap``. Exit 0
-clean, 1 violations, 2 error or a dead detector. The AST lint, the audit
-cases and the no-op probes (JAX's TD001-TD008, TD101-TD115, TD120,
-TD122-TD124) are not ported yet.
+CLI: ``python -m tpu_dist_torch.analysis [paths]`` (lint and audit) and
+``shard|plan|tune-overlap``. Exit 0 clean, 1 violations, 2 error or a dead
+detector.
 
 Keep this ``__init__`` import-light: the rule registry is stdlib only.
 """

@@ -1,24 +1,31 @@
-"""CLI: ``python -m tpu_dist_torch.analysis shard|plan|tune-overlap``, the
-port's counterpart of ``python -m tpu_dist.analysis``'s three subcommands,
+"""CLI: ``python -m tpu_dist_torch.analysis [paths] | shard | plan |
+tune-overlap``, the port's counterpart of ``python -m tpu_dist.analysis``,
 with JAX's flags and exit codes: 0 clean, 1 violations, 2 an error, a
 dead detector (an injected probe that comes back clean) or a full run
 that skipped families.
 
+* no subcommand (the default command): the AST lint (TD001-TD008) of
+  ``paths`` (default: the ``tpu_dist_torch`` package), then the audit
+  (the cases' TD101-TD104 and the no-op probes TD105-TD115, TD120,
+  TD122-TD124), the findings filtered by the inline suppressions and the
+  baseline (``--baseline``, default
+  ``tpu_dist_torch/analysis/analysis_baseline.json``). ``--no-lint`` and
+  ``--no-audit`` (JAX's ``--no-jaxpr``) skip a layer, ``--case`` runs
+  only the named audit cases (and no probe), ``--write-baseline`` accepts
+  the current findings (refused on a partial run), ``--list-rules`` prints
+  the registry.
 * ``shard``: run every config family once, check TD116/TD117, print or
   write ``shard_report.json`` (``--inject-reshard`` adds the TD117 probe).
 * ``plan``: the ``--auto_shard`` planner over the families (or a shard
   report, ``--from-report``), TD118-verified (``--inject-miscost``).
 * ``tune-overlap``: the overlap tuner, TD121-gated (``--inject-payload``).
 
-The families run over a process group the CLI starts itself: ``--nprocs
-N`` ranks (default: the visible cards on CUDA, 8 on the CPU, JAX's
-emulated mesh), spawned as processes of this module, on ``--device``
-(default ``cuda``; ``--device cpu`` takes gloo ranks). One rank runs in
-this process. When a process group exists already (a caller's), the
-subcommand runs on it. Rank 0 prints and writes.
-
-Without a subcommand (JAX's lint and jaxpr audit) the CLI exits 2 with a
-``NotPortedError``: that half of the layer is not ported yet.
+The audit and the subcommands run over a process group the CLI starts
+itself: ``--nprocs N`` ranks (default: the visible cards on CUDA, 8 on the
+CPU, JAX's emulated mesh), spawned as processes of this module, on
+``--device`` (default ``cuda``; ``--device cpu`` takes gloo ranks). One
+rank runs in this process. When a process group exists already (a
+caller's), the command runs on it. Rank 0 lints, prints and writes.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ import os
 import sys
 import tempfile
 
-_ANALYSIS = "Queue A 6 (the analysis layer)"
 SUBCOMMANDS = ("shard", "plan", "tune-overlap")
+DEFAULT = "default"  # the command without a subcommand: lint + audit
 
 
 def _add_common(ap: argparse.ArgumentParser, what: str) -> None:
@@ -44,6 +51,127 @@ def _add_common(ap: argparse.ArgumentParser, what: str) -> None:
     ap.add_argument("--nprocs", type=int, default=None,
                     help="ranks of the process group (default: the visible cards on "
                          "CUDA, 8 on the CPU)")
+
+
+def _default_parser() -> argparse.ArgumentParser:
+    from tpu_dist_torch.analysis.lint import DEFAULT_PATH  # noqa: PLC0415
+
+    ap = argparse.ArgumentParser(
+        prog="python -m tpu_dist_torch.analysis",
+        description="distributed-training lint (TD0xx) + step audit (TD1xx); subcommands: "
+                    + ", ".join(SUBCOMMANDS))
+    ap.add_argument("paths", nargs="*", default=[DEFAULT_PATH],
+                    help=f"files/dirs to lint (default: the {DEFAULT_PATH} package)")
+    ap.add_argument("--format", choices=("text", "json"), default="text")
+    ap.add_argument("--baseline", default=None,
+                    help="baseline file (default: tpu_dist_torch/analysis/analysis_baseline.json "
+                         "when it exists)")
+    ap.add_argument("--write-baseline", action="store_true",
+                    help="accept current findings into the baseline file and exit 0")
+    ap.add_argument("--no-lint", action="store_true", help="skip the AST lint layer")
+    ap.add_argument("--no-audit", action="store_true",
+                    help="skip the step audit (JAX's --no-jaxpr)")
+    ap.add_argument("--case", action="append",
+                    help="run only this audit case, and no probe (repeatable)")
+    ap.add_argument("--list-rules", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (NCCL, one card a rank) or cpu (gloo)")
+    ap.add_argument("--nprocs", type=int, default=None,
+                    help="ranks of the audit's process group (default: the visible cards on "
+                         "CUDA, 8 on the CPU)")
+    return ap
+
+
+def _lint_targets(paths: list) -> tuple:
+    """``(paths, root)`` to lint: the default path is the package itself,
+    reported relative to its parent, wherever the CLI runs from."""
+    from tpu_dist_torch.analysis.lint import DEFAULT_PATH  # noqa: PLC0415
+
+    if paths == [DEFAULT_PATH]:
+        import tpu_dist_torch  # noqa: PLC0415
+
+        pkg = os.path.dirname(os.path.abspath(tpu_dist_torch.__file__))
+        return [pkg], os.path.dirname(pkg)
+    return paths, None
+
+
+def default_body(args) -> int:
+    """The lint (rank 0) and the audit (every rank), the baseline, the
+    report; returns the exit code (rank 0's is the command's)."""
+    from tpu_dist_torch.analysis import baseline as baseline_lib  # noqa: PLC0415
+    from tpu_dist_torch.analysis.lint import lint_paths  # noqa: PLC0415
+    from tpu_dist_torch.analysis.rules import RULES  # noqa: PLC0415
+    from tpu_dist_torch.comm import collectives  # noqa: PLC0415
+
+    primary = collectives.rank() == 0
+    violations: list = []
+    report: dict = {}
+    if not args.no_lint and primary:
+        violations.extend(lint_paths(*_lint_targets(args.paths)))
+    if not args.no_audit:
+        from tpu_dist_torch.analysis.noop_probes import audit_all  # noqa: PLC0415
+
+        report, audit_vs = audit_all(args.device, names=args.case)
+        violations.extend(audit_vs)
+    if not primary:
+        return 1 if violations else 0
+    baseline_path = args.baseline or (baseline_lib.DEFAULT_BASELINE
+                                      if os.path.exists(baseline_lib.DEFAULT_BASELINE) else None)
+    if args.write_baseline:
+        path = args.baseline or baseline_lib.DEFAULT_BASELINE
+        baseline_lib.write(violations, path)
+        print(f"wrote {len(violations)} accepted finding(s) to {path}", flush=True)
+        return 0
+    stale: list = []
+    if baseline_path:
+        violations, stale = baseline_lib.apply(violations, baseline_lib.load(baseline_path))
+    if args.format == "json":
+        print(json.dumps({
+            "violations": [v.to_json() for v in violations],
+            "stale_baseline_entries": stale,
+            "audit_report": report,
+            "counts": {"new": len(violations), "stale_baseline": len(stale)},
+            "rules": [{"id": r.id, "name": r.name, "summary": r.summary}
+                      for r in sorted(RULES.values(), key=lambda r: r.id)],
+        }, indent=2), flush=True)
+    else:
+        for v in violations:
+            print(v.format_text())
+        for e in stale:
+            print(f"stale baseline entry (no longer produced): {e.get('rule')} "
+                  f"{e.get('path')} {e.get('snippet')!r}")
+        print(f"tpu_dist_torch.analysis: {len(violations)} new violation(s)"
+              + (f", {len(stale)} stale baseline entr(ies)" if stale else ""), flush=True)
+    return 1 if violations else 0
+
+
+def _default_checks(args) -> int:
+    """The refusals that need no process group: exit 2 or 0 to go on."""
+    from tpu_dist_torch.analysis import step_audit  # noqa: PLC0415
+    from tpu_dist_torch.analysis.lint import DEFAULT_PATH  # noqa: PLC0415
+
+    missing = [p for p in (() if args.no_lint else _lint_targets(args.paths)[0])
+               if not os.path.exists(p)]
+    if missing:
+        # os.walk would iterate nothing: a false-green "0 violations"
+        print(f"tpu_dist_torch.analysis: lint path does not exist: {missing[0]}",
+              file=sys.stderr)
+        return 2
+    unknown = sorted(set(args.case or ()) - set(step_audit.registered_cases()))
+    if unknown:
+        print(f"tpu_dist_torch.analysis: unknown audit case(s) {unknown}; registered: "
+              f"{step_audit.registered_cases()}", file=sys.stderr)
+        return 2
+    if args.write_baseline and (args.no_lint or args.no_audit or args.case
+                                or args.paths != [DEFAULT_PATH]):
+        # a partial run would REPLACE the file with only this run's
+        # findings, silently dropping accepted entries of the layers or
+        # paths that did not run
+        print("tpu_dist_torch.analysis: refusing --write-baseline on a partial run "
+              "(--no-lint/--no-audit/--case/custom paths); run the full analyzer to "
+              "regenerate the baseline", file=sys.stderr)
+        return 2
+    return 0
 
 
 def _parser(cmd: str) -> argparse.ArgumentParser:
@@ -217,7 +345,8 @@ def tune_body(args) -> int:
     return 1 if violations else 0
 
 
-BODIES = {"shard": shard_body, "plan": plan_body, "tune-overlap": tune_body}
+BODIES = {"shard": shard_body, "plan": plan_body, "tune-overlap": tune_body,
+          DEFAULT: default_body}
 
 
 def _list(cmd: str, nprocs: int) -> int:
@@ -298,13 +427,19 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if not argv or argv[0] not in SUBCOMMANDS:
-        from tpu_dist_torch.train.step import NotPortedError  # noqa: PLC0415
+        args = _default_parser().parse_args(argv)
+        if args.list_rules:
+            from tpu_dist_torch.analysis.rules import RULES  # noqa: PLC0415
 
-        print(f"tpu_dist_torch.analysis: "
-              f"{NotPortedError('subcommand', argv[0] if argv else None, _ANALYSIS)}: the AST "
-              f"lint and the jaxpr audit are not ported; the ported subcommands are "
-              f"{', '.join(SUBCOMMANDS)}", file=sys.stderr)
-        return 2
+            for r in sorted(RULES.values(), key=lambda r: r.id):
+                print(f"{r.id}  {r.name}\n      {r.summary}")
+            return 0
+        rc = _default_checks(args)
+        if rc:
+            return rc
+        if args.no_audit:
+            return default_body(args)  # the lint needs no process group
+        return run(DEFAULT, args)
     cmd = argv[0]
     args = _parser(cmd).parse_args(argv[1:])
     if args.list_families:

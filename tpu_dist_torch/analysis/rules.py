@@ -5,8 +5,18 @@
 Every ID, name and :class:`Violation` field is JAX's, so reports and
 suppressions read the same in both packages. A summary is retargeted only
 where JAX's names a JAX mechanism (the jaxpr, the HLO, ``jax.jit``); the
-ID and the name stay. The AST lint's configuration (the rest of JAX's
-module) comes with the lint itself.
+ID and the name stay.
+
+The second half is the AST lint's configuration (JAX's ``rules.py:368-503``,
+read by :mod:`~tpu_dist_torch.analysis.lint`), retargeted to PyTorch's
+idioms: a "traced" function becomes a *step context* (a function nested in
+a hot step factory, the body of a CUDA-graph capture, a callable handed to
+``torch.compile``/``checkpoint``/``torch.func``, the ``forward``/``backward``
+of an ``autograd.Function``), the host syncs are torch's, the collectives
+``torch.distributed``'s and the port's wrappers', and the fragile imports
+torch's private modules. The tables that name no framework (TD002's and
+TD007's logger and rank spellings, TD006's allowlist) keep JAX's spellings,
+so both lints agree on those rules over the same source.
 """
 
 from __future__ import annotations
@@ -343,3 +353,160 @@ class Violation:
 def describe(rule_id: str) -> str:
     r = RULES.get(rule_id)
     return f"{r.id} ({r.name}): {r.summary}" if r else rule_id
+
+
+# --------------------------------------------------------------------------
+# Lint configuration (Layer 1 knobs, one place).
+# --------------------------------------------------------------------------
+
+# Calls whose callable argument (or decorated function) runs as a step
+# context (TD001/TD005 scope): captured into a CUDA graph, compiled, or
+# re-run by autograd, where a host read stalls every replay and a host
+# value is frozen at capture. Inside a hot factory (HOT_FACTORY_REGEX)
+# every nested function is a step context too, and so is the body of a
+# ``with torch.cuda.graph(...)`` block.
+TRACE_ENTRY_CALLS = {
+    "torch.compile",
+    "torch.cuda.make_graphed_callables",
+    "torch.utils.checkpoint.checkpoint",
+    "torch.func.grad",
+    "torch.func.grad_and_value",
+    "torch.func.vmap",
+    "torch.vmap",
+}
+# ``with <one of these>(...):`` bodies are captured (step context).
+GRAPH_CAPTURE_CALLS = {"torch.cuda.graph"}
+# ``class F(<one of these>)``: its ``forward``/``backward`` are step contexts.
+AUTOGRAD_FUNCTION_BASES = {"torch.autograd.Function"}
+
+# Fully-resolved call targets that force a host sync (TD001).
+HOST_SYNC_CALLS = {
+    "torch.cuda.synchronize",
+    "numpy.asarray",
+    "numpy.array",
+    "numpy.asanyarray",
+    "numpy.ascontiguousarray",
+}
+# Method names that force a host sync on any receiver when called with no
+# arguments (TD001): a tensor's value read back to the host.
+HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
+# Builtins that force a sync when applied to a tensor (TD001).
+HOST_SYNC_BUILTINS = {"float", "int", "bool"}
+
+# Nondeterministic-at-capture call prefixes (TD005): in a captured graph
+# such a call runs once, at capture, and every replay reuses its value.
+NONDETERMINISM_PREFIXES = ("numpy.random.", "random.")
+NONDETERMINISM_CALLS = {
+    "time.time",
+    "time.perf_counter",
+    "time.monotonic",
+    "time.time_ns",
+}
+
+# Logger-ish method names for TD002 (receiver name must look like a logger).
+LOG_METHODS = {"debug", "info", "warning", "error", "critical", "exception", "log"}
+LOGGERISH_NAMES = ("log", "logger")
+
+# Rank-0 guard spellings TD002 recognizes in `if` tests: ``dist.get_rank()``,
+# the port's ``collectives.rank()``/``mesh.process_index()``/``is_primary()``,
+# and JAX's spellings, which both lints share.
+RANK_CALL_SUFFIXES = ("process_index", "is_primary", "get_rank", "rank")
+RANK_VAR_NAMES = {"rank", "local_rank", "process_id", "proc_id", "process_index", "pid"}
+
+# The port's one-process benchmark scripts (no JAX counterpart): each runs
+# on one card and prints its report, so TD002 and TD007 allow them whole.
+BENCH_SCRIPTS = (
+    "tpu_dist_torch/obs/fused_sgd_bench.py", "tpu_dist_torch/obs/health_cost.py",
+    "tpu_dist_torch/obs/step_breakdown.py",
+)
+
+# Modules exempt from TD002 (JAX's list, the port's counterparts): host-side
+# tooling that never runs inside a multi-process training job (the analysis
+# and obs CLIs, the fleet controller in its single arbiter process, the serve
+# CLI and drill in the single serving/operator process).
+TD002_EXEMPT_PARTS = (
+    "tpu_dist_torch/analysis/", "tpu_dist_torch/obs/__main__.py", "tpu_dist_torch/fleet/",
+    "tpu_dist_torch/serve/__main__.py", "tpu_dist_torch/serve/drill.py",
+    *BENCH_SCRIPTS,
+)
+
+# TD007 allowlist (JAX's list, the port's counterparts): the designated
+# output layer (rank0_print/get_logger and the ProgressMeter display sink)
+# plus the CLI report modules whose stdout is the product.
+TD007_ALLOWED_PARTS = (
+    "tpu_dist_torch/metrics/logging.py",
+    "tpu_dist_torch/metrics/meters.py",
+    "tpu_dist_torch/analysis/",
+    "tpu_dist_torch/obs/__main__.py",
+    "tpu_dist_torch/serve/__main__.py",
+    "tpu_dist_torch/serve/drill.py",
+    *BENCH_SCRIPTS,
+)
+
+# TD003 scope: step contexts nested in these factory-name patterns are "hot
+# path" (``make_train_step``'s ``step``, ``make_step_body``'s ``body``).
+HOT_FACTORY_REGEX = r"^(make|build)_.*(step|epoch|train|update)"
+# TD003: names of training state whose out-of-place rebinding (``p = p -
+# lr * g``, ``p.data = ...``) or whole copy (``.clone()``, ``copy.deepcopy``)
+# inside a hot step keeps the old state alive beside the new one. Matched on
+# the last name of the target (``state.params`` -> ``params``).
+TD003_STATE_NAMES = {
+    "state", "params", "param", "p", "weight", "weights", "opt_state", "momentum", "mom",
+    "buf", "bufs", "momentum_buffer", "exp_avg", "exp_avg_sq", "ef", "master",
+}
+
+# TD008: call targets that are (or transitively drive) a cross-process
+# collective, matched on the LAST dotted segment: ``torch.distributed``'s
+# calls, the wrappers of ``tpu_dist_torch/comm/collectives.py`` and the
+# quantized reduce of ``train/step.py``. Any of these reachable only under a
+# rank-dependent ``if`` is the deadlock shape: the guarded ranks enter the
+# collective, the rest never do. The JAX-named wrappers the port kept
+# (``reduce_mean``, ``broadcast_from``, ``barrier``...) are spelled as in
+# JAX's table.
+COLLECTIVE_CALLS = {
+    # torch.distributed
+    "all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+    "reduce_scatter_tensor", "broadcast", "barrier", "monitored_barrier", "all_to_all",
+    "all_to_all_single", "send", "recv", "isend", "irecv", "batch_isend_irecv",
+    "all_gather_object", "broadcast_object_list", "gather_object", "scatter_object_list",
+    "send_object_list", "recv_object_list",
+    # tpu_dist_torch.comm.collectives
+    "all_reduce_", "all_to_all_tiled", "all_gather_flat", "gather_flat", "all_gather_dim",
+    "reduce_scatter_dim", "sum_across_ranks", "reduce_sum", "reduce_mean", "broadcast_from",
+    "host_allreduce_mean", "broadcast_module", "rotate", "ring_rotate", "stage_handoff",
+    "copy_to_tp", "reduce_from_tp", "copy_to_pipe", "reduce_from_pipe",
+    # the quantized two-stage reduce (train/step.py)
+    "quantized_pmean_flat", "compressed_pmean",
+}
+# ...except these receivers/modules, where a same-named method is host
+# bookkeeping, not a collective. Matched on the resolved dotted prefix.
+COLLECTIVE_CALL_NONMODULES = ("threading.", "multiprocessing.", "socket.", "os.",
+                              "subprocess.", "numpy.")
+
+# TD006: exception types a `pass`-only handler may swallow without comment —
+# probe/cleanup idioms where absence IS the answer (JAX's list). Matched on
+# the LAST dotted segment.
+TD006_ALLOWED_SILENT = {
+    "FileNotFoundError",
+    "ImportError",
+    "ModuleNotFoundError",
+    "StopIteration",
+    "Empty",           # queue.Empty poll loops
+    "TimeoutExpired",  # subprocess poll-wait loops
+    "TimeoutError",
+}
+
+# Version-fragile imports (TD004): module -> names that must come from the
+# compat module ("*": every name; "_*": every private name). Besides the
+# table, any import from a private torch module (a dotted segment with a
+# leading underscore: ``torch._C``, ``torch.utils._python_dispatch``) is
+# fragile.
+FRAGILE_IMPORTS = {
+    "torch._C": {"*"},
+    "torch._utils": {"*"},
+    "torch.utils._python_dispatch": {"*"},
+    "torch.distributed.distributed_c10d": {"_*"},
+}
+FRAGILE_PRIVATE_ROOT = "torch"
+# The one module allowed to perform those imports.
+COMPAT_MODULE_SUFFIX = "tpu_dist_torch/comm/compat.py"

@@ -36,21 +36,71 @@ it wrote, or to the end of the step (:meth:`StepTrace.schedule_distances`).
 The mode passes every op through unchanged: a step runs under it as it
 runs without it (the fused SGD kernel, which the dispatcher never sees,
 included). Nothing here imports JAX.
+
+**The step fingerprint** (:meth:`StepTrace.fingerprint`,
+:func:`step_fingerprint`) is the port's ``str(jax.make_jaxpr(step)(*args))``:
+one canonical string for one call of a step. In dispatch order it holds
+every non-view aten op's overload, each tensor argument's and result's
+dtype, shape and device type, non-tensor arguments by value, and every
+``c10d`` op with its kind and group size; then the delta of each
+hand-written kernel's launch counter over the call
+(``train/epoch.py::_LAUNCH_COUNTS``: ``fused_sgd.launches`` and the flash
+kernels'), since those launch behind the dispatcher, and of each ``comm.*``
+counter (a captured graph's replays move them). It never holds tensor
+values, data pointers, storage ids or wall time. Two fresh setups of the
+same step give the same string; a no-op probe
+(:mod:`~tpu_dist_torch.analysis.noop_probes`) compares the fingerprint of
+a fresh setup's first call with a kit disarmed and again with it armed.
+
+**The audit cases** (JAX's ``jaxpr_audit.py:50-504`` and ``:2084-2126``):
+:func:`register_audit_case` builders return ``(fn, args,
+CollectiveBudget)``; :func:`audit_case` runs ``fn(*args)`` once inside a
+:class:`StepTrace` and :func:`_compare` holds the counts to the budget:
+
+* **TD101**: the calls through ``comm/collectives.py`` by primitive, exact.
+  The port fuses a gradient tree into one flat buffer and its metric sums
+  into one all-reduce, so its budgets are its own, written from its step
+  code (each beside JAX's, which count jaxpr equations).
+* **TD102**: ops that cross the host-device line inside the step: a
+  ``_local_scalar_dense`` (``.item()``, ``float()`` of a tensor), and a
+  ``_to_copy``/``copy_`` between device types. Budget 0.
+* **TD103**: bf16 -> f32 ``_to_copy`` casts against the number the bf16
+  compute policy declares.
+* **TD104** (:func:`wire_ratio_violations`): the int8 wires' gradient
+  payload bytes at most 0.5x the bf16 wire's and 0.25x the f32 wire's.
+
+A fused case (:func:`_fused_setup`) runs one epoch of 2 steps through
+``train/epoch.py::make_fused_epoch``, so its budget is twice its step's. A
+step captured in a CUDA graph dispatches once, at capture, and runs at
+each replay, where nothing reaches Python but the counters the epoch
+keeps: it adds the capture's ``comm.*`` increments once a replay. The
+trace books a call made under a capture as the graph's, and when it
+closes it books the graph's calls once for each replay those counters
+show, as JAX multiplies a ``scan`` body by its trips. A replay of a graph
+captured before the trace opened books nothing and raises instead. The
+dispatch-side counts (the executed ops, TD102's transfers, TD103's casts,
+the fingerprint's op lines) see a captured step once, at its capture; the
+fingerprint ends with the ``comm.*`` counters' deltas, which count every
+replay. At 2 steps an epoch the CUDA epoch runs both steps eagerly on its
+side stream (``WARMUP_STEPS`` is 3) and captures nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import Counter
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_dist_torch import resolve_device
+from tpu_dist_torch.analysis.rules import Violation
 from tpu_dist_torch.comm import collectives
+from tpu_dist_torch.comm.compat import TorchDispatchMode
+from tpu_dist_torch.obs import counters
 
 #: Per-replica wire legs of each kind under the ring model (JAX's
 #: ``KIND_LEGS``): the common (n-1)/n send fraction is left out, so these
@@ -63,6 +113,11 @@ KIND_LEGS = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1, "all-to-all"
 KIND_TO_PRIM = {"all-reduce": "psum", "all-gather": "all_gather",
                 "reduce-scatter": "reduce_scatter", "all-to-all": "all_to_all",
                 "collective-permute": "ppermute"}
+
+# The counter labels of the collectives.py calls that go through the
+# recorder (comm.gather.* does not; a lockstep group's forms count under
+# these labels with no call, and no audit traces one).
+_RECORDED_LABELS = ("all_reduce.", "reduce_scatter.", "all_to_all.", "all_gather.", "ppermute.")
 
 # Float collectives at or above this element count are payload when the
 # step has nothing larger to cut against (JAX's _PAYLOAD_MIN_ELEMS).
@@ -199,13 +254,50 @@ def price(kind: str, tensors) -> dict:
             "dtype": dom, "shape": shape}
 
 
+_ADDRESS = re.compile(r" at 0x[0-9a-fA-F]+")
+
+
+def _launch_counts() -> list:
+    """``[(name, count)]`` of the hand-written kernels' launch counters
+    (``train/epoch.py::_LAUNCH_COUNTS``)."""
+    from tpu_dist_torch.train import epoch  # noqa: PLC0415 — epoch imports the step
+
+    return [(f"{getattr(holder, '__name__', holder)}.{attr}", getattr(holder, attr, 0))
+            for holder, attr in epoch._LAUNCH_COUNTS]
+
+
+def _describe(x) -> str:
+    """One argument or result of an op in the fingerprint: a tensor by its
+    dtype, shape and device type, a process group by its size, anything
+    else by value (with no address in it)."""
+    if isinstance(x, torch.Tensor):
+        return f"{hlo_dtype(x.dtype)}{list(x.shape)}@{x.device.type}"
+    if isinstance(x, (list, tuple)):
+        inner = ",".join(_describe(v) for v in x)
+        return f"[{inner}]" if isinstance(x, list) else f"({inner})"
+    if isinstance(x, dict):
+        return "{" + ",".join(f"{k}={_describe(v)}" for k, v in sorted(x.items())) + "}"
+    if isinstance(x, torch.device):
+        return x.type
+    if isinstance(x, torch.ScriptObject):
+        try:
+            return f"group[{dist.ProcessGroup.unbox(x).size()}]"
+        except (RuntimeError, ValueError, AttributeError, TypeError):
+            return type(x).__name__
+    if isinstance(x, (bool, int, float, str, type(None), torch.dtype, torch.layout,
+                      torch.memory_format)):
+        return repr(x)
+    return _ADDRESS.sub("", repr(x))
+
+
 class StepTrace(TorchDispatchMode):
     """Both accountings of the steps run inside it (module docstring):
     ``calls`` (one dict a collective call: ``kind``, ``label``,
     ``group_size``, ``tensors`` as ``[(dtype, elements)]``), ``ops`` (the
-    executed :class:`Collective` list), ``transfers`` (host-device copies)
-    and ``bf16_to_f32`` (casts). Enter it around the step; it nests in
-    nothing of its own kind."""
+    executed :class:`Collective` list), ``transfers`` (host-device copies
+    and host reads), ``bf16_to_f32`` (casts) and the step fingerprint
+    (:meth:`fingerprint`). Enter it around the step; it nests in nothing
+    of its own kind."""
 
     @classmethod
     def _should_skip_dynamo(cls) -> bool:
@@ -222,13 +314,20 @@ class StepTrace(TorchDispatchMode):
         self._label: Optional[str] = None
         # the dispatched non-view ops in order: (ops index or None, reads, writes)
         self._seq: list = []
+        self._fp: list = []  # the fingerprint's op lines
+        self._launch0: list = []
+        self._captured: list = []  # the calls made under a CUDA graph's capture
+        self._counters0: dict = {}
+        self.counted: dict = {}  # the comm.* counters' deltas over the trace
 
     # -- the predicted side: collectives.py's calls -------------------------
 
     def issue(self, kind: str, label: str, tensors, group, fn, /, *args, **kwargs):
         """Book one call of :mod:`~tpu_dist_torch.comm.collectives` and make
-        it: the c10d ops it dispatches carry ``label``."""
-        self.calls.append({
+        it: the c10d ops it dispatches carry ``label``. A call made under a
+        CUDA graph's capture is the graph's: it runs at each replay."""
+        capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        (self._captured if capturing else self.calls).append({
             "kind": kind, "label": label, "group_size": collectives.world_size(group),
             "tensors": [(t.dtype, t.numel()) for t in tensors],
         })
@@ -242,6 +341,8 @@ class StepTrace(TorchDispatchMode):
         if collectives._RECORDER is not None:
             raise RuntimeError("a step is already being traced")
         collectives._RECORDER = self
+        self._launch0 = _launch_counts()
+        self._counters0 = counters.snapshot()
         try:
             return super().__enter__()
         except BaseException:
@@ -250,7 +351,35 @@ class StepTrace(TorchDispatchMode):
 
     def __exit__(self, *exc):
         collectives._RECORDER = None
-        return super().__exit__(*exc)
+        out = super().__exit__(*exc)
+        self.counted = {k.removeprefix("comm."): v for k, v
+                        in counters.delta(self._counters0, counters.snapshot()).items()
+                        if k.startswith("comm.")}
+        if exc[0] is None:
+            self._book_replays()
+        return out
+
+    def _book_replays(self) -> None:
+        """Book the captured calls once for each replay that the ``comm.*``
+        counters show beyond the calls booked as they ran (module
+        docstring); raise where those counters show calls of a recorded
+        kind that the trace never saw, a graph captured before it opened."""
+        booked = Counter(c["label"] for c in self.calls)
+        graph = Counter(c["label"] for c in self._captured)
+        replays = {(self.counted.get(label, 0) - booked[label]) / n
+                   for label, n in graph.items()}
+        if len(replays) > 1 or any(r < 0 or r != int(r) for r in replays):
+            raise RuntimeError(f"the replays of a captured step disagree: calls "
+                               f"{self.counted}, booked {dict(booked)}, a replay {dict(graph)}")
+        for _ in range(int(replays.pop()) if replays else 0):
+            self.calls.extend(dict(c) for c in self._captured)
+        unseen = {label: n - booked[label] for label, n in self.counted.items()
+                  if label.startswith(_RECORDED_LABELS) and label not in graph
+                  and n > booked[label]}
+        if unseen:
+            raise RuntimeError(f"collectives ran inside the trace that it did not book, "
+                               f"{unseen}: the replays of a CUDA graph captured before the "
+                               "trace opened (open it around the capture)")
 
     # -- the executed side: what reaches the dispatcher ---------------------
 
@@ -262,6 +391,10 @@ class StepTrace(TorchDispatchMode):
         name = func._overloadpacket.__name__
         index = None
         writes: set = set()
+        line = f"{func} {_describe(list(args))} {_describe(kwargs)} -> {_describe(out)}"
+        if func.namespace == "c10d":  # the kind first; the group is among the arguments
+            line = f"{C10D_OPS.get(name, (f'c10d:{name}',))[0]} {line}"
+        self._fp.append(line)
         if func.namespace == "c10d" and name not in C10D_SKIPPED:
             kind, costed, written = C10D_OPS.get(name, (f"c10d:{name}", 0, 0))
             priced = price(kind, _tensors(args[costed]))
@@ -275,15 +408,34 @@ class StepTrace(TorchDispatchMode):
                 writes = _storages(args[written])
         elif name == "_to_copy" and isinstance(out, torch.Tensor) and args:
             src = args[0]
-            if src.device != out.device:
+            if src.device.type != out.device.type:
                 self.transfers += 1
             if src.dtype == torch.bfloat16 and out.dtype == torch.float32:
                 self.bf16_to_f32 += 1
         elif name == "copy_" and len(args) > 1 and isinstance(args[1], torch.Tensor):
-            if args[0].device != args[1].device:
+            if args[0].device.type != args[1].device.type:
                 self.transfers += 1
+        elif name == "_local_scalar_dense":
+            self.transfers += 1  # a tensor's value read back to the host
         self._seq.append((index, _storages(list(args) + list(kwargs.values())), writes))
         return out
+
+    def _launch_deltas(self) -> list:
+        return [(name, now - before) for (name, now), (_, before)
+                in zip(_launch_counts(), self._launch0)]
+
+    def fingerprint(self) -> str:
+        """The step fingerprint of what ran inside the trace so far (module
+        docstring): the op lines, then each kernel's launches since the
+        trace was entered, then each ``comm.*`` counter's delta (a graph's
+        replays included)."""
+        return "\n".join(self._fp + [f"launches {n} +{d}" for n, d in self._launch_deltas()]
+                         + [f"calls {k} +{v}" for k, v in sorted(self.counted.items())])
+
+    def launches(self) -> dict:
+        """Each hand-written kernel's launches since the trace was entered,
+        where any."""
+        return {n: d for n, d in self._launch_deltas() if d}
 
     # -- reading the trace ---------------------------------------------------
 
@@ -387,17 +539,9 @@ def traced(fn, *args, **kwargs) -> tuple:
 def trace_counts(fn, *args) -> dict:
     """Run the step ``fn(*args)`` once and tally JAX's audited classes:
     ``collectives`` (calls by primitive name), ``executed`` (c10d ops by
-    kind), ``transfers``, ``bf16_to_f32`` and the calls' ``wire`` buckets."""
-    _, trace = traced(fn, *args)
-    calls = Counter(KIND_TO_PRIM.get(c["kind"], c["kind"]) for c in trace.calls)
-    executed = Counter(op.kind for op in trace.ops)
-    return {
-        "collectives": dict(sorted(calls.items())),
-        "executed": dict(sorted(executed.items())),
-        "transfers": trace.transfers,
-        "bf16_to_f32": trace.bf16_to_f32,
-        "wire": wire_buckets(trace.call_records()),
-    }
+    kind), ``transfers``, ``bf16_to_f32``, the calls' ``wire`` buckets and
+    the kernels' ``launches``."""
+    return _counts(traced(fn, *args)[1])
 
 
 # -- the proxy model and the data-parallel step setup -------------------------------
@@ -472,3 +616,234 @@ def _dp_setup(device=None, *, params=None, **step_kwargs) -> tuple:
     step = step_lib.make_train_step(opt, sync_bn=False, preempt_flag=False, **step_kwargs)
     images, labels = proxy_batch(device)
     return step, (state, images, labels, 0.1)
+
+
+def step_fingerprint(fn, *args, **kwargs) -> str:
+    """The fingerprint of one call ``fn(*args, **kwargs)`` (module
+    docstring): the port's ``str(jax.make_jaxpr(fn)(*args))``."""
+    return traced(fn, *args, **kwargs)[1].fingerprint()
+
+
+def _fused_setup(device=None, mode: str = "none") -> tuple:
+    """The fused-epoch twin of :func:`_dp_setup` (JAX's ``_fused_setup``):
+    the proxy through ``train/epoch.py::make_fused_epoch`` on the
+    ``mode`` wire, 4 examples a step and 8 uint8 images a rank on the
+    device, so one epoch is 2 steps. Returns ``(epoch_fn, args)``, where
+    ``epoch_fn(state, images, labels, lr, epoch)`` runs one epoch."""
+    from tpu_dist_torch.train import step as step_lib  # noqa: PLC0415
+    from tpu_dist_torch.train.epoch import make_fused_epoch  # noqa: PLC0415
+    from tpu_dist_torch.train.optim import SGD  # noqa: PLC0415
+    from tpu_dist_torch.train.state import TrainState  # noqa: PLC0415
+
+    device = resolve_device(device if device is not None else "cuda")
+    model = _AuditMLP(device)
+    opt = SGD(momentum=0.9, weight_decay=1e-4, fused=True)
+    state = TrainState.create(model, opt)
+    if mode == "int8_ef":
+        state.layout = step_lib.flat_layout(model)
+        state.ef = step_lib.init_ef_state(model, layout=state.layout)
+    epoch = make_fused_epoch(opt, batch_per_device=_FUSED_BATCH, sync_bn=False,
+                             compute_dtype=torch.float32, grad_compression=mode)
+    rng = np.random.default_rng([1, collectives.rank()])
+    images = torch.from_numpy(rng.integers(0, 256, (_FUSED_BATCH * _FUSED_STEPS, 2, 2, 3),
+                                           dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(0, _AuditMLP.classes, _FUSED_BATCH * _FUSED_STEPS)
+                              ).to(device)
+    # the static buffers go to the device here, outside the audited call
+    # (the normalizer's mean and 1/std: JAX bakes them into its program)
+    epoch.prepare(state, images, labels)
+    return epoch, (state, images, labels, 0.1, 0)
+
+
+# -- the audit cases: the data-parallel train-step family ---------------------------
+
+
+@dataclasses.dataclass
+class AuditCase:
+    name: str
+    # builder(device) -> (step_fn, example_args, CollectiveBudget)
+    builder: Callable
+
+
+_CASES: dict = {}
+
+
+def register_audit_case(name: str, builder: Callable) -> None:
+    _CASES[name] = AuditCase(name, builder)
+
+
+def registered_cases() -> list:
+    return sorted(_CASES)
+
+
+# The budgets count the calls the step makes through comm/collectives.py
+# (the backend-independent side), by JAX's primitive names; JAX's own
+# budgets (jaxpr equations) are beside each.
+#   psum x2: the flat gradient all-reduce (one buffer for every leaf,
+#            train/step.py::_flat_all_reduce_mean) and the metrics
+#            all-reduce (loss, top-1 and top-5 sums stacked in one
+#            buffer). JAX: psum x4 (the gradient tree and three metrics).
+_DP_BUDGET = {"psum": 2}
+# ZeRO-1 swaps the gradient all-reduce for one reduce-scatter of the flat
+# gradients and one all-gather of the updated flat parameters
+# (train/step.py::_ZeroOne.update); the metrics all-reduce remains. JAX:
+# {"psum": 3, "reduce_scatter": 1, "all_gather": 1}.
+_ZERO1_BUDGET = {"psum": 1, "reduce_scatter": 1, "all_gather": 1}
+# The quantized two-stage reduce (train/step.py::quantized_pmean_flat): an
+# int8 all-to-all of the codes and one of the f32 scales, then an int8
+# all-gather of the codes and one of the scales; the metrics all-reduce
+# remains. Error feedback is local arithmetic: int8_ef's budget is int8's.
+# JAX: {"psum": 3, "all_to_all": 2, "all_gather": 2}.
+_DP_INT8_BUDGET = {"psum": 1, "all_to_all": 2, "all_gather": 2}
+# ZeRO-1 quantized: the reduce-scatter is the int8 all-to-all pair, the
+# parameter all-gather stays f32. JAX: {"psum": 3, "all_to_all": 2,
+# "all_gather": 1}.
+_ZERO1_INT8_BUDGET = {"psum": 1, "all_to_all": 2, "all_gather": 1}
+# A fused epoch: 2 steps of 4 examples, each the step's calls.
+_FUSED_STEPS = 2
+_FUSED_BATCH = 4
+# bf16 compute declares: one cast a parameter leaf in the backward (the
+# weight's .to(bf16) in _AuditMLP.forward, whose gradient comes back to
+# f32: 4), the logits into the f32 cross-entropy (nn/functional.py) and
+# the logits into the f32 top-k of the metrics; the loss is f32 already.
+# JAX's count is the same 6.
+_BF16_CONVERTS = 6
+
+
+def _family_setup(device, family: str) -> tuple:
+    from tpu_dist_torch.train.step import family_step_kwargs  # noqa: PLC0415
+
+    return _dp_setup(device, **family_step_kwargs(family))
+
+
+def _case(family: str, budget: dict, bf16_to_f32: Optional[int] = None):
+    def build(device):
+        fn, args = _family_setup(device, family)
+        return fn, args, CollectiveBudget(dict(budget), bf16_to_f32=bf16_to_f32)
+
+    return build
+
+
+def _fused_budget(per_step: dict) -> dict:
+    return {k: v * _FUSED_STEPS for k, v in per_step.items()}
+
+
+def _case_fused(mode: str, budget: dict):
+    def build(device):
+        fn, args = _fused_setup(device, mode)
+        return fn, args, CollectiveBudget(_fused_budget(budget), bf16_to_f32=None)
+
+    return build
+
+
+register_audit_case("dp_sgd", _case("dp_sgd", _DP_BUDGET))
+# torch's no_sync contract: K local sub-steps, ONE cross-rank reduce — the
+# budget is the K=1 step's
+register_audit_case("dp_sgd_accum4", _case("dp_sgd_accum4", _DP_BUDGET))
+register_audit_case("dp_bf16", _case("dp_bf16", _DP_BUDGET, _BF16_CONVERTS))
+register_audit_case("zero1_sgd", _case("zero1_sgd", _ZERO1_BUDGET))
+# the bf16 WIRE (grad_compression='bf16', f32 compute): the 2-byte
+# reference of TD104's ratios, not the bf16 compute policy (as in JAX,
+# TD103 checks dp_bf16 alone)
+register_audit_case("dp_wire_bf16", _case("dp_wire_bf16", _DP_BUDGET))
+register_audit_case("dp_int8", _case("dp_int8", _DP_INT8_BUDGET))
+register_audit_case("dp_int8_ef", _case("dp_int8_ef", _DP_INT8_BUDGET))
+register_audit_case("zero1_int8", _case("zero1_int8", _ZERO1_INT8_BUDGET))
+# --device_metrics: the health scalars are local arithmetic on the reduced
+# gradients, appended after the metrics all-reduce — the plain step's budget
+register_audit_case("dp_device_metrics", _case("dp_device_metrics", _DP_BUDGET))
+register_audit_case("fused_none", _case_fused("none", _DP_BUDGET))
+register_audit_case("fused_bf16", _case_fused("bf16", _DP_BUDGET))
+register_audit_case("fused_int8", _case_fused("int8", _DP_INT8_BUDGET))
+register_audit_case("fused_int8_ef", _case_fused("int8_ef", _DP_INT8_BUDGET))
+
+
+def case_budget(name: str, device=None) -> tuple:
+    """``(fn, args, budget)`` of the registered case ``name``, built on
+    ``device`` over the default process group."""
+    if name not in _CASES:
+        raise ValueError(f"unknown audit case {name!r}; registered: {registered_cases()}")
+    return _CASES[name].builder(device)
+
+
+def audit_case(name: str, device=None) -> tuple:
+    """Run case ``name`` once inside a :class:`StepTrace`; returns
+    ``(counts, violations)``, the counts :func:`trace_counts`'."""
+    fn, args, budget = case_budget(name, device)
+    counts = trace_counts(fn, *args)
+    return counts, _compare(name, counts, budget)
+
+
+def _counts(trace: StepTrace) -> dict:
+    calls = Counter(KIND_TO_PRIM.get(c["kind"], c["kind"]) for c in trace.calls)
+    executed = Counter(op.kind for op in trace.ops)
+    return {
+        "collectives": dict(sorted(calls.items())),
+        "executed": dict(sorted(executed.items())),
+        "transfers": trace.transfers,
+        "bf16_to_f32": trace.bf16_to_f32,
+        "wire": wire_buckets(trace.call_records()),
+        "launches": trace.launches(),
+    }
+
+
+# TD104: (quantized case, reference case, max payload-byte ratio). Every
+# pair present in a report is checked; equality is allowed (the int8 modes
+# land on 0.5x bf16 / 0.25x f32 when the flat padding is zero).
+_WIRE_RATIO_CHECKS = (
+    ("dp_int8", "dp_wire_bf16", 0.5),
+    ("dp_int8", "dp_sgd", 0.25),
+    ("dp_int8_ef", "dp_wire_bf16", 0.5),
+    ("dp_int8_ef", "dp_sgd", 0.25),
+    ("fused_int8", "fused_bf16", 0.5),
+    ("fused_int8", "fused_none", 0.25),
+    ("fused_int8_ef", "fused_bf16", 0.5),
+    ("fused_int8_ef", "fused_none", 0.25),
+)
+
+
+def wire_ratio_violations(report: dict) -> list:
+    """TD104 over a case -> counts report: a quantized wire's gradient
+    payload must honour the declared fraction of its reference mode's."""
+    out: list = []
+    for qcase, ref, lim in _WIRE_RATIO_CHECKS:
+        if qcase not in report or ref not in report:
+            continue
+        qb = report[qcase]["wire"]["payload_bytes"]
+        rb = report[ref]["wire"]["payload_bytes"]
+        if rb and qb > lim * rb:
+            out.append(Violation(
+                "TD104", f"<step:{qcase}>", 0,
+                f"gradient-collective payload is {qb} B/step vs {ref}'s {rb} B — exceeds the "
+                f"declared {lim}x wire budget of the quantized format (a leg decompressed, or "
+                "padding/scale data leaked into the payload)",
+                snippet=f"payload:{qb}>{lim}x{rb}"))
+    return out
+
+
+def _compare(name: str, counts: dict, budget: CollectiveBudget) -> list:
+    out: list = []
+    path = f"<step:{name}>"
+    actual = counts["collectives"]
+    for prim in sorted(set(actual) | set(budget.collectives)):
+        want, got = budget.collectives.get(prim, 0), actual.get(prim, 0)
+        if want != got:
+            out.append(Violation(
+                "TD101", path, 0,
+                f"{prim}: expected {want} per step, the step called {got} — the step's "
+                "collective inventory drifted from the parallelism config's budget",
+                snippet=f"{prim}:{got}"))
+    if counts["transfers"] > budget.transfers:
+        out.append(Violation(
+            "TD102", path, 0,
+            f"{counts['transfers']} host-device transfer op(s) inside the step (a "
+            f"_local_scalar_dense or a cross-device copy; budget {budget.transfers}) — "
+            "host-device traffic on the hot path",
+            snippet=f"transfers:{counts['transfers']}"))
+    if budget.bf16_to_f32 is not None and counts["bf16_to_f32"] != budget.bf16_to_f32:
+        out.append(Violation(
+            "TD103", path, 0,
+            f"{counts['bf16_to_f32']} bf16->f32 casts, the mixed-precision policy declares "
+            f"{budget.bf16_to_f32} — an op is implicitly promoting to f32",
+            snippet=f"bf16_to_f32:{counts['bf16_to_f32']}"))
+    return out

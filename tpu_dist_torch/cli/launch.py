@@ -136,7 +136,7 @@ def _free_port() -> int:
 
 
 def _say(msg: str) -> None:
-    # stderr is the launcher's contract with the orchestrator
+    # tpu-dist: ignore[TD002,TD007] — the launcher is the single supervising process; stderr is its contract
     print(f"launch: {msg}", file=sys.stderr, flush=True)
 
 
@@ -240,7 +240,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for pr in list(live):
             try:
                 pr.send_signal(signal.SIGTERM)
-            except OSError:  # the child is already gone
+            except OSError:  # tpu-dist: ignore[TD006] — the child is already gone
                 pass
 
     try:
@@ -335,7 +335,7 @@ class _Watchdog:
         self.term_at[rank] = t
         try:
             pr.send_signal(signal.SIGTERM)
-        except OSError:  # the child is already gone
+        except OSError:  # tpu-dist: ignore[TD006] — the child is already gone
             pass
 
     def watch(self, pr, rank: int) -> bool:
@@ -386,7 +386,7 @@ class _Watchdog:
             size0 = self._stack_size(rank)
             try:
                 pr.send_signal(signal.SIGUSR1)
-            except OSError:  # the child is already gone
+            except OSError:  # tpu-dist: ignore[TD006] — the child is already gone
                 pass
             self.dump[rank] = [t + self.args.watchdog_dump_grace, size0, size0]
             _say(f"WATCHDOG: requesting all-threads stack dump from worker {rank} (SIGUSR1), "
@@ -477,7 +477,7 @@ def _run_round(args, cmd: List[str], nproc: int, restart: int, hb_base: Optional
                     for pr in pending:
                         try:
                             pr.send_signal(signal.SIGTERM)
-                        except OSError:  # the child is already gone
+                        except OSError:  # tpu-dist: ignore[TD006] — the child is already gone
                             pass
             for pr in list(pending):
                 ret = pr.poll()

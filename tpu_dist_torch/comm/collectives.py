@@ -540,6 +540,7 @@ class _StageHandoff(torch.autograd.Function):
                  if prv is not None else [])
         _exchange(sends, nxt, recvs, prv, group, kind)
         ctx.sent = (y.shape, y.dtype, y.device) if sends else None
+        # tpu-dist: ignore[TD001] — bool of a Python list, no tensor
         ctx.received = bool(recvs)
         ctx.peers, ctx.group, ctx.kind = peers, group, kind
         return ticket.clone(), (recvs[0] if recvs else None)

@@ -48,6 +48,7 @@ LOSS_RTOL = 2e-3
 
 
 def _say(msg: str) -> None:
+    # tpu-dist: ignore[TD002,TD007] — single-process CLI; stdout is the report
     print(f"elastic-drill: {msg}", flush=True)
 
 

@@ -85,6 +85,7 @@ HOLD_LIMIT_S = 300
 
 
 def _say(msg: str) -> None:
+    # tpu-dist: ignore[TD007] — single-process CLI; stdout is the report
     print(f"fleet-drill: {msg}", flush=True)
 
 
@@ -126,7 +127,7 @@ def _load(path: str) -> List[dict]:
     for line in lines:
         try:
             out.append(json.loads(line))
-        except ValueError:  # a line still being written
+        except ValueError:  # tpu-dist: ignore[TD006] — a line still being written
             pass
     return out
 

@@ -153,6 +153,7 @@ write_training_ckpt(sys.argv[1], model)
 
 
 def _say(msg: str) -> None:
+    # tpu-dist: ignore[TD007] — single-process CLI; stdout is the report
     print(f"tenancy-drill: {msg}", flush=True)
 
 

@@ -48,6 +48,7 @@ class MetricsHistory:
             os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
             # line-buffered: each record is flushed whole, so a reader
             # following the file sees complete lines only
+            # tpu-dist: ignore[TD002] — self.path is None off rank 0 unless the caller opted into per-rank files
             self._f = open(self.path, "a", buffering=1)
 
     def log(self, kind: str, **fields) -> None:

@@ -98,6 +98,7 @@ class SummaryWriter:
             f"{socket.gethostname()}.{os.getpid()}"
         )
         self.path = os.path.join(logdir, name)
+        # tpu-dist: ignore[TD002] — the writer is only constructed on the primary rank (the trainer guards it)
         self._f = open(self.path, "ab")
         self._record(_version_event(time.time()))
 

@@ -206,7 +206,7 @@ def _count_mode():
     in the first step of every process) unless the mode opts out, and one
     mode passes each op through Python once. Ops that ``FlopCounterMode`` would decompose
     (none on the port's paths) count nothing here."""
-    from torch.utils._python_dispatch import TorchDispatchMode  # noqa: PLC0415
+    from tpu_dist_torch.comm.compat import TorchDispatchMode  # noqa: PLC0415
 
     class Count(TorchDispatchMode):
         @classmethod
@@ -265,7 +265,7 @@ def hidden():
     if _ACTIVE is None:
         yield
         return
-    from torch.utils._python_dispatch import _disable_current_modes  # noqa: PLC0415
+    from tpu_dist_torch.comm.compat import _disable_current_modes  # noqa: PLC0415
 
     with _disable_current_modes():
         yield

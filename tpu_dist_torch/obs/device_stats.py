@@ -37,7 +37,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch._utils import _flatten_dense_tensors
+from tpu_dist_torch.comm.compat import _flatten_dense_tensors
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -60,6 +60,7 @@ _EXITED = "WATCHDOG: worker 0 exited"
 
 
 def _say(msg: str) -> None:
+    # tpu-dist: ignore[TD002,TD007] — single-process CLI; stdout is the report
     print(f"postmortem-drill: {msg}", flush=True)
 
 
@@ -93,7 +94,7 @@ def _run_stamped(cmd: List[str], timeout: float):
     finally:
         try:
             os.killpg(proc.pid, signal.SIGKILL)  # every process the round left behind
-        except OSError:  # the session has ended already
+        except OSError:  # tpu-dist: ignore[TD006] — the session has ended already
             pass
         proc.wait()
         for th in threads:

@@ -224,8 +224,7 @@ class MetricsExporter:
         self._last_write = now
         tmp = f"{self.textfile}.tmp.{os.getpid()}"
         try:
-            # per-process by construction: the caller derives one textfile
-            # path per rank (heartbeat.per_rank_path)
+            # tpu-dist: ignore[TD002] — per-process by construction: the caller derives one textfile path per rank (heartbeat.per_rank_path)
             with open(tmp, "w") as f:
                 f.write(text)
             os.replace(tmp, self.textfile)

@@ -195,7 +195,7 @@ class FlightRecorder:
         try:
             for fr in traceback.extract_tb(tb)[-6:]:
                 frames.append(f"{fr.filename}:{fr.lineno}:{fr.name}")
-        except Exception:  # a broken traceback must not lose the record
+        except Exception:  # tpu-dist: ignore[TD006] — a broken traceback must not lose the record
             pass  # object must not lose the fatal record itself
         return self.record(
             "fatal",
@@ -215,6 +215,7 @@ class FlightRecorder:
             if fd >= 0:
                 try:
                     os.close(fd)
+                # tpu-dist: ignore[TD006] — already closed
                 except OSError:
                     pass
 
@@ -382,6 +383,7 @@ def arm_faulthandler(path: str) -> Optional[_FaulthandlerHandle]:
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     # line-buffered, so a dump survives a kill
+    # tpu-dist: ignore[TD002] — per-rank crash file by design (the rank derives its own path)
     f = open(path, "a", buffering=1)
     was_enabled = faulthandler.is_enabled()
     faulthandler.enable(file=f, all_threads=True)
@@ -391,7 +393,9 @@ def arm_faulthandler(path: str) -> Optional[_FaulthandlerHandle]:
             signal.SIGUSR1, file=f, all_threads=True, chain=False
         )
         registered = True
-    except (AttributeError, ValueError, OSError):  # no SIGUSR1 here: hard faults only
+    # tpu-dist: ignore[TD006] — degraded arming is the contract: no SIGUSR1 here, hard
+    # faults only
+    except (AttributeError, ValueError, OSError):
         pass
     return _FaulthandlerHandle(path, f, was_enabled, registered)
 
@@ -408,6 +412,7 @@ def disarm_faulthandler(handle: Optional[_FaulthandlerHandle]) -> None:
     if handle.registered:
         try:
             faulthandler.unregister(signal.SIGUSR1)
+        # tpu-dist: ignore[TD006] — nothing registered: nothing to undo
         except (AttributeError, ValueError):
             pass
     if handle.was_enabled:
@@ -416,6 +421,7 @@ def disarm_faulthandler(handle: Optional[_FaulthandlerHandle]) -> None:
         faulthandler.disable()
     try:
         handle.file.close()
+    # tpu-dist: ignore[TD006] — already closed
     except OSError:
         pass
 

@@ -61,7 +61,7 @@ class Heartbeat:
         }
         tmp = self.path + ".tmp"
         try:
-            # per-process I/O: each rank owns its derived path
+            # tpu-dist: ignore[TD002] — deliberately per-process I/O: each rank owns its derived heartbeat path
             with open(tmp, "w") as f:
                 json.dump(payload, f)
             os.replace(tmp, self.path)
@@ -122,7 +122,8 @@ def sweep_stale_ranks(base: str, world: int) -> int:
             try:
                 os.remove(os.path.join(d, entry))
                 removed += 1
-            except OSError:  # a racing unlink: the file is gone either way
+            # tpu-dist: ignore[TD006] — a racing unlink: the file is gone either way
+            except OSError:
                 pass
     return removed
 

@@ -335,6 +335,7 @@ class TelemetryHub:
         text = self.federated(snapshot)
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = f"{path}.tmp.{os.getpid()}"
+        # tpu-dist: ignore[TD002] — the hub is a single controller process; one writer per path
         with open(tmp, "w") as f:
             f.write(text)
         os.replace(tmp, path)

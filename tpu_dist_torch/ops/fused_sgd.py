@@ -43,6 +43,7 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 
+from tpu_dist_torch.comm import compat
 from tpu_dist_torch.ops import _build
 
 # as csrc/fused_sgd.cu is built (its entry point refuses a table planned
@@ -221,7 +222,7 @@ def launch(plan: Plan, lr: Union[float, torch.Tensor], momentum: float,
     else:
         lr_ptr, lr_value = None, float(lr)
     fn = _kernel()
-    stream = torch._C._cuda_getCurrentRawStream(plan.device)  # the capture stream under a graph
+    stream = compat.current_raw_stream(plan.device)  # the capture stream under a graph
     for one in plan.launches:
         err = fn(one.address, len(one.leaves), lr_ptr, lr_value, momentum, weight_decay,
                  plan.device, stream)

@@ -460,6 +460,7 @@ def make_fsdp_train_step(optimizer, *, grad_accum_steps: int = 1,
         c5 = sum(h[1] for h in hits)
         # the 4th sum carries this rank's SIGTERM flag (train/step.py)
         sums = [loss.float(), c1.float(), c5.float(),
+                # tpu-dist: ignore[TD001] — the host SIGTERM flag, no tensor
                 torch.full((), float(preemption.requested()), device=loss.device)]
         reduced = collectives.all_reduce_(torch.stack(sums), kind="metrics")
         metrics = step_lib.metrics_from_sums(reduced, len(labels))

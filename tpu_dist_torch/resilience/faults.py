@@ -376,6 +376,7 @@ def truncate_file(path: str, frac: float = 0.5) -> None:
     size = os.path.getsize(path)
     keep = max(1, int(size * frac)) if size else 0
     # only the process that owns the file corrupts it
+    # tpu-dist: ignore[TD002] — fault-injection harness: only the process that owns the file corrupts it
     with open(path, "r+b") as f:
         f.truncate(keep)
 
@@ -392,6 +393,7 @@ def bitflip_file(path: str, seed: int = 0, nbits: int = 8) -> None:
     # still looks like a checkpoint (the integrity layer must catch it)
     lo = min(64, size - 1)
     span = max(1, size - lo)
+    # tpu-dist: ignore[TD002] — fault-injection harness (see truncate_file)
     with open(path, "r+b") as f:
         x = (seed * 6364136223846793005 + 1442695040888963407) & (2**64 - 1)
         for _ in range(nbits):

@@ -69,6 +69,7 @@ def _status(path: Optional[str], **fields) -> None:
         return
     fields.setdefault("ts", round(time.time(), 3))
     fields.setdefault("pid", os.getpid())
+    # tpu-dist: ignore[TD002] — a replica is one supervised process writing its own status file
     with open(path, "a") as f:
         f.write(json.dumps(fields) + "\n")
 

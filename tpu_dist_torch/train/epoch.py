@@ -237,6 +237,13 @@ class _Runner:
         """Seconds of the warmup and capture (None before, and on the CPU)."""
         return self._loop.capture_s if self._loop is not None else None
 
+    def prepare(self, state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor) -> None:
+        """Build the step and its static buffers on the device for this
+        model and dataset, if the last call did not (the first call does it
+        otherwise): the normalizer's two host-to-device copies land here."""
+        if self._set_up(state, images_u8, labels):
+            self._build(state, images_u8, labels)
+
     def _set_up(self, state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor) -> bool:
         """Whether the step must be built (again, with a new graph): the
         first call, or another model or dataset than the last."""
@@ -324,8 +331,7 @@ class FusedEpoch(_Runner):
         rank's ``images_u8``/``labels``) with the crops ``offsets``
         ([steps, B, 2]); updates the state in place and returns it with
         ``step`` advanced, and the epoch means (0-dim device tensors)."""
-        if self._set_up(state, images_u8, labels):
-            self._build(state, images_u8, labels)
+        self.prepare(state, images_u8, labels)
         steps = int(order.shape[0])
         if tuple(order.shape) != (steps, self.batch) or tuple(offsets.shape) != (
                 steps, self.batch, 2) or steps > len(self._order):
@@ -410,8 +416,7 @@ class FusedEval(_Runner):
         was_training = model.training
         model.eval()
         try:
-            if self._set_up(state, images_u8, labels):
-                self._build(state, images_u8, labels)
+            self.prepare(state, images_u8, labels)
             self._counter.zero_()
             self._sums.zero_()
             self._loop.run(-(-len(images_u8) // self.batch))

@@ -256,7 +256,9 @@ def flat_layout(params, world: Optional[int] = None, rank: Optional[int] = None)
     """The lay-out of ``params`` (a module or tensors) raveled and padded
     over the process group (or ``world`` ranks, this one ``rank``)."""
     return FlatLayout(sum(p.numel() for p in _params_of(params)),
+                      # tpu-dist: ignore[TD001] — host ints of the layout, no tensor
                       collectives.world_size() if world is None else int(world),
+                      # tpu-dist: ignore[TD001] — host ints of the layout, no tensor
                       collectives.rank() if rank is None else int(rank))
 
 
@@ -744,6 +746,7 @@ def make_step_body(
         sums = [loss.float(), c1.float(), c5.float()]
         if preempt_flag:
             # a fill kernel carries the flag: no host-to-device copy
+            # tpu-dist: ignore[TD001] — the host SIGTERM flag, no tensor
             sums.append(torch.full((), float(preemption.requested()), device=loss.device))
         reduced = collectives.all_reduce_(torch.stack(sums), kind="metrics")
         if stats is None:
