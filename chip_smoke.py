@@ -485,8 +485,15 @@ Phases; any failure exits non-zero and prints no result line:
    pod`` over the log and a second per-host copy exit 0, ``obs archive
    ingest`` appends nothing on a second ingest, ``obs trend
    --inject-regression`` and ``compare --against-archive`` of the log
-   against its own band exit 0. ``[zero1-sp]`` lines; the report repeats
-   them.
+   against its own band exit 0. The fit's last epoch record becomes two
+   ``bench.py``-schema records (its images/s as ``value``, its step time
+   as ``step_ms``, the card's name and power limit as ``hardware``, each
+   its own capture, under a metric that names the smoke, not a benchmark
+   cell): ``obs summarize --bench`` exits 0, ``compare --bench`` of the
+   second capture against the first exits 0, against a copy with
+   ``value`` halved 1, and a copy that re-emits the first's capture is
+   STALE (exit 2: nothing compared). ``[zero1-sp]`` lines; the report
+   repeats them.
 20. analysis, in this process after phase 19, with no CUDA child, over a
    1-rank NCCL group (the CLI runs on the group it finds): (a) ``python -m
    tpu_dist_torch.analysis shard --inject-reshard`` over every family that
@@ -5895,6 +5902,57 @@ def _zsp_obs(argv: list) -> tuple:
     return rc, out.getvalue() + err.getvalue()
 
 
+# the metric of (b)'s bench records: one smoke fit, not a benchmark cell
+ZSP_BENCH_METRIC = "chip_smoke_p19b_resnet18_fit_not_a_benchmark"
+
+
+def _zsp_bench(d: str, log: str) -> dict:
+    """(b): the fit's last epoch record as two ``bench.py``-schema records,
+    each its own capture (two stamps of one measurement), and the bench
+    gate over them: ``summarize --bench`` exits 0, the second capture
+    against the first exits 0, a copy of the second with ``value`` halved
+    exits 1, and a copy that re-emits the first's capture is STALE.
+    Returns ``{command: (exit code, output)}``."""
+    import socket  # noqa: PLC0415
+    import uuid  # noqa: PLC0415
+
+    with open(log) as f:
+        last = [r for r in map(json.loads, f) if r["kind"] == "train_epoch"][-1]
+    hardware = _smi_line()
+
+    def record() -> dict:
+        return {"metric": ZSP_BENCH_METRIC, "value": round(last["images_per_sec"], 1),
+                "unit": "images/sec",
+                "step_ms": round(1e3 * last["epoch_time"] / last["steps"], 2),
+                "hardware": hardware, "note": "chip_smoke.py phase 19 (b): one 2-epoch fit",
+                "capture": {"host": socket.gethostname(), "bench_run_id": uuid.uuid4().hex[:12],
+                            "mono_s": round(time.monotonic(), 3)}}
+
+    first, second = record(), record()
+    paths = {}
+    for name, rec in (("first", first), ("second", second),
+                      ("halved", {**second, "value": round(second["value"] / 2, 1)}),
+                      ("reemit", {**second, "capture": first["capture"]})):
+        paths[name] = os.path.join(d, f"bench_{name}.jsonl")
+        with open(paths[name], "w") as f:
+            f.write(json.dumps(rec) + "\n")
+    out = {}
+    for name, argv, want in (
+            ("summarize", ["summarize", paths["first"], "--bench"], 0),
+            ("compare", ["compare", paths["first"], paths["second"], "--bench"], 0),
+            ("halved", ["compare", paths["first"], paths["halved"], "--bench"], 1),
+            ("reemit", ["compare", paths["first"], paths["reemit"], "--bench"], 2)):
+        out[name] = _zsp_obs(argv)
+        check(out[name][0] == want,
+              f"(b) obs {argv[0]} --bench ({name}): exit {out[name][0]}, want {want}\n"
+              f"{out[name][1][-2000:]}")
+    check(f"{ZSP_BENCH_METRIC}.value" in out["halved"][1] and "REGRESSED" in out["halved"][1],
+          f"(b) the halved value was not flagged: {out['halved'][1][-2000:]}")
+    check("STALE" in out["reemit"][1] and "same capture" in out["reemit"][1],
+          f"(b) the re-emitted capture was not flagged STALE: {out['reemit'][1][-2000:]}")
+    return out
+
+
 def _zsp_telemetry(d: str) -> dict:
     """(b): one telemetry-armed ``Trainer.fit`` and the offline tools over
     its files; returns the kernels' launches."""
@@ -5946,6 +6004,9 @@ def _zsp_telemetry(d: str) -> dict:
     check("pod report — 2 host(s)" in checks["pod"][1], "(b) obs pod: no 2-host report")
     check(" 1 appended" in checks["ingest"][1] and " 0 appended" in checks["ingest again"][1],
           f"(b) ingest: {checks['ingest'][1]!r}, then {checks['ingest again'][1]!r}")
+    t_bench = time.perf_counter()
+    bench = _zsp_bench(d, log)
+    bench_s = time.perf_counter() - t_bench
     with open(log) as f:
         kinds = [json.loads(line)["kind"] for line in f]
     _p19_say(f"(b) Trainer.fit --shard_weight_update --fused_optimizer --debug_replica_check "
@@ -5958,6 +6019,12 @@ def _zsp_telemetry(d: str) -> dict:
              f"--once, pod (2 hosts), archive ingest (1 then 0 appended), trend "
              f"--inject-regression and compare --against-archive all exit 0; card: "
              f"{_smi_line()}")
+    _p19_say(f"(b) the bench gate over two captures of the fit's last epoch as bench.py "
+             f"records ({ZSP_BENCH_METRIC}): summarize --bench exit {bench['summarize'][0]}, "
+             f"compare --bench of the second capture against the first exit "
+             f"{bench['compare'][0]}, with value halved exit {bench['halved'][0]}, a copy "
+             f"re-emitting the first's capture exit {bench['reemit'][0]} with STALE found "
+             f"{'STALE' in bench['reemit'][1]}; {bench_s:.2f} s; card: {_smi_line()}")
     return got
 
 

@@ -11,10 +11,10 @@ anomaly, device_stats, memory and OOM, plan, tune, postmortem, serve
 windows and events, profile analyses, fleet and tenancy records) written
 once by each package's ``MetricsHistory``. The compare CLI gives the JAX
 CLI's rows, text, JSON and exit codes on the same file pairs, with and
-without ``--slo``/``--goodput``/``--threshold``; ``--bench`` between two
-inputs (``compare`` and ``summarize``) exits 2 naming its ROADMAP item.
-``--against-archive`` and the archive's subcommands are
-``test_torch_obs_archive.py``'s. All comparisons are exact.
+without ``--slo``/``--goodput``/``--threshold``. ``--bench`` is
+``test_torch_obs_bench.py``'s, ``--against-archive`` and the archive's
+subcommands are ``test_torch_obs_archive.py``'s. All comparisons are
+exact.
 """
 
 import json
@@ -187,14 +187,22 @@ def test_compare_cli_equals_jax(logs, capsys, base, cand, flags, fmt):
     assert want is None or rc == want
 
 
-def test_compare_files_equals_jax_and_refuses_bench(logs):
+def test_compare_files_equals_jax_and_refuses_bench(logs, tmp_path):
     for kw in ({}, {"slo_only": True}, {"goodput_only": True}, {"threshold": 0.5}):
         got = compare.compare_files(logs["sink_jax"], logs["sink_port"], **kw)
         assert got == jax_compare.compare_files(logs["sink_jax"], logs["sink_port"], **kw)
-    from tpu_dist_torch.train.step import NotPortedError
-
-    with pytest.raises(NotPortedError, match="Queue A 2e"):
-        compare.compare_files(logs["base"], logs["reg"], bench=True)
+    # bench mode over two bench.py outputs: JAX's result, a regression found
+    base, cand = str(tmp_path / "b.jsonl"), str(tmp_path / "c.jsonl")
+    for path, ips in ((base, 1000.0), (cand, 700.0)):
+        with open(path, "w") as f:
+            f.write(json.dumps({"metric": "m", "value": ips, "step_ms": 64e3 / ips}) + "\n")
+    got = compare.compare_files(base, cand, bench=True)
+    assert got == jax_compare.compare_files(base, cand, bench=True)
+    assert got["regressions"] == 2
+    # the history files hold no bench record: a ValueError, as JAX's
+    for mod in (compare, jax_compare):
+        with pytest.raises(ValueError, match="no bench records"):
+            mod.compare_files(logs["base"], logs["reg"], bench=True)
     for metric in ("serve_latency_p99_ms", "images_per_sec_mean", "x_per_s", "y_ms"):
         assert compare.direction_of(metric) == jax_compare.direction_of(metric)
     with pytest.raises(KeyError):
@@ -202,14 +210,6 @@ def test_compare_files_equals_jax_and_refuses_bench(logs):
     assert compare.SLO_METRICS == jax_compare.SLO_METRICS
     assert compare.REPORT_METRICS == jax_compare.REPORT_METRICS
     assert compare.METRIC_DIRECTIONS == jax_compare.METRIC_DIRECTIONS
-
-
-@pytest.mark.parametrize("argv", [
-    ["summarize", "x.jsonl", "--bench"], ["compare", "a", "b", "--bench"]])
-def test_the_subcommands_the_port_lacks_exit_2_naming_their_item(capsys, argv):
-    assert obs.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "not ported to tpu_dist_torch yet" in err and "ROADMAP.md Queue A" in err
 
 
 def test_the_cli_runs_as_a_module(logs):

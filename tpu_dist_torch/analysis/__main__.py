@@ -10,10 +10,10 @@ that skipped families.
   TD122-TD124), the findings filtered by the inline suppressions and the
   baseline (``--baseline``, default
   ``tpu_dist_torch/analysis/analysis_baseline.json``). ``--no-lint`` and
-  ``--no-audit`` (JAX's ``--no-jaxpr``) skip a layer, ``--case`` runs
-  only the named audit cases (and no probe), ``--write-baseline`` accepts
-  the current findings (refused on a partial run), ``--list-rules`` prints
-  the registry.
+  ``--no-audit`` (or JAX's name for it, ``--no-jaxpr``) skip a layer,
+  ``--case`` runs only the named audit cases (and no probe),
+  ``--write-baseline`` accepts the current findings (refused on a partial
+  run), ``--list-rules`` prints the registry.
 * ``shard``: run every config family once, check TD116/TD117, print or
   write ``shard_report.json`` (``--inject-reshard`` adds the TD117 probe).
 * ``plan``: the ``--auto_shard`` planner over the families (or a shard
@@ -69,8 +69,8 @@ def _default_parser() -> argparse.ArgumentParser:
     ap.add_argument("--write-baseline", action="store_true",
                     help="accept current findings into the baseline file and exit 0")
     ap.add_argument("--no-lint", action="store_true", help="skip the AST lint layer")
-    ap.add_argument("--no-audit", action="store_true",
-                    help="skip the step audit (JAX's --no-jaxpr)")
+    ap.add_argument("--no-audit", "--no-jaxpr", action="store_true",
+                    help="skip the step audit (--no-jaxpr is JAX's name for it)")
     ap.add_argument("--case", action="append",
                     help="run only this audit case, and no probe (repeatable)")
     ap.add_argument("--list-rules", action="store_true")

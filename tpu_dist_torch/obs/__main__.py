@@ -8,7 +8,10 @@ Subcommands::
         device stats, anomalies, stragglers, profiler captures and their
         attribution, goodput, serving windows, resumes and fleet
         decisions, the final counters. Exit 1 when the file holds no
-        record. ``--bench`` is not ported: exit 2 naming its ROADMAP item.
+        record. With ``--bench`` the input is a ``bench.py`` output (one
+        JSON object a line): a record a row with its capture fingerprint,
+        re-emitted captures and bench's own ``stale: true`` flagged STALE;
+        exit 1 when it holds no bench record.
 
     xprof <capture_dir | trace.json[.gz]> [--top K] [--format text|json]
         Device-time attribution of a ``torch.profiler`` capture
@@ -26,20 +29,22 @@ Subcommands::
         the log holds no record).
 
     compare <baseline.jsonl> <candidate.jsonl> [--threshold 0.05]
-            [--goodput] [--slo] [--format text|json]
+            [--bench] [--goodput] [--slo] [--format text|json]
     compare <candidate> --against-archive <archive.jsonl> [--bench]
             [--band-k 3.0] [--band-window 20] [--format text|json]
         Regression gate over two history JSONLs (``obs/compare.py``):
         throughput, step-time percentiles, stall fraction, MFU, final
         metrics and goodput; ``--goodput`` restricts it to the
         time-to-useful-work metrics, ``--slo`` to the serving SLO metrics
-        of the ``serve`` records (lower latency is never flagged). Exit 1
+        of the ``serve`` records (lower latency is never flagged); with
+        ``--bench`` the two inputs are ``bench.py`` outputs, matched by
+        metric name, and a record that re-emits the baseline's capture (or
+        says ``stale: true``) is STALE, compared not at all. Exit 1
         on a regression beyond the threshold, 2 when nothing compared.
         With ``--against-archive`` the one input (a history, or with
         ``--bench`` a bench output) gates against the archive's rolling
         median ± k·MAD bands (``obs/archive.py``); a band of STALE records
-        only, or no band at all, is exit 2. ``--bench`` between two bench
-        outputs is not ported: exit 2 naming its ROADMAP item.
+        only, or no band at all, is exit 2.
 
     archive ingest <artifact> [<artifact> ...] [--archive archive.jsonl]
         Fold run artifacts (bench JSONLs, ``BENCH_*.json`` /
@@ -100,7 +105,7 @@ Subcommands::
         pod-rollup archive record a pass.
 
 Exit codes: 0 ok, 1 empty/unusable input (or, for ``compare``, a
-regression), 2 bad invocation, I/O error or not ported. File crunching
+regression), 2 bad invocation or I/O error. File crunching
 only: no device.
 """
 
@@ -112,12 +117,6 @@ import os
 import sys
 import time
 
-def _not_ported(what: str, queue: str) -> int:
-    print(f"tpu_dist_torch.obs: {what} is not ported to tpu_dist_torch yet; "
-          f"it waits for ROADMAP.md {queue}", file=sys.stderr)
-    return 2
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpu_dist_torch.obs",
@@ -128,7 +127,8 @@ def main(argv=None) -> int:
     s.add_argument("log", help="JSONL history written by --log_file")
     s.add_argument("--format", choices=("text", "json"), default="text")
     s.add_argument("--bench", action="store_true",
-                   help="input is a bench.py JSON (not ported)")
+                   help="input is a bench.py JSON (one record per line): a row a record with "
+                        "its capture fingerprint; re-emitted captures are flagged STALE")
     xp = sub.add_parser(
         "xprof",
         help="device-time attribution of a torch.profiler capture",
@@ -151,18 +151,19 @@ def main(argv=None) -> int:
         "compare",
         help="regression gate: diff two runs' telemetry, exit 1 on regression",
     )
-    c.add_argument("baseline", help="baseline history JSONL; with --against-archive the one "
-                                    "candidate input")
+    c.add_argument("baseline", help="baseline history JSONL (or bench JSON with --bench); with "
+                                    "--against-archive the one candidate input")
     c.add_argument("candidate", nargs="?", default=None,
-                   help="candidate history JSONL (omitted with --against-archive)")
+                   help="candidate history JSONL (or bench JSON with --bench); omitted "
+                        "with --against-archive")
     c.add_argument(
         "--threshold", type=float, default=0.05, metavar="FRAC",
         help="relative regression tolerance (default 0.05 = 5%%); each "
              "metric adds its own absolute noise slack on top",
     )
     c.add_argument("--bench", action="store_true",
-                   help="inputs are bench.py outputs (with --against-archive; not ported "
-                        "between two inputs)")
+                   help="inputs are bench.py JSON outputs (one object per line), matched by "
+                        "their 'metric' name")
     c.add_argument("--goodput", action="store_true",
                    help="gate on the time-to-useful-work metrics only")
     c.add_argument("--slo", action="store_true",
@@ -327,11 +328,9 @@ def main(argv=None) -> int:
         print("tpu_dist_torch.obs: --band-k/--band-window only apply with --against-archive",
               file=sys.stderr)
         return 2
-    if args.bench:
-        return _not_ported("compare --bench", compare_lib.BENCH_QUEUE)
     try:
         result = compare_lib.compare_files(
-            args.baseline, args.candidate, threshold=args.threshold,
+            args.baseline, args.candidate, threshold=args.threshold, bench=args.bench,
             goodput_only=args.goodput, slo_only=args.slo,
         )
     except (OSError, ValueError) as e:
@@ -377,12 +376,25 @@ def _xprof(args) -> int:
 
 
 def _summarize(args) -> int:
-    """The ``summarize`` subcommand (``tpu_dist/obs/__main__.py:704-725``)."""
+    """The ``summarize`` subcommand (``tpu_dist/obs/__main__.py:462-477``
+    with ``--bench``, else ``:704-725``)."""
     from tpu_dist_torch.obs import compare as compare_lib  # noqa: PLC0415
     from tpu_dist_torch.obs import summarize as summ  # noqa: PLC0415
 
     if args.bench:
-        return _not_ported("summarize --bench", compare_lib.BENCH_QUEUE)
+        try:
+            report = compare_lib.bench_report(args.log)
+        except OSError as e:
+            print(f"tpu_dist_torch.obs: cannot read {args.log}: {e}", file=sys.stderr)
+            return 2
+        except ValueError as e:
+            print(f"tpu_dist_torch.obs: {e}", file=sys.stderr)
+            return 1
+        if args.format == "json":
+            print(json.dumps(report, indent=2))
+        else:
+            print(compare_lib.format_bench_report(report))
+        return 0
     try:
         records, bad = summ.load_records(args.log)
     except OSError as e:

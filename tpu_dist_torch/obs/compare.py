@@ -11,11 +11,16 @@ is worse than the baseline by more than ``threshold`` (relative, default
 metric missing from either side is reported as skipped. The rows, the
 text and the exit codes are the JAX package's.
 
-The bench mode (``bench.py`` outputs, matched by metric name, with
-capture fingerprints) waits for the port's H100 benchmark: ROADMAP
-Queue A 2e. The bench files' readers (:func:`load_bench_records`,
-:func:`capture_fingerprint`) serve the archive's ingest and its gate
-(``obs/archive.py``). Host file crunching only.
+The bench mode (``--bench``; the port's copy of the bench half of
+``tpu_dist/obs/compare.py``) reads ``bench.py``'s line schema, one JSON
+object a line: :func:`compare_bench` matches two outputs' records by
+metric name and gates each :data:`BENCH_FIELDS` field; a record that
+re-emits the baseline's capture fingerprint, or carries bench's own
+``stale: true``, is flagged STALE and compared not at all.
+:func:`bench_report` is ``summarize --bench``'s staleness report. The
+same readers (:func:`load_bench_records`, :func:`capture_fingerprint`)
+serve the archive's ingest and its gate (``obs/archive.py``). Host file
+crunching only.
 """
 
 from __future__ import annotations
@@ -25,9 +30,6 @@ import json
 from typing import List, Optional, Tuple
 
 from tpu_dist_torch.obs import summarize as summ
-
-#: Where ``compare --bench`` waits.
-BENCH_QUEUE = "Queue A 2e (the H100 training benchmark, bench.py outputs)"
 
 #: ONE metric-direction registry: ``name -> (direction, absolute slack)``
 #: for every scalar any compare mode gates on. Direction is which way is
@@ -193,6 +195,16 @@ SLO_METRICS: Tuple[Tuple[str, str, float], ...] = _table((
     "serve_batch_occupancy",
 ))
 
+#: bench-mode per-record fields: (field, direction, absolute slack).
+#: ``goodput_frac`` keeps bench's wider slack (a bench window is short,
+#: its fraction noisier than a whole run's ledger).
+BENCH_FIELDS: Tuple[Tuple[str, str, float], ...] = _table((
+    "value", "sec_per_epoch", "step_ms", "step_ms_p50", "step_ms_p95",
+    "step_ms_p99", "mfu", "peak_hbm_bytes", "hlo_wire_bytes_per_step",
+    "planner_error_frac", "ckpt_blocked_ms",
+    # serving bench records (bench.py --serve)
+    "requests_per_s", "latency_p50_ms", "latency_p99_ms", "batch_occupancy",
+)) + (("goodput_frac", "higher", 0.02),)
 
 
 def _mean(vals: List) -> Optional[float]:
@@ -323,6 +335,40 @@ def capture_fingerprint(rec: dict) -> Optional[tuple]:
     return None
 
 
+def compare_bench(base: dict, cand: dict, threshold: float = 0.05) -> dict:
+    """Compare two ``{metric: record}`` bench maps field by field; a metric
+    on one side only is a skipped row. A record pair that is one capture
+    (the same fingerprint), or has either side stamped ``stale: true``
+    (bench's last-good fallback), is one STALE row and compares nothing:
+    its numbers would read as "no regression" when nothing was measured."""
+    rows: List[dict] = []
+    for name in sorted(set(base) | set(cand)):
+        b, c = base.get(name), cand.get(name)
+        if b is None or c is None:
+            rows.append({
+                "metric": name,
+                "baseline": None if b is None else "present",
+                "candidate": None if c is None else "present",
+                "verdict": "skipped",
+            })
+            continue
+        fp_b, fp_c = capture_fingerprint(b), capture_fingerprint(c)
+        if (fp_b is not None and fp_b == fp_c) or b.get("stale") or c.get("stale"):
+            rows.append({
+                "metric": name,
+                "baseline": ("stale capture" if b.get("stale")
+                             else "capture " + str((fp_b or ("?",) * 2)[1])),
+                "candidate": "stale capture" if c.get("stale") else "same capture",
+                "verdict": "STALE",
+            })
+            continue
+        for field, direction, slack in BENCH_FIELDS:
+            if field in b or field in c:
+                rows.append(_row(f"{name}.{field}", direction, slack,
+                                 b.get(field), c.get(field), threshold))
+    return _result(rows, threshold)
+
+
 # -- input loading -----------------------------------------------------------
 
 
@@ -351,8 +397,7 @@ def compare_files(
     """The CLI engine: load both inputs and diff. Raises OSError on an
     unreadable file and ValueError on an unusable one — the caller maps
     both to exit 2 (a broken gate, distinct from exit 1's regression).
-    ``bench=True`` (``bench.py`` outputs) is not ported: it raises
-    :class:`NotPortedError` naming its ROADMAP item.
+    ``bench=True`` reads two ``bench.py`` outputs (:func:`compare_bench`).
     ``goodput_only`` (the ``--goodput`` flag) restricts the gate to the
     time-to-useful-work metrics; ``slo_only`` (``--slo``) to the serving
     SLO metrics (``serve`` records, directions from the registry — a
@@ -367,16 +412,16 @@ def compare_files(
     if goodput_only and slo_only:
         raise ValueError("--goodput and --slo are separate gates; pick one")
     if bench:
-        from tpu_dist_torch.train.step import NotPortedError  # noqa: PLC0415
-
-        raise NotPortedError("bench", True, BENCH_QUEUE)
-    b = load_history_scalars(baseline)
-    c = load_history_scalars(candidate)
-    result = compare_scalars(
-        b, c, threshold, goodput_only=goodput_only, slo_only=slo_only,
-    )
-    result["baseline_run_id"] = b.get("_run_id")
-    result["candidate_run_id"] = c.get("_run_id")
+        result = compare_bench(load_bench_records(baseline),
+                               load_bench_records(candidate), threshold)
+    else:
+        b = load_history_scalars(baseline)
+        c = load_history_scalars(candidate)
+        result = compare_scalars(
+            b, c, threshold, goodput_only=goodput_only, slo_only=slo_only,
+        )
+        result["baseline_run_id"] = b.get("_run_id")
+        result["candidate_run_id"] = c.get("_run_id")
     result["baseline"] = baseline
     result["candidate"] = candidate
     return result
@@ -425,7 +470,7 @@ def load_bench_records(path: str) -> dict:
 
 def _load_bench_list(path: str) -> List[dict]:
     """The bench records of ``path`` in order, duplicates kept (the
-    archive must see a re-emitted record)."""
+    staleness report and the archive must see a re-emitted record)."""
     out: List[dict] = []
     with open(path) as f:
         for line in f:
@@ -441,3 +486,65 @@ def _load_bench_list(path: str) -> List[dict]:
     if not out:
         raise ValueError(f"no bench records in {path}")
     return out
+
+
+# -- bench staleness report (`obs summarize --bench`) ------------------------
+
+
+def bench_report(path: str) -> dict:
+    """Per-record bench summary with staleness flags: a record is ``stale``
+    when it carries the self-declared ``stale: true`` stamp (bench's
+    last-good fallback) or repeats an earlier record's capture fingerprint
+    (a re-emission inside one file; ``stale_of`` names the first)."""
+    seen: dict = {}
+    rows: List[dict] = []
+    for rec in _load_bench_list(path):
+        fp = capture_fingerprint(rec)
+        reemitted = fp is not None and fp in seen
+        row = {
+            "metric": rec.get("metric"),
+            "value": rec.get("value"),
+            "unit": rec.get("unit"),
+            "mfu": rec.get("mfu"),
+            "stale": bool(rec.get("stale")) or reemitted,
+        }
+        if fp is not None:
+            row["capture"] = {"host": fp[0], "bench_run_id": fp[1], "mono_s": fp[2]}
+            if reemitted:
+                row["stale_of"] = seen[fp]
+            else:
+                seen[fp] = rec.get("metric")
+        if rec.get("age_days") is not None:
+            row["age_days"] = rec["age_days"]
+        rows.append(row)
+    return {
+        "path": path,
+        "records": rows,
+        "n_stale": sum(r["stale"] for r in rows),
+        "n_unfingerprinted": sum("capture" not in r for r in rows),
+    }
+
+
+def format_bench_report(report: dict) -> str:
+    lines = [
+        f"bench {report['path']}: {len(report['records'])} record(s)"
+        + (f", {report['n_stale']} STALE" if report["n_stale"] else "")
+        + (f", {report['n_unfingerprinted']} without capture fingerprint (pre-stamp)"
+           if report["n_unfingerprinted"] else "")
+    ]
+    w = max([len(str(r["metric"])) for r in report["records"]] + [6])
+    for r in report["records"]:
+        cap = r.get("capture") or {}
+        stale = ""
+        if r["stale"]:
+            stale = ("  STALE"
+                     + (f" (re-emits {r['stale_of']})" if r.get("stale_of") else "")
+                     + (f" ({r['age_days']}d old)" if r.get("age_days") is not None else ""))
+        lines.append(
+            f"  {str(r['metric']).ljust(w)} "
+            f"{str(r.get('value')).rjust(10)} {str(r.get('unit') or ''):<11}"
+            + (f" capture {cap.get('bench_run_id')}@{cap.get('host')}"
+               if cap else " (no fingerprint)")
+            + stale
+        )
+    return "\n".join(lines)

@@ -27,7 +27,10 @@ reports the worker's end). They are printed as one JSON object on a
 It runs on the card by default and raises without one; ``--device cpu``
 runs the trainer on the CPU. ``--model`` picks the model (``vit_tiny``,
 as the JAX drill; ``resnet18`` at full width on the card), and anything
-after ``--`` is passed on to the trainer (``--num_classes 100 --bf16``)::
+after ``--`` is passed on to the trainer (``--num_classes 100 --bf16``).
+JAX's ``--devices`` (the emulated CPU devices of the launcher's one
+process) is parsed and refused with ``NotPortedError`` citing ROADMAP's
+"No port owed", as the launcher refuses ``--devices_per_proc``::
 
     python -m tpu_dist_torch.obs.drill --workdir D [--device cpu] \\
         [--model resnet18 --batch_size 256] [-- --num_classes 100 --bf16]
@@ -127,6 +130,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         description="hang -> watchdog -> SIGUSR1 dump -> postmortem drill")
     p.add_argument("--workdir", required=True, help="scratch directory")
     p.add_argument("--device", default="cuda", help="the trainer's device (default cuda)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="not ported (JAX's emulated CPU devices a process; the port runs one "
+                        "card a process)")
     p.add_argument("--model", default="vit_tiny")
     p.add_argument("--steps_per_epoch", type=int, default=6)
     p.add_argument("--batch_size", type=int, default=64)
@@ -142,6 +148,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("train_args", nargs=argparse.REMAINDER,
                    help="-- more flags for the trainer")
     args = p.parse_args(argv)
+    if args.devices is not None:
+        from tpu_dist_torch.cli.launch import UNPORTED  # noqa: PLC0415
+        from tpu_dist_torch.train.step import NotPortedError  # noqa: PLC0415
+
+        raise NotPortedError("devices", args.devices, UNPORTED["devices_per_proc"][1])
     if args.hang_step >= args.steps_per_epoch:
         p.error(f"--hang_step {args.hang_step} is past the epoch's last step")
     resolve_device(args.device)  # no GPU and no --device cpu: raise here
