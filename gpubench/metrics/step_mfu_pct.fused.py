@@ -1,0 +1,7 @@
+"""``step_mfu_pct`` (the whole step's share of the card's bf16 peak) in the fused-epoch cells, read as
+:mod:`gpubench.metrics.step_mfu_pct` reads it, under a name of its own: those
+cells' end-to-end rate is ``images_per_s.fused``, whose bound is set from
+their own spread (the host paces some of their graph replays, so their
+runs spread far wider than the streaming step's)."""
+
+from gpubench.metrics.step_mfu_pct import read  # noqa: F401
